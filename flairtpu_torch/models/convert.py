@@ -1,0 +1,108 @@
+"""Weight loading (counterpart of ``flairtpu/models/convert.py:25-37`` and the
+inverse of its ``torch_to_flax`` for the resnet/unet keys).
+
+The port's modules carry smp's key names, so an smp ``.pth`` state dict (or a
+Lightning ``.ckpt`` after ``normalize_keys``) loads into it strictly as it
+is. ``from_flax`` brings ``flairtpu``'s Flax variables, as numpy arrays, into
+the port's ``state_dict``.
+"""
+
+from __future__ import annotations
+
+import re
+from pathlib import Path
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from flairtpu_torch.config import not_ported
+
+
+def load_torch_state_dict(path: str | Path) -> dict[str, np.ndarray]:
+    """Read a .pth/.pt/.ckpt file into {torch_key: np.ndarray}."""
+    obj = torch.load(str(path), map_location="cpu", weights_only=True)
+    if str(path).endswith(".ckpt") and isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    if hasattr(obj, "state_dict") and not isinstance(obj, dict):
+        obj = obj.state_dict()
+    return {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v) for k, v in obj.items()}
+
+
+def normalize_keys(sd: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Strip Lightning wrappers: model.seg_model.* -> *, keep model.enc.* MLP."""
+    if any(k.startswith("model.seg_model.") for k in sd):
+        out = {}
+        for k, v in sd.items():
+            if k.startswith("model.seg_model."):
+                out[k[len("model.seg_model."):]] = v
+            elif k.startswith("model.enc."):
+                out[k[len("model."):]] = v  # enc.enc_mlp.*
+        return out
+    return dict(sd)
+
+
+def load_weights(model: torch.nn.Module, path: str | Path) -> None:
+    """Strict load of smp-keyed torch weights into ``model`` (the analog of
+    the reference's ``load_state_dict(strict=True)``)."""
+    if str(path).endswith((".msgpack", ".flax")):
+        raise not_ported("native .msgpack/.flax weights", "a later slice; use .pth")
+    sd = normalize_keys(load_torch_state_dict(path))
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()
+          if not k.startswith(("criterion.", "optimizer."))}
+    # BatchNorm counters carry no weights; checkpoints may leave them out
+    for k in model.state_dict():
+        if k.endswith("num_batches_tracked"):
+            sd.setdefault(k, torch.zeros((), dtype=torch.long))
+    model.load_state_dict(sd, strict=True)
+
+
+_ENC_LAYER_RE = re.compile(r"^layer(\d+)_(\d+)$")
+_DEC_BLOCK_RE = re.compile(r"^block(\d+)$")
+_DEC_SUB = {"conv1": "conv1.0", "bn1": "conv1.1", "conv2": "conv2.0", "bn2": "conv2.1"}
+_ENC_SUB = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+_LEAF = {("params", "kernel"): "weight", ("params", "bias"): "bias",
+         ("params", "scale"): "weight", ("batch_stats", "mean"): "running_mean",
+         ("batch_stats", "var"): "running_var"}
+
+
+def _module_prefix(path: tuple[str, ...]) -> str:
+    """Flax module path -> smp module prefix (resnet encoder, unet decoder, head)."""
+    top, rest = path[0], path[1:]
+    if top == "encoder":
+        if len(rest) == 1 and rest[0] in ("conv1", "bn1"):
+            return f"encoder.{rest[0]}"
+        m = _ENC_LAYER_RE.match(rest[0])
+        if m and len(rest) == 2:
+            return f"encoder.layer{m.group(1)}.{m.group(2)}.{_ENC_SUB.get(rest[1], rest[1])}"
+    if top == "decoder" and len(rest) == 2:
+        m = _DEC_BLOCK_RE.match(rest[0])
+        if m and rest[1] in _DEC_SUB:
+            return f"decoder.blocks.{m.group(1)}.{_DEC_SUB[rest[1]]}"
+    if top == "segmentation_head" and rest == ("conv",):
+        return "segmentation_head.0"
+    raise KeyError(f"no smp key for flax module {'/'.join(path)!r}")
+
+
+def _leaves(tree: Mapping, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def from_flax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
+    """flairtpu resnet-unet variables (numpy leaves) -> the port's state_dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for coll, tree in (("params", params), ("batch_stats", batch_stats)):
+        for path, value in _leaves(tree):
+            prefix = _module_prefix(path[:-1])
+            arr = np.asarray(value, dtype=np.float32)
+            if path[-1] == "kernel":
+                arr = arr.transpose(3, 2, 0, 1)  # (kH, kW, I, O) -> (O, I, kH, kW)
+            sd[f"{prefix}.{_LEAF[(coll, path[-1])]}"] = torch.from_numpy(
+                np.ascontiguousarray(arr))
+            if coll == "batch_stats" and path[-1] == "mean":
+                sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    return sd

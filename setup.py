@@ -11,8 +11,11 @@ setup(
     version="0.2.0",
     description="TPU-native framework for FLAIR-1 land-cover segmentation (JAX/Flax/Pallas)",
     python_requires=">=3.10",
-    packages=find_packages(include=["flairtpu", "flairtpu.*"]),
-    package_data={"flairtpu.native": ["*.cpp", "*.py"]},
+    packages=find_packages(include=["flairtpu", "flairtpu.*",
+                                    "flairtpu_torch", "flairtpu_torch.*"]),
+    package_data={"flairtpu.native": ["*.cpp", "*.py"],
+                  "flairtpu_torch.native": ["*.cpp", "*.py"],
+                  "flairtpu_torch": ["csrc/*.cu"]},
     entry_points={
         "console_scripts": [
             "flair = flairtpu.cli:flair_main",

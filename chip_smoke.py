@@ -9,11 +9,13 @@ Phases (any failure exits non-zero):
    flairtpu_torch/csrc/*.cu (all sources in parallel).
 2. kernels against their plain versions on the card, at the main path's
    shapes (512/128 tiles, batch 128, 19 classes) and at small geometries:
-   fused_tail in bfloat16 (argmax agreement >= 0.999, prob |diff| <= 1) and
-   float32 with TF32 off (argmax equal except near-ties, top-2 gap < 1e-4;
-   prob |diff| <= 1); gather_normalize exactly equal in float32 and equal
-   to the bfloat16 cast of the float32 result in bfloat16. Each kernel and
-   its plain version are timed with CUDA events.
+   fused_tail in bfloat16 (class agreement >= 0.999, every class mismatch
+   where the plain logits' top-2 gap is below GAP_TOL, prob |diff| <= 1),
+   also into the planes of a 1000 x 1100 zone whose last row and column of
+   tiles realign, against plain tiles written by the tile-order loop;
+   gather_normalize exactly equal in float32 and equal to the bfloat16 cast
+   of the float32 result in bfloat16. Each kernel and its plain version are
+   timed with CUDA events.
 3. main path: ``flairtpu_torch.cli.detect_main`` on a synthetic 4096 x 4096 x
    5 GeoTIFF zone with a random resnet34-unet (19 classes) smp-keyed .pth,
    at the flair-detect production configuration (batch 128, 512 tiles, 128
@@ -46,7 +48,7 @@ from flairtpu_torch.ops import _build
 from flairtpu_torch.ops import fused_tail as ft
 from flairtpu_torch.ops import gather as ga
 from flairtpu_torch.zone import engine as eng
-from flairtpu_torch.zone.device_engine import DeviceZoneRunner
+from flairtpu_torch.zone.device_engine import DeviceZoneRunner, exact_windows
 from flairtpu_torch.zone.grid import slice_grid
 
 SEED = 2022
@@ -57,6 +59,13 @@ ZONE = 4096  # synthetic zone side, pixels: 256 tiles, 2 batches
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# fused_tail vs its plain version in bf16: the kernel's and cuDNN's float32
+# sums differ in order, so a conv1/conv2 value can round to the neighbouring
+# bf16 and move a logit by about a weight times a bf16 ulp (~1e-3 here); a
+# class may differ only where the plain logits' top-2 gap is below GAP_TOL.
+# Measured on an H100 (700 W): 1 mismatch in 8.4M pixels at 512/128, at a gap
+# below 5e-6; the check prints the largest gap at a mismatch beside it.
+GAP_TOL = 0.05
 
 
 def check(ok: bool, msg: str) -> None:
@@ -86,12 +95,12 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def random_tail(rng, k: int, dtype, device):
+def random_tail(rng, k: int):
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to("cuda")
 
     def w(shape):  # conv weights rounded to the compute dtype
-        return t(rng.standard_normal(shape) * 0.1).to(dtype).float()
+        return t(rng.standard_normal(shape) * 0.1).to(torch.bfloat16).float()
 
     return ft.TailParams(
         w((16, 32, 3, 3)), t(rng.uniform(0.5, 1.5, 16)), t(rng.normal(0, 0.1, 16)),
@@ -99,34 +108,43 @@ def random_tail(rng, k: int, dtype, device):
         w((k, 16, 3, 3)), t(rng.normal(0, 0.1, k)))
 
 
-def near_tie(logits):
-    """(B, K, s, s) float32 -> pixels whose top-2 logits differ by < 1e-4."""
+def top2_gap(logits):
+    """(B, K, s, s) float32 -> (B, s, s) gap between the two largest logits."""
     top2 = logits.topk(2, dim=1).values
-    return (top2[:, 0] - top2[:, 1]) < 1e-4
+    return top2[:, 0] - top2[:, 1]
 
 
-def check_fused_tail(rng, size: int, margin: int, batch: int, k: int, dtype,
-                     timed: bool = False) -> dict:
-    g = ft.tail_geometry(size, margin)
-    p = random_tail(rng, k, dtype, "cuda")
+def random_x3(rng, g, batch: int) -> torch.Tensor:
     x3 = torch.from_numpy(rng.standard_normal(
         (batch, g.x3_extent, g.x3_extent, 32)).astype(np.float32)).to("cuda")
-    x3 = x3.to(dtype).permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
+    return x3.to(torch.bfloat16).permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
+
+
+def compare_tail(name: str, cls_k, prob_k, cls_p, prob_p, gap) -> dict:
+    """Kernel vs plain class and prob (any matching shapes), with the plain
+    logits' top-2 gap at each pixel."""
+    off = cls_k != cls_p
+    agree = 1.0 - off.float().mean().item()
+    worst_gap = gap[off].max().item() if off.any() else 0.0
+    dprob = (prob_k.int() - prob_p.int()).abs().max().item()
+    check(agree >= 0.999, f"{name}: class agreement {agree:.6f} >= 0.999")
+    check(worst_gap < GAP_TOL, f"{name}: {int(off.sum())} class mismatches, largest "
+          f"top-2 gap there {worst_gap:.2e} < {GAP_TOL}")
+    check(dprob <= 1, f"{name}: prob |diff| {dprob} <= 1")
+    return {"agree": agree, "max_abs_err": dprob, "mismatch_gap": worst_gap}
+
+
+def check_fused_tail(rng, size: int, margin: int, batch: int, k: int,
+                     timed: bool = False) -> dict:
+    g = ft.tail_geometry(size, margin)
+    p = random_tail(rng, k)
+    x3 = random_x3(rng, g, batch)
     cls_k, prob_k = ft.fused_tail(x3, p, g)
     cls_p, prob_p = ft.fused_tail_plain(x3, p, g)
+    gap = top2_gap(ft.tail_logits_plain(x3, p, g))
     torch.cuda.synchronize()
-    name = f"fused_tail {size}/{margin} B={batch} K={k} {str(dtype).split('.')[-1]}"
-    agree = (cls_k == cls_p).float().mean().item()
-    dprob = (prob_k.int() - prob_p.int()).abs().max().item()
-    if dtype == torch.bfloat16:
-        check(agree >= 0.999, f"{name}: argmax agreement {agree:.6f} >= 0.999")
-    else:
-        ties = near_tie(ft.tail_logits_plain(x3, p, g))
-        bad = ((cls_k != cls_p) & ~ties).sum().item()
-        check(bad == 0, f"{name}: argmax equal except near-ties "
-              f"({bad} off, agreement {agree:.6f})")
-    check(dprob <= 1, f"{name}: prob |diff| {dprob} <= 1")
-    out = {"agree": agree, "max_abs_err": dprob}
+    out = compare_tail(f"fused_tail {size}/{margin} B={batch} K={k} bf16",
+                       cls_k, prob_k, cls_p, prob_p, gap)
     if timed:
         out["ms"] = cuda_ms(lambda: ft.fused_tail(x3, p, g))
         out["plain_ms"] = cuda_ms(lambda: ft.fused_tail_plain(x3, p, g))
@@ -138,6 +156,36 @@ def check_fused_tail(rng, size: int, margin: int, batch: int, k: int, dtype,
         nbytes = x3.numel() * x3.element_size() + 2 * batch * g.out_extent ** 2
         out.update(bound(flops, nbytes), flops=flops, bytes=nbytes)
     return out
+
+
+def check_fused_tail_planes(rng, height: int, width: int, batch: int) -> dict:
+    """The kernel into the planes of a zone with realigned tiles, batch by
+    batch with the owned windows, against plain tiles written in tile order."""
+    g = ft.tail_geometry(S, M)
+    s = g.out_extent
+    p = random_tail(rng, K)
+    tiles = slice_grid(width, height, S, M).tiles
+    n = len(tiles)
+    n_total = n + (-n) % batch
+    x3 = random_x3(rng, g, n)
+    x3 = torch.cat([x3, x3[-1:].expand(n_total - n, -1, -1, -1)]).contiguous(
+        memory_format=torch.channels_last)
+    windows = torch.from_numpy(exact_windows(tiles, height, width, s, n_total)).to("cuda")
+    Ho, Wo = max(height, s), max(width, s)
+    planes = torch.zeros((2, Ho, Wo), dtype=torch.uint8, device="cuda")
+    for b0 in range(0, n_total, batch):
+        ft.fused_tail(x3[b0:b0 + batch], p, g, planes, windows[b0:b0 + batch])
+    cls_p, prob_p = ft.fused_tail_plain(x3[:n], p, g)
+    gap_p = top2_gap(ft.tail_logits_plain(x3[:n], p, g))
+    ref = torch.zeros((3, Ho, Wo), dtype=torch.float32, device="cuda")
+    for i, t in enumerate(tiles):  # the reference's tile-order writes, last wins
+        r0, c0 = min(t.irow0, Ho - s), min(t.icol0, Wo - s)
+        ref[:, r0:r0 + s, c0:c0 + s] = torch.stack([cls_p[i].float(), prob_p[i].float(),
+                                                    gap_p[i]])
+    torch.cuda.synchronize()
+    return compare_tail(f"fused_tail into planes, {height}x{width} zone, {n} tiles, "
+                        f"B={batch}", planes[0], planes[1], ref[0].to(torch.uint8),
+                        ref[1].to(torch.uint8), ref[2])
 
 
 def bound(ops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> dict:
@@ -222,11 +270,11 @@ def detect_config(tmp: Path, zone: Path, weights: Path) -> dict:
 class PlainRunner(DeviceZoneRunner):
     """The zone program with the kernels' plain versions, on the same card."""
 
-    def _forward_tiles(self, zone_p, origins):
+    def _forward_tiles(self, zone_p, origins, planes, windows):
         x = ga.gather_normalize_plain(zone_p, origins, self.size,
                                       out_dtype=self.model.dtype, **self.norm)
-        return ft.fused_tail_plain(self.model.tail_input(x, self.margin),
-                                   self.tail, self.geometry)
+        ft.fused_tail_plain(self.model.tail_input(x, self.margin), self.tail,
+                            self.geometry, planes, windows)
 
 
 def run_plain(cfg: dict) -> dict:
@@ -296,33 +344,26 @@ def stage_breakdown(cfg: dict, zone_hw: int, rng) -> dict:
     grid = slice_grid(zone_hw, zone_hw, S, M)
     org = torch.tensor([(t.row0 + M, t.col0 + M) for t in grid.tiles[:BATCH]],
                        dtype=torch.int32, device=device)
-    s = S - 2 * M
     planes = torch.zeros((2, zone_hw, zone_hw), dtype=torch.uint8, device=device)
+    win = torch.from_numpy(exact_windows(grid.tiles, zone_hw, zone_hw, S - 2 * M,
+                                         len(grid.tiles))[:BATCH]).to(device)
     x = ga.gather_normalize(zone, org, S, out_dtype=model.dtype, **runner.norm)
     feats = model.features(x)
     x3 = model.tail_input(x, M)
-    cls, prob = ft.fused_tail(x3, tail, runner.geometry)
-
-    def write():
-        for i, t in enumerate(grid.tiles[:BATCH]):
-            r0, c0 = min(t.irow0, zone_hw - s), min(t.icol0, zone_hw - s)
-            planes[0, r0:r0 + s, c0:c0 + s] = cls[i]
-            planes[1, r0:r0 + s, c0:c0 + s] = prob[i]
 
     stages = {
         "gather_normalize": lambda: ga.gather_normalize(zone, org, S, out_dtype=model.dtype,
                                                         **runner.norm),
         "encoder": lambda: model.features(x),
         "decoder_blocks_0_3": lambda: model.decoder.inner(feats, M, 4),
-        "fused_tail": lambda: ft.fused_tail(x3, tail, runner.geometry),
-        "plane_writes": write,
-        "whole_batch": lambda: runner._forward_tiles(zone, org),
+        "fused_tail": lambda: ft.fused_tail(x3, tail, runner.geometry, planes, win),
+        "whole_batch": lambda: runner._forward_tiles(zone, org, planes, win),
     }
     ms = {name: cuda_ms(fn, reps=5, warmup=1) for name, fn in stages.items()}
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        runner._forward_tiles(zone, org)
+        runner._forward_tiles(zone, org, planes, win)
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15)
     return {"stage_ms": ms, "kernel_table": table}
@@ -353,11 +394,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.inference_mode():
-        tail = check_fused_tail(rng, S, M, BATCH, K, torch.bfloat16, timed=True)
-        check_fused_tail(rng, S, M, 16, K, torch.float32)
+        tail = check_fused_tail(rng, S, M, BATCH, K, timed=True)
         for size, margin, k in ((64, 16, K), (32, 1, 4), (96, 8, 32)):
-            for dt in (torch.bfloat16, torch.float32):
-                check_fused_tail(rng, size, margin, 4, k, dt)
+            check_fused_tail(rng, size, margin, 4, k)
+        check_fused_tail_planes(rng, 1000, 1100, 8)
         gather = check_gather(rng, ZONE, timed=True)
     print(f"    fused_tail: {tail['ms']:.4f} ms, plain {tail['plain_ms']:.4f} ms, "
           f"bound {tail['bound_ms']:.4f} ms ({tail['bound_by']})", flush=True)
@@ -378,7 +418,8 @@ def main() -> int:
     src = "flairtpu_torch/csrc"
     kernels = [
         {"name": "fused_tail", "route": "cuda", "source": f"{src}/fused_tail.cu",
-         "replaces": "benchmarks/pallas_fused_tail.py:229",
+         "replaces": "benchmarks/pallas_fused_tail.py:229 and the plane writes "
+                     "flairtpu/zone/device_engine.py:148-156",
          "launches": main_path["launches"]["fused_tail"],
          "max_abs_err": tail["max_abs_err"], "ms": tail["ms"],
          "plain_ms": tail["plain_ms"], "bound_ms": tail["bound_ms"],

@@ -4,10 +4,12 @@
 The whole margin-padded zone (uint8) sits in device memory; each batch of
 tiles is gathered and normalized by one kernel (``ops/gather.py``), runs
 through the encoder and all decoder blocks but the last (cuDNN convolutions),
-and the fused decoder-tail kernel (``ops/fused_tail.py``) turns it into the
-uint8 class and probability tiles. Their s x s interiors are written into two
-device-resident planes in tile order (last write wins), and both planes come
-back to the host in one transfer.
+and the fused decoder-tail kernel (``ops/fused_tail.py``) writes the uint8
+class and probability of each tile's owned window straight into two
+device-resident planes. The windows (:func:`exact_windows`) give each plane
+pixel to the tile that the reference's tile-order writes leave there (last
+write wins), so the kernel needs no ordering. Both planes come back to the
+host in one transfer.
 
 Slice 1 runs exact-clipping with ``output_type: argmax`` on one device. The
 other stitching methods, ``class_prob``, the banded and the sharded programs
@@ -25,7 +27,7 @@ import torch
 from flairtpu_torch.config import not_ported
 from flairtpu_torch.ops.fused_tail import TailParams, fused_tail, tail_geometry
 from flairtpu_torch.ops.gather import gather_normalize
-from flairtpu_torch.zone.grid import TileGrid
+from flairtpu_torch.zone.grid import Tile, TileGrid
 
 DEFAULT_BUDGET = 6 << 30
 
@@ -62,6 +64,50 @@ def stage_array(arr: np.ndarray, device: torch.device) -> dict:
     return {"zone_dev": zone_dev, "h2d_done": done, "_pinned": host}
 
 
+def _owned(starts: list[int], s: int) -> list[tuple[int, int]]:
+    """One axis of last-write-wins: intervals [a, a + s) written in the order
+    of ``starts`` -> for each, the [lo, hi) relative to a that no later
+    interval overwrites. The starts must be monotone, as the grid's columns
+    ascend and its rows descend: then only the next interval cuts, the later
+    ones lie further out."""
+    out = []
+    for a, nxt in zip(starts, starts[1:] + [None]):
+        if nxt is None:
+            out.append((0, s))
+        elif nxt >= a:  # later intervals lie to the right: keep [a, nxt)
+            out.append((0, min(s, nxt - a)))
+        else:  # later intervals lie to the left: keep [nxt + s, a + s)
+            out.append((min(s, max(0, nxt + s - a)), s))
+    return out
+
+
+def exact_windows(tiles: list[Tile], height: int, width: int, s: int,
+                  n_total: int) -> np.ndarray:
+    """(n_total, 6) int32 (R0, C0, rlo, rhi, clo, chi) per tile: the s x s
+    interior's origin in the (max(H, s), max(W, s)) planes, clamped as the
+    reference clamps it for zones smaller than a tile, and the window of the
+    interior the tile owns when tiles write in grid order, last write wins.
+
+    The grid enumerates columns as the outer loop and rows as the inner one,
+    with the same rows in every column, so pixel (y, x) belongs to the last
+    column whose interior holds x and, in it, to the last row whose interior
+    holds y: the window is the product of two per-axis intervals. Tiles
+    beyond ``len(tiles)`` (duplicates that pad the last batch) and tiles that
+    own nothing get an empty window."""
+    Ho, Wo = max(height, s), max(width, s)
+    col_start = {t.col0: min(t.icol0, Wo - s) for t in tiles}
+    row_start = {t.row0: min(t.irow0, Ho - s) for t in tiles}
+    cols = dict(zip(col_start, _owned(list(col_start.values()), s)))
+    rows = dict(zip(row_start, _owned(list(row_start.values()), s)))
+    out = np.zeros((n_total, 6), np.int32)
+    for i, t in enumerate(tiles):
+        (rlo, rhi), (clo, chi) = rows[t.row0], cols[t.col0]
+        out[i, :2] = row_start[t.row0], col_start[t.col0]
+        if rlo < rhi and clo < chi:
+            out[i, 2:] = rlo, rhi, clo, chi
+    return out
+
+
 class DeviceZoneRunner:
     """Runs the exact-clipping zone program on the staged zone's device."""
 
@@ -80,24 +126,22 @@ class DeviceZoneRunner:
                          stds=tuple(norma.get("norm_stds") or ()))
         self.geometry = tail_geometry(self.size, self.margin)
 
-    def _forward_tiles(self, zone: torch.Tensor, origins: torch.Tensor):
-        """(B, 2) origins in the padded zone -> (class, prob) uint8 (B, s, s)."""
+    def _forward_tiles(self, zone: torch.Tensor, origins: torch.Tensor,
+                       planes: torch.Tensor, windows: torch.Tensor) -> None:
+        """One batch: (B, 2) origins in the padded zone; each tile's owned
+        window (``windows`` (B, 6)) goes into the (2, H, W) planes."""
         x = gather_normalize(zone, origins, self.size, out_dtype=self.model.dtype,
                              **self.norm)
         x3 = self.model.tail_input(x, self.margin)
-        return fused_tail(x3, self.tail, self.geometry)
+        fused_tail(x3, self.tail, self.geometry, planes, windows)
 
     def _run_exact(self, zone: torch.Tensor, origins: torch.Tensor,
-                   inner_pos: np.ndarray, out_hw: tuple[int, int]) -> torch.Tensor:
-        """exact-clipping: write each tile's s x s interior into the (2, H, W)
-        class and prob planes, batch by batch and tile by tile; later tiles win."""
-        s = self.size - 2 * self.margin
+                   windows: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+        """exact-clipping: (n_batches, B, 2) origins and (n_batches, B, 6)
+        windows on the device -> the (2, H, W) class and prob planes."""
         planes = torch.zeros((2, *out_hw), dtype=torch.uint8, device=zone.device)
-        for org, ipos in zip(origins, inner_pos):
-            cls, prob = self._forward_tiles(zone, org)
-            for i, (r0, c0) in enumerate(ipos.tolist()):
-                planes[0, r0:r0 + s, c0:c0 + s] = cls[i]
-                planes[1, r0:r0 + s, c0:c0 + s] = prob[i]
+        for org, win in zip(origins, windows):
+            self._forward_tiles(zone, org, planes, win)
         return planes
 
     def run(self, grid: TileGrid, method: str, staged: dict) -> dict:
@@ -121,17 +165,13 @@ class DeviceZoneRunner:
         pad_hi_c = max(m, S - W - m)
         tiles = grid.tiles
         n = len(tiles)
-        # pad with duplicates of the last tile: they rewrite the same values
+        # pad with duplicates of the last tile: their windows are empty
         all_tiles = tiles + [tiles[-1]] * ((-n) % B)
         origins = np.array(
             [(t.row0 + pad_lo, t.col0 + pad_lo) for t in all_tiles], np.int32)
         s = S - 2 * m
-        inner = np.array([(t.irow0, t.icol0) for t in all_tiles], np.int32)
-        # clamp so the s x s write stays in-plane (inner regions of realigned
-        # tiles already satisfy this when H, W >= s)
+        windows = exact_windows(tiles, H, W, s, len(all_tiles))
         Ho, Wo = max(H, s), max(W, s)
-        inner[:, 0] = np.minimum(inner[:, 0], Ho - s)
-        inner[:, 1] = np.minimum(inner[:, 1], Wo - s)
 
         timings: dict[str, float] = {}
         t0 = time.perf_counter()
@@ -146,7 +186,8 @@ class DeviceZoneRunner:
                                   zone.shape[2]), dtype=zone.dtype, device=zone.device)
             zone_p[pad_lo:pad_lo + H, pad_lo:pad_lo + W] = zone
             ob = torch.from_numpy(origins.reshape(-1, B, 2)).to(zone.device)
-            planes = self._run_exact(zone_p, ob, inner.reshape(-1, B, 2), (Ho, Wo))
+            wb = torch.from_numpy(windows.reshape(-1, B, 6)).to(zone.device)
+            planes = self._run_exact(zone_p, ob, wb, (Ho, Wo))
             if zone.device.type == "cuda":
                 torch.cuda.synchronize(zone.device)
             timings["compute_seconds"] = time.perf_counter() - tc

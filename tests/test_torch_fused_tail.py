@@ -156,3 +156,47 @@ def test_tail_matches_pallas_kernel_interpret(pallas_tail, folded_tail_case):
     np.testing.assert_array_equal(c["cls"][~ties], np.asarray(cls_k)[~ties])
     dprob = np.abs(c["prob"].astype(int) - np.asarray(prob_k).astype(int))
     assert dprob.max() <= 1
+
+
+def im2col(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B H W, 9 C): 3x3 taps with zero padding, tap-major
+    (tap = 3 dy + dx) and channel-minor, the depth order the kernel reads."""
+    B, C, H, W = x.shape
+    xp = torch.nn.functional.pad(x, (1, 1, 1, 1))
+    taps = [xp[:, :, dy:dy + H, dx:dx + W] for dy in range(3) for dx in range(3)]
+    return torch.stack(taps, 1).permute(0, 3, 4, 1, 2).reshape(B * H * W, 9 * C)
+
+
+@pytest.mark.parametrize("conv", ["w1", "w2", "wh"])
+def test_packed_weights_are_the_kernels_gemm_operand(conv):
+    """Each conv as im2col(x) @ its packed rows (bf16, as the kernel's B
+    fragments read them) equals F.conv2d; zero padding past O and 9 I."""
+    rng = np.random.default_rng(7)
+
+    def t(shape, scale=0.1):  # bf16-representable, as tail_params rounds them
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)
+                                ).to(torch.bfloat16).float()
+
+    p = ft.TailParams(t((16, 32, 3, 3)), 1 + t(16), t(16), t((16, 16, 3, 3)), 1 + t(16),
+                      t(16), t((K, 16, 3, 3)), t(K))
+    kp = ft.padded_classes(K)
+    offset, rows, row = {"w1": (0, 16, ft.ROW1), "w2": (16 * ft.ROW1, 16, ft.ROW2),
+                         "wh": (16 * (ft.ROW1 + ft.ROW2), kp, ft.ROW2)}[conv]
+    assert p.packed.dtype == torch.bfloat16
+    assert p.packed.numel() == 16 * (ft.ROW1 + ft.ROW2) + kp * ft.ROW2
+    packed = p.packed[offset:offset + rows * row].view(rows, row)
+    w = getattr(p, conv)
+    O, I = w.shape[:2]
+    assert not packed[O:].any() and not packed[:, 9 * I:].any()
+    x = torch.from_numpy(rng.standard_normal((2, I, 7, 9)).astype(np.float32))
+    got = (im2col(x) @ packed[:O, :9 * I].float().T).reshape(2, 7, 9, O).permute(0, 3, 1, 2)
+    torch.testing.assert_close(got, torch.nn.functional.conv2d(x, w, padding=1),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_epilogue_constants_layout():
+    p = ft.tail_params(FlairSegmentationModel("resnet18", 5, 5).eval(), torch.float32)
+    bias = torch.zeros(ft.padded_classes(5))
+    bias[:5] = p.bias
+    assert p.epi.dtype == torch.float32
+    assert torch.equal(p.epi, torch.cat([p.scale1, p.shift1, p.scale2, p.shift2, bias]))

@@ -14,16 +14,25 @@ Phases (any failure exits non-zero):
    also into the planes of a 1000 x 1100 zone whose last row and column of
    tiles realign, against plain tiles written by the tile-order loop;
    gather_normalize exactly equal in float32 and equal to the bfloat16 cast
-   of the float32 result in bfloat16. Each kernel and its plain version are
-   timed with CUDA events.
+   of the float32 result in bfloat16, at the main path's shapes, on a zone
+   with an odd row pitch and odd origin columns, and at S = 36, C = 3
+   (S*C not a multiple of 8); conv_epilogue exactly equal (torch.equal, bf16
+   and float32 outputs) at each of the 41 BatchNorm sites of one main-path
+   batch, on the operands that batch gives it, plus ReLU off and a C that is
+   not a multiple of 8. Each kernel and its plain version are timed with CUDA
+   events; conv_epilogue at every site, summed over the batch.
 3. main path: ``flairtpu_torch.cli.detect_main`` on a synthetic 4096 x 4096 x
    5 GeoTIFF zone with a random resnet34-unet (19 classes) smp-keyed .pth,
    at the flair-detect production configuration (batch 128, 512 tiles, 128
    margin, scaling, argmax, exact-clipping). Checks the raster's shape and
-   georeferencing, that every pixel is written (prob > 0), and that each
-   kernel launched once per batch. Then the same zone again through the
-   plain versions on the card: class agreement >= 0.999, prob |diff| <= 1.
+   georeferencing, that every pixel is written (prob > 0), and that
+   fused_tail and gather_normalize launched once per batch and
+   conv_epilogue once per BatchNorm site per batch. Then the same zone again
+   through the three plain versions on the card: class agreement >= 0.999,
+   prob |diff| <= 1.
 4. the kernels line, the card line, and last the JSON result line.
+
+    python3 chip_smoke.py --profile  # also one batch stage by stage, and the profiler table
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn as nn
 import yaml
 
 from flairtpu_torch import cli
@@ -45,6 +55,7 @@ from flairtpu_torch.io import TiffReader
 from flairtpu_torch.io.tiff import Affine, write_array
 from flairtpu_torch.models.factory import FlairSegmentationModel
 from flairtpu_torch.ops import _build
+from flairtpu_torch.ops import epilogue as ep
 from flairtpu_torch.ops import fused_tail as ft
 from flairtpu_torch.ops import gather as ga
 from flairtpu_torch.zone import engine as eng
@@ -66,6 +77,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # Measured on an H100 (700 W): 1 mismatch in 8.4M pixels at 512/128, at a gap
 # below 5e-6; the check prints the largest gap at a mismatch beside it.
 GAP_TOL = 0.05
+# conv_epilogue sites of resnet34-unet: the stem, 2 per basic block (16
+# blocks; a downsample's BatchNorm is folded into its block's last site) and
+# 2 per decoder block 0-3
+EPILOGUE_SITES = 1 + 2 * 16 + 2 * 4
 
 
 def check(ok: bool, msg: str) -> None:
@@ -195,25 +210,46 @@ def bound(ops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def compare_gather(zone, org, size: int, label: str) -> float:
+    """Kernel vs plain at both normalizations: exactly equal in float32, and
+    the bfloat16 output equal to the cast float32 result."""
+    c = zone.shape[2]
+    means = [105.0, 110.5, 97.25, 120.0, 18.5][:c]
+    stds = [52.0, 45.5, 44.0, 39.75, 27.0][:c]
+    worst = 0.0
+    for norm in (dict(norm_type="scaling"),
+                 dict(norm_type="custom", means=means, stds=stds)):
+        ref = ga.gather_normalize_plain(zone, org, size, out_dtype=torch.float32, **norm)
+        got = ga.gather_normalize(zone, org, size, out_dtype=torch.float32, **norm)
+        got16 = ga.gather_normalize(zone, org, size, out_dtype=torch.bfloat16, **norm)
+        torch.cuda.synchronize()
+        worst = max(worst, (got - ref).abs().max().item())
+        check(torch.equal(got, ref),
+              f"gather_normalize {label} {norm['norm_type']} fp32: exactly equal")
+        check(torch.equal(got16, ref.to(torch.bfloat16)),
+              f"gather_normalize {label} {norm['norm_type']} bf16: equal to the cast fp32 result")
+    return worst
+
+
+def check_gather_unaligned(rng, hp: int, wp: int, c: int, size: int, n: int) -> float:
+    """A zone whose row pitch wp * c is odd where c is, at origins with odd
+    columns: every tile row starts at an unaligned zone byte."""
+    zone = torch.from_numpy(rng.integers(0, 256, (hp, wp, c), dtype=np.uint8)).to("cuda")
+    cols = np.minimum(rng.integers(0, wp - size + 1, n) | 1, wp - size)
+    org = np.stack([rng.integers(0, hp - size + 1, n), cols], axis=1).astype(np.int32)
+    return compare_gather(zone, torch.from_numpy(org).to("cuda"), size,
+                          f"S={size} C={c} pitch {wp * c} B={n} odd columns")
+
+
 def check_gather(rng, zone_hw: int, timed: bool = False) -> dict:
     Hp = zone_hw + 2 * M
     zone = torch.from_numpy(rng.integers(0, 256, (Hp, Hp, C), dtype=np.uint8)).to("cuda")
     grid = slice_grid(zone_hw, zone_hw, S, M)
     org_np = np.array([(t.row0 + M, t.col0 + M) for t in grid.tiles[:BATCH]], np.int32)
     org = torch.from_numpy(org_np).to("cuda")
-    means, stds = [105.0, 110.5, 97.25, 120.0, 18.5], [52.0, 45.5, 44.0, 39.75, 27.0]
-    worst = 0.0
-    for norm in (dict(norm_type="scaling"),
-                 dict(norm_type="custom", means=means, stds=stds)):
-        ref = ga.gather_normalize_plain(zone, org, S, out_dtype=torch.float32, **norm)
-        got = ga.gather_normalize(zone, org, S, out_dtype=torch.float32, **norm)
-        got16 = ga.gather_normalize(zone, org, S, out_dtype=torch.bfloat16, **norm)
-        torch.cuda.synchronize()
-        worst = max(worst, (got - ref).abs().max().item())
-        check(torch.equal(got, ref),
-              f"gather_normalize {norm['norm_type']} B={len(org_np)} fp32: exactly equal")
-        check(torch.equal(got16, ref.to(torch.bfloat16)),
-              f"gather_normalize {norm['norm_type']} bf16: equal to the cast fp32 result")
+    worst = compare_gather(zone, org, S, f"main path B={len(org_np)}")
+    worst = max(worst, check_gather_unaligned(rng, 600, 601, C, S, 8),
+                check_gather_unaligned(rng, 100, 101, 3, 36, 16))
     out = {"max_abs_err": worst}
     if timed:
         out["ms"] = cuda_ms(lambda: ga.gather_normalize(
@@ -226,6 +262,122 @@ def check_gather(rng, zone_hw: int, timed: bool = False) -> dict:
         nbytes = int(covered.sum()) * C + org_np.nbytes + len(org_np) * S * S * C * 2
         # one float32 multiply per element
         out.update(bound(len(org_np) * S * S * C, nbytes, PEAK_FP32_FLOPS), bytes=nbytes)
+    return out
+
+
+class SiteRecorder:
+    """An epilogue that launches the kernel and keeps each call's operands:
+    the main path's BatchNorm sites, at their shapes and on their data."""
+
+    def __init__(self):
+        self.sites: list[dict] = []
+
+    def __call__(self, y, scale, shift, residual=None, branch=None, relu=True,
+                 keep_f32=False):
+        site = dict(y=y, scale=scale, shift=shift, residual=residual, branch=branch,
+                    relu=relu, keep_f32=keep_f32)
+        self.sites.append(site)
+        return ep.conv_epilogue(**site)
+
+
+def epilogue_sites(model) -> int:
+    """conv_epilogue launches per batch, from the model's structure: every
+    encoder BatchNorm but the downsamples' (folded into their block's last
+    site), and two per decoder block but the last (fused_tail's)."""
+    mods = list(model.encoder.modules())
+    n_bn = sum(isinstance(m, nn.BatchNorm2d) for m in mods)
+    n_ds = sum(getattr(m, "downsample", None) is not None for m in mods)
+    return n_bn - n_ds + 2 * (len(model.decoder.blocks) - 1)
+
+
+def site_label(k: int, site: dict) -> str:
+    kind = ("downsample branch" if site["branch"] is not None else
+            "fp32 residual" if site["residual"] is not None else "no residual")
+    relu = "" if site["relu"] else ", no ReLU"
+    return (f"site {k} {tuple(site['y'].shape)} {kind}{relu}"
+            f"{', fp32 out' if site['keep_f32'] else ''}")
+
+
+def site_cost(site: dict) -> tuple[int, int]:
+    """(operations, bytes) of one site: each operand read once, each output
+    written once."""
+    y = site["y"]
+    n, c = y.numel(), y.shape[1]
+    ops, nbytes = 2 * n, 2 * n + 2 * 4 * c + 2 * n  # y, scale and shift in; bf16 out
+    if site["residual"] is not None:
+        ops, nbytes = ops + n, nbytes + 4 * n
+    if site["branch"] is not None:
+        ops, nbytes = ops + 3 * n, nbytes + 2 * n + 2 * 4 * c
+    if site["relu"]:
+        ops += n
+    if site["keep_f32"]:
+        nbytes += 4 * n
+    return ops, nbytes
+
+
+def compare_epilogue(label: str, site: dict) -> float:
+    """Kernel vs plain, both outputs asked for: equal bit for bit."""
+    args = dict(site, keep_f32=True)
+    out, out32 = ep.conv_epilogue(**args)
+    ref, ref32 = ep.conv_epilogue_plain(**args)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref) and torch.equal(out32, ref32),
+          f"conv_epilogue {label}: bf16 and fp32 outputs exactly equal")
+    return (out32 - ref32).abs().max().item()
+
+
+def random_site(gen, shape: tuple, kind: str) -> dict:
+    """Operands of a site with random values, channels_last on the card."""
+    def t(dtype=torch.float32):
+        v = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        return v.contiguous(memory_format=torch.channels_last)
+
+    def vec(lo=-1.0, hi=1.0):
+        return torch.rand(shape[1], generator=gen, device="cuda") * (hi - lo) + lo
+
+    return dict(y=t(torch.bfloat16), scale=vec(0.5, 1.5), shift=vec(),
+                residual=t() if kind == "residual" else None,
+                branch=(t(torch.bfloat16), vec(0.5, 1.5), vec()) if kind == "branch" else None,
+                relu=True, keep_f32=False)
+
+
+def check_conv_epilogue(model, x: torch.Tensor, timed: bool = False) -> dict:
+    """The kernel at every BatchNorm site of one main-path batch of tiles x,
+    on the operands that batch gives it; ReLU off, and C not a multiple of 8."""
+    rec = SiteRecorder()
+    model.tail_input(x, M, epilogue=rec)
+    n_sites = epilogue_sites(model)
+    check(len(rec.sites) == n_sites == EPILOGUE_SITES,
+          f"conv_epilogue: {len(rec.sites)} sites in one batch, {n_sites} from the "
+          f"model's structure, {EPILOGUE_SITES} expected for resnet34-unet")
+    worst = max(compare_epilogue(site_label(k, site), site)
+                for k, site in enumerate(rec.sites))
+    largest = max(rec.sites, key=lambda site: site["y"].numel())
+    worst = max(worst, compare_epilogue("ReLU off, " + site_label(0, largest),
+                                        dict(largest, relu=False)))
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    for kind in ("none", "residual", "branch"):  # the one-element-a-thread kernel
+        worst = max(worst, compare_epilogue(f"C = 20 (not a multiple of 8), {kind}",
+                                            random_site(gen, (3, 20, 17, 19), kind)))
+    out = {"max_abs_err": worst, "n_sites": n_sites}
+    if timed:
+        rows = []
+        for k, site in enumerate(rec.sites):
+            ops, nbytes = site_cost(site)
+            rows.append({"site": site_label(k, site),
+                         "ms": cuda_ms(lambda a=site: ep.conv_epilogue(**a), 10, 2),
+                         "plain_ms": cuda_ms(lambda a=site: ep.conv_epilogue_plain(**a), 5, 1),
+                         "bytes": nbytes, **bound(ops, nbytes, PEAK_FP32_FLOPS)})
+        n_dec = 2 * (len(model.decoder.blocks) - 1)
+        out.update(
+            sites=rows, ms=sum(r["ms"] for r in rows),
+            plain_ms=sum(r["plain_ms"] for r in rows),
+            bound_ms=sum(r["bound_ms"] for r in rows), bytes=sum(r["bytes"] for r in rows),
+            bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                      else "operations"),
+            encoder_ms=sum(r["ms"] for r in rows[:-n_dec]),
+            decoder_ms=sum(r["ms"] for r in rows[-n_dec:]),
+            largest=max(rows, key=lambda r: r["bytes"]))
     return out
 
 
@@ -268,13 +420,14 @@ def detect_config(tmp: Path, zone: Path, weights: Path) -> dict:
 
 
 class PlainRunner(DeviceZoneRunner):
-    """The zone program with the kernels' plain versions, on the same card."""
+    """The zone program with the three kernels' plain versions, on the same
+    card."""
 
     def _forward_tiles(self, zone_p, origins, planes, windows):
         x = ga.gather_normalize_plain(zone_p, origins, self.size,
                                       out_dtype=self.model.dtype, **self.norm)
-        ft.fused_tail_plain(self.model.tail_input(x, self.margin), self.tail,
-                            self.geometry, planes, windows)
+        x3 = self.model.tail_input(x, self.margin, epilogue=ep.conv_epilogue_plain)
+        ft.fused_tail_plain(x3, self.tail, self.geometry, planes, windows)
 
 
 def run_plain(cfg: dict) -> dict:
@@ -288,29 +441,24 @@ def run_plain(cfg: dict) -> dict:
                                              eng.stage_zone(cfg, device))
 
 
-def run_main_path(tmp: Path, zone_hw: int, rng, card: str) -> dict:
-    t0 = time.perf_counter()
-    zone, weights = synth_inputs(tmp, zone_hw, rng)
-    cfg = detect_config(tmp, zone, weights)
-    conf = tmp / "detect.yaml"
-    conf.write_text(yaml.safe_dump(cfg))
-    print(f"  synthesized {zone_hw}x{zone_hw}x{C} zone and weights in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-
+def run_main_path(cfg: dict, conf: Path, zone_hw: int, card: str) -> dict:
     # the plain versions first: their run also warms cuDNN up for the encoder
     plain = run_plain(cfg)
     print(f"  plain-version run: compute {plain['compute_seconds']:.4f} s, "
           f"{plain['patches_per_sec']:.2f} patches/s", flush=True)
 
-    ft.launches = ga.launches = 0
+    ft.launches = ga.launches = ep.launches = 0
     t0 = time.perf_counter()
     stats = cli.detect_main([f"--conf={conf}"])
     wall = time.perf_counter() - t0
-    launches = {"fused_tail": ft.launches, "gather_normalize": ga.launches}
+    launches = {"fused_tail": ft.launches, "gather_normalize": ga.launches,
+                "conv_epilogue": ep.launches}
 
     n_batches = -(-len(slice_grid(zone_hw, zone_hw, S, M).tiles) // BATCH)
+    expected = {"fused_tail": n_batches, "gather_normalize": n_batches,
+                "conv_epilogue": EPILOGUE_SITES * n_batches}
     out = Path(cfg["output_path"]) / "zone-ARGMAX.tif"
-    with TiffReader(zone) as src, TiffReader(out) as r:
+    with TiffReader(cfg["input_img_path"]) as src, TiffReader(out) as r:
         check((r.width, r.height, r.count) == (zone_hw, zone_hw, 2),
               f"output raster {r.width}x{r.height}x{r.count}")
         check(r.transform == src.transform and r.crs == src.crs,
@@ -319,7 +467,8 @@ def run_main_path(tmp: Path, zone_hw: int, rng, card: str) -> dict:
     check(bool((prob > 0).all()), "every pixel written (prob > 0)")
     check(int(cls.max()) < K, f"classes in [0, {K})")
     for name, n in launches.items():
-        check(n == n_batches, f"{name} launched {n} times for {n_batches} batches")
+        check(n == expected[name], f"{name} launched {n} times for {n_batches} batches "
+              f"({expected[name]} expected)")
     print(f"  main path on {card}: {stats['tiles']} tiles, read {stats['read_seconds']:.4f} s, "
           f"h2d {stats['h2d_seconds']:.4f} s, compute {stats['compute_seconds']:.4f} s, "
           f"d2h {stats['d2h_seconds']:.4f} s, {stats['patches_per_sec']:.2f} patches/s, "
@@ -333,9 +482,11 @@ def run_main_path(tmp: Path, zone_hw: int, rng, card: str) -> dict:
             plain["compute_seconds"], "agree_plain": agree, "prob_diff_plain": dprob}
 
 
-def stage_breakdown(cfg: dict, zone_hw: int, rng) -> dict:
+def stage_breakdown(cfg: dict, zone_hw: int, rng, epi: dict) -> dict:
     """Device time of each stage of one main-path batch (CUDA events), and the
-    profiler's kernel table for one batch."""
+    profiler's kernel table for one batch. The encoder and decoder stages are
+    split into their conv_epilogue launches (``epi``: phase 2's per-site
+    times, summed) and the rest (convolutions, max-pool, upsample, concat)."""
     device = eng.resolve_device(cfg)
     model, tail = eng.prepare_model(cfg, device)
     runner = DeviceZoneRunner(cfg, model, tail)
@@ -360,6 +511,10 @@ def stage_breakdown(cfg: dict, zone_hw: int, rng) -> dict:
         "whole_batch": lambda: runner._forward_tiles(zone, org, planes, win),
     }
     ms = {name: cuda_ms(fn, reps=5, warmup=1) for name, fn in stages.items()}
+    ms["encoder_epilogues"] = epi["encoder_ms"]
+    ms["encoder_rest"] = ms["encoder"] - epi["encoder_ms"]
+    ms["decoder_blocks_0_3_epilogues"] = epi["decoder_ms"]
+    ms["decoder_blocks_0_3_rest"] = ms["decoder_blocks_0_3"] - epi["decoder_ms"]
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -390,28 +545,51 @@ def main() -> int:
           f"into {_build.build_dir()}", flush=True)
 
     rng = np.random.default_rng(SEED)
-    print("[2] kernels against their plain versions", flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    with torch.inference_mode():
-        tail = check_fused_tail(rng, S, M, BATCH, K, timed=True)
-        for size, margin, k in ((64, 16, K), (32, 1, 4), (96, 8, 32)):
-            check_fused_tail(rng, size, margin, 4, k)
-        check_fused_tail_planes(rng, 1000, 1100, 8)
-        gather = check_gather(rng, ZONE, timed=True)
-    print(f"    fused_tail: {tail['ms']:.4f} ms, plain {tail['plain_ms']:.4f} ms, "
-          f"bound {tail['bound_ms']:.4f} ms ({tail['bound_by']})", flush=True)
-    print(f"    gather_normalize: {gather['ms']:.4f} ms, plain {gather['plain_ms']:.4f} ms, "
-          f"bound {gather['bound_ms']:.4f} ms ({gather['bound_by']})", flush=True)
-
-    print("[3] main path: flair-detect on the card", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        main_path = run_main_path(Path(tmp), ZONE, rng, card)
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        zone, weights = synth_inputs(tmp, ZONE, rng)
+        cfg = detect_config(tmp, zone, weights)
+        conf = tmp / "detect.yaml"
+        conf.write_text(yaml.safe_dump(cfg))
+        print(f"    synthesized a {ZONE}x{ZONE}x{C} zone and resnet34-unet weights in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        print("[2] kernels against their plain versions", flush=True)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.inference_mode():
+            tail = check_fused_tail(rng, S, M, BATCH, K, timed=True)
+            for size, margin, k in ((64, 16, K), (32, 1, 4), (96, 8, 32)):
+                check_fused_tail(rng, size, margin, 4, k)
+            check_fused_tail_planes(rng, 1000, 1100, 8)
+            gather = check_gather(rng, ZONE, timed=True)
+            model, _ = eng.prepare_model(cfg, torch.device("cuda"))
+            gen = torch.Generator("cuda").manual_seed(SEED)
+            x = torch.rand((BATCH, S, S, C), generator=gen, device="cuda").to(torch.bfloat16)
+            epi = check_conv_epilogue(model, x, timed=True)
+            del model, x
+            torch.cuda.empty_cache()
+        print(f"    fused_tail: {tail['ms']:.4f} ms, plain {tail['plain_ms']:.4f} ms, "
+              f"bound {tail['bound_ms']:.4f} ms ({tail['bound_by']})", flush=True)
+        print(f"    gather_normalize: {gather['ms']:.4f} ms, plain {gather['plain_ms']:.4f} ms, "
+              f"bound {gather['bound_ms']:.4f} ms ({gather['bound_by']})", flush=True)
+        for r in epi["sites"]:
+            print(f"    conv_epilogue {r['site']}: {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        big = epi["largest"]
+        print(f"    conv_epilogue, largest site ({big['site']}): {big['ms']:.4f} ms, plain "
+              f"{big['plain_ms']:.4f} ms, bound {big['bound_ms']:.4f} ms", flush=True)
+        print(f"    conv_epilogue, {epi['n_sites']} sites of one batch: {epi['ms']:.4f} ms "
+              f"(encoder {epi['encoder_ms']:.4f}, decoder blocks 0-3 {epi['decoder_ms']:.4f}), "
+              f"plain {epi['plain_ms']:.4f} ms, bound {epi['bound_ms']:.4f} ms "
+              f"({epi['bytes'] / 1e9:.2f} GB, {epi['bound_by']})", flush=True)
+
+        print("[3] main path: flair-detect on the card", flush=True)
+        main_path = run_main_path(cfg, conf, ZONE, card)
         if args.profile:
             with torch.inference_mode():
-                prof = stage_breakdown(detect_config(Path(tmp), Path(tmp) / "zone.tif",
-                                                     Path(tmp) / "resnet34_unet_19cl.pth"),
-                                       ZONE, rng)
+                prof = stage_breakdown(cfg, ZONE, rng, epi)
             print(prof["kernel_table"])
             print(json.dumps({"stage_ms": prof["stage_ms"], "card": card}), flush=True)
 
@@ -430,6 +608,13 @@ def main() -> int:
          "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
          "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
          "bound_by": gather["bound_by"], "library_ms": None},
+        # times summed over the 41 sites (launches) of one batch
+        {"name": "conv_epilogue", "route": "cuda", "source": f"{src}/conv_epilogue.cu",
+         "replaces": "flairtpu/models/resnet.py:177-189, :208-222, :269-273 and "
+                     "flairtpu/models/unet.py:71-76 (XLA-fused BatchNorm, residual, ReLU)",
+         "launches": main_path["launches"]["conv_epilogue"],
+         "max_abs_err": epi["max_abs_err"], "ms": epi["ms"], "plain_ms": epi["plain_ms"],
+         "bound_ms": epi["bound_ms"], "bound_by": epi["bound_by"], "library_ms": None},
     ]
     print(json.dumps({"main_path": main_path["stats"], "card": card}))
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from flairtpu_torch.models.resnet import bn2d, batch_norm, conv
+from flairtpu_torch.models.resnet import bn2d, conv, scale_shift
+from flairtpu_torch.ops.epilogue import conv_epilogue
 
 DEFAULT_DECODER_CHANNELS = (256, 128, 64, 32, 16)
 
@@ -63,16 +64,18 @@ class DecoderBlock(nn.Module):
         self.conv2 = nn.Sequential(
             nn.Conv2d(out_ch, out_ch, 3, padding=1, bias=False), bn2d(out_ch))
 
-    def forward(self, x, skip=None):
-        return self.convs(upsample2x_nearest(x.to(self.dtype)), skip)
+    def forward(self, x, skip=None, epilogue=conv_epilogue):
+        return self.convs(upsample2x_nearest(x.to(self.dtype)), skip, epilogue)
 
-    def convs(self, x, skip=None):
-        """The block body after its upsample (x already upsampled)."""
+    def convs(self, x, skip=None, epilogue=conv_epilogue):
+        """The block body after its upsample (x already upsampled); returns
+        the compute dtype."""
         dt = self.dtype
         if skip is not None:
             x = torch.cat([x.to(dt), skip.to(dt)], dim=1)
-        x = F.relu(batch_norm(conv(x, self.conv1[0], dt), self.conv1[1]))
-        return F.relu(batch_norm(conv(x, self.conv2[0], dt), self.conv2[1]))
+        x, _ = epilogue(conv(x, self.conv1[0], dt), *scale_shift(self.conv1[1]))
+        x, _ = epilogue(conv(x, self.conv2[0], dt), *scale_shift(self.conv2[1]))
+        return x
 
 
 class UnetDecoder(nn.Module):
@@ -90,18 +93,20 @@ class UnetDecoder(nn.Module):
             [DecoderBlock(i, s, o, dtype=dtype)
              for i, s, o in zip(in_chs, skip_chs, decoder_channels)])
 
-    def forward(self, features: list[torch.Tensor], inner_margin: int | None = None):
+    def forward(self, features: list[torch.Tensor], inner_margin: int | None = None,
+                epilogue=conv_epilogue):
         """Full decode, or with ``inner_margin`` the interior decode, which
         returns ``(x, offset)``: x covers [offset, offset + extent)."""
         if inner_margin is not None:
-            return self.inner(features, inner_margin, len(self.blocks))
+            return self.inner(features, inner_margin, len(self.blocks), epilogue)
         feats = features[1:][::-1]
         x, skips = feats[0], feats[1:]
         for i, block in enumerate(self.blocks):
-            x = block(x, skips[i] if i < len(skips) else None)
+            x = block(x, skips[i] if i < len(skips) else None, epilogue)
         return x
 
-    def inner(self, features: list[torch.Tensor], margin: int, n_blocks: int):
+    def inner(self, features: list[torch.Tensor], margin: int, n_blocks: int,
+              epilogue=conv_epilogue):
         """Blocks [0, n_blocks) of the interior decode; returns (x, offset)."""
         feats = features[1:][::-1]
         x, skips = feats[0], feats[1:]
@@ -116,7 +121,7 @@ class UnetDecoder(nn.Module):
             x = upsample2x_nearest(x.to(block.dtype))
             x = x[:, :, lo - 2 * off:hi - 2 * off, lo - 2 * off:hi - 2 * off]
             skip = skips[i][:, :, lo:hi, lo:hi] if i < len(skips) else None
-            x = block.convs(x, skip)
+            x = block.convs(x, skip, epilogue)
             off = lo
         return x, off
 

@@ -6,7 +6,8 @@ interface (no PyTorch headers, so a build takes seconds), all sources at
 once, one nvcc process each. Libraries go to ``build/flairtpu_torch_kernels/``
 beside the package (``FLAIRTPU_TORCH_BUILD_DIR`` overrides it), named by a
 hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. A file lock serializes concurrent builders.
+unchanged one is reused. A file lock serializes concurrent builders. Each
+library's one C entry point shares the source's name and is bound once.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict[str, ctypes._CFuncPtr] = {}
 
 
 def build_dir() -> Path:
@@ -80,13 +81,21 @@ def build_all() -> dict[str, Path]:
     return paths
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu`` (built on first use)."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_all()[name]))
-        _LIBS[name] = lib
-    return lib
+def bind(lib: ctypes.CDLL, name: str, argtypes: list):
+    """``lib``'s C function ``name``, returning a cudaError_t, with ``argtypes``."""
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
+
+
+def entry(name: str, argtypes: list):
+    """The C entry point ``name`` of the library built from ``csrc/<name>.cu``,
+    built, loaded and bound on first use."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = _ENTRIES[name] = bind(ctypes.CDLL(str(build_all()[name])), name, argtypes)
+    return fn
 
 
 def check(err: int, kernel: str) -> None:

@@ -35,6 +35,7 @@ from flairtpu_torch.ops.fused import prob_to_u8, softmax_argmax
 
 C3, C4 = 32, 16  # channels into and of the last decoder block (every resnet unet)
 MAX_CLASSES = 32
+ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # packed weight row lengths (bf16): depth 9 x C_in, tap-major and channel-minor,
 # plus 8 zeros so that rows step an odd number of 16-byte shared-memory units
 ROW1, ROW2 = 9 * C3 + 8, 9 * C4 + 8
@@ -184,13 +185,6 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.fused_tail
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    return fn
-
-
 def fused_tail(x3: torch.Tensor, p: TailParams, g: TailGeometry,
                planes: torch.Tensor | None = None, windows: torch.Tensor | None = None):
     """x3 (B, 32, E3, E3), channels_last -> (class, prob) uint8 (B, s, s); or,
@@ -229,7 +223,7 @@ def fused_tail(x3: torch.Tensor, p: TailParams, g: TailGeometry,
             or tuple(windows.shape) != (B, 6) or not windows.is_contiguous()):
         raise ValueError(f"fused_tail: windows must be a contiguous ({B}, 6) int32 tensor "
                          f"on {x3.device}")
-    err = _bind(_build.library("fused_tail"))(
+    err = _build.entry("fused_tail", ARGTYPES)(
         _ptr(x3), _ptr(p.packed), _ptr(p.epi), _ptr(windows), _ptr(planes[0]),
         _ptr(planes[1]), planes.shape[2], B, g.x3_extent, g.up_crop, g.b4_extent,
         g.head_crop, s, p.n_classes, _build.stream_handle(x3))

@@ -76,7 +76,7 @@ def build_variants(out: Path) -> dict:
                                "-o", str(lib), str(src)], capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for the {name} variant:\n{proc.stdout}{proc.stderr}")
-        return name, (ft._bind(ctypes.CDLL(str(lib))), k19_registers(proc.stdout + proc.stderr))
+        return name, (_build.bind(ctypes.CDLL(str(lib)), "fused_tail", ft.ARGTYPES), k19_registers(proc.stdout + proc.stderr))
 
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         return dict(pool.map(one, VARIANTS.items()))

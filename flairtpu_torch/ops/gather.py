@@ -21,6 +21,10 @@ from flairtpu_torch.ops import _build
 
 _MODES = {"scaling": 0, "custom": 1, "without": 2}
 MAX_CHANNELS = 16
+_FLOATS = ctypes.POINTER(ctypes.c_float)
+ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, _FLOATS, _FLOATS, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p]
 
 # kernel launches on CUDA tensors since the last reset (the CPU path does not count)
 launches = 0
@@ -70,17 +74,11 @@ def gather_normalize(zone: torch.Tensor, origins: torch.Tensor, size: int,
     if norm_type == "custom":
         mean[:] = means
         inv_std[:] = reciprocal(stds)
-    fp = ctypes.POINTER(ctypes.c_float)
-    fn = _build.library("gather_normalize").gather_normalize
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, fp, fp, ctypes.c_float,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    err = fn(ctypes.c_void_p(zone.data_ptr()), zone.shape[1], C,
-             ctypes.c_void_p(origins.data_ptr()), B, size, _MODES[norm_type],
-             mean.ctypes.data_as(fp), inv_std.ctypes.data_as(fp),
-             float(reciprocal(scale_factor(np.uint8))), ctypes.c_void_p(out.data_ptr()),
-             int(out_dtype == torch.bfloat16), _build.stream_handle(zone))
+    err = _build.entry("gather_normalize", ARGTYPES)(
+        zone.data_ptr(), zone.shape[1], C, origins.data_ptr(), B, size, _MODES[norm_type],
+        mean.ctypes.data_as(_FLOATS), inv_std.ctypes.data_as(_FLOATS),
+        float(reciprocal(scale_factor(np.uint8))), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), _build.stream_handle(zone))
     _build.check(err, "gather_normalize")
     launches += 1
     return out

@@ -3,8 +3,9 @@
 
 The whole margin-padded zone (uint8) sits in device memory; each batch of
 tiles is gathered and normalized by one kernel (``ops/gather.py``), runs
-through the encoder and all decoder blocks but the last (cuDNN convolutions),
-and the fused decoder-tail kernel (``ops/fused_tail.py``) writes the uint8
+through the encoder and all decoder blocks but the last (cuDNN convolutions,
+each followed by the conv-epilogue kernel, ``ops/epilogue.py``), and the
+fused decoder-tail kernel (``ops/fused_tail.py``) writes the uint8
 class and probability of each tile's owned window straight into two
 device-resident planes. The windows (:func:`exact_windows`) give each plane
 pixel to the tile that the reference's tile-order writes leave there (last

@@ -49,13 +49,16 @@ def compute_dtype(device: torch.device) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def prepare_model(config: dict, device: torch.device):
-    """Build the model, load its weights strictly, move it to ``device`` and
-    derive the fused tail's parameters. Returns (model, tail)."""
+    """Build the model, load its weights strictly, move it to ``device``,
+    prepare it for inference (conv weights in the compute dtype, BatchNorm
+    (scale, shift) pairs) and derive the fused tail's parameters. Returns
+    (model, tail)."""
     dtype = compute_dtype(device)
     model = create_model(config, dtype=dtype)
     load_weights(model, config["model_weights"])
     print("    [x] loaded model and weights...")
     model = model.to(device, memory_format=torch.channels_last).eval()
+    model.prepare_inference()
     return model, tail_params(model, dtype)
 
 

@@ -19,20 +19,41 @@ Phases (any failure exits non-zero):
    (S*C not a multiple of 8); conv_epilogue exactly equal (torch.equal, bf16
    and float32 outputs) at each of the 41 BatchNorm sites of one main-path
    batch, on the operands that batch gives it, plus ReLU off and a C that is
-   not a multiple of 8. Each kernel and its plain version are timed with CUDA
-   events; conv_epilogue at every site, summed over the batch.
+   not a multiple of 8. The fused tail's probs mode (bytes within 1 of the
+   plain version, into tiles and into the (H, W, K) plane of the realigning
+   zone) and logits mode at margin 0 (within GAP_TOL of the plain logits);
+   accumulate_probs and merge_max on the same logits as their plain versions
+   (one batch of 128 full 512 tiles of the 4096² zone at stride 256, and
+   every batch of the realigning zone at batch 8 with padding duplicates):
+   acc relative difference <= 1e-6 and, after stitch_finalize, classes
+   equal except where the mean's top-2 gap is below 1e-5; merge_max class
+   agreement >= 0.999 with every mismatch where kernel and plain best
+   probabilities agree to 1e-6 (two tiles tie), prob |diff| <= 1;
+   stitch_finalize exactly equal on the same planes. Each kernel and its
+   plain version are timed with CUDA events; conv_epilogue at every site,
+   summed over the batch.
 3. main path: ``flairtpu_torch.cli.detect_main`` on a synthetic 4096 x 4096 x
-   5 GeoTIFF zone with a random resnet34-unet (19 classes) smp-keyed .pth,
-   at the flair-detect production configuration (batch 128, 512 tiles, 128
-   margin, scaling, argmax, exact-clipping). Checks the raster's shape and
-   georeferencing, that every pixel is written (prob > 0), and that
-   fused_tail and gather_normalize launched once per batch and
-   conv_epilogue once per BatchNorm site per batch. Then the same zone again
-   through the three plain versions on the card: class agreement >= 0.999,
-   prob |diff| <= 1.
+   5 GeoTIFF zone (``<dpt>/<zone>/zone.tif``, with a synthetic truth raster
+   at ``truth/<dpt>/<zone>/truth.tif``) with a random resnet34-unet (19
+   classes) smp-keyed .pth, at the flair-detect production configuration
+   (batch 128, 512 tiles, 128 margin, scaling, argmax, exact-clipping).
+   Checks the raster's shape and georeferencing, that every pixel is
+   written (prob > 0), and that fused_tail and gather_normalize launched
+   once per batch and conv_epilogue once per BatchNorm site per batch. Then
+   the same zone again through the plain versions on the card: class
+   agreement >= 0.999, prob |diff| <= 1. Then, each with the counts set to 0
+   just before it:
+   - ``output_type: class_prob``: a 19-band raster, the probs mode of
+     fused_tail once per batch, every band within 1 of the all-plain run;
+   - ``detect_main -c -m`` with the strategies, batch size and custom
+     normalization of ``configs/flair-1-config-detect-compare.yaml``
+     (sizes 256/512/1024, stride 0.75, margin 0.25, the four stitching
+     methods: 12 runs): 12 rasters named by method string, the per-patch
+     metrics JSON, each run's launches, and the 4 size-512 runs against the
+     all-plain runs (class agreement >= 0.999, prob |diff| <= 1).
 4. the kernels line, the card line, and last the JSON result line.
 
-    python3 chip_smoke.py --profile  # also one batch stage by stage, and the profiler table
+    python3 chip_smoke.py --profile  # also one batch per program by stage, and the profiler table
 """
 
 from __future__ import annotations
@@ -51,6 +72,7 @@ import torch.nn as nn
 import yaml
 
 from flairtpu_torch import cli
+from flairtpu_torch.config import gen_param_combination, validate_detect_config
 from flairtpu_torch.io import TiffReader
 from flairtpu_torch.io.tiff import Affine, write_array
 from flairtpu_torch.models.factory import FlairSegmentationModel
@@ -58,13 +80,23 @@ from flairtpu_torch.ops import _build
 from flairtpu_torch.ops import epilogue as ep
 from flairtpu_torch.ops import fused_tail as ft
 from flairtpu_torch.ops import gather as ga
+from flairtpu_torch.ops import stitch as st
 from flairtpu_torch.zone import engine as eng
 from flairtpu_torch.zone.device_engine import DeviceZoneRunner, exact_windows
 from flairtpu_torch.zone.grid import slice_grid
+from flairtpu_torch.zone.naming import method_string
+from flairtpu_torch.zone.weights import patch_weights
 
 SEED = 2022
 S, M, BATCH, K, C = 512, 128, 128, 19, 5
 ZONE = 4096  # synthetic zone side, pixels: 256 tiles, 2 batches
+DPT, ZONE_NAME = "D000_2024", "Z_SMOKE"  # the zone's <dpt>/<zone> folders
+COMPARE_CONFIG = Path(__file__).resolve().parent / "configs" / "flair-1-config-detect-compare.yaml"
+# the stitch kernels against their plain versions on the same logits: same
+# operations in the same order, so only the exponential's last bit may
+# differ between expf and torch.exp
+ACC_REL_TOL = 1e-6
+MEAN_GAP_TOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32
 # outside the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -201,6 +233,232 @@ def check_fused_tail_planes(rng, height: int, width: int, batch: int) -> dict:
     return compare_tail(f"fused_tail into planes, {height}x{width} zone, {n} tiles, "
                         f"B={batch}", planes[0], planes[1], ref[0].to(torch.uint8),
                         ref[1].to(torch.uint8), ref[2])
+
+
+def tail_flops(g, batch: int, k: int) -> int:
+    """Operations of the tail's three convolutions (with conv1's and conv2's
+    halos) for a batch."""
+    c1, c2 = min(g.b4_extent, g.out_extent + 4), min(g.b4_extent, g.out_extent + 2)
+    return 2 * 9 * batch * (c1 * c1 * 32 * 16 + c2 * c2 * 16 * 16 + g.out_extent ** 2 * 16 * k)
+
+
+def check_tail_probs(rng, size: int, margin: int, batch: int, k: int,
+                     timed: bool = False) -> dict:
+    """The probs mode (class_prob) into whole-tile windows: bytes within 1."""
+    g = ft.tail_geometry(size, margin)
+    s = g.out_extent
+    p = random_tail(rng, k)
+    x3 = random_x3(rng, g, batch)
+    win = ft.full_windows(batch, s, x3.device)
+    got = torch.zeros((batch * s, s, k), dtype=torch.uint8, device="cuda")
+    want = torch.zeros_like(got)
+    ft.fused_tail_probs(x3, p, g, got, win)
+    ft.fused_tail_probs_plain(x3, p, g, want, win)
+    torch.cuda.synchronize()
+    d = (got.int() - want.int()).abs().max().item()
+    check(d <= 1, f"fused_tail probs {size}/{margin} B={batch} K={k} bf16: |diff| {d} <= 1, "
+          f"{(got != want).float().mean().item():.2e} of bytes differ")
+    out = {"max_abs_err": d}
+    if timed:
+        out["ms"] = cuda_ms(lambda: ft.fused_tail_probs(x3, p, g, got, win))
+        out["plain_ms"] = out["library_ms"] = cuda_ms(
+            lambda: ft.fused_tail_probs_plain(x3, p, g, want, win), 5, 1)
+        nbytes = x3.numel() * x3.element_size() + batch * s * s * k
+        out.update(bound(tail_flops(g, batch, k), nbytes), bytes=nbytes)
+    return out
+
+
+def check_tail_probs_planes(rng, height: int, width: int, batch: int) -> int:
+    """The probs mode through the owned windows into the (H, W, K) plane of a
+    zone with realigned tiles, against plain tiles written in tile order."""
+    g = ft.tail_geometry(S, M)
+    s = g.out_extent
+    p = random_tail(rng, K)
+    tiles = slice_grid(width, height, S, M).tiles
+    n = len(tiles)
+    n_total = n + (-n) % batch
+    x3 = random_x3(rng, g, n)
+    x3 = torch.cat([x3, x3[-1:].expand(n_total - n, -1, -1, -1)]).contiguous(
+        memory_format=torch.channels_last)
+    windows = torch.from_numpy(exact_windows(tiles, height, width, s, n_total)).to("cuda")
+    Ho, Wo = max(height, s), max(width, s)
+    plane = torch.zeros((Ho, Wo, K), dtype=torch.uint8, device="cuda")
+    for b0 in range(0, n_total, batch):
+        ft.fused_tail_probs(x3[b0:b0 + batch], p, g, plane, windows[b0:b0 + batch])
+    tiles_p = torch.zeros((n * s, s, K), dtype=torch.uint8, device="cuda")
+    ft.fused_tail_probs_plain(x3[:n], p, g, tiles_p, ft.full_windows(n, s, x3.device))
+    ref = torch.zeros_like(plane)
+    for i, t in enumerate(tiles):  # the reference's tile-order writes, last wins
+        r0, c0 = min(t.irow0, Ho - s), min(t.icol0, Wo - s)
+        ref[r0:r0 + s, c0:c0 + s] = tiles_p[i * s:(i + 1) * s]
+    torch.cuda.synchronize()
+    d = (plane.int() - ref.int()).abs().max().item()
+    check(d <= 1, f"fused_tail probs into the plane, {height}x{width} zone, {n} tiles, "
+          f"B={batch}: |diff| {d} <= 1")
+    return d
+
+
+def check_tail_logits(rng, size: int, batch: int, k: int, timed: bool = False) -> dict:
+    """The logits mode at margin 0 (the whole tile): within GAP_TOL of the
+    plain logits."""
+    g = ft.tail_geometry(size, 0)
+    p = random_tail(rng, k)
+    x3 = random_x3(rng, g, batch)
+    got = ft.fused_tail_logits(x3, p, g)
+    d = (got - ft.fused_tail_logits_plain(x3, p, g)).abs().max().item()
+    torch.cuda.synchronize()
+    check(d < GAP_TOL, f"fused_tail logits {size}/0 B={batch} K={k} bf16: largest |diff| "
+          f"{d:.2e} < {GAP_TOL}")
+    out = {"max_abs_err": d}
+    if timed:
+        out["ms"] = cuda_ms(lambda: ft.fused_tail_logits(x3, p, g, got))
+        out["plain_ms"] = out["library_ms"] = cuda_ms(
+            lambda: ft.fused_tail_logits_plain(x3, p, g), 5, 1)
+        nbytes = x3.numel() * x3.element_size() + got.numel() * 4
+        out.update(bound(tail_flops(g, batch, k), nbytes), bytes=nbytes)
+    return out
+
+
+def top2_gap_last(x: torch.Tensor) -> torch.Tensor:
+    top2 = x.topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def compare_mean(label: str, acc_k, div_k, acc_p, div_p, crop) -> dict:
+    """Accumulators of kernel and plain version on the same logits, then
+    stitch_finalize of each."""
+    rel = ((acc_k - acc_p).abs() / acc_p.abs().clamp_min(1e-30)).max().item()
+    rel_div = ((div_k - div_p).abs() / div_p.abs().clamp_min(1e-30)).max().item()
+    check(rel <= ACC_REL_TOL and rel_div <= ACC_REL_TOL,
+          f"accumulate_probs {label}: acc relative diff {rel:.2e}, div {rel_div:.2e} "
+          f"<= {ACC_REL_TOL}")
+    fin_k = st.stitch_finalize_mean(acc_k, div_k, crop)
+    fin_p = st.stitch_finalize_mean_plain(acc_p, div_p, crop)
+    oy, ox, h, w = crop
+    mean = acc_p[oy:oy + h, ox:ox + w] / div_p[oy:oy + h, ox:ox + w].clamp_min(1e-8)[..., None]
+    off = fin_k[0] != fin_p[0]
+    worst = top2_gap_last(mean)[off].max().item() if off.any() else 0.0
+    dprob = (fin_k[1].int() - fin_p[1].int()).abs().max().item()
+    torch.cuda.synchronize()
+    check(worst < MEAN_GAP_TOL, f"accumulate_probs + stitch_finalize {label}: {int(off.sum())} "
+          f"class mismatches, largest top-2 gap of the mean there {worst:.2e} < {MEAN_GAP_TOL}")
+    check(dprob <= 1, f"accumulate_probs + stitch_finalize {label}: prob |diff| {dprob} <= 1")
+    return {"acc_rel": rel, "mismatches": int(off.sum()),
+            "max_abs_err": (acc_k - acc_p).abs().max().item()}
+
+
+def compare_best(label: str, bp_k, bc_k, bp_p, bc_p, crop) -> dict:
+    """merge_max planes of kernel and plain version on the same logits."""
+    oy, ox, h, w = crop
+    fin_k = st.stitch_finalize_max(bp_k, bc_k, crop)
+    fin_p = st.stitch_finalize_max_plain(bp_p, bc_p, crop)
+    off = fin_k[0] != fin_p[0]
+    agree = 1.0 - off.float().mean().item()
+    pk, pp = bp_k[oy:oy + h, ox:ox + w][off], bp_p[oy:oy + h, ox:ox + w][off]
+    worst = ((pk - pp).abs() / pp).max().item() if off.any() else 0.0
+    dprob = (fin_k[1].int() - fin_p[1].int()).abs().max().item()
+    torch.cuda.synchronize()
+    check(agree >= 0.999, f"merge_max {label}: class agreement {agree:.6f} >= 0.999")
+    check(worst <= ACC_REL_TOL, f"merge_max {label}: {int(off.sum())} class mismatches, each "
+          f"where two tiles tie (best prob relative diff there {worst:.2e} <= {ACC_REL_TOL})")
+    check(dprob <= 1, f"merge_max {label}: prob |diff| {dprob} <= 1")
+    return {"agree": agree, "mismatches": int(off.sum()), "max_abs_err": dprob}
+
+
+def stitch_batches(height: int, width: int, size: int, stride: int, batch: int):
+    """Padded origins, valid flags and footprints of a zone's batches, as
+    DeviceZoneRunner.run forms them, with the padded planes' shape and crop."""
+    margin = M
+    tiles = slice_grid(width, height, size, margin, stride).tiles
+    n = len(tiles)
+    all_tiles = tiles + [tiles[-1]] * ((-n) % batch)
+    org = np.array([(t.row0 + margin, t.col0 + margin) for t in all_tiles], np.int32)
+    val = np.array([1.0] * n + [0.0] * (len(all_tiles) - n), np.float32)
+    hp = height + margin + max(margin, size - height - margin)
+    wp = width + margin + max(margin, size - width - margin)
+    batches = [(torch.from_numpy(o).to("cuda"), torch.from_numpy(v).to("cuda"),
+                st.footprint(o, v, size))
+               for o, v in zip(org.reshape(-1, batch, 2), val.reshape(-1, batch))]
+    return batches, (hp, wp), (margin, margin, height, width)
+
+
+def check_stitch(timed: bool = False) -> dict:
+    """accumulate_probs, merge_max and stitch_finalize against their plain
+    versions on the same random logits: one main-path batch of the 4096²
+    zone at stride 256 (128 full 512 tiles), and every batch of a 1000 x
+    1100 zone at batch 8, whose last tiles realign and whose last batch has
+    padding duplicates."""
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    w = torch.from_numpy(patch_weights(S).astype(np.float32)).to("cuda")
+    out = {}
+    for label, (height, width, batch) in (("4096x4096 zone, first batch", (ZONE, ZONE, BATCH)),
+                                          ("1000x1100 zone, every batch", (1000, 1100, 8))):
+        batches, hw, crop = stitch_batches(height, width, S, S - 2 * M, batch)
+        if batch == BATCH:
+            batches = batches[:1]
+        logits = [torch.randn((batch, S, S, K), generator=gen, device="cuda") * 3
+                  for _ in batches]
+        for lg, (_, val, _) in zip(logits, batches):  # duplicates repeat the last tile
+            n_real = int(val.count_nonzero())
+            lg[n_real:] = lg[n_real - 1]
+        for weights in (w, None):
+            planes = [torch.zeros((*hw, K), device="cuda"), torch.zeros(hw, device="cuda")]
+            planes_p = [torch.zeros_like(a) for a in planes]
+            for lg, (org, val, fp) in zip(logits, batches):
+                st.accumulate_probs(lg, org, val, weights, *planes, fp)
+                st.accumulate_probs_plain(lg, org, val, weights, *planes_p)
+            name = f"{label}, {'average_weights' if weights is not None else 'average'}"
+            res = compare_mean(name, *planes, *planes_p, crop)
+            fin_k = st.stitch_finalize_mean(*planes_p, crop)
+            fin_p = st.stitch_finalize_mean_plain(*planes_p, crop)
+            torch.cuda.synchronize()
+            check(torch.equal(fin_k, fin_p), f"stitch_finalize mean {name}: exactly equal "
+                  "on the same planes")
+            out.setdefault("accumulate", []).append(res)
+        best = [torch.zeros(hw, device="cuda"), torch.zeros(hw, dtype=torch.uint8, device="cuda")]
+        best_p = [torch.zeros_like(a) for a in best]
+        for lg, (org, val, fp) in zip(logits, batches):
+            st.merge_max(lg, org, val, *best, fp)
+            st.merge_max_plain(lg, org, *best_p)
+        out.setdefault("merge", []).append(compare_best(label, *best, *best_p, crop))
+        fin_k = st.stitch_finalize_max(*best_p, crop)
+        torch.cuda.synchronize()
+        check(torch.equal(fin_k, st.stitch_finalize_max_plain(*best_p, crop)),
+              f"stitch_finalize max {label}: exactly equal on the same planes")
+        if timed and batch == BATCH:
+            out["timed"] = time_stitch(logits[0], batches[0], w, planes, best, crop)
+    return out
+
+
+def time_stitch(logits, batch, w, planes, best, crop) -> dict:
+    """Times of the three kernels and their plain versions at the main path's
+    shapes, with their bounds: each input read once, each output written
+    once (the accumulators over the batch's footprint both)."""
+    org, val, fp = batch
+    n_valid = int(val.count_nonzero())
+    B, S_, _, K_ = logits.shape
+    px = n_valid * S_ * S_  # (tile, pixel) pairs the batch adds
+    fh, fw = fp[2], fp[3]
+    oy, ox, h, w_ = crop
+    rows = {}
+    rows["accumulate_probs"] = dict(
+        ms=cuda_ms(lambda: st.accumulate_probs(logits, org, val, w, *planes, fp), 10, 2),
+        plain_ms=cuda_ms(lambda: st.accumulate_probs_plain(logits, org, val, w, *planes), 3, 1),
+        **bound(px * (6 * K_ + 3), px * K_ * 4 + fh * fw * (K_ + 1) * 4 * 2 + S_ * S_ * 4,
+                PEAK_FP32_FLOPS))
+    rows["merge_max"] = dict(
+        ms=cuda_ms(lambda: st.merge_max(logits, org, val, *best, fp), 10, 2),
+        plain_ms=cuda_ms(lambda: st.merge_max_plain(logits, org, *best), 3, 1),
+        **bound(px * (4 * K_ + 2), px * K_ * 4 + fh * fw * 5 * 2, PEAK_FP32_FLOPS))
+    rows["stitch_finalize"] = dict(
+        ms=cuda_ms(lambda: st.stitch_finalize_mean(*planes, crop)),
+        plain_ms=cuda_ms(lambda: st.stitch_finalize_mean_plain(*planes, crop), 5, 1),
+        **bound(h * w_ * (2 * K_ + 2), h * w_ * ((K_ + 1) * 4 + 2), PEAK_FP32_FLOPS))
+    rows["stitch_finalize_max"] = dict(
+        ms=cuda_ms(lambda: st.stitch_finalize_max(*best, crop)),
+        plain_ms=cuda_ms(lambda: st.stitch_finalize_max_plain(*best, crop), 5, 1),
+        **bound(h * w_ * 2, h * w_ * 7, PEAK_FP32_FLOPS))
+    return rows
 
 
 def bound(ops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> dict:
@@ -381,11 +639,18 @@ def check_conv_epilogue(model, x: torch.Tensor, timed: bool = False) -> dict:
     return out
 
 
-def synth_inputs(tmp: Path, zone_hw: int, rng) -> tuple[Path, Path]:
+def synth_inputs(tmp: Path, zone_hw: int, rng) -> tuple[Path, Path, Path]:
+    """The zone at <dpt>/<zone>/zone.tif, a truth raster (classes 1..K) at
+    truth/<dpt>/<zone>/truth.tif, and the weights."""
     img = rng.integers(0, 256, (C, zone_hw, zone_hw), dtype=np.uint8)
-    zone = tmp / "zone.tif"
-    write_array(zone, img, transform=Affine.from_origin(700000.0, 6600000.0, 0.2, 0.2),
-                crs=2154, compress="deflate")
+    transform = Affine.from_origin(700000.0, 6600000.0, 0.2, 0.2)
+    zone = tmp / DPT / ZONE_NAME / "zone.tif"
+    truth = tmp / "truth" / DPT / ZONE_NAME / "truth.tif"
+    zone.parent.mkdir(parents=True)
+    truth.parent.mkdir(parents=True)
+    write_array(zone, img, transform=transform, crs=2154, compress="deflate")
+    write_array(truth, rng.integers(1, K + 1, (zone_hw, zone_hw), dtype=np.uint8),
+                transform=transform, crs=2154, compress="deflate")
     model = FlairSegmentationModel("resnet34", K, C)
     sd = {}
     for key, v in model.state_dict().items():
@@ -403,13 +668,13 @@ def synth_inputs(tmp: Path, zone_hw: int, rng) -> tuple[Path, Path]:
                 (rng.standard_normal(v.shape) * np.sqrt(2.0 / fan_in)).astype(np.float32))
     weights = tmp / "resnet34_unet_19cl.pth"
     torch.save(sd, weights)
-    return zone, weights
+    return zone, truth, weights
 
 
-def detect_config(tmp: Path, zone: Path, weights: Path) -> dict:
+def detect_config(tmp: Path, zone: Path, truth: Path, weights: Path) -> dict:
     return {
         "output_path": str(tmp / "out"), "output_name": "zone-ARGMAX",
-        "input_img_path": str(zone), "channels": [1, 2, 3, 4, 5],
+        "input_img_path": str(zone), "truth_path": str(truth), "channels": [1, 2, 3, 4, 5],
         "img_pixels_detection": S, "margin": M, "output_type": "argmax",
         "n_classes": K, "model_weights": str(weights),
         "model_framework": {"model_provider": "SegmentationModelsPytorch",
@@ -419,26 +684,90 @@ def detect_config(tmp: Path, zone: Path, weights: Path) -> dict:
     }
 
 
+class PlainStitch:
+    """The stitch kernels' plain versions under the wrappers' names and
+    arguments."""
+
+    @staticmethod
+    def accumulate_probs(logits, origins, valid, weights, acc, div, fp):
+        st.accumulate_probs_plain(logits, origins, valid, weights, acc, div)
+
+    @staticmethod
+    def merge_max(logits, origins, valid, best_p, best_c, fp):
+        st.merge_max_plain(logits, origins, best_p, best_c)
+
+    stitch_finalize_mean = staticmethod(st.stitch_finalize_mean_plain)
+    stitch_finalize_max = staticmethod(st.stitch_finalize_max_plain)
+
+
 class PlainRunner(DeviceZoneRunner):
-    """The zone program with the three kernels' plain versions, on the same
+    """The zone programs with every kernel's plain version, on the same
     card."""
 
-    def _forward_tiles(self, zone_p, origins, planes, windows):
+    stitch_ops = PlainStitch
+
+    def _tail_input(self, zone_p, origins, margin):
         x = ga.gather_normalize_plain(zone_p, origins, self.size,
                                       out_dtype=self.model.dtype, **self.norm)
-        x3 = self.model.tail_input(x, self.margin, epilogue=ep.conv_epilogue_plain)
-        ft.fused_tail_plain(x3, self.tail, self.geometry, planes, windows)
+        return self.model.tail_input(x, margin, epilogue=ep.conv_epilogue_plain)
+
+    def _forward_tiles(self, zone_p, origins, planes, windows):
+        ft.fused_tail_plain(self._tail_input(zone_p, origins, self.margin), self.tail,
+                            self.geometry, planes, windows)
+
+    def _forward_probs(self, zone_p, origins, plane, windows):
+        ft.fused_tail_probs_plain(self._tail_input(zone_p, origins, self.margin), self.tail,
+                                  self.geometry, plane, windows)
+
+    def _forward_logits(self, zone_p, origins, out):
+        return ft.fused_tail_logits_plain(self._tail_input(zone_p, origins, 0), self.tail,
+                                          self.full_geometry)
 
 
-def run_plain(cfg: dict) -> dict:
-    cfg = eng.setup_out_path(dict(cfg))
+def run_plain(cfg: dict, method: str = "exact-clipping", stride: int | None = None,
+              staged: dict | None = None) -> dict:
+    """One zone run of ``cfg`` through PlainRunner (stride: the tile interior
+    by default)."""
+    cfg = eng.setup_out_path(dict(cfg, compare=False))
     device = eng.resolve_device(cfg)
     model, tail = eng.prepare_model(cfg, device)
+    size, margin = cfg["img_pixels_detection"], cfg["margin"]
+    stride = stride or size - 2 * margin
     with TiffReader(cfg["input_img_path"]) as reader:
-        grid = slice_grid(reader.width, reader.height, S, M, S - 2 * M,
+        grid = slice_grid(reader.width, reader.height, size, margin, stride,
                           reader.transform, reader.crs)
-    return PlainRunner(cfg, model, tail).run(grid, "exact-clipping",
-                                             eng.stage_zone(cfg, device))
+    return PlainRunner(cfg, model, tail).run(grid, method,
+                                             staged or eng.stage_zone(cfg, device))
+
+
+def reset_launches() -> None:
+    ft.launches = ft.probs_launches = ft.logits_launches = ga.launches = ep.launches = 0
+    for name in st.launches:
+        st.launches[name] = 0
+
+
+def read_launches() -> dict:
+    return {"fused_tail": ft.launches, "fused_tail_probs": ft.probs_launches,
+            "fused_tail_logits": ft.logits_launches, "gather_normalize": ga.launches,
+            "conv_epilogue": ep.launches, **st.launches}
+
+
+def expected_launches(method: str, output_type: str, n_batches: int) -> dict:
+    """Each kernel's launches for one zone run of ``n_batches`` batches."""
+    out = dict.fromkeys(read_launches(), 0)
+    out.update(gather_normalize=n_batches, conv_epilogue=EPILOGUE_SITES * n_batches)
+    if output_type == "class_prob":
+        out["fused_tail_probs"] = n_batches
+    elif method == "exact-clipping":
+        out["fused_tail"] = n_batches
+    else:
+        out.update(fused_tail_logits=n_batches, stitch_finalize=1)
+        out["merge_max" if method == "max" else "accumulate_probs"] = n_batches
+    return out
+
+
+def check_launches(label: str, got: dict, want: dict) -> None:
+    check(got == want, f"{label}: launches {got} == expected {want}")
 
 
 def run_main_path(cfg: dict, conf: Path, zone_hw: int, card: str) -> dict:
@@ -447,16 +776,14 @@ def run_main_path(cfg: dict, conf: Path, zone_hw: int, card: str) -> dict:
     print(f"  plain-version run: compute {plain['compute_seconds']:.4f} s, "
           f"{plain['patches_per_sec']:.2f} patches/s", flush=True)
 
-    ft.launches = ga.launches = ep.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     stats = cli.detect_main([f"--conf={conf}"])
     wall = time.perf_counter() - t0
-    launches = {"fused_tail": ft.launches, "gather_normalize": ga.launches,
-                "conv_epilogue": ep.launches}
+    launches = read_launches()
 
     n_batches = -(-len(slice_grid(zone_hw, zone_hw, S, M).tiles) // BATCH)
-    expected = {"fused_tail": n_batches, "gather_normalize": n_batches,
-                "conv_epilogue": EPILOGUE_SITES * n_batches}
+    expected = expected_launches("exact-clipping", "argmax", n_batches)
     out = Path(cfg["output_path"]) / "zone-ARGMAX.tif"
     with TiffReader(cfg["input_img_path"]) as src, TiffReader(out) as r:
         check((r.width, r.height, r.count) == (zone_hw, zone_hw, 2),
@@ -466,9 +793,7 @@ def run_main_path(cfg: dict, conf: Path, zone_hw: int, card: str) -> dict:
         cls, prob = r.read(1), r.read(2)
     check(bool((prob > 0).all()), "every pixel written (prob > 0)")
     check(int(cls.max()) < K, f"classes in [0, {K})")
-    for name, n in launches.items():
-        check(n == expected[name], f"{name} launched {n} times for {n_batches} batches "
-              f"({expected[name]} expected)")
+    check_launches(f"main path, {n_batches} batches", launches, expected)
     print(f"  main path on {card}: {stats['tiles']} tiles, read {stats['read_seconds']:.4f} s, "
           f"h2d {stats['h2d_seconds']:.4f} s, compute {stats['compute_seconds']:.4f} s, "
           f"d2h {stats['d2h_seconds']:.4f} s, {stats['patches_per_sec']:.2f} patches/s, "
@@ -478,15 +803,129 @@ def run_main_path(cfg: dict, conf: Path, zone_hw: int, card: str) -> dict:
     dprob = int(np.abs(plain["prob"].astype(int) - prob.astype(int)).max())
     check(agree >= 0.999, f"main path vs plain versions: class agreement {agree:.6f} >= 0.999")
     check(dprob <= 1, f"main path vs plain versions: prob |diff| {dprob} <= 1")
+    stats = {k: v for k, v in stats.items() if k != "patch_times_ms"}
     return {"stats": stats, "launches": launches, "plain_compute_seconds":
             plain["compute_seconds"], "agree_plain": agree, "prob_diff_plain": dprob}
+
+
+def write_conf(cfg: dict, name: str) -> Path:
+    conf = Path(cfg["output_path"]).parent / f"{name}.yaml"
+    conf.write_text(yaml.safe_dump(cfg))
+    return conf
+
+
+def run_class_prob(cfg: dict, zone_hw: int) -> dict:
+    """``output_type: class_prob`` through detect_main, against the all-plain
+    run: a K-band raster, every band within 1."""
+    cp = dict(cfg, output_type="class_prob", output_name="zone-PROBS",
+              output_path=str(Path(cfg["output_path"]).parent / "out_class_prob"))
+    conf = write_conf(cp, "class_prob")
+    reset_launches()
+    stats = cli.detect_main([f"--conf={conf}"])
+    launches = read_launches()
+    n_batches = -(-len(slice_grid(zone_hw, zone_hw, S, M).tiles) // BATCH)
+    check_launches(f"class_prob, {n_batches} batches", launches,
+                   expected_launches("exact-clipping", "class_prob", n_batches))
+    with TiffReader(cp["input_img_path"]) as src, TiffReader(
+            Path(cp["output_path"]) / "zone-PROBS.tif") as r:
+        check((r.width, r.height, r.count) == (zone_hw, zone_hw, K),
+              f"class_prob raster {r.width}x{r.height}x{r.count}")
+        check(r.transform == src.transform and r.crs == src.crs,
+              f"class_prob georeferencing kept (crs {r.crs})")
+        probs = r.read()
+    plain = run_plain(cp)["probs"]
+    dprob = int(np.abs(plain.astype(np.int16) - probs.astype(np.int16)).max())
+    same = float((plain == probs).mean())
+    check(dprob <= 1, f"class_prob vs plain versions: every band |diff| {dprob} <= 1 "
+          f"({same:.6f} of bytes equal)")
+    print(f"  class_prob: {stats['tiles']} tiles, h2d {stats['h2d_seconds']:.4f} s, compute "
+          f"{stats['compute_seconds']:.4f} s, d2h {stats['d2h_seconds']:.4f} s, "
+          f"{stats['patches_per_sec']:.2f} patches/s", flush=True)
+    stats = {k: v for k, v in stats.items() if k != "patch_times_ms"}
+    return {"stats": stats, "launches": launches, "max_abs_err": dprob}
+
+
+def sweep_config(cfg: dict) -> dict:
+    """The main zone under the compare config's strategies, batch size,
+    normalization and classes."""
+    ref = yaml.safe_load(COMPARE_CONFIG.read_text())
+    keep = ("strategies", "overlap_strat", "batch_size", "norma_task", "classes",
+            "img_pixels_detection", "margin")
+    return dict(cfg, output_name="zone-ARGMAX-S",
+                output_path=str(Path(cfg["output_path"]).parent / "out_sweep"),
+                **{k: ref[k] for k in keep})
+
+
+def run_sweep(cfg: dict, zone_hw: int) -> dict:
+    """``detect_main -c -m`` over the compare config's 12 combinations:
+    rasters, metrics JSON, launches per run, and the size-512 runs against
+    the all-plain runs."""
+    sw = sweep_config(cfg)
+    conf = write_conf(sw, "sweep")
+    per_run: dict[str, dict] = {}
+    run_single = eng.run_single
+
+    def counted(config, model, tail, device, stride, method, identifier="", staged=None):
+        reset_launches()
+        out = run_single(config, model, tail, device, stride, method, identifier, staged)
+        per_run[identifier[1:]] = read_launches()
+        return out
+
+    eng.run_single = counted
+    try:
+        results = cli.detect_main([f"--conf={conf}", "-c", "-m"])
+    finally:
+        eng.run_single = run_single
+    combos = [(c["img_pixels_detection"], c["margin"], c["stride"], c["stitching"])
+              for c in gen_param_combination(validate_detect_config(dict(sw, compare=True)))]
+    check(len(combos) == 12, f"compare sweep: {len(combos)} combinations (12 expected)")
+    stamped = [p for p in Path(sw["output_path"]).iterdir() if p.is_dir()]
+    check(len(stamped) == 1, "compare sweep: one timestamped output directory")
+    names = {f"zone-ARGMAX-S_{method_string(sz, sd, mg, 'no-padding', m)}.tif"
+             for sz, mg, sd, m in combos}
+    check({p.name for p in stamped[0].glob("*.tif")} == names,
+          f"compare sweep: the {len(names)} rasters named by method string")
+    metrics = list(stamped[0].glob("metrics_per-patch_*.json"))
+    check([p.name for p in metrics] == [f"metrics_per-patch_{DPT}_{ZONE_NAME}.json"],
+          "compare sweep: one per-patch metrics JSON")
+    recs = json.loads(metrics[0].read_text())
+    keys = ["Avg_metrics_name", "Avg_metrics", "classes", "per_class_iou", "per_class_fscore"]
+    check(bool(recs) and all(len(r) == 1 and list(next(iter(r.values()))) == keys
+                             and len(next(iter(r.values()))["classes"]) == K for r in recs),
+          f"compare sweep: {len(recs)} per-patch records of the reference's shape")
+    for sz, mg, sd, m in combos:
+        method = method_string(sz, sd, mg, "no-padding", m)
+        n_batches = -(-len(slice_grid(zone_hw, zone_hw, sz, mg, sd).tiles) // sw["batch_size"])
+        check_launches(f"compare sweep {method}", per_run[method],
+                       expected_launches(m, "argmax", n_batches))
+        st_ = results[method]
+        print(f"  {method}: {st_['tiles']} tiles, compute {st_['compute_seconds']:.4f} s, "
+              f"{st_['patches_per_sec']:.2f} patches/s", flush=True)
+
+    device = eng.resolve_device(sw)
+    staged = eng.stage_zone(sw, device)
+    for sz, mg, sd, m in combos:
+        if sz != S:
+            continue
+        method = method_string(sz, sd, mg, "no-padding", m)
+        plain = run_plain(dict(sw, img_pixels_detection=sz, margin=mg), m, sd, staged)
+        with TiffReader(stamped[0] / f"zone-ARGMAX-S_{method}.tif") as r:
+            cls, prob = r.read(1), r.read(2)
+        agree = float((plain["cls"] == cls).mean())
+        dprob = int(np.abs(plain["prob"].astype(int) - prob.astype(int)).max())
+        check(agree >= 0.999, f"{method} vs plain versions: class agreement {agree:.6f} >= 0.999")
+        check(dprob <= 1, f"{method} vs plain versions: prob |diff| {dprob} <= 1")
+    return {"results": {k: {f: v[f] for f in ("tiles", "compute_seconds", "patches_per_sec")}
+                        for k, v in results.items()}, "launches": per_run}
 
 
 def stage_breakdown(cfg: dict, zone_hw: int, rng, epi: dict) -> dict:
     """Device time of each stage of one main-path batch (CUDA events), and the
     profiler's kernel table for one batch. The encoder and decoder stages are
     split into their conv_epilogue launches (``epi``: phase 2's per-site
-    times, summed) and the rest (convolutions, max-pool, upsample, concat)."""
+    times, summed) and the rest (convolutions, max-pool, upsample, concat).
+    Also the same batch through the class_prob program, and through the
+    whole-tile decode of the average_weights and max programs."""
     device = eng.resolve_device(cfg)
     model, tail = eng.prepare_model(cfg, device)
     runner = DeviceZoneRunner(cfg, model, tail)
@@ -501,6 +940,18 @@ def stage_breakdown(cfg: dict, zone_hw: int, rng, epi: dict) -> dict:
     x = ga.gather_normalize(zone, org, S, out_dtype=model.dtype, **runner.norm)
     feats = model.features(x)
     x3 = model.tail_input(x, M)
+    # the class_prob plane and the average / max planes of the same zone
+    plane = torch.zeros((zone_hw, zone_hw, K), dtype=torch.uint8, device=device)
+    hp = zone_hw + 2 * M
+    acc = torch.zeros((hp, hp, K), device=device)
+    div = torch.zeros((hp, hp), device=device)
+    best_p = torch.zeros((hp, hp), device=device)
+    best_c = torch.zeros((hp, hp), dtype=torch.uint8, device=device)
+    val = torch.ones(BATCH, device=device)
+    fp = st.footprint(org.cpu().numpy(), np.ones(BATCH), S)
+    w = torch.from_numpy(patch_weights(S).astype(np.float32)).to(device)
+    logits = runner._forward_logits(zone, org, None)
+    x3_full = model.tail_input(x, 0)
 
     stages = {
         "gather_normalize": lambda: ga.gather_normalize(zone, org, S, out_dtype=model.dtype,
@@ -509,6 +960,14 @@ def stage_breakdown(cfg: dict, zone_hw: int, rng, epi: dict) -> dict:
         "decoder_blocks_0_3": lambda: model.decoder.inner(feats, M, 4),
         "fused_tail": lambda: ft.fused_tail(x3, tail, runner.geometry, planes, win),
         "whole_batch": lambda: runner._forward_tiles(zone, org, planes, win),
+        "whole_batch_class_prob": lambda: runner._forward_probs(zone, org, plane, win),
+        "decoder_blocks_0_3_full_tile": lambda: model.decoder.inner(feats, 0, 4),
+        "fused_tail_logits": lambda: ft.fused_tail_logits(x3_full, tail, runner.full_geometry,
+                                                          logits),
+        "whole_batch_average_weights": lambda: st.accumulate_probs(
+            runner._forward_logits(zone, org, logits), org, val, w, acc, div, fp),
+        "whole_batch_max": lambda: st.merge_max(
+            runner._forward_logits(zone, org, logits), org, val, best_p, best_c, fp),
     }
     ms = {name: cuda_ms(fn, reps=5, warmup=1) for name, fn in stages.items()}
     ms["encoder_epilogues"] = epi["encoder_ms"]
@@ -548,8 +1007,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        zone, weights = synth_inputs(tmp, ZONE, rng)
-        cfg = detect_config(tmp, zone, weights)
+        zone, truth, weights = synth_inputs(tmp, ZONE, rng)
+        cfg = detect_config(tmp, zone, truth, weights)
         conf = tmp / "detect.yaml"
         conf.write_text(yaml.safe_dump(cfg))
         print(f"    synthesized a {ZONE}x{ZONE}x{C} zone and resnet34-unet weights in "
@@ -570,6 +1029,16 @@ def main() -> int:
             epi = check_conv_epilogue(model, x, timed=True)
             del model, x
             torch.cuda.empty_cache()
+            probs = check_tail_probs(rng, S, M, BATCH, K, timed=True)
+            for size, margin, k in ((64, 16, K), (32, 1, 4), (96, 8, 32)):
+                check_tail_probs(rng, size, margin, 4, k)
+            check_tail_probs_planes(rng, 1000, 1100, 8)
+            logits = check_tail_logits(rng, S, BATCH, K, timed=True)
+            for size, k in ((64, K), (96, 32)):
+                check_tail_logits(rng, size, 4, k)
+            torch.cuda.empty_cache()
+            stitch = check_stitch(timed=True)
+            torch.cuda.empty_cache()
         print(f"    fused_tail: {tail['ms']:.4f} ms, plain {tail['plain_ms']:.4f} ms, "
               f"bound {tail['bound_ms']:.4f} ms ({tail['bound_by']})", flush=True)
         print(f"    gather_normalize: {gather['ms']:.4f} ms, plain {gather['plain_ms']:.4f} ms, "
@@ -584,9 +1053,15 @@ def main() -> int:
               f"(encoder {epi['encoder_ms']:.4f}, decoder blocks 0-3 {epi['decoder_ms']:.4f}), "
               f"plain {epi['plain_ms']:.4f} ms, bound {epi['bound_ms']:.4f} ms "
               f"({epi['bytes'] / 1e9:.2f} GB, {epi['bound_by']})", flush=True)
+        for name, r in (("fused_tail probs", probs), ("fused_tail logits", logits),
+                        *stitch["timed"].items()):
+            print(f"    {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
 
         print("[3] main path: flair-detect on the card", flush=True)
         main_path = run_main_path(cfg, conf, ZONE, card)
+        class_prob = run_class_prob(cfg, ZONE)
+        sweep = run_sweep(cfg, ZONE)
         if args.profile:
             with torch.inference_mode():
                 prof = stage_breakdown(cfg, ZONE, rng, epi)
@@ -594,6 +1069,27 @@ def main() -> int:
             print(json.dumps({"stage_ms": prof["stage_ms"], "card": card}), flush=True)
 
     src = "flairtpu_torch/csrc"
+    timed = stitch["timed"]
+
+    def numbers(r: dict) -> dict:
+        return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
+    def sweep_launches(name: str) -> int:
+        return sum(run[name] for run in sweep["launches"].values())
+
+    # fused_tail: the argmax mode's numbers on the main path, and each mode's
+    # (launches counted on the run of its own path: class_prob, the sweep)
+    modes = [
+        {"mode": "argmax", "launches": main_path["launches"]["fused_tail"],
+         "max_abs_err": tail["max_abs_err"], **numbers(tail), "library_ms": tail["library_ms"]},
+        {"mode": "probs", "replaces": "flairtpu/zone/device_engine.py:176-185",
+         "launches": class_prob["launches"]["fused_tail_probs"],
+         "max_abs_err": probs["max_abs_err"], **numbers(probs),
+         "library_ms": probs["library_ms"]},
+        {"mode": "logits", "replaces": "flairtpu/zone/device_engine.py:206, :519",
+         "launches": sweep_launches("fused_tail_logits"), "max_abs_err": logits["max_abs_err"],
+         **numbers(logits), "library_ms": logits["library_ms"]},
+    ]
     kernels = [
         {"name": "fused_tail", "route": "cuda", "source": f"{src}/fused_tail.cu",
          "replaces": "benchmarks/pallas_fused_tail.py:229 and the plane writes "
@@ -601,7 +1097,7 @@ def main() -> int:
          "launches": main_path["launches"]["fused_tail"],
          "max_abs_err": tail["max_abs_err"], "ms": tail["ms"],
          "plain_ms": tail["plain_ms"], "bound_ms": tail["bound_ms"],
-         "bound_by": tail["bound_by"], "library_ms": tail["library_ms"]},
+         "bound_by": tail["bound_by"], "library_ms": tail["library_ms"], "modes": modes},
         {"name": "gather_normalize", "route": "cuda", "source": f"{src}/gather_normalize.cu",
          "replaces": "flairtpu/zone/device_engine.py:124",
          "launches": main_path["launches"]["gather_normalize"],
@@ -615,8 +1111,26 @@ def main() -> int:
          "launches": main_path["launches"]["conv_epilogue"],
          "max_abs_err": epi["max_abs_err"], "ms": epi["ms"], "plain_ms": epi["plain_ms"],
          "bound_ms": epi["bound_ms"], "bound_by": epi["bound_by"], "library_ms": None},
+        {"name": "accumulate_probs", "route": "cuda", "source": f"{src}/accumulate_probs.cu",
+         "replaces": "flairtpu/ops/fused.py:56-76 with flairtpu/zone/device_engine.py:203-211",
+         "launches": sweep_launches("accumulate_probs"),
+         "max_abs_err": max(r["max_abs_err"] for r in stitch["accumulate"]),
+         **numbers(timed["accumulate_probs"]), "library_ms": None},
+        {"name": "merge_max", "route": "cuda", "source": f"{src}/merge_max.cu",
+         "replaces": "flairtpu/zone/device_engine.py:517-534",
+         "launches": sweep_launches("merge_max"),
+         "max_abs_err": max(r["max_abs_err"] for r in stitch["merge"]),
+         **numbers(timed["merge_max"]), "library_ms": None},
+        # the mean mode's numbers (the max mode: stitch_finalize_max in the timings line)
+        {"name": "stitch_finalize", "route": "cuda", "source": f"{src}/stitch_finalize.cu",
+         "replaces": "flairtpu/zone/device_engine.py:216-220, :539, :728-729, :742-743",
+         "launches": sweep_launches("stitch_finalize"), "max_abs_err": 0,
+         **numbers(timed["stitch_finalize"]), "library_ms": None},
     ]
     print(json.dumps({"main_path": main_path["stats"], "card": card}))
+    print(json.dumps({"class_prob": class_prob["stats"], "card": card}))
+    print(json.dumps({"compare_sweep": sweep["results"], "card": card}))
+    print(json.dumps({"stitch_timings": timed, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,8 +1,10 @@
 """Console entry (counterpart of ``flairtpu/cli.py:111-158``).
 
-``python -m flairtpu_torch.cli flair-detect --conf=<yaml>`` reads the same
-YAML as ``python -m flairtpu.cli flair-detect`` and writes the same 2-band
-LZW GeoTIFF. ``flair`` (train / predict / metrics) is not ported yet.
+``python -m flairtpu_torch.cli flair-detect --conf=<yaml> [-c] [-m]`` reads
+the same YAML as ``python -m flairtpu.cli flair-detect`` and writes the same
+LZW GeoTIFFs (2 bands for argmax, K for class_prob); ``-c`` runs the compare
+sweep and ``-m`` adds its per-patch metrics. ``-b`` (batch mode) and
+``flair`` (train / predict / metrics) are not ported yet.
 """
 
 from __future__ import annotations

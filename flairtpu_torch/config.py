@@ -1,5 +1,5 @@
-"""YAML config loading and flair-detect validation
-(counterpart of ``flairtpu/config.py:26-33, 259-375``).
+"""YAML config loading, flair-detect validation and the compare sweep's
+combinations (counterpart of ``flairtpu/config.py:26-58, 259-424``).
 
 Same YAML surface and the same checks as the reference package. What this
 port does not run yet raises ``NotImplementedError`` naming the slice of the
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
+from typing import Any
 
 import yaml
 
@@ -33,10 +34,28 @@ def _require(cfg: dict, key: str, ctx: str = "config"):
     return cfg[key]
 
 
+def _coerce_list(value: Any, expected_type: type) -> list:
+    """Coerce scalars to single-element lists; filter/validate element types.
+
+    Mirrors ``check_list_type`` semantics (reference zone_detect/utils.py:97-107).
+    """
+    if isinstance(value, expected_type):
+        value = [value]
+    elif value is None:
+        value = []
+    elif hasattr(value, "__iter__"):
+        value = [expected_type(v) if isinstance(v, (int, float)) else v for v in value]
+    for v in value:
+        if not isinstance(v, expected_type):
+            raise ConfigError(f"List element {v!r} is not of type {expected_type.__name__}.")
+    return value
+
+
 # encoders of the resnet family the port's models/resnet.py builds
 RESNET_ENCODERS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")
 
 _OUTPUT_TYPES = ("class_prob", "argmax")
+_STITCH_METHODS = ("exact-clipping", "average", "average_weights", "max")
 
 
 def not_ported(what: str, where: str) -> NotImplementedError:
@@ -84,9 +103,7 @@ def validate_detect_config(cfg: dict) -> dict:
     cfg.setdefault("num_worker", 2)
     cfg.setdefault("batch_size", 4)
 
-    for knob, where in (("compare", "slice 2: compare sweep"),
-                        ("batch_mode", "slice 2: batch mode"),
-                        ("metrics", "slice 2: zone metrics"),
+    for knob, where in (("batch_mode", "slice 2: batch mode"),
                         ("bn_fold", "slice 3: bn_fold"),
                         ("quantize", "slice 3: int8")):
         if cfg.get(knob):
@@ -96,6 +113,12 @@ def validate_detect_config(cfg: dict) -> dict:
     in_path = _require(cfg, "input_img_path")
     if not os.path.exists(in_path):
         raise ConfigError(f"Input image path does not exist: {in_path}")
+
+    if cfg["metrics"]:
+        cfg["metrics_out"] = str(Path(cfg["output_path"]) / "metrics.json")
+        truth = _require(cfg, "truth_path")
+        if not os.path.exists(truth):
+            raise ConfigError(f"Ground truth path does not exist: {truth}")
 
     channels = _require(cfg, "channels")
     if not (isinstance(channels, list) and all(isinstance(c, int) for c in channels)):
@@ -111,8 +134,6 @@ def validate_detect_config(cfg: dict) -> dict:
     output_type = _require(cfg, "output_type")
     if output_type not in _OUTPUT_TYPES:
         raise ConfigError("Invalid output type: should be argmax or class_prob.")
-    if output_type == "class_prob":
-        raise not_ported("output_type class_prob", "slice 2")
     if not isinstance(_require(cfg, "n_classes"), int):
         raise ConfigError("n_classes should be an integer.")
 
@@ -131,4 +152,64 @@ def validate_detect_config(cfg: dict) -> dict:
     if ext not in (".pth", ".pt", ".ckpt"):
         raise ConfigError(
             f"Model weights should be a .pth/.pt/.ckpt (torch) file. Got {ext!r}")
+
+    if cfg["compare"]:
+        strat = _require(cfg, "strategies")
+        tiling = strat.setdefault("tiling", {})
+        tiling["size_range"] = _coerce_list(tiling.get("size_range"), int)
+        tiling["stride_range"] = _coerce_list(tiling.get("stride_range"), float)
+        if not all(0 <= s <= 1 for s in tiling["stride_range"]):
+            raise ConfigError("Stride should be a percentage in [0, 1].")
+        stitching = strat.setdefault("stitching", {})
+        stitching["methods"] = _coerce_list(
+            stitching.get("methods", stitching.get("method")), str)
+        for m in stitching["methods"]:
+            if m not in _STITCH_METHODS:
+                raise ConfigError(f"Unknown stitching method {m!r}; valid: {_STITCH_METHODS}.")
+        stitching["margin"] = _coerce_list(stitching.get("margin"), float)
+        if not all(0 <= m <= 1 for m in stitching["margin"]):
+            raise ConfigError("Margin should be a percentage in [0, 1].")
     return cfg
+
+
+def gen_param_combination(cfg: dict) -> list[dict]:
+    """Cross-product of compare-mode strategies (reference zone_detect/utils.py:110-167).
+
+    padding x tile sizes x margins (fractional margins resolved against the tile
+    size) x strides x stitching methods; combos with size <= 2*margin are skipped.
+    """
+    from flairtpu_torch.zone.grid import get_stride
+
+    strat = cfg.get("strategies") or {}
+    padding_list = strat.get("padding_overall") or ["no-padding"]
+    if isinstance(padding_list, str):
+        padding_list = [padding_list]
+
+    tiling = strat.get("tiling") or {}
+    sizes = tiling.get("size_range") if tiling.get("enabled") else None
+    sizes = sizes or [cfg["img_pixels_detection"]]
+
+    stitching = strat.get("stitching") or {}
+    if stitching.get("enabled"):
+        margins = stitching.get("margin") or [cfg["margin"]]
+        methods = stitching.get("methods") or ["exact-clipping"]
+    else:
+        margins = [cfg["margin"]]
+        methods = ["exact-clipping"]
+
+    combos = []
+    for padding in padding_list:
+        for size in sizes:
+            for margin in margins:
+                if margin < 1:
+                    margin = int(margin * size)
+                if size <= 2 * margin:
+                    print(f"    [x] skipping {size} pixels detection size with {margin} margin...")
+                    continue
+                geometry = dict(cfg, margin=margin, img_pixels_detection=size)
+                for stride in get_stride(geometry):
+                    for stitch in methods:
+                        combos.append({"img_pixels_detection": size, "margin": margin,
+                                       "padding": padding, "stitching": stitch,
+                                       "stride": stride})
+    return combos

@@ -12,11 +12,22 @@
 //     -> conv3x3 32->16, *scale1 + shift1, relu     (BatchNorm as an epilogue)
 //     -> conv3x3 16->16, *scale2 + shift2, relu
 //     -> head conv3x3 16->K, + bias, crop [hc, hc+s)
-//     -> argmax over K (first max wins), round(255 * 1/sum exp(x - max))
+//     -> one of three epilogues (MODE, a template parameter, so that each
+//        mode compiles to its own kernel and the others cost it nothing):
+//        argmax: argmax over K (first max wins) and round(255 * 1/sum
+//          exp(x - max)) into the class and prob planes (uint8);
+//        probs (output_type class_prob, flairtpu/zone/device_engine.py:
+//          164-192): round(255 * exp(x - max) / sum) for every class, K
+//          bytes a pixel, into one (H, W, K) uint8 plane, the sum taken in
+//          ascending class order;
+//        logits (the average and max stitches, device_engine.py:206, :519,
+//          which decode the whole tile: margin 0): the float32 logits, K
+//          floats a pixel, into a (B s, s, K) array.
 //   out: tile b's interior pixel (r, c), for (r, c) in its owned window
-//        [rlo, rhi) x [clo, chi), goes to plane pixel (R0 + r, C0 + c) of
-//        the class and prob planes (uint8). The host computes the windows
-//        so that last-write-wins tile order needs no ordering here.
+//        [rlo, rhi) x [clo, chi), goes to plane pixel (R0 + r, C0 + c). The
+//        host computes the windows so that last-write-wins tile order needs
+//        no ordering here (the logits mode takes windows that hold each
+//        tile whole).
 //
 // The geometry (E3, uc, E4, hc, s) comes from plan_inner_crops(S, m) and K
 // is at most 32, so the kernel serves every resnet*_unet at any tile size
@@ -92,6 +103,8 @@ struct Smem {
 struct Geometry {
   int e3, uc, e4, hc, s, k;
 };
+
+enum Mode { kArgmax = 0, kProbs = 1, kLogits = 2 };
 
 __device__ __forceinline__ int floor_div2(int v) { return v >= 0 ? v / 2 : -((1 - v) / 2); }
 
@@ -169,13 +182,15 @@ __device__ __forceinline__ void block_epilogue(const float (&acc)[2][2][4], int 
   }
 }
 
-template <int NT>
+template <int NT, int MODE>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_tail_kernel(const __nv_bfloat16* __restrict__ x3, const uint4* __restrict__ wpack,
                   const uint4* __restrict__ epi, const int* __restrict__ windows,
-                  uint8_t* __restrict__ cls, uint8_t* __restrict__ prob, int pitch, int n_items,
+                  void* __restrict__ out0, void* __restrict__ out1, int pitch, int n_items,
                   int npx, int ppt, Geometry g) {
   using L = Smem<NT>;
+  uint8_t* cls = static_cast<uint8_t*>(out0);  // argmax: class plane; probs: the K-plane
+  uint8_t* prob = static_cast<uint8_t*>(out1);
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t sbase = smem_addr(smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -368,11 +383,28 @@ fused_tail_kernel(const __nv_bfloat16* __restrict__ x3, const uint4* __restrict_
               const int ch = nt * 8 + 2 * q + e;
               // float32 logits: the head's sum is not rounded to bf16
               v[nt][e] = __fadd_rn(acc[t][nt][2 * hr + e], bias[ch]);
-              if (ch < g.k && v[nt][e] > mx) {
+              if (MODE != kLogits && ch < g.k && v[nt][e] > mx) {
                 mx = v[nt][e];
                 am = ch;
               }
             }
+          }
+          const int m = mp * 32 + t * 16 + gr + 8 * hr;
+          const int r = r0 + m / kTW, c = c0 + m % kTW;
+          const bool owned = r >= rlo && r < rhi && c >= clo && c < chi;
+          const size_t px = (size_t)(R0 + r) * pitch + C0 + c;
+          if constexpr (MODE == kLogits) {
+            if (owned) {
+              float* dst = static_cast<float*>(out0) + px * g.k;
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  if (nt * 8 + 2 * q + e < g.k) dst[nt * 8 + 2 * q + e] = v[nt][e];
+                }
+              }
+            }
+            continue;
           }
           // first maximum over the quad: larger value, or equal value at a lower class
 #pragma unroll
@@ -384,22 +416,54 @@ fused_tail_kernel(const __nv_bfloat16* __restrict__ x3, const uint4* __restrict_
               am = oa;
             }
           }
-          float sum = 0.f;
+          if constexpr (MODE == kArgmax) {
+            float sum = 0.f;
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
+            for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              if (nt * 8 + 2 * q + e < g.k) sum += expf(v[nt][e] - mx);
+              for (int e = 0; e < 2; ++e) {
+                if (nt * 8 + 2 * q + e < g.k) sum += expf(v[nt][e] - mx);
+              }
             }
-          }
-          sum += __shfl_xor_sync(0xffffffffu, sum, 1);  // commutative: the quad agrees
-          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-          const int m = mp * 32 + t * 16 + gr + 8 * hr;
-          const int r = r0 + m / kTW, c = c0 + m % kTW;
-          if (q == hr && r >= rlo && r < rhi && c >= clo && c < chi) {
-            const size_t o = (size_t)(R0 + r) * pitch + C0 + c;
-            cls[o] = (uint8_t)am;
-            prob[o] = (uint8_t)rintf(__fmul_rn(1.0f / sum, 255.0f));
+            sum += __shfl_xor_sync(0xffffffffu, sum, 1);  // commutative: the quad agrees
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            if (q == hr && owned) {
+              cls[px] = (uint8_t)am;
+              prob[px] = (uint8_t)rintf(__fmul_rn(1.0f / sum, 255.0f));
+            }
+          } else {
+            // every lane of the quad gathers the quad's exponentials and sums
+            // them in ascending class order, the plain version's order
+            float ex[NT][2];
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) ex[nt][e] = expf(v[nt][e] - mx);
+            }
+            float sum = 0.f;
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+              for (int qq = 0; qq < 4; ++qq) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const float x = __shfl_sync(0xffffffffu, ex[nt][e], (lane & ~3) | qq);
+                  if (nt * 8 + 2 * qq + e < g.k) sum += x;
+                }
+              }
+            }
+            if (owned) {
+              uint8_t* dst = cls + px * g.k;
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int ch = nt * 8 + 2 * q + e;
+                  if (ch < g.k)
+                    dst[ch] = (uint8_t)rintf(__fmul_rn(__fdiv_rn(ex[nt][e], sum), 255.0f));
+                }
+              }
+            }
           }
         }
       }
@@ -409,29 +473,41 @@ fused_tail_kernel(const __nv_bfloat16* __restrict__ x3, const uint4* __restrict_
   cp_async_wait_all();  // a block with no item still has the weight copies in flight
 }
 
-template <int NT>
+template <int NT, int MODE>
 cudaError_t launch(const void* x3, const void* wpack, const void* epi, const int* windows,
-                   uint8_t* cls, uint8_t* prob, int pitch, int batch, const Geometry& g,
+                   void* out0, void* out1, int pitch, int batch, const Geometry& g,
                    cudaStream_t stream) {
   constexpr int smem = Smem<NT>::total;
-  cudaError_t err = cudaFuncSetAttribute(fused_tail_kernel<NT>,
+  cudaError_t err = cudaFuncSetAttribute(fused_tail_kernel<NT, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_tail_kernel<NT>, kThreads,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_tail_kernel<NT, MODE>,
+                                                      kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int npx = (g.s + kTW - 1) / kTW, npy = (g.s + kTH - 1) / kTH;
   const int n_items = batch * npx * npy;
   const int grid = n_items < sms * per_sm ? n_items : sms * per_sm;
-  fused_tail_kernel<NT><<<grid, kThreads, smem, stream>>>(
+  fused_tail_kernel<NT, MODE><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x3), static_cast<const uint4*>(wpack),
-      static_cast<const uint4*>(epi), windows, cls, prob, pitch, n_items, npx, npx * npy, g);
+      static_cast<const uint4*>(epi), windows, out0, out1, pitch, n_items, npx, npx * npy, g);
   return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_mode(const void* x3, const void* wpack, const void* epi, const int* windows,
+                        void* out0, void* out1, int pitch, int batch, const Geometry& g,
+                        cudaStream_t st) {
+  switch ((g.k + 7) / 8) {
+    case 1: return launch<1, MODE>(x3, wpack, epi, windows, out0, out1, pitch, batch, g, st);
+    case 2: return launch<2, MODE>(x3, wpack, epi, windows, out0, out1, pitch, batch, g, st);
+    case 3: return launch<3, MODE>(x3, wpack, epi, windows, out0, out1, pitch, batch, g, st);
+    default: return launch<4, MODE>(x3, wpack, epi, windows, out0, out1, pitch, batch, g, st);
+  }
 }
 
 }  // namespace
@@ -444,24 +520,27 @@ cudaError_t launch(const void* x3, const void* wpack, const void* epi, const int
 // windows: (batch, 6) int32 (R0, C0, rlo, rhi, clo, chi); tile b's interior
 //   pixel (r, c) with rlo <= r < rhi, clo <= c < chi goes to plane pixel
 //   (R0 + r, C0 + c); the windows must lie in [0, s) and in the planes.
-// cls, prob: uint8 planes with row pitch `pitch`. Geometry from
-// plan_inner_crops; needs uc >= 0, hc >= 0, hc + s <= e4,
-// (uc + e4 - 1) / 2 < e3, 1 <= k <= 32.
+// mode 0 (argmax): out0, out1 the class and prob uint8 planes; mode 1
+//   (probs): out0 a uint8 (H, pitch, k) plane; mode 2 (logits): out0 a
+//   float32 (H, pitch, k) array. `pitch` is the planes' row length in
+//   pixels. Geometry from plan_inner_crops; needs uc >= 0, hc >= 0,
+//   hc + s <= e4, (uc + e4 - 1) / 2 < e3, 1 <= k <= 32.
 // Returns cudaGetLastError() after the launch.
 extern "C" int fused_tail(const void* x3, const void* wpack, const void* epi, const void* windows,
-                          void* cls, void* prob, int pitch, int batch, int e3, int uc, int e4,
-                          int hc, int s, int k, void* stream) {
-  if (k < 1 || k > 32 || uc < 0 || hc < 0 || hc + s > e4 || (uc + e4 - 1) / 2 >= e3 || batch < 1)
+                          void* out0, void* out1, int pitch, int batch, int e3, int uc, int e4,
+                          int hc, int s, int k, int mode, void* stream) {
+  if (k < 1 || k > 32 || uc < 0 || hc < 0 || hc + s > e4 || (uc + e4 - 1) / 2 >= e3 ||
+      batch < 1 || mode < kArgmax || mode > kLogits)
     return (int)cudaErrorInvalidValue;
   const Geometry g{e3, uc, e4, hc, s, k};
   const int* w = static_cast<const int*>(windows);
-  uint8_t* c = static_cast<uint8_t*>(cls);
-  uint8_t* p = static_cast<uint8_t*>(prob);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((k + 7) / 8) {
-    case 1: return (int)launch<1>(x3, wpack, epi, w, c, p, pitch, batch, g, st);
-    case 2: return (int)launch<2>(x3, wpack, epi, w, c, p, pitch, batch, g, st);
-    case 3: return (int)launch<3>(x3, wpack, epi, w, c, p, pitch, batch, g, st);
-    default: return (int)launch<4>(x3, wpack, epi, w, c, p, pitch, batch, g, st);
-  }
+  cudaError_t err;
+  if (mode == kArgmax)
+    err = launch_mode<kArgmax>(x3, wpack, epi, w, out0, out1, pitch, batch, g, st);
+  else if (mode == kProbs)
+    err = launch_mode<kProbs>(x3, wpack, epi, w, out0, out1, pitch, batch, g, st);
+  else
+    err = launch_mode<kLogits>(x3, wpack, epi, w, out0, out1, pitch, batch, g, st);
+  return (int)err;
 }

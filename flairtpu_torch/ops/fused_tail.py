@@ -10,13 +10,24 @@ replaces, on the zone main path, the stretch ``flairtpu`` runs as XLA:
 crop), ``zone/device_engine.py:143-146`` (epilogue) and
 ``zone/device_engine.py:148-156`` (plane writes).
 
-Output goes either to (B, s, s) tiles or, given ``planes`` and ``windows``,
-straight into the zone's two uint8 planes: tile b's interior pixel (r, c)
-lands at plane pixel (R0 + r, C0 + c) when it lies in the tile's owned window
-[rlo, rhi) x [clo, chi) (``windows[b] = (R0, C0, rlo, rhi, clo, chi)``).
+Three epilogues, one kernel each (a template parameter of the source):
 
-``fused_tail`` runs the plain PyTorch version for a CPU tensor and launches
-the kernel for a bfloat16 CUDA tensor; it has no fallback.
+- :func:`fused_tail` (argmax): the class and probability into (B, s, s)
+  tiles or, given ``planes`` and ``windows``, straight into the zone's two
+  uint8 planes: tile b's interior pixel (r, c) lands at plane pixel
+  (R0 + r, C0 + c) when it lies in the tile's owned window [rlo, rhi) x
+  [clo, chi) (``windows[b] = (R0, C0, rlo, rhi, clo, chi)``);
+- :func:`fused_tail_probs` (``output_type: class_prob``,
+  ``flairtpu/zone/device_engine.py:176-185``): round(255 * softmax) of every
+  class, through the same windows into one (H, W, K) uint8 plane;
+- :func:`fused_tail_logits` (the average and max stitches,
+  ``device_engine.py:206, 519``): the float32 logits (B, s, s, K), K
+  innermost as ``flairtpu``'s; at margin 0 (``tail_geometry(S, 0)``) the
+  whole tile.
+
+Each wrapper runs the plain PyTorch version for a CPU tensor and launches
+the kernel for a bfloat16 CUDA tensor; it has no fallback, and counts its
+own launches.
 """
 
 from __future__ import annotations
@@ -31,17 +42,21 @@ import torch.nn.functional as F
 from flairtpu_torch.models.resnet import bn_scale_shift
 from flairtpu_torch.models.unet import plan_inner_crops, upsample2x_nearest
 from flairtpu_torch.ops import _build
-from flairtpu_torch.ops.fused import prob_to_u8, softmax_argmax
+from flairtpu_torch.ops.fused import prob_to_u8, softmax, softmax_argmax
 
 C3, C4 = 32, 16  # channels into and of the last decoder block (every resnet unet)
 MAX_CLASSES = 32
-ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+ARGMAX, PROBS, LOGITS = 0, 1, 2  # the kernel's modes
 # packed weight row lengths (bf16): depth 9 x C_in, tap-major and channel-minor,
 # plus 8 zeros so that rows step an odd number of 16-byte shared-memory units
 ROW1, ROW2 = 9 * C3 + 8, 9 * C4 + 8
 
-# kernel launches on CUDA tensors since the last reset (the CPU path does not count)
-launches = 0
+# kernel launches on CUDA tensors since the last reset, one count per
+# wrapper (the CPU path does not count)
+launches = 0  # fused_tail (argmax)
+probs_launches = 0  # fused_tail_probs
+logits_launches = 0  # fused_tail_logits
 
 
 @dataclass(frozen=True)
@@ -171,6 +186,21 @@ def fused_tail_plain(x3: torch.Tensor, p: TailParams, g: TailGeometry,
     return planes
 
 
+def fused_tail_probs_plain(x3: torch.Tensor, p: TailParams, g: TailGeometry,
+                           plane: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch tail: x3 -> round(255 * softmax) (B, s, s, K) uint8, each
+    tile's owned window written into ``plane`` (H, W, K); returns the plane."""
+    probs = prob_to_u8(softmax(tail_logits_plain(x3, p, g), dim=1)).permute(0, 2, 3, 1)
+    for i, (r0, c0, rlo, rhi, clo, chi) in enumerate(windows.tolist()):
+        plane[r0 + rlo:r0 + rhi, c0 + clo:c0 + chi] = probs[i, rlo:rhi, clo:chi]
+    return plane
+
+
+def fused_tail_logits_plain(x3: torch.Tensor, p: TailParams, g: TailGeometry) -> torch.Tensor:
+    """Plain PyTorch tail: x3 -> float32 logits (B, s, s, K)."""
+    return tail_logits_plain(x3, p, g).permute(0, 2, 3, 1).contiguous()
+
+
 @lru_cache(maxsize=8)
 def full_windows(batch: int, s: int, device: torch.device) -> torch.Tensor:
     """Windows that write tile b whole at rows [b s, (b + 1) s) of (B s, s)
@@ -185,6 +215,48 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _check_input(name: str, x3: torch.Tensor, p: TailParams, g: TailGeometry) -> None:
+    """Raise unless x3 and p are what the kernel takes on the card."""
+    B, C, H, W = x3.shape
+    if (C, H, W) != (C3, g.x3_extent, g.x3_extent):
+        raise ValueError(f"{name}: x3 shape {tuple(x3.shape)} does not match "
+                         f"(B, {C3}, {g.x3_extent}, {g.x3_extent})")
+    if x3.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: x3 dtype {x3.dtype} (the kernel takes bfloat16)")
+    if not x3.is_contiguous(memory_format=torch.channels_last) or x3.data_ptr() % 16:
+        raise ValueError(f"{name}: x3 must be channels_last contiguous, 16-byte aligned")
+    if not 1 <= p.n_classes <= MAX_CLASSES:
+        raise ValueError(f"{name}: {p.n_classes} classes (at most {MAX_CLASSES})")
+    if p.packed.device != x3.device or p.epi.device != x3.device:
+        raise ValueError(f"{name}: parameters must be on {x3.device}")
+
+
+def _check_windows(name: str, windows, x3: torch.Tensor) -> None:
+    B = x3.shape[0]
+    if (windows is None or windows.device != x3.device or windows.dtype != torch.int32
+            or tuple(windows.shape) != (B, 6) or not windows.is_contiguous()):
+        raise ValueError(f"{name}: windows must be a contiguous ({B}, 6) int32 tensor "
+                         f"on {x3.device}")
+
+
+def _launch(x3: torch.Tensor, p: TailParams, g: TailGeometry, windows: torch.Tensor,
+            out0: torch.Tensor, out1: torch.Tensor, pitch: int, mode: int) -> None:
+    err = _build.entry("fused_tail", ARGTYPES)(
+        _ptr(x3), _ptr(p.packed), _ptr(p.epi), _ptr(windows), _ptr(out0), _ptr(out1),
+        pitch, x3.shape[0], g.x3_extent, g.up_crop, g.b4_extent, g.head_crop,
+        g.out_extent, p.n_classes, mode, _build.stream_handle(x3))
+    _build.check(err, "fused_tail")
+
+
+def _on_card(name: str, x3: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for any other."""
+    if x3.device.type == "cpu":
+        return False
+    if x3.device.type != "cuda":
+        raise RuntimeError(f"{name}: unsupported device {x3.device}")
+    return True
+
+
 def fused_tail(x3: torch.Tensor, p: TailParams, g: TailGeometry,
                planes: torch.Tensor | None = None, windows: torch.Tensor | None = None):
     """x3 (B, 32, E3, E3), channels_last -> (class, prob) uint8 (B, s, s); or,
@@ -194,23 +266,10 @@ def fused_tail(x3: torch.Tensor, p: TailParams, g: TailGeometry,
     CPU tensor: the plain version. bfloat16 CUDA tensor: the kernel, or an
     error."""
     global launches
-    if x3.device.type == "cpu":
+    if not _on_card("fused_tail", x3):
         return fused_tail_plain(x3, p, g, planes, windows)
-    if x3.device.type != "cuda":
-        raise RuntimeError(f"fused_tail: unsupported device {x3.device}")
-    B, C, H, W = x3.shape
-    if (C, H, W) != (C3, g.x3_extent, g.x3_extent):
-        raise ValueError(f"fused_tail: x3 shape {tuple(x3.shape)} does not match "
-                         f"(B, {C3}, {g.x3_extent}, {g.x3_extent})")
-    if x3.dtype != torch.bfloat16:
-        raise TypeError(f"fused_tail: x3 dtype {x3.dtype} (the kernel takes bfloat16)")
-    if not x3.is_contiguous(memory_format=torch.channels_last) or x3.data_ptr() % 16:
-        raise ValueError("fused_tail: x3 must be channels_last contiguous, 16-byte aligned")
-    if not 1 <= p.n_classes <= MAX_CLASSES:
-        raise ValueError(f"fused_tail: {p.n_classes} classes (at most {MAX_CLASSES})")
-    if p.packed.device != x3.device or p.epi.device != x3.device:
-        raise ValueError(f"fused_tail: parameters must be on {x3.device}")
-    s = g.out_extent
+    _check_input("fused_tail", x3, p, g)
+    B, s = x3.shape[0], g.out_extent
     tiles = planes is None
     if tiles:
         planes = torch.empty((2, B * s, s), dtype=torch.uint8, device=x3.device)
@@ -219,16 +278,55 @@ def fused_tail(x3: torch.Tensor, p: TailParams, g: TailGeometry,
           or planes.shape[0] != 2 or not planes.is_contiguous()):
         raise ValueError(f"fused_tail: planes must be a contiguous (2, H, W) uint8 tensor "
                          f"on {x3.device}")
-    if (windows is None or windows.device != x3.device or windows.dtype != torch.int32
-            or tuple(windows.shape) != (B, 6) or not windows.is_contiguous()):
-        raise ValueError(f"fused_tail: windows must be a contiguous ({B}, 6) int32 tensor "
-                         f"on {x3.device}")
-    err = _build.entry("fused_tail", ARGTYPES)(
-        _ptr(x3), _ptr(p.packed), _ptr(p.epi), _ptr(windows), _ptr(planes[0]),
-        _ptr(planes[1]), planes.shape[2], B, g.x3_extent, g.up_crop, g.b4_extent,
-        g.head_crop, s, p.n_classes, _build.stream_handle(x3))
-    _build.check(err, "fused_tail")
+    _check_windows("fused_tail", windows, x3)
+    _launch(x3, p, g, windows, planes[0], planes[1], planes.shape[2], ARGMAX)
     launches += 1
     if tiles:
         return planes[0].view(B, s, s), planes[1].view(B, s, s)
     return planes
+
+
+def fused_tail_probs(x3: torch.Tensor, p: TailParams, g: TailGeometry,
+                     plane: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
+    """x3 (B, 32, E3, E3), channels_last -> each tile's owned window of
+    round(255 * softmax) written into ``plane`` (H, W, K) uint8 through
+    ``windows`` (B, 6) int32; returns the plane.
+
+    CPU tensor: the plain version. bfloat16 CUDA tensor: the kernel, or an
+    error."""
+    global probs_launches
+    if not _on_card("fused_tail_probs", x3):
+        return fused_tail_probs_plain(x3, p, g, plane, windows)
+    _check_input("fused_tail_probs", x3, p, g)
+    if (plane.device != x3.device or plane.dtype != torch.uint8 or plane.dim() != 3
+            or plane.shape[2] != p.n_classes or not plane.is_contiguous()):
+        raise ValueError(f"fused_tail_probs: plane must be a contiguous (H, W, "
+                         f"{p.n_classes}) uint8 tensor on {x3.device}")
+    _check_windows("fused_tail_probs", windows, x3)
+    _launch(x3, p, g, windows, plane, plane, plane.shape[1], PROBS)
+    probs_launches += 1
+    return plane
+
+
+def fused_tail_logits(x3: torch.Tensor, p: TailParams, g: TailGeometry,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """x3 (B, 32, E3, E3), channels_last -> float32 logits (B, s, s, K),
+    into ``out`` when given (a buffer kept across batches).
+
+    CPU tensor: the plain version. bfloat16 CUDA tensor: the kernel, or an
+    error."""
+    global logits_launches
+    B, s, k = x3.shape[0], g.out_extent, p.n_classes
+    if not _on_card("fused_tail_logits", x3):
+        logits = fused_tail_logits_plain(x3, p, g)
+        return logits if out is None else out.copy_(logits)
+    _check_input("fused_tail_logits", x3, p, g)
+    if out is None:
+        out = torch.empty((B, s, s, k), dtype=torch.float32, device=x3.device)
+    elif (out.device != x3.device or out.dtype != torch.float32
+          or tuple(out.shape) != (B, s, s, k) or not out.is_contiguous()):
+        raise ValueError(f"fused_tail_logits: out must be a contiguous ({B}, {s}, {s}, {k}) "
+                         f"float32 tensor on {x3.device}")
+    _launch(x3, p, g, full_windows(B, s, x3.device), out, out, s, LOGITS)
+    logits_launches += 1
+    return out

@@ -6,7 +6,7 @@ Builds variants of ``csrc/fused_tail.cu`` that each leave out one phase (a
 conv's tensor-core loop, or the head's softmax/argmax epilogue and plane
 writes), and one that asks for a single block per SM instead of two (more
 registers a thread), and times them against the full kernel at the main path's shapes
-(512/128 tiles, batch 128, 19 classes), in turns: full, variants, variants
+(512/128 tiles, batch 128, 19 classes, the argmax mode), in turns: full, variants, variants
 reversed, full. A variant's output is wrong; only its time is read, and the
 difference to the full kernel is what the phase costs with the others
 running. Prints one JSON line with the times in ms, each variant's
@@ -83,12 +83,13 @@ def build_variants(out: Path) -> dict:
 
 
 def k19_registers(ptxas_log: str) -> int | None:
-    """Registers a thread of the instance for K = 19 (three head n-tiles)."""
+    """Registers a thread of the argmax instance for K = 19 (three head
+    n-tiles)."""
     fn = None
     for line in ptxas_log.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
             fn = line
-        elif "registers" in line and fn and "ILi3E" in fn:
+        elif "registers" in line and fn and "ILi3ELi0E" in fn:
             return int(line.split("Used ")[1].split()[0])
     return None
 
@@ -111,7 +112,7 @@ def main() -> None:
     windows = ft.full_windows(BATCH, s, x3.device)
     args = [ctypes.c_void_p(a.data_ptr()) for a in (x3, p.packed, p.epi, windows, planes[0],
                                                     planes[1])]
-    dims = (s, BATCH, g.x3_extent, g.up_crop, g.b4_extent, g.head_crop, s, K)
+    dims = (s, BATCH, g.x3_extent, g.up_crop, g.b4_extent, g.head_crop, s, K, ft.ARGMAX)
 
     def call(fn):
         _build.check(fn(*args, *dims, _build.stream_handle(x3)), "fused_tail_phases")

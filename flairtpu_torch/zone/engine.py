@@ -1,6 +1,7 @@
 """flair-detect pipeline (counterpart of ``flairtpu/zone/engine.py:47-78,
 245-506``): model preparation, output paths, zone staging, one device-resident
-pass over the zone and the GeoTIFF write.
+pass over the zone and the GeoTIFF write, or with ``compare`` the sweep of
+``zone/compare.py``.
 
 ``use_gpu: true`` (the default) runs on the CUDA card and raises if there is
 none; ``use_gpu: false`` runs on the CPU, where the kernels' plain PyTorch
@@ -67,8 +68,14 @@ def prepare_model(config: dict, device: torch.device):
 # ---------------------------------------------------------------------------
 
 def setup_out_path(config: dict) -> dict:
+    """The run's output directory: ``output_path``, or under ``compare`` a
+    timestamped directory inside it."""
     out = Path(config["output_path"])
     out.mkdir(parents=True, exist_ok=True)
+    if config.get("compare"):
+        out = out / datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+        out.mkdir(parents=True, exist_ok=True)
+        print(f"Creating output directory: {out}")
     config["local_out"] = str(out)
     return config
 
@@ -119,8 +126,9 @@ def conf_log(config: dict, reader: TiffReader, device: torch.device) -> None:
 
 
 def _make_writer(config: dict, reader: TiffReader, path_out: str) -> TiffWriter:
+    n_bands = 2 if config["output_type"] == "argmax" else int(config["n_classes"])
     return TiffWriter(
-        path_out, reader.width, reader.height, 2, "uint8",
+        path_out, reader.width, reader.height, n_bands, "uint8",
         transform=reader.transform, crs=reader.crs,
         compress="lzw", tiled=True,
         blockxsize=config["img_pixels_detection"],
@@ -142,10 +150,14 @@ def stage_zone(config: dict, device: torch.device) -> dict:
 
 
 def run_single(config: dict, model, tail, device: torch.device, stride: int,
-               method: str, identifier: str = "") -> tuple[str, dict, TileGrid]:
+               method: str, identifier: str = "",
+               staged: dict | None = None) -> tuple[str, dict, TileGrid]:
     """One (grid, stitch, output raster) pass over the zone, device-resident.
 
-    A zone over the device budget raises: the streaming route is slice 2."""
+    ``staged`` (from :func:`stage_zone`) is a zone already read and on its
+    way to the device, which the compare sweep shares across its runs; by
+    default the zone is read here. A zone over the device budget raises: the
+    streaming route is slice 2."""
     size, margin = config["img_pixels_detection"], config["margin"]
     with TiffReader(config["input_img_path"], cache_blocks=128) as reader:
         grid = slice_grid(reader.width, reader.height, size, margin, stride,
@@ -158,7 +170,8 @@ def run_single(config: dict, model, tail, device: torch.device, stride: int,
         print(f"    [x] sliced input raster to {len(grid)} squares...")
         path_out = setup_indiv_path(config, identifier)
 
-        need = estimate_bytes(grid, len(config["channels"]))
+        need = estimate_bytes(grid, len(config["channels"]), int(config["n_classes"]),
+                              method, config["output_type"], int(config["batch_size"]))
         if need > device_budget_bytes():
             raise not_ported(
                 f"the streaming zone route (zone needs {need} bytes, device "
@@ -166,19 +179,27 @@ def run_single(config: dict, model, tail, device: torch.device, stride: int,
         print("    [x] zone path: device-resident")
         print("    [ ] starting inference...\n")
         runner = DeviceZoneRunner(config, model, tail)
-        res = runner.run(grid, method, stage_zone(config, device))
+        res = runner.run(grid, method, staged or stage_zone(config, device))
         writer = _make_writer(config, reader, path_out)
-        writer.write_band([1, 2], np.stack([res["cls"], res["prob"]]))
+        if "probs" in res:
+            writer.write_band(list(range(1, config["n_classes"] + 1)), res["probs"])
+        else:
+            writer.write_band([1, 2], np.stack([res["cls"], res["prob"]]))
         writer.close()
     stats = {k: res[k] for k in ("tiles", "seconds", "patches_per_sec", "read_seconds",
                                  "h2d_seconds", "compute_seconds", "d2h_seconds")}
+    # cumulative elapsed time per patch, the reference's timing shape
+    # (flairtpu/zone/engine.py:432-437)
+    total_ms, n = res["seconds"] * 1000.0, max(res["tiles"], 1)
+    stats["patch_times_ms"] = [total_ms * (i + 1) / n for i in range(n)]
     print(f"    [X] done writing to {Path(path_out).name} raster file "
           f"({stats['tiles']} tiles, {stats['patches_per_sec']:.1f} patches/s).\n")
     return path_out, stats, grid
 
 
 def run_pipeline(config: dict) -> dict:
-    """flair-detect entry (reference main.py:244-436); returns the run's stats."""
+    """flair-detect entry (reference main.py:244-436); returns the run's
+    stats, or with ``compare`` the sweep's stats by method string."""
     device = resolve_device(config)
     config = setup_out_path(config)
     log_file = Path(config["local_out"]) / (
@@ -194,6 +215,10 @@ def run_pipeline(config: dict) -> dict:
 
     PyTorch device: {describe_device(device)}""")
         model, tail = prepare_model(config, device)
+        if config.get("compare"):
+            from flairtpu_torch.zone.compare import run_compare
+
+            return run_compare(config, model, tail, device)
         _, stats, _ = run_single(config, model, tail, device, get_stride(config)[0],
                                  "exact-clipping")
         return stats

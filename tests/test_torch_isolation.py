@@ -140,9 +140,7 @@ def test_wrappers_raise_on_other_devices():
 
 
 @pytest.mark.parametrize("over,slice_name", [
-    ({"output_type": "class_prob"}, "slice 2"),
-    ({"compare": True}, "slice 2"),
-    ({"metrics": True}, "slice 2"),
+    ({"batch_mode": True}, "slice 2"),
     ({"bn_fold": True}, "slice 3"),
     ({"quantize": "int8"}, "slice 3"),
     ({"model_framework": {"model_provider": "SegmentationModelsPytorch",
@@ -158,6 +156,16 @@ def test_unported_options_raise(tmp_path, over, slice_name):
     conf = _tiny_detect_setup(tmp_path, use_gpu=False, **over)
     with pytest.raises(NotImplementedError, match=slice_name):
         cfgmod.validate_detect_config(cfgmod.read_config(conf))
+
+
+def test_zone_over_device_budget_raises(tmp_path, monkeypatch):
+    """A zone the device budget cannot hold needs the streaming route, which
+    is not ported: detect_main says so and writes nothing."""
+    monkeypatch.setenv("FLAIRTPU_DEVICE_ZONE_BYTES", "1000")
+    conf = _tiny_detect_setup(tmp_path, use_gpu=False)
+    with pytest.raises(NotImplementedError, match="streaming zone route.*slice 2"):
+        detect_main([f"--conf={conf}"])
+    assert not (tmp_path / "out" / "z.tif").exists()
 
 
 def test_msgpack_weights_and_flair_raise(tmp_path):

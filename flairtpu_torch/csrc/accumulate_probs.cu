@@ -15,17 +15,40 @@
 // Gather form: each thread owns one accumulator pixel of the batch's
 // footprint and visits the tiles that cover it in tile order, so its sums
 // are taken in the reference's order, with no atomics (atomicAdd would add
-// in another order, and not even the same one from run to run). A block of
-// 32 x 8 pixels first lists, in tile order, the batch's tiles that meet it
-// (one tile a thread, a warp ballot and a prefix over the warps), so a
-// pixel tests only those. A tile whose valid is 0 (the duplicates that pad
-// the last batch) is left out: it would add exactly 0.
+// in another order, and not even the same one from run to run). A tile
+// whose valid is 0 (the duplicates that pad the last batch) is left out: it
+// would add exactly 0.
 //
 // Bound: bytes. Each covered pixel reads its tiles' logits (K floats each)
 // and reads and writes its K + 1 accumulators once per batch; a few
-// operations a byte. Logits and accumulators are K-innermost, so a warp's
-// 32 pixels read one contiguous run of 32 K floats per tile, class by class
-// through L1.
+// operations a byte.
+//
+// Design for the bound. The accumulators are K-innermost, so one pixel's K
+// floats lie K floats from its neighbour's. Stored straight from a thread's
+// registers, one warp store instruction scatters 32 4-byte pieces over
+// about 32 sectors, and the K store instructions of a warp make L2 take
+// about 8 times the transactions that the bytes need: in the kernel that
+// kept its accumulators in registers, those stores were most of its time
+// (ops/accumulate_probs_phases.py splits it). So a block owns a strip of
+// kRows x kCols pixels of the footprint; each of its rows of accumulators
+// is one contiguous run of kCols * K floats in the plane. The block
+//   1. lists the batch's tiles that meet the strip, in tile order (one tile
+//      a thread, a warp ballot and a prefix over the warps); a strip that no
+//      tile meets is left alone;
+//   2. copies its accumulator rows into shared memory with cp.async,
+//      consecutive threads on consecutive floats: 4-byte copies, so neither
+//      the origins nor Wp * K need any alignment;
+//   3. adds each covering tile into the shared accumulators, one thread a
+//      pixel, at a shared stride of K | 1 floats: an odd stride puts the 32
+//      lanes on 32 distinct banks (FLAIR's K is 13, 15 or 19; an even K is
+//      padded by one). The logits are read as csrc/merge_max.cu reads them,
+//      K floats a thread, a warp on one contiguous run of a tile row; div
+//      stays in a register, read and written coalesced;
+//   4. writes its rows back as it read them: each warp store instruction
+//      covers 128 consecutive bytes, so L2 sees whole sectors.
+// The grid is one block a strip: blocks that walk the strips, taller and
+// narrower strips, and a cap of 40 registers a thread all measured slower
+// (the phases tool keeps them as variants).
 //
 // Numerics: __fmul_rn/__fadd_rn/__fdiv_rn keep every step rounded on its
 // own (no FMA), in the plain version's order: the softmax sum over classes
@@ -37,7 +60,7 @@
 
 namespace {
 
-constexpr int kBW = 32, kBH = 8, kThreads = kBW * kBH, kWarps = kThreads / 32;
+constexpr int kRows = 2, kCols = 128, kThreads = kRows * kCols, kWarps = kThreads / 32;
 
 struct Args {
   const float* logits;   // (batch, size, size, k)
@@ -50,26 +73,40 @@ struct Args {
   int y0, x0, fh, fw;  // the batch's footprint in the planes
 };
 
+__device__ __forceinline__ void copy4_async(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// Adds the batch into strip s of the footprint (strips numbered row-major).
 template <int KP>
-__global__ void __launch_bounds__(kThreads) accumulate_kernel(Args a) {
+__device__ __forceinline__ void add_strip(const Args& a, int s) {
+  extern __shared__ float strip[];  // (kRows, kCols, ks) accumulators
   __shared__ int list[kThreads];
   __shared__ int warp_count[kWarps];
-  const int tid = threadIdx.y * kBW + threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int by0 = a.y0 + blockIdx.y * kBH, bx0 = a.x0 + blockIdx.x * kBW;
-  const int y = by0 + threadIdx.y, x = bx0 + threadIdx.x;
-  const bool live = y < a.y0 + a.fh && x < a.x0 + a.fw;
-  const size_t pix = (size_t)y * a.wp + x;
-  float acc[KP];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int strips_x = (a.fw + kCols - 1) / kCols;
+  const int sy0 = a.y0 + (s / strips_x) * kRows, sx0 = a.x0 + (s % strips_x) * kCols;
+  const int rows = min(kRows, a.y0 + a.fh - sy0), cols = min(kCols, a.x0 + a.fw - sx0);
+  const int r = tid / kCols, col = tid % kCols;
+  const int y = sy0 + r, x = sx0 + col;
+  const bool live = r < rows && col < cols;
+  const int ks = a.k | 1;  // shared stride of a pixel: odd, so conflict-free
+  float* const mine = strip + (r * kCols + col) * ks;
+  // a row's run of cols * k floats, walked kThreads at a time: float i is
+  // class c of pixel p, kept in shared memory at p * ks + c
+  const int run = cols * a.k, p0 = tid / a.k, c0 = tid % a.k;
+  const int dp = kThreads / a.k, dc = kThreads % a.k;
   float div = 0.f;
   bool loaded = false;
 
   for (int base = 0; base < a.batch; base += kThreads) {
-    // this chunk's tiles that meet the block's pixels, in tile order
+    // this chunk's tiles that meet the strip, in tile order
     const int t = base + tid;
     bool meets = false;
     if (t < a.batch && a.valid[t] != 0.f) {
       const int r0 = a.origins[2 * t], c0 = a.origins[2 * t + 1];
-      meets = r0 < by0 + kBH && r0 + a.size > by0 && c0 < bx0 + kBW && c0 + a.size > bx0;
+      meets = r0 < sy0 + rows && r0 + a.size > sy0 && c0 < sx0 + cols && c0 + a.size > sx0;
     }
     const unsigned ballot = __ballot_sync(0xffffffffu, meets);
     if (lane == 0) warp_count[warp] = __popc(ballot);
@@ -81,18 +118,30 @@ __global__ void __launch_bounds__(kThreads) accumulate_kernel(Args a) {
       n += warp_count[w];
     }
     if (meets) list[off + __popc(ballot & ((1u << lane) - 1))] = t;
+
+    if (n > 0 && !loaded) {  // n is the same in every thread of the block
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr) {
+        if (rr >= rows) break;
+        const float* src = a.acc + ((size_t)(sy0 + rr) * a.wp + sx0) * a.k;
+        float* dst = strip + rr * kCols * ks;
+        for (int i = tid, p = p0, c = c0; i < run; i += kThreads) {
+          copy4_async(dst + p * ks + c, src + i);
+          p += dp;
+          c += dc;
+          if (c >= a.k) c -= a.k, ++p;
+        }
+      }
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+      if (live) div = a.div[(size_t)y * a.wp + x];
+      loaded = true;
+    }
     __syncthreads();
 
-    for (int i = 0; i < n; ++i) {
+    for (int i = 0; live && i < n; ++i) {
       const int j = list[i];
       const int ly = y - a.origins[2 * j], lx = x - a.origins[2 * j + 1];
-      if (!live || ly < 0 || ly >= a.size || lx < 0 || lx >= a.size) continue;
-      if (!loaded) {
-#pragma unroll
-        for (int c = 0; c < KP; ++c) acc[c] = c < a.k ? a.acc[pix * a.k + c] : 0.f;
-        div = a.div[pix];
-        loaded = true;
-      }
+      if (ly < 0 || ly >= a.size || lx < 0 || lx >= a.size) continue;
       // w * valid first, as the reference forms it before it multiplies the probabilities
       const float wv =
           a.weights ? __fmul_rn(a.weights[ly * a.size + lx], a.valid[j]) : a.valid[j];
@@ -114,25 +163,40 @@ __global__ void __launch_bounds__(kThreads) accumulate_kernel(Args a) {
       }
 #pragma unroll
       for (int c = 0; c < KP; ++c) {
-        if (c < a.k) acc[c] = __fadd_rn(acc[c], __fmul_rn(__fdiv_rn(e[c], sum), wv));
+        if (c < a.k) mine[c] = __fadd_rn(mine[c], __fmul_rn(__fdiv_rn(e[c], sum), wv));
       }
       div = __fadd_rn(div, wv);
     }
-    __syncthreads();  // the list is rewritten by the next chunk
+    __syncthreads();  // the list is rewritten by the next chunk; the strip is read below
   }
-  if (loaded) {
+  if (!loaded) return;
+  if (live) a.div[(size_t)y * a.wp + x] = div;
 #pragma unroll
-    for (int c = 0; c < KP; ++c) {
-      if (c < a.k) a.acc[pix * a.k + c] = acc[c];
+  for (int rr = 0; rr < kRows; ++rr) {
+    if (rr >= rows) break;
+    float* dst = a.acc + ((size_t)(sy0 + rr) * a.wp + sx0) * a.k;
+    const float* src = strip + rr * kCols * ks;
+    for (int i = tid, p = p0, c = c0; i < run; i += kThreads) {
+      dst[i] = src[p * ks + c];
+      p += dp;
+      c += dc;
+      if (c >= a.k) c -= a.k, ++p;
     }
-    a.div[pix] = div;
   }
+}
+
+// One block a strip; a smaller grid walks the strips (each strip's first
+// barrier orders its copy after the previous strip's write-back).
+template <int KP>
+__global__ void __launch_bounds__(kThreads) accumulate_kernel(Args a, int strips) {
+  for (int s = blockIdx.x; s < strips; s += gridDim.x) add_strip<KP>(a, s);
 }
 
 template <int KP>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.fw + kBW - 1) / kBW, (a.fh + kBH - 1) / kBH), block(kBW, kBH);
-  accumulate_kernel<KP><<<grid, block, 0, stream>>>(a);
+  const int strips = ((a.fw + kCols - 1) / kCols) * ((a.fh + kRows - 1) / kRows);
+  const size_t shared = (size_t)kRows * kCols * (a.k | 1) * sizeof(float);
+  accumulate_kernel<KP><<<strips, kThreads, shared, stream>>>(a, strips);
   return cudaGetLastError();
 }
 

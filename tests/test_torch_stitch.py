@@ -25,6 +25,8 @@ import torch
 from flairtpu.ops.fused import scatter_accumulate as flax_scatter_accumulate
 from flairtpu.zone import weights as flax_weights
 from flairtpu_torch.models.factory import FlairSegmentationModel
+from flairtpu_torch.ops import _build
+from flairtpu_torch.ops import accumulate_probs_phases as phases
 from flairtpu_torch.ops import fused_tail as ft
 from flairtpu_torch.ops import stitch as st
 from flairtpu_torch.ops.fused import scatter_accumulate, softmax
@@ -41,17 +43,22 @@ def t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-@pytest.fixture
-def batch():
-    """A batch of 6 tiles on a 20 x 22 plane: overlapping origins, a repeated
-    origin, and two padding duplicates (valid 0) of the last tile."""
+def make_batch(k: int = K):
+    """A batch of 6 tiles of k classes on a 20 x 22 plane: overlapping
+    origins, a repeated origin, and two padding duplicates (valid 0) of the
+    last tile."""
     rng = np.random.default_rng(3)
-    logits = (rng.standard_normal((6, S, S, K)) * 3).astype(np.float32)
+    logits = (rng.standard_normal((6, S, S, k)) * 3).astype(np.float32)
     logits[5] = logits[3]  # the duplicates repeat the last real tile
     logits[4] = logits[3]
     origins = np.array([[0, 0], [4, 6], [4, 6], [12, 14], [12, 14], [12, 14]], np.int32)
     valid = np.array([1, 1, 1, 1, 0, 0], np.float32)
     return logits, origins, valid
+
+
+@pytest.fixture
+def batch():
+    return make_batch()
 
 
 def np_softmax(x: np.ndarray) -> np.ndarray:
@@ -95,11 +102,16 @@ def test_softmax_matches_jax():
     assert np.array_equal(softmax(t(x)).numpy(), np_softmax(x))
 
 
-@pytest.mark.parametrize("weighted", [False, True])
-def test_accumulate_probs_plain_matches_numpy(batch, weighted):
-    logits, origins, valid = batch
+# K classes, and FLAIR's class counts 13, 15 and 19
+ACCUMULATE_CASES = [(w, k) for k in (K, 13, 15, 19) for w in (False, True)]
+
+
+@pytest.mark.parametrize("weighted,k", ACCUMULATE_CASES,
+                         ids=[str(w) if k == K else f"{w}-K{k}" for w, k in ACCUMULATE_CASES])
+def test_accumulate_probs_plain_matches_numpy(weighted, k):
+    logits, origins, valid = make_batch(k)
     w = weights.patch_weights(S).astype(np.float32) if weighted else np.ones((S, S), np.float32)
-    acc = np.zeros((20, 22, K), np.float32)
+    acc = np.zeros((20, 22, k), np.float32)
     div = np.zeros((20, 22), np.float32)
     probs = np_softmax(logits)
     for (r, c), p, v in zip(origins, probs, valid):  # device_engine.py:206-210, in order
@@ -107,7 +119,7 @@ def test_accumulate_probs_plain_matches_numpy(batch, weighted):
         acc[r:r + S, c:c + S] = acc[r:r + S, c:c + S] + p * wv[..., None]
         div[r:r + S, c:c + S] = div[r:r + S, c:c + S] + wv
 
-    acc_t, div_t = torch.zeros((20, 22, K)), torch.zeros((20, 22))
+    acc_t, div_t = torch.zeros((20, 22, k)), torch.zeros((20, 22))
     fp = st.footprint(origins, valid, S)
     st.accumulate_probs(t(logits), t(origins), t(valid), t(w) if weighted else None,
                         acc_t, div_t, fp)
@@ -244,6 +256,14 @@ def test_new_wrappers_run_plain_on_cpu_and_count_nothing():
             call()
     assert ft.probs_launches == ft.logits_launches == 0
     assert set(st.launches.values()) == {0}
+
+
+@pytest.mark.parametrize("name", list(phases.EDITS["strip"]))
+def test_phase_variants_anchor_in_the_kernel(name):
+    """Every variant of accumulate_probs_phases finds each of its anchors in
+    csrc/accumulate_probs.cu exactly once, and only ``full`` leaves it as it is."""
+    src = (_build.CSRC / "accumulate_probs.cu").read_text()
+    assert (phases.variant_source(src, "strip", name) == src) == (name == "full")
 
 
 @pytest.mark.parametrize("k", range(6))

@@ -31,9 +31,12 @@ Phases (any failure exits non-zero):
    below 1e-5; merge_max class
    agreement >= 0.999 with every mismatch where kernel and plain best
    probabilities agree to 1e-6 (two tiles tie), prob |diff| <= 1;
-   stitch_finalize exactly equal on the same planes. Each kernel and its
-   plain version are timed with CUDA events; conv_epilogue at every site,
-   summed over the batch.
+   stitch_finalize exactly equal on the same planes. tile_softmax (the
+   streaming route's full-tile payloads) on the fused tail's logits of a
+   batch of 128 whole 512 tiles and on random logits at K = 13, 16 and 32:
+   probs and prob within ACC_REL_TOL, classes equal except where the top-2
+   gap is below MEAN_GAP_TOL. Each kernel and its plain version are timed
+   with CUDA events; conv_epilogue at every site, summed over the batch.
 3. main path: ``flairtpu_torch.cli.detect_main`` on a synthetic 4096 x 4096 x
    5 GeoTIFF zone (``<dpt>/<zone>/zone.tif``, with a synthetic truth raster
    at ``truth/<dpt>/<zone>/truth.tif``) with a random resnet34-unet (19
@@ -53,6 +56,16 @@ Phases (any failure exits non-zero):
      methods: 12 runs): 12 rasters named by method string, the per-patch
      metrics JSON, each run's launches, and the 4 size-512 runs against the
      all-plain runs (class agreement >= 0.999, prob |diff| <= 1).
+3b. the streaming route through detect_main, each run with the counts set
+   to 0 just before it: the main configuration routed there by a device
+   budget below its estimate (and no zone upload), class_prob, and
+   average_weights and max at the sweep's size-512 geometry (``-c``), the
+   last three with FLAIRTPU_STREAMING_ZONE=1. Each run's launches (no stitch
+   kernel; tile_softmax once a batch for the full-tile payloads), raster
+   shape, georeferencing and coverage, and agreement with the device
+   route's raster of the same configuration from this call (class
+   agreement >= 0.999, prob |diff| <= 1, the bit-equal share printed), with
+   where its seconds went.
 4. the kernels line, the card line, and last the JSON result line.
 
     python3 chip_smoke.py --profile  # also one batch per program by stage, and the profiler table
@@ -61,7 +74,9 @@ Phases (any failure exits non-zero):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -83,6 +98,8 @@ from flairtpu_torch.ops import epilogue as ep
 from flairtpu_torch.ops import fused_tail as ft
 from flairtpu_torch.ops import gather as ga
 from flairtpu_torch.ops import stitch as st
+from flairtpu_torch.ops import tile_softmax as ts
+from flairtpu_torch.zone import device_engine as de
 from flairtpu_torch.zone import engine as eng
 from flairtpu_torch.zone.device_engine import DeviceZoneRunner, exact_windows
 from flairtpu_torch.zone.grid import slice_grid
@@ -325,6 +342,62 @@ def check_tail_logits(rng, size: int, batch: int, k: int, timed: bool = False) -
 def top2_gap_last(x: torch.Tensor) -> torch.Tensor:
     top2 = x.topk(2, dim=-1).values
     return top2[..., 0] - top2[..., 1]
+
+
+def compare_tile_softmax(label: str, logits: torch.Tensor) -> dict:
+    """tile_probs and tile_argmax against their plain versions on the same
+    logits: probs and prob within ACC_REL_TOL (relative), classes equal
+    except where the logits' top-2 gap is below MEAN_GAP_TOL."""
+    probs_k, probs_p = ts.tile_probs(logits), ts.tile_probs_plain(logits)
+    rel = ((probs_k - probs_p).abs() / probs_p.abs().clamp_min(1e-30)).max().item()
+    d_probs = (probs_k - probs_p).abs().max().item()
+    del probs_k, probs_p
+    (cls_k, prob_k), (cls_p, prob_p) = ts.tile_argmax(logits), ts.tile_argmax_plain(logits)
+    off = cls_k != cls_p
+    worst_gap = top2_gap_last(logits)[off].max().item() if off.any() else 0.0
+    rel_prob = ((prob_k - prob_p).abs() / prob_p).max().item()
+    torch.cuda.synchronize()
+    check(rel <= ACC_REL_TOL, f"tile_probs {label}: relative diff {rel:.2e} <= {ACC_REL_TOL} "
+          f"(|diff| {d_probs:.2e})")
+    check(worst_gap < MEAN_GAP_TOL, f"tile_argmax {label}: {int(off.sum())} class mismatches, "
+          f"largest top-2 gap there {worst_gap:.2e} < {MEAN_GAP_TOL}")
+    check(rel_prob <= ACC_REL_TOL, f"tile_argmax {label}: prob relative diff {rel_prob:.2e} "
+          f"<= {ACC_REL_TOL}")
+    return {"probs": {"max_abs_err": d_probs},
+            "argmax": {"max_abs_err": (prob_k - prob_p).abs().max().item(),
+                       "mismatches": int(off.sum())}}
+
+
+def check_tile_softmax(rng) -> dict:
+    """The full-tile softmax kernel (streaming payloads) against its plain
+    version: on the main path's logits (the fused tail's logits mode on a
+    batch of 128 whole 512 tiles, K = 19), timed with its byte bounds, and on
+    random logits at small geometries whose pixel counts are not multiples
+    of a block (K = 13, 16 and 32)."""
+    g = ft.tail_geometry(S, 0)
+    logits = ft.fused_tail_logits(random_x3(rng, g, BATCH), random_tail(rng, K), g)
+    out = compare_tile_softmax(f"({BATCH}, {S}, {S}, {K}), fused_tail logits", logits)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    for shape in ((3, 37, 37, 13), (2, 40, 40, 16), (2, 23, 23, 32)):
+        small = compare_tile_softmax(str(shape), torch.randn(shape, generator=gen,
+                                                             device="cuda") * 3)
+        for mode in ("probs", "argmax"):
+            out[mode]["max_abs_err"] = max(out[mode]["max_abs_err"], small[mode]["max_abs_err"])
+    px = logits.numel() // K
+    in_bytes = logits.numel() * 4
+    # operations a pixel: K compares, subtractions, exponentials and adds,
+    # and K divisions (probs) or one (argmax)
+    out["probs"].update(
+        ms=cuda_ms(lambda: ts.tile_probs(logits), 10, 2),
+        plain_ms=cuda_ms(lambda: ts.tile_probs_plain(logits), 3, 1),
+        library_ms=None, bytes=2 * in_bytes,
+        **bound(px * 5 * K, 2 * in_bytes, PEAK_FP32_FLOPS))
+    out["argmax"].update(
+        ms=cuda_ms(lambda: ts.tile_argmax(logits), 10, 2),
+        plain_ms=cuda_ms(lambda: ts.tile_argmax_plain(logits), 3, 1),
+        library_ms=None, bytes=in_bytes + px * 5,
+        **bound(px * (4 * K + 1), in_bytes + px * 5, PEAK_FP32_FLOPS))
+    return out
 
 
 def compare_mean(label: str, acc_k, div_k, acc_p, div_p, crop) -> dict:
@@ -728,11 +801,20 @@ class PlainStitch:
     stitch_finalize_max = staticmethod(st.stitch_finalize_max_plain)
 
 
+class PlainTileOps:
+    """The full-tile softmax kernels' plain versions under the wrappers'
+    names."""
+
+    tile_probs = staticmethod(ts.tile_probs_plain)
+    tile_argmax = staticmethod(ts.tile_argmax_plain)
+
+
 class PlainRunner(DeviceZoneRunner):
     """The zone programs with every kernel's plain version, on the same
     card."""
 
     stitch_ops = PlainStitch
+    tile_ops = PlainTileOps
 
     def _tail_input(self, zone_p, origins, margin):
         x = ga.gather_normalize_plain(zone_p, origins, self.size,
@@ -770,24 +852,31 @@ def run_plain(cfg: dict, method: str = "exact-clipping", stride: int | None = No
 
 def reset_launches() -> None:
     ft.launches = ft.probs_launches = ft.logits_launches = ga.launches = ep.launches = 0
-    for name in st.launches:
-        st.launches[name] = 0
+    for counts in (st.launches, ts.launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def read_launches() -> dict:
     return {"fused_tail": ft.launches, "fused_tail_probs": ft.probs_launches,
             "fused_tail_logits": ft.logits_launches, "gather_normalize": ga.launches,
-            "conv_epilogue": ep.launches, **st.launches}
+            "conv_epilogue": ep.launches, **st.launches, **ts.launches}
 
 
-def expected_launches(method: str, output_type: str, n_batches: int) -> dict:
-    """Each kernel's launches for one zone run of ``n_batches`` batches."""
+def expected_launches(method: str, output_type: str, n_batches: int,
+                      streaming: bool = False) -> dict:
+    """Each kernel's launches for one zone run of ``n_batches`` batches, on
+    the device route or the streaming route (whose stitches run on the
+    host, after the full-tile softmax kernel)."""
     out = dict.fromkeys(read_launches(), 0)
     out.update(gather_normalize=n_batches, conv_epilogue=EPILOGUE_SITES * n_batches)
     if output_type == "class_prob":
         out["fused_tail_probs"] = n_batches
     elif method == "exact-clipping":
         out["fused_tail"] = n_batches
+    elif streaming:
+        out.update(fused_tail_logits=n_batches)
+        out["tile_argmax" if method == "max" else "tile_probs"] = n_batches
     else:
         out.update(fused_tail_logits=n_batches, stitch_finalize=1)
         out["merge_max" if method == "max" else "accumulate_probs"] = n_batches
@@ -884,12 +973,11 @@ def sweep_config(cfg: dict) -> dict:
                 **{k: ref[k] for k in keep})
 
 
-def run_sweep(cfg: dict, zone_hw: int) -> dict:
-    """``detect_main -c -m`` over the compare config's 12 combinations:
-    rasters, metrics JSON, launches per run, and the size-512 runs against
-    the all-plain runs."""
-    sw = sweep_config(cfg)
-    conf = write_conf(sw, "sweep")
+@contextlib.contextmanager
+def counted_runs():
+    """Within the body, each run of a sweep (``run_single``) sets the counts
+    to 0 just before it and reads them just after: yields {method string:
+    launches}."""
     per_run: dict[str, dict] = {}
     run_single = eng.run_single
 
@@ -901,9 +989,19 @@ def run_sweep(cfg: dict, zone_hw: int) -> dict:
 
     eng.run_single = counted
     try:
-        results = cli.detect_main([f"--conf={conf}", "-c", "-m"])
+        yield per_run
     finally:
         eng.run_single = run_single
+
+
+def run_sweep(cfg: dict, zone_hw: int) -> dict:
+    """``detect_main -c -m`` over the compare config's 12 combinations:
+    rasters, metrics JSON, launches per run, and the size-512 runs against
+    the all-plain runs."""
+    sw = sweep_config(cfg)
+    conf = write_conf(sw, "sweep")
+    with counted_runs() as per_run:
+        results = cli.detect_main([f"--conf={conf}", "-c", "-m"])
     combos = [(c["img_pixels_detection"], c["margin"], c["stride"], c["stitching"])
               for c in gen_param_combination(validate_detect_config(dict(sw, compare=True)))]
     check(len(combos) == 12, f"compare sweep: {len(combos)} combinations (12 expected)")
@@ -944,7 +1042,147 @@ def run_sweep(cfg: dict, zone_hw: int) -> dict:
         check(agree >= 0.999, f"{method} vs plain versions: class agreement {agree:.6f} >= 0.999")
         check(dprob <= 1, f"{method} vs plain versions: prob |diff| {dprob} <= 1")
     return {"results": {k: {f: v[f] for f in ("tiles", "compute_seconds", "patches_per_sec")}
-                        for k, v in results.items()}, "launches": per_run}
+                        for k, v in results.items()}, "launches": per_run, "dir": stamped[0]}
+
+
+@contextlib.contextmanager
+def environ(**values: str):
+    """Set environment variables for the body, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def compare_to_device(label: str, got: Path, want: Path, src: Path, bands: int) -> dict:
+    """A streaming raster against the device route's raster of the same
+    configuration: shape and georeferencing; argmax: every pixel written,
+    class agreement >= 0.999, prob |diff| <= 1; class_prob: every band
+    |diff| <= 1. Returns the share of bit-equal bytes."""
+    with TiffReader(src) as s, TiffReader(got) as r, TiffReader(want) as w:
+        check((r.width, r.height, r.count) == (w.width, w.height, bands),
+              f"{label}: raster {r.width}x{r.height}x{r.count}")
+        check(r.transform == s.transform and r.crs == s.crs,
+              f"{label}: georeferencing kept (crs {r.crs})")
+        have, ref = r.read(), w.read()
+    same = float((have == ref).mean())
+    diff = np.abs(have.astype(np.int16) - ref.astype(np.int16))
+    dprob = int((diff[1] if bands == 2 else diff).max())
+    if bands == 2:
+        check(bool((have[1] > 0).all()), f"{label}: every pixel written (prob > 0)")
+        agree = float((have[0] == ref[0]).mean())
+        check(agree >= 0.999, f"{label} vs the device route: class agreement {agree:.6f} "
+              ">= 0.999")
+    check(dprob <= 1, f"{label} vs the device route: prob |diff| {dprob} <= 1, "
+          f"{same:.6f} of bytes bit-equal")
+    return {"bit_equal": same, "prob_diff": dprob}
+
+
+def stream_line(label: str, stats: dict) -> dict:
+    """Print where a streaming run's seconds went; returns its numbers."""
+    keys = [f"{k}_seconds" for k in eng.STREAM_TIMERS]
+    busy = sum(stats[k] for k in ("device_h2d_seconds", "device_compute_seconds",
+                                  "device_d2h_seconds"))
+    out = {k: stats[k] for k in ("tiles", "seconds", "patches_per_sec", "d2h_bytes", *keys)}
+    out["d2h_gb_per_s"] = stats["d2h_bytes"] / stats["device_d2h_seconds"] / 1e9
+    out["device_busy_share"] = busy / stats["seconds"]
+    print(f"  {label}: {stats['tiles']} tiles in {stats['seconds']:.4f} s, "
+          f"{stats['patches_per_sec']:.2f} patches/s; " + ", ".join(
+              f"{k} {stats[f'{k}_seconds']:.4f} s" for k in eng.STREAM_TIMERS)
+          + f"; d2h {stats['d2h_bytes'] / 1e9:.3f} GB at {out['d2h_gb_per_s']:.2f} GB/s; "
+          f"device busy {out['device_busy_share']:.3f} of the run", flush=True)
+    return out
+
+
+def run_streaming(cfg: dict, zone_hw: int, sweep_dir: Path) -> dict:
+    """The streaming route through detect_main, each run with the counts set
+    to 0 just before it, against the device route's raster of the same
+    configuration from this call: the main configuration routed by a budget
+    below its estimate (no zone upload), class_prob, and average_weights and
+    max at the sweep's size-512 geometry (``-c``), the last three forced by
+    FLAIRTPU_STREAMING_ZONE."""
+    parent = Path(cfg["output_path"]).parent
+    out: dict[str, dict] = {}
+    n_main = -(-len(slice_grid(zone_hw, zone_hw, S, M).tiles) // BATCH)
+
+    # the main configuration, routed by its estimate against the budget
+    grid = slice_grid(zone_hw, zone_hw, S, M)
+    need = de.estimate_bytes(grid, C, K, "exact-clipping", "argmax", BATCH)
+    budget = min(need, zone_hw * zone_hw * C * 4) // 2
+    main = dict(cfg, output_path=str(parent / "out_stream"))
+    conf = write_conf(main, "stream")
+    uploads: list[int] = []
+    upload_zone = de.upload_zone
+
+    def counted_upload(host, device):
+        uploads.append(host.numel())
+        return upload_zone(host, device)
+
+    de.upload_zone = counted_upload
+    try:
+        with environ(FLAIRTPU_DEVICE_ZONE_BYTES=str(budget)):
+            reset_launches()
+            stats = cli.detect_main([f"--conf={conf}"])
+            launches = read_launches()
+    finally:
+        de.upload_zone = upload_zone
+    check("stitch_seconds" in stats, f"main configuration, budget {budget} below its estimate "
+          f"{need}: the streaming route")
+    check(not uploads, f"main configuration streamed: no zone upload ({uploads})")
+    check_launches(f"streaming main configuration, {n_main} batches", launches,
+                   expected_launches("exact-clipping", "argmax", n_main, streaming=True))
+    out["argmax"] = dict(
+        stream_line("streaming main configuration", stats), launches=launches,
+        **compare_to_device("streaming main configuration", Path(main["output_path"]) /
+                            "zone-ARGMAX.tif", Path(cfg["output_path"]) / "zone-ARGMAX.tif",
+                            Path(cfg["input_img_path"]), 2))
+
+    # class_prob
+    cp = dict(cfg, output_type="class_prob", output_name="zone-PROBS",
+              output_path=str(parent / "out_stream_class_prob"))
+    conf = write_conf(cp, "stream_class_prob")
+    with environ(FLAIRTPU_STREAMING_ZONE="1"):
+        reset_launches()
+        stats = cli.detect_main([f"--conf={conf}"])
+        launches = read_launches()
+    check_launches(f"streaming class_prob, {n_main} batches", launches,
+                   expected_launches("exact-clipping", "class_prob", n_main, streaming=True))
+    out["class_prob"] = dict(
+        stream_line("streaming class_prob", stats), launches=launches,
+        **compare_to_device("streaming class_prob", Path(cp["output_path"]) / "zone-PROBS.tif",
+                            parent / "out_class_prob" / "zone-PROBS.tif",
+                            Path(cfg["input_img_path"]), K))
+
+    # average_weights and max at the sweep's size-512 geometry
+    sw = sweep_config(cfg)
+    methods = ["average_weights", "max"]
+    strategies = json.loads(json.dumps(sw["strategies"]))
+    strategies["tiling"]["size_range"] = [S]
+    strategies["stitching"]["methods"] = methods
+    sw.update(strategies=strategies, output_path=str(parent / "out_stream_sweep"))
+    conf = write_conf(sw, "stream_sweep")
+    with environ(FLAIRTPU_STREAMING_ZONE="1"), counted_runs() as per_run:
+        results = cli.detect_main([f"--conf={conf}", "-c"])
+    stamped = [p for p in Path(sw["output_path"]).iterdir() if p.is_dir()]
+    check(len(stamped) == 1 and len(per_run) == len(methods),
+          f"streaming sweep: {len(per_run)} runs in one timestamped directory")
+    for name, launches in per_run.items():
+        method, stats = name.rsplit("stitching=", 1)[1], results[name]
+        n = -(-stats["tiles"] // sw["batch_size"])
+        check_launches(f"streaming {name}, {n} batches", launches,
+                       expected_launches(method, "argmax", n, streaming=True))
+        raster = f"zone-ARGMAX-S_{name}.tif"
+        out[method] = dict(
+            stream_line(f"streaming {name}", stats), launches=launches,
+            **compare_to_device(f"streaming {name}", stamped[0] / raster, sweep_dir / raster,
+                                Path(cfg["input_img_path"]), 2))
+    return out
 
 
 def stage_breakdown(cfg: dict, zone_hw: int, rng, epi: dict) -> dict:
@@ -1067,6 +1305,8 @@ def main() -> int:
             torch.cuda.empty_cache()
             stitch = check_stitch(timed=True)
             torch.cuda.empty_cache()
+            softmax = check_tile_softmax(rng)
+            torch.cuda.empty_cache()
         print(f"    fused_tail: {tail['ms']:.4f} ms, plain {tail['plain_ms']:.4f} ms, "
               f"bound {tail['bound_ms']:.4f} ms ({tail['bound_by']})", flush=True)
         print(f"    gather_normalize: {gather['ms']:.4f} ms, plain {gather['plain_ms']:.4f} ms, "
@@ -1082,7 +1322,8 @@ def main() -> int:
               f"plain {epi['plain_ms']:.4f} ms, bound {epi['bound_ms']:.4f} ms "
               f"({epi['bytes'] / 1e9:.2f} GB, {epi['bound_by']})", flush=True)
         for name, r in (("fused_tail probs", probs), ("fused_tail logits", logits),
-                        *stitch["timed"].items()):
+                        *stitch["timed"].items(), ("tile_softmax probs", softmax["probs"]),
+                        ("tile_softmax argmax", softmax["argmax"])):
             print(f"    {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
 
@@ -1090,6 +1331,9 @@ def main() -> int:
         main_path = run_main_path(cfg, conf, ZONE, card)
         class_prob = run_class_prob(cfg, ZONE)
         sweep = run_sweep(cfg, ZONE)
+        print("[3b] the streaming route: flair-detect on the card, stitched on the host",
+              flush=True)
+        streaming = run_streaming(cfg, ZONE, sweep["dir"])
         if args.profile:
             with torch.inference_mode():
                 prof = stage_breakdown(cfg, ZONE, rng, epi)
@@ -1105,19 +1349,33 @@ def main() -> int:
     def sweep_launches(name: str) -> int:
         return sum(run[name] for run in sweep["launches"].values())
 
+    def stream_launches(name: str) -> int:
+        return sum(run["launches"][name] for run in streaming.values())
+
     # fused_tail: the argmax mode's numbers on the main path, and each mode's
-    # (launches counted on the run of its own path: class_prob, the sweep)
+    # (launches counted on the run of its own path: class_prob, the sweep,
+    # and the streaming runs)
     modes = [
-        {"mode": "argmax", "launches": main_path["launches"]["fused_tail"],
+        {"mode": "argmax", "launches": main_path["launches"]["fused_tail"]
+         + stream_launches("fused_tail"),
          "max_abs_err": tail["max_abs_err"], **numbers(tail), "library_ms": tail["library_ms"]},
         {"mode": "probs", "replaces": "flairtpu/zone/device_engine.py:176-185",
-         "launches": class_prob["launches"]["fused_tail_probs"],
+         "launches": class_prob["launches"]["fused_tail_probs"]
+         + stream_launches("fused_tail_probs"),
          "max_abs_err": probs["max_abs_err"], **numbers(probs),
          "library_ms": probs["library_ms"]},
         {"mode": "logits", "replaces": "flairtpu/zone/device_engine.py:206, :519",
-         "launches": sweep_launches("fused_tail_logits"), "max_abs_err": logits["max_abs_err"],
-         **numbers(logits), "library_ms": logits["library_ms"]},
+         "launches": sweep_launches("fused_tail_logits") + stream_launches("fused_tail_logits"),
+         "max_abs_err": logits["max_abs_err"], **numbers(logits),
+         "library_ms": logits["library_ms"]},
     ]
+    # tile_softmax: the probs mode's numbers, and each mode's (launches on the
+    # streaming average_weights and max runs)
+    softmax_modes = [
+        {"mode": mode, "launches": stream_launches(f"tile_{mode}"),
+         "max_abs_err": softmax[mode]["max_abs_err"], **numbers(softmax[mode]),
+         "library_ms": None}
+        for mode in ("probs", "argmax")]
     kernels = [
         {"name": "fused_tail", "route": "cuda", "source": f"{src}/fused_tail.cu",
          "replaces": "benchmarks/pallas_fused_tail.py:229 and the plane writes "
@@ -1154,10 +1412,19 @@ def main() -> int:
          "replaces": "flairtpu/zone/device_engine.py:216-220, :539, :728-729, :742-743",
          "launches": sweep_launches("stitch_finalize"), "max_abs_err": 0,
          **numbers(timed["stitch_finalize"]), "library_ms": None},
+        # no single PyTorch call computes either mode (softmax, then a
+        # permute and a copy, is two)
+        {"name": "tile_softmax", "route": "cuda", "source": f"{src}/tile_softmax.cu",
+         "replaces": "flairtpu/zone/engine.py:138-145 (XLA-fused full-tile softmax payloads)",
+         "launches": sum(m["launches"] for m in softmax_modes),
+         "max_abs_err": max(m["max_abs_err"] for m in softmax_modes),
+         **numbers(softmax["probs"]), "library_ms": None, "modes": softmax_modes},
     ]
     print(json.dumps({"main_path": main_path["stats"], "card": card}))
     print(json.dumps({"class_prob": class_prob["stats"], "card": card}))
     print(json.dumps({"compare_sweep": sweep["results"], "card": card}))
+    print(json.dumps({"streaming": {k: {f: v for f, v in r.items() if f != "launches"}
+                                    for k, r in streaming.items()}, "card": card}))
     print(json.dumps({"stitch_timings": timed, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,9 +4,11 @@ reference zone_detect/main.py:275-384).
 Iterates the padding x tile-size x margin x stride x stitching
 cross-product, producing one output raster per combination (method-string
 suffixed filename), and with ``metrics`` a per-patch metrics JSON and the
-per-method timing, with the reference's record shapes. The zone is read and
-copied to the card once for the whole sweep; each combination builds its
-own zone runner and tail geometry on the one prepared model.
+per-method timing, with the reference's record shapes. The zone is read
+once for the whole sweep, and copied to the card once unless it is too
+large for the device route; each combination takes its own route through
+``run_single`` and builds its own runner and tail geometry on the one
+prepared model.
 """
 
 from __future__ import annotations

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from flairtpu_torch.config import not_ported
-from flairtpu_torch.ops import stitch
+from flairtpu_torch.ops import stitch, tile_softmax
 from flairtpu_torch.ops.fused_tail import (TailParams, fused_tail, fused_tail_logits,
                                            fused_tail_probs, tail_geometry)
 from flairtpu_torch.ops.gather import gather_normalize
@@ -77,24 +77,43 @@ def estimate_bytes(grid: TileGrid, n_channels: int, n_classes: int, method: str,
     return zone + logits + planes + H * W * 2
 
 
-def stage_array(arr: np.ndarray, device: torch.device) -> dict:
-    """Start the upload of a (C, H, W) zone read to ``device`` as (H, W, C).
+def require_uint8(dtype, route: str) -> None:
+    """Both zone routes take uint8 rasters only (ROADMAP slice 2 item 6)."""
+    if np.dtype(dtype) != np.uint8:
+        raise not_ported(f"{np.dtype(dtype)} zone rasters on {route}", "slice 2")
 
-    On the card the zone goes through pinned host memory and an
-    asynchronous copy; ``h2d_done`` is the event that marks its end."""
-    if arr.dtype != np.uint8:
-        raise not_ported(f"{arr.dtype} zone rasters on the device path", "slice 2")
-    shape = (arr.shape[1], arr.shape[2], arr.shape[0])
-    if device.type != "cuda":
-        return {"zone_dev": torch.from_numpy(np.ascontiguousarray(
-            np.moveaxis(arr, 0, -1))).to(device), "h2d_done": None}
-    host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-    host.numpy()[...] = np.moveaxis(arr, 0, -1)
+
+def upload_zone(host: torch.Tensor, device: torch.device) -> dict:
+    """Start the copy of an (H, W, C) uint8 host zone to ``device``:
+    {'zone_dev', 'h2d_done'}. From pinned memory the copy is asynchronous
+    and ``h2d_done`` is the event that marks its end; from pageable memory
+    it is done when this returns."""
+    if device.type != "cuda" or not host.is_pinned():
+        return {"zone_dev": host.to(device), "h2d_done": None}
     zone_dev = host.to(device, non_blocking=True)
     done = torch.cuda.Event()
     done.record()
-    # the pinned buffer must outlive the copy: keep it with the staged zone
-    return {"zone_dev": zone_dev, "h2d_done": done, "_pinned": host}
+    return {"zone_dev": zone_dev, "h2d_done": done}
+
+
+def stage_array(arr: np.ndarray, device: torch.device) -> dict:
+    """Keep a (C, H, W) zone read as an (H, W, C) host tensor, ``zone_host``,
+    and start its upload to ``device``, unless the zone is too large for the
+    device route (``nbytes * 4`` over :func:`device_budget_bytes`, as
+    ``flairtpu/zone/engine.py:349-358``): such a zone streams, and a device
+    run that takes it after all uploads it then (:meth:`DeviceZoneRunner.run`).
+
+    On the card an uploaded zone sits in pinned host memory, which the
+    staged dict keeps beyond the copy."""
+    require_uint8(arr.dtype, "the device route")
+    upload = arr.nbytes * 4 <= device_budget_bytes()
+    host = torch.empty((arr.shape[1], arr.shape[2], arr.shape[0]), dtype=torch.uint8,
+                       pin_memory=upload and device.type == "cuda")
+    host.numpy()[...] = np.moveaxis(arr, 0, -1)
+    staged = {"zone_host": host}
+    if upload:
+        staged.update(upload_zone(host, device))
+    return staged
 
 
 def _owned(starts: list[int], s: int) -> list[tuple[int, int]]:
@@ -142,11 +161,14 @@ def exact_windows(tiles: list[Tile], height: int, width: int, s: int,
 
 
 class DeviceZoneRunner:
-    """Runs the zone programs on the staged zone's device."""
+    """Runs the zone programs on the model's device. Its per-batch forward
+    (``_tail_input`` and the three ``_forward_*``) also serves the streaming
+    route (``zone/engine.py:ZoneEngine``)."""
 
-    # the stitch kernels' wrappers (a subclass may swap in other functions
-    # of the same names and arguments)
+    # the stitch kernels' and the full-tile softmax kernels' wrappers (a
+    # subclass may swap in other functions of the same names and arguments)
     stitch_ops = stitch
+    tile_ops = tile_softmax
 
     def __init__(self, config: dict, model, tail: TailParams):
         self.config = config
@@ -163,6 +185,10 @@ class DeviceZoneRunner:
                          stds=tuple(norma.get("norm_stds") or ()))
         self.geometry = tail_geometry(self.size, self.margin)
         self.full_geometry = tail_geometry(self.size, 0)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tail.epi.device
 
     def _tail_input(self, zone: torch.Tensor, origins: torch.Tensor, margin: int):
         """One batch, (B, 2) origins in the padded zone -> the fused tail's
@@ -247,7 +273,8 @@ class DeviceZoneRunner:
 
         ``staged`` (from :func:`stage_array`, via
         :func:`flairtpu_torch.zone.engine.stage_zone`) holds the zone already
-        read, with its host-to-device copy in flight."""
+        read, with its host-to-device copy in flight, or a zone that staging
+        kept on the host, which is copied here (h2d_seconds)."""
         if method not in ("exact-clipping", "average", "average_weights", "max"):
             raise ValueError(f"unknown stitching method {method!r}")
         S, m, B = self.size, self.margin, self.batch
@@ -275,6 +302,8 @@ class DeviceZoneRunner:
 
         timings: dict[str, float] = {}
         t0 = time.perf_counter()
+        if "zone_dev" not in staged:  # a zone staged for streaming: upload it now
+            staged = dict(staged, **upload_zone(staged["zone_host"], self.device))
         zone = staged["zone_dev"]
         if staged["h2d_done"] is not None:
             staged["h2d_done"].synchronize()  # residual wait on the staged copy

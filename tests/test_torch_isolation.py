@@ -20,6 +20,7 @@ from flairtpu_torch.io.tiff import Affine, write_array
 from flairtpu_torch.models.factory import FlairSegmentationModel
 from flairtpu_torch.ops import fused_tail as ft
 from flairtpu_torch.ops import gather as ga
+from flairtpu_torch.zone.engine import stage_zone
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = Path(flairtpu_torch.__file__).resolve().parent
@@ -158,14 +159,20 @@ def test_unported_options_raise(tmp_path, over, slice_name):
         cfgmod.validate_detect_config(cfgmod.read_config(conf))
 
 
-def test_zone_over_device_budget_raises(tmp_path, monkeypatch):
-    """A zone the device budget cannot hold needs the streaming route, which
-    is not ported: detect_main says so and writes nothing."""
+def test_zone_over_device_budget_raises(tmp_path, monkeypatch, capsys):
+    """A zone the device budget cannot hold no longer raises: it takes the
+    streaming route, the raster is written, and staging does not upload it."""
     monkeypatch.setenv("FLAIRTPU_DEVICE_ZONE_BYTES", "1000")
     conf = _tiny_detect_setup(tmp_path, use_gpu=False)
-    with pytest.raises(NotImplementedError, match="streaming zone route.*slice 2"):
-        detect_main([f"--conf={conf}"])
-    assert not (tmp_path / "out" / "z.tif").exists()
+    stats = detect_main([f"--conf={conf}"])
+    assert "zone path: streaming" in capsys.readouterr().out
+    assert stats["tiles"] == 9 and "stitch_seconds" in stats
+    with TiffReader(tmp_path / "out" / "z.tif") as r:
+        assert (r.width, r.height, r.count) == (40, 40, 2)
+        assert (r.read(2) > 0).all()
+    staged = stage_zone(cfgmod.validate_detect_config(cfgmod.read_config(conf)),
+                        torch.device("cpu"))
+    assert "zone_dev" not in staged and tuple(staged["zone_host"].shape) == (40, 40, 5)
 
 
 def test_msgpack_weights_and_flair_raise(tmp_path):

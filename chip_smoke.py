@@ -16,7 +16,9 @@ Phases (any failure exits non-zero):
    gather_normalize exactly equal in float32 and equal to the bfloat16 cast
    of the float32 result in bfloat16, at the main path's shapes, on a zone
    with an odd row pitch and odd origin columns, and at S = 36, C = 3
-   (S*C not a multiple of 8); conv_epilogue exactly equal (torch.equal, bf16
+   (S*C not a multiple of 8), for uint8 zones and, through its typed
+   instance, uint16, int16 and float32 zones, each timed with its byte
+   bound (input and output bytes at 3.35 TB/s); conv_epilogue exactly equal (torch.equal, bf16
    and float32 outputs) at each of the 41 BatchNorm sites of one main-path
    batch, on the operands that batch gives it, plus ReLU off and a C that is
    not a multiple of 8. The fused tail's probs mode (bytes within 1 of the
@@ -66,6 +68,22 @@ Phases (any failure exits non-zero):
    route's raster of the same configuration from this call (class
    agreement >= 0.999, prob |diff| <= 1, the bit-equal share printed), with
    where its seconds went.
+3c. the banded route (FLAIRTPU_ZONE_BANDS = 2 and 4) on the main
+   configuration, beside an unbanded run: each raster bit-equal to the main
+   path's, no whole-zone upload, the launches (a band's last batch padded
+   with duplicates: 2 and 4 batches), and the card's span sums of the three streams
+   (slab uploads, band compute, owned rows back), the wall time and the
+   overlap share 1 - wall / spans.
+3d. ``detect_main -b -m`` over a department of three 4096 x 4096 zones with
+   truth rasters, each from its own numpy seed: the three rasters with the
+   -ARGMAX-S_ names, each bit-equal to a single-zone device-route run of
+   the same zone, the metrics JSON (one record), each zone's launches;
+   zones/s, each zone's read (and the part the prefetch hid), h2d residual,
+   compute, d2h and write seconds, and whether zone i + 1's upload (events
+   on its H2D stream) lies inside zone i's run.
+3e. a 4096 x 4096 uint16 zone (12-bit values, ``custom``) on the device
+   and the streaming routes (the typed gather once a batch), each against
+   its all-plain run: class agreement >= 0.999, prob |diff| <= 1.
 4. the kernels line, the card line, and last the JSON result line.
 
     python3 chip_smoke.py --profile  # also one batch per program by stage, and the profiler table
@@ -132,6 +150,10 @@ GAP_TOL = 0.05
 # blocks; a downsample's BatchNorm is folded into its block's last site) and
 # 2 per decoder block 0-3
 EPILOGUE_SITES = 1 + 2 * 16 + 2 * 4
+# zone dtypes of the typed gather instance (the first is phase 3e's zone)
+TYPED_ZONES = ("uint16", "int16", "float32")
+# phase 3e: custom normalization of a 12-bit zone
+U16_MEANS, U16_STDS = [2000.0, 2100.5, 1900.25, 2500.0, 300.5], [800.0, 750.5, 820.0, 900.25, 120.0]
 
 
 def check(ok: bool, msg: str) -> None:
@@ -590,38 +612,67 @@ def compare_gather(zone, org, size: int, label: str) -> float:
     return worst
 
 
-def check_gather_unaligned(rng, hp: int, wp: int, c: int, size: int, n: int) -> float:
+def random_zone(rng, shape: tuple, dtype: str = "uint8") -> np.ndarray:
+    """Zone values of the dtype: bytes, 12-bit imagery, an elevation with
+    negative values, a float elevation."""
+    if dtype == "uint8":
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+    if dtype == "uint16":
+        return rng.integers(0, 4096, shape).astype(np.uint16)
+    if dtype == "int16":
+        return rng.integers(-1000, 3000, shape).astype(np.int16)
+    return (rng.standard_normal(shape) * 80.0 + 200.0).astype(np.float32)
+
+
+def check_gather_unaligned(rng, hp: int, wp: int, c: int, size: int, n: int,
+                           dtype: str = "uint8") -> float:
     """A zone whose row pitch wp * c is odd where c is, at origins with odd
-    columns: every tile row starts at an unaligned zone byte."""
-    zone = torch.from_numpy(rng.integers(0, 256, (hp, wp, c), dtype=np.uint8)).to("cuda")
+    columns: every tile row starts at an unaligned zone byte (uint8) or at
+    an odd element."""
+    zone = torch.from_numpy(random_zone(rng, (hp, wp, c), dtype)).to("cuda")
     cols = np.minimum(rng.integers(0, wp - size + 1, n) | 1, wp - size)
     org = np.stack([rng.integers(0, hp - size + 1, n), cols], axis=1).astype(np.int32)
     return compare_gather(zone, torch.from_numpy(org).to("cuda"), size,
-                          f"S={size} C={c} pitch {wp * c} B={n} odd columns")
+                          f"{dtype} S={size} C={c} pitch {wp * c} B={n} odd columns")
 
 
-def check_gather(rng, zone_hw: int, timed: bool = False) -> dict:
+def check_gather(rng, zone_hw: int, timed: bool = False, dtype: str = "uint8") -> dict:
+    """The instance of ``dtype`` at the main path's shapes, on a zone with an
+    odd row pitch and odd origin columns, and at S = 36, C = 3 (S*C not a
+    multiple of 8); timed at the main path's shapes with its byte bound."""
     Hp = zone_hw + 2 * M
-    zone = torch.from_numpy(rng.integers(0, 256, (Hp, Hp, C), dtype=np.uint8)).to("cuda")
+    zone = torch.from_numpy(random_zone(rng, (Hp, Hp, C), dtype)).to("cuda")
     grid = slice_grid(zone_hw, zone_hw, S, M)
     org_np = np.array([(t.row0 + M, t.col0 + M) for t in grid.tiles[:BATCH]], np.int32)
     org = torch.from_numpy(org_np).to("cuda")
-    worst = compare_gather(zone, org, S, f"main path B={len(org_np)}")
-    worst = max(worst, check_gather_unaligned(rng, 600, 601, C, S, 8),
-                check_gather_unaligned(rng, 100, 101, 3, 36, 16))
+    worst = compare_gather(zone, org, S, f"{dtype} main path B={len(org_np)}")
+    worst = max(worst, check_gather_unaligned(rng, 600, 601, C, S, 8, dtype),
+                check_gather_unaligned(rng, 100, 101, 3, 36, 16, dtype))
     out = {"max_abs_err": worst}
     if timed:
         out["ms"] = cuda_ms(lambda: ga.gather_normalize(
             zone, org, S, "scaling", out_dtype=torch.bfloat16))
         out["plain_ms"] = cuda_ms(lambda: ga.gather_normalize_plain(
             zone, org, S, "scaling", out_dtype=torch.bfloat16))
-        covered = np.zeros((Hp, Hp), bool)  # each zone byte read once
+        covered = np.zeros((Hp, Hp), bool)  # each zone element read once
         for r, c in org_np:
             covered[r:r + S, c:c + S] = True
-        nbytes = int(covered.sum()) * C + org_np.nbytes + len(org_np) * S * S * C * 2
+        nbytes = (int(covered.sum()) * C * zone.element_size() + org_np.nbytes
+                  + len(org_np) * S * S * C * 2)
         # one float32 multiply per element
         out.update(bound(len(org_np) * S * S * C, nbytes, PEAK_FP32_FLOPS), bytes=nbytes)
     return out
+
+
+def check_gather_typed(rng, zone_hw: int) -> dict:
+    """The typed instance on uint16, int16 and float32 zones, each timed:
+    the uint16 numbers, and each dtype's under ``modes``."""
+    modes = []
+    for dtype in TYPED_ZONES:
+        r = check_gather(rng, zone_hw, timed=True, dtype=dtype)
+        modes.append(dict(mode=dtype, **r))
+        torch.cuda.empty_cache()
+    return dict(modes[0], modes=modes, max_abs_err=max(m["max_abs_err"] for m in modes))
 
 
 class SiteRecorder:
@@ -852,6 +903,7 @@ def run_plain(cfg: dict, method: str = "exact-clipping", stride: int | None = No
 
 def reset_launches() -> None:
     ft.launches = ft.probs_launches = ft.logits_launches = ga.launches = ep.launches = 0
+    ga.typed_launches = 0
     for counts in (st.launches, ts.launches):
         for name in counts:
             counts[name] = 0
@@ -860,16 +912,19 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     return {"fused_tail": ft.launches, "fused_tail_probs": ft.probs_launches,
             "fused_tail_logits": ft.logits_launches, "gather_normalize": ga.launches,
-            "conv_epilogue": ep.launches, **st.launches, **ts.launches}
+            "gather_normalize_typed": ga.typed_launches, "conv_epilogue": ep.launches,
+            **st.launches, **ts.launches}
 
 
 def expected_launches(method: str, output_type: str, n_batches: int,
-                      streaming: bool = False) -> dict:
+                      streaming: bool = False, typed: bool = False) -> dict:
     """Each kernel's launches for one zone run of ``n_batches`` batches, on
     the device route or the streaming route (whose stitches run on the
-    host, after the full-tile softmax kernel)."""
+    host, after the full-tile softmax kernel); ``typed``: a zone that is
+    not uint8."""
     out = dict.fromkeys(read_launches(), 0)
-    out.update(gather_normalize=n_batches, conv_epilogue=EPILOGUE_SITES * n_batches)
+    out["gather_normalize_typed" if typed else "gather_normalize"] = n_batches
+    out["conv_epilogue"] = EPILOGUE_SITES * n_batches
     if output_type == "class_prob":
         out["fused_tail_probs"] = n_batches
     elif method == "exact-clipping":
@@ -975,16 +1030,16 @@ def sweep_config(cfg: dict) -> dict:
 
 @contextlib.contextmanager
 def counted_runs():
-    """Within the body, each run of a sweep (``run_single``) sets the counts
-    to 0 just before it and reads them just after: yields {method string:
-    launches}."""
+    """Within the body, each run of a sweep or of batch mode
+    (``run_single``) sets the counts to 0 just before it and reads them just
+    after: yields {method string, or output name: launches}."""
     per_run: dict[str, dict] = {}
     run_single = eng.run_single
 
     def counted(config, model, tail, device, stride, method, identifier="", staged=None):
         reset_launches()
         out = run_single(config, model, tail, device, stride, method, identifier, staged)
-        per_run[identifier[1:]] = read_launches()
+        per_run[identifier[1:] or config["output_name"]] = read_launches()
         return out
 
     eng.run_single = counted
@@ -1060,6 +1115,24 @@ def environ(**values: str):
                 os.environ[k] = v
 
 
+@contextlib.contextmanager
+def counted_uploads():
+    """Within the body, each whole-zone upload (``upload_zone``) adds its
+    element count to the list yielded."""
+    uploads: list[int] = []
+    upload_zone = de.upload_zone
+
+    def counted(host, device):
+        uploads.append(host.numel())
+        return upload_zone(host, device)
+
+    de.upload_zone = counted
+    try:
+        yield uploads
+    finally:
+        de.upload_zone = upload_zone
+
+
 def compare_to_device(label: str, got: Path, want: Path, src: Path, bands: int) -> dict:
     """A streaming raster against the device route's raster of the same
     configuration: shape and georeferencing; argmax: every pixel written,
@@ -1117,21 +1190,10 @@ def run_streaming(cfg: dict, zone_hw: int, sweep_dir: Path) -> dict:
     budget = min(need, zone_hw * zone_hw * C * 4) // 2
     main = dict(cfg, output_path=str(parent / "out_stream"))
     conf = write_conf(main, "stream")
-    uploads: list[int] = []
-    upload_zone = de.upload_zone
-
-    def counted_upload(host, device):
-        uploads.append(host.numel())
-        return upload_zone(host, device)
-
-    de.upload_zone = counted_upload
-    try:
-        with environ(FLAIRTPU_DEVICE_ZONE_BYTES=str(budget)):
-            reset_launches()
-            stats = cli.detect_main([f"--conf={conf}"])
-            launches = read_launches()
-    finally:
-        de.upload_zone = upload_zone
+    with counted_uploads() as uploads, environ(FLAIRTPU_DEVICE_ZONE_BYTES=str(budget)):
+        reset_launches()
+        stats = cli.detect_main([f"--conf={conf}"])
+        launches = read_launches()
     check("stitch_seconds" in stats, f"main configuration, budget {budget} below its estimate "
           f"{need}: the streaming route")
     check(not uploads, f"main configuration streamed: no zone upload ({uploads})")
@@ -1182,6 +1244,180 @@ def run_streaming(cfg: dict, zone_hw: int, sweep_dir: Path) -> dict:
             stream_line(f"streaming {name}", stats), launches=launches,
             **compare_to_device(f"streaming {name}", stamped[0] / raster, sweep_dir / raster,
                                 Path(cfg["input_img_path"]), 2))
+    return out
+
+
+def read_raster(path: Path) -> np.ndarray:
+    with TiffReader(path) as r:
+        return r.read()
+
+
+def run_banded(cfg: dict, zone_hw: int) -> dict:
+    """The main configuration through detect_main with FLAIRTPU_ZONE_BANDS =
+    1 (unbanded, for its numbers), 2 and 4, each with the counts set to 0
+    just before it: the raster bit-equal to the main path's from this call;
+    banded, the band count, no zone upload, the launches (a band's last
+    batch padded with duplicates), and the lanes' span sums, wall time and overlap share
+    1 - wall / (h2d + compute + d2h spans)."""
+    parent = Path(cfg["output_path"]).parent
+    grid = slice_grid(zone_hw, zone_hw, S, M)
+    want = read_raster(Path(cfg["output_path"]) / "zone-ARGMAX.tif")
+    out = {}
+    for n in (1, 2, 4):
+        label = f"banded, FLAIRTPU_ZONE_BANDS={n}"
+        bc = dict(cfg, output_path=str(parent / f"out_banded{n}"))
+        conf = write_conf(bc, f"banded{n}")
+        with counted_uploads() as uploads, environ(FLAIRTPU_ZONE_BANDS=str(n)):
+            reset_launches()
+            stats = cli.detect_main([f"--conf={conf}"])
+            launches = read_launches()
+        check(np.array_equal(read_raster(Path(bc["output_path"]) / "zone-ARGMAX.tif"), want),
+              f"{label}: raster bit-equal to the main path's")
+        keep = {k: stats[k] for k in ("tiles", "seconds", "patches_per_sec", "h2d_seconds",
+                                      "compute_seconds", "d2h_seconds", "write_seconds")}
+        if n == 1:
+            print(f"  {label}: {stats['patches_per_sec']:.2f} patches/s, h2d "
+                  f"{stats['h2d_seconds']:.4f} s, compute {stats['compute_seconds']:.4f} s, "
+                  f"d2h {stats['d2h_seconds']:.4f} s, run {stats['seconds']:.4f} s", flush=True)
+            out["unbanded"] = keep
+            continue
+        plans = de.band_plans(grid, n, BATCH)
+        n_batches = sum(-(-len(p["tiles"]) // BATCH) for p in plans)
+        check(stats.get("bands") == len(plans), f"{label}: {stats.get('bands')} bands")
+        check(not uploads, f"{label}: no whole-zone upload ({uploads})")
+        check_launches(f"{label}, {n_batches} batches", launches,
+                       expected_launches("exact-clipping", "argmax", n_batches))
+        spans = stats["h2d_seconds"] + stats["compute_seconds"] + stats["d2h_seconds"]
+        keep.update(wall_seconds=stats["wall_seconds"], setup_seconds=stats["setup_seconds"],
+                    overlap=1.0 - stats["wall_seconds"] / spans, launches=launches)
+        print(f"  {label}: {stats['patches_per_sec']:.2f} patches/s; card spans h2d "
+              f"{stats['h2d_seconds']:.4f} + compute {stats['compute_seconds']:.4f} + d2h "
+              f"{stats['d2h_seconds']:.4f} = {spans:.4f} s, wall {stats['wall_seconds']:.4f} s "
+              f"(setup {stats['setup_seconds']:.4f} s), overlap {keep['overlap']:.4f}; run "
+              f"{stats['seconds']:.4f} s", flush=True)
+        out[f"bands_{n}"] = keep
+    return out
+
+
+BATCH_ZONES = ("Z_B1", "Z_B2", "Z_B3")
+
+
+def run_batch(cfg: dict, tmp: Path) -> dict:
+    """``detect_main -b -m`` over a department of three synthetic zones of
+    the main size with truth rasters, each from its own numpy seed, each run
+    with the counts set to 0 just before it: the three rasters with the
+    -ARGMAX-S_ names, each bit-equal to a single-zone device-route run of
+    the same zone, the metrics JSON (one record per method), the launches of
+    each zone; zones/s, where each zone's seconds went, and whether zone
+    i + 1's upload (its H2D stream's events) lies inside zone i's run."""
+    dept, truth_root = tmp / "dept" / DPT, tmp / "dept_truth"
+    transform = Affine.from_origin(700000.0, 6600000.0, 0.2, 0.2)
+    t0 = time.perf_counter()
+    for k, zone in enumerate(BATCH_ZONES):
+        rng = np.random.default_rng(SEED + 100 + k)
+        (dept / zone).mkdir(parents=True)
+        (truth_root / DPT / zone).mkdir(parents=True)
+        write_array(dept / zone / f"{DPT}_{zone}_irc.tif",
+                    rng.integers(0, 256, (C, ZONE, ZONE), dtype=np.uint8),
+                    transform=transform, crs=2154, compress="deflate")
+        write_array(truth_root / DPT / zone / "truth.tif",
+                    rng.integers(1, K + 1, (ZONE, ZONE), dtype=np.uint8),
+                    transform=transform, crs=2154, compress="deflate")
+    print(f"  synthesized a department of {len(BATCH_ZONES)} zones in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    bc = dict(cfg, output_path=str(tmp / "out_batch"), output_name="placeholder",
+              input_path=str(dept), truth_root=str(truth_root),
+              truth_path=str(truth_root / DPT / BATCH_ZONES[0] / "truth.tif"),
+              data_type="irc", model_name="resnet34_unet",
+              classes={i + 1: [1, f"class_{i}"] for i in range(K)})
+    conf = write_conf(bc, "batch")
+    with counted_runs() as per_run:
+        res = cli.detect_main([f"--conf={conf}", "-b", "-m"])
+    method = method_string(S, S - 2 * M, M, "no-padding", "exact-clipping")
+    names = [f"{DPT}_{z}_irc-ARGMAX-S_{method}" for z in BATCH_ZONES]
+    out_dir = Path(bc["output_path"])
+    check(sorted(p.name for p in out_dir.glob("*.tif")) == [f"{n}.tif" for n in names],
+          f"batch mode: the {len(names)} rasters named -ARGMAX-S_<method>")
+    n_batches = -(-len(slice_grid(ZONE, ZONE, S, M).tiles) // BATCH)
+    for name in names:
+        check_launches(f"batch mode {name.split('-ARGMAX')[0]}", per_run[name],
+                       expected_launches("exact-clipping", "argmax", n_batches))
+    metrics = json.loads((out_dir / "metrics.json").read_text())
+    keys = ["Method parameters", "Parameters values", "Avg_metrics_name", "Avg_metrics",
+            "classes", "per_class_iou", "per_class_fscore"]
+    check(len(metrics) == 1 and list(metrics[0]) == keys
+          and all(np.isfinite(metrics[0]["Avg_metrics"])),
+          f"batch mode: metrics JSON, one record per method ({metrics[0]['Avg_metrics']})")
+
+    device = eng.resolve_device(bc)
+    model, tail = eng.prepare_model(bc, device)
+    grid = slice_grid(ZONE, ZONE, S, M)
+    for zone, name in zip(BATCH_ZONES, names):
+        zc = dict(bc, input_img_path=str(dept / zone / f"{DPT}_{zone}_irc.tif"))
+        single = DeviceZoneRunner(zc, model, tail).run(grid, "exact-clipping",
+                                                       eng.stage_zone(zc, device))
+        check(np.array_equal(read_raster(out_dir / f"{name}.tif"),
+                             np.stack([single["cls"], single["prob"]])),
+              f"batch mode {zone}: raster bit-equal to its single-zone device-route run")
+    del model, tail
+
+    zones = res["zones"]
+    print(f"  batch mode: {len(zones)} zones in {res['seconds']:.4f} s, "
+          f"{len(zones) / res['seconds']:.4f} zones/s", flush=True)
+    for i, z in enumerate(zones):
+        z["read_hidden_seconds"] = max(z["read_seconds"] - z["prefetch_wait_seconds"], 0.0)
+        line = (f"    {z['zone']}: read {z['read_seconds']:.4f} s (hidden by the prefetch "
+                f"{z['read_hidden_seconds']:.4f} s), h2d residual {z['h2d_seconds']:.4f} s, "
+                f"compute {z['compute_seconds']:.4f} s, d2h {z['d2h_seconds']:.4f} s, write "
+                f"{z['write_seconds']:.4f} s; run {z['run_span'][0]:.4f}-{z['run_span'][1]:.4f} s")
+        if "h2d_span" in z:  # on the card
+            line += f", upload {z['h2d_span'][0]:.4f}-{z['h2d_span'][1]:.4f} s"
+        if i + 1 < len(zones) and "h2d_span" in zones[i + 1]:
+            up = zones[i + 1]["h2d_span"]
+            z["next_upload_inside"] = z["run_span"][0] <= up[0] and up[1] <= z["run_span"][1]
+            line += f"; {zones[i + 1]['zone']}'s upload inside this run: {z['next_upload_inside']}"
+        print(line, flush=True)
+    return {"zones_per_sec": len(zones) / res["seconds"], "seconds": res["seconds"],
+            "zones": zones, "launches": per_run}
+
+
+def run_uint16(cfg: dict, tmp: Path, zone_hw: int) -> dict:
+    """A uint16 zone of the main size (12-bit values, ``custom``
+    normalization) through detect_main on the device route and the
+    streaming route, each with the counts set to 0 just before it (the typed
+    gather instance once a batch), against its all-plain run on the card:
+    class agreement >= 0.999, prob |diff| <= 1."""
+    img = random_zone(np.random.default_rng(SEED + 200), (C, zone_hw, zone_hw), "uint16")
+    zone = tmp / DPT / "Z_U16" / "zone.tif"
+    zone.parent.mkdir(parents=True)
+    write_array(zone, img, transform=Affine.from_origin(700000.0, 6600000.0, 0.2, 0.2),
+                crs=2154, compress="deflate")
+    uc = dict(cfg, input_img_path=str(zone), output_name="zone-U16",
+              norma_task=[{"norm_type": "custom", "norm_means": U16_MEANS,
+                           "norm_stds": U16_STDS}])
+    plain = run_plain(dict(uc, output_path=str(tmp / "out_u16_plain")))
+    n_batches = -(-len(slice_grid(zone_hw, zone_hw, S, M).tiles) // BATCH)
+    out = {}
+    for route in ("device", "streaming"):
+        rc = dict(uc, output_path=str(tmp / f"out_u16_{route}"))
+        conf = write_conf(rc, f"u16_{route}")
+        with environ(FLAIRTPU_STREAMING_ZONE="1" if route == "streaming" else ""):
+            reset_launches()
+            stats = cli.detect_main([f"--conf={conf}"])
+            launches = read_launches()
+        label = f"uint16 zone, custom, {route} route"
+        check_launches(f"{label}, {n_batches} batches", launches,
+                       expected_launches("exact-clipping", "argmax", n_batches,
+                                         streaming=route == "streaming", typed=True))
+        have = read_raster(Path(rc["output_path"]) / "zone-U16.tif")
+        agree = float((plain["cls"] == have[0]).mean())
+        dprob = int(np.abs(plain["prob"].astype(int) - have[1].astype(int)).max())
+        check(agree >= 0.999, f"{label} vs plain versions: class agreement {agree:.6f} >= 0.999")
+        check(dprob <= 1, f"{label} vs plain versions: prob |diff| {dprob} <= 1")
+        print(f"  {label}: {stats['tiles']} tiles, {stats['patches_per_sec']:.2f} patches/s, "
+              f"run {stats['seconds']:.4f} s", flush=True)
+        out[route] = {"patches_per_sec": stats["patches_per_sec"], "seconds": stats["seconds"],
+                      "agree_plain": agree, "prob_diff_plain": dprob, "launches": launches}
     return out
 
 
@@ -1289,6 +1525,7 @@ def main() -> int:
                 check_fused_tail(rng, size, margin, 4, k)
             check_fused_tail_planes(rng, 1000, 1100, 8)
             gather = check_gather(rng, ZONE, timed=True)
+            typed = check_gather_typed(rng, ZONE)
             model, _ = eng.prepare_model(cfg, torch.device("cuda"))
             gen = torch.Generator("cuda").manual_seed(SEED)
             x = torch.rand((BATCH, S, S, C), generator=gen, device="cuda").to(torch.bfloat16)
@@ -1309,8 +1546,11 @@ def main() -> int:
             torch.cuda.empty_cache()
         print(f"    fused_tail: {tail['ms']:.4f} ms, plain {tail['plain_ms']:.4f} ms, "
               f"bound {tail['bound_ms']:.4f} ms ({tail['bound_by']})", flush=True)
-        print(f"    gather_normalize: {gather['ms']:.4f} ms, plain {gather['plain_ms']:.4f} ms, "
-              f"bound {gather['bound_ms']:.4f} ms ({gather['bound_by']})", flush=True)
+        for name, r in (("gather_normalize", gather),
+                        *((f"gather_normalize {m['mode']}", m) for m in typed["modes"])):
+            print(f"    {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)",
+                  flush=True)
         for r in epi["sites"]:
             print(f"    conv_epilogue {r['site']}: {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -1334,6 +1574,15 @@ def main() -> int:
         print("[3b] the streaming route: flair-detect on the card, stitched on the host",
               flush=True)
         streaming = run_streaming(cfg, ZONE, sweep["dir"])
+        print("[3c] the banded route: slabs up, bands computed and rows back on three "
+              "CUDA streams", flush=True)
+        banded = run_banded(cfg, ZONE)
+        print("[3d] department batch mode (-b): one model, the next zone staged ahead",
+              flush=True)
+        batch = run_batch(cfg, tmp)
+        print("[3e] a uint16 zone, custom normalization, device and streaming routes",
+              flush=True)
+        u16 = run_uint16(cfg, tmp, ZONE)
         if args.profile:
             with torch.inference_mode():
                 prof = stage_breakdown(cfg, ZONE, rng, epi)
@@ -1391,6 +1640,16 @@ def main() -> int:
          "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
          "bound_by": gather["bound_by"], "library_ms": None},
         # times summed over the 41 sites (launches) of one batch
+        # the uint16 zone's numbers (launches on phase 3e's two runs), and
+        # each dtype's
+        {"name": "gather_normalize_typed", "route": "cuda",
+         "source": f"{src}/gather_normalize.cu",
+         "replaces": "flairtpu/zone/device_engine.py:124 with flairtpu/data/normalize.py:52 "
+                     "on uint16, int16 and float32 zones",
+         "launches": sum(r["launches"]["gather_normalize_typed"] for r in u16.values()),
+         "max_abs_err": typed["max_abs_err"], **numbers(typed), "library_ms": None,
+         "modes": [{"mode": m["mode"], "max_abs_err": m["max_abs_err"], **numbers(m)}
+                   for m in typed["modes"]]},
         {"name": "conv_epilogue", "route": "cuda", "source": f"{src}/conv_epilogue.cu",
          "replaces": "flairtpu/models/resnet.py:177-189, :208-222, :269-273 and "
                      "flairtpu/models/unet.py:71-76 (XLA-fused BatchNorm, residual, ReLU)",
@@ -1425,6 +1684,10 @@ def main() -> int:
     print(json.dumps({"compare_sweep": sweep["results"], "card": card}))
     print(json.dumps({"streaming": {k: {f: v for f, v in r.items() if f != "launches"}
                                     for k, r in streaming.items()}, "card": card}))
+    print(json.dumps({"banded": banded, "card": card}))
+    print(json.dumps({"batch_mode": {k: v for k, v in batch.items() if k != "launches"},
+                      "card": card}))
+    print(json.dumps({"uint16_zone": u16, "card": card}))
     print(json.dumps({"stitch_timings": timed, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,10 +1,11 @@
 """Console entry (counterpart of ``flairtpu/cli.py:111-158``).
 
-``python -m flairtpu_torch.cli flair-detect --conf=<yaml> [-c] [-m]`` reads
-the same YAML as ``python -m flairtpu.cli flair-detect`` and writes the same
-LZW GeoTIFFs (2 bands for argmax, K for class_prob); ``-c`` runs the compare
-sweep and ``-m`` adds its per-patch metrics. ``-b`` (batch mode) and
-``flair`` (train / predict / metrics) are not ported yet.
+``python -m flairtpu_torch.cli flair-detect --conf=<yaml> [-c] [-m] [-b]``
+reads the same YAML as ``python -m flairtpu.cli flair-detect`` and writes
+the same LZW GeoTIFFs (2 bands for argmax, K for class_prob); ``-c`` runs
+the compare sweep, ``-m`` adds its metrics, and ``-b`` runs every zone of a
+department (``input_path``) with one model and writes the per-method
+metrics JSON. ``flair`` (train / predict / metrics) is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import argparse
 import sys
 
 from flairtpu_torch import config as cfgmod
+from flairtpu_torch.zone.batch import batch_metrics_pipeline
 from flairtpu_torch.zone.engine import run_pipeline
 
 
@@ -36,6 +38,8 @@ def detect_main(argv=None) -> dict:
     config["batch_mode"] = args.batch_mode
     config["compare"] = args.compare
     config = cfgmod.validate_detect_config(config)
+    if args.batch_mode:
+        return batch_metrics_pipeline(config)
     return run_pipeline(config)
 
 

@@ -103,22 +103,23 @@ def validate_detect_config(cfg: dict) -> dict:
     cfg.setdefault("num_worker", 2)
     cfg.setdefault("batch_size", 4)
 
-    for knob, where in (("batch_mode", "slice 2: batch mode"),
-                        ("bn_fold", "slice 3: bn_fold"),
+    for knob, where in (("bn_fold", "slice 3: bn_fold"),
                         ("quantize", "slice 3: int8")):
         if cfg.get(knob):
             raise not_ported(f"flair-detect {knob}", where)
 
     Path(_require(cfg, "output_path")).mkdir(parents=True, exist_ok=True)
+    # batch mode finds its zones and truths under input_path and truth_root
     in_path = _require(cfg, "input_img_path")
-    if not os.path.exists(in_path):
+    if not cfg["batch_mode"] and not os.path.exists(in_path):
         raise ConfigError(f"Input image path does not exist: {in_path}")
 
     if cfg["metrics"]:
         cfg["metrics_out"] = str(Path(cfg["output_path"]) / "metrics.json")
-        truth = _require(cfg, "truth_path")
-        if not os.path.exists(truth):
-            raise ConfigError(f"Ground truth path does not exist: {truth}")
+        if not cfg["batch_mode"]:
+            truth = _require(cfg, "truth_path")
+            if not os.path.exists(truth):
+                raise ConfigError(f"Ground truth path does not exist: {truth}")
 
     channels = _require(cfg, "channels")
     if not (isinstance(channels, list) and all(isinstance(c, int) for c in channels)):

@@ -35,6 +35,15 @@
 // is (x - mean) * inv_std, with inv_scale = 1/255 and inv_std = 1/std taken
 // in float32 by the caller. bfloat16 output is the round-to-nearest-even
 // cast of that.
+//
+// Zones of uint16, int16 or float32 elements (16-bit imagery, float
+// elevation) take a second, plain instance templated on the element type,
+// with the same arithmetic on the element converted to float32 (exact for
+// all three). Each thread makes 8 consecutive outputs of one tile row from 8
+// aligned element loads and, when S*C is a multiple of 8, stores them as
+// 16 bytes (bf16) or two 16-byte stores (float32); otherwise one element at
+// a time. It is bound by bytes as the uint8 instance is, and its speed is
+// measured, not tuned.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -211,28 +220,152 @@ cudaError_t dispatch(int mode, const uint8_t* zone, int wp, int c_count, const i
   return dispatch<T, 2>(zone, wp, c_count, origins, batch, size, norm, inv_scale, out, stream);
 }
 
+// ---- the typed instance: uint16, int16 and float32 zones ----
+
+template <int kMode>
+__device__ __forceinline__ float normalize_value(float v, float mean, float inv_std,
+                                                 float inv_scale) {
+  if constexpr (kMode == 0) return __fmul_rn(v, inv_scale);
+  if constexpr (kMode == 1) return __fmul_rn(__fsub_rn(v, mean), inv_std);
+  return v;
+}
+
+// Unit u is group g (8 elements) of output row `row` = b * size + y. kAligned
+// (S*C a multiple of 8): every group is whole and 16-byte aligned in the
+// output; otherwise a row has ceil(run / 8) groups, stored one element at a
+// time.
+template <typename TIn, typename T, int kMode, bool kAligned>
+__global__ void __launch_bounds__(kThreads)
+    gather_normalize_typed_kernel(const TIn* __restrict__ zone, long long pitch, int c_count,
+                                  const int* __restrict__ origins, int size, int run,
+                                  long long groups, long long n_units, const NormParams norm,
+                                  float inv_scale, T* __restrict__ out) {
+  __shared__ float s_mean[kMaxChannels + 8], s_inv[kMaxChannels + 8];
+  if constexpr (kMode == 1) {
+    for (int i = threadIdx.x; i < c_count + 8; i += kThreads) {
+      s_mean[i] = norm.mean[i % c_count];
+      s_inv[i] = norm.inv_std[i % c_count];
+    }
+    __syncthreads();
+  }
+  const long long step = (long long)gridDim.x * kThreads;
+  for (long long u = (long long)blockIdx.x * kThreads + threadIdx.x; u < n_units; u += step) {
+    const long long row = u / groups;
+    const int e = 8 * (int)(u - row * groups);  // the group's first element in the row
+    const int b = (int)(row / size), y = (int)(row - (long long)b * size);
+    const int r0 = __ldg(origins + 2 * b), c0 = __ldg(origins + 2 * b + 1);
+    const TIn* src = zone + (long long)(r0 + y) * pitch + (long long)c0 * c_count + e;
+    T* dst = out + row * run + e;
+    const int ph = kMode == 1 ? e % c_count : 0;
+    const int n = run - e < 8 ? run - e : 8;
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (kAligned || j < n) {
+        const float x = (float)__ldg(src + j);
+        if constexpr (kMode == 1)
+          v[j] = normalize_value<kMode>(x, s_mean[ph + j], s_inv[ph + j], 0.f);
+        else
+          v[j] = normalize_value<kMode>(x, 0.f, 0.f, inv_scale);
+      }
+    }
+    if constexpr (kAligned) {
+      store8(dst, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < n) store1(dst + j, v[j]);
+    }
+  }
+}
+
+template <typename TIn, typename T, int kMode, bool kAligned>
+cudaError_t launch_typed(const TIn* zone, int wp, int c_count, const int* origins, int batch,
+                         int size, const NormParams& norm, float inv_scale, void* out,
+                         cudaStream_t stream) {
+  const auto kernel = gather_normalize_typed_kernel<TIn, T, kMode, kAligned>;
+  const int run = size * c_count;
+  const long long groups = (run + 7) / 8;
+  const long long n_units = groups * batch * size;
+  if (n_units == 0) return cudaSuccess;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long need = (n_units + kThreads - 1) / kThreads;
+  const long long full = (long long)sms * per_sm;
+  kernel<<<(int)(need < full ? need : full), kThreads, 0, stream>>>(
+      zone, (long long)wp * c_count, c_count, origins, size, run, groups, n_units, norm,
+      inv_scale, static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
+template <typename TIn, typename T>
+cudaError_t dispatch_typed(int mode, const void* zone, int wp, int c_count, const int* origins,
+                           int batch, int size, const NormParams& norm, float inv_scale,
+                           void* out, cudaStream_t stream) {
+  const TIn* z = static_cast<const TIn*>(zone);
+  const bool aligned = (size * c_count) % 8 == 0;
+#define FLAIR_TYPED(M)                                                                         \
+  return aligned ? launch_typed<TIn, T, M, true>(z, wp, c_count, origins, batch, size, norm,  \
+                                                 inv_scale, out, stream)                       \
+                 : launch_typed<TIn, T, M, false>(z, wp, c_count, origins, batch, size, norm, \
+                                                  inv_scale, out, stream)
+  if (mode == 0) FLAIR_TYPED(0);
+  if (mode == 1) FLAIR_TYPED(1);
+  FLAIR_TYPED(2);
+#undef FLAIR_TYPED
+}
+
+template <typename T>
+cudaError_t dispatch_zone(int zone_type, int mode, const void* zone, int wp, int c_count,
+                          const int* origins, int batch, int size, const NormParams& norm,
+                          float inv_scale, void* out, cudaStream_t stream) {
+  switch (zone_type) {
+    case 0:
+      return dispatch<T>(mode, static_cast<const uint8_t*>(zone), wp, c_count, origins, batch,
+                         size, norm, inv_scale, out, stream);
+    case 1:
+      return dispatch_typed<uint16_t, T>(mode, zone, wp, c_count, origins, batch, size, norm,
+                                         inv_scale, out, stream);
+    case 2:
+      return dispatch_typed<int16_t, T>(mode, zone, wp, c_count, origins, batch, size, norm,
+                                        inv_scale, out, stream);
+    default:
+      return dispatch_typed<float, T>(mode, zone, wp, c_count, origins, batch, size, norm,
+                                      inv_scale, out, stream);
+  }
+}
+
 }  // namespace
 
-// zone: (Hp, wp, c_count) uint8; origins: (batch, 2) int32 inside the padded
-// zone; out: (batch, size, size, c_count) float32 (out_bf16 = 0) or bfloat16,
-// 16-byte aligned. mean / inv_std: host arrays of c_count floats (read for
-// mode 1 only). Returns cudaGetLastError() after the launch.
-extern "C" int gather_normalize(const void* zone, int wp, int c_count,
+// zone: (Hp, wp, c_count) elements of zone_type (0 uint8, 1 uint16, 2 int16,
+// 3 float32); origins: (batch, 2) int32 inside the padded zone; out: (batch,
+// size, size, c_count) float32 (out_bf16 = 0) or bfloat16, 16-byte aligned.
+// mean / inv_std: host arrays of c_count floats (read for mode 1 only).
+// Returns cudaGetLastError() after the launch.
+extern "C" int gather_normalize(const void* zone, int zone_type, int wp, int c_count,
                                 const void* origins, int batch, int size, int mode,
                                 const float* mean, const float* inv_std, float inv_scale,
                                 void* out, int out_bf16, void* stream) {
   if (c_count < 1 || c_count > kMaxChannels || mode < 0 || mode > 2 || batch < 0 || size < 0 ||
-      (reinterpret_cast<uintptr_t>(out) & 15))
+      zone_type < 0 || zone_type > 3 || (reinterpret_cast<uintptr_t>(out) & 15))
     return (int)cudaErrorInvalidValue;
   NormParams norm{};
   for (int c = 0; c < c_count && mode == 1; ++c) {
     norm.mean[c] = mean[c];
     norm.inv_std[c] = inv_std[c];
   }
-  const uint8_t* z = static_cast<const uint8_t*>(zone);
   const int* o = static_cast<const int*>(origins);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_bf16)
-    return (int)dispatch<__nv_bfloat16>(mode, z, wp, c_count, o, batch, size, norm, inv_scale, out, s);
-  return (int)dispatch<float>(mode, z, wp, c_count, o, batch, size, norm, inv_scale, out, s);
+    return (int)dispatch_zone<__nv_bfloat16>(zone_type, mode, zone, wp, c_count, o, batch, size,
+                                             norm, inv_scale, out, s);
+  return (int)dispatch_zone<float>(zone_type, mode, zone, wp, c_count, o, batch, size, norm,
+                                   inv_scale, out, s);
 }

@@ -1,7 +1,7 @@
 """Device-resident zone inference: gather -> forward -> stitch on the card
 (counterpart of ``flairtpu/zone/device_engine.py:56-221, 512-748``).
 
-The whole margin-padded zone (uint8) sits in device memory; each batch of
+The whole margin-padded zone sits in device memory; each batch of
 tiles is gathered and normalized by one kernel (``ops/gather.py``) and runs
 through the encoder and all decoder blocks but the last (cuDNN convolutions,
 each followed by the conv-epilogue kernel, ``ops/epilogue.py``). Then, by
@@ -22,8 +22,18 @@ stitching method and output type:
   padded zone coordinates, then crop them to the uint8 class and prob
   planes.
 
-The result comes back to the host in one transfer. The banded and the
+The result comes back to the host in one transfer.
+
+The banded route (``FLAIRTPU_ZONE_BANDS`` = n > 1, exact clipping with
+argmax output, ``flairtpu/zone/device_engine.py:416-510, 618-623``) keeps
+the margin-padded zone in pinned host memory and cuts the tile rows into n
+bands: each band's slab of zone rows goes up on one CUDA stream, its
+batches run on a second, and its owned rows of the two planes come back on
+a third, so that one band's copies overlap another band's compute. The
 sharded programs are not ported yet.
+
+Zones are uint8, uint16, int16 or float32 (``ZONE_DTYPES``), uploaded in
+their own dtype.
 """
 
 from __future__ import annotations
@@ -43,10 +53,69 @@ from flairtpu_torch.zone.grid import Tile, TileGrid
 from flairtpu_torch.zone.weights import patch_weights
 
 DEFAULT_BUDGET = 6 << 30
+# raster dtypes both zone routes take (the gather kernel's instances)
+ZONE_DTYPES = tuple(np.dtype(t) for t in (np.uint8, np.uint16, np.int16, np.float32))
 
 
 def device_budget_bytes() -> int:
     return int(os.environ.get("FLAIRTPU_DEVICE_ZONE_BYTES", DEFAULT_BUDGET))
+
+
+def zone_bands(method: str, output_type: str, tiles: list[Tile]) -> int:
+    """The band count when a device run takes the banded route, else 0:
+    ``FLAIRTPU_ZONE_BANDS`` = n > 1 for exact clipping with argmax output
+    over at least n distinct tile rows (``flairtpu/zone/device_engine.py:
+    620-623``)."""
+    n = int(os.environ.get("FLAIRTPU_ZONE_BANDS", "1"))
+    if (method == "exact-clipping" and output_type == "argmax" and n > 1
+            and len({t.row0 for t in tiles}) >= n):
+        return n
+    return 0
+
+
+def band_rows(rows: list[int], n_bands: int) -> list[list[int]]:
+    """The distinct tile rows cut into at most n bands of ceil(rows / n), in
+    descending row order, empty bands dropped (``device_engine.py:434-438``)."""
+    rows = sorted(set(rows), reverse=True)
+    per = -(-len(rows) // n_bands)
+    return [b for b in (rows[i * per:(i + 1) * per] for i in range(n_bands)) if b]
+
+
+def band_plans(grid: TileGrid, n_bands: int, batch: int) -> list[dict]:
+    """Each band of :func:`band_rows`, in its run order: ``tiles`` (their
+    indices in the grid, in grid order), ``rows`` (first padded zone row of
+    its slab, slab rows), ``origins`` (n, 2) int32 of its tiles in the
+    slab and ``windows`` (n, 6) int32, their owned windows of
+    :func:`exact_windows` with the origin row shifted by ``out_lo`` into
+    band planes of ``out_h`` rows, both padded to whole batches with
+    duplicates of the last tile, whose windows are empty; and ``own``: the
+    band plane rows [lo, hi) that its tiles own (empty when they own
+    none). Whole batches keep every batch at the unbanded route's shapes:
+    cuDNN picks its algorithms by shape, and a short batch need not give
+    the same bits."""
+    S, m = grid.patch_size, grid.margin
+    s = S - 2 * m
+    pad_lo = zone_padding(grid.height, grid.width, S, m)[0]
+    tiles = grid.tiles
+    windows = exact_windows(tiles, grid.height, grid.width, s, len(tiles))
+    bands = []
+    for rows in band_rows([t.row0 for t in tiles], n_bands):
+        keep = set(rows)
+        idx = [i for i, t in enumerate(tiles) if t.row0 in keep]
+        top = min(rows)
+        n_pad = (-len(idx)) % batch
+        win = np.concatenate([windows[idx], np.zeros((n_pad, 6), np.int32)])
+        out_lo = int(win[:len(idx), 0].min())
+        win[:len(idx), 0] -= out_lo
+        owned = win[:, 2] < win[:, 3]  # tiles whose window is not empty
+        own = ((int((win[owned, 0] + win[owned, 2]).min()),
+                int((win[owned, 0] + win[owned, 3]).max())) if owned.any() else (0, 0))
+        bands.append(dict(
+            tiles=idx, rows=(top + pad_lo, max(rows) - top + S), out_lo=out_lo, own=own,
+            out_h=int(win[:, 0].max()) + s, windows=win,
+            origins=np.array([(tiles[i].row0 - top, tiles[i].col0 + pad_lo)
+                              for i in idx + idx[-1:] * n_pad], np.int32)))
+    return bands
 
 
 def zone_padding(height: int, width: int, size: int, margin: int) -> tuple[int, int, int]:
@@ -58,16 +127,16 @@ def zone_padding(height: int, width: int, size: int, margin: int) -> tuple[int, 
 
 
 def estimate_bytes(grid: TileGrid, n_channels: int, n_classes: int, method: str,
-                   output_type: str, batch: int) -> int:
+                   output_type: str, batch: int, itemsize: int = 1) -> int:
     """Device bytes a zone run allocates beyond the model: the staged zone
-    and its padded copy, and the planes and buffers of the program that
-    ``method`` and ``output_type`` select."""
+    and its padded copy (``itemsize`` bytes an element), and the planes and
+    buffers of the program that ``method`` and ``output_type`` select."""
     H, W, S, m = grid.height, grid.width, grid.patch_size, grid.margin
     lo, hi_r, hi_c = zone_padding(H, W, S, m)
     Hp, Wp = H + lo + hi_r, W + lo + hi_c
     s = S - 2 * m
     Ho, Wo = max(H, s), max(W, s)
-    zone = (H * W + Hp * Wp) * n_channels
+    zone = (H * W + Hp * Wp) * n_channels * itemsize
     if output_type == "class_prob":
         return zone + Ho * Wo * n_classes
     if method == "exact-clipping":
@@ -77,39 +146,94 @@ def estimate_bytes(grid: TileGrid, n_channels: int, n_classes: int, method: str,
     return zone + logits + planes + H * W * 2
 
 
-def require_uint8(dtype, route: str) -> None:
-    """Both zone routes take uint8 rasters only (ROADMAP slice 2 item 6)."""
-    if np.dtype(dtype) != np.uint8:
+def require_zone_dtype(dtype, route: str) -> None:
+    """Both zone routes take the rasters of ``ZONE_DTYPES``; others raise
+    (ROADMAP slice 2 item 6)."""
+    if np.dtype(dtype).newbyteorder("=") not in ZONE_DTYPES:
         raise not_ported(f"{np.dtype(dtype)} zone rasters on {route}", "slice 2")
 
 
+def torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, np.dtype(dtype).newbyteorder("="))).dtype
+
+
+def as_bits(t: torch.Tensor) -> torch.Tensor:
+    """A uint16 tensor as int16 (the same bytes) for zero fills and device
+    copies, which PyTorch does not run on uint16 everywhere."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+class PinnedBuffers:
+    """Pinned host buffers of one shape and dtype taken in turn, ``depth``
+    of each: a zone staged into one is consumed before the buffer comes
+    round again (batch mode stages one zone ahead). Off the card, plain
+    memory."""
+
+    def __init__(self, device: torch.device, depth: int = 2):
+        self.pin = device.type == "cuda"
+        self.depth = depth
+        self.buffers: dict[tuple, list[torch.Tensor]] = {}
+        self.turns: dict[tuple, int] = {}
+
+    def take(self, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        key = (tuple(shape), dtype)
+        bufs = self.buffers.setdefault(key, [])
+        turn = self.turns.get(key, 0)
+        self.turns[key] = turn + 1
+        if len(bufs) < self.depth:
+            bufs.append(torch.empty(shape, dtype=dtype, pin_memory=self.pin))
+        return bufs[turn % self.depth]
+
+
 def upload_zone(host: torch.Tensor, device: torch.device) -> dict:
-    """Start the copy of an (H, W, C) uint8 host zone to ``device``:
-    {'zone_dev', 'h2d_done'}. From pinned memory the copy is asynchronous
-    and ``h2d_done`` is the event that marks its end; from pageable memory
-    it is done when this returns."""
+    """Start the copy of an (H, W, C) host zone to ``device`` on the current
+    stream: {'zone_dev', 'h2d_start', 'h2d_done'}. From pinned memory the
+    copy is asynchronous and the two timing events bound it; from pageable
+    memory it is done when this returns (events None)."""
     if device.type != "cuda" or not host.is_pinned():
-        return {"zone_dev": host.to(device), "h2d_done": None}
-    zone_dev = host.to(device, non_blocking=True)
-    done = torch.cuda.Event()
+        return {"zone_dev": as_bits(host).to(device).view(host.dtype), "h2d_start": None,
+                "h2d_done": None}
+    start, done = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    zone_dev = as_bits(host).to(device, non_blocking=True).view(host.dtype)
     done.record()
-    return {"zone_dev": zone_dev, "h2d_done": done}
+    return {"zone_dev": zone_dev, "h2d_start": start, "h2d_done": done}
 
 
-def stage_array(arr: np.ndarray, device: torch.device) -> dict:
+def stage_array(arr: np.ndarray, device: torch.device,
+                pad: tuple[int, int, int] | None = None,
+                buffers: PinnedBuffers | None = None) -> dict:
     """Keep a (C, H, W) zone read as an (H, W, C) host tensor, ``zone_host``,
-    and start its upload to ``device``, unless the zone is too large for the
-    device route (``nbytes * 4`` over :func:`device_budget_bytes`, as
-    ``flairtpu/zone/engine.py:349-358``): such a zone streams, and a device
-    run that takes it after all uploads it then (:meth:`DeviceZoneRunner.run`).
+    in the raster's dtype, and start its upload to ``device``, unless the
+    zone is too large for the device route (``nbytes * 4`` over
+    :func:`device_budget_bytes`, as ``flairtpu/zone/engine.py:349-358``):
+    such a zone streams, and a device run that takes it after all uploads it
+    then (:meth:`DeviceZoneRunner.run`).
 
-    On the card an uploaded zone sits in pinned host memory, which the
-    staged dict keeps beyond the copy."""
-    require_uint8(arr.dtype, "the device route")
-    upload = arr.nbytes * 4 <= device_budget_bytes()
-    host = torch.empty((arr.shape[1], arr.shape[2], arr.shape[0]), dtype=torch.uint8,
-                       pin_memory=upload and device.type == "cuda")
-    host.numpy()[...] = np.moveaxis(arr, 0, -1)
+    ``pad`` (lo, hi_rows, hi_cols): the run takes the banded route, which
+    uploads its slabs itself: the zone is margin-padded here once, into
+    ``zone_padded`` = (pad, (Hp, Wp, C) tensor), and not uploaded.
+
+    On the card an uploaded or padded zone sits in pinned host memory,
+    taken from ``buffers`` when given, which the staged dict keeps beyond
+    the copy."""
+    require_zone_dtype(arr.dtype, "the device route")
+    C, H, W = arr.shape
+    lo, hi_r, hi_c = pad or (0, 0, 0)
+    upload = pad is None and arr.nbytes * 4 <= device_budget_bytes()
+    shape, dtype = (H + lo + hi_r, W + lo + hi_c, C), torch_dtype(arr.dtype)
+    if buffers is not None and (upload or pad is not None):
+        host = buffers.take(shape, dtype)
+    else:
+        host = torch.empty(shape, dtype=dtype,
+                           pin_memory=(upload or pad is not None) and device.type == "cuda")
+    view = host.numpy()
+    if pad is not None:  # zero the margins: a reused buffer holds the last zone
+        view[:lo] = view[lo + H:] = 0
+        view[lo:lo + H, :lo] = view[lo:lo + H, lo + W:] = 0
+    view[lo:lo + H, lo:lo + W] = np.moveaxis(arr, 0, -1)
+    if pad is not None:
+        return {"zone_host": host[lo:lo + H, lo:lo + W], "zone_padded": (tuple(pad), host)}
     staged = {"zone_host": host}
     if upload:
         staged.update(upload_zone(host, device))
@@ -158,6 +282,64 @@ def exact_windows(tiles: list[Tile], height: int, width: int, s: int,
         if rlo < rhi and clo < chi:
             out[i, 2:] = rlo, rhi, clo, chi
     return out
+
+
+_LANE_STREAMS: dict[int, list] = {}
+
+
+def lane_streams(device: torch.device) -> list:
+    """The banded route's three CUDA streams on ``device`` (H2D, compute,
+    D2H), made once: the caching allocator keeps freed blocks per stream, so
+    a compute stream made anew for each run would allocate its activations
+    anew."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _LANE_STREAMS:
+        _LANE_STREAMS[index] = [torch.cuda.Stream(device) for _ in range(3)]
+    return _LANE_STREAMS[index]
+
+
+class _Lane:
+    """One stage of the banded pipeline: on the card a CUDA stream of its
+    own, whose work waits on the events given and is bounded by two timing
+    events; on the CPU (``stream`` None) the host, running each stage when
+    it is called."""
+
+    def __init__(self, device: torch.device, stream=None):
+        self.stream = stream
+        if stream is not None:  # after the work already queued (weights, buffers)
+            stream.wait_stream(torch.cuda.current_stream(device))
+        self.spans: list = []
+
+    def keep(self, *tensors: torch.Tensor) -> None:
+        """The caching allocator may reuse these only after this stream's work."""
+        if self.stream is not None:
+            for t in tensors:
+                t.record_stream(self.stream)
+
+    def run(self, waits, fn):
+        """fn() on this lane after ``waits`` (events; None is no wait);
+        returns the event of its end (None on the CPU)."""
+        if self.stream is None:
+            t0 = time.perf_counter()
+            fn()
+            self.spans.append(time.perf_counter() - t0)
+            return None
+        with torch.cuda.stream(self.stream):
+            for ev in waits:
+                if ev is not None:
+                    self.stream.wait_event(ev)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+        self.spans.append((start, end))
+        return end
+
+    def seconds(self) -> float:
+        """The sum of the spans, once their work is done."""
+        return sum(s if isinstance(s, float) else s[0].elapsed_time(s[1]) / 1e3
+                   for s in self.spans)
 
 
 class DeviceZoneRunner:
@@ -226,6 +408,82 @@ class DeviceZoneRunner:
             self._forward_tiles(zone, org, planes, win)
         return planes
 
+    def _run_exact_banded(self, grid: TileGrid, staged: dict,
+                          n_bands: int) -> tuple[np.ndarray, dict]:
+        """The banded exact-clipping route (``flairtpu/zone/device_engine.py:
+        416-510``) -> the (2, Ho, Wo) host planes and the lanes' span sums.
+
+        Band i (:func:`band_plans`, descending rows) copies its slab, the
+        padded zone rows its tiles gather from (a row range of the pinned
+        padded host zone, no copy on the host), into device slab i % 2 on
+        the H2D lane; runs its batches on the compute lane into device
+        planes i % 2, through the zone's owned windows
+        (:func:`exact_windows`) shifted into band rows, in whole batches
+        (the last one padded with duplicates that own nothing, as
+        ``flairtpu`` pads, ``:485-486``); and copies the rows
+        it owns back on the D2H lane, straight into the pinned host planes.
+        A slab or a plane buffer is reused only after the event of its last
+        consumer. Owned rows are disjoint and cover the zone, so the raster
+        is the unbanded one bit for bit, whatever the band order."""
+        B, s = self.batch, self.size - 2 * self.margin
+        H, W = grid.height, grid.width
+        Ho, Wo = max(H, s), max(W, s)
+        pad = zone_padding(H, W, self.size, self.margin)
+        bands = band_plans(grid, n_bands, B)
+        dev = self.device
+        cuda = dev.type == "cuda"
+        t0 = time.perf_counter()
+        padded = staged.get("zone_padded")
+        if padded is None or padded[0] != pad:  # not staged for this route: pad it now
+            host = staged["zone_host"]
+            zone_p = torch.zeros((H + pad[0] + pad[1], W + pad[0] + pad[2], host.shape[2]),
+                                 dtype=host.dtype, pin_memory=cuda)
+            zone_p.numpy()[pad[0]:pad[0] + H, pad[0]:pad[0] + W] = host.numpy()
+        else:
+            zone_p = padded[1]
+        slabs = [torch.empty((max(b["rows"][1] for b in bands), *zone_p.shape[1:]),
+                             dtype=zone_p.dtype, device=dev) for _ in range(2)]
+        planes = [torch.empty((2, max(b["out_h"] for b in bands), Wo), dtype=torch.uint8,
+                              device=dev) for _ in range(2)]
+        out = torch.zeros((2, Ho, Wo), dtype=torch.uint8, pin_memory=cuda)
+        ob = [torch.from_numpy(b["origins"]).to(dev) for b in bands]
+        wb = [torch.from_numpy(b["windows"]).to(dev) for b in bands]
+        h2d, comp, d2h = (_Lane(dev, st) for st in (lane_streams(dev) if cuda else [None] * 3))
+        h2d.keep(*slabs)
+        comp.keep(*slabs, *planes, *ob, *wb)
+        d2h.keep(*planes)
+        setup = time.perf_counter() - t0
+
+        computed, returned = [None, None], [None, None]  # the end events of buffers 0, 1
+        for i, (b, org, win) in enumerate(zip(bands, ob, wb)):
+            j = i % 2
+            slab, plane = slabs[j], planes[j]
+            r0, n_rows = b["rows"]
+            uploaded = h2d.run([computed[j]], lambda: as_bits(slab[:n_rows]).copy_(
+                as_bits(zone_p[r0:r0 + n_rows]), non_blocking=True))
+
+            def compute():
+                plane.zero_()
+                for k in range(0, len(org), B):
+                    self._forward_tiles(slab, org[k:k + B], plane, win[k:k + B])
+
+            computed[j] = comp.run([uploaded, returned[j]], compute)
+            lo, hi = b["own"]
+
+            def copy_back():
+                for p in range(2):
+                    out[p, b["out_lo"] + lo:b["out_lo"] + hi].copy_(plane[p, lo:hi],
+                                                                     non_blocking=True)
+
+            returned[j] = d2h.run([computed[j]], copy_back)
+        last = returned[(len(bands) - 1) % 2]
+        if last is not None:
+            last.synchronize()
+        wall = time.perf_counter() - t0 - setup
+        return out.numpy(), {"h2d_seconds": h2d.seconds(), "compute_seconds": comp.seconds(),
+                             "d2h_seconds": d2h.seconds(), "setup_seconds": setup,
+                             "wall_seconds": wall, "bands": len(bands)}
+
     def _run_exact_probs(self, zone: torch.Tensor, origins: torch.Tensor,
                          windows: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
         """class_prob (``device_engine.py:164-192``): the (H, W, K) uint8
@@ -274,9 +532,32 @@ class DeviceZoneRunner:
         ``staged`` (from :func:`stage_array`, via
         :func:`flairtpu_torch.zone.engine.stage_zone`) holds the zone already
         read, with its host-to-device copy in flight, or a zone that staging
-        kept on the host, which is copied here (h2d_seconds)."""
+        kept on the host, which is copied here (h2d_seconds). The banded
+        route (:func:`zone_bands`) uploads no whole zone: it takes the
+        staged host zone, padded, slab by slab."""
         if method not in ("exact-clipping", "average", "average_weights", "max"):
             raise ValueError(f"unknown stitching method {method!r}")
+        H, W = grid.height, grid.width
+        n_bands = zone_bands(method, self.output_type, grid.tiles)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            if n_bands:
+                host, timings = self._run_exact_banded(grid, staged, n_bands)
+            else:
+                host, timings = self._run_resident(grid, method, staged)
+        t_run = time.perf_counter() - t0
+        if self.output_type == "class_prob":
+            result = {"probs": np.moveaxis(host[:H, :W], -1, 0)}
+        else:
+            result = {"cls": host[0, :H, :W], "prob": host[1, :H, :W]}
+        n = len(grid.tiles)
+        return dict(result, tiles=n, seconds=t_run, read_seconds=staged["read_seconds"],
+                    patches_per_sec=n / t_run if t_run else 0.0, **timings)
+
+    def _run_resident(self, grid: TileGrid, method: str,
+                      staged: dict) -> tuple[np.ndarray, dict]:
+        """The zone on the card whole: the program of ``method`` and the
+        output type -> the host planes and the h2d / compute / d2h seconds."""
         S, m, B = self.size, self.margin, self.batch
         H, W = grid.height, grid.width
         pad_lo, pad_hi_r, pad_hi_c = zone_padding(H, W, S, m)
@@ -306,38 +587,38 @@ class DeviceZoneRunner:
             staged = dict(staged, **upload_zone(staged["zone_host"], self.device))
         zone = staged["zone_dev"]
         if staged["h2d_done"] is not None:
-            staged["h2d_done"].synchronize()  # residual wait on the staged copy
+            # the copy may run on another stream (batch mode's prefetch): this
+            # stream waits for it, and the allocator keeps the zone for it
+            stream = torch.cuda.current_stream(zone.device)
+            stream.wait_event(staged["h2d_done"])
+            zone.record_stream(stream)
+            staged["h2d_done"].synchronize()  # the host's residual wait on the copy
         timings["h2d_seconds"] = time.perf_counter() - t0
 
-        with torch.inference_mode():
-            tc = time.perf_counter()
-            zone_p = torch.zeros((Hp, Wp, zone.shape[2]), dtype=zone.dtype, device=zone.device)
-            zone_p[pad_lo:pad_lo + H, pad_lo:pad_lo + W] = zone
-            ob = torch.from_numpy(origins.reshape(-1, B, 2)).to(zone.device)
-            if exact:
-                wb = torch.from_numpy(windows.reshape(-1, B, 6)).to(zone.device)
-                if self.output_type == "class_prob":
-                    out = self._run_exact_probs(zone_p, ob, wb, (Ho, Wo))
-                else:
-                    out = self._run_exact(zone_p, ob, wb, (Ho, Wo))
+        tc = time.perf_counter()
+        zone_p = torch.zeros((Hp, Wp, zone.shape[2]), dtype=as_bits(zone).dtype,
+                             device=zone.device)
+        zone_p[pad_lo:pad_lo + H, pad_lo:pad_lo + W] = as_bits(zone)
+        zone_p = zone_p.view(zone.dtype)
+        ob = torch.from_numpy(origins.reshape(-1, B, 2)).to(zone.device)
+        if exact:
+            wb = torch.from_numpy(windows.reshape(-1, B, 6)).to(zone.device)
+            if self.output_type == "class_prob":
+                out = self._run_exact_probs(zone_p, ob, wb, (Ho, Wo))
             else:
-                vb = torch.from_numpy(valid.reshape(-1, B)).to(zone.device)
-                crop = (pad_lo, pad_lo, H, W)
-                if method == "max":
-                    out = self._run_max(zone_p, ob, vb, fps, (Hp, Wp), crop)
-                else:
-                    out = self._run_accumulate(zone_p, ob, vb, fps, method == "average_weights",
-                                               (Hp, Wp), crop)
-            if zone.device.type == "cuda":
-                torch.cuda.synchronize(zone.device)
-            timings["compute_seconds"] = time.perf_counter() - tc
-            td = time.perf_counter()
-            host = out.cpu().numpy()  # one device-to-host copy of the result
-            timings["d2h_seconds"] = time.perf_counter() - td
-        t_run = time.perf_counter() - t0
-        if self.output_type == "class_prob":
-            result = {"probs": np.moveaxis(host[:H, :W], -1, 0)}
+                out = self._run_exact(zone_p, ob, wb, (Ho, Wo))
         else:
-            result = {"cls": host[0, :H, :W], "prob": host[1, :H, :W]}
-        return dict(result, tiles=n, seconds=t_run, read_seconds=staged["read_seconds"],
-                    patches_per_sec=n / t_run if t_run else 0.0, **timings)
+            vb = torch.from_numpy(valid.reshape(-1, B)).to(zone.device)
+            crop = (pad_lo, pad_lo, H, W)
+            if method == "max":
+                out = self._run_max(zone_p, ob, vb, fps, (Hp, Wp), crop)
+            else:
+                out = self._run_accumulate(zone_p, ob, vb, fps, method == "average_weights",
+                                           (Hp, Wp), crop)
+        if zone.device.type == "cuda":
+            torch.cuda.synchronize(zone.device)
+        timings["compute_seconds"] = time.perf_counter() - tc
+        td = time.perf_counter()
+        host = out.cpu().numpy()  # one device-to-host copy of the result
+        timings["d2h_seconds"] = time.perf_counter() - td
+        return host, timings

@@ -35,8 +35,10 @@ from flairtpu_torch.models.convert import load_weights
 from flairtpu_torch.models.factory import create_model
 from flairtpu_torch.ops.fused_tail import full_windows, tail_params
 from flairtpu_torch.utils.logger import tee_stdout, untee_stdout
-from flairtpu_torch.zone.device_engine import (DeviceZoneRunner, device_budget_bytes,
-                                               estimate_bytes, require_uint8, stage_array)
+from flairtpu_torch.zone.device_engine import (DeviceZoneRunner, PinnedBuffers, as_bits,
+                                               device_budget_bytes, estimate_bytes,
+                                               require_zone_dtype, stage_array, torch_dtype,
+                                               zone_bands, zone_padding)
 from flairtpu_torch.zone.grid import TileGrid, get_stride, slice_grid
 from flairtpu_torch.zone.stitch import make_stitcher
 
@@ -133,7 +135,7 @@ class ZoneEngine:
 
     def device_fn(self, kind: str):
         """(fn, split, parts) for a payload kind: fn maps one uploaded batch,
-        a (B S, S, C) uint8 tensor on the device (tile i at rows
+        a (B S, S, C) tensor of the zone's dtype on the device (tile i at rows
         [i S, (i + 1) S)), to a tuple of payload tensors, whose (shape, dtype)
         are ``parts``; split maps their host copies and a tile index to that
         tile's payload, as the stitchers take it."""
@@ -184,12 +186,13 @@ class ZoneEngine:
 
     def _read_batches(self, reader: TiffReader, grid: TileGrid, out_q: queue.Queue,
                       free: queue.Queue, stop: threading.Event, num_workers: int,
-                      pinned: bool) -> None:
-        """Producer: decode tile windows into batch buffers; the last batch is
-        padded with duplicates of its last tile. A buffer comes back on
-        ``free`` with the event of its upload; a new one (pinned for the
-        card) is made only while none is free, up to one for each batch the
-        queue holds, one going up and one being read. Ends with None on
+                      pinned: bool, dtype: torch.dtype) -> None:
+        """Producer: decode tile windows into batch buffers of the zone's
+        dtype; the last batch is padded with duplicates of its last tile. A
+        buffer comes back on ``free`` with the event of its upload; a new one
+        (pinned for the card) is made only while none is free, up to one for
+        each batch the queue holds, one going up and one being read. Ends
+        with None on
         ``out_q``, or the exception that stopped it."""
         S, B, C = self.size, self.batch_size, len(self.channels)
         made = 0
@@ -215,7 +218,7 @@ class ZoneEngine:
                     except queue.Empty:
                         if made < QUEUE_DEPTH + 2:
                             made += 1
-                            item = (torch.empty((B, S, S, C), dtype=torch.uint8,
+                            item = (torch.empty((B, S, S, C), dtype=dtype,
                                                 pin_memory=pinned), None)
                         else:
                             item = _get(free, stop)
@@ -239,7 +242,8 @@ class ZoneEngine:
         finalize it. Returns the reference's stats (tiles, seconds,
         patches_per_sec, cumulative patch_times_ms) and where the seconds
         went (``STREAM_TIMERS``, each ``<name>_seconds``), with ``d2h_bytes``."""
-        require_uint8(reader.dtype, "the streaming route")
+        require_zone_dtype(reader.dtype, "the streaming route")
+        dtype = torch_dtype(reader.dtype)
         fn, split, parts = self.device_fn(stitcher.needs)
         S, B, C = self.size, self.batch_size, len(self.channels)
         cuda = self.device.type == "cuda"
@@ -250,11 +254,12 @@ class ZoneEngine:
         q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
         stop = threading.Event()
         producer = threading.Thread(
-            target=self._read_batches, args=(reader, grid, q, free, stop, num_workers, cuda),
+            target=self._read_batches,
+            args=(reader, grid, q, free, stop, num_workers, cuda, dtype),
             daemon=True)
         producer.start()
         if cuda:  # the upload target and two pinned payload buffers, used in turn
-            batch_dev = torch.empty((B * S, S, C), dtype=torch.uint8, device=self.device)
+            batch_dev = torch.empty((B * S, S, C), dtype=dtype, device=self.device)
             slots = [tuple(torch.empty(shape, dtype=dtype, pin_memory=True)
                            for shape, dtype in parts) for _ in range(2)]
         t["setup"] = time.perf_counter() - t0
@@ -276,7 +281,8 @@ class ZoneEngine:
                     if cuda:
                         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
                         ev[0].record()
-                        batch_dev.copy_(buf.view(B * S, S, C), non_blocking=True)
+                        as_bits(batch_dev).copy_(as_bits(buf).view(B * S, S, C),
+                                                 non_blocking=True)
                         ev[1].record()
                         free.put((buf, ev[1]))
                         result = fn(batch_dev)
@@ -409,31 +415,51 @@ def _make_writer(config: dict, reader: TiffReader, path_out: str) -> TiffWriter:
         overviews=config.get("output_overviews"))
 
 
-def stage_zone(config: dict, device: torch.device) -> dict:
-    """Read the zone and start its host-to-device copy without waiting; a
-    zone too large for the device route stays on the host
-    (``device_engine.py:stage_array``)."""
+def banded_padding(config: dict, height: int, width: int) -> tuple[int, int, int] | None:
+    """The zone's margin padding when flair-detect's run over it takes the
+    banded route, which stages the zone padded and uploads no whole zone;
+    None otherwise, and under ``compare``, whose runs share one upload."""
+    if config.get("compare"):
+        return None
+    size, margin = config["img_pixels_detection"], config["margin"]
+    grid = slice_grid(width, height, size, margin, get_stride(config)[0])
+    if not zone_bands("exact-clipping", config["output_type"], grid.tiles):
+        return None
+    return zone_padding(height, width, size, margin)
+
+
+def stage_zone(config: dict, device: torch.device, img_path: str | None = None,
+               buffers: PinnedBuffers | None = None) -> dict:
+    """Read the zone at ``img_path`` (by default the config's) and start its
+    host-to-device copy on the current stream without waiting; a zone too
+    large for the device route stays on the host, and one for the banded
+    route stays there padded (``device_engine.py:stage_array``, into
+    ``buffers`` when given). The staged dict names its ``path``
+    (``flairtpu/zone/engine.py:328-358``)."""
+    path = str(img_path or config["input_img_path"])
     t0 = time.perf_counter()
-    with TiffReader(config["input_img_path"], cache_blocks=128) as r:
+    with TiffReader(path, cache_blocks=128) as r:
         arr = r.read(config["channels"])
-    staged = stage_array(arr, device)
-    staged["read_seconds"] = time.perf_counter() - t0
+    staged = stage_array(arr, device, banded_padding(config, *arr.shape[1:]), buffers)
+    staged.update(path=path, read_seconds=time.perf_counter() - t0)
     return staged
 
 
 def _run_device(config: dict, model, tail, device: torch.device, grid: TileGrid,
                 method: str, reader: TiffReader, path_out: str, staged: dict | None) -> dict:
-    """The device route: one device-resident pass, then the raster write."""
+    """The device route: one device-resident or banded pass, then the raster
+    write."""
     res = DeviceZoneRunner(config, model, tail).run(grid, method,
                                                     staged or stage_zone(config, device))
+    tw = time.perf_counter()
     writer = _make_writer(config, reader, path_out)
     if "probs" in res:
         writer.write_band(list(range(1, config["n_classes"] + 1)), res["probs"])
     else:
         writer.write_band([1, 2], np.stack([res["cls"], res["prob"]]))
     writer.close()
-    stats = {k: res[k] for k in ("tiles", "seconds", "patches_per_sec", "read_seconds",
-                                 "h2d_seconds", "compute_seconds", "d2h_seconds")}
+    stats = {k: v for k, v in res.items() if k not in ("cls", "prob", "probs")}
+    stats["write_seconds"] = time.perf_counter() - tw
     # cumulative elapsed time per patch, the reference's timing shape
     # (flairtpu/zone/engine.py:432-437)
     total_ms, n = res["seconds"] * 1000.0, max(res["tiles"], 1)
@@ -450,8 +476,11 @@ def run_single(config: dict, model, tail, device: torch.device, stride: int,
     zone's :func:`estimate_bytes` fits :func:`device_budget_bytes`; otherwise
     the zone streams through :class:`ZoneEngine` into the host stitchers.
     ``staged`` (from :func:`stage_zone`) is a zone already read and on its
-    way to the device, which the compare sweep shares across its runs; by
+    way to the device, which the compare sweep shares across its runs and
+    batch mode stages ahead; one of another path is not used, and by
     default the device route reads the zone here."""
+    if staged is not None and staged.get("path") != str(config["input_img_path"]):
+        staged = None
     size, margin = config["img_pixels_detection"], config["margin"]
     with TiffReader(config["input_img_path"], cache_blocks=128) as reader:
         grid = slice_grid(reader.width, reader.height, size, margin, stride,
@@ -465,7 +494,8 @@ def run_single(config: dict, model, tail, device: torch.device, stride: int,
         path_out = setup_indiv_path(config, identifier)
 
         need = estimate_bytes(grid, len(config["channels"]), int(config["n_classes"]),
-                              method, config["output_type"], int(config["batch_size"]))
+                              method, config["output_type"], int(config["batch_size"]),
+                              reader.dtype.itemsize)
         use_device = (not os.environ.get("FLAIRTPU_STREAMING_ZONE")
                       and need <= device_budget_bytes())
         print(f"    [x] zone path: {'device-resident' if use_device else 'streaming'}")
@@ -485,9 +515,14 @@ def run_single(config: dict, model, tail, device: torch.device, stride: int,
     return path_out, stats, grid
 
 
-def run_pipeline(config: dict) -> dict:
+def run_pipeline(config: dict, prepared: tuple | None = None,
+                 staged: dict | None = None) -> dict:
     """flair-detect entry (reference main.py:244-436); returns the run's
-    stats, or with ``compare`` the sweep's stats by method string."""
+    stats, or with ``compare`` the sweep's stats by method string.
+
+    ``prepared``: an already prepared (model, tail), which then serves every
+    zone of a department (``flairtpu/zone/engine.py:470-492``); ``staged``:
+    the zone already staged by :func:`stage_zone`."""
     device = resolve_device(config)
     config = setup_out_path(config)
     log_file = Path(config["local_out"]) / (
@@ -502,13 +537,13 @@ def run_pipeline(config: dict) -> dict:
     ##############################################
 
     PyTorch device: {describe_device(device)}""")
-        model, tail = prepare_model(config, device)
+        model, tail = prepared or prepare_model(config, device)
         if config.get("compare"):
             from flairtpu_torch.zone.compare import run_compare
 
             return run_compare(config, model, tail, device)
         _, stats, _ = run_single(config, model, tail, device, get_stride(config)[0],
-                                 "exact-clipping")
+                                 "exact-clipping", staged=staged)
         return stats
     finally:
         untee_stdout()

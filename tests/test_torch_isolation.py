@@ -141,7 +141,6 @@ def test_wrappers_raise_on_other_devices():
 
 
 @pytest.mark.parametrize("over,slice_name", [
-    ({"batch_mode": True}, "slice 2"),
     ({"bn_fold": True}, "slice 3"),
     ({"quantize": "int8"}, "slice 3"),
     ({"model_framework": {"model_provider": "SegmentationModelsPytorch",

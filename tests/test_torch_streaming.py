@@ -291,15 +291,16 @@ def test_streaming_failure_stops_the_reader(setup, monkeypatch):
 
 
 def test_streaming_non_uint8_zone_raises(setup, tmp_path, monkeypatch):
-    img = np.random.default_rng(2).integers(0, 4000, (5, 40, 40)).astype(np.uint16)
-    write_array(tmp_path / "zone16.tif", img, transform=Affine.from_origin(0.0, 0.0, 0.2, 0.2),
+    """uint8, uint16, int16 and float32 zones stream; others raise."""
+    img = np.random.default_rng(2).integers(0, 70000, (5, 40, 40)).astype(np.uint32)
+    write_array(tmp_path / "zone32.tif", img, transform=Affine.from_origin(0.0, 0.0, 0.2, 0.2),
                 crs=2154)
     cfg = setup["make_config"]("realigned_90x70", str(tmp_path / "out"),
-                               input_img_path=str(tmp_path / "zone16.tif"))
+                               input_img_path=str(tmp_path / "zone32.tif"))
     conf = tmp_path / "detect.yaml"
     conf.write_text(yaml.safe_dump(cfg))
     monkeypatch.setenv("FLAIRTPU_STREAMING_ZONE", "1")
-    with pytest.raises(NotImplementedError, match="uint16 zone rasters on the streaming "
+    with pytest.raises(NotImplementedError, match="uint32 zone rasters on the streaming "
                                                   "route.*slice 2"):
         detect_main([f"--conf={conf}"])
 

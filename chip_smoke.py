@@ -37,8 +37,16 @@ Phases (any failure exits non-zero):
    streaming route's full-tile payloads) on the fused tail's logits of a
    batch of 128 whole 512 tiles and on random logits at K = 13, 16 and 32:
    probs and prob within ACC_REL_TOL, classes equal except where the top-2
-   gap is below MEAN_GAP_TOL. Each kernel and its plain version are timed
-   with CUDA events; conv_epilogue at every site, summed over the batch.
+   gap is below MEAN_GAP_TOL. conv_epilogue also at every site of one batch
+   of the BatchNorm-folded walk (scale 1, the identity in bf16), exactly.
+   int8_conv and quantize_act (the int8 model of INT8_KNOBS, calibrated on
+   the main zone) exactly equal to their plain versions at every distinct
+   site geometry of one batch of 4 tiles (float32 and int8 outputs;
+   quantize_act also on bf16 inputs and at 20 -> 24 channels). Each kernel
+   and its plain version are timed with CUDA events; conv_epilogue at every
+   site, summed over the batch, and so int8_conv (its 40 sites of one batch
+   of 128, with torch._int_mm on each site's im2col operand as the library
+   yardstick) and quantize_act (its 4 sites).
 3. main path: ``flairtpu_torch.cli.detect_main`` on a synthetic 4096 x 4096 x
    5 GeoTIFF zone (``<dpt>/<zone>/zone.tif``, with a synthetic truth raster
    at ``truth/<dpt>/<zone>/truth.tif``) with a random resnet34-unet (19
@@ -84,6 +92,14 @@ Phases (any failure exits non-zero):
 3e. a 4096 x 4096 uint16 zone (12-bit values, ``custom``) on the device
    and the streaming routes (the typed gather once a batch), each against
    its all-plain run: class agreement >= 0.999, prob |diff| <= 1.
+3f. ``bn_fold: true`` on the main configuration; 3g. ``quantize: int8``,
+   ``int8_decoder: 2``, ``bn_fold: true`` on it, then int8_decoder 0 and 4
+   and int8 without bn_fold on a 1024 x 1024 zone. Each run: its launches
+   with the counts set to 0 just before it (3g on the main zone: int8_conv
+   80, quantize_act 8, conv_epilogue 8, fused_tail 2), against its all-plain
+   run on the same model (class agreement >= 0.999, prob |diff| <= 1), its
+   class agreement with the float path's raster of the zone (>= FOLD_FLOOR
+   or INT8_FLOOR), patches/s and the calibration's seconds.
 4. the kernels line, the card line, and last the JSON result line.
 
     python3 chip_smoke.py --profile  # also one batch per program by stage, and the profiler table
@@ -113,8 +129,12 @@ from flairtpu_torch.io.tiff import Affine, write_array
 from flairtpu_torch.models.factory import FlairSegmentationModel
 from flairtpu_torch.ops import _build
 from flairtpu_torch.ops import epilogue as ep
+from flairtpu_torch.models import quantize as pq
+from flairtpu_torch.models.fold import FoldedZoneModel
 from flairtpu_torch.ops import fused_tail as ft
 from flairtpu_torch.ops import gather as ga
+from flairtpu_torch.ops import int8_conv as ic
+from flairtpu_torch.ops import quantize_act as qa
 from flairtpu_torch.ops import stitch as st
 from flairtpu_torch.ops import tile_softmax as ts
 from flairtpu_torch.zone import device_engine as de
@@ -137,6 +157,7 @@ MEAN_GAP_TOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32
 # outside the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # fused_tail vs its plain version in bf16: the kernel's and cuDNN's float32
@@ -150,6 +171,20 @@ GAP_TOL = 0.05
 # blocks; a downsample's BatchNorm is folded into its block's last site) and
 # 2 per decoder block 0-3
 EPILOGUE_SITES = 1 + 2 * 16 + 2 * 4
+# the documented int8 configuration (bench.py:283-287): phase 3g and
+# phase 2's int8 checks. Its int8 sites of resnet34-unet: the stem, 32 block
+# convs and 3 downsamples (ENCODER_INT8_SITES), and the 4 convs of decoder
+# blocks 0-1; quantize_act a batch: the stem's input, the pooled stem output
+# and the inputs of the int8 decoder blocks
+INT8_KNOBS = {"quantize": "int8", "int8_decoder": 2, "bn_fold": True}
+ENCODER_INT8_SITES = 1 + 32 + 3
+INT8_SITES = ENCODER_INT8_SITES + 2 * 2
+QUANTIZE_SITES = 2 + 2
+ZONE_SMALL = 1024  # phase 3g's other int8 configurations run on a zone of this side
+# class agreement of the knobs' rasters with the float main path's
+# (random weights): bn_fold rounds in bf16 in other places, int8 quantizes
+# (tests/test_quantize.py:315)
+FOLD_FLOOR, INT8_FLOOR = 0.95, 0.8
 # zone dtypes of the typed gather instance (the first is phase 3e's zone)
 TYPED_ZONES = ("uint16", "int16", "float32")
 # phase 3e: custom normalization of a 12-bit zone
@@ -791,6 +826,164 @@ def check_conv_epilogue(model, x: torch.Tensor, timed: bool = False) -> dict:
     return out
 
 
+def check_fold_epilogue(model: FoldedZoneModel, x: torch.Tensor) -> float:
+    """conv_epilogue at every site of one batch of the folded walk (scale 1,
+    shift = bias, the identity in bf16), on the operands that batch gives
+    it: equal bit for bit."""
+    rec = SiteRecorder()
+    model.tail_input(x, M, epilogue=rec)
+    check(len(rec.sites) == EPILOGUE_SITES,
+          f"conv_epilogue, folded: {len(rec.sites)} sites in one batch ({EPILOGUE_SITES})")
+    check(any(s["residual"] is not None and s["residual"].dtype == torch.bfloat16
+              for s in rec.sites), "conv_epilogue, folded: bf16 identities")
+    return max(compare_epilogue("folded " + site_label(k, site), site)
+               for k, site in enumerate(rec.sites))
+
+
+class Int8Recorder:
+    """int8_conv and quantize_act wrappers that launch the kernels and keep
+    each call's operands: the int8 sites of a batch, at their shapes and on
+    their data."""
+
+    def __init__(self):
+        self.convs: list[dict] = []
+        self.quants: list[dict] = []
+
+    def conv(self, x, p, stride, padding, dilation=1, **kw):
+        site = dict(x=x, p=p, stride=stride, padding=padding, dilation=dilation, **kw)
+        self.convs.append(site)
+        return ic.int8_conv(**site)
+
+    def quantize(self, x, sx, channels=None):
+        self.quants.append(dict(x=x, sx=sx, channels=channels))
+        return qa.quantize_act(x, sx, channels)
+
+
+def int8_shape(site: dict) -> tuple[int, int, int, int, int, int]:
+    """(B, Co, Ho, Wo, kh, kw) of an int8 site."""
+    x, p = site["x"], site["p"]
+    co, _, kh, kw = p.wq.shape
+    ho, wo = (ic._out_hw(n, k, site["stride"], site["padding"], site["dilation"])
+              for n, k in ((x.shape[2], kh), (x.shape[3], kw)))
+    return x.shape[0], co, ho, wo, kh, kw
+
+
+def int8_label(k: int, site: dict) -> str:
+    B, co, ho, wo, kh, _ = int8_shape(site)
+    outs = ("f32 " if site["keep_f32"] else "") + ("int8" if site["out_sx"] is not None else "")
+    return (f"site {k} {tuple(site['x'].shape)} -> ({B}, {co}, {ho}, {wo}) {kh}x{kh}/"
+            f"{site['stride']}{', residual' if site['residual'] is not None else ''}"
+            f"{'' if site['relu'] else ', no ReLU'}, out {outs.strip()}")
+
+
+def int8_cost(site: dict) -> tuple[int, int]:
+    """(operations, bytes): 2 per int8 MAC over the real channels; each input
+    read once (activations, weights, deq and b, the residual), each output
+    written once."""
+    B, co, ho, wo, kh, kw = int8_shape(site)
+    m, ci = B * ho * wo, site["p"].wq.shape[1]
+    out_bytes = 4 * (site["residual"] is not None) + 4 * site["keep_f32"] + (
+        site["out_sx"] is not None)
+    return 2 * m * co * ci * kh * kw, site["x"].numel() + site["p"].wq.numel() + 8 * co + \
+        m * co * out_bytes
+
+
+def int_mm_ms(site: dict) -> float | None:
+    """torch._int_mm (cuBLASLt) on the site's im2col operand, GEMM only: the
+    library yardstick. None where the call refuses the shapes."""
+    x, p = site["x"], site["p"]
+    co, ci, kh, kw = p.wq.shape
+    cols = torch.nn.functional.unfold(x.to(torch.bfloat16), (kh, kw), site["dilation"],
+                                      site["padding"], site["stride"])
+    a = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(torch.int8)
+    del cols
+    w = torch.nn.functional.pad(p.wq, (0, 0, 0, 0, 0, x.shape[1] - ci)).reshape(co, -1)
+    try:
+        return cuda_ms(lambda: torch._int_mm(a, w.t()), 5, 1)
+    except RuntimeError as error:
+        print(f"    torch._int_mm refused {tuple(a.shape)} x {tuple(w.t().shape)}: {error}")
+        return None
+
+
+def compare_int8(label: str, site: dict) -> None:
+    """Kernel vs plain at one site: float32 and int8 outputs equal bit for
+    bit (the int32 sums are exact, and both round fma, add, multiply)."""
+    got, want = ic.int8_conv(**site), ic.int8_conv_plain(**site)
+    torch.cuda.synchronize()
+    same = all((a is None and b is None) or (a is not None and b is not None and torch.equal(a, b))
+               for a, b in zip(got, want))
+    check(same, f"int8_conv {label}: float32 and int8 outputs exactly equal")
+
+
+def compare_quantize(label: str, x: torch.Tensor, sx: float, channels: int | None) -> None:
+    got, want = qa.quantize_act(x, sx, channels), qa.quantize_act_plain(x, sx, channels)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"quantize_act {label}: exactly equal")
+
+
+def check_int8(model: pq.QuantizedZoneModel, x: torch.Tensor, timed: bool = False) -> dict:
+    """int8_conv and quantize_act against their plain versions, exactly, at
+    every distinct site geometry of one batch of 4 tiles of x (and
+    quantize_act on a bf16 input and at 20 -> 24 channels); timed with
+    bounds, plain and library times at every site of one batch of x."""
+    rec = Int8Recorder()
+    model.tail_input(x[:4], M, conv=rec.conv, quantize=rec.quantize)
+    check(len(rec.convs) == INT8_SITES and len(rec.quants) == QUANTIZE_SITES,
+          f"int8 sites of one batch: {len(rec.convs)} int8_conv ({INT8_SITES}), "
+          f"{len(rec.quants)} quantize_act ({QUANTIZE_SITES})")
+    seen = set()
+    for k, site in enumerate(rec.convs):
+        key = (tuple(site["x"].shape), tuple(site["p"].wq.shape), site["stride"],
+               site["residual"] is not None, site["keep_f32"], site["out_sx"] is not None)
+        if key not in seen:
+            seen.add(key)
+            compare_int8(int8_label(k, site) + " B=4", site)
+    for k, q in enumerate(rec.quants):
+        compare_quantize(f"site {k} {tuple(q['x'].shape)} {q['x'].dtype} -> {q['channels']} "
+                         "channels", q["x"], q["sx"], q["channels"])
+        compare_quantize(f"site {k} as bf16", q["x"].to(torch.bfloat16), q["sx"], q["channels"])
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    odd = (torch.randn((3, 20, 17, 19), generator=gen, device="cuda") * 3).contiguous(
+        memory_format=torch.channels_last)
+    compare_quantize("(3, 20, 17, 19) -> 24 channels", odd, 0.02, 24)
+    out = {"max_abs_err": 0, "distinct_sites": len(seen)}
+    del rec
+    if not timed:
+        return out
+    rec = Int8Recorder()
+    model.tail_input(x, M, conv=rec.conv, quantize=rec.quantize)
+    rows = []
+    for k, site in enumerate(rec.convs):
+        ops, nbytes = int8_cost(site)
+        rows.append({"site": int8_label(k, site),
+                     "ms": cuda_ms(lambda a=site: ic.int8_conv(**a), 5, 1),
+                     "plain_ms": cuda_ms(lambda a=site: ic.int8_conv_plain(**a), 1, 1),
+                     "library_ms": int_mm_ms(site), "ops": ops, "bytes": nbytes,
+                     **bound(ops, nbytes, PEAK_INT8_OPS)})
+        torch.cuda.empty_cache()
+    quants = []
+    for k, q in enumerate(rec.quants):
+        n = q["x"].numel()
+        nbytes = n * q["x"].element_size() + n // q["x"].shape[1] * (q["channels"] or 0)
+        quants.append({"site": f"site {k} {tuple(q['x'].shape)} -> {q['channels']} channels",
+                       "ms": cuda_ms(lambda a=q: qa.quantize_act(**a), 10, 2),
+                       "plain_ms": cuda_ms(lambda a=q: qa.quantize_act_plain(**a), 3, 1),
+                       "bytes": nbytes, **bound(3 * n, nbytes, PEAK_FP32_FLOPS)})
+    del rec
+
+    def total(rs: list[dict]) -> dict:
+        lib = [r.get("library_ms") for r in rs]
+        return {"ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
+                "bound_ms": sum(r["bound_ms"] for r in rs),
+                "bound_by": max(("bytes", "operations"), key=lambda b: sum(
+                    r["bound_ms"] for r in rs if r["bound_by"] == b)),
+                "library_ms": None if None in lib else sum(lib), "bytes": sum(r["bytes"] for r in rs)}
+
+    out.update(conv=dict(total(rows), sites=rows, ops=sum(r["ops"] for r in rows)),
+               quantize=dict(total(quants), library_ms=None, sites=quants))
+    return out
+
+
 def synth_inputs(tmp: Path, zone_hw: int, rng) -> tuple[Path, Path, Path]:
     """The zone at <dpt>/<zone>/zone.tif, a truth raster (classes 1..K) at
     truth/<dpt>/<zone>/truth.tif, and the weights."""
@@ -870,7 +1063,10 @@ class PlainRunner(DeviceZoneRunner):
     def _tail_input(self, zone_p, origins, margin):
         x = ga.gather_normalize_plain(zone_p, origins, self.size,
                                       out_dtype=self.model.dtype, **self.norm)
-        return self.model.tail_input(x, margin, epilogue=ep.conv_epilogue_plain)
+        plain = dict(epilogue=ep.conv_epilogue_plain)
+        if isinstance(self.model, pq.QuantizedZoneModel):
+            plain.update(conv=ic.int8_conv_plain, quantize=qa.quantize_act_plain)
+        return self.model.tail_input(x, margin, **plain)
 
     def _forward_tiles(self, zone_p, origins, planes, windows):
         ft.fused_tail_plain(self._tail_input(zone_p, origins, self.margin), self.tail,
@@ -886,12 +1082,12 @@ class PlainRunner(DeviceZoneRunner):
 
 
 def run_plain(cfg: dict, method: str = "exact-clipping", stride: int | None = None,
-              staged: dict | None = None) -> dict:
+              staged: dict | None = None, prepared: tuple | None = None) -> dict:
     """One zone run of ``cfg`` through PlainRunner (stride: the tile interior
-    by default)."""
+    by default), on ``prepared`` (model, tail) when given."""
     cfg = eng.setup_out_path(dict(cfg, compare=False))
     device = eng.resolve_device(cfg)
-    model, tail = eng.prepare_model(cfg, device)
+    model, tail = prepared or eng.prepare_model(cfg, device)
     size, margin = cfg["img_pixels_detection"], cfg["margin"]
     stride = stride or size - 2 * margin
     with TiffReader(cfg["input_img_path"]) as reader:
@@ -903,7 +1099,7 @@ def run_plain(cfg: dict, method: str = "exact-clipping", stride: int | None = No
 
 def reset_launches() -> None:
     ft.launches = ft.probs_launches = ft.logits_launches = ga.launches = ep.launches = 0
-    ga.typed_launches = 0
+    ga.typed_launches = ic.launches = qa.launches = 0
     for counts in (st.launches, ts.launches):
         for name in counts:
             counts[name] = 0
@@ -913,18 +1109,25 @@ def read_launches() -> dict:
     return {"fused_tail": ft.launches, "fused_tail_probs": ft.probs_launches,
             "fused_tail_logits": ft.logits_launches, "gather_normalize": ga.launches,
             "gather_normalize_typed": ga.typed_launches, "conv_epilogue": ep.launches,
+            "int8_conv": ic.launches, "quantize_act": qa.launches,
             **st.launches, **ts.launches}
 
 
 def expected_launches(method: str, output_type: str, n_batches: int,
-                      streaming: bool = False, typed: bool = False) -> dict:
+                      streaming: bool = False, typed: bool = False,
+                      int8_blocks: int | None = None) -> dict:
     """Each kernel's launches for one zone run of ``n_batches`` batches, on
     the device route or the streaming route (whose stitches run on the
     host, after the full-tile softmax kernel); ``typed``: a zone that is
-    not uint8."""
+    not uint8; ``int8_blocks``: the int8 model with that many int8 decoder
+    blocks (the others' two convs each an epilogue)."""
     out = dict.fromkeys(read_launches(), 0)
     out["gather_normalize_typed" if typed else "gather_normalize"] = n_batches
     out["conv_epilogue"] = EPILOGUE_SITES * n_batches
+    if int8_blocks is not None:
+        out.update(int8_conv=(ENCODER_INT8_SITES + 2 * int8_blocks) * n_batches,
+                   quantize_act=(2 + int8_blocks) * n_batches,
+                   conv_epilogue=2 * (4 - int8_blocks) * n_batches)
     if output_type == "class_prob":
         out["fused_tail_probs"] = n_batches
     elif method == "exact-clipping":
@@ -1421,6 +1624,86 @@ def run_uint16(cfg: dict, tmp: Path, zone_hw: int) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def captured_models():
+    """Within the body, each (model, tail) that ``prepare_model`` makes for a
+    run is appended to the list yielded: the plain run reuses it, with the
+    same int8 scales."""
+    models: list[tuple] = []
+    prepare = eng.prepare_model
+
+    def capture(config, device):
+        models.append(prepare(config, device))
+        return models[-1]
+
+    eng.prepare_model = capture
+    try:
+        yield models
+    finally:
+        eng.prepare_model = prepare
+
+
+def run_knobs(cfg: dict, label: str, knobs: dict, zone_hw: int, floor: float,
+              float_raster: np.ndarray, int8_blocks: int | None = None) -> dict:
+    """detect_main with ``knobs`` on the zone of ``cfg``, the counts set to 0
+    just before it: its launches, raster shape and coverage; against its
+    all-plain run on the same model (class agreement >= 0.999, prob |diff|
+    <= 1) and against the float path's raster of the zone (class agreement
+    >= ``floor``); patches/s and calibration seconds."""
+    kc = dict(cfg, output_path=str(Path(cfg["output_path"]).parent / f"out_{label}"), **knobs)
+    conf = write_conf(kc, label)
+    with captured_models() as models:
+        reset_launches()
+        stats = cli.detect_main([f"--conf={conf}"])
+        launches = read_launches()
+    n_batches = -(-len(slice_grid(zone_hw, zone_hw, S, M).tiles) // BATCH)
+    check_launches(f"{label}, {n_batches} batches", launches,
+                   expected_launches("exact-clipping", "argmax", n_batches,
+                                     int8_blocks=int8_blocks))
+    have = read_raster(Path(kc["output_path"]) / "zone-ARGMAX.tif")
+    check(have.shape == (2, zone_hw, zone_hw) and bool((have[1] > 0).all()),
+          f"{label}: raster {have.shape}, every pixel written")
+    plain = run_plain(kc, prepared=models[0])
+    agree = float((plain["cls"] == have[0]).mean())
+    dprob = int(np.abs(plain["prob"].astype(int) - have[1].astype(int)).max())
+    check(agree >= 0.999, f"{label} vs plain versions: class agreement {agree:.6f} >= 0.999")
+    check(dprob <= 1, f"{label} vs plain versions: prob |diff| {dprob} <= 1")
+    agree_float = float((float_raster[0] == have[0]).mean())
+    check(agree_float >= floor, f"{label} vs the float path: class agreement "
+          f"{agree_float:.6f} >= {floor}")
+    calib = stats.get("calibration_seconds")
+    print(f"  {label}: {stats['tiles']} tiles, compute {stats['compute_seconds']:.4f} s, "
+          f"{stats['patches_per_sec']:.2f} patches/s"
+          + (f", calibration {calib:.4f} s" if calib is not None else ""), flush=True)
+    keep = ("tiles", "seconds", "patches_per_sec", "read_seconds", "h2d_seconds",
+            "compute_seconds", "d2h_seconds", "write_seconds", "calibration_seconds")
+    return {**{k: stats[k] for k in keep if k in stats}, "agree_plain": agree,
+            "prob_diff_plain": dprob, "agree_float": agree_float, "launches": launches}
+
+
+def run_small_int8(cfg: dict, tmp: Path) -> dict:
+    """The other int8 configurations on a zone of ZONE_SMALL: int8_decoder 0
+    and 4 (with bn_fold) and int8_decoder 2 without bn_fold, each against its
+    all-plain run and the float path's raster of that zone."""
+    rng = np.random.default_rng(SEED + 300)
+    zone = tmp / DPT / "Z_SMALL" / "zone.tif"
+    zone.parent.mkdir(parents=True)
+    write_array(zone, rng.integers(0, 256, (C, ZONE_SMALL, ZONE_SMALL), dtype=np.uint8),
+                transform=Affine.from_origin(700000.0, 6600000.0, 0.2, 0.2), crs=2154,
+                compress="deflate")
+    sc = dict(cfg, input_img_path=str(zone), output_path=str(tmp / "out_small"))
+    conf = write_conf(sc, "small_float")
+    cli.detect_main([f"--conf={conf}"])
+    float_raster = read_raster(Path(sc["output_path"]) / "zone-ARGMAX.tif")
+    out = {}
+    for label, knobs in (("int8_decoder0", dict(INT8_KNOBS, int8_decoder=0)),
+                         ("int8_decoder4", dict(INT8_KNOBS, int8_decoder=4)),
+                         ("int8_no_fold", dict(INT8_KNOBS, bn_fold=False))):
+        out[label] = run_knobs(sc, f"small_{label}", knobs, ZONE_SMALL, INT8_FLOOR, float_raster,
+                               int8_blocks=knobs["int8_decoder"])
+    return out
+
+
 def stage_breakdown(cfg: dict, zone_hw: int, rng, epi: dict) -> dict:
     """Device time of each stage of one main-path batch (CUDA events), and the
     profiler's kernel table for one batch. The encoder and decoder stages are
@@ -1530,7 +1813,14 @@ def main() -> int:
             gen = torch.Generator("cuda").manual_seed(SEED)
             x = torch.rand((BATCH, S, S, C), generator=gen, device="cuda").to(torch.bfloat16)
             epi = check_conv_epilogue(model, x, timed=True)
-            del model, x
+            fold_model, _ = eng.prepare_model(dict(cfg, bn_fold=True), torch.device("cuda"))
+            epi["max_abs_err"] = max(epi["max_abs_err"], check_fold_epilogue(fold_model, x[:4]))
+            del model, x, fold_model
+            torch.cuda.empty_cache()
+            qmodel, _ = eng.prepare_model(dict(cfg, **INT8_KNOBS), torch.device("cuda"))
+            int8 = check_int8(qmodel, torch.rand((BATCH, S, S, C), generator=gen,
+                                                 device="cuda"), timed=True)
+            del qmodel
             torch.cuda.empty_cache()
             probs = check_tail_probs(rng, S, M, BATCH, K, timed=True)
             for size, margin, k in ((64, 16, K), (32, 1, 4), (96, 8, 32)):
@@ -1561,6 +1851,17 @@ def main() -> int:
               f"(encoder {epi['encoder_ms']:.4f}, decoder blocks 0-3 {epi['decoder_ms']:.4f}), "
               f"plain {epi['plain_ms']:.4f} ms, bound {epi['bound_ms']:.4f} ms "
               f"({epi['bytes'] / 1e9:.2f} GB, {epi['bound_by']})", flush=True)
+        for r in int8["conv"]["sites"]:
+            print(f"    int8_conv {r['site']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"_int_mm {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        for r in int8["quantize"]["sites"]:
+            print(f"    quantize_act {r['site']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        for name, r in (("int8_conv, the 40 sites of one batch", int8["conv"]),
+                        ("quantize_act, the 4 sites of one batch", int8["quantize"])):
+            print(f"    {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                  f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                  f"{r['bytes'] / 1e9:.2f} GB)", flush=True)
         for name, r in (("fused_tail probs", probs), ("fused_tail logits", logits),
                         *stitch["timed"].items(), ("tile_softmax probs", softmax["probs"]),
                         ("tile_softmax argmax", softmax["argmax"])):
@@ -1583,6 +1884,15 @@ def main() -> int:
         print("[3e] a uint16 zone, custom normalization, device and streaming routes",
               flush=True)
         u16 = run_uint16(cfg, tmp, ZONE)
+        float_raster = read_raster(Path(cfg["output_path"]) / "zone-ARGMAX.tif")
+        print("[3f] bn_fold on the main configuration", flush=True)
+        fold = run_knobs(cfg, "bn_fold", {"bn_fold": True}, ZONE, FOLD_FLOOR, float_raster)
+        print("[3g] quantize: int8, int8_decoder: 2, bn_fold on the main configuration; "
+              f"int8_decoder 0 and 4, and int8 without bn_fold, on a {ZONE_SMALL}² zone",
+              flush=True)
+        int8_run = run_knobs(cfg, "int8", INT8_KNOBS, ZONE, INT8_FLOOR, float_raster,
+                             int8_blocks=INT8_KNOBS["int8_decoder"])
+        int8_small = run_small_int8(cfg, tmp)
         if args.profile:
             with torch.inference_mode():
                 prof = stage_breakdown(cfg, ZONE, rng, epi)
@@ -1678,6 +1988,20 @@ def main() -> int:
          "launches": sum(m["launches"] for m in softmax_modes),
          "max_abs_err": max(m["max_abs_err"] for m in softmax_modes),
          **numbers(softmax["probs"]), "library_ms": None, "modes": softmax_modes},
+        # the 40 int8 sites of one batch of 128, summed (launches: phase 3g's
+        # main zone); library: torch._int_mm on each site's im2col operand
+        {"name": "int8_conv", "route": "cuda", "source": f"{src}/int8_conv.cu",
+         "replaces": "flairtpu/models/quantize.py:218-230 (_quant_conv), with the walk's "
+                     "residual and ReLU (:125-135, :174-175) and the next site's requantize "
+                     "(:223)",
+         "launches": int8_run["launches"]["int8_conv"], "max_abs_err": int8["max_abs_err"],
+         **numbers(int8["conv"]), "library_ms": int8["conv"]["library_ms"]},
+        # its 4 sites of one batch of 128, summed (launches: phase 3g's main zone)
+        {"name": "quantize_act", "route": "cuda", "source": f"{src}/quantize_act.cu",
+         "replaces": "flairtpu/models/quantize.py:223 (the requantize of the stem input, "
+                     "the pooled stem and the int8 decoder blocks' inputs)",
+         "launches": int8_run["launches"]["quantize_act"], "max_abs_err": 0,
+         **numbers(int8["quantize"]), "library_ms": None},
     ]
     print(json.dumps({"main_path": main_path["stats"], "card": card}))
     print(json.dumps({"class_prob": class_prob["stats"], "card": card}))
@@ -1688,6 +2012,11 @@ def main() -> int:
     print(json.dumps({"batch_mode": {k: v for k, v in batch.items() if k != "launches"},
                       "card": card}))
     print(json.dumps({"uint16_zone": u16, "card": card}))
+    print(json.dumps({"bn_fold": fold, "int8": int8_run, "int8_small_zone": int8_small,
+                      "card": card}))
+    print(json.dumps({"int8_timings": {k: {f: v for f, v in r.items() if f != "sites"}
+                                       for k, r in int8.items() if isinstance(r, dict)},
+                      "card": card}))
     print(json.dumps({"stitch_timings": timed, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -91,6 +91,26 @@ def validate_model_framework(mf: dict) -> tuple[str, str]:
         raise ConfigError(f"model_framework is missing key {e}.") from None
 
 
+def validate_knobs(cfg: dict) -> None:
+    """``quantize``, ``int8_decoder`` and ``bn_fold`` as
+    ``flairtpu/config.py:306-318`` checks them. ``int8_decoder: 5`` puts
+    decoder block 4 in int8, which the fused tail does not run."""
+    quant = cfg.get("quantize")
+    if quant not in (None, False, "int8"):
+        raise ConfigError("quantize: 'int8' is the only supported value (or omit the key).")
+    dec_blocks = cfg.get("int8_decoder", True)
+    if not (isinstance(dec_blocks, bool)
+            or (isinstance(dec_blocks, int) and 0 <= dec_blocks <= 5)):
+        raise ConfigError(f"int8_decoder: expected a bool or a block count 0..5 "
+                          f"(got {dec_blocks!r}).")
+    fold = cfg.get("bn_fold", False)
+    if not isinstance(fold, bool):
+        raise ConfigError(f"bn_fold: expected a bool (got {fold!r}).")
+    if quant and dec_blocks is not True and dec_blocks == 5:
+        raise not_ported("int8_decoder: 5 (decoder block 4 in int8)",
+                         "slice 3 item 10b: a head-only fused_tail mode")
+
+
 def validate_detect_config(cfg: dict) -> dict:
     """Validate the `flair-detect` YAML (reference zone_detect/utils.py:26-94)."""
     cfg.setdefault("metrics", False)
@@ -102,11 +122,6 @@ def validate_detect_config(cfg: dict) -> dict:
     cfg.setdefault("use_gpu", True)
     cfg.setdefault("num_worker", 2)
     cfg.setdefault("batch_size", 4)
-
-    for knob, where in (("bn_fold", "slice 3: bn_fold"),
-                        ("quantize", "slice 3: int8")):
-        if cfg.get(knob):
-            raise not_ported(f"flair-detect {knob}", where)
 
     Path(_require(cfg, "output_path")).mkdir(parents=True, exist_ok=True)
     # batch mode finds its zones and truths under input_path and truth_root
@@ -142,7 +157,10 @@ def validate_detect_config(cfg: dict) -> dict:
     if norma[0]["norm_type"] not in ("custom", "scaling"):
         raise ConfigError("Invalid normalization type: should be custom or scaling.")
 
+    # only the resnet U-Nets pass here, the encoders both knobs need
+    # (flairtpu/config.py:319-346; MiT encoders fail as slice 6 / 7)
     validate_model_framework(_require(cfg, "model_framework"))
+    validate_knobs(cfg)
 
     weights = _require(cfg, "model_weights")
     if not os.path.isfile(weights):

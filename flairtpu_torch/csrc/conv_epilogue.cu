@@ -13,7 +13,9 @@
 //   out = bf16(v) (round to nearest even); out32 = v             (optional)
 //
 // y, d, out: (n_pix, C) bfloat16, NHWC (an NCHW channels_last tensor);
-// r, out32: (n_pix, C) float32; scale, shift, scale_d, shift_d: C float32,
+// r: (n_pix, C) float32, or bfloat16 (the BatchNorm-folded walk's identity,
+// flairtpu/models/fold.py, which keeps no float32 copies); out32: (n_pix, C)
+// float32; scale, shift, scale_d, shift_d: C float32,
 // an inference BatchNorm as gamma * rsqrt(var + eps) and beta - mean * scale.
 // d is the downsample conv's output, its BatchNorm folded into this pass.
 // __fmul_rn/__fadd_rn keep every multiply and add rounded on its own, as the
@@ -37,13 +39,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-enum Residual { kNone = 0, kFloat = 1, kBranch = 2 };
+enum Residual { kNone = 0, kFloat = 1, kBranch = 2, kHalf = 3 };
 
 struct Args {
   const __nv_bfloat16* y;
   const float* scale;
   const float* shift;
   const float* res;         // kFloat
+  const __nv_bfloat16* res16;  // kHalf
   const __nv_bfloat16* d;   // kBranch
   const float* scale_d;     // kBranch
   const float* shift_d;     // kBranch
@@ -57,7 +60,7 @@ template <int kRes, bool kRelu>
 __device__ __forceinline__ float epilogue(float y, float s, float t, float r, float d, float sd,
                                           float td) {
   float v = __fadd_rn(__fmul_rn(y, s), t);
-  if constexpr (kRes == kFloat) v = __fadd_rn(v, r);
+  if constexpr (kRes == kFloat || kRes == kHalf) v = __fadd_rn(v, r);
   if constexpr (kRes == kBranch) v = __fadd_rn(v, __fadd_rn(__fmul_rn(d, sd), td));
   if constexpr (kRelu) v = v < 0.f ? 0.f : v;  // NaN passes, as torch.relu
   return v;
@@ -102,6 +105,7 @@ __global__ void __launch_bounds__(kThreads)
   const uint4* d = reinterpret_cast<const uint4*>(a.d);
   const float4* r = reinterpret_cast<const float4*>(a.res);
   uint4* out = reinterpret_cast<uint4*>(a.out);
+  const uint4* r16 = reinterpret_cast<const uint4*>(a.res16);
   float4* out32 = reinterpret_cast<float4*>(a.out32);
   for (long long g = lane; g < n_groups; g += lanes) {
     float v[8], rv[8], dv[8];
@@ -110,6 +114,8 @@ __global__ void __launch_bounds__(kThreads)
       const float4 r0 = __ldg(r + 2 * g), r1 = __ldg(r + 2 * g + 1);
       rv[0] = r0.x; rv[1] = r0.y; rv[2] = r0.z; rv[3] = r0.w;
       rv[4] = r1.x; rv[5] = r1.y; rv[6] = r1.z; rv[7] = r1.w;
+    } else if constexpr (kRes == kHalf) {
+      unpack8(__ldg(r16 + g), rv);
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) rv[j] = 0.f;
@@ -139,6 +145,7 @@ __global__ void __launch_bounds__(kThreads) conv_epilogue_scalar(const Args a) {
     const int c = (int)(e % a.channels);
     float r = 0.f, d = 0.f, sd = 0.f, td = 0.f;
     if constexpr (kRes == kFloat) r = a.res[e];
+    if constexpr (kRes == kHalf) r = __bfloat162float(a.res16[e]);
     if constexpr (kRes == kBranch) {
       d = __bfloat162float(a.d[e]);
       sd = a.scale_d[c];
@@ -176,7 +183,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   cudaError_t err;
   int grid = 0;
   const bool vec = a.channels % 8 == 0 && aligned16(a.y) && aligned16(a.out) &&
-                   (kRes != kFloat || aligned16(a.res)) && (kRes != kBranch || aligned16(a.d)) &&
+                   (kRes != kFloat || aligned16(a.res)) && (kRes != kHalf || aligned16(a.res16)) &&
+                   (kRes != kBranch || aligned16(a.d)) &&
                    (!kF32 || aligned16(a.out32));
   if (vec) {
     const int groups_per_pix = a.channels / 8;
@@ -206,24 +214,28 @@ cudaError_t dispatch(const Args& a, bool relu, cudaStream_t stream) {
 }  // namespace
 
 // y: (n_pix, channels) bf16; scale, shift: channels float32. At most one of
-// residual ((n_pix, channels) float32) and branch ((n_pix, channels) bf16,
-// with scale_d and shift_d) is non-null. out: (n_pix, channels) bf16; out32:
+// residual ((n_pix, channels) float32, or bf16 where residual_bf16 is
+// nonzero) and branch ((n_pix, channels) bf16, with scale_d and shift_d) is
+// non-null. out: (n_pix, channels) bf16; out32:
 // (n_pix, channels) float32 or null. Returns cudaGetLastError() after the
 // launch.
 extern "C" int conv_epilogue(const void* y, const void* scale, const void* shift,
                              const void* residual, const void* branch, const void* scale_d,
                              const void* shift_d, void* out, void* out32, long long n_pix,
-                             int channels, int relu, void* stream) {
+                             int channels, int relu, int residual_bf16, void* stream) {
   if (channels < 1 || n_pix < 0 || (residual && branch) || (branch && !(scale_d && shift_d)))
     return (int)cudaErrorInvalidValue;
   if (n_pix == 0) return (int)cudaSuccess;
   const Args a{static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(scale),
-               static_cast<const float*>(shift), static_cast<const float*>(residual),
+               static_cast<const float*>(shift),
+               residual_bf16 ? nullptr : static_cast<const float*>(residual),
+               residual_bf16 ? static_cast<const __nv_bfloat16*>(residual) : nullptr,
                static_cast<const __nv_bfloat16*>(branch), static_cast<const float*>(scale_d),
                static_cast<const float*>(shift_d), static_cast<__nv_bfloat16*>(out),
                static_cast<float*>(out32), n_pix, channels};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (branch) return (int)dispatch<kBranch>(a, relu != 0, s);
+  if (residual && residual_bf16) return (int)dispatch<kHalf>(a, relu != 0, s);
   if (residual) return (int)dispatch<kFloat>(a, relu != 0, s);
   return (int)dispatch<kNone>(a, relu != 0, s);
 }

@@ -27,6 +27,7 @@ class FlairSegmentationModel(nn.Module):
                  in_channels: int = 5, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.encoder_name = encoder_name
         self.encoder = ResNetEncoder(encoder_name, in_channels, dtype=dtype)
         self.decoder = UnetDecoder(self.encoder.out_channels, dtype=dtype)
         self.segmentation_head = SegmentationHead(16, classes, dtype=dtype)

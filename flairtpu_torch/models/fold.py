@@ -1,0 +1,260 @@
+"""BatchNorm folded into the convolutions for zone inference
+(``bn_fold: true``; counterpart of ``flairtpu/models/fold.py:37-96``, with
+the folding and the two walks of ``flairtpu/models/quantize.py:59-197``).
+
+At inference a BatchNorm is a per-channel affine, so it folds into the conv
+before it: ``w * g`` and ``beta - mean * g`` with ``g = gamma / sqrt(var +
+eps)``, in float32, exactly as ``flairtpu`` computes it (not the ``rsqrt``
+of ``models/resnet.py:bn_scale_shift``: the int8 weights are rounded from
+these values). The folded sites run in the model's compute dtype, the bias
+rounded to it as ``flairtpu``'s folded walk keeps it, and no float32 copies
+pass between blocks.
+
+The walks (:func:`walk_features`, :func:`walk_unet_decode`) recompute the
+ResNet encoder and the U-Net decoder, with its inner-margin plan, over
+conv sites named as ``flairtpu`` names them (``stem``,
+``layer{s}_{u}/conv{i}``, ``layer{s}_{u}/downsample``,
+``block{i}/conv{1,2}``). They call an ``ops`` object for every site, pool
+and decoder input, so that the folded model (:class:`FloatSites`), the
+int8 model and its calibration (``models/quantize.py``) share one topology.
+A site call names the site that reads its output next (``feeds``) and says
+whether anything else reads it (``keep``), which the int8 sites use to
+write only what is read.
+
+On the card a folded site is a cuDNN conv followed by ``conv_epilogue``
+with scale 1 and shift = the bias; a block's last site adds its identity,
+or its downsample branch, in the same pass, so the port rounds ``y + b +
+identity`` once where ``flairtpu`` rounds twice (ROADMAP queue 3). Decoder
+block 4 and the head run in ``fused_tail`` with the parameters of
+:func:`fold_tail_params`.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from flairtpu_torch.models.resnet import RESNET_SPECS
+from flairtpu_torch.models.unet import DEFAULT_DECODER_CHANNELS, plan_inner_crops, \
+    upsample2x_nearest
+from flairtpu_torch.ops.epilogue import conv_epilogue
+from flairtpu_torch.ops.fused_tail import TailParams
+
+N_DECODER_BLOCKS = len(DEFAULT_DECODER_CHANNELS)
+
+
+def fold_bn(weight: torch.Tensor, bn: nn.BatchNorm2d) -> dict:
+    """{"w": (O, I, kh, kw), "b": (O,)} float32 (``quantize.py:59-62``). The
+    square root is taken in float64 and rounded once: that is the correctly
+    rounded float32 root XLA computes, which PyTorch's vectorized float32
+    root on the CPU is not in every case."""
+    with torch.no_grad():
+        root = torch.sqrt((bn.running_var.float() + bn.eps).double()).float()
+        g = bn.weight.float() / root
+        return {"w": weight.detach().float() * g[:, None, None, None],
+                "b": bn.bias.float() - bn.running_mean.float() * g}
+
+
+def fold_encoder(encoder: nn.Module) -> dict:
+    """The folded sites of a ResNet encoder (``quantize.py:65-88``)."""
+    out = {"stem": fold_bn(encoder.conv1.weight, encoder.bn1)}
+    for s in range(1, 5):
+        for u, blk in enumerate(getattr(encoder, f"layer{s}")):
+            for i in (1, 2, 3):
+                if hasattr(blk, f"conv{i}"):
+                    out[f"layer{s}_{u}/conv{i}"] = fold_bn(getattr(blk, f"conv{i}").weight,
+                                                          getattr(blk, f"bn{i}"))
+            if blk.downsample is not None:
+                out[f"layer{s}_{u}/downsample"] = fold_bn(blk.downsample[0].weight,
+                                                         blk.downsample[1])
+    return out
+
+
+def fold_unet_decoder(decoder: nn.Module) -> dict:
+    """The folded sites of the U-Net decoder blocks (``quantize.py:141-156``);
+    the head has no BatchNorm."""
+    return {f"block{i}/conv{j}": fold_bn(getattr(blk, f"conv{j}")[0].weight,
+                                         getattr(blk, f"conv{j}")[1])
+            for i, blk in enumerate(decoder.blocks) for j in (1, 2)}
+
+
+def walk_features(spec: str, ops, x) -> list:
+    """The pyramid [x, f1..f5] of the ResNet encoder ``spec``
+    (``quantize.py:95-138``, output stride 32) through ``ops``."""
+    kind, units = RESNET_SPECS[spec]
+    expansion = 1 if kind == "basic" else 4
+    blocks, in_ch = [], 64  # (stage, name, stride, has a downsample)
+    for stage, n_units in enumerate(units):
+        width = 64 * 2 ** stage
+        for u in range(n_units):
+            s = 1 if stage == 0 or u else 2
+            blocks.append((stage, f"layer{stage + 1}_{u}", s,
+                           u == 0 and (s != 1 or in_ch != width * expansion)))
+            in_ch = width * expansion
+    feats = [x]
+    y = ops.conv("stem", x, 2, 3)
+    feats.append(y)
+    y = ops.pool(y)
+    for k, (stage, name, s, ds) in enumerate(blocks):
+        # (conv, stride, padding): basic 3x3 / 3x3, bottleneck 1x1 / 3x3 / 1x1
+        convs = ([("conv1", s, 1), ("conv2", 1, 1)] if kind == "basic" else
+                 [("conv1", 1, 0), ("conv2", s, 1), ("conv3", 1, 0)])
+        z = y
+        for (conv, stride, pad), (after, _, _) in zip(convs, convs[1:]):
+            z = ops.conv(f"{name}/{conv}", z, stride, pad, keep=False, feeds=f"{name}/{after}")
+        identity = ops.downsample(f"{name}/downsample", y, s) if ds else y
+        last, _, pad = convs[-1]
+        nxt = f"{blocks[k + 1][1]}/conv1" if k + 1 < len(blocks) else None
+        y = ops.conv(f"{name}/{last}", z, 1, pad, residual=identity, feeds=nxt)
+        if k + 1 == len(blocks) or blocks[k + 1][0] != stage:
+            feats.append(y)
+    return feats
+
+
+def walk_unet_decode(ops, feats: list, inner_margin: int | None,
+                     n_blocks: int = N_DECODER_BLOCKS):
+    """Decoder blocks [0, n_blocks) over ``feats`` (``quantize.py:159-197``):
+    the full decode, or with ``inner_margin`` the interior plan
+    (``plan_inner_crops``). Returns (x, offset): x covers [offset, offset +
+    extent) of its resolution."""
+    feats_r = feats[1:][::-1]
+    x, skips = feats_r[0], feats_r[1:]
+    plans = (plan_inner_crops(feats[0].shape[-1], inner_margin, N_DECODER_BLOCKS)
+             if inner_margin is not None else None)
+    off = 0
+    for i in range(n_blocks):
+        crop = None
+        if plans is not None:  # upsampled x covers [2 off, ...): crop it to [lo, hi)
+            lo, hi = plans[i]["post"]
+            crop = ((lo - 2 * off, hi - 2 * off), (lo, hi))
+            off = lo
+        x = ops.join(i, x, skips[i] if i < len(skips) else None, crop)
+        x = ops.conv(f"block{i}/conv1", x, 1, 1, keep=False, feeds=f"block{i}/conv2")
+        x = ops.conv(f"block{i}/conv2", x, 1, 1)
+    return x, off
+
+
+def join_values(x: torch.Tensor, skip: torch.Tensor | None, crop) -> torch.Tensor:
+    """A decoder block's input: upsample2x(x), cropped by ``crop`` ((a, b),
+    (lo, hi)) or whole, concatenated with the skip (cast to x's dtype)."""
+    x = upsample2x_nearest(x)
+    if crop is not None:
+        (a, b), (lo, hi) = crop
+        x = x[:, :, a:b, a:b]
+        skip = skip[:, :, lo:hi, lo:hi] if skip is not None else None
+    if skip is not None:
+        x = torch.cat([x, skip.to(x.dtype)], dim=1)
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def float_sites(folded: dict, dtype: torch.dtype) -> dict:
+    """Folded sites for :class:`FloatSites`: weights in ``dtype``; the bias
+    rounded to ``dtype`` and kept as the epilogue's float32 shift, beside a
+    scale of ones."""
+    return {k: {"w": v["w"].to(dtype), "b": v["b"].to(dtype).float().contiguous(),
+                "one": torch.ones_like(v["b"])} for k, v in folded.items()}
+
+
+class FloatSites:
+    """Walk ops of folded float sites in ``dtype``: conv, then ``epilogue``
+    (scale 1, shift = bias), with the identity added in the block's last
+    site and a downsample's bias folded into it as a branch. Values are
+    NCHW channels_last tensors in ``dtype``."""
+
+    def __init__(self, sites: dict, dtype: torch.dtype, epilogue=conv_epilogue):
+        self.sites, self.dtype, self.epilogue = sites, dtype, epilogue
+
+    def _conv(self, name: str, x: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
+        y = F.conv2d(x.to(self.dtype), self.sites[name]["w"], None, stride, padding)
+        return y.contiguous(memory_format=torch.channels_last)
+
+    def conv(self, name: str, x, stride: int, padding: int, relu: bool = True, residual=None,
+             keep: bool = True, feeds: str | None = None):
+        c = self.sites[name]
+        branch = residual if isinstance(residual, tuple) else None
+        residual = None if branch is not None else residual
+        out, _ = self.epilogue(self._conv(name, x, stride, padding), c["one"], c["b"],
+                               residual=residual, branch=branch, relu=relu)
+        return out
+
+    def downsample(self, name: str, x, stride: int) -> tuple:
+        """The branch (conv output, 1, bias) the block's last site adds."""
+        c = self.sites[name]
+        return self._conv(name, x, stride, 0), c["one"], c["b"]
+
+    def pool(self, x):
+        return F.max_pool2d(x, 3, 2, 1)
+
+    def join(self, i: int, x, skip, crop):
+        return join_values(x, skip, crop)
+
+
+def fold_tail_params(dec: dict, head: nn.Conv2d, dtype: torch.dtype) -> TailParams:
+    """``fused_tail``'s parameters for folded decoder block 4: scale 1 and
+    the folded bias as shift, weights and biases rounded to ``dtype``, as
+    the folded walk and its head hold them."""
+    def r(t):
+        return t.detach().to(dtype).float().contiguous()
+
+    c1, c2 = dec["block4/conv1"], dec["block4/conv2"]
+    with torch.no_grad():
+        return TailParams(r(c1["w"]), torch.ones_like(c1["b"]), r(c1["b"]),
+                          r(c2["w"]), torch.ones_like(c2["b"]), r(c2["b"]),
+                          r(head.weight), r(head.bias))
+
+
+def head_logits(y: torch.Tensor, tail: TailParams, x_size: int, inner_margin: int | None,
+                offset: int) -> torch.Tensor:
+    """The segmentation head on block 4's output y, as ``fused_tail``'s
+    plain version computes it (operands in y's dtype, float32 sums), with
+    the interior crop -> (B, h, w, K) float32."""
+    logits = F.conv2d(y.float(), tail.wh, tail.bias, padding=1)
+    if inner_margin is not None:
+        a, b = inner_margin - offset, x_size - inner_margin - offset
+        logits = logits[:, :, a:b, a:b]
+    return logits.permute(0, 2, 3, 1)
+
+
+class FoldedZoneModel:
+    """BatchNorm-folded zone inference (``flairtpu/models/fold.py:42-81``):
+    the zone runners' model surface (``dtype``, ``tail_input``) over the
+    folded walk, with ``tail`` for ``fused_tail``. Inference only."""
+
+    def __init__(self, spec: str, enc: dict, dec: dict, head: nn.Conv2d, dtype: torch.dtype):
+        self.spec, self.dtype = spec, dtype
+        self.enc, self.dec = float_sites(enc, dtype), float_sites(dec, dtype)
+        self.tail = fold_tail_params(dec, head, dtype)
+
+    def features(self, x: torch.Tensor, epilogue=conv_epilogue) -> list:
+        """x (B, H, W, C) -> [x, f1..f5], NCHW channels_last in ``dtype``."""
+        return walk_features(self.spec, FloatSites(self.enc, self.dtype, epilogue),
+                             x.permute(0, 3, 1, 2).to(self.dtype))
+
+    def tail_input(self, x: torch.Tensor, margin: int, epilogue=conv_epilogue) -> torch.Tensor:
+        """Encoder and decoder blocks 0-3 on the interior plan of ``margin``:
+        ``fused_tail``'s input."""
+        ops = FloatSites(self.dec, self.dtype, epilogue)
+        x3, _ = walk_unet_decode(ops, self.features(x, epilogue), margin, N_DECODER_BLOCKS - 1)
+        return x3.contiguous(memory_format=torch.channels_last)
+
+    def forward(self, x: torch.Tensor, inner_margin: int | None = None,
+                epilogue=conv_epilogue) -> torch.Tensor:
+        """x (B, H, W, C) -> float32 logits (B, h, w, K), all five blocks and
+        the head through the walk (``FoldedZoneModel.apply``)."""
+        y, off = walk_unet_decode(FloatSites(self.dec, self.dtype, epilogue),
+                                  self.features(x, epilogue), inner_margin)
+        return head_logits(y, self.tail, x.shape[1], inner_margin, off)
+
+    __call__ = forward
+
+
+def fold_model(model) -> FoldedZoneModel:
+    """Fold a loaded FlairSegmentationModel (float32 weights, before
+    ``prepare_inference``) in its compute dtype, on its device."""
+    if model.encoder_name not in RESNET_SPECS:
+        raise ValueError(f"bn_fold: supports the ResNet encoder families "
+                         f"({', '.join(sorted(RESNET_SPECS))}); got {model.encoder_name!r}")
+    return FoldedZoneModel(model.encoder_name, fold_encoder(model.encoder),
+                           fold_unet_decoder(model.decoder), model.segmentation_head[0],
+                           model.dtype)

@@ -9,7 +9,9 @@ Replaces what XLA fused into each conv's output on the TPU:
 residual add, the ReLU, and the cast back to the compute dtype for the next
 conv. Each site writes the compute-dtype copy, and the float32 value as well
 only where a later op reads float32 (``keep_f32``: the identity of a block
-without a downsample).
+without a downsample). The BatchNorm-folded walk (``models/fold.py``) passes
+scale 1, the folded bias as shift, and its identity in the compute dtype,
+as ``flairtpu``'s folded walk keeps no float32 copies.
 
 ``conv_epilogue`` runs the plain PyTorch version for a CPU tensor and
 launches the kernel for a bfloat16 CUDA tensor; it has no fallback.
@@ -24,7 +26,7 @@ import torch
 from flairtpu_torch.ops import _build
 
 ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_void_p]
+                                    ctypes.c_int, ctypes.c_void_p]
 
 # kernel launches on CUDA tensors since the last reset (the CPU path does not count)
 launches = 0
@@ -38,7 +40,8 @@ def conv_epilogue_plain(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tenso
                         residual: torch.Tensor | None = None, branch=None, relu: bool = True,
                         keep_f32: bool = False):
     """y (B, C, H, W) in the compute dtype -> (out in y's dtype, float32 value
-    or None): ``y * scale + shift`` in float32, ``+ residual`` (float32) or
+    or None): ``y * scale + shift`` in float32, ``+ residual`` (float32 or
+    y's dtype) or
     ``+ d * scale_d + shift_d`` for ``branch = (d, scale_d, shift_d)``, ReLU,
     cast. With a float32 ``y`` both outputs are one tensor."""
     v = y.float() * _chw(scale) + _chw(shift)
@@ -46,7 +49,7 @@ def conv_epilogue_plain(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tenso
         d, scale_d, shift_d = branch
         v = v + (d.float() * _chw(scale_d) + _chw(shift_d))
     elif residual is not None:
-        v = v + residual
+        v = v + residual.float()
     if relu:
         v = torch.relu(v)
     return v.to(y.dtype), (v if keep_f32 else None)
@@ -85,7 +88,8 @@ def conv_epilogue(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     if residual is not None and branch is not None:
         raise ValueError("conv_epilogue: a residual or a branch, not both")
     if residual is not None:
-        _check_map(residual, y, torch.float32, "residual")
+        _check_map(residual, y, torch.float32 if residual.dtype == torch.float32 else y.dtype,
+                   "residual")
     if branch is not None:
         d, scale_d, shift_d = branch
         _check_map(d, y, y.dtype, "branch")
@@ -104,7 +108,8 @@ def conv_epilogue(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
     err = _build.entry("conv_epilogue", ARGTYPES)(
         ptr(y), ptr(scale), ptr(shift), ptr(residual), ptr(d), ptr(scale_d), ptr(shift_d),
-        ptr(out), ptr(out32), y.numel() // C, C, int(relu), _build.stream_handle(y))
+        ptr(out), ptr(out32), y.numel() // C, C, int(relu),
+        int(residual is not None and residual.dtype != torch.float32), _build.stream_handle(y))
     _build.check(err, "conv_epilogue")
     launches += 1
     return out, out32

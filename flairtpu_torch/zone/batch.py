@@ -65,10 +65,15 @@ def batch_metrics_pipeline(config: dict) -> dict:
     """Run the department and write the metrics JSON; returns {'zones': one
     record of seconds a zone (``ZONE_STATS``, the wait on the prefetch, and
     the host's span of the zone's run and the card's span of its upload,
-    both in seconds since the start), 'metrics', 'seconds'}."""
+    both in seconds since the start), 'metrics', 'seconds'}, and the int8
+    model's 'calibration_seconds'."""
     out_json = Path(config["metrics_out"])
     jobs, truth_dpt = find_jobs(config)
     device = resolve_device(config)
+    if jobs and config.get("quantize"):
+        # int8 activation scales calibrate on the department's first zone and
+        # serve all its zones (flairtpu/zone/batch.py:47-50)
+        config["input_img_path"] = str(jobs[0][0])
     prepared = prepare_model(config, device)  # one model for the department
     buffers = PinnedBuffers(device)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
@@ -112,4 +117,7 @@ def batch_metrics_pipeline(config: dict) -> dict:
     with open(out, "w") as f:
         json.dump(metrics, f)
     print(f"Metrics saved to {out}")
-    return {"zones": zones, "metrics": metrics, "seconds": seconds}
+    out = {"zones": zones, "metrics": metrics, "seconds": seconds}
+    if hasattr(prepared[0], "calibration_seconds"):
+        out["calibration_seconds"] = prepared[0].calibration_seconds
+    return out

@@ -33,6 +33,8 @@ import torch
 from flairtpu_torch.io import TiffReader, TiffWriter, Window
 from flairtpu_torch.models.convert import load_weights
 from flairtpu_torch.models.factory import create_model
+from flairtpu_torch.models.fold import fold_model
+from flairtpu_torch.models.quantize import quantize_model, read_calibration_batches
 from flairtpu_torch.ops.fused_tail import full_windows, tail_params
 from flairtpu_torch.utils.logger import tee_stdout, untee_stdout
 from flairtpu_torch.zone.device_engine import (DeviceZoneRunner, PinnedBuffers, as_bits,
@@ -76,12 +78,28 @@ def prepare_model(config: dict, device: torch.device):
     """Build the model, load its weights strictly, move it to ``device``,
     prepare it for inference (conv weights in the compute dtype, BatchNorm
     (scale, shift) pairs) and derive the fused tail's parameters. Returns
-    (model, tail)."""
+    (model, tail).
+
+    The knobs (``flairtpu/zone/engine.py:60-77``): ``quantize: int8`` folds,
+    calibrates on 16 tiles of the zone and quantizes (``models/quantize.py``;
+    with ``bn_fold`` too, its float sites run in the compute dtype, as they
+    do without it, see there); ``bn_fold`` alone folds BatchNorm into the
+    conv weights (``models/fold.py``). Either model has the runners'
+    ``dtype`` / ``tail_input`` surface."""
     dtype = compute_dtype(device)
     model = create_model(config, dtype=dtype)
     load_weights(model, config["model_weights"])
     print("    [x] loaded model and weights...")
     model = model.to(device, memory_format=torch.channels_last).eval()
+    if config.get("quantize"):
+        zone_model = quantize_model(config, model, read_calibration_batches(config))
+        print("    [x] int8-quantized encoder (w8a8, calibrated on the zone)...")
+        return zone_model, zone_model.tail
+    if config.get("bn_fold"):
+        zone_model = fold_model(model)
+        print("    [x] folded BatchNorm into the conv weights (pure "
+              f"{str(dtype).removeprefix('torch.')} walk)...")
+        return zone_model, zone_model.tail
     model.prepare_inference()
     return model, tail_params(model, dtype)
 
@@ -538,12 +556,16 @@ def run_pipeline(config: dict, prepared: tuple | None = None,
 
     PyTorch device: {describe_device(device)}""")
         model, tail = prepared or prepare_model(config, device)
+        # the int8 model's calibration, once per model (set-up, not the pass)
+        calib = {"calibration_seconds": model.calibration_seconds} if hasattr(
+            model, "calibration_seconds") else {}
         if config.get("compare"):
             from flairtpu_torch.zone.compare import run_compare
 
-            return run_compare(config, model, tail, device)
+            return {k: dict(v, **calib) for k, v in
+                    run_compare(config, model, tail, device).items()}
         _, stats, _ = run_single(config, model, tail, device, get_stride(config)[0],
                                  "exact-clipping", staged=staged)
-        return stats
+        return dict(stats, **calib)
     finally:
         untee_stdout()

@@ -131,7 +131,8 @@ def _bad(name: str) -> dict:
         args["y"] = args["y"].contiguous()
     elif name == "nchw_residual":
         args["residual"] = args["residual"].contiguous()
-    elif name == "bf16_residual":
+    elif name == "bf16_residual":  # a residual in the compute dtype, not y's
+        args["y"] = args["y"].float()
         args["residual"] = args["residual"].to(torch.bfloat16)
     elif name == "short_scale":
         args["scale"] = args["scale"][:-1]

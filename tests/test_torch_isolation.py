@@ -141,8 +141,10 @@ def test_wrappers_raise_on_other_devices():
 
 
 @pytest.mark.parametrize("over,slice_name", [
-    ({"bn_fold": True}, "slice 3"),
-    ({"quantize": "int8"}, "slice 3"),
+    ({"quantize": "int8", "int8_decoder": 5}, "slice 3"),
+    ({"quantize": "int8", "model_framework": {
+        "model_provider": "SegmentationModelsPytorch",
+        "SegmentationModelsPytorch": {"encoder_decoder": "mit_b0_unet"}}}, "slice 6"),
     ({"model_framework": {"model_provider": "SegmentationModelsPytorch",
                           "SegmentationModelsPytorch": {"encoder_decoder": "resnet34_fpn"}}},
      "slice 5"),

@@ -42,11 +42,17 @@ Phases (any failure exits non-zero):
    int8_conv and quantize_act (the int8 model of INT8_KNOBS, calibrated on
    the main zone) exactly equal to their plain versions at every distinct
    site geometry of one batch of 4 tiles (float32 and int8 outputs;
-   quantize_act also on bf16 inputs and at 20 -> 24 channels). Each kernel
-   and its plain version are timed with CUDA events; conv_epilogue at every
-   site, summed over the batch, and so int8_conv (its 40 sites of one batch
-   of 128, with torch._int_mm on each site's im2col operand as the library
-   yardstick) and quantize_act (its 4 sites).
+   quantize_act also on bf16 inputs and at 20 -> 24 channels), and
+   int8_conv at the edge geometries of INT8_EDGES, which the main path does
+   not reach (batch 1 with M not a multiple of 128, Co 8 and 72, Kp not a
+   multiple of 128, stride 2, dilation 2, Cp 8 and 24 through the 8-byte
+   gathers, Cp 32 and 96 through the 16-byte ones, im2col TMA at stride 2,
+   dilation 2 and 1x1/2, a residual without ReLU). Each kernel and its plain version
+   are timed with CUDA events; conv_epilogue at every site, summed over the
+   batch, and so int8_conv (its 40 sites of one batch of 128, with
+   torch._int_mm on each site's im2col operand as the library yardstick;
+   also summed by group: stem, layer1-4, decoder, with the largest kernel /
+   _int_mm ratio over the sites) and quantize_act (its 4 sites).
 3. main path: ``flairtpu_torch.cli.detect_main`` on a synthetic 4096 x 4096 x
    5 GeoTIFF zone (``<dpt>/<zone>/zone.tif``, with a synthetic truth raster
    at ``truth/<dpt>/<zone>/truth.tif``) with a random resnet34-unet (19
@@ -181,6 +187,27 @@ ENCODER_INT8_SITES = 1 + 32 + 3
 INT8_SITES = ENCODER_INT8_SITES + 2 * 2
 QUANTIZE_SITES = 2 + 2
 ZONE_SMALL = 1024  # phase 3g's other int8 configurations run on a zone of this side
+# int8_conv at geometries the main path does not reach: (label, B, H, W,
+# Ci, Co, k, stride, pad, dilation, residual, ReLU); each with both outputs
+INT8_EDGES = (
+    ("one tile: M 128, Co 64, K 128, one tap", 1, 8, 16, 128, 64, 1, 1, 0, 1, False, True),
+    ("batch 1, M 255 (not a multiple of 128)", 1, 15, 17, 64, 64, 3, 1, 1, 1, True, True),
+    ("Co 8", 2, 20, 23, 64, 8, 3, 1, 1, 1, False, True),
+    ("Co 72", 2, 20, 23, 64, 72, 3, 1, 1, 1, True, True),
+    ("Kp 448 (K 432, not a multiple of 128)", 2, 19, 21, 48, 128, 3, 1, 1, 1, False, True),
+    ("Kp 32 (1x1 over 32 channels)", 2, 19, 21, 32, 136, 1, 1, 0, 1, True, False),
+    ("stride 2", 2, 33, 30, 64, 128, 3, 2, 1, 1, False, True),
+    ("dilation 2", 2, 21, 24, 64, 64, 3, 1, 2, 2, True, True),
+    ("Cp 8 (5 channels), 7x7/2, 8-byte gathers", 2, 40, 38, 5, 64, 7, 2, 3, 1, False, True),
+    ("Cp 24 (20 channels), 8-byte gathers, Co 72", 2, 18, 19, 20, 72, 3, 1, 1, 1, True, True),
+    ("residual without ReLU", 3, 32, 32, 64, 64, 3, 1, 1, 1, True, False),
+    ("many tiles a block: M 32768, Co 256", 2, 128, 128, 128, 256, 3, 1, 1, 1, True, True),
+    ("im2col TMA: stride 2, batch 1, M 132", 1, 23, 21, 128, 136, 3, 2, 1, 1, True, True),
+    ("im2col TMA: dilation 2, Cp 256, Co 64", 2, 13, 17, 256, 64, 3, 1, 2, 2, False, True),
+    ("im2col TMA: 1x1/2, Cp 384, no ReLU", 3, 15, 14, 384, 128, 1, 2, 0, 1, True, False),
+    ("16-byte gathers: Cp 32, Co 64, ragged M", 1, 19, 23, 32, 64, 3, 1, 1, 1, True, True),
+    ("16-byte gathers: Cp 96, Co 200, stride 2", 2, 21, 22, 96, 200, 3, 2, 1, 1, False, True),
+)
 # class agreement of the knobs' rasters with the float main path's
 # (random weights): bn_fold rounds in bf16 in other places, int8 quantizes
 # (tests/test_quantize.py:315)
@@ -845,13 +872,18 @@ class Int8Recorder:
     each call's operands: the int8 sites of a batch, at their shapes and on
     their data."""
 
-    def __init__(self):
+    def __init__(self, model: pq.QuantizedZoneModel | None = None):
         self.convs: list[dict] = []
         self.quants: list[dict] = []
+        self.names: list[str] = []  # each conv's site name, with a model
+        self._names = {} if model is None else {
+            id(p): name for qp in (model.qparams, model.dec_qparams or {})
+            for name, p in qp.items()}
 
     def conv(self, x, p, stride, padding, dilation=1, **kw):
         site = dict(x=x, p=p, stride=stride, padding=padding, dilation=dilation, **kw)
         self.convs.append(site)
+        self.names.append(self._names.get(id(p), "?"))
         return ic.int8_conv(**site)
 
     def quantize(self, x, sx, channels=None):
@@ -915,6 +947,42 @@ def compare_int8(label: str, site: dict) -> None:
     check(same, f"int8_conv {label}: float32 and int8 outputs exactly equal")
 
 
+def check_int8_edges(device: str = "cuda") -> int:
+    """int8_conv exactly equal to its plain version at INT8_EDGES, on random
+    int8 operands (zeros in padded channels, as quantize_act writes them),
+    float32 and int8 outputs: ragged M and Co, Kp not a multiple of the
+    128-byte stage, stride and dilation, every instance of the kernel, a
+    residual without ReLU, and several tiles a block."""
+    gen = torch.Generator(device).manual_seed(SEED + 9)
+
+    def randint8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=device, dtype=torch.int8)
+
+    for label, B, H, W, ci, co, k, stride, pad, dil, res, relu in INT8_EDGES:
+        p = ic.Int8ConvParams(randint8((co, ci, k, k)), 0.05,
+                              torch.rand(co, generator=gen, device=device) * 2e-3 + 1e-4,
+                              torch.randn(co, generator=gen, device=device))
+        x = torch.zeros((B, H, W, p.in_channels), dtype=torch.int8, device=device)
+        x[..., :ci] = randint8((B, H, W, ci))
+        x = x.permute(0, 3, 1, 2)  # channels_last
+        ho, wo = (ic._out_hw(n, k, stride, pad, dil) for n in (H, W))
+        r = (torch.randn((B, ho, wo, co), generator=gen, device=device).permute(0, 3, 1, 2)
+             if res else None)
+        bn, load = ic.kernel_instance(p.in_channels, co, k, stride, pad, dil)
+        how = f"im2col TMA, {load}-byte rows" if load in ic.TMA_ROWS else f"{load}-byte gathers"
+        compare_int8(f"{label}: x {tuple(x.shape)} -> ({B}, {co}, {ho}, {wo}), Kp "
+                     f"{p.packed.shape[1]}, instance {bn} columns / {how}",
+                     dict(x=x, p=p, stride=stride, padding=pad, dilation=dil, residual=r,
+                          relu=relu, keep_f32=True, out_sx=0.04))
+    return len(INT8_EDGES)
+
+
+def int8_group(name: str) -> str:
+    """The timing group of an int8 site name: stem, layer1-4 or decoder."""
+    head = name.split("/")[0].split("_")[0]
+    return "decoder" if head.startswith("block") else head
+
+
 def compare_quantize(label: str, x: torch.Tensor, sx: float, channels: int | None) -> None:
     got, want = qa.quantize_act(x, sx, channels), qa.quantize_act_plain(x, sx, channels)
     torch.cuda.synchronize()
@@ -946,16 +1014,16 @@ def check_int8(model: pq.QuantizedZoneModel, x: torch.Tensor, timed: bool = Fals
     odd = (torch.randn((3, 20, 17, 19), generator=gen, device="cuda") * 3).contiguous(
         memory_format=torch.channels_last)
     compare_quantize("(3, 20, 17, 19) -> 24 channels", odd, 0.02, 24)
-    out = {"max_abs_err": 0, "distinct_sites": len(seen)}
+    out = {"max_abs_err": 0, "distinct_sites": len(seen), "edge_cases": check_int8_edges()}
     del rec
     if not timed:
         return out
-    rec = Int8Recorder()
+    rec = Int8Recorder(model)
     model.tail_input(x, M, conv=rec.conv, quantize=rec.quantize)
     rows = []
     for k, site in enumerate(rec.convs):
         ops, nbytes = int8_cost(site)
-        rows.append({"site": int8_label(k, site),
+        rows.append({"site": int8_label(k, site), "group": int8_group(rec.names[k]),
                      "ms": cuda_ms(lambda a=site: ic.int8_conv(**a), 5, 1),
                      "plain_ms": cuda_ms(lambda a=site: ic.int8_conv_plain(**a), 1, 1),
                      "library_ms": int_mm_ms(site), "ops": ops, "bytes": nbytes,
@@ -979,7 +1047,11 @@ def check_int8(model: pq.QuantizedZoneModel, x: torch.Tensor, timed: bool = Fals
                     r["bound_ms"] for r in rs if r["bound_by"] == b)),
                 "library_ms": None if None in lib else sum(lib), "bytes": sum(r["bytes"] for r in rs)}
 
-    out.update(conv=dict(total(rows), sites=rows, ops=sum(r["ops"] for r in rows)),
+    groups = {g: total([r for r in rows if r["group"] == g])
+              for g in dict.fromkeys(r["group"] for r in rows)}
+    ratios = [(r["ms"] / r["library_ms"], r["site"]) for r in rows if r["library_ms"]]
+    out.update(conv=dict(total(rows), sites=rows, ops=sum(r["ops"] for r in rows),
+                         groups=groups, worst_library_ratio=max(ratios) if ratios else None),
                quantize=dict(total(quants), library_ms=None, sites=quants))
     return out
 
@@ -1854,6 +1926,12 @@ def main() -> int:
         for r in int8["conv"]["sites"]:
             print(f"    int8_conv {r['site']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"_int_mm {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        for g, r in int8["conv"]["groups"].items():
+            print(f"    int8_conv, {g} sites: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), _int_mm {r['library_ms']} ms, plain {r['plain_ms']:.4f} ms")
+        worst = int8["conv"]["worst_library_ratio"]
+        if worst:
+            print(f"    int8_conv, largest kernel / _int_mm ratio: {worst[0]:.3f} ({worst[1]})")
         for r in int8["quantize"]["sites"]:
             print(f"    quantize_act {r['site']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")

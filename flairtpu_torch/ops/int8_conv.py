@@ -1,5 +1,6 @@
 """int8 convolution with its dequantize epilogue (``csrc/int8_conv.cu``,
-hand-written implicit GEMM on the mma.sync s8 tensor cores).
+hand-written implicit GEMM on Hopper's wgmma s8 tensor cores, with TMA
+weight tiles and an mbarrier ring).
 
 Replaces the XLA int8 convolution of ``flairtpu/models/quantize.py:218-230``
 (``_quant_conv``), with the element-wise ops of the walk that XLA fused into
@@ -21,6 +22,13 @@ holds every sum exactly; float32 does not, since K * 127^2 exceeds 2^24)
 and rounds the multiply-add once, as the FMA does (:func:`fma_f32`).
 ``int8_conv`` runs it for a CPU tensor and launches the kernel for a CUDA
 tensor; it has no fallback.
+
+The kernel has eight instances (:func:`kernel_instance`): 128 or 64
+output columns a tile, and the activations loaded by 8- or 16-byte
+cp.async gathers or by im2col TMA boxes of 128- or 64-byte rows. The
+wrapper picks one per site and checks what it needs of the operands on
+either device: channels_last, and the bases the loads, the weights' TMA
+map and the 16-byte epilogue accesses need (:func:`_check`).
 """
 
 from __future__ import annotations
@@ -35,8 +43,8 @@ from flairtpu_torch.ops import _build
 from flairtpu_torch.ops.quantize_act import inverse_scale, padded_channels, quantize_values
 
 ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_int] * 14
-            + [ctypes.c_void_p])
-K_CHUNK = 32  # bytes of K per mma.sync step: the packed rows' multiple
+            + [ctypes.c_void_p, ctypes.c_int])
+K_CHUNK = 32  # bytes of K per wgmma step: the packed rows' multiple
 
 # kernel launches on CUDA tensors since the last reset (the CPU path does not count)
 launches = 0
@@ -87,6 +95,32 @@ def fma_f32(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return s.float()
 
 
+TMA_ROWS = (128, 64)  # bytes of channels a pixel in an im2col TMA box: a stage of K
+_LOAD_CODES = {8: 0, 16: 1, 128: 4, 64: 5}
+
+
+def kernel_instance(cp: int, co: int, k: int = 1, stride: int = 1, padding: int = 0,
+                    dilation: int = 1) -> tuple[int, int]:
+    """(output columns a tile, bytes a row of A loads in one go) of the
+    kernel instance for a site of ``cp`` input and ``co`` output channels
+    and a ``k`` x ``k`` kernel: 64 columns where ``co <= 64`` (the stem and
+    the 64-channel sites), else 128; A by im2col TMA in rows of 128 or 64
+    bytes (``TMA_ROWS``) where a stage of K of that many bytes lies in one
+    tap (``cp`` a multiple of it) and the box corners fit the map's signed
+    8 bits, else by 16-byte cp.async gathers where ``cp % 16 == 0`` (a
+    group then never crosses a tap), else by 8-byte ones (the stem's 8
+    padded channels)."""
+    corners_fit = padding <= 127 and dilation * (k - 1) - padding <= 128 and stride <= 8
+    rows = [r for r in TMA_ROWS if cp % r == 0] if corners_fit else []
+    load = rows[0] if rows else 16 if cp % 16 == 0 else 8
+    return (64 if co <= 64 else 128), load
+
+
+def instance_code(block_n: int, load: int) -> int:
+    """The C entry point's ``instance`` argument for :func:`kernel_instance`'s pair."""
+    return 2 * (block_n == 128) + _LOAD_CODES[load]
+
+
 def _out_hw(size: int, k: int, stride: int, padding: int, dilation: int) -> int:
     return (size + 2 * padding - dilation * (k - 1) - 1) // stride + 1
 
@@ -126,6 +160,11 @@ def _check(x: torch.Tensor, p: Int8ConvParams, residual, out_shape: tuple,
                          f"got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("int8_conv: x must be channels_last")
+    align = 16 if p.in_channels % 16 == 0 else 8  # TMA and 16-byte gathers, or 8-byte ones
+    if x.data_ptr() % align:
+        raise ValueError(f"int8_conv: x must be {align}-byte aligned for its loads")
+    if p.packed.data_ptr() % 16:
+        raise ValueError("int8_conv: the packed weights must be 16-byte aligned (TMA)")
     if p.wq.shape[0] % 8:
         raise ValueError(f"int8_conv: {p.wq.shape[0]} output channels (a multiple of 8)")
     for name, t in (("weights", p.packed), ("deq", p.deq), ("b", p.b)):
@@ -134,9 +173,10 @@ def _check(x: torch.Tensor, p: Int8ConvParams, residual, out_shape: tuple,
     if residual is not None and (
             residual.dtype != torch.float32 or tuple(residual.shape) != out_shape
             or residual.device != x.device
-            or not residual.is_contiguous(memory_format=torch.channels_last)):
-        raise ValueError(f"int8_conv: residual must be a channels_last float32 tensor of "
-                         f"shape {out_shape} on {x.device}")
+            or not residual.is_contiguous(memory_format=torch.channels_last)
+            or residual.data_ptr() % 16):
+        raise ValueError(f"int8_conv: residual must be a channels_last, 16-byte aligned "
+                         f"float32 tensor of shape {out_shape} on {x.device}")
     if not keep_f32 and out_sx is None:
         raise ValueError("int8_conv: no output asked for (keep_f32 or out_sx)")
 
@@ -172,7 +212,8 @@ def int8_conv(x: torch.Tensor, p: Int8ConvParams, stride: int, padding: int,
         ptr(x), ptr(p.packed), ptr(p.deq), ptr(p.b), ptr(residual), ptr(out32), ptr(outq),
         inverse_scale(out_sx) if out_sx is not None else 0.0, B, H, W, p.in_channels, ho, wo,
         co, kh, kw, stride, padding, dilation, p.packed.shape[1], int(relu),
-        _build.stream_handle(x))
+        _build.stream_handle(x),
+        instance_code(*kernel_instance(p.in_channels, co, kh, stride, padding, dilation)))
     _build.check(err, "int8_conv")
     launches += 1
     return out32, outq

@@ -53,6 +53,19 @@ Phases (any failure exits non-zero):
    torch._int_mm on each site's im2col operand as the library yardstick;
    also summed by group: stem, layer1-4, decoder, with the largest kernel /
    _int_mm ratio over the sites) and quantize_act (its 4 sites).
+   The train step's kernels (flair, slice 4): fused_tail's argmax mode at
+   margin 0 on whole 512 tiles at batch 16 (flair predict), as above;
+   augment_normalize bit for bit (torch.equal) for all 16 D4 choices, the
+   three norm types, labels 0 and > K on disk, bf16 and float32, the identity
+   and no mask; weighted_ce's forward (loss within CE_LOSS_RTOL, weight sum
+   and confusion matrix exact) and backward (within CE_GRAD_TOL of the
+   largest |dlogit|) on batch-16 logits, with F.cross_entropy(weight=w) as
+   the forward's yardstick; bn_train's statistics (within BN_STAT_TOL, the
+   running statistics too) and backward (dy within BN_DY_TOL of the largest,
+   dgamma and dbeta within BN_STAT_TOL, the residual's gradient exact) at
+   every BatchNorm site geometry of resnet34-unet at batch 2 and at every
+   site of a batch-16 step, which are also timed beside
+   torch.var_mean(correction=0).
 3. main path: ``flairtpu_torch.cli.detect_main`` on a synthetic 4096 x 4096 x
    5 GeoTIFF zone (``<dpt>/<zone>/zone.tif``, with a synthetic truth raster
    at ``truth/<dpt>/<zone>/truth.tif``) with a random resnet34-unet (19
@@ -106,9 +119,31 @@ Phases (any failure exits non-zero):
    run on the same model (class agreement >= 0.999, prob |diff| <= 1), its
    class agreement with the float path's raster of the zone (>= FOLD_FLOOR
    or INT8_FLOOR), patches/s and the calibration's seconds.
-4. the kernels line, the card line, and last the JSON result line.
+4. ``flair`` on the card: a FLAIR-like set (512 x 512 x 5 uint8 patches with
+   learnable blocky 19-class masks; 64 train, 16 val, 16 test) written with
+   flairtpu_torch.io, and ``cli.flair_main`` with train, predict and metrics
+   at configs/flair-1-config.yaml's values (resnet34-unet, batch 16, custom
+   normalization, augmentation, SGD at 0.02, accelerator tpu = the card) for
+   3 epochs (12 steps), with PyTorch's default precision flags (cuDNN may
+   use TF32), as a user's run has them. Checks each kernel's launches against steps x sites
+   (the counts set to 0 just before), finite losses, every artifact and
+   metrics.json's schema; prints train patches/s from epoch 2 and eval
+   patches/s with their step and batch counts, the loader's wait, and
+   predict patches/s over four warm batches beside flair_main's first call.
+   Then one train step from the best checkpoint's weights, on one batch with
+   fixed choices: the kernels' step with every kernel also run plain on the
+   same operands, each site's incoming gradient included (augment,
+   statistics, epilogue, backward, loss and its gradient within the phase 2
+   tolerances and BN_GRAD_TOL); then free-running against the plain step
+   (loss within STEP_LOSS_RTOL, each gradient's and running statistic's
+   relative L2 within STEP_SLACK of the plain step on the samples reversed,
+   the confusion matrix's moved pixels within STEP_CM_SHARE), beside the
+   plain step repeated and both orders in float32, which measure that
+   drift.
+5. the kernels line, the card line, and last the JSON result line.
 
-    python3 chip_smoke.py --profile  # also one batch per program by stage, and the profiler table
+    python3 chip_smoke.py --profile  # also one batch per program by stage, the profiler
+                                     # table, and the same for one flair train step
 """
 
 from __future__ import annotations
@@ -126,15 +161,26 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 import yaml
 
 from flairtpu_torch import cli
 from flairtpu_torch.config import gen_param_combination, validate_detect_config
+from flairtpu_torch.data.manifest import gather_paths
+from flairtpu_torch.data.patches import PatchDataset, PatchLoader
 from flairtpu_torch.io import TiffReader
 from flairtpu_torch.io.tiff import Affine, write_array
-from flairtpu_torch.models.factory import FlairSegmentationModel
+from flairtpu_torch.models.factory import FlairSegmentationModel, init_weights
+from flairtpu_torch.predict.runner import predict
 from flairtpu_torch.ops import _build
+from flairtpu_torch.ops import augment as au
+from flairtpu_torch.ops import bn_train as bt
 from flairtpu_torch.ops import epilogue as ep
+from flairtpu_torch.ops import weighted_ce as wc
+from flairtpu_torch.ops.bn_train import TrainSites
+from flairtpu_torch.ops.weighted_ce import WeightedCE
+from flairtpu_torch.train import checkpoints as ckpt_lib
+from flairtpu_torch.train.loop import SegmentationTrainer
 from flairtpu_torch.models import quantize as pq
 from flairtpu_torch.models.fold import FoldedZoneModel
 from flairtpu_torch.ops import fused_tail as ft
@@ -1172,6 +1218,7 @@ def run_plain(cfg: dict, method: str = "exact-clipping", stride: int | None = No
 def reset_launches() -> None:
     ft.launches = ft.probs_launches = ft.logits_launches = ga.launches = ep.launches = 0
     ga.typed_launches = ic.launches = qa.launches = 0
+    au.launches = wc.launches = wc.backward_launches = bt.launches = bt.backward_launches = 0
     for counts in (st.launches, ts.launches):
         for name in counts:
             counts[name] = 0
@@ -1182,7 +1229,9 @@ def read_launches() -> dict:
             "fused_tail_logits": ft.logits_launches, "gather_normalize": ga.launches,
             "gather_normalize_typed": ga.typed_launches, "conv_epilogue": ep.launches,
             "int8_conv": ic.launches, "quantize_act": qa.launches,
-            **st.launches, **ts.launches}
+            "augment_normalize": au.launches, "weighted_ce": wc.launches,
+            "weighted_ce_backward": wc.backward_launches, "bn_stats": bt.launches,
+            "bn_backward": bt.backward_launches, **st.launches, **ts.launches}
 
 
 def expected_launches(method: str, output_type: str, n_batches: int,
@@ -1840,11 +1889,847 @@ def stage_breakdown(cfg: dict, zone_hw: int, rng, epi: dict) -> dict:
     return {"stage_ms": ms, "kernel_table": table}
 
 
+# ---------------------------------------------------------------------------
+# flair train / predict / metrics (slice 4): the train step's kernels and
+# phase 4
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 16  # configs/flair-1-config.yaml:49
+TRAIN_CONFIG = Path(__file__).resolve().parent / "configs" / "flair-1-config.yaml"
+# phase 4's dataset (train, val, test patches) and epochs: 4 train steps an epoch
+FLAIR_SPLITS = (("train", 64), ("val", 16), ("test", 16))
+FLAIR_EPOCHS = 3
+# weighted_ce against its plain version on the same logits: both sum float32
+# terms, in other orders (a tree of per-thread partials and double across
+# blocks, against PyTorch's reduction), over 4.2M pixels
+CE_LOSS_RTOL = 1e-5
+CE_GRAD_TOL = 1e-5  # of the largest |dlogit|: expf and the division round alike
+# bn_train against its plain version: the statistics are float32 sums over
+# up to 4.2M (batch 16) values in other orders; the backward's bf16 dy is
+# gamma invstd (g - (dbeta + xh dgamma) / M), where the subtraction cancels
+# for some elements, so the two float32 results (sums in other orders,
+# 1 / M multiplied or divided) round to bf16 values far apart in ulps of
+# that small element, but within two bf16 ulps of the largest |dy|
+BN_STAT_TOL = 1e-4  # of 1 + the largest |value| of each vector
+BN_DY_TOL = 2.0 ** -6  # of the largest |dy|: two bf16 ulps there
+# dgamma and dbeta of a train step's own gradients against the plain
+# version's on the same operands: float32 sums of up to 4.2M products in two
+# orders, each within about log2(M) float32 ulps of the sum of the terms'
+# magnitudes, held to a thousandth of the vector's largest value
+BN_GRAD_TOL = 1e-3
+# One train step is held two ways. (1) Site by site: the kernels' step runs
+# each kernel's plain version beside it on the same operands (the batch, each
+# site's conv output and the gradient that reaches it in that step) and each
+# part is held to the tolerances above; this is the check of the kernels'
+# gradients. (2) Free-running: the kernels' step against the plain step from
+# the same weights, batch and choices. There a BatchNorm constant one float32
+# ulp apart flips bf16 roundings, which the following sites carry on, so the
+# two steps' gradients drift apart as two valid summation orders' do; the
+# plain step is also run with the batch reversed, again in the same order
+# (determinism) and both ways in float32 (TF32 off) to measure that drift.
+# The free-running step must stay within STEP_SLACK of the reversed run's
+# drift, and its loss within STEP_LOSS_RTOL: a bound on the drift, not a
+# test of a kernel's gradient
+STEP_LOSS_RTOL = 1e-3
+STEP_SLACK = 2.0, 0.02  # rel L2 <= 2 x the reordered run's + 0.02
+STEP_CM_SHARE = 0.01  # pixels whose argmax moves, beyond the reordered run's
+
+
+def choices_all(n: int, device="cuda") -> torch.Tensor:
+    """(n, 3) int32: the 16 (v, h, k) D4 choices in turn."""
+    rows = [(v, h, k) for v in (0, 1) for h in (0, 1) for k in range(4)]
+    return torch.tensor([rows[i % 16] for i in range(n)], dtype=torch.int32, device=device)
+
+
+def check_augment(gen) -> dict:
+    """augment_normalize bit for bit against its plain version: all 16
+    choices, the three norm types, labels 0 and > K on disk, bf16 and
+    float32, the identity (eval and predict) and no mask; timed at the train
+    batch with the config's custom normalization."""
+    B = TRAIN_BATCH
+    img = torch.randint(0, 256, (B, S, S, C), dtype=torch.uint8, device="cuda", generator=gen)
+    msk = torch.randint(0, K + 7, (B, S, S), dtype=torch.uint8, device="cuda", generator=gen)
+    cfg = yaml.safe_load(TRAIN_CONFIG.read_text())
+    norms = {"custom": au.norm_constants("custom", cfg["norm_means"], cfg["norm_stds"], C),
+             "scaling": au.norm_constants("scaling", channels=C),
+             "without": au.norm_constants("without", channels=C)}
+    ch = choices_all(B)
+    for name, (mean, mul) in norms.items():
+        mean, mul = torch.from_numpy(mean).cuda(), torch.from_numpy(mul).cuda()
+        for dtype in (torch.bfloat16, torch.float32):
+            for choices, mask, what in ((ch, msk, "16 D4 choices"), (None, msk, "identity"),
+                                        (None, None, "identity, no mask")):
+                x, t = au.augment_normalize(img, mask, choices, mean, mul, K, dtype)
+                xp, tp = au.augment_normalize_plain(img, mask, choices, mean, mul, K, dtype)
+                torch.cuda.synchronize()
+                check(torch.equal(x, xp) and (t is None and tp is None or torch.equal(t, tp)),
+                      f"augment_normalize {name} {str(dtype)[6:]} {what}: equal bit for bit")
+        if name == "custom":
+            args = (img, msk, ch, mean, mul, K, torch.bfloat16)
+    nbytes = img.numel() + msk.numel() + 2 * img.numel() + 4 * msk.numel()
+    return {"max_abs_err": 0, "ms": cuda_ms(lambda: au.augment_normalize(*args)),
+            "plain_ms": cuda_ms(lambda: au.augment_normalize_plain(*args), 5, 1),
+            # no single PyTorch call flips, rotates per sample, normalizes and
+            # cleans the labels
+            "library_ms": None, "bytes": nbytes, **bound(0, nbytes)}
+
+
+def check_weighted_ce(gen) -> dict:
+    """weighted_ce forward (loss, weight sum, confusion matrix) and backward
+    against the plain versions on train-step logits; timed, with
+    F.cross_entropy(weight=w) as the forward's yardstick."""
+    B = TRAIN_BATCH
+    logits = torch.randn((B, S, S, K), device="cuda", generator=gen) * 3
+    tgt = torch.randint(0, K, (B, S, S), dtype=torch.int32, device="cuda", generator=gen)
+    cfg = yaml.safe_load(TRAIN_CONFIG.read_text())
+    w = torch.tensor([float(v[0]) for v in cfg["classes"].values()], device="cuda")
+    cm, cmp = (torch.zeros((K, K), dtype=torch.int32, device="cuda") for _ in range(2))
+    loss, ws = wc.weighted_ce(logits, tgt, w, cm)
+    lossp, wsp = wc.weighted_ce_plain(logits, tgt, w, cmp)
+    g = torch.tensor(0.5, device="cuda")
+    d, dp = wc.weighted_ce_grad(logits, tgt, w, ws, g), wc.weighted_ce_grad_plain(logits, tgt, w,
+                                                                                 wsp, g)
+    torch.cuda.synchronize()
+    rel = abs(loss.item() - lossp.item()) / abs(lossp.item())
+    check(rel <= CE_LOSS_RTOL, f"weighted_ce loss {loss.item():.7f} vs plain "
+          f"{lossp.item():.7f}: relative {rel:.2e} <= {CE_LOSS_RTOL}")
+    check(ws.item() == wsp.item(), f"weighted_ce weight sum {ws.item()} == plain")
+    check(torch.equal(cm, cmp), f"weighted_ce confusion matrix exact ({int(cm.sum())} pixels)")
+    derr = (d - dp).abs().max().item()
+    scale = dp.abs().max().item()
+    check(derr <= CE_GRAD_TOL * scale, f"weighted_ce dlogits |diff| {derr:.2e} <= "
+          f"{CE_GRAD_TOL} x {scale:.2e}")
+    n = tgt.numel()
+    fwd_bytes, bwd_bytes = 4 * n * K + 4 * n, 8 * n * K + 4 * n
+    lib = lambda: F.cross_entropy(logits.permute(0, 3, 1, 2), tgt.long(), weight=w)  # noqa: E731
+    fwd = {"mode": "forward", "max_abs_err": abs(loss.item() - lossp.item()),
+           "ms": cuda_ms(lambda: wc.weighted_ce(logits, tgt, w, cm)),
+           "plain_ms": cuda_ms(lambda: wc.weighted_ce_plain(logits, tgt, w, cmp), 5, 1),
+           "library_ms": cuda_ms(lib), "bytes": fwd_bytes,
+           **bound(6 * n * K, fwd_bytes, PEAK_FP32_FLOPS)}
+    bwd = {"mode": "backward", "max_abs_err": derr,
+           "ms": cuda_ms(lambda: wc.weighted_ce_grad(logits, tgt, w, ws, g)),
+           "plain_ms": cuda_ms(lambda: wc.weighted_ce_grad_plain(logits, tgt, w, wsp, g), 5, 1),
+           "library_ms": None, "bytes": bwd_bytes, **bound(8 * n * K, bwd_bytes,
+                                                            PEAK_FP32_FLOPS)}
+    return {"forward": fwd, "backward": bwd}
+
+
+class TrainSiteRecorder(TrainSites):
+    """Train-mode sites that keep each call's operands (the conv output, its
+    BatchNorm, the residual or branch) as the model's forward gives them."""
+
+    def __init__(self):
+        super().__init__()
+        self.sites: list[dict] = []
+
+    def site(self, y, bn, residual=None, branch=None, relu=True, keep_f32=False):
+        self.sites.append(dict(y=y, bn=bn, residual=residual, branch=branch, keep_f32=keep_f32))
+        return super().site(y, bn, residual, branch, relu, keep_f32)
+
+
+def record_train_sites(model, x: torch.Tensor) -> list[dict]:
+    rec = TrainSiteRecorder()
+    with torch.no_grad():
+        model(x, epilogue=rec)
+    return rec.sites
+
+
+def bn_vectors(bn) -> tuple:
+    """Copies of a BatchNorm's (gamma, beta, running mean, running var)."""
+    return tuple(t.detach().clone() for t in (bn.weight, bn.bias, bn.running_mean,
+                                              bn.running_var))
+
+
+def bn_site_operands(site: dict, gen) -> dict:
+    """Everything bn_stats and bn_backward take at a recorded site, the
+    incoming gradients random (bf16 and, where the site keeps float32, a
+    float32 one)."""
+    y = site["y"]
+    gamma, beta, rm, rv = bn_vectors(site["bn"])
+    mean, invstd, scale, shift = bt.bn_stats_plain(y, gamma, beta, rm.clone(), rv.clone())
+    branch, d_stats = None, None
+    if site["branch"] is not None:
+        d, bn_d = site["branch"]
+        gd, bd, rmd, rvd = bn_vectors(bn_d)
+        d_stats = bt.bn_stats_plain(d, gd, bd, rmd.clone(), rvd.clone())
+        branch = (d, d_stats[0], d_stats[1], gd)
+    epi_branch = None if branch is None else (branch[0], d_stats[2], d_stats[3])
+    out, _ = ep.conv_epilogue(y, scale, shift, residual=site["residual"], branch=epi_branch)
+
+    def rand(dtype):
+        return torch.randn(y.shape, device="cuda", generator=gen).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    return dict(g=rand(torch.bfloat16), g32=rand(torch.float32) if site["keep_f32"] else None,
+                out=out, y=y, mean=mean, invstd=invstd, gamma=gamma, branch=branch,
+                residual=site["residual"] is not None)
+
+
+def bn_site_label(k: int, site: dict) -> str:
+    kind = ("downsample branch" if site["branch"] is not None else
+            "fp32 residual" if site["residual"] is not None else "no residual")
+    return f"site {k} {tuple(site['y'].shape)} {kind}{', fp32 out' if site['keep_f32'] else ''}"
+
+
+def vec_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / (1 + max |b|)"""
+    return ((a.float() - b.float()).abs().max() / (1 + b.float().abs().max())).item()
+
+
+def scaled_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|"""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def compare_bn_site(label: str, site: dict, gen) -> tuple[float, float]:
+    """bn_stats (each BatchNorm of the site) and bn_backward against their
+    plain versions on the site's operands; returns the statistics' worst
+    scaled error and the backward's (dy, dd, dgamma and dbeta)."""
+    worst = 0.0
+    pairs = [(site["y"], site["bn"])] + ([site["branch"]] if site["branch"] is not None else [])
+    for x, bn in pairs:
+        gamma, beta, rm, rv = bn_vectors(bn)
+        got = bt.bn_stats(x, gamma, beta, rm, rv)
+        rmp, rvp = bn_vectors(bn)[2:]
+        want = bt.bn_stats_plain(x, gamma, beta, rmp, rvp)
+        errs = [vec_err(a, b) for a, b in zip(got + (rm, rv), want + (rmp, rvp))]
+        worst = max(worst, *errs)
+        check(max(errs) <= BN_STAT_TOL, f"bn_stats {label} {tuple(x.shape)}: mean, invstd, "
+              f"scale, shift, running mean and var within {max(errs):.1e} <= {BN_STAT_TOL}")
+    ops = bn_site_operands(site, gen)
+    got = bt.bn_backward(**ops)
+    want = bt.bn_backward_plain(**ops)
+    torch.cuda.synchronize()
+    dy_err = scaled_err(got[0], want[0])
+    errs = [vec_err(got[1], want[1]), vec_err(got[2], want[2])]
+    if got[4] is not None:
+        dy_err = max(dy_err, scaled_err(got[4][0], want[4][0]))
+        errs += [vec_err(got[4][1], want[4][1]), vec_err(got[4][2], want[4][2])]
+    exact_res = got[3] is None or torch.equal(got[3], want[3])
+    check(dy_err <= BN_DY_TOL and max(errs) <= BN_STAT_TOL and exact_res,
+          f"bn_backward {label}: dy{' and dd' if got[4] is not None else ''} within "
+          f"{dy_err:.1e} <= {BN_DY_TOL:.1e} of the largest, dgamma and dbeta within "
+          f"{max(errs):.1e} <= {BN_STAT_TOL}"
+          f"{', residual gradient exact' if got[3] is not None else ''}")
+    return worst, max(dy_err, *errs)
+
+
+def bn_costs(site: dict) -> dict:
+    """(operations, bytes) of the site's statistics (each of its
+    BatchNorms) and of its backward: each input read once, each output
+    written once."""
+    y = site["y"]
+    n, c = y.numel(), y.shape[1]
+    n_bn = 1 + (site["branch"] is not None)
+    stats = (3 * n * n_bn, 2 * n * n_bn + 4 * 8 * c * n_bn)
+    nbytes = 2 * n + 2 * n + 2 * n + 2 * n  # g, out, y in; dy out
+    if site["keep_f32"]:
+        nbytes += 4 * n
+    if site["residual"] is not None:
+        nbytes += 4 * n
+    if site["branch"] is not None:
+        nbytes += 2 * n + 2 * n
+    return {"stats": stats, "backward": (12 * n * n_bn, nbytes)}
+
+
+def time_bn_sites(sites: list[dict], gen) -> dict:
+    """bn_stats and bn_backward at every site of one train-batch forward,
+    summed, against their plain versions and (statistics)
+    torch.var_mean(correction=0)."""
+    rows = {"stats": [], "backward": []}
+    for site in sites:
+        cost = bn_costs(site)
+        pairs = [(site["y"], site["bn"])] + ([site["branch"]] if site["branch"] is not None
+                                             else [])
+        vecs = [(x, bn_vectors(bn)) for x, bn in pairs]
+        rows["stats"].append({
+            "ms": sum(cuda_ms(lambda x=x, v=v: bt.bn_stats(x, *v), 5, 1) for x, v in vecs),
+            "plain_ms": sum(cuda_ms(lambda x=x, v=v: bt.bn_stats_plain(x, *v), 3, 1)
+                            for x, v in vecs),
+            "library_ms": sum(cuda_ms(lambda x=x: torch.var_mean(x, dim=(0, 2, 3),
+                                                                 correction=0), 5, 1)
+                              for x, _ in vecs),
+            "bytes": cost["stats"][1], **bound(*cost["stats"], PEAK_FP32_FLOPS)})
+        ops = bn_site_operands(site, gen)
+        rows["backward"].append({
+            "ms": cuda_ms(lambda: bt.bn_backward(**ops), 5, 1),
+            "plain_ms": cuda_ms(lambda: bt.bn_backward_plain(**ops), 3, 1),
+            "bytes": cost["backward"][1], **bound(*cost["backward"], PEAK_FP32_FLOPS)})
+        del ops
+    out = {}
+    for mode, rs in rows.items():
+        out[mode] = {
+            "mode": mode, "sites": len(rs), "ms": sum(r["ms"] for r in rs),
+            "plain_ms": sum(r["plain_ms"] for r in rs), "bytes": sum(r["bytes"] for r in rs),
+            "bound_ms": sum(r["bound_ms"] for r in rs),
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rs)
+                         else "operations"),
+            "library_ms": (sum(r["library_ms"] for r in rs) if mode == "stats" else None),
+            "largest_ms": max(r["ms"] for r in rs)}
+    return out
+
+
+def train_model(device="cuda") -> FlairSegmentationModel:
+    """resnet34-unet, 5 channels, 19 classes, bf16 convs on float32 params,
+    flax's initial distributions."""
+    model = FlairSegmentationModel("resnet34", K, C, dtype=torch.bfloat16)
+    init_weights(model, SEED)
+    return model.to(device, memory_format=torch.channels_last)
+
+
+def train_site_counts(model) -> dict:
+    """From the model's structure: BatchNorms (a statistics launch each a
+    step), train-mode sites (a conv_epilogue and a backward launch each, a
+    downsample's BatchNorm inside its block's last site) and the inference
+    sites of tail_input (encoder and decoder blocks 0-3)."""
+    n_bn = sum(isinstance(m, nn.BatchNorm2d) for m in model.modules())
+    n_ds = sum(getattr(m, "downsample", None) is not None for m in model.encoder.modules())
+    return {"bn": n_bn, "sites": n_bn - n_ds, "tail_sites": epilogue_sites(model)}
+
+
+def check_bn_train(gen) -> dict:
+    """bn_train at every BatchNorm site geometry of resnet34-unet at batch 2
+    (operands from a train-mode forward of 512 tiles), then at every site of
+    the train batch (16), which is also timed."""
+    model = train_model()
+    counts = train_site_counts(model)
+    x = torch.rand((2, S, S, C), device="cuda", generator=gen).to(torch.bfloat16)
+    sites = record_train_sites(model, x)
+    check(len(sites) == counts["sites"] and
+          sum(s["branch"] is not None for s in sites) + len(sites) == counts["bn"],
+          f"bn_train: {len(sites)} sites, {counts['bn']} BatchNorms in one forward, from the "
+          "model's structure")
+    errs = []
+    seen = set()
+    for k, site in enumerate(sites):
+        key = (tuple(site["y"].shape), site["residual"] is not None, site["branch"] is not None,
+               site["keep_f32"])
+        if key in seen:
+            continue
+        seen.add(key)
+        errs.append(compare_bn_site(bn_site_label(k, site), site, gen))
+    del sites, x
+    torch.cuda.empty_cache()
+    x = torch.rand((TRAIN_BATCH, S, S, C), device="cuda", generator=gen).to(torch.bfloat16)
+    sites = record_train_sites(model, x)
+    for k, site in enumerate(sites):
+        errs.append(compare_bn_site(bn_site_label(k, site), site, gen))
+    timed = time_bn_sites(sites, gen)
+    del sites, x
+    torch.cuda.empty_cache()
+    for mode, col in (("stats", 0), ("backward", 1)):
+        timed[mode]["max_abs_err"] = max(e[col] for e in errs)
+    return {"max_abs_err": max(max(e) for e in errs), "geometries": len(seen),
+            "counts": counts, **timed}
+
+
+# -- phase 4 ---------------------------------------------------------------
+
+def flair_patch(rng, size: int) -> tuple[np.ndarray, np.ndarray]:
+    """A learnable FLAIR-like patch: 64 x 64 blocks of one of the 19 classes,
+    band 1 encodes the class, the other bands noise; the 1-based mask."""
+    cls = np.kron(rng.integers(0, K, (size // 64, size // 64)), np.ones((64, 64), np.int64))
+    img = rng.integers(0, 255, (C, size, size)).astype(np.uint8)
+    img[0] = np.clip(cls * 12 + 10 + rng.integers(-4, 5, (size, size)), 0, 255).astype(np.uint8)
+    return img, (cls + 1).astype(np.uint8)
+
+
+def write_flair_dataset(root: Path, rng) -> dict:
+    """FLAIR-like 512 x 512 x 5 uint8 patches and masks written with
+    flairtpu_torch.io, one CSV a split."""
+    csvs = {}
+    for split, n in FLAIR_SPLITS:
+        d = root / split
+        d.mkdir(parents=True)
+        rows = []
+        for i in range(n):
+            img, msk = flair_patch(rng, S)
+            tr = Affine.from_origin(650000.0 + i * S * 0.2, 6860000.0, 0.2, 0.2)
+            ip, mp = d / f"IMG_{i:06d}.tif", d / f"MSK_{i:06d}.tif"
+            write_array(ip, img, transform=tr, crs=2154, tiled=False)
+            write_array(mp, msk, transform=tr, crs=2154, tiled=False)
+            rows.append(f"{ip},{mp}")
+        csvs[split] = root / f"{split}.csv"
+        csvs[split].write_text("\n".join(rows) + "\n")
+    return csvs
+
+
+def flair_config(root: Path, csvs: dict) -> dict:
+    """configs/flair-1-config.yaml with its paths replaced and 3 epochs."""
+    cfg = yaml.safe_load(TRAIN_CONFIG.read_text())
+    cfg["paths"].update(out_folder=str(root / "out"), train_csv=str(csvs["train"]),
+                        val_csv=str(csvs["val"]), test_csv=str(csvs["test"]),
+                        ckpt_model_path="")
+    cfg["num_epochs"] = FLAIR_EPOCHS
+    return cfg
+
+
+def flair_expected(counts: dict, steps: int, eval_batches: int, predict_batches: int) -> dict:
+    """Each kernel's launches for a flair run: per train step one
+    augment_normalize, one weighted_ce forward and backward, a statistics
+    launch a BatchNorm, a conv_epilogue and a backward launch a site; per
+    eval batch one augment_normalize, one weighted_ce and the full model's
+    conv_epilogue sites; per predict batch one augment_normalize, the
+    encoder's and decoder blocks 0-3's sites and one fused_tail."""
+    out = dict.fromkeys(read_launches(), 0)
+    out.update(augment_normalize=steps + eval_batches + predict_batches,
+               weighted_ce=steps + eval_batches, weighted_ce_backward=steps,
+               bn_stats=counts["bn"] * steps, bn_backward=counts["sites"] * steps,
+               conv_epilogue=counts["sites"] * (steps + eval_batches)
+               + counts["tail_sites"] * predict_batches,
+               fused_tail=predict_batches)
+    return out
+
+
+def grad_rel(a: dict, b: dict) -> dict:
+    return {n: ((a[n] - b[n]).norm() / b[n].norm().clamp_min(1e-30)).item() for n in b}
+
+
+def all_rel(a: dict, b: dict) -> float:
+    """Relative L2 over all tensors of ``b`` together."""
+    return (sum((a[n] - b[n]).norm() ** 2 for n in b) ** 0.5 /
+            sum(b[n].norm() ** 2 for n in b) ** 0.5).item()
+
+
+def max_diff(a: torch.Tensor | None, b: torch.Tensor | None) -> float:
+    return 0.0 if a is None and b is None else (a.float() - b.float()).abs().max().item()
+
+
+class PlainSiteFns:
+    """A train-mode site's parts as the plain versions."""
+    stats = staticmethod(bt.bn_stats_plain)
+    epilogue = staticmethod(ep.conv_epilogue_plain)
+    backward = staticmethod(bt.bn_backward_plain)
+
+
+class StepChecker:
+    """A train-mode site's parts and the loss as the kernels, each also run
+    plain on the same operands; keeps each part's worst disagreement (with
+    the shape where it was) and how many calls it checked."""
+
+    def __init__(self):
+        self.worst: dict[str, tuple[float, tuple]] = {}
+        self.calls = dict.fromkeys(("stats", "epilogue", "backward"), 0)
+
+    def note(self, part: str, err: float, shape) -> None:
+        if part not in self.worst or err > self.worst[part][0]:
+            self.worst[part] = (err, tuple(shape))
+
+    def stats(self, x, gamma, beta, rm, rv):
+        rmp, rvp = rm.clone(), rv.clone()
+        got = bt.bn_stats(x, gamma, beta, rm, rv)
+        want = bt.bn_stats_plain(x, gamma, beta, rmp, rvp)
+        self.note("stats", max(vec_err(a, b) for a, b in zip(got + (rm, rv), want + (rmp, rvp))),
+                  x.shape)
+        self.calls["stats"] += 1
+        return got
+
+    def epilogue(self, y, scale, shift, **kw):
+        got = ep.conv_epilogue(y, scale, shift, **kw)
+        want = ep.conv_epilogue_plain(y, scale, shift, **kw)
+        self.note("epilogue", max(max_diff(a, b) for a, b in zip(got, want)), y.shape)
+        self.calls["epilogue"] += 1
+        return got
+
+    def backward(self, *args):
+        got, want = bt.bn_backward(*args), bt.bn_backward_plain(*args)
+        shape = args[3].shape
+        pairs = [(got[:3], want[:3])] + ([(got[4], want[4])] if got[4] is not None else [])
+        for g, w in pairs:  # (dy, dgamma, dbeta), then the branch's
+            self.note("dy", scaled_err(g[0], w[0]), shape)
+            self.note("dgamma_dbeta", max(scaled_err(g[1], w[1]), scaled_err(g[2], w[2])), shape)
+        self.note("dres", max_diff(got[3], want[3]), shape)
+        self.calls["backward"] += 1
+        return got
+
+
+class SiteFunction(torch.autograd.Function):
+    """A train-mode site through ``impl``'s stats, epilogue and backward
+    (bn_train's site_forward and site_backward, as BNTrainSite runs them)."""
+
+    @staticmethod
+    def forward(ctx, impl, *args):
+        ctx.impl = impl
+        return bt.site_forward(ctx, impl.stats, impl.epilogue, *args)
+
+    @staticmethod
+    def backward(ctx, g, g32=None):
+        return (None, *bt.site_backward(ctx, ctx.impl.backward, g, g32))
+
+
+class SitesThrough(TrainSites):
+    def __init__(self, impl):
+        self.impl = impl
+
+    def apply(self, *args):
+        return SiteFunction.apply(self.impl, *args)
+
+
+class PlainWeightedCE(torch.autograd.Function):
+    """WeightedCE through the plain versions."""
+
+    @staticmethod
+    def forward(ctx, logits, target, weight, cm):
+        loss, w_sum = wc.weighted_ce_plain(logits, target, weight, cm)
+        ctx.save_for_backward(logits, target, weight, w_sum)
+        return loss
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, target, weight, w_sum = ctx.saved_tensors
+        return wc.weighted_ce_grad_plain(logits, target, weight, w_sum, grad), None, None, None
+
+
+class CheckedWeightedCE(torch.autograd.Function):
+    """WeightedCE through the kernels, each held to its plain version on the
+    same logits (and incoming gradient) by ``checker``."""
+
+    @staticmethod
+    def forward(ctx, checker, logits, target, weight, cm):
+        cm_plain = cm.clone()
+        loss, w_sum = wc.weighted_ce(logits, target, weight, cm)
+        loss_p, w_sum_p = wc.weighted_ce_plain(logits, target, weight, cm_plain)
+        checker.note("ce_loss", (abs(loss - loss_p) / abs(loss_p)).item(), logits.shape)
+        checker.note("ce_weight_sum", max_diff(w_sum, w_sum_p), logits.shape)
+        checker.note("ce_confmat", max_diff(cm, cm_plain), logits.shape)
+        ctx.checker = checker
+        ctx.save_for_backward(logits, target, weight, w_sum)
+        return loss
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, target, weight, w_sum = ctx.saved_tensors
+        got = wc.weighted_ce_grad(logits, target, weight, w_sum, grad)
+        want = wc.weighted_ce_grad_plain(logits, target, weight, w_sum, grad)
+        ctx.checker.note("ce_grad", scaled_err(got, want), logits.shape)
+        return None, got, None, None, None
+
+
+class PlainTrainer(SegmentationTrainer):
+    """The train step through the plain versions, its convolutions in
+    ``dtype`` (None: the port's, bf16 on the card)."""
+
+    def __init__(self, cfg: dict, dtype: torch.dtype | None = None):
+        super().__init__(cfg)
+        self.sites = SitesThrough(PlainSiteFns)
+        self.dtype = dtype or self.dtype
+        for m in self.model.modules():
+            if "dtype" in vars(m):
+                m.dtype = self.dtype
+
+    def prepare(self, batch, augment=False, choices=None):
+        return au.augment_normalize_plain(batch["img"].to(self.device), batch["msk"].to(
+            self.device), choices, self.norm_mean, self.norm_mul, self.num_classes, self.dtype)
+
+    def micro_step(self, x, tgt, cm):
+        loss = PlainWeightedCE.apply(self.model(x, epilogue=self.sites), tgt,
+                                     self.class_weights, cm)
+        loss.backward()
+        return loss.detach()
+
+
+class CheckedTrainer(SegmentationTrainer):
+    """The port's train step, every kernel also run plain on its operands."""
+
+    def __init__(self, cfg: dict, checker: StepChecker):
+        super().__init__(cfg)
+        self.checker = checker
+        self.sites = SitesThrough(checker)
+
+    def prepare(self, batch, augment=False, choices=None):
+        x, tgt = super().prepare(batch, augment, choices)
+        xp, tp = au.augment_normalize_plain(batch["img"].to(self.device), batch["msk"].to(
+            self.device), choices, self.norm_mean, self.norm_mul, self.num_classes, self.dtype)
+        self.checker.note("augment", max(max_diff(x, xp), max_diff(tgt, tp)), x.shape)
+        return x, tgt
+
+    def micro_step(self, x, tgt, cm):
+        loss = CheckedWeightedCE.apply(self.checker, self.model(x, epilogue=self.sites), tgt,
+                                       self.class_weights, cm)
+        loss.backward()
+        return loss.detach()
+
+
+def one_step(trainer, batch: dict, choices: torch.Tensor) -> dict:
+    """One forward and backward on ``batch`` with ``choices``: the loss,
+    the gradients, the running statistics after it and the confusion matrix."""
+    cm = trainer.new_confmat()
+    x, tgt = trainer.prepare(batch, True, choices)
+    loss = trainer.micro_step(x, tgt, cm)
+    torch.cuda.synchronize()
+    out = {"loss": loss.item(), "cm": cm.clone(),
+           "grads": {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()},
+           "stats": {n: b.detach().clone() for n, b in trainer.model.named_buffers()
+                     if "running" in n}}
+    trainer.opt.zero_grad()
+    return out
+
+
+@contextlib.contextmanager
+def no_tf32():
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def check_step_sites(checker: StepChecker, counts: dict) -> dict:
+    """The site-by-site check of the kernels' step (StepChecker's records)."""
+    calls = checker.calls
+    check(calls == {"stats": counts["bn"], "epilogue": counts["sites"],
+                    "backward": counts["sites"]},
+          f"train step, site by site: {calls} kernel calls each held to its plain version on "
+          f"the step's own operands ({counts['bn']} BatchNorms, {counts['sites']} sites)")
+    limits = {"augment": 0.0, "stats": BN_STAT_TOL, "epilogue": 0.0, "dy": BN_DY_TOL,
+              "dgamma_dbeta": BN_GRAD_TOL, "dres": 0.0, "ce_loss": CE_LOSS_RTOL,
+              "ce_weight_sum": 0.0, "ce_confmat": 0.0, "ce_grad": CE_GRAD_TOL}
+    for part, limit in limits.items():
+        err, shape = checker.worst[part]
+        check(err <= limit, f"train step, site by site: {part} within {err:.2e} <= {limit:.2e} "
+              f"(worst at {shape})")
+    return {part: {"err": e, "shape": list(sh)} for part, (e, sh) in checker.worst.items()}
+
+
+def compare_train_step(cfg: dict, state: dict, batch: dict, counts: dict) -> dict:
+    """One train step, from the same weights, batch and choices: the kernels'
+    step held site by site to the plain versions, then against the plain
+    step, beside the plain step's own drift (reversed batch, repeated, and
+    both orders in float32)."""
+    runs = {}
+    choices = choices_all(TRAIN_BATCH)
+    rev = {k: v.flip(0) for k, v in batch.items() if k != "id"}
+    rev_choices = choices.flip(0).contiguous()
+    checker = StepChecker()
+    for name, make, b, ch in (
+            ("kernels", lambda: CheckedTrainer(cfg, checker), batch, choices),
+            ("plain", lambda: PlainTrainer(cfg), batch, choices),
+            ("plain, reversed", lambda: PlainTrainer(cfg), rev, rev_choices),
+            ("plain, again", lambda: PlainTrainer(cfg), batch, choices),
+            ("plain float32", lambda: PlainTrainer(cfg, torch.float32), batch, choices),
+            ("plain float32, reversed", lambda: PlainTrainer(cfg, torch.float32), rev,
+             rev_choices)):
+        trainer = make()
+        trainer.load_state(state)
+        with no_tf32() if "float32" in name else contextlib.nullcontext():
+            runs[name] = one_step(trainer, b, ch)
+        del trainer
+        torch.cuda.empty_cache()
+    out = {"sites": check_step_sites(checker, counts)}
+    k, p, r = runs["kernels"], runs["plain"], runs["plain, reversed"]
+    rel_loss = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    check(rel_loss <= STEP_LOSS_RTOL, f"train step, free-running: loss {k['loss']:.6f} vs "
+          f"plain {p['loss']:.6f} (reversed {r['loss']:.6f}): relative {rel_loss:.1e} <= "
+          f"{STEP_LOSS_RTOL}")
+    a, b0 = STEP_SLACK
+    out.update(loss=k["loss"], plain_loss=p["loss"], reversed_loss=r["loss"])
+    f, fr = runs["plain float32"], runs["plain float32, reversed"]
+    for what in ("grads", "stats"):
+        got, floor = grad_rel(k[what], p[what]), grad_rel(r[what], p[what])
+        bad = [n for n in got if got[n] > a * floor[n] + b0]
+        worst = max(got, key=lambda n: got[n] - a * floor[n])
+        check(not bad, f"train step, free-running {what}: every tensor's relative L2 to the "
+              f"plain step <= {a} x the reversed run's + {b0} (a bound on the drift; worst "
+              f"{worst}: {got[worst]:.3e}, reversed {floor[worst]:.3e}; {len(bad)} over)")
+        drift = {"kernels": all_rel(k[what], p[what]), "reversed": all_rel(r[what], p[what]),
+                 "again": all_rel(runs["plain, again"][what], p[what]),
+                 "float32_reversed": all_rel(fr[what], f[what]),
+                 "float32_vs_bf16": all_rel(p[what], f[what])}
+        out[what] = {"worst": worst, "worst_rel_l2": got[worst], "reversed": floor[worst],
+                     "median_rel_l2": float(np.median(list(got.values()))),
+                     "median_rel_l2_reversed": float(np.median(list(floor.values()))),
+                     "median_rel_l2_float32_reversed": float(np.median(list(
+                         grad_rel(fr[what], f[what]).values()))),
+                     "all_rel_l2": drift}
+        print(f"    train step {what}, relative L2 over all tensors to the plain bf16 step: "
+              f"kernels {drift['kernels']:.3e}, plain reversed {drift['reversed']:.3e}, plain "
+              f"again {drift['again']:.3e}; plain float32 reversed to float32 "
+              f"{drift['float32_reversed']:.3e}; plain bf16 to float32 "
+              f"{drift['float32_vs_bf16']:.3e}; median over tensors {out[what]['median_rel_l2']:.3e} "
+              f"(reversed {out[what]['median_rel_l2_reversed']:.3e}, float32 reversed "
+              f"{out[what]['median_rel_l2_float32_reversed']:.3e})", flush=True)
+    moved_k = int((k["cm"] - p["cm"]).abs().sum()) // 2
+    moved_r = int((r["cm"] - p["cm"]).abs().sum()) // 2
+    n_pix = int(p["cm"].sum())
+    check(moved_k <= moved_r + STEP_CM_SHARE * n_pix,
+          f"train step, free-running confusion matrix: {moved_k} of {n_pix} pixels moved "
+          f"(reversed run {moved_r}) <= reversed + {STEP_CM_SHARE} of the pixels")
+    out.update(cm_moved=moved_k, cm_moved_reversed=moved_r, pixels=n_pix)
+    return out
+
+
+def train_breakdown(cfg: dict, state: dict, batch: dict) -> dict:
+    """Device time of the train step's stages at batch 16 (CUDA events:
+    augment_normalize with the batch's upload, the forward, forward +
+    backward, the SGD update, the whole step) and the profiler's kernel
+    table of one step, with the share of the step's wall time the card was
+    busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = SegmentationTrainer(cfg)
+    tr.load_state(state)
+    ch = choices_all(TRAIN_BATCH)
+    x, tgt = tr.prepare(batch, True, ch)
+
+    def forward_backward():
+        loss = WeightedCE.apply(tr.model(x, epilogue=tr.sites), tgt, tr.class_weights, None)
+        loss.backward()
+
+    ms = {"augment_normalize_with_upload": cuda_ms(lambda: tr.prepare(batch, True, ch), 5, 1),
+          "forward": cuda_ms(lambda: tr.model(x, epilogue=tr.sites), 5, 1),
+          "forward_backward": cuda_ms(forward_backward, 5, 1),
+          "sgd": cuda_ms(tr.opt.step, 5, 1)}
+    tr.opt.zero_grad()
+    ms["backward"] = ms["forward_backward"] - ms["forward"]
+    ms["train_step"] = cuda_ms(lambda: tr.train_step(batch, choices=ch), 5, 1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(batch, choices=ch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    # kernels' own device time (the ops that launch them carry it too)
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if str(e.device_type).endswith("CUDA")) / 1e3
+    ms.update(profiled_step_wall=wall_ms, profiled_step_device_busy=busy_ms)
+    return {"stage_ms": ms, "busy_share": busy_ms / wall_ms,
+            "kernel_table": events.table(sort_by="self_cuda_time_total", row_limit=20)}
+
+
+@contextlib.contextmanager
+def torch_defaults():
+    """PyTorch's default precision flags, as a user's flair run has them:
+    cuDNN may use TF32 (the head's float32 convolution, whose operands are
+    bf16 values, and its gradients); phase 2 turns it off for its float32
+    comparisons."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def run_flair(tmp: Path, rng, card: str, profile: bool = False) -> dict:
+    """Phase 4: flair train / predict / metrics through cli.flair_main at
+    the config's full width, then one train step against the plain versions
+    (and with ``profile`` the train step's breakdown)."""
+    t0 = time.perf_counter()
+    csvs = write_flair_dataset(tmp / "flair", rng)
+    cfg = flair_config(tmp / "flair", csvs)
+    conf = tmp / "flair" / "flair.yaml"
+    conf.write_text(yaml.safe_dump(cfg))
+    print(f"    wrote {sum(n for _, n in FLAIR_SPLITS)} patches of {S}x{S}x{C} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    counts = train_site_counts(FlairSegmentationModel("resnet34", K, C))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    result = cli.flair_main([f"--conf={conf}"])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+
+    n_train, n_val, n_test = (n for _, n in FLAIR_SPLITS)
+    steps = FLAIR_EPOCHS * (n_train // TRAIN_BATCH)
+    history = result["train"]["history"]
+    eval_batches = (len(history) + 1) * (n_val // TRAIN_BATCH)  # each epoch, and the final validate
+    predict_batches = -(-n_test // TRAIN_BATCH)
+    check_launches(f"flair: {steps} train steps, {eval_batches} eval and {predict_batches} "
+                   "predict batches", launches,
+                   flair_expected(counts, steps, eval_batches, predict_batches))
+    check(len(history) == FLAIR_EPOCHS, f"flair: {len(history)} epochs")
+    losses = [(h["train_loss"], h["val_loss"]) for h in history]
+    check(all(np.isfinite(v) for pair in losses for v in pair),
+          "flair: every epoch's train and val loss finite: " +
+          ", ".join(f"{a:.4f}/{b:.4f}" for a, b in losses))
+
+    out = Path(cfg["paths"]["out_folder"], cfg["paths"]["out_model_name"])
+    name = cfg["paths"]["out_model_name"]
+    best = Path(result["train"]["best_path"])
+    for rel in ("flair-compute.log", "used_csv_and_config", "metrics.jsonl", "history.json",
+                "last", "best", f"predictions_{name}", "metrics/confmat.npy",
+                "metrics/metrics.json"):
+        check((out / rel).exists(), f"flair artifact {rel}")
+    check(best.exists() and best.name.startswith("ckpt-") and best.name.endswith(f"_{name}"),
+          f"flair best checkpoint {best.name}")
+    preds = sorted((out / f"predictions_{name}").glob("PRED_*.tif"))
+    check(len(preds) == n_test, f"flair: {len(preds)} PRED files")
+    with TiffReader(preds[0]) as r, TiffReader(str(csvs["test"]).replace(".csv", "") +
+                                               "/IMG_000000.tif") as src:
+        check((r.width, r.height, r.count, r.crs) == (S, S, 1, src.crs) and
+              r.transform == src.transform, "flair PRED raster: 512 x 512 x 1, georeferenced")
+        check(int(r.read(1).max()) < K, f"flair PRED classes in [0, {K})")
+    metrics = json.loads((out / "metrics" / "metrics.json").read_text())
+    used = sum(1 for v in cfg["classes"].values() if v[0] != 0)
+    check(metrics["Avg_metrics_name"] == ["mIoU", "Overall Accuracy", "Fscore", "Precision",
+                                          "Recall"]
+          and len(metrics["Avg_metrics"]) == 5 and len(metrics["classes"]) == used
+          and all(len(metrics[k]) == used for k in ("per_class_iou", "per_class_fscore",
+                                                   "per_class_precision", "per_class_recall")),
+          f"flair metrics.json: the reference's schema, {used} classes of weight != 0")
+    check(np.load(out / "metrics" / "confmat.npy").shape == (K, K), "flair confmat.npy (19, 19)")
+
+    state = ckpt_lib.CheckpointManager.restore(best)
+    # predict once more, warm (flair_main's predict is one batch, its first):
+    # the 64 train patches, 4 batches, through the same entry point
+    trainer = SegmentationTrainer(cfg)
+    trainer.load_state(state)
+    warm = predict(cfg, gather_paths(cfg, "train"), tmp / "flair" / "predict_warm", trainer,
+                   progress=lambda _: None)
+    del trainer
+    torch.cuda.empty_cache()
+
+    epochs = result["train"]["epochs"]
+    later = epochs[1:]
+    train_ps = sum(e["train_patches"] for e in later) / sum(e["train_seconds"] for e in later)
+    eval_ps = (sum(e["eval_patches"] for e in epochs) / sum(e["eval_seconds"] for e in epochs))
+    pred = result["predict"]
+    stats = {
+        "train_patches_per_sec_from_epoch_2": train_ps,
+        "train_steps_from_epoch_2": steps - n_train // TRAIN_BATCH,
+        "train_seconds_by_epoch": [e["train_seconds"] for e in epochs],
+        "loader_wait_seconds_by_epoch": [e["loader_wait_seconds"] for e in epochs],
+        "eval_patches_per_sec": eval_ps, "eval_batches": eval_batches,
+        "predict_first_call_seconds": pred["seconds"],
+        "predict_first_call_patches": pred["patches"],
+        "predict_warm_patches_per_sec": warm["patches"] / warm["seconds"],
+        "predict_warm_patches": warm["patches"], "losses": losses,
+        "val_miou": [h["val_miou"] for h in history], "miou": metrics["Avg_metrics"][0],
+        "flair_main_wall_seconds": wall, "steps": steps, "card": card}
+    print(f"  flair on {card}: train {train_ps:.2f} patches/s over the "
+          f"{stats['train_steps_from_epoch_2']} steps from epoch 2 (loader wait "
+          f"{', '.join(f'{w:.3f}' for w in stats['loader_wait_seconds_by_epoch'])} s of "
+          f"{', '.join(f'{t:.3f}' for t in stats['train_seconds_by_epoch'])} s a epoch), "
+          f"eval {eval_ps:.2f} patches/s over {eval_batches} batches, predict warm "
+          f"{stats['predict_warm_patches_per_sec']:.2f} patches/s over {warm['patches']} "
+          f"patches (flair_main's first call: {pred['patches']} patches in "
+          f"{pred['seconds']:.4f} s), test mIoU {stats['miou']:.2f}, flair_main wall "
+          f"{wall:.1f} s", flush=True)
+    for name_, got in launches.items():
+        if got:
+            print(f"    launches {name_}: {got}")
+
+    print("  one train step, kernels against plain versions (same weights, batch, choices)",
+          flush=True)
+    ds = PatchDataset(gather_paths(cfg, "train"), cfg["channels"])
+    batches = iter(PatchLoader(ds, TRAIN_BATCH, pin=True))
+    batch = next(batches)
+    batches.close()
+    step = compare_train_step(cfg, state, batch, counts)
+    out = {"stats": stats, "launches": launches, "step": step}
+    if profile:
+        out["breakdown"] = train_breakdown(cfg, state, batch)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also time one main-path batch stage by stage and print "
-                         "the profiler's kernel table")
+                    help="also time one main-path batch and one flair train step "
+                         "stage by stage and print the profiler's kernel tables")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1906,6 +2791,13 @@ def main() -> int:
             torch.cuda.empty_cache()
             softmax = check_tile_softmax(rng)
             torch.cuda.empty_cache()
+            # flair's predict: the tail at margin 0 on whole 512 tiles
+            tail0 = check_fused_tail(rng, S, 0, TRAIN_BATCH, K, timed=True)
+            augment = check_augment(gen)
+            ce = check_weighted_ce(gen)
+            torch.cuda.empty_cache()
+            bn = check_bn_train(gen)
+            torch.cuda.empty_cache()
         print(f"    fused_tail: {tail['ms']:.4f} ms, plain {tail['plain_ms']:.4f} ms, "
               f"bound {tail['bound_ms']:.4f} ms ({tail['bound_by']})", flush=True)
         for name, r in (("gather_normalize", gather),
@@ -1946,6 +2838,22 @@ def main() -> int:
             print(f"    {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
 
+        for name, r in (("fused_tail argmax, margin 0, batch 16", tail0),
+                        ("augment_normalize, batch 16", augment),
+                        ("weighted_ce forward, batch 16", ce["forward"]),
+                        ("weighted_ce backward, batch 16", ce["backward"])):
+            print(f"    {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                  f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+                  flush=True)
+        for mode, what in (("stats", f"{bn['counts']['bn']} BatchNorms"),
+                           ("backward", f"{bn['counts']['sites']} sites")):
+            r = bn[mode]
+            print(f"    bn_train {mode}, the {what} of one batch-16 step: "
+                  f"{r['ms']:.4f} ms (largest site {r['largest_ms']:.4f}), plain "
+                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e9:.2f} GB)",
+                  flush=True)
+
         print("[3] main path: flair-detect on the card", flush=True)
         main_path = run_main_path(cfg, conf, ZONE, card)
         class_prob = run_class_prob(cfg, ZONE)
@@ -1971,11 +2879,19 @@ def main() -> int:
         int8_run = run_knobs(cfg, "int8", INT8_KNOBS, ZONE, INT8_FLOOR, float_raster,
                              int8_blocks=INT8_KNOBS["int8_decoder"])
         int8_small = run_small_int8(cfg, tmp)
+        print("[4] flair train / predict / metrics on the card: resnet34-unet, 512 patches, "
+              f"batch {TRAIN_BATCH}, {K} classes", flush=True)
+        with torch_defaults():
+            flair = run_flair(tmp, rng, card, profile=args.profile)
         if args.profile:
             with torch.inference_mode():
                 prof = stage_breakdown(cfg, ZONE, rng, epi)
             print(prof["kernel_table"])
             print(json.dumps({"stage_ms": prof["stage_ms"], "card": card}), flush=True)
+            print(flair["breakdown"]["kernel_table"])
+            print(json.dumps({"train_step_ms": flair["breakdown"]["stage_ms"],
+                              "busy_share": flair["breakdown"]["busy_share"], "card": card}),
+                  flush=True)
 
     src = "flairtpu_torch/csrc"
     timed = stitch["timed"]
@@ -2001,6 +2917,10 @@ def main() -> int:
          + stream_launches("fused_tail_probs"),
          "max_abs_err": probs["max_abs_err"], **numbers(probs),
          "library_ms": probs["library_ms"]},
+        {"mode": "argmax, margin 0 (flair predict)", "replaces": "flairtpu/predict/runner.py:"
+         "80-81 with flairtpu/train/loop.py:405-415", "launches": flair["launches"]["fused_tail"],
+         "max_abs_err": tail0["max_abs_err"], **numbers(tail0),
+         "library_ms": tail0["library_ms"]},
         {"mode": "logits", "replaces": "flairtpu/zone/device_engine.py:206, :519",
          "launches": sweep_launches("fused_tail_logits") + stream_launches("fused_tail_logits"),
          "max_abs_err": logits["max_abs_err"], **numbers(logits),
@@ -2080,6 +3000,36 @@ def main() -> int:
                      "the pooled stem and the int8 decoder blocks' inputs)",
          "launches": int8_run["launches"]["quantize_act"], "max_abs_err": 0,
          **numbers(int8["quantize"]), "library_ms": None},
+        # the train batch's 16 patches (launches: phase 4's train, eval and predict)
+        {"name": "augment_normalize", "route": "cuda", "source": f"{src}/augment_normalize.cu",
+         "replaces": "flairtpu/data/augment.py:35-54, flairtpu/train/loop.py:271-274 and "
+                     ":339-342 (XLA-fused D4 augmentation, label cleaning, normalize_device)",
+         "launches": flair["launches"]["augment_normalize"], "max_abs_err": 0,
+         **numbers(augment), "library_ms": None},
+        # the forward's numbers (launches: phase 4's train steps and eval batches);
+        # library: F.cross_entropy(weight=w), the loss only
+        {"name": "weighted_ce", "route": "cuda", "source": f"{src}/weighted_ce.cu",
+         "replaces": "flairtpu/train/loop.py:255-269 (_loss and its VJP) with :307-310 and "
+                     "flairtpu/ops/confmat.py:19-41 (the confusion matrix)",
+         "launches": flair["launches"]["weighted_ce"],
+         "max_abs_err": max(ce["forward"]["max_abs_err"], ce["backward"]["max_abs_err"]),
+         **numbers(ce["forward"]), "library_ms": ce["forward"]["library_ms"],
+         "modes": [dict(ce["forward"], launches=flair["launches"]["weighted_ce"]),
+                   dict(ce["backward"], launches=flair["launches"]["weighted_ce_backward"])]},
+        # the statistics of one batch-16 step's 46 BatchNorms, summed
+        # (launches: phase 4's), library torch.var_mean(correction=0) on each;
+        # the backward's 43 sites in its mode; max_abs_err the largest scaled
+        # error of either mode (the backward's dy and dd included)
+        {"name": "bn_train", "route": "cuda", "source": f"{src}/bn_train.cu",
+         "replaces": "flairtpu/models/resnet.py:40-70 (flax train-mode BatchNorm) at the sites "
+                     "of resnet.py:177-189, :208-222, :269-273 and flairtpu/models/unet.py:71-76, "
+                     "with their VJP",
+         "launches": flair["launches"]["bn_stats"], "max_abs_err": bn["max_abs_err"],
+         **numbers(bn["stats"]), "library_ms": bn["stats"]["library_ms"],
+         "modes": [dict({k: v for k, v in bn[m].items() if k != "sites"},
+                        launches=flair["launches"]["bn_stats" if m == "stats" else
+                                                   "bn_backward"]) for m in ("stats",
+                                                                             "backward")]},
     ]
     print(json.dumps({"main_path": main_path["stats"], "card": card}))
     print(json.dumps({"class_prob": class_prob["stats"], "card": card}))
@@ -2096,6 +3046,8 @@ def main() -> int:
                                        for k, r in int8.items() if isinstance(r, dict)},
                       "card": card}))
     print(json.dumps({"stitch_timings": timed, "card": card}))
+    print(json.dumps({"flair": flair["stats"], "train_step_vs_plain": flair["step"],
+                      "launches": flair["launches"], "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

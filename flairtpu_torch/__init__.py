@@ -5,12 +5,12 @@ find. The port imports PyTorch and never JAX, Flax or ``flairtpu``; where it
 needs a jax-free module of the reference it keeps its own copy (``io``,
 ``native``, ``zone/grid.py``, ``utils/logger.py``).
 
-Implemented: ``flair-detect`` with a ``resnet*_unet`` model, ``output_type:
-argmax`` and exact-clipping stitching, device-resident on the card. Two
-hand-written CUDA kernels carry it (``csrc/``): the tile gather with
-normalization, and the fused decoder tail (last U-Net block + head +
-softmax max/argmax epilogue). Everything else raises ``NotImplementedError``
-naming the slice of the port that brings it.
+Implemented: ``flair-detect`` with the ``resnet*_unet`` models (every
+output type, stitching method and route, the compare sweep, batch mode, the
+``bn_fold`` and int8 knobs) and ``flair`` train / predict / metrics, on the
+card through hand-written CUDA kernels (``csrc/``) or on the CPU through
+their plain PyTorch versions. What is not ported raises
+``NotImplementedError`` naming the slice of the port that brings it.
 """
 
 __version__ = "0.1.0"

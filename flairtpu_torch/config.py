@@ -1,5 +1,5 @@
-"""YAML config loading, flair-detect validation and the compare sweep's
-combinations (counterpart of ``flairtpu/config.py:26-58, 259-424``).
+"""YAML config loading, flair and flair-detect validation and the compare
+sweep's combinations (counterpart of ``flairtpu/config.py:26-257, 259-424``).
 
 Same YAML surface and the same checks as the reference package. What this
 port does not run yet raises ``NotImplementedError`` naming the slice of the
@@ -110,6 +110,159 @@ def validate_knobs(cfg: dict) -> None:
         raise not_ported("int8_decoder: 5 (decoder block 4 in int8)",
                          "slice 3 item 10b: a head-only fused_tail mode")
 
+
+# ---------------------------------------------------------------------------
+# classes / weights helpers (shared by the train and metrics paths)
+# ---------------------------------------------------------------------------
+
+def class_weights(cfg: dict) -> list[float]:
+    """Per-class weights in class-id order (reference tasks_utils.py:88-93)."""
+    classes = _require(cfg, "classes")
+    return [float(classes[k][0]) for k in classes]
+
+
+def class_names(cfg: dict) -> list[str]:
+    classes = _require(cfg, "classes")
+    return [str(classes[k][1]) for k in classes]
+
+
+def num_classes(cfg: dict) -> int:
+    return len(_require(cfg, "classes"))
+
+
+# ---------------------------------------------------------------------------
+# flair (patch train / predict / metrics) config
+# ---------------------------------------------------------------------------
+
+_NORM_TYPES = ("scaling", "custom", "without")
+
+
+def _not_ported_train_knobs(cfg: dict) -> None:
+    """The train knobs of ``flairtpu`` this port does not run yet raise here,
+    naming where they come."""
+    if cfg["use_metadata"]:
+        raise not_ported("use_metadata: true (models/metadata_mlp.py, data/metadata.py)",
+                         "slice 4 follow-up: the metadata MLP")
+    if cfg["param_sharding"] != "replicated":
+        raise not_ported(f"param_sharding: {cfg['param_sharding']}", "slice 8: multi-device")
+    for key in ("tensor_parallel", "spatial_parallel"):
+        if cfg[key] > 1:
+            raise not_ported(f"{key}: {cfg[key]}", "slice 8: multi-device")
+    if cfg["remat_policy"] is not None or cfg["remat"]:
+        raise not_ported("remat / remat_policy (rematerialization)", "a later slice")
+    if cfg["bn_dtype"] == "bfloat16":
+        raise not_ported("bn_dtype: bfloat16 (the BatchNorm kernels reduce in float32)",
+                         "a later slice")
+    if cfg["init_encoder_weights"]:
+        raise not_ported("init_encoder_weights (models/pretrained.py)",
+                         "slice 4 follow-up: pretrained encoders")
+    if cfg["init_hf_pretrained"]:
+        raise not_ported("init_hf_pretrained", "slice 7: the HF provider")
+    if cfg.get("auxiliary_loss_weight"):
+        raise not_ported("auxiliary_loss_weight (UperNet auxiliary heads)",
+                         "slice 7: the HF provider")
+    if cfg.get("loader_backend", "threads") != "threads":
+        raise not_ported(f"loader_backend: {cfg['loader_backend']} (grain is not "
+                         "installed beside the card)", "a later slice")
+
+
+def validate_train_config(cfg: dict) -> dict:
+    """Validate the ``flair --conf`` YAML (schema: reference
+    configs/flair-1-config.yaml) with ``flairtpu/config.py:100-257``'s checks
+    and defaults; the knobs the port lacks raise ``NotImplementedError``."""
+    paths = _require(cfg, "paths")
+    tasks = _require(cfg, "tasks")
+    mf = _require(cfg, "model_framework")
+    provider = _require(mf, "model_provider", "model_framework")
+    if provider not in ("SegmentationModelsPytorch", "HuggingFace"):
+        raise ConfigError(
+            "model_provider should be either HuggingFace or SegmentationModelsPytorch, "
+            f"got {provider!r}.")
+    channels = _require(cfg, "channels")
+    if not (isinstance(channels, list) and all(isinstance(c, int) for c in channels)):
+        raise ConfigError("channels should be a list of 1-based integers.")
+    validate_model_framework(mf)
+
+    norm_type = cfg.get("norm_type", "scaling")
+    if norm_type not in _NORM_TYPES:
+        raise ConfigError(f"norm_type should be one of {_NORM_TYPES}, got {norm_type!r}.")
+    if norm_type == "custom":
+        means, stds = cfg.get("norm_means", []), cfg.get("norm_stds", [])
+        if len(means) != len(stds):
+            raise ConfigError("custom normalization means and stds must be the same length.")
+        if len(means) != len(channels):
+            raise ConfigError("custom normalization means/stds must match len(channels).")
+
+    classes = _require(cfg, "classes")
+    for k, v in classes.items():
+        if not (isinstance(v, (list, tuple)) and len(v) == 2):
+            raise ConfigError(f"classes[{k}] must be [weight, name], got {v!r}.")
+
+    cfg.setdefault("use_metadata", False)
+    cfg.setdefault("use_augmentation", False)
+    cfg.setdefault("use_weights", True)
+    cfg.setdefault("accumulate_steps", 1)
+    cfg.setdefault("remat", False)
+    cfg.setdefault("remat_policy", None)
+    if not (isinstance(cfg["accumulate_steps"], int) and cfg["accumulate_steps"] >= 1):
+        raise ConfigError("accumulate_steps must be an integer >= 1.")
+    cfg.setdefault("bn_dtype", "float32")
+    if cfg["bn_dtype"] not in ("float32", "bfloat16"):
+        raise ConfigError(f"bn_dtype must be float32 or bfloat16, got {cfg['bn_dtype']!r}.")
+    cfg.setdefault("param_sharding", "replicated")
+    if cfg["param_sharding"] not in ("replicated", "fsdp", "tensor"):
+        raise ConfigError("param_sharding must be one of replicated/fsdp/tensor, "
+                          f"got {cfg['param_sharding']!r}.")
+    for key in ("tensor_parallel", "spatial_parallel"):
+        cfg.setdefault(key, 1)
+        if not (isinstance(cfg[key], int) and cfg[key] >= 1):
+            raise ConfigError(f"{key} must be an integer >= 1.")
+    if cfg.get("batch_size") and cfg["accumulate_steps"] > 1 \
+            and int(cfg["batch_size"]) % cfg["accumulate_steps"]:
+        raise ConfigError(f"batch_size {cfg['batch_size']} is not divisible by "
+                          f"accumulate_steps {cfg['accumulate_steps']}.")
+    cfg.setdefault("autosave_every_steps", 0)
+    if not (isinstance(cfg["autosave_every_steps"], int) and cfg["autosave_every_steps"] >= 0):
+        raise ConfigError("autosave_every_steps must be an integer >= 0.")
+    cfg.setdefault("autosave_resume", True)
+    cfg.setdefault("init_encoder_weights", "")
+    cfg.setdefault("init_hf_pretrained", "")
+    cfg.setdefault("seed", 2022)
+    cfg.setdefault("georeferencing_output", True)
+    # any value but cpu selects the CUDA card (flairtpu's 'tpu' included) and
+    # raises without one; cpu is the only route to the CPU
+    cfg.setdefault("accelerator", "tpu")
+    cfg.setdefault("num_nodes", 1)
+    cfg.setdefault("strategy", "auto")
+    cfg.setdefault("num_workers", 4)
+    cfg.setdefault("ckpt_save_also_last", True)
+    cfg.setdefault("ckpt_weights_only", False)
+    cfg.setdefault("ckpt_monitor", "val_loss")
+    cfg.setdefault("ckpt_monitor_mode", "min")
+    cfg.setdefault("ckpt_earlystopping_patience", 30)
+    cfg.setdefault("cp_csv_and_conf_to_output", True)
+    cfg.setdefault("enable_progress_bar", True)
+    if cfg["ckpt_monitor_mode"] not in ("min", "max"):
+        raise ConfigError("ckpt_monitor_mode must be 'min' or 'max'.")
+    _not_ported_train_knobs(cfg)
+
+    train_tasks = tasks.get("train_tasks", {}) or {}
+    tasks.setdefault("train", False)
+    tasks.setdefault("predict", False)
+    tasks.setdefault("metrics", False)
+    tasks.setdefault("delete_preds", False)
+    train_tasks.setdefault("init_weights_only_from_ckpt", False)
+    train_tasks.setdefault("resume_training_from_ckpt", False)
+    tasks["train_tasks"] = train_tasks
+
+    paths.setdefault("out_folder", "")
+    paths.setdefault("out_model_name", "flair-model")
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# flair-detect (zone inference) config
+# ---------------------------------------------------------------------------
 
 def validate_detect_config(cfg: dict) -> dict:
     """Validate the `flair-detect` YAML (reference zone_detect/utils.py:26-94)."""

@@ -70,6 +70,35 @@ class FlairSegmentationModel(nn.Module):
         return x3.contiguous(memory_format=torch.channels_last)
 
 
+# flax's variance_scaling(1, "fan_in", "truncated_normal"): the standard
+# deviation of a unit normal truncated to [-2, 2]
+TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int) -> None:
+    """Flax's initial distributions (``flairtpu/models/resnet.py:104``), from
+    a CPU ``torch.Generator`` seeded with ``seed``: conv kernels
+    ``lecun_normal`` (a normal truncated at two standard deviations, scaled
+    to variance 1 / fan_in), biases zero, BatchNorm gamma 1, beta 0, mean 0,
+    var 1. The same distributions as ``flairtpu``'s, not the same values."""
+    gen = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            std = (1.0 / fan_in) ** 0.5 / TRUNC_STD
+            w = torch.empty(m.weight.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.weight.fill_(1)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1)
+
+
 def create_model(config: dict, dtype=torch.float32) -> FlairSegmentationModel:
     """Build the model a flair-detect config describes."""
     mf = config["model_framework"]

@@ -8,9 +8,12 @@ NCHW in ``channels_last`` memory, so every activation is NHWC in memory.
 
 Each BatchNorm, with the residual add, the ReLU and the casts that follow
 it, is one call of an ``epilogue`` (``ops/epilogue.py:conv_epilogue``, or
-its plain version where a caller passes that). Activations pass between
-blocks in the compute dtype, with their float32 value beside them where the
-next block adds it as its identity.
+its plain version where a caller passes that) through :func:`bn_site`. To
+train, a caller passes ``ops/bn_train.py:TrainSites`` instead: each site
+then takes its batch statistics and updates the running ones, as Flax's
+train-mode BatchNorm. Activations pass between blocks in the compute dtype,
+with their float32 value beside them where the next block adds it as its
+identity.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from flairtpu_torch.ops.bn_train import TrainSites
 from flairtpu_torch.ops.epilogue import conv_epilogue
 
 # block kind and units per stage (torchvision layer specs)
@@ -34,12 +38,16 @@ BN_EPS = 1e-5  # torch nn.BatchNorm2d default, as flairtpu/models/resnet.py:40
 
 
 def conv(x: torch.Tensor, m: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-    """``m`` applied in ``dtype`` to ``x`` cast to it; no bias. The weight is
-    in ``dtype`` already (float32 as built, or cast by
-    :func:`prepare_inference`). The output is channels_last, as the epilogue
-    takes it: a no-op but where an input of 1 x 1 pixels left the layout
-    ambiguous and the conv chose NCHW."""
-    y = F.conv2d(x.to(dtype), m.weight, None, m.stride, m.padding, m.dilation, m.groups)
+    """``m`` applied in ``dtype`` to ``x`` cast to it; no bias. A weight in
+    ``dtype`` already (float32 as built on the CPU, or cast once by
+    :func:`prepare_inference`) is used as it is; a float32 weight of a model
+    that computes in bfloat16 and was not prepared (a model in training, or
+    evaluated between epochs) is cast here, inside autograd, so that its
+    gradient lands in the float32 parameter. The output is channels_last, as
+    the epilogue takes it: a no-op but where an input of 1 x 1 pixels left
+    the layout ambiguous and the conv chose NCHW."""
+    w = m.weight if m.weight.dtype == dtype else m.weight.to(dtype)
+    y = F.conv2d(x.to(dtype), w, None, m.stride, m.padding, m.dilation, m.groups)
     return y.contiguous(memory_format=torch.channels_last)
 
 
@@ -70,21 +78,35 @@ def prepare_inference(model: nn.Module, dtype: torch.dtype) -> None:
 
 
 def bn2d(ch: int) -> nn.BatchNorm2d:
+    """A BatchNorm's parameters and running statistics (smp's key names). Its
+    own forward never runs: inference takes its (scale, shift), training
+    ``ops/bn_train.py``, whose running variance is Flax's biased one."""
     return nn.BatchNorm2d(ch, eps=BN_EPS)
+
+
+def bn_site(epilogue, y: torch.Tensor, bn: nn.BatchNorm2d, residual=None, branch=None,
+            keep_f32: bool = False):
+    """One BatchNorm site: ``bn`` on the conv output ``y``, plus ``residual``
+    or, for ``branch`` = (d, bn_d), ``bn_d`` on d; ReLU. An inference
+    epilogue gets each BatchNorm as its (scale, shift); ``TrainSites`` gets
+    the modules. Returns (out, its float32 value if ``keep_f32``)."""
+    if isinstance(epilogue, TrainSites):
+        return epilogue.site(y, bn, residual=residual, branch=branch, keep_f32=keep_f32)
+    if branch is not None:
+        branch = (branch[0], *scale_shift(branch[1]))
+    return epilogue(y, *scale_shift(bn), residual=residual, branch=branch, keep_f32=keep_f32)
 
 
 def residual_epilogue(block: nn.Module, y: torch.Tensor, bn: nn.BatchNorm2d, x, x32,
                       keep_f32: bool, epilogue):
     """A block's last site: ``bn`` on its last conv's output ``y``, plus the
     identity (the downsample conv of ``x`` with its BatchNorm, or ``x32``), ReLU."""
-    s, t = scale_shift(bn)
     if block.downsample is not None:
         d = conv(x, block.downsample[0], block.dtype)
-        return epilogue(y, s, t, branch=(d, *scale_shift(block.downsample[1])),
-                        keep_f32=keep_f32)
+        return bn_site(epilogue, y, bn, branch=(d, block.downsample[1]), keep_f32=keep_f32)
     if x32 is None:
         raise ValueError("a block without a downsample needs its input's float32 value")
-    return epilogue(y, s, t, residual=x32, keep_f32=keep_f32)
+    return bn_site(epilogue, y, bn, residual=x32, keep_f32=keep_f32)
 
 
 class BasicBlock(nn.Module):
@@ -108,7 +130,7 @@ class BasicBlock(nn.Module):
         float32 value, the identity of a block without a downsample. Returns
         (out in the compute dtype, its float32 value if ``keep_f32``)."""
         dt = self.dtype
-        y, _ = epilogue(conv(x, self.conv1, dt), *scale_shift(self.bn1))
+        y, _ = bn_site(epilogue, conv(x, self.conv1, dt), self.bn1)
         return residual_epilogue(self, conv(y, self.conv2, dt), self.bn2, x, x32, keep_f32,
                                  epilogue)
 
@@ -135,8 +157,8 @@ class Bottleneck(nn.Module):
     def forward(self, x, x32=None, keep_f32=False, epilogue=conv_epilogue):
         """As :meth:`BasicBlock.forward`."""
         dt = self.dtype
-        y, _ = epilogue(conv(x, self.conv1, dt), *scale_shift(self.bn1))
-        y, _ = epilogue(conv(y, self.conv2, dt), *scale_shift(self.bn2))
+        y, _ = bn_site(epilogue, conv(x, self.conv1, dt), self.bn1)
+        y, _ = bn_site(epilogue, conv(y, self.conv2, dt), self.bn2)
         return residual_epilogue(self, conv(y, self.conv3, dt), self.bn3, x, x32, keep_f32,
                                  epilogue)
 
@@ -176,8 +198,7 @@ class ResNetEncoder(nn.Module):
         needs_f32 = [b.downsample is None for _, b in blocks[1:]] + [False]
         feats = [x]
         keep = blocks[0][1].downsample is None
-        y, y32 = epilogue(conv(x, self.conv1, self.dtype), *scale_shift(self.bn1),
-                          keep_f32=keep)
+        y, y32 = bn_site(epilogue, conv(x, self.conv1, self.dtype), self.bn1, keep_f32=keep)
         feats.append(y)
         # with no float32 identity to keep, the compute-dtype copy is pooled:
         # max commutes with the monotone bf16 rounding, so the value is the same

@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from flairtpu_torch.models.resnet import bn2d, conv, scale_shift
+from flairtpu_torch.models.resnet import bn2d, bn_site, conv
 from flairtpu_torch.ops.epilogue import conv_epilogue
 
 DEFAULT_DECODER_CHANNELS = (256, 128, 64, 32, 16)
@@ -73,8 +73,8 @@ class DecoderBlock(nn.Module):
         dt = self.dtype
         if skip is not None:
             x = torch.cat([x.to(dt), skip.to(dt)], dim=1)
-        x, _ = epilogue(conv(x, self.conv1[0], dt), *scale_shift(self.conv1[1]))
-        x, _ = epilogue(conv(x, self.conv2[0], dt), *scale_shift(self.conv2[1]))
+        x, _ = bn_site(epilogue, conv(x, self.conv1[0], dt), self.conv1[1])
+        x, _ = bn_site(epilogue, conv(x, self.conv2[0], dt), self.conv2[1])
         return x
 
 

@@ -6,8 +6,9 @@ interface (no PyTorch headers, so a build takes seconds), all sources at
 once, one nvcc process each. Libraries go to ``build/flairtpu_torch_kernels/``
 beside the package (``FLAIRTPU_TORCH_BUILD_DIR`` overrides it), named by a
 hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. A file lock serializes concurrent builders. Each
-library's one C entry point shares the source's name and is bound once.
+unchanged one is reused. A file lock serializes concurrent builders. A
+library's C entry point shares the source's name, or where a source has
+several, is named by the caller; each is bound once.
 """
 
 from __future__ import annotations
@@ -89,12 +90,13 @@ def bind(lib: ctypes.CDLL, name: str, argtypes: list):
     return fn
 
 
-def entry(name: str, argtypes: list):
-    """The C entry point ``name`` of the library built from ``csrc/<name>.cu``,
-    built, loaded and bound on first use."""
-    fn = _ENTRIES.get(name)
+def entry(name: str, argtypes: list, symbol: str | None = None):
+    """The C entry point ``symbol`` (default ``name``) of the library built
+    from ``csrc/<name>.cu``, built, loaded and bound on first use."""
+    symbol = symbol or name
+    fn = _ENTRIES.get(symbol)
     if fn is None:
-        fn = _ENTRIES[name] = bind(ctypes.CDLL(str(build_all()[name])), name, argtypes)
+        fn = _ENTRIES[symbol] = bind(ctypes.CDLL(str(build_all()[name])), symbol, argtypes)
     return fn
 
 

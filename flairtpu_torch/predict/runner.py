@@ -1,0 +1,104 @@
+"""Patch predict stage (counterpart of ``flairtpu/predict/runner.py:41-99``;
+reference flair/main.py:187-203, tasks.py:113-142).
+
+Each batch of test patches goes to the device once; ``augment_normalize``
+normalizes it (every choice the identity); the encoder and decoder blocks
+0-3 run with their running statistics through ``conv_epilogue``; and
+``fused_tail`` (the port of the Pallas tail, ``ops/fused_tail.py``) runs
+decoder block 4, the head and the argmax at margin 0, writing the class
+tiles through ``full_windows``. Only the uint8 classes come back, into
+pinned memory; PRED files are written on a thread pool while the next batch
+computes. The ragged last batch is padded with copies of its last patch, so
+every batch has one shape.
+"""
+
+from __future__ import annotations
+
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from flairtpu_torch.data.patches import PatchDataset, PatchLoader
+from flairtpu_torch.io import TiffReader, TiffWriter
+from flairtpu_torch.ops.augment import augment_normalize
+from flairtpu_torch.ops.fused_tail import fused_tail, tail_geometry, tail_params
+
+
+def write_prediction(pred: np.ndarray, src_path: str, out_dir: Path,
+                     georeferencing: bool = True) -> Path:
+    """Write one PRED_<name>.tif (reference writer.py:32-50 layout)."""
+    name = src_path.split("/")[-1]
+    out_file = out_dir / f"PRED_{name}"
+    if georeferencing:
+        with TiffReader(src_path) as src:
+            profile = src.profile
+        profile.update(count=1, compress="lzw", dtype="uint8")
+        with TiffWriter.from_profile(out_file, profile) as w:
+            w.write_band(1, pred.astype(np.uint8))
+    else:
+        with TiffWriter(out_file, pred.shape[1], pred.shape[0], 1, "uint8",
+                        compress="lzw", tiled=False) as w:
+            w.write_band(1, pred.astype(np.uint8))
+    return out_file
+
+
+def predict(config: dict, dict_test: dict, out_dir: str | Path, trainer,
+            batch_size: int | None = None, progress=print) -> dict:
+    """Writes PRED_*.tif for every test patch; returns {'dir', 'patches',
+    'seconds'}."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    bs = batch_size or int(config.get("batch_size", 4))
+    device, dtype, model = trainer.device, trainer.dtype, trainer.model
+    on_card = device.type == "cuda"
+    loader = PatchLoader(PatchDataset(dict_test, config["channels"], with_masks=False), bs,
+                         shuffle=False, drop_last=False,
+                         num_workers=int(config.get("num_workers", 4)), pin=on_card)
+    geo = bool(config.get("georeferencing_output", True))
+    tail = None
+    t0 = time.perf_counter()
+    n_done = 0
+    with torch.inference_mode(), ThreadPoolExecutor(max_workers=4) as pool:
+        futures = []
+        pending = None  # (host classes, event, n, ids): fetched after the next batch is queued
+
+        def flush(p):
+            nonlocal n_done
+            host, event, n, ids = p
+            if event is not None:
+                event.synchronize()
+            preds = host.numpy()[:n]
+            for pred, src in zip(preds, ids):
+                futures.append(pool.submit(write_prediction, pred, src, out_dir, geo))
+            n_done += n
+
+        for batch in loader:
+            img = batch["img"]
+            n, size = img.shape[0], img.shape[1]
+            if n < bs:
+                img = torch.cat([img, img[-1:].expand(bs - n, *img.shape[1:])])
+            if tail is None:
+                tail = tail_params(model, dtype)
+            x, _ = augment_normalize(img.to(device, non_blocking=True), None, None,
+                                     trainer.norm_mean, trainer.norm_mul, trainer.num_classes,
+                                     dtype)
+            cls, _ = fused_tail(model.tail_input(x, 0), tail, tail_geometry(size, 0))
+            host = torch.empty(cls.shape, dtype=torch.uint8, pin_memory=on_card)
+            host.copy_(cls, non_blocking=on_card)
+            event = None
+            if on_card:
+                event = torch.cuda.Event()
+                event.record()
+            if pending is not None:
+                flush(pending)
+            pending = (host, event, n, batch["id"])
+        if pending is not None:
+            flush(pending)
+        for f in futures:
+            f.result()
+    seconds = time.perf_counter() - t0
+    progress(f"    [x] wrote {n_done} predictions to {out_dir}")
+    return {"dir": out_dir, "patches": n_done, "seconds": seconds}

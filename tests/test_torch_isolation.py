@@ -182,8 +182,16 @@ def test_msgpack_weights_and_flair_raise(tmp_path):
                               model_weights=str(tmp_path / "w.msgpack"))
     with pytest.raises(NotImplementedError, match="msgpack"):
         cfgmod.validate_detect_config(cfgmod.read_config(conf))
+    # flair runs since slice 4; what it does not run yet raises, naming its slice
+    flair_conf = tmp_path / "flair.yaml"
+    flair_conf.write_text(yaml.safe_dump({
+        "paths": {"out_folder": str(tmp_path / "flair")}, "tasks": {"train": True},
+        "model_framework": {"model_provider": "SegmentationModelsPytorch",
+                            "SegmentationModelsPytorch": {"encoder_decoder": "resnet34_unet"}},
+        "channels": [1, 2, 3, 4, 5], "classes": {1: [1, "a"], 2: [1, "b"]},
+        "use_metadata": True, "accelerator": "cpu"}))
     with pytest.raises(NotImplementedError, match="slice 4"):
-        flair_main([])
+        flair_main([f"--conf={flair_conf}"])
 
 
 @pytest.mark.parametrize("encoder", ["resnet18", "resnet34", "resnet50", "resnet101",

@@ -64,8 +64,12 @@ Phases (any failure exits non-zero):
    running statistics too) and backward (dy within BN_DY_TOL of the largest,
    dgamma and dbeta within BN_STAT_TOL, the residual's gradient exact) at
    every BatchNorm site geometry of resnet34-unet at batch 2 and at every
-   site of a batch-16 step, which are also timed beside
-   torch.var_mean(correction=0).
+   site of a batch-16 step; two calls of each entry point at every batch-16
+   site give the same bits; the batch-16 sites are timed by device time
+   (device_ms: the queue filled behind a sleep kernel first) and by call
+   time (cuda_ms), beside torch.var_mean(correction=0) (statistics) and
+   aten's native_batch_norm_backward on the masked bf16 gradient
+   (backward), with the backward's sites and times by route.
 3. main path: ``flairtpu_torch.cli.detect_main`` on a synthetic 4096 x 4096 x
    5 GeoTIFF zone (``<dpt>/<zone>/zone.tif``, with a synthetic truth raster
    at ``truth/<dpt>/<zone>/truth.tif``) with a random resnet34-unet (19
@@ -175,6 +179,7 @@ from flairtpu_torch.predict.runner import predict
 from flairtpu_torch.ops import _build
 from flairtpu_torch.ops import augment as au
 from flairtpu_torch.ops import bn_train as bt
+from flairtpu_torch.ops.bn_train_phases import device_ms
 from flairtpu_torch.ops import epilogue as ep
 from flairtpu_torch.ops import weighted_ce as wc
 from flairtpu_torch.ops.bn_train import TrainSites
@@ -2118,55 +2123,138 @@ def compare_bn_site(label: str, site: dict, gen) -> tuple[float, float]:
 def bn_costs(site: dict) -> dict:
     """(operations, bytes) of the site's statistics (each of its
     BatchNorms) and of its backward: each input read once, each output
-    written once."""
+    written once; and the backward's input bytes alone."""
     y = site["y"]
     n, c = y.numel(), y.shape[1]
     n_bn = 1 + (site["branch"] is not None)
     stats = (3 * n * n_bn, 2 * n * n_bn + 4 * 8 * c * n_bn)
-    nbytes = 2 * n + 2 * n + 2 * n + 2 * n  # g, out, y in; dy out
+    inputs = 2 * n + 2 * n + 2 * n  # g, out, y
     if site["keep_f32"]:
-        nbytes += 4 * n
+        inputs += 4 * n
+    if site["branch"] is not None:
+        inputs += 2 * n
+    nbytes = inputs + 2 * n  # dy out
     if site["residual"] is not None:
         nbytes += 4 * n
     if site["branch"] is not None:
-        nbytes += 2 * n + 2 * n
-    return {"stats": stats, "backward": (12 * n * n_bn, nbytes)}
+        nbytes += 2 * n
+    return {"stats": stats, "backward": (12 * n * n_bn, nbytes), "backward_inputs": inputs}
+
+
+def bn_library_backward(ops: dict):
+    """The BatchNorm VJP alone, as PyTorch computes it: aten's
+    native_batch_norm_backward on the ReLU-masked bf16 gradient (no float32
+    gradient, no residual), once per BatchNorm of the site; a function to
+    time, or the error PyTorch raised."""
+    g = ops["g"] * (ops["out"] > 0)
+    calls = [(ops["y"], ops["mean"], ops["invstd"], ops["gamma"])]
+    if ops["branch"] is not None:
+        d, mean_d, invstd_d, gamma_d = ops["branch"]
+        calls.append((d, mean_d, invstd_d, gamma_d))
+
+    def run():
+        for x, mean, invstd, gamma in calls:
+            torch.ops.aten.native_batch_norm_backward(g, x, gamma, None, None, mean, invstd,
+                                                      True, bt.EPS, [True, True, True])
+
+    try:
+        run()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as e:
+        return f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    return run
+
+
+def check_bn_repeat(sites: list[dict], gen) -> None:
+    """Two calls of each entry point at every site give the same bits."""
+    differ = []
+    for k, site in enumerate(sites):
+        pairs = [(site["y"], site["bn"])] + ([site["branch"]] if site["branch"] is not None
+                                             else [])
+        for x, bn in pairs:
+            runs = []
+            for _ in range(2):
+                gamma, beta, rm, rv = bn_vectors(bn)
+                runs.append(bt.bn_stats(x, gamma, beta, rm, rv) + (rm, rv))
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                differ.append(f"statistics {bn_site_label(k, site)} {tuple(x.shape)}")
+        ops = bn_site_operands(site, gen)
+        runs = []
+        for _ in range(2):
+            dy, dgamma, dbeta, dres, db = bt.bn_backward(**ops)
+            runs.append([dy, dgamma, dbeta, dres, *(db or (None,) * 3)])
+        if not all(a is None and b is None or torch.equal(a, b) for a, b in zip(*runs)):
+            differ.append(f"backward {bn_site_label(k, site)}")
+        del ops, runs
+    check(not differ, f"bn_train: two calls of bn_stats and of bn_backward at each of the "
+          f"{len(sites)} batch-{sites[0]['y'].shape[0]} sites give the same bits"
+          + (f"; differ: {differ}" if differ else ""))
+
+
+# backward sites whose inputs (g, out, y, g32, d) are at most this many
+# bytes: the apply's second read should come from the 50 MB L2
+BN_L2_INPUTS = 40e6
 
 
 def time_bn_sites(sites: list[dict], gen) -> dict:
     """bn_stats and bn_backward at every site of one train-batch forward,
-    summed, against their plain versions and (statistics)
-    torch.var_mean(correction=0)."""
+    summed: device time (device_ms) and the call time seen by the host
+    (cuda_ms), against their plain versions, torch.var_mean(correction=0)
+    (statistics) and aten's native_batch_norm_backward (backward); the
+    backward also by route."""
     rows = {"stats": [], "backward": []}
+    library_error = None
     for site in sites:
         cost = bn_costs(site)
         pairs = [(site["y"], site["bn"])] + ([site["branch"]] if site["branch"] is not None
                                              else [])
         vecs = [(x, bn_vectors(bn)) for x, bn in pairs]
         rows["stats"].append({
-            "ms": sum(cuda_ms(lambda x=x, v=v: bt.bn_stats(x, *v), 5, 1) for x, v in vecs),
+            "ms": sum(device_ms(lambda x=x, v=v: bt.bn_stats(x, *v)) for x, v in vecs),
+            "call_ms": sum(cuda_ms(lambda x=x, v=v: bt.bn_stats(x, *v), 5, 1) for x, v in vecs),
             "plain_ms": sum(cuda_ms(lambda x=x, v=v: bt.bn_stats_plain(x, *v), 3, 1)
                             for x, v in vecs),
-            "library_ms": sum(cuda_ms(lambda x=x: torch.var_mean(x, dim=(0, 2, 3),
-                                                                 correction=0), 5, 1)
+            "library_ms": sum(device_ms(lambda x=x: torch.var_mean(x, dim=(0, 2, 3),
+                                                                   correction=0))
                               for x, _ in vecs),
             "bytes": cost["stats"][1], **bound(*cost["stats"], PEAK_FP32_FLOPS)})
         ops = bn_site_operands(site, gen)
+        lib = bn_library_backward(ops)
+        if isinstance(lib, str):
+            library_error = lib
         rows["backward"].append({
-            "ms": cuda_ms(lambda: bt.bn_backward(**ops), 5, 1),
+            "ms": device_ms(lambda: bt.bn_backward(**ops)),
+            "call_ms": cuda_ms(lambda: bt.bn_backward(**ops), 5, 1),
             "plain_ms": cuda_ms(lambda: bt.bn_backward_plain(**ops), 3, 1),
+            "library_ms": None if isinstance(lib, str) else device_ms(lib),
+            "l2": cost["backward_inputs"] <= BN_L2_INPUTS,
             "bytes": cost["backward"][1], **bound(*cost["backward"], PEAK_FP32_FLOPS)})
-        del ops
+        del ops, lib
+
+    def total(rs: list[dict]) -> dict:
+        return {"sites": len(rs), "ms": sum(r["ms"] for r in rs),
+                "call_ms": sum(r["call_ms"] for r in rs),
+                "bound_ms": sum(r["bound_ms"] for r in rs)}
+
     out = {}
     for mode, rs in rows.items():
+        libs = [r["library_ms"] for r in rs]
         out[mode] = {
-            "mode": mode, "sites": len(rs), "ms": sum(r["ms"] for r in rs),
-            "plain_ms": sum(r["plain_ms"] for r in rs), "bytes": sum(r["bytes"] for r in rs),
-            "bound_ms": sum(r["bound_ms"] for r in rs),
+            "mode": mode, **total(rs), "plain_ms": sum(r["plain_ms"] for r in rs),
+            "bytes": sum(r["bytes"] for r in rs),
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rs)
                          else "operations"),
-            "library_ms": (sum(r["library_ms"] for r in rs) if mode == "stats" else None),
+            "library_ms": None if None in libs else sum(libs),
             "largest_ms": max(r["ms"] for r in rs)}
+    out["backward"]["library_error"] = library_error
+    back = rows["backward"]
+    out["backward"]["routes"] = {
+        "two-pass, L2-ordered apply": total(back),
+        f"  of which inputs <= {BN_L2_INPUTS / 1e6:.0f} MB (the apply's reads fit in L2)":
+            total([r for r in back if r["l2"]]),
+        f"  of which inputs > {BN_L2_INPUTS / 1e6:.0f} MB (read twice)":
+            total([r for r in back if not r["l2"]])}
+    out["stats"]["routes"] = {"one launch": total(rows["stats"])}
     return out
 
 
@@ -2215,6 +2303,7 @@ def check_bn_train(gen) -> dict:
     sites = record_train_sites(model, x)
     for k, site in enumerate(sites):
         errs.append(compare_bn_site(bn_site_label(k, site), site, gen))
+    check_bn_repeat(sites, gen)
     timed = time_bn_sites(sites, gen)
     del sites, x
     torch.cuda.empty_cache()
@@ -2560,12 +2649,15 @@ def compare_train_step(cfg: dict, state: dict, batch: dict, counts: dict) -> dic
     return out
 
 
+BN_KERNELS = ("stats_kernel", "backward_reduce", "backward_apply")  # csrc/bn_train.cu
+
+
 def train_breakdown(cfg: dict, state: dict, batch: dict) -> dict:
     """Device time of the train step's stages at batch 16 (CUDA events:
     augment_normalize with the batch's upload, the forward, forward +
     backward, the SGD update, the whole step) and the profiler's kernel
     table of one step, with the share of the step's wall time the card was
-    busy."""
+    busy and the device time of bn_train's kernels in it."""
     from torch.profiler import ProfilerActivity, profile
 
     tr = SegmentationTrainer(cfg)
@@ -2595,6 +2687,9 @@ def train_breakdown(cfg: dict, state: dict, batch: dict) -> dict:
     busy_ms = sum(e.self_device_time_total for e in events
                   if str(e.device_type).endswith("CUDA")) / 1e3
     ms.update(profiled_step_wall=wall_ms, profiled_step_device_busy=busy_ms)
+    for kernel in BN_KERNELS:  # bn_train's kernels, summed over the step's launches
+        ms[f"profiled_{kernel}"] = sum(e.self_device_time_total for e in events
+                                       if f"::{kernel}" in e.key) / 1e3
     return {"stage_ms": ms, "busy_share": busy_ms / wall_ms,
             "kernel_table": events.table(sort_by="self_cuda_time_total", row_limit=20)}
 
@@ -2848,11 +2943,16 @@ def main() -> int:
         for mode, what in (("stats", f"{bn['counts']['bn']} BatchNorms"),
                            ("backward", f"{bn['counts']['sites']} sites")):
             r = bn[mode]
-            print(f"    bn_train {mode}, the {what} of one batch-16 step: "
-                  f"{r['ms']:.4f} ms (largest site {r['largest_ms']:.4f}), plain "
-                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e9:.2f} GB)",
-                  flush=True)
+            print(f"    bn_train {mode}, the {what} of one batch-16 step: device "
+                  f"{r['ms']:.4f} ms (largest site {r['largest_ms']:.4f}), call "
+                  f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                  f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                  f"{r['bytes'] / 1e9:.2f} GB)", flush=True)
+            for route, t in r["routes"].items():
+                print(f"      route {route}: {t['sites']} sites, device {t['ms']:.4f} ms, "
+                      f"call {t['call_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms", flush=True)
+        if bn["backward"]["library_error"]:
+            print(f"    bn_train backward library: none ({bn['backward']['library_error']})")
 
         print("[3] main path: flair-detect on the card", flush=True)
         main_path = run_main_path(cfg, conf, ZONE, card)
@@ -3025,8 +3125,9 @@ def main() -> int:
                      "of resnet.py:177-189, :208-222, :269-273 and flairtpu/models/unet.py:71-76, "
                      "with their VJP",
          "launches": flair["launches"]["bn_stats"], "max_abs_err": bn["max_abs_err"],
-         **numbers(bn["stats"]), "library_ms": bn["stats"]["library_ms"],
-         "modes": [dict({k: v for k, v in bn[m].items() if k != "sites"},
+         **numbers(bn["stats"]), "call_ms": bn["stats"]["call_ms"],
+         "library_ms": bn["stats"]["library_ms"],
+         "modes": [dict({k: v for k, v in bn[m].items() if k not in ("sites", "routes")},
                         launches=flair["launches"]["bn_stats" if m == "stats" else
                                                    "bn_backward"]) for m in ("stats",
                                                                              "backward")]},

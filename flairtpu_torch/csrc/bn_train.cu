@@ -22,17 +22,52 @@
 //   dres = gz (float32), or for a branch d the same dy formula with its own
 //   statistics into dd (bf16).
 //
-// Bound: bytes. Statistics read x once (2 M C bytes); the backward reads g,
-// out, y (and g32, d) twice, once to reduce and once to apply, and writes dy
-// (and dres or dd). A thread takes 8 channels of a pixel (one 16-byte bf16
-// load), C / 8 neighbouring threads cover a pixel and a block's 256 threads
-// walk 256 / (C / 8) pixels at a time down a grid-stride loop, keeping
-// float32 partial sums in registers: at the stem (16 x 256 x 256 pixels, 64
-// channels) each thread sums about 32 pixels. A block adds its rows of
-// partials in shared memory and writes one row of C sums; a small kernel adds
-// the blocks' rows in double, in a fixed order, and derives the per-channel
-// constants. So every sum is a tree of short float32 runs, and a run gives
-// the same bits every time.
+// Bound: bytes, both entry points. The statistics read x once (2 M C
+// bytes). The backward reads g, out, y (and g32, d) and writes dy (and dres
+// or dd); its sums must be complete before any dy, so it reads its inputs
+// twice, and only the second read can come from L2.
+//
+// Design. A thread takes 8 channels of a pixel (one 16-byte bf16 load) and
+// keeps them: C / 8 neighbouring threads cover a pixel, a block's 256
+// threads `rows` = 256 / (C / 8) pixels. A block walks tiles of rows x U
+// pixels (contiguous in memory), tile b, b + grid, ... of the site, so the
+// card's read front moves through the site as one; the U loads of a tile
+// are issued before any is used (U = 4 in the statistics, 16 KB a tile; U =
+// 2 in the backward, whose pixel already takes 3-5 loads). Float32 partial
+// sums stay in registers; a block folds its rows (a warp shuffle tree where
+// a warp holds whole pixels, then its warps in shared memory, in a fixed
+// order) into one column of per-channel sums, written transposed so each
+// (sum, channel)'s blocks lie side by side. Each block then takes a ticket
+// (__threadfence before the atomicAdd on an int32 counter). The last blocks
+// to arrive, as many as give each team of 1-8 warps one channel (the whole
+// grid where it is small), wait for the rest and share the combine in one
+// round of loads: a team's lanes stride over the blocks in double, 8 loads
+// a sum in flight, and fixed shuffle trees add them, so the result does not
+// depend on which blocks finished last, and no float atomic is used; two
+// runs give the same bits. (ops/bn_train_phases.py's one_combiner variant
+// times one combining block instead.) The last combiner to finish resets
+// the counters to 0 for the next call on the stream. Blocks that leave
+// free their places for those not yet started, and the wrapper's grid never
+// exceeds the blocks the card holds at once, so the waiting ends even where
+// every block combines.
+//
+// The statistics are one launch: the combiners write mean, invstd, scale,
+// shift and the running statistics. The backward is two: the reduce (a
+// forward walk) with the same combine into (dbeta, dgamma, dgamma_d), and
+// the apply, which walks the same tiles in the reverse order, so it starts
+// on the tiles the reduce read last, still in the 50 MB L2. The statistics
+// walk in reverse too, so the conv_epilogue that applies them (a forward
+// grid-stride walk) starts on the tiles they read last.
+//
+// The wrapper (ops/bn_train.py:launch_plan) sizes the grid by the work: at
+// least 64 KB of x (bf16) a block, at most the blocks the card holds at
+// once (132 SMs x the kernel's occupancy, bn_train_occupancy). At batch 16
+// the stem, layer1 and decoder blocks 2-4 take the co-resident grid (528
+// statistics blocks, 264 backward), layer2-4 and decoder blocks 0-1 64-256
+// blocks and as few partials. The sites whose backward inputs fit in L2
+// (layer3, layer4 and decoder block 0: 13-42 MB) can read them from HBM
+// about once; the others read them twice, which caps their backward at
+// about 8/14 of its byte bound.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -41,6 +76,12 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStatsUnroll = 4;  // pixels a thread loads at once: statistics
+constexpr int kBackUnroll = 2;   // backward (reduce and apply)
+constexpr int kCombineLoads = 8; // loads a lane keeps in flight for each sum
+constexpr int kCounters = 2;     // int32: arrived, combined
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void unpack8(const uint4 w, float (&f)[8]) {
   const uint32_t u[4] = {w.x, w.y, w.z, w.w};
@@ -60,96 +101,245 @@ __device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
   return make_uint4(u[0], u[1], u[2], u[3]);
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, long long off, float (&f)[8]) {
-  unpack8(*reinterpret_cast<const uint4*>(p + off), f);
-}
-
-__device__ __forceinline__ void load8(const float* p, long long off, float (&f)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p + off);
-  const float4 b = *reinterpret_cast<const float4*>(p + off + 4);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+__device__ __forceinline__ uint4 load16(const __nv_bfloat16* p, long long off) {
+  return *reinterpret_cast<const uint4*>(p + off);
 }
 
 // The block's thread layout: lanes = C / 8 threads a pixel, rows = 256 /
 // lanes pixels at a time; threads past rows * lanes only join the barriers.
+// Where lanes divides 32, a warp holds 32 / lanes whole pixels.
 struct Layout {
   int lanes, rows, lane, row;
-  bool active;
+  bool active, warp_rows;
   __device__ Layout(int channels) {
     lanes = channels / 8;
     rows = kThreads / lanes;
     lane = threadIdx.x % lanes;
     row = threadIdx.x / lanes;
     active = row < rows;
+    warp_rows = 32 % lanes == 0;
   }
 };
 
-// Adds the block's per-thread partials (n_sums of 8 channels each) over its
-// rows in shared memory, and writes the block's row of n_sums * C sums.
+// The block's tiles of rows * U pixels, b, b + grid, ...: k = 0 ... last
+// in walk order, the k-th starting at pixel first(k, reverse).
+template <int U>
+struct Tiles {
+  long long pixels, last;
+  __device__ Tiles(const Layout& t, long long m) {
+    pixels = (long long)t.rows * U;
+    const long long tiles = (m + pixels - 1) / pixels;
+    last = blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x : -1;
+  }
+  __device__ long long first(long long k, bool reverse) const {
+    return (blockIdx.x + (reverse ? last - k : k) * (long long)gridDim.x) * pixels;
+  }
+};
+
+// Folds the block's per-thread partials (kSums of 8 channels each) over its
+// rows in a fixed order and writes the block's column of kSums * C sums:
+// partials[e * grid + block], e = s * C + c.
 template <int kSums>
-__device__ void block_sums(const Layout& t, const float (&acc)[kSums][8], float* smem,
-                           float* partials, int channels) {
-  // smem: rows x (kSums * C)
+__device__ void block_sums(const Layout& t, float (&acc)[kSums][8], float* smem,
+                           float* __restrict__ partials, int channels) {
   const int width = kSums * channels;
-  if (t.active)
+  int prow = t.row, nrows = t.rows;
+  bool write = t.active;
+  if (t.warp_rows) {
+    for (int off = t.lanes; off < 32; off <<= 1)
+#pragma unroll
+      for (int s = 0; s < kSums; ++s)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[s][i] += __shfl_xor_sync(kFull, acc[s][i], off);
+    prow = threadIdx.x / 32;
+    nrows = kWarps;
+    write = threadIdx.x % 32 < t.lanes;
+  }
+  if (write)
 #pragma unroll
     for (int s = 0; s < kSums; ++s)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) smem[t.row * width + s * channels + t.lane * 8 + i] = acc[s][i];
+      for (int i = 0; i < 8; ++i) smem[prow * width + s * channels + t.lane * 8 + i] = acc[s][i];
   __syncthreads();
   for (int e = threadIdx.x; e < width; e += kThreads) {
     float v = 0.f;
-    for (int r = 0; r < t.rows; ++r) v += smem[r * width + e];
-    partials[(long long)blockIdx.x * width + e] = v;
+    for (int r = 0; r < nrows; ++r) v += smem[r * width + e];
+    partials[(long long)e * gridDim.x + blockIdx.x] = v;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    stats_partial(const __nv_bfloat16* __restrict__ x, float* __restrict__ partials,
-                  long long m, int channels) {
-  extern __shared__ float smem[];
-  const Layout t(channels);
-  float acc[2][8] = {};
-  if (t.active)
-    for (long long p = (long long)blockIdx.x * t.rows + t.row; p < m;
-         p += (long long)gridDim.x * t.rows) {
-      float f[8];
-      load8(x, p * channels + t.lane * 8, f);
+// Publishes the block's partials and takes a ticket. The last `combiners`
+// blocks to arrive wait until every block has, and get their rank among
+// the combiners; the others get -1 and leave.
+__device__ int arrive(int* counters, int combiners) {
+  __shared__ int rank;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int r = atomicAdd(&counters[0], 1) - ((int)gridDim.x - combiners);
+    if (r >= 0) {
+      const volatile int* arrived = counters;
+      while (*arrived < (int)gridDim.x) __nanosleep(64);
+      __threadfence();
+    }
+    rank = r;
+  }
+  __syncthreads();
+  return rank;
+}
+
+// A combiner is done; the last one resets the counters for the next call.
+__device__ void release(int* counters, int combiners) {
+  __syncthreads();
+  if (threadIdx.x == 0 && atomicAdd(&counters[1], 1) == combiners - 1) {
+    counters[0] = 0;
+    counters[1] = 0;
+  }
+}
+
+// Warps a combining block puts on one channel: enough that a lane loads at
+// most kCombineLoads of a sum's partials.
+__host__ __device__ int combine_warps(int grid) {
+  int seg = 1;
+  while (seg < kWarps && seg * 32 * kCombineLoads < grid) seg <<= 1;
+  return seg;
+}
+
+// The combiners of a grid: enough that each takes one channel a team, so
+// the combine is one round of loads.
+int combiners_for(int blocks, int channels) {
+  const int want = (channels * combine_warps(blocks) + kWarps - 1) / kWarps;
+  return blocks < want ? blocks : want;
+}
+
+// The combine: the totals over the grid's blocks of each sum s < kSums of
+// the channels this combiner takes (channel c in rounds of `teams`, the
+// combiners' teams interleaved), handed to done(c, totals, prefetch(c)) on
+// one thread, which called prefetch(c) before the round's loads.
+// A team of `seg` warps takes a channel: warp j of the team adds blocks
+// [j * per, (j + 1) * per) of each sum's row, lane l blocks l, l + 32, ...
+// in double with 8 loads a row in flight, then a fixed shuffle tree; the
+// team's leader adds its warps' totals in order. Every total has the same
+// bits whichever block computes it.
+template <int kSums, typename Prefetch, typename Done>
+__device__ void combine(const float* partials, int channels, int rank, int combiners,
+                        Prefetch prefetch, Done done) {
+  __shared__ double part[kWarps][kSums];
+  const int grid = gridDim.x;
+  const int seg = combine_warps(grid);
+  const int teams = kWarps / seg, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int team = warp / seg, per = (grid + seg - 1) / seg;
+  const int begin = (warp % seg) * per, end = min(grid, begin + per);
+  for (int c0 = rank * teams; c0 < channels; c0 += combiners * teams) {
+    const int c = c0 + team;
+    const bool leader = c < channels && warp % seg == 0 && lane == 0;
+    decltype(prefetch(0)) pre{};
+    if (leader) pre = prefetch(c);
+    if (c < channels) {
+      double v[kSums];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        acc[0][i] += f[i];
-        acc[1][i] += f[i] * f[i];
+      for (int s = 0; s < kSums; ++s) v[s] = 0.0;
+      for (int b = begin + lane; b < end; b += 32 * kCombineLoads) {
+        float x[kSums][kCombineLoads];
+#pragma unroll
+        for (int s = 0; s < kSums; ++s)
+#pragma unroll
+          for (int u = 0; u < kCombineLoads; ++u) {
+            const int bb = b + 32 * u;
+            x[s][u] = bb < end ? __ldcg(partials + (long long)(s * channels + c) * grid + bb)
+                               : 0.f;
+          }
+#pragma unroll
+        for (int s = 0; s < kSums; ++s)
+#pragma unroll
+          for (int u = 0; u < kCombineLoads; ++u) v[s] += (double)x[s][u];
+      }
+#pragma unroll
+      for (int s = 0; s < kSums; ++s) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v[s] += __shfl_xor_sync(kFull, v[s], off);
+        if (lane == 0) part[warp][s] = v[s];
       }
     }
-  block_sums<2>(t, acc, smem, partials, channels);
+    __syncthreads();
+    if (leader) {
+      double total[kSums];
+#pragma unroll
+      for (int s = 0; s < kSums; ++s) {
+        total[s] = 0.0;
+        for (int k = 0; k < seg; ++k) total[s] += part[warp + k][s];
+      }
+      done(c, total, pre);
+    }
+    __syncthreads();
+  }
 }
 
-__global__ void stats_finalize(const float* __restrict__ partials, int blocks, long long m,
-                               int channels, const float* __restrict__ gamma,
-                               const float* __restrict__ beta, float* __restrict__ running_mean,
-                               float* __restrict__ running_var, float* __restrict__ mean_out,
-                               float* __restrict__ invstd_out, float* __restrict__ scale_out,
-                               float* __restrict__ shift_out, float eps, float momentum) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= channels) return;
-  double s = 0.0, q = 0.0;
-  for (int b = 0; b < blocks; ++b) {
-    s += partials[(long long)b * 2 * channels + c];
-    q += partials[(long long)b * 2 * channels + channels + c];
-  }
-  const float mean = (float)(s / (double)m);
-  const float ex2 = (float)(q / (double)m);
-  const float var = fmaxf(__fsub_rn(ex2, __fmul_rn(mean, mean)), 0.f);
-  const float invstd = rsqrtf(__fadd_rn(var, eps));
-  const float scale = __fmul_rn(gamma[c], invstd);
-  mean_out[c] = mean;
-  invstd_out[c] = invstd;
-  scale_out[c] = scale;
-  shift_out[c] = __fsub_rn(beta[c], __fmul_rn(mean, scale));
-  const float keep = 1.f - momentum;
-  running_mean[c] = __fadd_rn(__fmul_rn(momentum, running_mean[c]), __fmul_rn(keep, mean));
-  running_var[c] = __fadd_rn(__fmul_rn(momentum, running_var[c]), __fmul_rn(keep, var));
+struct StatsArgs {
+  const __nv_bfloat16* x;
+  const float* gamma;
+  const float* beta;
+  float* running_mean;
+  float* running_var;
+  float* partials;  // (2, C, grid)
+  int* counters;
+  float* mean;
+  float* invstd;
+  float* scale;
+  float* shift;
+  long long m;
+  int channels, combiners;
+  float eps, momentum;
+};
+
+__global__ void __launch_bounds__(kThreads) stats_kernel(StatsArgs a) {
+  extern __shared__ float smem[];
+  const Layout t(a.channels);
+  const Tiles<kStatsUnroll> tiles(t, a.m);
+  const int c0 = t.lane * 8;
+  float acc[2][8] = {};
+  if (t.active)
+    for (long long k = 0; k <= tiles.last; ++k) {
+      const long long p0 = tiles.first(k, true) + t.row;
+      uint4 w[kStatsUnroll];
+#pragma unroll
+      for (int u = 0; u < kStatsUnroll; ++u) {
+        const long long p = p0 + (long long)u * t.rows;
+        w[u] = p < a.m ? load16(a.x, p * a.channels + c0) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < kStatsUnroll; ++u) {
+        float f[8];
+        unpack8(w[u], f);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[0][i] += f[i];
+          acc[1][i] += f[i] * f[i];
+        }
+      }
+    }
+  block_sums<2>(t, acc, smem, a.partials, a.channels);
+  const int rank = arrive(a.counters, a.combiners);
+  if (rank < 0) return;
+  const auto vectors = [&](int c) {
+    return make_float4(a.gamma[c], a.beta[c], a.running_mean[c], a.running_var[c]);
+  };
+  combine<2>(a.partials, a.channels, rank, a.combiners, vectors,
+             [&](int c, const double (&sum)[2], float4 v) {
+    const float mean = (float)(sum[0] / (double)a.m);
+    const float ex2 = (float)(sum[1] / (double)a.m);
+    const float var = fmaxf(__fsub_rn(ex2, __fmul_rn(mean, mean)), 0.f);
+    const float invstd = rsqrtf(__fadd_rn(var, a.eps));
+    const float scale = __fmul_rn(v.x, invstd);
+    a.mean[c] = mean;
+    a.invstd[c] = invstd;
+    a.scale[c] = scale;
+    a.shift[c] = __fsub_rn(v.y, __fmul_rn(mean, scale));
+    const float keep = 1.f - a.momentum;
+    a.running_mean[c] = __fadd_rn(__fmul_rn(a.momentum, v.z), __fmul_rn(keep, mean));
+    a.running_var[c] = __fadd_rn(__fmul_rn(a.momentum, v.w), __fmul_rn(keep, var));
+  });
+  release(a.counters, a.combiners);
 }
 
 struct BackArgs {
@@ -160,114 +350,182 @@ struct BackArgs {
   const float* mean;
   const float* invstd;
   const float* gamma;
-  const __nv_bfloat16* d;    // null: no branch
+  const __nv_bfloat16* d;    // the branch (kBranch)
   const float* mean_d;
   const float* invstd_d;
   const float* gamma_d;
-  const float* sums;         // (3, C): dbeta, dgamma, dgamma_d (the apply pass)
+  float* partials;           // (2 + kBranch, C, grid)
+  int* counters;
+  float* sums;               // (3, C): dbeta, dgamma, dgamma_d
   __nv_bfloat16* dy;
   float* dres;               // null: no residual
-  __nv_bfloat16* dd;         // branch
+  __nv_bfloat16* dd;         // the branch's
   long long m;
-  int channels;
+  int channels, combiners;
 };
 
-// gz of 8 channels of pixel p
-__device__ __forceinline__ void masked_grad(const BackArgs& a, long long off, float (&gz)[8]) {
-  float f[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) gz[i] = 0.f;
-  if (a.g) {
-    load8(a.g, off, f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) gz[i] += f[i];
+// One pixel's raw operands: 8 channels of each map.
+struct Pixel {
+  uint4 g, out, y, d;
+  float4 g32[2];
+};
+
+template <bool kBranch>
+__device__ __forceinline__ void load_pixel(const BackArgs& a, long long off, bool in,
+                                           Pixel& px) {
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  px.g = in && a.g ? load16(a.g, off) : zero;
+  px.out = in && a.out ? load16(a.out, off) : zero;
+  px.y = in ? load16(a.y, off) : zero;
+  if (kBranch) px.d = in ? load16(a.d, off) : zero;
+  if (in && a.g32) {
+    px.g32[0] = *reinterpret_cast<const float4*>(a.g32 + off);
+    px.g32[1] = *reinterpret_cast<const float4*>(a.g32 + off + 4);
+  } else {
+    px.g32[0] = px.g32[1] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  if (a.g32) {
-    load8(a.g32, off, f);
+}
+
+// gz of the pixel's 8 channels: (g + g32) masked by the ReLU
+__device__ __forceinline__ void masked_grad(const BackArgs& a, const Pixel& px, float (&gz)[8]) {
+  float f[8];
+  unpack8(px.g, f);
+  const float h[8] = {px.g32[0].x, px.g32[0].y, px.g32[0].z, px.g32[0].w,
+                      px.g32[1].x, px.g32[1].y, px.g32[1].z, px.g32[1].w};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) gz[i] += f[i];
+  for (int i = 0; i < 8; ++i) {
+    gz[i] = 0.f;
+    if (a.g) gz[i] += f[i];
+    if (a.g32) gz[i] += h[i];
   }
   if (a.out) {
-    load8(a.out, off, f);
+    unpack8(px.out, f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) gz[i] = f[i] > 0.f ? gz[i] : 0.f;
   }
 }
 
-__device__ __forceinline__ void normalized(const __nv_bfloat16* x, const float* mean,
-                                           const float* invstd, long long off, int c0,
-                                           float (&xh)[8]) {
-  load8(x, off, xh);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) xh[i] = (xh[i] - mean[c0 + i]) * invstd[c0 + i];
-}
-
-__global__ void __launch_bounds__(kThreads) backward_partial(BackArgs a, float* partials) {
-  extern __shared__ float smem[];
-  const Layout t(a.channels);
-  float acc[3][8] = {};
-  const int c0 = t.lane * 8;
-  if (t.active)
-    for (long long p = (long long)blockIdx.x * t.rows + t.row; p < a.m;
-         p += (long long)gridDim.x * t.rows) {
-      const long long off = p * a.channels + c0;
-      float gz[8], xh[8];
-      masked_grad(a, off, gz);
-      normalized(a.y, a.mean, a.invstd, off, c0, xh);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        acc[0][i] += gz[i];
-        acc[1][i] += gz[i] * xh[i];
-      }
-      if (a.d) {
-        normalized(a.d, a.mean_d, a.invstd_d, off, c0, xh);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[2][i] += gz[i] * xh[i];
-      }
-    }
-  block_sums<3>(t, acc, smem, partials, a.channels);
-}
-
-__global__ void backward_finalize(const float* __restrict__ partials, int blocks, int channels,
-                                  float* __restrict__ sums) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= 3 * channels) return;
-  double v = 0.0;
-  for (int b = 0; b < blocks; ++b) v += partials[(long long)b * 3 * channels + e];
-  sums[e] = (float)v;
-}
-
-__global__ void __launch_bounds__(kThreads) backward_apply(BackArgs a) {
-  const int lanes = a.channels / 8;
-  const long long n_groups = a.m * lanes;
-  const float inv_m = 1.f / (float)a.m;
-  for (long long e = blockIdx.x * (long long)kThreads + threadIdx.x; e < n_groups;
-       e += (long long)gridDim.x * kThreads) {
-    const int c0 = (int)(e % lanes) * 8;
-    const long long off = e * 8;
-    float gz[8], xh[8], o[8];
-    masked_grad(a, off, gz);
-    normalized(a.y, a.mean, a.invstd, off, c0, xh);
+// A map's per-channel constants, 8 channels of a thread
+struct Consts {
+  float mean[8], invstd[8];
+  __device__ void load(const float* m, const float* s, int c0) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int c = c0 + i;
-      o[i] = a.gamma[c] * a.invstd[c] *
-             (gz[i] - (a.sums[c] + xh[i] * a.sums[a.channels + c]) * inv_m);
+      mean[i] = m[c0 + i];
+      invstd[i] = s[c0 + i];
     }
-    *reinterpret_cast<uint4*>(a.dy + off) = pack8(o);
-    if (a.dres) {
-      *reinterpret_cast<float4*>(a.dres + off) = make_float4(gz[0], gz[1], gz[2], gz[3]);
-      *reinterpret_cast<float4*>(a.dres + off + 4) = make_float4(gz[4], gz[5], gz[6], gz[7]);
-    }
-    if (a.d) {
-      normalized(a.d, a.mean_d, a.invstd_d, off, c0, xh);
+  }
+  __device__ void normalized(const uint4 w, float (&xh)[8]) const {
+    unpack8(w, xh);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int c = c0 + i;
-        o[i] = a.gamma_d[c] * a.invstd_d[c] *
-               (gz[i] - (a.sums[c] + xh[i] * a.sums[2 * a.channels + c]) * inv_m);
+    for (int i = 0; i < 8; ++i) xh[i] = (xh[i] - mean[i]) * invstd[i];
+  }
+};
+
+template <bool kBranch>
+__global__ void __launch_bounds__(kThreads) backward_reduce(BackArgs a) {
+  constexpr int kSums = kBranch ? 3 : 2;
+  extern __shared__ float smem[];
+  const Layout t(a.channels);
+  const Tiles<kBackUnroll> tiles(t, a.m);
+  const int c0 = t.lane * 8;
+  float acc[kSums][8] = {};
+  if (t.active) {
+    Consts cy, cd;
+    cy.load(a.mean, a.invstd, c0);
+    if (kBranch) cd.load(a.mean_d, a.invstd_d, c0);
+    for (long long k = 0; k <= tiles.last; ++k) {
+      const long long p0 = tiles.first(k, false) + t.row;
+      Pixel px[kBackUnroll];
+#pragma unroll
+      for (int u = 0; u < kBackUnroll; ++u) {
+        const long long p = p0 + (long long)u * t.rows;
+        load_pixel<kBranch>(a, p * a.channels + c0, p < a.m, px[u]);
       }
-      *reinterpret_cast<uint4*>(a.dd + off) = pack8(o);
+#pragma unroll
+      for (int u = 0; u < kBackUnroll; ++u) {
+        float gz[8], xh[8];
+        masked_grad(a, px[u], gz);
+        cy.normalized(px[u].y, xh);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[0][i] += gz[i];
+          acc[1][i] += gz[i] * xh[i];
+        }
+        if (kBranch) {
+          cd.normalized(px[u].d, xh);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[kSums - 1][i] += gz[i] * xh[i];
+        }
+      }
+    }
+  }
+  block_sums<kSums>(t, acc, smem, a.partials, a.channels);
+  const int rank = arrive(a.counters, a.combiners);
+  if (rank < 0) return;
+  combine<kSums>(a.partials, a.channels, rank, a.combiners, [](int) { return 0; },
+                 [&](int c, const double (&sum)[kSums], int) {
+#pragma unroll
+                   for (int s = 0; s < kSums; ++s) a.sums[s * a.channels + c] = (float)sum[s];
+                 });
+  release(a.counters, a.combiners);
+}
+
+// dy (or dd) of 8 channels: gamma invstd (gz - (dbeta + xh dgamma) / M)
+struct Apply {
+  Consts c;
+  float k[8], dbeta[8], dgamma[8];
+  __device__ void load(const float* mean, const float* invstd, const float* gamma,
+                       const float* dbeta_, const float* dgamma_, int c0) {
+    c.load(mean, invstd, c0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      k[i] = gamma[c0 + i] * invstd[c0 + i];
+      dbeta[i] = dbeta_[c0 + i];
+      dgamma[i] = dgamma_[c0 + i];
+    }
+  }
+  __device__ uint4 operator()(const uint4 w, const float (&gz)[8], float inv_m) const {
+    float xh[8], o[8];
+    c.normalized(w, xh);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = k[i] * (gz[i] - (dbeta[i] + xh[i] * dgamma[i]) * inv_m);
+    return pack8(o);
+  }
+};
+
+template <bool kBranch>
+__global__ void __launch_bounds__(kThreads) backward_apply(BackArgs a) {
+  const Layout t(a.channels);
+  if (!t.active) return;
+  const Tiles<kBackUnroll> tiles(t, a.m);
+  const int c0 = t.lane * 8;
+  const int C = a.channels;
+  const float inv_m = 1.f / (float)a.m;
+  Apply fy, fd;
+  fy.load(a.mean, a.invstd, a.gamma, a.sums, a.sums + C, c0);
+  if (kBranch) fd.load(a.mean_d, a.invstd_d, a.gamma_d, a.sums, a.sums + 2 * C, c0);
+  for (long long k = 0; k <= tiles.last; ++k) {
+    const long long p0 = tiles.first(k, true) + t.row;
+    Pixel px[kBackUnroll];
+#pragma unroll
+    for (int u = 0; u < kBackUnroll; ++u) {
+      const long long p = p0 + (long long)u * t.rows;
+      load_pixel<kBranch>(a, p * C + c0, p < a.m, px[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kBackUnroll; ++u) {
+      const long long p = p0 + (long long)u * t.rows;
+      if (p >= a.m) continue;
+      const long long off = p * C + c0;
+      float gz[8];
+      masked_grad(a, px[u], gz);
+      *reinterpret_cast<uint4*>(a.dy + off) = fy(px[u].y, gz, inv_m);
+      if (a.dres) {
+        *reinterpret_cast<float4*>(a.dres + off) = make_float4(gz[0], gz[1], gz[2], gz[3]);
+        *reinterpret_cast<float4*>(a.dres + off + 4) = make_float4(gz[4], gz[5], gz[6], gz[7]);
+      }
+      if (kBranch) *reinterpret_cast<uint4*>(a.dd + off) = fd(px[u].d, gz, inv_m);
     }
   }
 }
@@ -278,59 +536,93 @@ bool layout_ok(int channels) {
   return channels >= 8 && channels % 8 == 0 && channels / 8 <= kThreads;
 }
 
+// block_sums' shared memory: its rows of sums * C floats
 size_t smem_bytes(int channels, int sums) {
-  return (size_t)(kThreads / (channels / 8)) * sums * channels * sizeof(float);
+  const int lanes = channels / 8;
+  const int rows = 32 % lanes == 0 ? kWarps : kThreads / lanes;
+  return (size_t)rows * sums * channels * sizeof(float);
 }
 
-cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+bool scratch_ok(long long partial_floats, int n_counters, int blocks, int sums, int channels) {
+  return blocks >= 1 && partial_floats >= (long long)sums * channels * blocks &&
+         n_counters >= kCounters;
+}
+
+int occupancy(const void* kernel, size_t smem, int* blocks_per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads,
+                                                            smem);
 }
 
 }  // namespace
 
+// The blocks of `mode` (0: statistics; 1: the backward, the lesser of its
+// two kernels') that one SM holds at once at this channel count, into
+// *blocks_per_sm. Returns a cudaError_t.
+extern "C" int bn_train_occupancy(int mode, int channels, int branch, int* blocks_per_sm) {
+  if (!layout_ok(channels) || !blocks_per_sm) return (int)cudaErrorInvalidValue;
+  if (mode == 0)
+    return occupancy((const void*)stats_kernel, smem_bytes(channels, 2), blocks_per_sm);
+  int reduce = 0, apply = 0;
+  const int sums = branch ? 3 : 2;
+  int err = branch ? occupancy((const void*)backward_reduce<true>, smem_bytes(channels, sums),
+                               &reduce)
+                   : occupancy((const void*)backward_reduce<false>,
+                               smem_bytes(channels, sums), &reduce);
+  if (err) return err;
+  err = branch ? occupancy((const void*)backward_apply<true>, 0, &apply)
+               : occupancy((const void*)backward_apply<false>, 0, &apply);
+  *blocks_per_sm = reduce < apply ? reduce : apply;
+  return err;
+}
+
 // x: (m, channels) bfloat16, 16-byte aligned, channels a multiple of 8 up to
 // 2048; gamma, beta: channels float32; running_mean, running_var: channels
-// float32, updated in place; partials: blocks * 2 * channels float32
-// scratch; mean, invstd, scale, shift: channels float32 outputs. Returns
-// cudaGetLastError() after the launches.
+// float32, updated in place; partials: partial_floats >= 2 * channels *
+// blocks float32 scratch; counters: n_counters >= 2 int32, zero, and left
+// zero; mean, invstd, scale, shift: channels float32 outputs. One launch of
+// `blocks` blocks, at most as many as the card holds at once (its SMs x
+// bn_train_occupancy). Returns cudaGetLastError() after it.
 extern "C" int bn_train_stats(const void* x, const void* gamma, const void* beta,
-                              void* running_mean, void* running_var, void* partials, int blocks,
-                              void* mean, void* invstd, void* scale, void* shift, long long m,
-                              int channels, float eps, float momentum, void* stream) {
-  if (m < 1 || blocks < 1 || !layout_ok(channels) || !aligned16(x))
+                              void* running_mean, void* running_var, void* partials,
+                              long long partial_floats, void* counters, int n_counters,
+                              int blocks, void* mean, void* invstd, void* scale, void* shift,
+                              long long m, int channels, float eps, float momentum,
+                              void* stream) {
+  if (m < 1 || !layout_ok(channels) || !aligned16(x) ||
+      !scratch_ok(partial_floats, n_counters, blocks, 2, channels))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(channels, 2);
-  cudaError_t err = allow_smem((const void*)stats_partial, smem);
-  if (err != cudaSuccess) return (int)err;
-  stats_partial<<<blocks, kThreads, smem, s>>>(static_cast<const __nv_bfloat16*>(x),
-                                               static_cast<float*>(partials), m, channels);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  stats_finalize<<<(channels + 127) / 128, 128, 0, s>>>(
-      static_cast<const float*>(partials), blocks, m, channels,
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<float*>(running_mean), static_cast<float*>(running_var),
-      static_cast<float*>(mean), static_cast<float*>(invstd), static_cast<float*>(scale),
-      static_cast<float*>(shift), eps, momentum);
+  StatsArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
+              static_cast<const float*>(beta), static_cast<float*>(running_mean),
+              static_cast<float*>(running_var), static_cast<float*>(partials),
+              static_cast<int*>(counters), static_cast<float*>(mean),
+              static_cast<float*>(invstd), static_cast<float*>(scale),
+              static_cast<float*>(shift), m, channels,
+              combiners_for(blocks, channels), eps, momentum};
+  stats_kernel<<<blocks, kThreads, smem_bytes(channels, 2), static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
 // g: (m, channels) bfloat16 or null; g32: (m, channels) float32 or null;
 // out: the forward's bf16 output (the ReLU's mask) or null (no ReLU); y:
 // the conv output; mean, invstd, gamma: its statistics and scale; d,
-// mean_d, invstd_d, gamma_d: the branch (or null); partials: blocks * 3 *
-// channels float32 scratch; sums: 3 * channels float32 outputs (dbeta,
-// dgamma, dgamma_d; the branch's dbeta is dbeta); dy: (m, channels) bf16;
-// dres: (m, channels) float32 or null; dd: (m, channels) bf16 where d is
-// given. Returns cudaGetLastError() after the launches.
+// mean_d, invstd_d, gamma_d: the branch (or null); partials:
+// partial_floats >= (2 + branch) * channels * blocks float32 scratch;
+// counters: n_counters >= 2 int32, zero, and left zero; sums: 3 * channels
+// float32 outputs (dbeta, dgamma, dgamma_d; the branch's dbeta is dbeta);
+// dy: (m, channels) bf16; dres: (m, channels) float32 or null; dd: (m,
+// channels) bf16 where d is given. Two launches of `blocks` blocks (the
+// reduce, then the apply), at most as many as the card holds at once (its
+// SMs x bn_train_occupancy). Returns cudaGetLastError() after them.
 extern "C" int bn_train_backward(const void* g, const void* g32, const void* out, const void* y,
                                  const void* mean, const void* invstd, const void* gamma,
                                  const void* d, const void* mean_d, const void* invstd_d,
-                                 const void* gamma_d, void* partials, int blocks, void* sums,
+                                 const void* gamma_d, void* partials, long long partial_floats,
+                                 void* counters, int n_counters, int blocks, void* sums,
                                  void* dy, void* dres, void* dd, long long m, int channels,
                                  void* stream) {
-  if (m < 1 || blocks < 1 || !layout_ok(channels) || (d && !dd) || (d && dres) ||
+  const int n_sums = d ? 3 : 2;
+  if (m < 1 || !layout_ok(channels) || (d && !dd) || (d && dres) ||
+      !scratch_ok(partial_floats, n_counters, blocks, n_sums, channels) ||
       !(aligned16(g) && aligned16(g32) && aligned16(out) && aligned16(y) && aligned16(d) &&
         aligned16(dy) && aligned16(dres) && aligned16(dd)))
     return (int)cudaErrorInvalidValue;
@@ -340,23 +632,21 @@ extern "C" int bn_train_backward(const void* g, const void* g32, const void* out
              static_cast<const float*>(mean), static_cast<const float*>(invstd),
              static_cast<const float*>(gamma), static_cast<const __nv_bfloat16*>(d),
              static_cast<const float*>(mean_d), static_cast<const float*>(invstd_d),
-             static_cast<const float*>(gamma_d), static_cast<const float*>(sums),
+             static_cast<const float*>(gamma_d), static_cast<float*>(partials),
+             static_cast<int*>(counters), static_cast<float*>(sums),
              static_cast<__nv_bfloat16*>(dy), static_cast<float*>(dres),
-             static_cast<__nv_bfloat16*>(dd), m, channels};
-  const size_t smem = smem_bytes(channels, 3);
-  cudaError_t err = allow_smem((const void*)backward_partial, smem);
+             static_cast<__nv_bfloat16*>(dd), m, channels,
+             combiners_for(blocks, channels)};
+  const size_t smem = smem_bytes(channels, n_sums);
+  if (d)
+    backward_reduce<true><<<blocks, kThreads, smem, s>>>(a);
+  else
+    backward_reduce<false><<<blocks, kThreads, smem, s>>>(a);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  backward_partial<<<blocks, kThreads, smem, s>>>(a, static_cast<float*>(partials));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  backward_finalize<<<(3 * channels + 127) / 128, 128, 0, s>>>(
-      static_cast<const float*>(partials), blocks, channels, static_cast<float*>(sums));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long groups = m * (channels / 8);
-  long long grid = (groups + kThreads - 1) / kThreads;
-  if (grid > 8LL * sms) grid = 8LL * sms;
-  backward_apply<<<(int)grid, kThreads, 0, s>>>(a);
+  if (d)
+    backward_apply<true><<<blocks, kThreads, 0, s>>>(a);
+  else
+    backward_apply<false><<<blocks, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }

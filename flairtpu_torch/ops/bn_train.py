@@ -27,12 +27,21 @@ inference epilogue (``models/resnet.py:bn_site``).
 
 Each wrapper runs the plain PyTorch version for CPU tensors and launches the
 kernel for bfloat16 CUDA tensors; it has no fallback, and counts its
-launches (one a call, however many kernels the call runs).
+launches (one a call, however many kernels the call runs: the statistics
+are one, the backward two). :func:`launch_plan` sizes a call's grid and
+scratch; each call allocates its partials with ``torch.empty``, and the
+kernels' int32 ticket counters are cached, one pair per (device, stream):
+the kernels leave them at 0, and calls on one stream run in order, so no
+call needs a memset (a fresh zeroed pair would cost a fill launch a call,
+89 a train step). Nothing syncs with the host, so a call can be captured
+in a CUDA graph once a call outside the capture has made its stream's
+counters.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -42,11 +51,19 @@ from flairtpu_torch.ops.epilogue import conv_epilogue
 MOMENTUM = 0.9  # flax's, on the running average (torch's momentum 0.1)
 EPS = 1e-5
 THREADS = 256
-MAX_BLOCKS = 528  # 4 blocks on each of the H100's 132 SMs
-STATS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+# pixels a thread loads at once (csrc/bn_train.cu kStatsUnroll, kBackUnroll)
+UNROLL = {"stats": 4, "backward": 2}
+WARPS = THREADS // 32
+COMBINE_LOADS = 8  # partials a lane of the combine loads at once (kCombineLoads)
+COUNTERS = 2  # int32 ticket counters a call uses (kCounters)
+MIN_BLOCK_BYTES = 64 * 1024  # of the site's bf16 map, the least a block takes
+STATS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_int] + [ctypes.c_void_p] * 4 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-BACKWARD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+BACKWARD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                                              ctypes.c_int] + [ctypes.c_void_p] * 4 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
 
 # kernel launches on CUDA tensors since the last reset, one count per entry
 # point (the CPU path does not count)
@@ -74,12 +91,74 @@ def bn_stats_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return mean, invstd, scale, shift
 
 
-def _layout(x: torch.Tensor) -> tuple[int, int, int]:
-    """(pixels, channels, blocks) of the kernels' walk over x."""
-    C = x.shape[1]
-    m = x.numel() // C
-    rows = THREADS // (C // 8)
-    return m, C, max(1, min(-(-m // rows), MAX_BLOCKS))
+class Plan(NamedTuple):
+    """One call's launch: ``grid`` blocks of THREADS threads, each walking
+    tiles of ``tile`` pixels; ``sums`` per-channel sums a block writes; the
+    last ``combiners`` blocks to arrive combine them; float32 ``partials``
+    and int32 ``counters`` of scratch."""
+    grid: int
+    tile: int
+    sums: int
+    combiners: int
+    partials: int
+    counters: int
+
+
+def launch_plan(m: int, channels: int, mode: str, co_resident: int,
+                branch: bool = False) -> Plan:
+    """The grid and scratch of a ``mode`` call ("stats" or "backward", with
+    or without a ``branch``) over ``m`` pixels of ``channels``: blocks of
+    THREADS threads, C / 8 to a pixel, walk tiles of rows x UNROLL[mode]
+    pixels; each block takes whole tiles of at least MIN_BLOCK_BYTES of the
+    bf16 map, and the grid holds at most ``co_resident`` blocks (the card's
+    SMs times the kernel's occupancy), so a site smaller than one block's
+    share takes one block. The backward's two launches share the grid."""
+    rows = THREADS // (channels // 8)
+    tile = rows * UNROLL[mode]
+    min_tiles = -(-MIN_BLOCK_BYTES // (2 * tile * channels))
+    grid = max(1, min(co_resident, (m // tile) // min_tiles))
+    sums = 2 + (mode == "backward" and branch)
+    return Plan(grid, tile, sums, combiners(grid, channels), sums * channels * grid, COUNTERS)
+
+
+def combiners(grid: int, channels: int) -> int:
+    """The last blocks of a call that combine its sums (csrc/bn_train.cu
+    combiners_for): a team of warps to a channel, each lane loading at most
+    COMBINE_LOADS of a sum's partials, one channel a team."""
+    seg = 1
+    while seg < WARPS and seg * 32 * COMBINE_LOADS < grid:
+        seg *= 2
+    return min(grid, -(-channels * seg // WARPS))
+
+
+_CO_RESIDENT: dict[tuple, int] = {}
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _co_resident(device: torch.device, mode: str, channels: int, branch: bool = False) -> int:
+    """The blocks of ``mode``'s kernels that ``device`` holds at once: its
+    SMs times their occupancy at this channel count (queried once)."""
+    key = (device.index, mode, channels, branch)
+    n = _CO_RESIDENT.get(key)
+    if n is None:
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = _build.entry("bn_train", OCCUPANCY_ARGTYPES, "bn_train_occupancy")(
+                int(mode != "stats"), channels, int(branch), ctypes.byref(per_sm))
+        _build.check(err, "bn_train occupancy")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        n = _CO_RESIDENT[key] = sms * max(1, per_sm.value)
+    return n
+
+
+def _counters(device: torch.device, stream: int) -> torch.Tensor:
+    """The ticket counters of calls on ``stream``: zero, and left zero by
+    every call."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None:
+        buf = _COUNTERS[key] = torch.zeros(COUNTERS, dtype=torch.int32, device=device)
+    return buf
 
 
 def _check_map(t: torch.Tensor, like: torch.Tensor, dtype: torch.dtype, what: str) -> None:
@@ -121,18 +200,22 @@ def bn_stats(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if not _on_card(x, "bn_stats"):
         return bn_stats_plain(x, gamma, beta, running_mean, running_var, eps, momentum)
     _check_map(x, x, torch.bfloat16, "x")
-    m, C, blocks = _layout(x)
+    C = x.shape[1]
+    m = x.numel() // C
     for name, v in (("gamma", gamma), ("beta", beta), ("running_mean", running_mean),
                     ("running_var", running_var)):
         _check_vector(v, C, x.device, name)
-    partials = torch.empty((blocks, 2, C), dtype=torch.float32, device=x.device)
+    plan = launch_plan(m, C, "stats", _co_resident(x.device, "stats", C))
+    stream = _build.stream_handle(x)
+    partials = torch.empty(plan.partials, dtype=torch.float32, device=x.device)
+    counters = _counters(x.device, stream)
     out = torch.empty((4, C), dtype=torch.float32, device=x.device)
     mean, invstd, scale, shift = out
     err = _build.entry("bn_train", STATS_ARGTYPES, "bn_train_stats")(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), running_mean.data_ptr(),
-        running_var.data_ptr(), partials.data_ptr(), blocks, mean.data_ptr(),
-        invstd.data_ptr(), scale.data_ptr(), shift.data_ptr(), m, C, eps, momentum,
-        _build.stream_handle(x))
+        running_var.data_ptr(), partials.data_ptr(), partials.numel(), counters.data_ptr(),
+        counters.numel(), plan.grid, mean.data_ptr(), invstd.data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), m, C, eps, momentum, stream)
     _build.check(err, "bn_stats")
     launches += 1
     return mean, invstd, scale, shift
@@ -188,7 +271,8 @@ def bn_backward(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = T
         _check_map(g32, y, torch.float32, "g32")
     if relu:
         _check_map(out, y, torch.bfloat16, "out")
-    m, C, blocks = _layout(y)
+    C = y.shape[1]
+    m = y.numel() // C
     for name, v in (("mean", mean), ("invstd", invstd), ("gamma", gamma)):
         _check_vector(v, C, y.device, name)
     d = mean_d = invstd_d = gamma_d = dd = None
@@ -200,7 +284,12 @@ def bn_backward(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = T
         dd = torch.empty_like(d)
     dy = torch.empty_like(y)
     dres = torch.empty_like(y, dtype=torch.float32) if residual else None
-    partials = torch.empty((blocks, 3, C), dtype=torch.float32, device=y.device)
+    branched = branch is not None
+    plan = launch_plan(m, C, "backward", _co_resident(y.device, "backward", C, branched),
+                       branched)
+    stream = _build.stream_handle(y)
+    partials = torch.empty(plan.partials, dtype=torch.float32, device=y.device)
+    counters = _counters(y.device, stream)
     sums = torch.empty((3, C), dtype=torch.float32, device=y.device)
 
     def ptr(t):
@@ -208,8 +297,9 @@ def bn_backward(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = T
 
     err = _build.entry("bn_train", BACKWARD_ARGTYPES, "bn_train_backward")(
         ptr(g), ptr(g32), ptr(out) if relu else None, ptr(y), ptr(mean), ptr(invstd),
-        ptr(gamma), ptr(d), ptr(mean_d), ptr(invstd_d), ptr(gamma_d), ptr(partials), blocks,
-        ptr(sums), ptr(dy), ptr(dres), ptr(dd), m, C, _build.stream_handle(y))
+        ptr(gamma), ptr(d), ptr(mean_d), ptr(invstd_d), ptr(gamma_d), ptr(partials),
+        partials.numel(), ptr(counters), counters.numel(), plan.grid, ptr(sums), ptr(dy),
+        ptr(dres), ptr(dd), m, C, stream)
     _build.check(err, "bn_backward")
     backward_launches += 1
     dbeta, dgamma, dgamma_d = sums

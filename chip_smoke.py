@@ -59,8 +59,12 @@ Phases (any failure exits non-zero):
    three norm types, labels 0 and > K on disk, bf16 and float32, the identity
    and no mask; weighted_ce's forward (loss within CE_LOSS_RTOL, weight sum
    and confusion matrix exact) and backward (within CE_GRAD_TOL of the
-   largest |dlogit|) on batch-16 logits, with F.cross_entropy(weight=w) as
-   the forward's yardstick; bn_train's statistics (within BN_STAT_TOL, the
+   largest |dlogit|), two calls bit-identical, on batch-16 logits (random,
+   and coherent: 64 x 64 one-class targets, argmax = target on about 90%),
+   at a pixel count that is not a multiple of a tile (K = 19 and 32) and
+   through pointers off 16-byte alignment; timed by device time and call
+   time beside F.cross_entropy(weight=w) (the forward) and its VJP alone
+   (the backward); bn_train's statistics (within BN_STAT_TOL, the
    running statistics too) and backward (dy within BN_DY_TOL of the largest,
    dgamma and dbeta within BN_STAT_TOL, the residual's gradient exact) at
    every BatchNorm site geometry of resnet34-unet at batch 2 and at every
@@ -180,6 +184,7 @@ from flairtpu_torch.ops import _build
 from flairtpu_torch.ops import augment as au
 from flairtpu_torch.ops import bn_train as bt
 from flairtpu_torch.ops.bn_train_phases import device_ms
+from flairtpu_torch.ops.weighted_ce_phases import inputs as ce_inputs
 from flairtpu_torch.ops import epilogue as ep
 from flairtpu_torch.ops import weighted_ce as wc
 from flairtpu_torch.ops.bn_train import TrainSites
@@ -1979,45 +1984,114 @@ def check_augment(gen) -> dict:
             "library_ms": None, "bytes": nbytes, **bound(0, nbytes)}
 
 
-def check_weighted_ce(gen) -> dict:
-    """weighted_ce forward (loss, weight sum, confusion matrix) and backward
-    against the plain versions on train-step logits; timed, with
-    F.cross_entropy(weight=w) as the forward's yardstick."""
-    B = TRAIN_BATCH
-    logits = torch.randn((B, S, S, K), device="cuda", generator=gen) * 3
-    tgt = torch.randint(0, K, (B, S, S), dtype=torch.int32, device="cuda", generator=gen)
-    cfg = yaml.safe_load(TRAIN_CONFIG.read_text())
-    w = torch.tensor([float(v[0]) for v in cfg["classes"].values()], device="cuda")
-    cm, cmp = (torch.zeros((K, K), dtype=torch.int32, device="cuda") for _ in range(2))
+def ce_weights(k: int) -> torch.Tensor:
+    """configs/flair-1-config.yaml's class weights at K; 0 / 1 weights at
+    another k (the weight sum stays an exact integer in any order)."""
+    if k == K:
+        cfg = yaml.safe_load(TRAIN_CONFIG.read_text())
+        return torch.tensor([float(v[0]) for v in cfg["classes"].values()], device="cuda")
+    return torch.tensor([float(c % 5 != 3) for c in range(k)], device="cuda")
+
+
+def check_ce_case(logits, tgt, w, what: str) -> dict:
+    """weighted_ce's forward (loss, weight sum, confusion matrix) and
+    backward against the plain versions on one input, and two calls of each
+    entry point giving the same bits."""
+    k = logits.shape[-1]
+    cm, cmp, cm2 = (torch.zeros((k, k), dtype=torch.int32, device="cuda") for _ in range(3))
+    g = torch.tensor(0.5, device="cuda")
     loss, ws = wc.weighted_ce(logits, tgt, w, cm)
     lossp, wsp = wc.weighted_ce_plain(logits, tgt, w, cmp)
-    g = torch.tensor(0.5, device="cuda")
     d, dp = wc.weighted_ce_grad(logits, tgt, w, ws, g), wc.weighted_ce_grad_plain(logits, tgt, w,
                                                                                  wsp, g)
+    loss2, ws2 = wc.weighted_ce(logits, tgt, w, cm2)
+    d2 = wc.weighted_ce_grad(logits, tgt, w, ws2, g)
     torch.cuda.synchronize()
     rel = abs(loss.item() - lossp.item()) / abs(lossp.item())
-    check(rel <= CE_LOSS_RTOL, f"weighted_ce loss {loss.item():.7f} vs plain "
+    check(rel <= CE_LOSS_RTOL, f"weighted_ce {what}: loss {loss.item():.7f} vs plain "
           f"{lossp.item():.7f}: relative {rel:.2e} <= {CE_LOSS_RTOL}")
-    check(ws.item() == wsp.item(), f"weighted_ce weight sum {ws.item()} == plain")
-    check(torch.equal(cm, cmp), f"weighted_ce confusion matrix exact ({int(cm.sum())} pixels)")
+    check(ws.item() == wsp.item(), f"weighted_ce {what}: weight sum {ws.item()} == plain")
+    check(torch.equal(cm, cmp), f"weighted_ce {what}: confusion matrix exact "
+          f"({int(cm.sum())} pixels, {float(cm.diagonal().sum()) / cm.sum().item():.3f} on "
+          "the diagonal)")
     derr = (d - dp).abs().max().item()
     scale = dp.abs().max().item()
-    check(derr <= CE_GRAD_TOL * scale, f"weighted_ce dlogits |diff| {derr:.2e} <= "
+    check(derr <= CE_GRAD_TOL * scale, f"weighted_ce {what}: dlogits |diff| {derr:.2e} <= "
           f"{CE_GRAD_TOL} x {scale:.2e}")
-    n = tgt.numel()
+    check(torch.equal(loss, loss2) and torch.equal(ws, ws2) and torch.equal(cm, cm2)
+          and torch.equal(d, d2), f"weighted_ce {what}: two calls give the same bits (loss, "
+          "weight sum, confusion matrix, dlogits)")
+    return {"loss_err": abs(loss.item() - lossp.item()), "grad_err": derr, "w_sum": ws, "g": g}
+
+
+def ce_library_backward(logits, tgt, w):
+    """The VJP alone of F.cross_entropy(weight=w) on the same logits: aten's
+    nll_loss2d_backward and _log_softmax_backward_data, the graph retained;
+    a function to time."""
+    with torch.inference_mode(False), torch.enable_grad():
+        lg = logits.clone().requires_grad_(True)
+        out = F.cross_entropy(lg.permute(0, 3, 1, 2), tgt.long(), weight=w.clone())
+
+    def run():
+        with torch.inference_mode(False), torch.enable_grad():
+            torch.autograd.grad(out, lg, retain_graph=True)
+
+    return run
+
+
+def check_weighted_ce(gen) -> dict:
+    """weighted_ce forward (loss, weight sum, confusion matrix) and backward
+    against the plain versions and two calls' bits, at the train batch on a
+    random and a coherent input (ce_inputs), at a pixel count that is not a
+    multiple of a tile (K = 19 and 32) and through pointers one pixel off
+    16-byte alignment; each entry point timed on both train-batch inputs by
+    device time (device_ms) and call time (cuda_ms), beside F.cross_entropy
+    (weight=w): its forward, and its backward alone."""
+    w = ce_weights(K)
+    ragged = torch.Generator("cuda").manual_seed(SEED + 1)
+    for k in (K, 32):
+        logits = torch.randn((3, 37, 41, k), device="cuda", generator=ragged) * 3
+        tgt = torch.randint(0, k, (3, 37, 41), dtype=torch.int32, device="cuda",
+                            generator=ragged)
+        check_ce_case(logits, tgt, ce_weights(k), f"ragged, {tgt.numel()} pixels, K = {k}")
+    n = 2 * S * S
+    base = torch.randn((n + 1, K), device="cuda", generator=ragged) * 3
+    base_t = torch.randint(0, K, (n + 1,), dtype=torch.int32, device="cuda", generator=ragged)
+    logits, tgt = base[1:], base_t[1:]
+    check(logits.data_ptr() % 16 != 0 and tgt.data_ptr() % 16 != 0,
+          "weighted_ce: the unaligned case's pointers are not 16-byte aligned")
+    check_ce_case(logits, tgt, w, f"unaligned, {n} pixels at an offset of one pixel")
+    del base, base_t, logits, tgt
+
+    n = TRAIN_BATCH * S * S
     fwd_bytes, bwd_bytes = 4 * n * K + 4 * n, 8 * n * K + 4 * n
-    lib = lambda: F.cross_entropy(logits.permute(0, 3, 1, 2), tgt.long(), weight=w)  # noqa: E731
-    fwd = {"mode": "forward", "max_abs_err": abs(loss.item() - lossp.item()),
-           "ms": cuda_ms(lambda: wc.weighted_ce(logits, tgt, w, cm)),
-           "plain_ms": cuda_ms(lambda: wc.weighted_ce_plain(logits, tgt, w, cmp), 5, 1),
-           "library_ms": cuda_ms(lib), "bytes": fwd_bytes,
-           **bound(6 * n * K, fwd_bytes, PEAK_FP32_FLOPS)}
-    bwd = {"mode": "backward", "max_abs_err": derr,
-           "ms": cuda_ms(lambda: wc.weighted_ce_grad(logits, tgt, w, ws, g)),
-           "plain_ms": cuda_ms(lambda: wc.weighted_ce_grad_plain(logits, tgt, w, wsp, g), 5, 1),
-           "library_ms": None, "bytes": bwd_bytes, **bound(8 * n * K, bwd_bytes,
-                                                            PEAK_FP32_FLOPS)}
-    return {"forward": fwd, "backward": bwd}
+    rows = {}
+    for kind in ("random", "coherent"):
+        logits, tgt = ce_inputs(kind, gen, TRAIN_BATCH, S, K)
+        r = check_ce_case(logits, tgt, w, f"{kind}, batch {TRAIN_BATCH}")
+        ws, g = r["w_sum"], r["g"]
+        cm = torch.zeros((K, K), dtype=torch.int32, device="cuda")
+
+        def lib():
+            return F.cross_entropy(logits.permute(0, 3, 1, 2), tgt.long(), weight=w)
+
+        rows[f"forward {kind}"] = {
+            "mode": f"forward, {kind} input", "max_abs_err": r["loss_err"],
+            "ms": device_ms(lambda: wc.weighted_ce(logits, tgt, w, cm)),
+            "call_ms": cuda_ms(lambda: wc.weighted_ce(logits, tgt, w, cm)),
+            "plain_ms": cuda_ms(lambda: wc.weighted_ce_plain(logits, tgt, w, cm), 5, 1),
+            "library_ms": device_ms(lib), "bytes": fwd_bytes,
+            **bound(6 * n * K, fwd_bytes, PEAK_FP32_FLOPS)}
+        rows[f"backward {kind}"] = {
+            "mode": f"backward, {kind} input", "max_abs_err": r["grad_err"],
+            "ms": device_ms(lambda: wc.weighted_ce_grad(logits, tgt, w, ws, g)),
+            "call_ms": cuda_ms(lambda: wc.weighted_ce_grad(logits, tgt, w, ws, g)),
+            "plain_ms": cuda_ms(lambda: wc.weighted_ce_grad_plain(logits, tgt, w, ws, g), 5, 1),
+            "library_ms": device_ms(ce_library_backward(logits, tgt, w)), "bytes": bwd_bytes,
+            **bound(8 * n * K, bwd_bytes, PEAK_FP32_FLOPS)}
+        del logits, tgt
+        torch.cuda.empty_cache()
+    return rows
 
 
 class TrainSiteRecorder(TrainSites):
@@ -2657,7 +2731,7 @@ def train_breakdown(cfg: dict, state: dict, batch: dict) -> dict:
     augment_normalize with the batch's upload, the forward, forward +
     backward, the SGD update, the whole step) and the profiler's kernel
     table of one step, with the share of the step's wall time the card was
-    busy and the device time of bn_train's kernels in it."""
+    busy and the device time of bn_train's and weighted_ce's kernels in it."""
     from torch.profiler import ProfilerActivity, profile
 
     tr = SegmentationTrainer(cfg)
@@ -2690,6 +2764,10 @@ def train_breakdown(cfg: dict, state: dict, batch: dict) -> dict:
     for kernel in BN_KERNELS:  # bn_train's kernels, summed over the step's launches
         ms[f"profiled_{kernel}"] = sum(e.self_device_time_total for e in events
                                        if f"::{kernel}" in e.key) / 1e3
+    # weighted_ce's forward and backward kernels (csrc/weighted_ce.cu)
+    ms["profiled_weighted_ce"] = sum(e.self_device_time_total for e in events
+                                     if str(e.device_type).endswith("CUDA")
+                                     and "weighted_ce" in e.key) / 1e3
     return {"stage_ms": ms, "busy_share": busy_ms / wall_ms,
             "kernel_table": events.table(sort_by="self_cuda_time_total", row_limit=20)}
 
@@ -2934,12 +3012,15 @@ def main() -> int:
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
 
         for name, r in (("fused_tail argmax, margin 0, batch 16", tail0),
-                        ("augment_normalize, batch 16", augment),
-                        ("weighted_ce forward, batch 16", ce["forward"]),
-                        ("weighted_ce backward, batch 16", ce["backward"])):
+                        ("augment_normalize, batch 16", augment)):
             print(f"    {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
                   f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
                   flush=True)
+        for r in ce.values():
+            print(f"    weighted_ce {r['mode']}, batch 16: device {r['ms']:.4f} ms "
+                  f"({r['bound_ms'] / r['ms']:.0%} of its bound), call {r['call_ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
         for mode, what in (("stats", f"{bn['counts']['bn']} BatchNorms"),
                            ("backward", f"{bn['counts']['sites']} sites")):
             r = bn[mode]
@@ -3106,16 +3187,20 @@ def main() -> int:
                      ":339-342 (XLA-fused D4 augmentation, label cleaning, normalize_device)",
          "launches": flair["launches"]["augment_normalize"], "max_abs_err": 0,
          **numbers(augment), "library_ms": None},
-        # the forward's numbers (launches: phase 4's train steps and eval batches);
-        # library: F.cross_entropy(weight=w), the loss only
+        # the forward's numbers on the random input, by device time (launches:
+        # phase 4's train steps and eval batches); each entry point on each
+        # input in its modes. library: F.cross_entropy(weight=w), the loss
+        # only (forward), and its VJP alone (backward: nll_loss2d_backward +
+        # _log_softmax_backward_data, the graph retained)
         {"name": "weighted_ce", "route": "cuda", "source": f"{src}/weighted_ce.cu",
          "replaces": "flairtpu/train/loop.py:255-269 (_loss and its VJP) with :307-310 and "
                      "flairtpu/ops/confmat.py:19-41 (the confusion matrix)",
          "launches": flair["launches"]["weighted_ce"],
-         "max_abs_err": max(ce["forward"]["max_abs_err"], ce["backward"]["max_abs_err"]),
-         **numbers(ce["forward"]), "library_ms": ce["forward"]["library_ms"],
-         "modes": [dict(ce["forward"], launches=flair["launches"]["weighted_ce"]),
-                   dict(ce["backward"], launches=flair["launches"]["weighted_ce_backward"])]},
+         "max_abs_err": max(r["max_abs_err"] for r in ce.values()),
+         **numbers(ce["forward random"]), "call_ms": ce["forward random"]["call_ms"],
+         "library_ms": ce["forward random"]["library_ms"],
+         "modes": [dict(r, launches=flair["launches"]["weighted_ce" if key.startswith(
+             "forward") else "weighted_ce_backward"]) for key, r in ce.items()]},
         # the statistics of one batch-16 step's 46 BatchNorms, summed
         # (launches: phase 4's), library torch.var_mean(correction=0) on each;
         # the backward's 43 sites in its mode; max_abs_err the largest scaled

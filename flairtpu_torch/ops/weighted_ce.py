@@ -16,12 +16,20 @@ step waits on the host); its backward writes ``g * (softmax - onehot) *
 w[t] / max(wsum, 1e-8)``. Eval calls :func:`weighted_ce` under no_grad.
 
 Each wrapper runs the plain PyTorch version for CPU tensors and launches the
-kernel for CUDA tensors; it has no fallback, and counts its launches.
+kernel for CUDA tensors; it has no fallback, and counts its launches (one a
+call: each entry point is one launch). :func:`launch_plan` sizes a call's
+grid (a persistent grid: the card's SMs times the kernel's occupancy, never
+more blocks than tiles of TILE pixels) and the forward's scratch: the int32
+ticket counter, then a (sum, weight sum) pair a block. The scratch is
+cached, one buffer per (device, stream): the kernel leaves the counter at
+0 and calls on one stream run in order, so no call needs a memset, and
+nothing syncs with the host.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -32,9 +40,12 @@ FORWARD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p, ctype
                                             ctypes.c_int, ctypes.c_void_p]
 BACKWARD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                              ctypes.c_void_p]
+OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
 MAX_CLASSES = 32
 THREADS = 256
-MAX_BLOCKS = 1056  # 8 blocks of 256 threads on each of the H100's 132 SMs
+TILE = 256  # pixels a tile, one a thread (csrc/weighted_ce.cu kTile)
+STAGES = {"forward": 3, "backward": 3}  # tiles of a block's ring (kForwardStages, ...)
+COUNTER_WORDS = 4  # int32s before the forward's partials: the ticket, then padding
 
 # kernel launches on CUDA tensors since the last reset, one count per entry
 # point (the CPU path does not count)
@@ -97,8 +108,63 @@ def _on_card(logits: torch.Tensor) -> bool:
     return True
 
 
-def _blocks(n: int) -> int:
-    return max(1, min(-(-n // THREADS), MAX_BLOCKS))
+class Plan(NamedTuple):
+    """One call's launch: ``grid`` blocks walk the ``tiles`` tiles of TILE
+    pixels (tile b, b + grid, ...); the first ``bulk_tiles`` move by TMA
+    bulk copies, the rest (the last, ragged tile; every tile where a pointer
+    is not 16-byte aligned) by 4-byte loads. A block's ring holds
+    ``ring_bytes`` of dynamic shared memory, ``stage_bytes`` a tile (its
+    logits, then its targets); the forward's scratch is ``scratch_words``
+    32-bit words."""
+    grid: int
+    tiles: int
+    bulk_tiles: int
+    stage_bytes: int
+    ring_bytes: int
+    scratch_words: int
+
+
+def launch_plan(n: int, k: int, mode: str, co_resident: int, aligned: bool = True) -> Plan:
+    """The launch of a ``mode`` call ("forward" or "backward") over ``n``
+    pixels of ``k`` classes, with at most ``co_resident`` blocks (the card's
+    SMs times the kernel's occupancy). ``aligned``: the pointers are 16-byte
+    aligned; the kernel checks them itself, so only ``bulk_tiles`` (what it
+    will copy by TMA) depends on it."""
+    tiles = -(-n // TILE)
+    grid = max(1, min(co_resident, tiles))
+    stage = TILE * (k + 1) * 4
+    return Plan(grid, tiles, n // TILE if aligned else 0, stage, STAGES[mode] * stage,
+                COUNTER_WORDS + 2 * grid if mode == "forward" else 0)
+
+
+_CO_RESIDENT: dict[tuple, int] = {}
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _co_resident(device: torch.device, mode: str, k: int) -> int:
+    """The blocks of ``mode``'s kernel that ``device`` holds at once: its
+    SMs times the kernel's occupancy at k classes (queried once)."""
+    key = (device.index, mode, k)
+    n = _CO_RESIDENT.get(key)
+    if n is None:
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = _build.entry("weighted_ce", OCCUPANCY_ARGTYPES, "weighted_ce_occupancy")(
+                int(mode == "backward"), k, ctypes.byref(per_sm))
+        _build.check(err, "weighted_ce occupancy")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        n = _CO_RESIDENT[key] = sms * max(1, per_sm.value)
+    return n
+
+
+def _scratch(device: torch.device, stream: int, words: int) -> torch.Tensor:
+    """The forward's scratch on ``stream``: its ticket counter zero, and
+    left zero by every call; grown (zeroed anew) when a call needs more."""
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = _SCRATCH[key] = torch.zeros(words, dtype=torch.int32, device=device)
+    return buf
 
 
 def weighted_ce(logits: torch.Tensor, target: torch.Tensor, weight: torch.Tensor,
@@ -110,13 +176,14 @@ def weighted_ce(logits: torch.Tensor, target: torch.Tensor, weight: torch.Tensor
     if not _on_card(logits):
         return weighted_ce_plain(logits, target, weight, cm)
     n, k = target.numel(), logits.shape[-1]
-    blocks = _blocks(n)
-    partials = torch.empty(2 * blocks, dtype=torch.float32, device=logits.device)
+    plan = launch_plan(n, k, "forward", _co_resident(logits.device, "forward", k))
+    stream = _build.stream_handle(logits)
+    scratch = _scratch(logits.device, stream, plan.scratch_words)
     out = torch.empty(2, dtype=torch.float32, device=logits.device)
     err = _build.entry("weighted_ce", FORWARD_ARGTYPES, "weighted_ce_forward")(
         logits.data_ptr(), target.data_ptr(), weight.data_ptr(),
-        None if cm is None else cm.data_ptr(), partials.data_ptr(), blocks, out.data_ptr(),
-        n, k, _build.stream_handle(logits))
+        None if cm is None else cm.data_ptr(), scratch.data_ptr(), plan.grid, out.data_ptr(),
+        n, k, stream)
     _build.check(err, "weighted_ce")
     launches += 1
     return out[0], out[1]
@@ -133,9 +200,10 @@ def weighted_ce_grad(logits: torch.Tensor, target: torch.Tensor, weight: torch.T
     grad = grad.float().reshape(1).contiguous()
     d = torch.empty_like(logits)
     n, k = target.numel(), logits.shape[-1]
+    plan = launch_plan(n, k, "backward", _co_resident(logits.device, "backward", k))
     err = _build.entry("weighted_ce", BACKWARD_ARGTYPES, "weighted_ce_backward")(
         logits.data_ptr(), target.data_ptr(), weight.data_ptr(), w_sum.data_ptr(),
-        grad.data_ptr(), d.data_ptr(), _blocks(n), n, k, _build.stream_handle(logits))
+        grad.data_ptr(), d.data_ptr(), plan.grid, n, k, _build.stream_handle(logits))
     _build.check(err, "weighted_ce_backward")
     backward_launches += 1
     return d

@@ -57,7 +57,12 @@ Phases (any failure exits non-zero):
    margin 0 on whole 512 tiles at batch 16 (flair predict), as above;
    augment_normalize bit for bit (torch.equal) for all 16 D4 choices, the
    three norm types, labels 0 and > K on disk, bf16 and float32, the identity
-   and no mask; weighted_ce's forward (loss within CE_LOSS_RTOL, weight sum
+   and no mask at the train batch (its tiled instance), and at the edge
+   geometries of AUG_EDGES (500², C = 1, 3, 8 and 12, batch 1, pointers one
+   byte off alignment, a 384 x 512 identity: the general instance; C = 1, 3
+   and 8 and batch 1 at 512²: the tiled one), each with the instance
+   launch_plan chose and the wrapper launched; timed by device time and
+   call time on the train, eval, predict and float32 calls; weighted_ce's forward (loss within CE_LOSS_RTOL, weight sum
    and confusion matrix exact) and backward (within CE_GRAD_TOL of the
    largest |dlogit|), two calls bit-identical, on batch-16 logits (random,
    and coherent: 64 x 64 one-class targets, argmax = target on about 90%),
@@ -134,7 +139,8 @@ Phases (any failure exits non-zero):
    normalization, augmentation, SGD at 0.02, accelerator tpu = the card) for
    3 epochs (12 steps), with PyTorch's default precision flags (cuDNN may
    use TF32), as a user's run has them. Checks each kernel's launches against steps x sites
-   (the counts set to 0 just before), finite losses, every artifact and
+   (the counts set to 0 just before; every augment_normalize launch through
+   its tiled instance), finite losses, every artifact and
    metrics.json's schema; prints train patches/s from epoch 2 and eval
    patches/s with their step and batch counts, the loader's wait, and
    predict patches/s over four warm batches beside flair_main's first call.
@@ -1228,7 +1234,8 @@ def run_plain(cfg: dict, method: str = "exact-clipping", stride: int | None = No
 def reset_launches() -> None:
     ft.launches = ft.probs_launches = ft.logits_launches = ga.launches = ep.launches = 0
     ga.typed_launches = ic.launches = qa.launches = 0
-    au.launches = wc.launches = wc.backward_launches = bt.launches = bt.backward_launches = 0
+    au.launches = au.tiled_launches = 0
+    wc.launches = wc.backward_launches = bt.launches = bt.backward_launches = 0
     for counts in (st.launches, ts.launches):
         for name in counts:
             counts[name] = 0
@@ -1951,11 +1958,66 @@ def choices_all(n: int, device="cuda") -> torch.Tensor:
     return torch.tensor([rows[i % 16] for i in range(n)], dtype=torch.int32, device=device)
 
 
+# augment_normalize's edge geometries: (batch, height, width, channels,
+# choices, mask, the instance launch_plan must choose); "offset" views the
+# image and mask one byte past a 16-byte boundary
+AUG_EDGES = {
+    "500², the 16 choices": (16, 500, 500, C, "all", True, "general"),
+    "C = 1 at 100²": (4, 100, 100, 1, "all", True, "general"),
+    "C = 3 at 100²": (4, 100, 100, 3, "all", True, "general"),
+    "C = 8 at 100²": (4, 100, 100, 8, "all", True, "general"),
+    "batch 1 at 500²": (1, 500, 500, C, "all", True, "general"),
+    "one byte off alignment, 512²": (4, S, S, C, "offset", True, "general"),
+    "384 x 512 identity": (2, 384, 512, C, None, True, "general"),
+    "C = 12 at 512²": (2, S, S, 12, "all", True, "general"),
+    "C = 1 at 512²": (16, S, S, 1, "all", True, "tiled"),
+    "C = 3 at 512²": (16, S, S, 3, "all", True, "tiled"),
+    "C = 8 at 512²": (16, S, S, 8, "all", False, "tiled"),
+    "batch 1 at 512²": (1, S, S, C, "all", True, "tiled"),
+}
+
+
+def augment_edge(gen, name: str) -> None:
+    """augment_normalize at one edge geometry, bf16 and float32, bit for bit
+    against its plain version; the instance launch_plan chose and the one the
+    wrapper launched are the expected ones."""
+    B, H, W, c, kind, has_mask, want = AUG_EDGES[name]
+    img = torch.randint(0, 256, (B * H * W * c + 1,), dtype=torch.uint8, device="cuda",
+                        generator=gen)
+    msk = torch.randint(0, K + 7, (B * H * W + 1,), dtype=torch.uint8, device="cuda",
+                        generator=gen)
+    lo = 1 if kind == "offset" else 0
+    img = img[lo:lo + B * H * W * c].view(B, H, W, c)
+    msk = msk[lo:lo + B * H * W].view(B, H, W) if has_mask else None
+    ch = None if kind is None else choices_all(B)
+    mean = torch.rand(c, device="cuda", generator=gen) * 120
+    mul = 1 / (30 + 50 * torch.rand(c, device="cuda", generator=gen))
+    aligned = all(t.data_ptr() % au.ALIGN == 0 for t in (img, msk) if t is not None)
+    check(aligned == (kind != "offset"), f"augment_normalize {name}: pointers aligned "
+          f"{aligned}")
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = au.launch_plan(B, H, W, c, dtype, has_mask, aligned)
+        tiled = au.tiled_launches
+        x, t = au.augment_normalize(img, msk, ch, mean, mul, K, dtype)
+        took = "tiled" if au.tiled_launches > tiled else "general"
+        xp, tp = au.augment_normalize_plain(img, msk, ch, mean, mul, K, dtype)
+        torch.cuda.synchronize()
+        check(plan.instance == want and took == want, f"augment_normalize {name} "
+              f"{str(dtype)[6:]}: launch_plan chose {plan.instance}, the wrapper launched "
+              f"{took}, expected {want}")
+        check(torch.equal(x, xp) and (t is None and tp is None or torch.equal(t, tp)),
+              f"augment_normalize {name} {str(dtype)[6:]} ({want}): equal bit for bit")
+
+
 def check_augment(gen) -> dict:
     """augment_normalize bit for bit against its plain version: all 16
     choices, the three norm types, labels 0 and > K on disk, bf16 and
-    float32, the identity (eval and predict) and no mask; timed at the train
-    batch with the config's custom normalization."""
+    float32, the identity (eval and predict) and no mask, at the train
+    batch (the tiled instance), then at the edge geometries of AUG_EDGES
+    (both instances); timed at the train batch with the config's custom
+    normalization by device time (device_ms) and call time (cuda_ms) on the
+    train call (the 16 choices, mask, bf16), eval's (identity, mask),
+    predict's (identity, no mask) and the train call in float32."""
     B = TRAIN_BATCH
     img = torch.randint(0, 256, (B, S, S, C), dtype=torch.uint8, device="cuda", generator=gen)
     msk = torch.randint(0, K + 7, (B, S, S), dtype=torch.uint8, device="cuda", generator=gen)
@@ -1964,6 +2026,7 @@ def check_augment(gen) -> dict:
              "scaling": au.norm_constants("scaling", channels=C),
              "without": au.norm_constants("without", channels=C)}
     ch = choices_all(B)
+    tiled = au.tiled_launches
     for name, (mean, mul) in norms.items():
         mean, mul = torch.from_numpy(mean).cuda(), torch.from_numpy(mul).cuda()
         for dtype in (torch.bfloat16, torch.float32):
@@ -1975,13 +2038,27 @@ def check_augment(gen) -> dict:
                 check(torch.equal(x, xp) and (t is None and tp is None or torch.equal(t, tp)),
                       f"augment_normalize {name} {str(dtype)[6:]} {what}: equal bit for bit")
         if name == "custom":
-            args = (img, msk, ch, mean, mul, K, torch.bfloat16)
-    nbytes = img.numel() + msk.numel() + 2 * img.numel() + 4 * msk.numel()
-    return {"max_abs_err": 0, "ms": cuda_ms(lambda: au.augment_normalize(*args)),
-            "plain_ms": cuda_ms(lambda: au.augment_normalize_plain(*args), 5, 1),
-            # no single PyTorch call flips, rotates per sample, normalizes and
-            # cleans the labels
-            "library_ms": None, "bytes": nbytes, **bound(0, nbytes)}
+            custom = mean, mul
+    check(au.tiled_launches - tiled == 18, f"augment_normalize: the train batch's 18 calls "
+          f"took the tiled instance ({au.tiled_launches - tiled})")
+    for name in AUG_EDGES:
+        augment_edge(gen, name)
+
+    mean, mul = custom
+    calls = {"train": (img, msk, ch, torch.bfloat16), "eval": (img, msk, None, torch.bfloat16),
+             "predict": (img, None, None, torch.bfloat16), "f32": (img, msk, ch, torch.float32)}
+    rows = {}
+    for mode, (x, mask, choices, dtype) in calls.items():
+        args = (x, mask, choices, mean, mul, K, dtype)
+        nbytes = x.numel() * (1 + dtype.itemsize) + (5 * mask.numel() if mask is not None
+                                                     else 0)
+        rows[mode] = {"mode": mode, "ms": device_ms(lambda: au.augment_normalize(*args)),
+                      "call_ms": cuda_ms(lambda: au.augment_normalize(*args)),
+                      "plain_ms": cuda_ms(lambda: au.augment_normalize_plain(*args), 5, 1),
+                      "bytes": nbytes, **bound(0, nbytes)}
+    # no single PyTorch call flips, rotates per sample, normalizes and cleans
+    # the labels
+    return {"max_abs_err": 0, **rows["train"], "library_ms": None, "calls": rows}
 
 
 def ce_weights(k: int) -> torch.Tensor:
@@ -2804,6 +2881,7 @@ def run_flair(tmp: Path, rng, card: str, profile: bool = False) -> dict:
     result = cli.flair_main([f"--conf={conf}"])
     wall = time.perf_counter() - t0
     launches = read_launches()
+    tiled = au.tiled_launches
 
     n_train, n_val, n_test = (n for _, n in FLAIR_SPLITS)
     steps = FLAIR_EPOCHS * (n_train // TRAIN_BATCH)
@@ -2813,6 +2891,8 @@ def run_flair(tmp: Path, rng, card: str, profile: bool = False) -> dict:
     check_launches(f"flair: {steps} train steps, {eval_batches} eval and {predict_batches} "
                    "predict batches", launches,
                    flair_expected(counts, steps, eval_batches, predict_batches))
+    check(tiled == launches["augment_normalize"], f"flair: all {launches['augment_normalize']} "
+          f"augment_normalize launches took the tiled instance ({tiled})")
     check(len(history) == FLAIR_EPOCHS, f"flair: {len(history)} epochs")
     losses = [(h["train_loss"], h["val_loss"]) for h in history]
     check(all(np.isfinite(v) for pair in losses for v in pair),
@@ -3011,11 +3091,15 @@ def main() -> int:
             print(f"    {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
 
-        for name, r in (("fused_tail argmax, margin 0, batch 16", tail0),
-                        ("augment_normalize, batch 16", augment)):
-            print(f"    {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-                  f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
-                  flush=True)
+        r = tail0
+        print(f"    fused_tail argmax, margin 0, batch 16: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        for r in augment["calls"].values():
+            print(f"    augment_normalize {r['mode']}, batch 16: device {r['ms']:.4f} ms "
+                  f"({r['bound_ms'] / r['ms']:.0%} of its bound), call {r['call_ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, library none, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)", flush=True)
         for r in ce.values():
             print(f"    weighted_ce {r['mode']}, batch 16: device {r['ms']:.4f} ms "
                   f"({r['bound_ms'] / r['ms']:.0%} of its bound), call {r['call_ms']:.4f} ms, "

@@ -18,12 +18,19 @@ probability 1/2, a rotation with probability 1/2 and then k uniform in
 packages the same choices.
 
 ``augment_normalize`` runs the plain PyTorch version for CPU tensors and
-launches the kernel for CUDA tensors; it has no fallback.
+launches the kernel for CUDA tensors; it has no fallback. The kernel has two
+instances, and :func:`launch_plan` chooses one from the shapes and the
+pointers' alignment: ``tiled`` (64 x 64 output tiles staged by cp.async,
+16-byte stores) for square patches whose side is a multiple of TILE, at
+most TILE_MAX_CHANNELS channels and 16-byte aligned tensors, which FLAIR's
+train, eval and predict batches are; ``general`` (32 x 32 tiles, byte
+loads and stores) for any other shape.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,11 +38,23 @@ import torch
 from flairtpu_torch.data.normalize import _check, reciprocal, scale_factor
 from flairtpu_torch.ops import _build
 
-ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int]
 MAX_CHANNELS = 32
+INSTANCES = {"general": 0, "tiled": 1}  # the C entry point's last argument
+# the general instance (csrc/augment_normalize.cu kTile, kThreads)
+GENERAL_TILE = 32
+GENERAL_THREADS = 256
+# the tiled instance (kBigTile, kBigThreads, kBigMaxChannels, kPadBytes, kAlign)
+TILE = 64
+TILE_THREADS = 256  # at most: a block is a whole number of a tile row's 16-byte chunks
+TILE_MAX_CHANNELS = 8
+PAD_BYTES = 4  # added to each staged row: an odd number of 4-byte words
+ALIGN = 16
 
-# kernel launches on CUDA tensors since the last reset (the CPU path does not count)
+# kernel launches on CUDA tensors since the last reset (the CPU path does not
+# count); tiled_launches counts those of the tiled instance among them
 launches = 0
+tiled_launches = 0
 
 
 def norm_constants(norm_type: str, means=(), stds=(), channels: int = 0,
@@ -89,6 +108,34 @@ def augment_normalize_plain(img: torch.Tensor, mask: torch.Tensor | None,
     return x, (None if tgt is None else tgt.contiguous())
 
 
+class Plan(NamedTuple):
+    """One call's launch: the instance, its grid (x: tile columns, y: tile
+    rows, z: samples), threads a block and dynamic shared memory."""
+    instance: str
+    grid: tuple[int, int, int]
+    threads: int
+    smem_bytes: int
+
+
+def launch_plan(batch: int, height: int, width: int, channels: int, out_dtype: torch.dtype,
+                has_mask: bool, aligned: bool) -> Plan:
+    """The instance and launch of a call. ``aligned``: every pointer (image,
+    mask, output, targets) is 16-byte aligned. The tiled instance takes
+    square patches whose side is a multiple of TILE (so every staged row,
+    W * C bytes and each output row of a tile are whole 16-byte chunks) with
+    at most TILE_MAX_CHANNELS channels; any other shape goes to the general
+    instance."""
+    if (height == width and height % TILE == 0 and channels <= TILE_MAX_CHANNELS
+            and aligned):
+        chunks = TILE * channels // (4 if out_dtype == torch.float32 else 8)  # a tile row's
+        threads = chunks * max(1, TILE_THREADS // chunks)
+        smem = TILE * (TILE * channels + PAD_BYTES) + (TILE * (TILE + PAD_BYTES)
+                                                       if has_mask else 0)
+        return Plan("tiled", (width // TILE, height // TILE, batch), threads, smem)
+    return Plan("general", (-(-width // GENERAL_TILE), -(-height // GENERAL_TILE), batch),
+                GENERAL_THREADS, GENERAL_TILE * GENERAL_TILE * (channels + 1))
+
+
 def _check_inputs(img, mask, choices, mean, mul) -> None:
     if img.dtype != torch.uint8 or img.dim() != 4 or not img.is_contiguous():
         raise ValueError(f"augment_normalize: img must be a contiguous (B, H, W, C) uint8 "
@@ -115,16 +162,22 @@ def _check_inputs(img, mask, choices, mean, mul) -> None:
                              f"float32 tensor on {img.device}")
 
 
+def _on_card(img: torch.Tensor) -> bool:
+    if img.device.type == "cpu":
+        return False
+    if img.device.type != "cuda":
+        raise RuntimeError(f"augment_normalize: unsupported device {img.device}")
+    return True
+
+
 def augment_normalize(img: torch.Tensor, mask: torch.Tensor | None,
                       choices: torch.Tensor | None, mean: torch.Tensor, mul: torch.Tensor,
                       n_classes: int, dtype: torch.dtype = torch.float32):
     """As :func:`augment_normalize_plain`. CPU tensors: the plain version.
     CUDA tensors: the kernel (bfloat16 or float32 output), or an error."""
-    global launches
-    if img.device.type not in ("cpu", "cuda"):
-        raise RuntimeError(f"augment_normalize: unsupported device {img.device}")
+    global launches, tiled_launches
     _check_inputs(img, mask, choices, mean, mul)
-    if img.device.type == "cpu":
+    if not _on_card(img):
         return augment_normalize_plain(img, mask, choices, mean, mul, n_classes, dtype)
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"augment_normalize: output dtype {dtype} (the kernel writes "
@@ -137,9 +190,13 @@ def augment_normalize(img: torch.Tensor, mask: torch.Tensor | None,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    aligned = all(t.data_ptr() % ALIGN == 0 for t in (img, mask, x, tgt) if t is not None)
+    plan = launch_plan(B, H, W, C, dtype, mask is not None, aligned)
     err = _build.entry("augment_normalize", ARGTYPES)(
         ptr(img), ptr(mask), ptr(choices), ptr(mean), ptr(mul), ptr(x), ptr(tgt),
-        B, H, W, C, n_classes, int(dtype == torch.float32), _build.stream_handle(img))
+        B, H, W, C, n_classes, int(dtype == torch.float32), _build.stream_handle(img),
+        INSTANCES[plan.instance])
     _build.check(err, "augment_normalize")
     launches += 1
+    tiled_launches += int(plan.instance == "tiled")
     return x, tgt

@@ -154,10 +154,33 @@ Phases (any failure exits non-zero):
    the confusion matrix's moved pixels within STEP_CM_SHARE), beside the
    plain step repeated and both orders in float32, which measure that
    drift.
-5. the kernels line, the card line, and last the JSON result line.
+4b. the reference's best configuration: ``use_metadata: true`` (a
+   flair_aerial_metadata.json for the phase's patches from the numpy seed:
+   Lambert-93 centroids, altitudes, UCE and other cameras, dates in
+   2018-2021, HHhMM times) with ``init_encoder_weights`` (a torchvision-keyed
+   resnet34 classifier .pth from the seed), through ``cli.flair_main`` for 2
+   epochs at batch 16 with 20 test patches (predict pads the last batch's
+   metadata): the launches against steps x sites (the MLP and its fusion are
+   plain PyTorch and launch none), finite losses, every artifact, train
+   patches/s from epoch 2 and predict patches/s; then one metadata train
+   step, the kernels' against the plain step on the same operands and
+   dropout masks, as phase 4's (without the float32 runs).
+4c. ``accumulate_steps: 2`` for one epoch (launches: two microbatches of
+   bn_train and weighted_ce a step, one augment_normalize; one accumulated
+   step against the plain accumulated step, the reversed run reversing
+   within each microbatch); ``resume_training_from_ckpt`` from phase 4's
+   ``last`` (the restored state equal to the saved one bit for bit, the run
+   going on at the next epoch); ``autosave_every_steps: 1`` resuming a
+   snapshot at epoch 1 step 1 (the epoch's last 3 steps trained, the
+   autosave cleared at the end). Each run with the counts set to 0 just
+   before it.
+5. the kernels line, the card line, the script's seconds, and last the JSON
+   result line.
 
     python3 chip_smoke.py --profile  # also one batch per program by stage, the profiler
-                                     # table, and the same for one flair train step
+                                     # table, the same for one flair train step with
+                                     # and without metadata, and the metadata MLP's
+                                     # and fusion's call and device ms
 """
 
 from __future__ import annotations
@@ -2475,18 +2498,21 @@ def flair_patch(rng, size: int) -> tuple[np.ndarray, np.ndarray]:
     return img, (cls + 1).astype(np.uint8)
 
 
-def write_flair_dataset(root: Path, rng) -> dict:
+def write_flair_dataset(root: Path, rng, splits=FLAIR_SPLITS, first: int = 0) -> dict:
     """FLAIR-like 512 x 512 x 5 uint8 patches and masks written with
-    flairtpu_torch.io, one CSV a split."""
+    flairtpu_torch.io, one CSV a split; file stems numbered from ``first``
+    across the splits, unique as FLAIR's (the metadata JSON's keys)."""
     csvs = {}
-    for split, n in FLAIR_SPLITS:
+    n_file = first
+    for split, n in splits:
         d = root / split
         d.mkdir(parents=True)
         rows = []
         for i in range(n):
             img, msk = flair_patch(rng, S)
             tr = Affine.from_origin(650000.0 + i * S * 0.2, 6860000.0, 0.2, 0.2)
-            ip, mp = d / f"IMG_{i:06d}.tif", d / f"MSK_{i:06d}.tif"
+            ip, mp = d / f"IMG_{n_file:06d}.tif", d / f"MSK_{n_file:06d}.tif"
+            n_file += 1
             write_array(ip, img, transform=tr, crs=2154, tiled=False)
             write_array(mp, msk, transform=tr, crs=2154, tiled=False)
             rows.append(f"{ip},{mp}")
@@ -2505,18 +2531,22 @@ def flair_config(root: Path, csvs: dict) -> dict:
     return cfg
 
 
-def flair_expected(counts: dict, steps: int, eval_batches: int, predict_batches: int) -> dict:
+def flair_expected(counts: dict, steps: int, eval_batches: int, predict_batches: int,
+                   micro: int = 1) -> dict:
     """Each kernel's launches for a flair run: per train step one
-    augment_normalize, one weighted_ce forward and backward, a statistics
-    launch a BatchNorm, a conv_epilogue and a backward launch a site; per
-    eval batch one augment_normalize, one weighted_ce and the full model's
-    conv_epilogue sites; per predict batch one augment_normalize, the
-    encoder's and decoder blocks 0-3's sites and one fused_tail."""
+    augment_normalize and, for each of its ``micro`` microbatches, one
+    weighted_ce forward and backward, a statistics launch a BatchNorm, a
+    conv_epilogue and a backward launch a site; per eval batch one
+    augment_normalize, one weighted_ce and the full model's conv_epilogue
+    sites; per predict batch one augment_normalize, the encoder's and
+    decoder blocks 0-3's sites and one fused_tail. The metadata MLP and its
+    fusion launch none of these."""
     out = dict.fromkeys(read_launches(), 0)
+    m = steps * micro
     out.update(augment_normalize=steps + eval_batches + predict_batches,
-               weighted_ce=steps + eval_batches, weighted_ce_backward=steps,
-               bn_stats=counts["bn"] * steps, bn_backward=counts["sites"] * steps,
-               conv_epilogue=counts["sites"] * (steps + eval_batches)
+               weighted_ce=m + eval_batches, weighted_ce_backward=m,
+               bn_stats=counts["bn"] * m, bn_backward=counts["sites"] * m,
+               conv_epilogue=counts["sites"] * (m + eval_batches)
                + counts["tail_sites"] * predict_batches,
                fused_tail=predict_batches)
     return out
@@ -2662,9 +2692,10 @@ class PlainTrainer(SegmentationTrainer):
         return au.augment_normalize_plain(batch["img"].to(self.device), batch["msk"].to(
             self.device), choices, self.norm_mean, self.norm_mul, self.num_classes, self.dtype)
 
-    def micro_step(self, x, tgt, cm):
-        loss = PlainWeightedCE.apply(self.model(x, epilogue=self.sites), tgt,
-                                     self.class_weights, cm)
+    def micro_step(self, x, tgt, cm, mtd=None, masks=None):
+        logits = self.model(x, epilogue=self.sites, mtd=mtd,
+                            dropout=self.generator if masks is None else masks)
+        loss = PlainWeightedCE.apply(logits, tgt, self.class_weights, cm)
         loss.backward()
         return loss.detach()
 
@@ -2684,26 +2715,42 @@ class CheckedTrainer(SegmentationTrainer):
         self.checker.note("augment", max(max_diff(x, xp), max_diff(tgt, tp)), x.shape)
         return x, tgt
 
-    def micro_step(self, x, tgt, cm):
-        loss = CheckedWeightedCE.apply(self.checker, self.model(x, epilogue=self.sites), tgt,
-                                       self.class_weights, cm)
+    def micro_step(self, x, tgt, cm, mtd=None, masks=None):
+        logits = self.model(x, epilogue=self.sites, mtd=mtd,
+                            dropout=self.generator if masks is None else masks)
+        loss = CheckedWeightedCE.apply(self.checker, logits, tgt, self.class_weights, cm)
         loss.backward()
         return loss.detach()
 
 
-def one_step(trainer, batch: dict, choices: torch.Tensor) -> dict:
-    """One forward and backward on ``batch`` with ``choices``: the loss,
-    the gradients, the running statistics after it and the confusion matrix."""
+class HeldStep:
+    """Stands in for a trainer's optimizer: ``step`` keeps the (mean)
+    gradients instead of applying them."""
+
+    def __init__(self, model: nn.Module):
+        self.names, self.params = zip(*model.named_parameters())
+        self.grads = None
+
+    def step(self) -> None:
+        self.grads = {n: p.grad.detach().clone() for n, p in zip(self.names, self.params)}
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+
+def one_step(trainer, batch: dict, choices: torch.Tensor, masks=None) -> dict:
+    """The trainer's train_step on ``batch`` with ``choices`` (and the
+    metadata MLP's keep ``masks``, one entry a microbatch), its optimizer
+    held back: the loss, the gradients, the running statistics after it and
+    the confusion matrix."""
+    trainer.opt = HeldStep(trainer.model)
     cm = trainer.new_confmat()
-    x, tgt = trainer.prepare(batch, True, choices)
-    loss = trainer.micro_step(x, tgt, cm)
+    loss = trainer.train_step(batch, cm, choices, masks)
     torch.cuda.synchronize()
-    out = {"loss": loss.item(), "cm": cm.clone(),
-           "grads": {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()},
-           "stats": {n: b.detach().clone() for n, b in trainer.model.named_buffers()
-                     if "running" in n}}
-    trainer.opt.zero_grad()
-    return out
+    return {"loss": loss.item(), "cm": cm.clone(), "grads": trainer.opt.grads,
+            "stats": {n: b.detach().clone() for n, b in trainer.model.named_buffers()
+                      if "running" in n}}
 
 
 @contextlib.contextmanager
@@ -2716,13 +2763,15 @@ def no_tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def check_step_sites(checker: StepChecker, counts: dict) -> dict:
-    """The site-by-site check of the kernels' step (StepChecker's records)."""
+def check_step_sites(checker: StepChecker, counts: dict, micro: int = 1) -> dict:
+    """The site-by-site check of the kernels' step (StepChecker's records),
+    over ``micro`` microbatches."""
     calls = checker.calls
-    check(calls == {"stats": counts["bn"], "epilogue": counts["sites"],
-                    "backward": counts["sites"]},
+    check(calls == {"stats": micro * counts["bn"], "epilogue": micro * counts["sites"],
+                    "backward": micro * counts["sites"]},
           f"train step, site by site: {calls} kernel calls each held to its plain version on "
-          f"the step's own operands ({counts['bn']} BatchNorms, {counts['sites']} sites)")
+          f"the step's own operands ({micro} x {counts['bn']} BatchNorms, {counts['sites']} "
+          "sites)")
     limits = {"augment": 0.0, "stats": BN_STAT_TOL, "epilogue": 0.0, "dy": BN_DY_TOL,
               "dgamma_dbeta": BN_GRAD_TOL, "dres": 0.0, "ce_loss": CE_LOSS_RTOL,
               "ce_weight_sum": 0.0, "ce_confmat": 0.0, "ce_grad": CE_GRAD_TOL}
@@ -2733,31 +2782,39 @@ def check_step_sites(checker: StepChecker, counts: dict) -> dict:
     return {part: {"err": e, "shape": list(sh)} for part, (e, sh) in checker.worst.items()}
 
 
-def compare_train_step(cfg: dict, state: dict, batch: dict, counts: dict) -> dict:
-    """One train step, from the same weights, batch and choices: the kernels'
-    step held site by site to the plain versions, then against the plain
-    step, beside the plain step's own drift (reversed batch, repeated, and
-    both orders in float32)."""
+def compare_train_step(cfg: dict, state: dict, batch: dict, counts: dict, masks=None,
+                       drift: bool = True) -> dict:
+    """One train step, from the same weights, batch, choices (and dropout
+    ``masks``, one entry a microbatch): the kernels' step held site by site
+    to the plain versions, then against the plain step, beside the plain
+    step on the samples reversed (within each microbatch: the same
+    microbatches in another order) and, with ``drift``, repeated and both
+    orders in float32."""
     runs = {}
+    A = int(cfg.get("accumulate_steps", 1))
+    perm = torch.arange(TRAIN_BATCH).view(A, TRAIN_BATCH // A).flip(1).flatten()
     choices = choices_all(TRAIN_BATCH)
-    rev = {k: v.flip(0) for k, v in batch.items() if k != "id"}
-    rev_choices = choices.flip(0).contiguous()
+    rev = {k: v[perm] for k, v in batch.items() if k != "id"}
+    rev_choices = choices[perm.to(choices.device)].contiguous()
+    rev_masks = masks and [[m.flip(0) for m in mb] for mb in masks]
     checker = StepChecker()
-    for name, make, b, ch in (
-            ("kernels", lambda: CheckedTrainer(cfg, checker), batch, choices),
-            ("plain", lambda: PlainTrainer(cfg), batch, choices),
-            ("plain, reversed", lambda: PlainTrainer(cfg), rev, rev_choices),
-            ("plain, again", lambda: PlainTrainer(cfg), batch, choices),
-            ("plain float32", lambda: PlainTrainer(cfg, torch.float32), batch, choices),
+    variants = [("kernels", lambda: CheckedTrainer(cfg, checker), batch, choices, masks),
+                ("plain", lambda: PlainTrainer(cfg), batch, choices, masks),
+                ("plain, reversed", lambda: PlainTrainer(cfg), rev, rev_choices, rev_masks)]
+    if drift:
+        variants += [
+            ("plain, again", lambda: PlainTrainer(cfg), batch, choices, masks),
+            ("plain float32", lambda: PlainTrainer(cfg, torch.float32), batch, choices, masks),
             ("plain float32, reversed", lambda: PlainTrainer(cfg, torch.float32), rev,
-             rev_choices)):
+             rev_choices, rev_masks)]
+    for name, make, b, ch, mk in variants:
         trainer = make()
         trainer.load_state(state)
         with no_tf32() if "float32" in name else contextlib.nullcontext():
-            runs[name] = one_step(trainer, b, ch)
+            runs[name] = one_step(trainer, b, ch, mk)
         del trainer
         torch.cuda.empty_cache()
-    out = {"sites": check_step_sites(checker, counts)}
+    out = {"sites": check_step_sites(checker, counts, A)}
     k, p, r = runs["kernels"], runs["plain"], runs["plain, reversed"]
     rel_loss = abs(k["loss"] - p["loss"]) / abs(p["loss"])
     check(rel_loss <= STEP_LOSS_RTOL, f"train step, free-running: loss {k['loss']:.6f} vs "
@@ -2765,7 +2822,6 @@ def compare_train_step(cfg: dict, state: dict, batch: dict, counts: dict) -> dic
           f"{STEP_LOSS_RTOL}")
     a, b0 = STEP_SLACK
     out.update(loss=k["loss"], plain_loss=p["loss"], reversed_loss=r["loss"])
-    f, fr = runs["plain float32"], runs["plain float32, reversed"]
     for what in ("grads", "stats"):
         got, floor = grad_rel(k[what], p[what]), grad_rel(r[what], p[what])
         bad = [n for n in got if got[n] > a * floor[n] + b0]
@@ -2773,23 +2829,25 @@ def compare_train_step(cfg: dict, state: dict, batch: dict, counts: dict) -> dic
         check(not bad, f"train step, free-running {what}: every tensor's relative L2 to the "
               f"plain step <= {a} x the reversed run's + {b0} (a bound on the drift; worst "
               f"{worst}: {got[worst]:.3e}, reversed {floor[worst]:.3e}; {len(bad)} over)")
-        drift = {"kernels": all_rel(k[what], p[what]), "reversed": all_rel(r[what], p[what]),
-                 "again": all_rel(runs["plain, again"][what], p[what]),
-                 "float32_reversed": all_rel(fr[what], f[what]),
-                 "float32_vs_bf16": all_rel(p[what], f[what])}
+        rel = {"kernels": all_rel(k[what], p[what]), "reversed": all_rel(r[what], p[what])}
         out[what] = {"worst": worst, "worst_rel_l2": got[worst], "reversed": floor[worst],
                      "median_rel_l2": float(np.median(list(got.values()))),
                      "median_rel_l2_reversed": float(np.median(list(floor.values()))),
-                     "median_rel_l2_float32_reversed": float(np.median(list(
-                         grad_rel(fr[what], f[what]).values()))),
-                     "all_rel_l2": drift}
-        print(f"    train step {what}, relative L2 over all tensors to the plain bf16 step: "
-              f"kernels {drift['kernels']:.3e}, plain reversed {drift['reversed']:.3e}, plain "
-              f"again {drift['again']:.3e}; plain float32 reversed to float32 "
-              f"{drift['float32_reversed']:.3e}; plain bf16 to float32 "
-              f"{drift['float32_vs_bf16']:.3e}; median over tensors {out[what]['median_rel_l2']:.3e} "
-              f"(reversed {out[what]['median_rel_l2_reversed']:.3e}, float32 reversed "
-              f"{out[what]['median_rel_l2_float32_reversed']:.3e})", flush=True)
+                     "all_rel_l2": rel}
+        line = (f"    train step {what}, relative L2 over all tensors to the plain bf16 step: "
+                f"kernels {rel['kernels']:.3e}, plain reversed {rel['reversed']:.3e}")
+        if drift:
+            f, fr = runs["plain float32"], runs["plain float32, reversed"]
+            rel.update(again=all_rel(runs["plain, again"][what], p[what]),
+                       float32_reversed=all_rel(fr[what], f[what]),
+                       float32_vs_bf16=all_rel(p[what], f[what]))
+            out[what]["median_rel_l2_float32_reversed"] = float(np.median(list(
+                grad_rel(fr[what], f[what]).values())))
+            line += (f", plain again {rel['again']:.3e}; plain float32 reversed to float32 "
+                     f"{rel['float32_reversed']:.3e}; plain bf16 to float32 "
+                     f"{rel['float32_vs_bf16']:.3e}")
+        print(f"{line}; median over tensors {out[what]['median_rel_l2']:.3e} (reversed "
+              f"{out[what]['median_rel_l2_reversed']:.3e})", flush=True)
     moved_k = int((k["cm"] - p["cm"]).abs().sum()) // 2
     moved_r = int((r["cm"] - p["cm"]).abs().sum()) // 2
     n_pix = int(p["cm"].sum())
@@ -2816,12 +2874,16 @@ def train_breakdown(cfg: dict, state: dict, batch: dict) -> dict:
     ch = choices_all(TRAIN_BATCH)
     x, tgt = tr.prepare(batch, True, ch)
 
+    mtd = tr.metadata(batch)
+
+    def forward():
+        return tr.model(x, epilogue=tr.sites, mtd=mtd, dropout=tr.generator)
+
     def forward_backward():
-        loss = WeightedCE.apply(tr.model(x, epilogue=tr.sites), tgt, tr.class_weights, None)
-        loss.backward()
+        WeightedCE.apply(forward(), tgt, tr.class_weights, None).backward()
 
     ms = {"augment_normalize_with_upload": cuda_ms(lambda: tr.prepare(batch, True, ch), 5, 1),
-          "forward": cuda_ms(lambda: tr.model(x, epilogue=tr.sites), 5, 1),
+          "forward": cuda_ms(forward, 5, 1),
           "forward_backward": cuda_ms(forward_backward, 5, 1),
           "sgd": cuda_ms(tr.opt.step, 5, 1)}
     tr.opt.zero_grad()
@@ -2863,58 +2925,28 @@ def torch_defaults():
         torch.backends.cudnn.allow_tf32 = prev
 
 
-def run_flair(tmp: Path, rng, card: str, profile: bool = False) -> dict:
-    """Phase 4: flair train / predict / metrics through cli.flair_main at
-    the config's full width, then one train step against the plain versions
-    (and with ``profile`` the train step's breakdown)."""
-    t0 = time.perf_counter()
-    csvs = write_flair_dataset(tmp / "flair", rng)
-    cfg = flair_config(tmp / "flair", csvs)
-    conf = tmp / "flair" / "flair.yaml"
-    conf.write_text(yaml.safe_dump(cfg))
-    print(f"    wrote {sum(n for _, n in FLAIR_SPLITS)} patches of {S}x{S}x{C} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    counts = train_site_counts(FlairSegmentationModel("resnet34", K, C))
-
-    reset_launches()
-    t0 = time.perf_counter()
-    result = cli.flair_main([f"--conf={conf}"])
-    wall = time.perf_counter() - t0
-    launches = read_launches()
-    tiled = au.tiled_launches
-
-    n_train, n_val, n_test = (n for _, n in FLAIR_SPLITS)
-    steps = FLAIR_EPOCHS * (n_train // TRAIN_BATCH)
-    history = result["train"]["history"]
-    eval_batches = (len(history) + 1) * (n_val // TRAIN_BATCH)  # each epoch, and the final validate
-    predict_batches = -(-n_test // TRAIN_BATCH)
-    check_launches(f"flair: {steps} train steps, {eval_batches} eval and {predict_batches} "
-                   "predict batches", launches,
-                   flair_expected(counts, steps, eval_batches, predict_batches))
-    check(tiled == launches["augment_normalize"], f"flair: all {launches['augment_normalize']} "
-          f"augment_normalize launches took the tiled instance ({tiled})")
-    check(len(history) == FLAIR_EPOCHS, f"flair: {len(history)} epochs")
-    losses = [(h["train_loss"], h["val_loss"]) for h in history]
-    check(all(np.isfinite(v) for pair in losses for v in pair),
-          "flair: every epoch's train and val loss finite: " +
-          ", ".join(f"{a:.4f}/{b:.4f}" for a, b in losses))
-
+def check_flair_outputs(label: str, cfg: dict, result: dict, test_csv: Path,
+                        n_test: int) -> dict:
+    """The artifacts of a flair_main run with train, predict and metrics:
+    the log, checkpoints, histories, PRED rasters (shape, georeferencing,
+    classes) and metrics.json's schema; returns the metrics JSON."""
     out = Path(cfg["paths"]["out_folder"], cfg["paths"]["out_model_name"])
     name = cfg["paths"]["out_model_name"]
     best = Path(result["train"]["best_path"])
     for rel in ("flair-compute.log", "used_csv_and_config", "metrics.jsonl", "history.json",
                 "last", "best", f"predictions_{name}", "metrics/confmat.npy",
                 "metrics/metrics.json"):
-        check((out / rel).exists(), f"flair artifact {rel}")
+        check((out / rel).exists(), f"{label} artifact {rel}")
     check(best.exists() and best.name.startswith("ckpt-") and best.name.endswith(f"_{name}"),
-          f"flair best checkpoint {best.name}")
+          f"{label} best checkpoint {best.name}")
     preds = sorted((out / f"predictions_{name}").glob("PRED_*.tif"))
-    check(len(preds) == n_test, f"flair: {len(preds)} PRED files")
-    with TiffReader(preds[0]) as r, TiffReader(str(csvs["test"]).replace(".csv", "") +
-                                               "/IMG_000000.tif") as src:
+    check(len(preds) == n_test, f"{label}: {len(preds)} PRED files")
+    first = Path(test_csv).read_text().split()[0].split(",")[0]
+    with TiffReader(out / f"predictions_{name}" / f"PRED_{Path(first).name}") as r, \
+            TiffReader(first) as src:
         check((r.width, r.height, r.count, r.crs) == (S, S, 1, src.crs) and
-              r.transform == src.transform, "flair PRED raster: 512 x 512 x 1, georeferenced")
-        check(int(r.read(1).max()) < K, f"flair PRED classes in [0, {K})")
+              r.transform == src.transform, f"{label} PRED raster: 512 x 512 x 1, georeferenced")
+        check(int(r.read(1).max()) < K, f"{label} PRED classes in [0, {K})")
     metrics = json.loads((out / "metrics" / "metrics.json").read_text())
     used = sum(1 for v in cfg["classes"].values() if v[0] != 0)
     check(metrics["Avg_metrics_name"] == ["mIoU", "Overall Accuracy", "Fscore", "Precision",
@@ -2922,9 +2954,78 @@ def run_flair(tmp: Path, rng, card: str, profile: bool = False) -> dict:
           and len(metrics["Avg_metrics"]) == 5 and len(metrics["classes"]) == used
           and all(len(metrics[k]) == used for k in ("per_class_iou", "per_class_fscore",
                                                    "per_class_precision", "per_class_recall")),
-          f"flair metrics.json: the reference's schema, {used} classes of weight != 0")
-    check(np.load(out / "metrics" / "confmat.npy").shape == (K, K), "flair confmat.npy (19, 19)")
+          f"{label} metrics.json: the reference's schema, {used} classes of weight != 0")
+    check(np.load(out / "metrics" / "confmat.npy").shape == (K, K),
+          f"{label} confmat.npy (19, 19)")
+    return metrics
 
+
+def counted_flair_main(cfg: dict, conf: Path) -> tuple[dict, dict, float]:
+    """cli.flair_main on ``cfg`` (written to ``conf``) with the counts set to
+    0 just before it: (its result, the launches, its wall seconds)."""
+    conf.write_text(yaml.safe_dump(cfg))
+    reset_launches()
+    t0 = time.perf_counter()
+    result = cli.flair_main([f"--conf={conf}"])
+    wall = time.perf_counter() - t0
+    return result, read_launches(), wall
+
+
+def check_flair_run(label: str, cfg: dict, result: dict, launches: dict, counts: dict,
+                    predict_batches: int) -> list:
+    """A run's launches against its steps x sites (each augment_normalize
+    through the tiled instance), its epochs and finite losses; returns the
+    (train, val) losses by epoch."""
+    history = result["train"]["history"]
+    epochs = result["train"]["epochs"]
+    micro = int(cfg.get("accumulate_steps", 1))
+    steps = sum(e["train_patches"] for e in epochs) // TRAIN_BATCH
+    n_val = sum(n for split, n in FLAIR_SPLITS if split == "val")
+    eval_batches = (len(epochs) + 1) * (n_val // TRAIN_BATCH)  # each epoch, and the final validate
+    check_launches(f"{label}: {steps} train steps of {micro} microbatch(es), {eval_batches} eval "
+                   f"and {predict_batches} predict batches", launches,
+                   flair_expected(counts, steps, eval_batches, predict_batches, micro))
+    check(au.tiled_launches == launches["augment_normalize"],
+          f"{label}: all {launches['augment_normalize']} augment_normalize launches took the "
+          f"tiled instance ({au.tiled_launches})")
+    losses = [(h["train_loss"], h["val_loss"]) for h in history]
+    check(all(np.isfinite(v) for pair in losses for v in pair),
+          f"{label}: every epoch's train and val loss finite: " +
+          ", ".join(f"{a:.4f}/{b:.4f}" for a, b in losses))
+    return losses
+
+
+def first_batch(cfg: dict, split: str = "train") -> dict:
+    ds = PatchDataset(gather_paths(cfg, split), cfg["channels"],
+                      use_metadata=bool(cfg.get("use_metadata")))
+    batches = iter(PatchLoader(ds, TRAIN_BATCH, pin=True))
+    batch = next(batches)
+    batches.close()
+    return batch
+
+
+def run_flair(tmp: Path, rng, card: str, profile: bool = False) -> dict:
+    """Phase 4: flair train / predict / metrics through cli.flair_main at
+    the config's full width, then one train step against the plain versions
+    (and with ``profile`` the train step's breakdown)."""
+    t0 = time.perf_counter()
+    csvs = write_flair_dataset(tmp / "flair", rng)
+    cfg = flair_config(tmp / "flair", csvs)
+    print(f"    wrote {sum(n for _, n in FLAIR_SPLITS)} patches of {S}x{S}x{C} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    counts = train_site_counts(FlairSegmentationModel("resnet34", K, C))
+
+    result, launches, wall = counted_flair_main(cfg, tmp / "flair" / "flair.yaml")
+    n_train, n_val, n_test = (n for _, n in FLAIR_SPLITS)
+    steps = FLAIR_EPOCHS * (n_train // TRAIN_BATCH)
+    history = result["train"]["history"]
+    eval_batches = (len(history) + 1) * (n_val // TRAIN_BATCH)
+    predict_batches = -(-n_test // TRAIN_BATCH)
+    losses = check_flair_run("flair", cfg, result, launches, counts, predict_batches)
+    check(len(history) == FLAIR_EPOCHS, f"flair: {len(history)} epochs")
+    metrics = check_flair_outputs("flair", cfg, result, csvs["test"], n_test)
+
+    best = Path(result["train"]["best_path"])
     state = ckpt_lib.CheckpointManager.restore(best)
     # predict once more, warm (flair_main's predict is one batch, its first):
     # the 64 train patches, 4 batches, through the same entry point
@@ -2967,14 +3068,248 @@ def run_flair(tmp: Path, rng, card: str, profile: bool = False) -> dict:
 
     print("  one train step, kernels against plain versions (same weights, batch, choices)",
           flush=True)
-    ds = PatchDataset(gather_paths(cfg, "train"), cfg["channels"])
-    batches = iter(PatchLoader(ds, TRAIN_BATCH, pin=True))
-    batch = next(batches)
-    batches.close()
+    batch = first_batch(cfg)
     step = compare_train_step(cfg, state, batch, counts)
-    out = {"stats": stats, "launches": launches, "step": step}
+    out = {"stats": stats, "launches": launches, "step": step, "cfg": cfg, "csvs": csvs,
+           "counts": counts, "history": history}
     if profile:
         out["breakdown"] = train_breakdown(cfg, state, batch)
+    return out
+
+
+# -- phase 4b: the reference's best configuration ---------------------------
+
+META_TEST = 20  # 4b's test patches: not a multiple of the batch, so predict pads mtd
+META_EPOCHS = 2
+META_CAMERAS = ("UCE-M3-f120-s06", "UCE-M1-f100-s03", "ADS100-f-A-s03", "DMC-f-B-s04")
+
+
+def write_metadata_json(path: Path, csvs: list, rng) -> None:
+    """flair_aerial_metadata.json for every image of ``csvs``, keyed by file
+    stem: Lambert-93 centroids over France, altitudes, UCE and other
+    cameras, dates in 2018-2021 and HHhMM times."""
+    meta = {}
+    for csv in csvs:
+        for row in Path(csv).read_text().split():
+            meta[Path(row.split(",")[0]).stem] = {
+                "patch_centroid_x": float(rng.uniform(100000, 1200000)),
+                "patch_centroid_y": float(rng.uniform(6050000, 7100000)),
+                "patch_centroid_z": float(rng.uniform(0, 3000)),
+                "camera": META_CAMERAS[int(rng.integers(0, len(META_CAMERAS)))],
+                "date": f"{int(rng.integers(2018, 2022))}-{int(rng.integers(1, 13)):02d}-"
+                        f"{int(rng.integers(1, 29)):02d}",
+                "time": f"{int(rng.integers(0, 24)):02d}h{int(rng.integers(0, 60)):02d}"}
+    path.write_text(json.dumps(meta))
+
+
+def resnet34_classifier(rng) -> dict:
+    """A torchvision-keyed resnet34 ImageNet classifier state dict from a
+    numpy seed (3 input channels, random BatchNorm statistics, the fc head)."""
+    sd = {}
+    for k, v in FlairSegmentationModel("resnet34", K, 3).encoder.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(0)
+            continue
+        if k.endswith("running_var"):
+            a = rng.uniform(0.5, 2.0, tuple(v.shape))
+        elif v.dim() == 1:
+            a = rng.normal(0.0 if "bias" in k or "mean" in k else 1.0, 0.1, tuple(v.shape))
+        else:
+            a = rng.standard_normal(tuple(v.shape)) * np.sqrt(2.0 / v[0].numel())
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    sd["fc.weight"] = torch.from_numpy((rng.standard_normal((1000, 512)) * 0.03).astype(
+        np.float32))
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def profiled_device_ms(fn, reps: int = 20) -> float:
+    """The device time of fn()'s kernels a call, by the profiler: for calls
+    of a few small kernels the events around back-to-back calls measure the
+    host's issue time instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e3 / reps
+
+
+def metadata_ms(cfg: dict, state: dict, batch: dict, masks) -> dict:
+    """The metadata MLP and its fusion at the step's shapes, forward and
+    forward + backward, the plain PyTorch ops a step adds: call time (CUDA
+    events around back-to-back calls) and device time (the profiler)."""
+    from flairtpu_torch.models.metadata_mlp import fuse_metadata
+
+    tr = SegmentationTrainer(cfg)
+    tr.load_state(state)
+    mtd = tr.metadata(batch)
+    emb = tr.model.enc(mtd, masks)
+    g_emb = torch.randn_like(emb)
+    feat = torch.randn((TRAIN_BATCH, 512, S // 32, S // 32), device="cuda",
+                       dtype=tr.dtype).contiguous(memory_format=torch.channels_last)
+    feat.requires_grad_()
+    g_feat = torch.randn_like(feat)
+    leaf = emb.detach().requires_grad_()
+    fns = {"mlp_forward": lambda: tr.model.enc(mtd, masks),
+           "mlp_forward_backward": lambda: torch.autograd.backward(tr.model.enc(mtd, masks),
+                                                                   g_emb),
+           "fusion_forward": lambda: fuse_metadata(feat, leaf),
+           "fusion_forward_backward": lambda: torch.autograd.backward(
+               fuse_metadata(feat, leaf), g_feat)}
+    out = {}
+    for name, fn in fns.items():
+        out[f"{name}_call"] = cuda_ms(fn)
+        out[f"{name}_device"] = profiled_device_ms(fn)
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_flair_metadata(tmp: Path, rng, card: str, main: dict, profile: bool = False) -> dict:
+    """Phase 4b: the reference's best configuration (U-Net/ResNet34 with
+    metadata and augmentation) with init_encoder_weights, through
+    cli.flair_main for META_EPOCHS epochs, predict over a test split that is
+    not a multiple of the batch, metrics; then one metadata train step
+    against the plain step on the same operands and dropout masks."""
+    from flairtpu_torch.models.metadata_mlp import MetadataMLP
+
+    root = tmp / "flair"
+    csvs, counts = main["csvs"], main["counts"]
+    test = write_flair_dataset(root, rng, (("test_meta", META_TEST),),
+                               first=sum(n for _, n in FLAIR_SPLITS))["test_meta"]
+    js = root / "flair_aerial_metadata.json"
+    write_metadata_json(js, [csvs["train"], csvs["val"], test], rng)
+    clf = root / "resnet34_classifier.pth"
+    torch.save(resnet34_classifier(rng), clf)
+    cfg = flair_config(root, csvs)
+    cfg["paths"].update(out_folder=str(root / "out_meta"), test_csv=str(test),
+                        path_metadata_aerial=str(js))
+    cfg.update(use_metadata=True, init_encoder_weights=str(clf), num_epochs=META_EPOCHS)
+
+    result, launches, wall = counted_flair_main(cfg, root / "flair_meta.yaml")
+    predict_batches = -(-META_TEST // TRAIN_BATCH)
+    losses = check_flair_run("flair metadata", cfg, result, launches, counts, predict_batches)
+    check(len(result["train"]["history"]) == META_EPOCHS,
+          f"flair metadata: {len(result['train']['history'])} epochs")
+    metrics = check_flair_outputs("flair metadata", cfg, result, test, META_TEST)
+    log = Path(cfg["paths"]["out_folder"], cfg["paths"]["out_model_name"],
+               "flair-compute.log").read_text()
+    check("encoder initialized from classifier weights" in log,
+          "flair metadata: the encoder initialized from the classifier .pth")
+    pred = result["predict"]
+    check(pred["patches"] == META_TEST, f"flair metadata: {pred['patches']} patches predicted "
+          f"in {predict_batches} batches, the last padded")
+    epochs = result["train"]["epochs"]
+    train_ps = (sum(e["train_patches"] for e in epochs[1:]) /
+                sum(e["train_seconds"] for e in epochs[1:]))
+    stats = {"train_patches_per_sec_from_epoch_2": train_ps,
+             "train_seconds_by_epoch": [e["train_seconds"] for e in epochs],
+             "loader_wait_seconds_by_epoch": [e["loader_wait_seconds"] for e in epochs],
+             "predict_patches_per_sec": pred["patches"] / pred["seconds"],
+             "predict_seconds": pred["seconds"], "losses": losses,
+             "miou": metrics["Avg_metrics"][0], "flair_main_wall_seconds": wall, "card": card}
+    print(f"  flair metadata on {card}: train {train_ps:.2f} patches/s from epoch 2 (loader "
+          f"wait {', '.join(f'{w:.3f}' for w in stats['loader_wait_seconds_by_epoch'])} s of "
+          f"{', '.join(f'{t:.3f}' for t in stats['train_seconds_by_epoch'])} s a epoch), "
+          f"predict {stats['predict_patches_per_sec']:.2f} patches/s ({pred['patches']} "
+          f"patches, {predict_batches} batches, first call), losses "
+          f"{', '.join(f'{a:.4f}/{b:.4f}' for a, b in losses)}, flair_main wall {wall:.1f} s",
+          flush=True)
+
+    print("  one metadata train step, kernels against plain versions (same weights, batch, "
+          "choices, dropout masks)", flush=True)
+    state = ckpt_lib.CheckpointManager.restore(result["train"]["best_path"])
+    batch = first_batch(cfg)
+    masks = [MetadataMLP().draw_masks(TRAIN_BATCH,
+                                      torch.Generator("cuda").manual_seed(SEED))]
+    step = compare_train_step(cfg, state, batch, counts, masks, drift=False)
+    out = {"stats": stats, "launches": launches, "step": step}
+    if profile:
+        out["metadata_ms"] = metadata_ms(cfg, state, batch, masks[0])
+        out["breakdown"] = train_breakdown(cfg, state, batch)
+    return out
+
+
+# -- phase 4c: accumulate_steps, resume, the step autosave -------------------
+
+def a1_config(cfg: dict, root: Path, name: str, **over) -> dict:
+    """``cfg`` training only, into its own out_folder."""
+    out = dict(cfg, **over)
+    out["paths"] = dict(cfg["paths"], out_folder=str(root / name))
+    out["tasks"] = dict(cfg["tasks"], predict=False, metrics=False)
+    return out
+
+
+def run_flair_a1(tmp: Path, main: dict) -> dict:
+    """Phase 4c: accumulate_steps 2 for one epoch (launches, then one
+    accumulated step against the plain accumulated step); a run resumed from
+    the main run's ``last`` checkpoint (the restored state bit for bit, the
+    run going on at the next epoch); a step autosave resumed mid-epoch."""
+    root = tmp / "flair"
+    cfg, counts = main["cfg"], main["counts"]
+    n_train = FLAIR_SPLITS[0][1]
+    out = {}
+
+    acfg = a1_config(cfg, root, "out_accum", accumulate_steps=2, num_epochs=1)
+    result, launches, _ = counted_flair_main(acfg, root / "flair_accum.yaml")
+    check_flair_run("flair accumulate_steps 2", acfg, result, launches, counts, 0)
+    print("  one accumulated step (2 microbatches), kernels against plain versions",
+          flush=True)
+    state = ckpt_lib.CheckpointManager.restore(result["train"]["best_path"])
+    out["accumulate"] = {"launches": launches,
+                         "step": compare_train_step(acfg, state, first_batch(acfg), counts,
+                                                    drift=False)}
+
+    last = Path(cfg["paths"]["out_folder"], cfg["paths"]["out_model_name"], "last")
+    saved = ckpt_lib.CheckpointManager.restore(last)
+    tr = SegmentationTrainer(cfg)
+    tr.load_state(saved)
+    got = tr.model.state_dict()
+    same = all(torch.equal(got[k].cpu(), v) for k, v in saved["state_dict"].items())
+    check(same and set(got) >= set(saved["state_dict"]) and
+          tr.opt.state_dict() == saved["opt_state"] and saved["epoch"] == FLAIR_EPOCHS - 1,
+          f"flair resume: the state restored from last (epoch {saved['epoch']}) equals the "
+          f"saved one bit for bit, {len(saved['state_dict'])} tensors and the optimizer's")
+    gen_state = tr.generator.get_state()
+    del tr
+    rcfg = a1_config(cfg, root, "out_resume", num_epochs=FLAIR_EPOCHS + 1)
+    rcfg["paths"]["ckpt_model_path"] = str(last)
+    rcfg["tasks"]["train_tasks"] = dict(cfg["tasks"]["train_tasks"],
+                                        resume_training_from_ckpt=True)
+    result, launches, _ = counted_flair_main(rcfg, root / "flair_resume.yaml")
+    check_flair_run("flair resume", rcfg, result, launches, counts, 0)
+    epochs = [h["epoch"] for h in result["train"]["history"]]
+    check(epochs == [FLAIR_EPOCHS], f"flair resume: went on at epoch {epochs}")
+    out["resume"] = {"launches": launches, "epochs": epochs}
+
+    scfg = a1_config(cfg, root, "out_autosave", autosave_every_steps=1, num_epochs=2)
+    run_dir = Path(scfg["paths"]["out_folder"], scfg["paths"]["out_model_name"])
+    ckpt_lib.StepAutosaver(run_dir, 1).save(
+        {"state_dict": saved["state_dict"], "opt_state": saved["opt_state"],
+         "generator": gen_state, "cm_sum": torch.zeros((K, K), dtype=torch.int64)},
+        {"epoch": 1, "step": 1, "loss_sum": 3.0, "n_batches": 1,
+         "plateau": {"lr": float(cfg["learning_rate"]), "best": None, "num_bad_epochs": 0,
+                     "cooldown_counter": 0},
+         "stopper": {"best": None, "wait": 0, "stopped": False},
+         "manager": {"best_metric": None, "best_path": None},
+         "history": main["history"][:1]})
+    result, launches, _ = counted_flair_main(scfg, root / "flair_autosave.yaml")
+    check_flair_run("flair autosave resume", scfg, result, launches, counts, 0)
+    epochs = [h["epoch"] for h in result["train"]["history"]]
+    patches = [e["train_patches"] for e in result["train"]["epochs"]]
+    check(epochs == [0, 1] and patches == [n_train - TRAIN_BATCH]
+          and not (run_dir / "autosave").exists(),
+          f"flair autosave: resumed at epoch 1 step 1 ({patches} patches trained, history "
+          f"epochs {epochs}), the autosave cleared at the end")
+    out["autosave"] = {"launches": launches, "epochs": epochs, "train_patches": patches}
+    for name, r in out.items():
+        print(f"  flair {name}: launches " + ", ".join(f"{k} {v}" for k, v in
+                                                      r["launches"].items() if v), flush=True)
     return out
 
 
@@ -2989,6 +3324,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
 
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     print(f"[1] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
@@ -3148,6 +3484,12 @@ def main() -> int:
               f"batch {TRAIN_BATCH}, {K} classes", flush=True)
         with torch_defaults():
             flair = run_flair(tmp, rng, card, profile=args.profile)
+            print(f"[4b] flair with use_metadata and init_encoder_weights: {META_EPOCHS} epochs, "
+                  f"{META_TEST} test patches", flush=True)
+            meta = run_flair_metadata(tmp, rng, card, flair, profile=args.profile)
+            print("[4c] flair with accumulate_steps 2, resume from last, the step autosave",
+                  flush=True)
+            a1 = run_flair_a1(tmp, flair)
         if args.profile:
             with torch.inference_mode():
                 prof = stage_breakdown(cfg, ZONE, rng, epi)
@@ -3156,6 +3498,11 @@ def main() -> int:
             print(flair["breakdown"]["kernel_table"])
             print(json.dumps({"train_step_ms": flair["breakdown"]["stage_ms"],
                               "busy_share": flair["breakdown"]["busy_share"], "card": card}),
+                  flush=True)
+            print(meta["breakdown"]["kernel_table"])
+            print(json.dumps({"metadata_train_step_ms": meta["breakdown"]["stage_ms"],
+                              "busy_share": meta["breakdown"]["busy_share"],
+                              "metadata_mlp_and_fusion_ms": meta["metadata_ms"], "card": card}),
                   flush=True)
 
     src = "flairtpu_torch/csrc"
@@ -3318,6 +3665,10 @@ def main() -> int:
     print(json.dumps({"stitch_timings": timed, "card": card}))
     print(json.dumps({"flair": flair["stats"], "train_step_vs_plain": flair["step"],
                       "launches": flair["launches"], "card": card}))
+    print(json.dumps({"flair_metadata": meta["stats"], "train_step_vs_plain": meta["step"],
+                      "launches": meta["launches"], "card": card}))
+    print(json.dumps({"flair_a1": a1, "card": card}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

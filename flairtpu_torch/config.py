@@ -140,9 +140,6 @@ _NORM_TYPES = ("scaling", "custom", "without")
 def _not_ported_train_knobs(cfg: dict) -> None:
     """The train knobs of ``flairtpu`` this port does not run yet raise here,
     naming where they come."""
-    if cfg["use_metadata"]:
-        raise not_ported("use_metadata: true (models/metadata_mlp.py, data/metadata.py)",
-                         "slice 4 follow-up: the metadata MLP")
     if cfg["param_sharding"] != "replicated":
         raise not_ported(f"param_sharding: {cfg['param_sharding']}", "slice 8: multi-device")
     for key in ("tensor_parallel", "spatial_parallel"):
@@ -153,9 +150,6 @@ def _not_ported_train_knobs(cfg: dict) -> None:
     if cfg["bn_dtype"] == "bfloat16":
         raise not_ported("bn_dtype: bfloat16 (the BatchNorm kernels reduce in float32)",
                          "a later slice")
-    if cfg["init_encoder_weights"]:
-        raise not_ported("init_encoder_weights (models/pretrained.py)",
-                         "slice 4 follow-up: pretrained encoders")
     if cfg["init_hf_pretrained"]:
         raise not_ported("init_hf_pretrained", "slice 7: the HF provider")
     if cfg.get("auxiliary_loss_weight"):
@@ -225,7 +219,19 @@ def validate_train_config(cfg: dict) -> dict:
     if not (isinstance(cfg["autosave_every_steps"], int) and cfg["autosave_every_steps"] >= 0):
         raise ConfigError("autosave_every_steps must be an integer >= 0.")
     cfg.setdefault("autosave_resume", True)
+    # pretrained-encoder init from a bare ImageNet classifier state dict
+    # (the explicit analog of smp's encoder_weights='imagenet' default;
+    # models/pretrained.py)
     cfg.setdefault("init_encoder_weights", "")
+    if cfg["init_encoder_weights"]:
+        if cfg["model_framework"]["model_provider"] != "SegmentationModelsPytorch":
+            raise ConfigError(
+                "init_encoder_weights applies to the SegmentationModelsPytorch "
+                "provider only (HuggingFace models: use init_hf_pretrained "
+                "with a local transformers checkpoint).")
+        if not Path(str(cfg["init_encoder_weights"])).exists():
+            raise ConfigError(
+                f"init_encoder_weights file not found: {cfg['init_encoder_weights']!r}")
     cfg.setdefault("init_hf_pretrained", "")
     cfg.setdefault("seed", 2022)
     cfg.setdefault("georeferencing_output", True)

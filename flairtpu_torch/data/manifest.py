@@ -2,14 +2,17 @@
 src/flair/tasks_utils.py:127-155).
 
 Header-less two-column CSVs: ``img_path,msk_path``. Returns the reference's
-``{'IMG': [...], 'MSK': [...], 'MTD': [...]}`` dict; ``use_metadata`` is not
-ported (``config.py`` refuses it), so ``MTD`` stays empty.
+``{'IMG': [...], 'MSK': [...], 'MTD': [...]}`` dict; with ``use_metadata``
+set, ``MTD`` holds each image's 45-d vector from
+``paths.path_metadata_aerial`` (``data/metadata.py``), else it is empty.
 """
 
 from __future__ import annotations
 
 import csv
 import os
+
+from flairtpu_torch.data.metadata import encode_metadata_for_paths
 
 
 class ManifestError(SystemExit):
@@ -32,4 +35,8 @@ def read_split_csv(path: str | None, split: str) -> tuple[list[str], list[str]]:
 def gather_paths(config: dict, split: str = "train") -> dict:
     key = {"train": "train_csv", "val": "val_csv", "test": "test_csv"}[split]
     images, labels = read_split_csv(config["paths"].get(key), split)
-    return {"IMG": images, "MSK": labels, "MTD": []}
+    if config.get("use_metadata"):
+        metadata = encode_metadata_for_paths(images, config["paths"]["path_metadata_aerial"])
+    else:
+        metadata = []
+    return {"IMG": images, "MSK": labels, "MTD": metadata}

@@ -29,10 +29,13 @@ from flairtpu_torch.io import TiffReader
 class PatchDataset:
     """Random-access reader over a manifest dict {'IMG', 'MSK', 'MTD'}."""
 
-    def __init__(self, files: dict, channels=(1, 2, 3, 4, 5), with_masks: bool = True):
+    def __init__(self, files: dict, channels=(1, 2, 3, 4, 5), use_metadata: bool = False,
+                 with_masks: bool = True):
         self.images = list(files["IMG"])
         self.masks = list(files.get("MSK", []))
+        self.metadata = list(files.get("MTD", []))
         self.channels = list(channels)
+        self.use_metadata = use_metadata
         self.with_masks = with_masks and any(self.masks)
 
     def __len__(self) -> int:
@@ -49,14 +52,17 @@ class PatchDataset:
             if msk.dtype != np.uint8:
                 msk = np.clip(msk, 0, 255).astype(np.uint8)
             out["msk"] = msk
+        if self.use_metadata:
+            out["mtd"] = np.asarray(self.metadata[idx], np.float32)
         return out
 
 
 class PatchLoader:
     """Batched iterator with threaded decode and bounded prefetch.
 
-    Yields dicts: ``img`` (B, H, W, C) and ``msk`` (B, H, W) uint8 as torch
-    tensors (pinned when ``pin`` is set), and ``id`` (list of paths). Each
+    Yields dicts: ``img`` (B, H, W, C) and ``msk`` (B, H, W) uint8 and, for a
+    dataset with ``use_metadata``, ``mtd`` (B, 45) float32, as torch tensors
+    (pinned when ``pin`` is set), and ``id`` (list of paths). Each
     ``__iter__`` advances the epoch for shuffling."""
 
     def __init__(self, dataset: PatchDataset, batch_size: int, shuffle: bool = False,
@@ -101,6 +107,8 @@ class PatchLoader:
                  "id": [it["id"] for it in items]}
         if "msk" in items[0]:
             batch["msk"] = self._stack([it["msk"] for it in items])
+        if "mtd" in items[0]:
+            batch["mtd"] = self._stack([it["mtd"] for it in items])
         return batch
 
     def __iter__(self):

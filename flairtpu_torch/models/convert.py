@@ -1,5 +1,5 @@
 """Weight loading (counterpart of ``flairtpu/models/convert.py:25-37`` and the
-inverse of its ``torch_to_flax`` for the resnet/unet keys).
+inverse of its ``torch_to_flax`` for the resnet/unet and metadata-MLP keys).
 
 The port's modules carry smp's key names, so an smp ``.pth`` state dict (or a
 Lightning ``.ckpt`` after ``normalize_keys``) loads into it strictly as it
@@ -59,6 +59,7 @@ def load_weights(model: torch.nn.Module, path: str | Path) -> None:
 
 _ENC_LAYER_RE = re.compile(r"^layer(\d+)_(\d+)$")
 _DEC_BLOCK_RE = re.compile(r"^block(\d+)$")
+_MLP_FC_RE = re.compile(r"^fc([012])$")
 _DEC_SUB = {"conv1": "conv1.0", "bn1": "conv1.1", "conv2": "conv2.0", "bn2": "conv2.1"}
 _ENC_SUB = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
 _LEAF = {("params", "kernel"): "weight", ("params", "bias"): "bias",
@@ -81,6 +82,10 @@ def _module_prefix(path: tuple[str, ...]) -> str:
             return f"decoder.blocks.{m.group(1)}.{_DEC_SUB[rest[1]]}"
     if top == "segmentation_head" and rest == ("conv",):
         return "segmentation_head.0"
+    if top == "metadata_mlp" and len(rest) == 1:
+        m = _MLP_FC_RE.match(rest[0])
+        if m:  # Linear, Dropout, ReLU a stage: the Linears at 0, 3, 6
+            return f"enc.enc_mlp.{3 * int(m.group(1))}"
     raise KeyError(f"no smp key for flax module {'/'.join(path)!r}")
 
 
@@ -93,14 +98,15 @@ def _leaves(tree: Mapping, prefix=()):
 
 
 def from_flax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
-    """flairtpu resnet-unet variables (numpy leaves) -> the port's state_dict."""
+    """flairtpu resnet-unet variables (numpy leaves), the metadata MLP's
+    included, -> the port's state_dict."""
     sd: dict[str, torch.Tensor] = {}
     for coll, tree in (("params", params), ("batch_stats", batch_stats)):
         for path, value in _leaves(tree):
             prefix = _module_prefix(path[:-1])
             arr = np.asarray(value, dtype=np.float32)
-            if path[-1] == "kernel":
-                arr = arr.transpose(3, 2, 0, 1)  # (kH, kW, I, O) -> (O, I, kH, kW)
+            if path[-1] == "kernel":  # (kH, kW, I, O) -> (O, I, kH, kW); (I, O) -> (O, I)
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             sd[f"{prefix}.{_LEAF[(coll, path[-1])]}"] = torch.from_numpy(
                 np.ascontiguousarray(arr))
             if coll == "batch_stats" and path[-1] == "mean":

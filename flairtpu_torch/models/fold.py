@@ -252,6 +252,8 @@ class FoldedZoneModel:
 def fold_model(model) -> FoldedZoneModel:
     """Fold a loaded FlairSegmentationModel (float32 weights, before
     ``prepare_inference``) in its compute dtype, on its device."""
+    if model.use_metadata:
+        raise ValueError("bn_fold: use_metadata is not supported")
     if model.encoder_name not in RESNET_SPECS:
         raise ValueError(f"bn_fold: supports the ResNet encoder families "
                          f"({', '.join(sorted(RESNET_SPECS))}); got {model.encoder_name!r}")

@@ -273,6 +273,8 @@ def quantize_model(config: dict, model, calib_batches) -> QuantizedZoneModel:
     normalized as the zone is) and quantize a loaded FlairSegmentationModel
     (float32 weights, before ``prepare_inference``) on its device
     (``quantize.py:378-427``)."""
+    if model.use_metadata:
+        raise ValueError("quantize: int8 does not support use_metadata")
     if model.encoder_name not in RESNET_SPECS:
         raise ValueError(f"quantize: int8 supports the ResNet encoder families "
                          f"({', '.join(sorted(RESNET_SPECS))}); got {model.encoder_name!r}")

@@ -8,8 +8,9 @@ normalizes it (every choice the identity); the encoder and decoder blocks
 decoder block 4, the head and the argmax at margin 0, writing the class
 tiles through ``full_windows``. Only the uint8 classes come back, into
 pinned memory; PRED files are written on a thread pool while the next batch
-computes. The ragged last batch is padded with copies of its last patch, so
-every batch has one shape.
+computes. The ragged last batch is padded with copies of its last patch (and
+of its last metadata row, for a metadata model), so every batch has one
+shape.
 """
 
 from __future__ import annotations
@@ -54,8 +55,9 @@ def predict(config: dict, dict_test: dict, out_dir: str | Path, trainer,
     bs = batch_size or int(config.get("batch_size", 4))
     device, dtype, model = trainer.device, trainer.dtype, trainer.model
     on_card = device.type == "cuda"
-    loader = PatchLoader(PatchDataset(dict_test, config["channels"], with_masks=False), bs,
-                         shuffle=False, drop_last=False,
+    ds = PatchDataset(dict_test, config["channels"], use_metadata=trainer.use_metadata,
+                      with_masks=False)
+    loader = PatchLoader(ds, bs, shuffle=False, drop_last=False,
                          num_workers=int(config.get("num_workers", 4)), pin=on_card)
     geo = bool(config.get("georeferencing_output", True))
     tail = None
@@ -76,16 +78,20 @@ def predict(config: dict, dict_test: dict, out_dir: str | Path, trainer,
             n_done += n
 
         for batch in loader:
-            img = batch["img"]
+            img, mtd = batch["img"], batch.get("mtd")
             n, size = img.shape[0], img.shape[1]
             if n < bs:
                 img = torch.cat([img, img[-1:].expand(bs - n, *img.shape[1:])])
+                if mtd is not None:
+                    mtd = torch.cat([mtd, mtd[-1:].expand(bs - n, *mtd.shape[1:])])
             if tail is None:
                 tail = tail_params(model, dtype)
             x, _ = augment_normalize(img.to(device, non_blocking=True), None, None,
                                      trainer.norm_mean, trainer.norm_mul, trainer.num_classes,
                                      dtype)
-            cls, _ = fused_tail(model.tail_input(x, 0), tail, tail_geometry(size, 0))
+            if mtd is not None:
+                mtd = mtd.to(device, non_blocking=True)
+            cls, _ = fused_tail(model.tail_input(x, 0, mtd=mtd), tail, tail_geometry(size, 0))
             host = torch.empty(cls.shape, dtype=torch.uint8, pin_memory=on_card)
             host.copy_(cls, non_blocking=on_card)
             event = None

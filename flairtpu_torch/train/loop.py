@@ -10,7 +10,9 @@ A train step, on the device the config's ``accelerator`` names:
    ``seed``) and normalizes (``ops/augment.py``);
 2. for each of the ``accumulate_steps`` microbatches: the model's forward
    with every BatchNorm site in train mode (``ops/bn_train.py``: batch
-   statistics, the running ones chained from one microbatch to the next),
+   statistics, the running ones chained from one microbatch to the next)
+   and, with ``use_metadata``, the metadata MLP's dropout masks drawn fresh
+   from the same generator (``models/metadata_mlp.py``),
    the weighted cross-entropy normalized by the microbatch's own weight sum,
    which also counts the epoch's confusion matrix on the device
    (``ops/weighted_ce.py``), and the backward, gradients summed;
@@ -38,6 +40,7 @@ import torch
 from flairtpu_torch import config as cfgmod
 from flairtpu_torch.data.patches import PatchDataset, PatchLoader, make_loader
 from flairtpu_torch.models.factory import create_model, init_weights
+from flairtpu_torch.models.pretrained import init_encoder_from_classifier
 from flairtpu_torch.ops.augment import augment_normalize, draw_choices, norm_constants
 from flairtpu_torch.ops.bn_train import TrainSites
 from flairtpu_torch.ops.confmat import per_class_jaccard, weighted_jaccard
@@ -101,13 +104,15 @@ class SegmentationTrainer:
         self.norm_mean = torch.from_numpy(mean).to(self.device)
         self.norm_mul = torch.from_numpy(mul).to(self.device)
         self.accumulate_steps = int(config.get("accumulate_steps", 1))
+        self.use_metadata = bool(config.get("use_metadata", False))
         seed = int(config.get("seed", 2022))
         self.model = create_model(config, dtype=self.dtype)
         init_weights(self.model, seed)
         self.model.to(self.device, memory_format=torch.channels_last)
         self.opt = make_optimizer(self.model.parameters(),
                                   float(config.get("learning_rate", 0.02)))
-        # the augmentation choices: one generator on the batch's device
+        # the augmentation choices and the dropout masks: one generator on
+        # the batch's device
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.sites = TrainSites()
 
@@ -142,25 +147,42 @@ class SegmentationTrainer:
         return augment_normalize(img, msk, choices, self.norm_mean, self.norm_mul,
                                  self.num_classes, self.dtype)
 
-    def micro_step(self, x: torch.Tensor, tgt: torch.Tensor, cm: torch.Tensor | None):
+    def metadata(self, batch: dict) -> torch.Tensor | None:
+        """The batch's (B, 45) metadata on the device, or None."""
+        mtd = batch.get("mtd")
+        return None if mtd is None else mtd.to(self.device, non_blocking=True)
+
+    def micro_step(self, x: torch.Tensor, tgt: torch.Tensor, cm: torch.Tensor | None,
+                   mtd: torch.Tensor | None = None, masks=None):
         """One forward and backward on a (micro)batch; gradients add into
-        ``.grad``, counts into ``cm``. Returns the detached loss."""
-        logits = self.model(x, epilogue=self.sites)
+        ``.grad``, counts into ``cm``. Returns the detached loss. A metadata
+        model's dropout takes ``masks`` (its three keep masks), else draws
+        them from ``self.generator``."""
+        logits = self.model(x, epilogue=self.sites, mtd=mtd,
+                            dropout=self.generator if masks is None else masks)
         loss = WeightedCE.apply(logits, tgt, self.class_weights, cm)
         loss.backward()
         return loss.detach()
 
-    def train_step(self, batch: dict, cm: torch.Tensor | None = None, choices=None):
+    def train_step(self, batch: dict, cm: torch.Tensor | None = None, choices=None,
+                   masks=None):
         """One optimizer step on ``batch``; returns the loss (a 0-d tensor on
-        the device: the microbatches' mean)."""
+        the device: the microbatches' mean). ``choices`` overrides the drawn
+        augmentation choices, ``masks`` (one entry a microbatch) the dropout
+        masks."""
         x, tgt = self.prepare(batch, self.use_augmentation, choices)
+        mtd = self.metadata(batch)
         A = self.accumulate_steps
+        masks = masks or [None] * A
         if A == 1:
-            loss = self.micro_step(x, tgt, cm)
+            loss = self.micro_step(x, tgt, cm, mtd, masks[0])
         else:
             b = x.shape[0] // A
-            losses = [self.micro_step(x[i * b:(i + 1) * b], tgt[i * b:(i + 1) * b], cm)
-                      for i in range(A)]
+            losses = []
+            for i in range(A):
+                sl = slice(i * b, (i + 1) * b)
+                losses.append(self.micro_step(x[sl], tgt[sl], cm,
+                                              None if mtd is None else mtd[sl], masks[i]))
             with torch.no_grad():
                 torch._foreach_div_([p.grad for p in self.opt.params if p.grad is not None],
                                     float(A))
@@ -172,7 +194,8 @@ class SegmentationTrainer:
     @torch.inference_mode()
     def eval_step(self, batch: dict, cm: torch.Tensor | None = None):
         x, tgt = self.prepare(batch)
-        loss, _ = weighted_ce(self.model(x, epilogue=conv_epilogue), tgt, self.class_weights, cm)
+        logits = self.model(x, epilogue=conv_epilogue, mtd=self.metadata(batch))
+        loss, _ = weighted_ce(logits, tgt, self.class_weights, cm)
         return loss
 
 
@@ -243,11 +266,13 @@ def fit(config: dict, dict_train: dict, dict_val: dict, out_dir: str | Path,
     channels = config["channels"]
     nw = int(config.get("num_workers", 4))
     backend = config.get("loader_backend", "threads")
-    train_loader = make_loader(backend, PatchDataset(dict_train, channels),
+    meta = trainer.use_metadata
+    train_loader = make_loader(backend, PatchDataset(dict_train, channels, use_metadata=meta),
                                batch_size=batch_size, shuffle=True, seed=seed,
                                drop_last=True, num_workers=nw, pin=pin)
-    val_loader = make_loader(backend, PatchDataset(dict_val, channels), batch_size=batch_size,
-                             shuffle=False, drop_last=True, num_workers=nw, pin=pin)
+    val_loader = make_loader(backend, PatchDataset(dict_val, channels, use_metadata=meta),
+                             batch_size=batch_size, shuffle=False, drop_last=True,
+                             num_workers=nw, pin=pin)
 
     tasks = config.get("tasks", {})
     train_tasks = tasks.get("train_tasks", {})
@@ -257,6 +282,14 @@ def fit(config: dict, dict_train: dict, dict_val: dict, out_dir: str | Path,
         monitor=monitor, mode=config.get("ckpt_monitor_mode", "min"),
         save_last=bool(config.get("ckpt_save_also_last", True)),
         weights_only=bool(config.get("ckpt_weights_only", False)))
+
+    # the reference's implicit ImageNet encoder (smp's encoder_weights
+    # default), from a local classifier state dict; before any checkpoint
+    # init or resume, so that a checkpoint still wins
+    enc_weights = config.get("init_encoder_weights") or ""
+    if enc_weights:
+        init_encoder_from_classifier(enc_weights, trainer.model)
+        progress(f"    [x] encoder initialized from classifier weights {enc_weights}")
 
     start_epoch = 0
     if train_tasks.get("init_weights_only_from_ckpt") and ckpt_path:

@@ -189,8 +189,8 @@ def test_msgpack_weights_and_flair_raise(tmp_path):
         "model_framework": {"model_provider": "SegmentationModelsPytorch",
                             "SegmentationModelsPytorch": {"encoder_decoder": "resnet34_unet"}},
         "channels": [1, 2, 3, 4, 5], "classes": {1: [1, "a"], 2: [1, "b"]},
-        "use_metadata": True, "accelerator": "cpu"}))
-    with pytest.raises(NotImplementedError, match="slice 4"):
+        "param_sharding": "fsdp", "accelerator": "cpu"}))
+    with pytest.raises(NotImplementedError, match="slice 8"):
         flair_main([f"--conf={flair_conf}"])
 
 

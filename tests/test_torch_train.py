@@ -336,13 +336,11 @@ def test_init_distributions():
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"use_metadata": True}, "use_metadata"),
     ({"param_sharding": "fsdp"}, "param_sharding"),
     ({"tensor_parallel": 2, "param_sharding": "tensor"}, "param_sharding"),
     ({"spatial_parallel": 2}, "spatial_parallel"),
     ({"remat_policy": "dots_saveable"}, "remat"),
     ({"bn_dtype": "bfloat16"}, "bn_dtype"),
-    ({"init_encoder_weights": "enc.pth"}, "init_encoder_weights"),
     ({"init_hf_pretrained": "hf"}, "init_hf_pretrained"),
     ({"auxiliary_loss_weight": 0.4}, "auxiliary_loss_weight"),
     ({"loader_backend": "grain"}, "grain"),

@@ -78,7 +78,19 @@ Phases (any failure exits non-zero):
    (device_ms: the queue filled behind a sleep kernel first) and by call
    time (cuda_ms), beside torch.var_mean(correction=0) (statistics) and
    aten's native_batch_norm_backward on the masked bf16 gradient
-   (backward), with the backward's sites and times by route.
+   (backward), with the backward's sites and times by route. Slice 5's
+   kernels: strided_tail's three modes at the archs' main-path shapes
+   (head logits (128, 128, 128, 19), (128, 64, 64, 19) and (128, 512, 512,
+   19) float32 at U = 4, 8 and 1; argmax and probs at margin 128 into
+   whole-tile windows, logits at margin 0) and at STRIDED_EDGES (K = 4, 7
+   and 32, margins 0 to 20, 48 to 96 pixels), and argmax and probs into the
+   planes of the 1000 x 1100 zone at each U: logits within STRIDED_TOL of
+   the largest |logit|, classes equal except where the plain top-2 gap is
+   below STRIDED_GAP, prob and probs within 1; each mode timed beside its
+   plain version (and F.interpolate for the logits mode); group_norm_relu
+   at FPN's seven site shapes at batch 128 (GN_SITES) within GN_TOL of its
+   plain version, two calls bit-identical, timed beside its plain version
+   and F.group_norm.
 3. main path: ``flairtpu_torch.cli.detect_main`` on a synthetic 4096 x 4096 x
    5 GeoTIFF zone (``<dpt>/<zone>/zone.tif``, with a synthetic truth raster
    at ``truth/<dpt>/<zone>/truth.tif``) with a random resnet34-unet (19
@@ -174,7 +186,20 @@ Phases (any failure exits non-zero):
    snapshot at epoch 1 step 1 (the epoch's last 3 steps trained, the
    autosave cleared at the end). Each run with the counts set to 0 just
    before it.
-5. the kernels line, the card line, the script's seconds, and last the JSON
+5. slice 5's smp decoders (``ARCHS5``: deeplabv3plus, deeplabv3, fpn,
+   pspnet, pan, linknet), each a random resnet34 (19 classes) on the main
+   configuration and zone through detect_main with the counts set to 0 just
+   before it: the raster's shape, georeferencing and coverage, the launches
+   (gather_normalize and strided_tail once a batch, conv_epilogue once per
+   BatchNorm site, FPN's group_norm_relu 7 a batch), and against its
+   all-plain run (GapRunner): no class moved where the plain logits' top-2
+   gap is at least ARCH_GAP, prob |diff| <= 1; zone patches/s, compute s
+   and peak device memory; one batch by stage (CUDA events; with
+   --profile the profiler's kernel table). deeplabv3plus also with
+   class_prob (the probs mode, every band within 1 of plain) and ``-c -m``
+   at size 512 (the four methods, each run's launches and agreement with
+   plain). Phase 5 runs with PyTorch's default precision flags.
+6. the kernels line, the card line, the script's seconds, and last the JSON
    result line.
 
     python3 chip_smoke.py --profile  # also one batch per program by stage, the profiler
@@ -207,6 +232,7 @@ from flairtpu_torch.data.manifest import gather_paths
 from flairtpu_torch.data.patches import PatchDataset, PatchLoader
 from flairtpu_torch.io import TiffReader
 from flairtpu_torch.io.tiff import Affine, write_array
+from flairtpu_torch.models.deeplab import align_corners_weights
 from flairtpu_torch.models.factory import FlairSegmentationModel, init_weights
 from flairtpu_torch.predict.runner import predict
 from flairtpu_torch.ops import _build
@@ -223,7 +249,10 @@ from flairtpu_torch.train.loop import SegmentationTrainer
 from flairtpu_torch.models import quantize as pq
 from flairtpu_torch.models.fold import FoldedZoneModel
 from flairtpu_torch.ops import fused_tail as ft
+from flairtpu_torch.ops.fused import write_windows
 from flairtpu_torch.ops import gather as ga
+from flairtpu_torch.ops import group_norm as gnr
+from flairtpu_torch.ops import strided_tail as sp
 from flairtpu_torch.ops import int8_conv as ic
 from flairtpu_torch.ops import quantize_act as qa
 from flairtpu_torch.ops import stitch as st
@@ -355,7 +384,7 @@ def random_x3(rng, g, batch: int) -> torch.Tensor:
     return x3.to(torch.bfloat16).permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
 
 
-def compare_tail(name: str, cls_k, prob_k, cls_p, prob_p, gap) -> dict:
+def compare_tail(name: str, cls_k, prob_k, cls_p, prob_p, gap, gap_tol: float = GAP_TOL) -> dict:
     """Kernel vs plain class and prob (any matching shapes), with the plain
     logits' top-2 gap at each pixel."""
     off = cls_k != cls_p
@@ -363,8 +392,8 @@ def compare_tail(name: str, cls_k, prob_k, cls_p, prob_p, gap) -> dict:
     worst_gap = gap[off].max().item() if off.any() else 0.0
     dprob = (prob_k.int() - prob_p.int()).abs().max().item()
     check(agree >= 0.999, f"{name}: class agreement {agree:.6f} >= 0.999")
-    check(worst_gap < GAP_TOL, f"{name}: {int(off.sum())} class mismatches, largest "
-          f"top-2 gap there {worst_gap:.2e} < {GAP_TOL}")
+    check(worst_gap < gap_tol, f"{name}: {int(off.sum())} class mismatches, largest "
+          f"top-2 gap there {worst_gap:.2e} < {gap_tol}")
     check(dprob <= 1, f"{name}: prob |diff| {dprob} <= 1")
     return {"agree": agree, "max_abs_err": dprob, "mismatch_gap": worst_gap}
 
@@ -506,6 +535,218 @@ def check_tail_logits(rng, size: int, batch: int, k: int, timed: bool = False) -
         nbytes = x3.numel() * x3.element_size() + got.numel() * 4
         out.update(bound(tail_flops(g, batch, k), nbytes), bytes=nbytes)
     return out
+
+
+# -- slice 5's kernels (phase 2) ---------------------------------------------
+
+# strided_tail vs its plain version on the same head logits: the same taps
+# and weights, the kernel's two products a pass summed without FMA against
+# cuBLAS's float32 dot products over the dense matrix rows (TF32 off), so
+# the logits differ by about an ulp: within STRIDED_TOL of the largest
+# |logit|; a class may differ only where the plain top-2 gap is below
+# STRIDED_GAP; prob and probs within 1
+STRIDED_TOL = 1e-6
+STRIDED_GAP = 1e-5
+# the head logits of the archs at the main path's shapes (512 tiles,
+# batch 128, 19 classes): (archs, upsample)
+STRIDED_CASES = (("deeplabv3plus, fpn, pan", 4), ("deeplabv3, pspnet", 8), ("linknet", 1))
+# the odd cases: (tile, margin, upsample, classes, batch)
+STRIDED_EDGES = ((64, 16, 4, 4, 3), (64, 8, 8, 32, 2), (96, 20, 1, 32, 2), (48, 0, 4, 7, 2))
+# group_norm_relu vs its plain version: float32 sums of up to 65536 values
+# a group in other orders, then the same per-element arithmetic: within
+# GN_TOL of the largest output
+GN_TOL = 1e-5
+# FPN's seven Conv3x3GNReLU sites at 512 tiles: (label, input side, upsample)
+GN_SITES = (("seg0_c0 (p5)", 16, True), ("seg0_c1", 32, True), ("seg0_c2", 64, True),
+            ("seg1_c0 (p4)", 32, True), ("seg1_c1", 64, True), ("seg2_c0 (p3)", 64, True),
+            ("seg3_c0 (p2)", 128, False))
+
+
+def head_logits(gen, batch: int, n: int, k: int) -> torch.Tensor:
+    return torch.randn((batch, n, n, k), generator=gen, device="cuda") * 2.0
+
+
+def taps_needed(g, lo: int, hi: int) -> int:
+    """Distinct source indices with a nonzero weight that output window
+    indices [lo, hi) read."""
+    idx, wts = sp.taps(g)
+    return len(set(idx[0][lo:hi][wts[0][lo:hi] > 0]) | set(idx[1][lo:hi][wts[1][lo:hi] > 0]))
+
+
+def strided_cost(g, windows: np.ndarray, k: int, mode: str) -> tuple[int, int]:
+    """(operations, bytes) of one call as the separable function needs them:
+    each needed source logit read once, each window pixel written once (2
+    bytes, k bytes or 4k bytes); for U > 1 the H pass's 3 operations (two
+    products, a sum) a class at each (window row, needed source column), the
+    W pass's 3 a class at each window pixel (U = 1: the identity, none); the
+    softmax 3 more a value (argmax) or 5 (probs)."""
+    ops = nbytes = 0
+    for _, _, rlo, rhi, clo, chi in windows.tolist():
+        if rlo >= rhi or clo >= chi:
+            continue
+        pix = (rhi - rlo) * (chi - clo)
+        cols = taps_needed(g, clo, chi)
+        nbytes += taps_needed(g, rlo, rhi) * cols * k * 4
+        nbytes += pix * {"argmax": 2, "probs": k, "logits": 4 * k}[mode]
+        if g.up > 1:
+            ops += 3 * k * ((rhi - rlo) * cols + pix)
+        ops += pix * k * {"argmax": 3, "probs": 5, "logits": 0}[mode]
+    return ops, nbytes
+
+
+def check_strided_tail(gen, label: str, size: int, margin: int, up: int, k: int, batch: int,
+                       timed: bool = False) -> dict:
+    """The three modes into whole-tile windows against the plain version:
+    argmax at ``margin`` (class and prob), probs at ``margin`` (bytes within
+    1) and logits at margin 0 (within STRIDED_TOL of the largest |logit|)."""
+    g, g0 = sp.strided_geometry(size, margin, up), sp.strided_geometry(size, 0, up)
+    p = sp.StridedTail(up, k, torch.device("cuda"))
+    x = head_logits(gen, batch, size // up, k)
+    s = g.out_extent
+    name = f"strided_tail {label}: {size}/{margin}, U={up}, B={batch}, K={k}"
+    cls_k, prob_k = sp.strided_tail(x, p, g)
+    cls_p, prob_p = sp.strided_tail_plain(x, p, g)
+    out = compare_tail(f"{name}, argmax", cls_k, prob_k, cls_p, prob_p,
+                       top2_gap_last(sp.upsample_window(x, g)), STRIDED_GAP)
+    win = ft.full_windows(batch, s, x.device)
+    got = torch.zeros((batch * s, s, k), dtype=torch.uint8, device="cuda")
+    want = torch.zeros_like(got)
+    sp.strided_tail_probs(x, p, g, got, win)
+    sp.strided_tail_probs_plain(x, p, g, want, win)
+    d = (got.int() - want.int()).abs().max().item()
+    check(d <= 1, f"{name}, probs: |diff| {d} <= 1, "
+          f"{(got != want).float().mean().item():.2e} of bytes differ")
+    del got, want
+    logits = sp.strided_tail_logits(x, p, g0)
+    scale = x.abs().max().item()
+    err = (logits - sp.strided_tail_logits_plain(x, p, g0)).abs().max().item()
+    torch.cuda.synchronize()
+    check(err <= STRIDED_TOL * scale, f"{name}, logits at margin 0: largest |diff| {err:.2e} "
+          f"<= {STRIDED_TOL} x {scale:.2f}")
+    out.update(max_abs_err=max(out["max_abs_err"], d), logits_err=err)
+    if timed:
+        cls_plane = torch.empty((2, batch * s, s), dtype=torch.uint8, device="cuda")
+        probs_plane = torch.empty((batch * s, s, k), dtype=torch.uint8, device="cuda")
+        full = ft.full_windows(batch, size, x.device)
+        wins = {m: (win if m != "logits" else full).cpu().numpy() for m in
+                ("argmax", "probs", "logits")}
+        calls = {
+            "argmax": (lambda: sp.strided_tail(x, p, g, cls_plane, win),
+                       lambda: sp.strided_tail_plain(x, p, g, cls_plane, win)),
+            "probs": (lambda: sp.strided_tail_probs(x, p, g, probs_plane, win),
+                      lambda: sp.strided_tail_probs_plain(x, p, g, probs_plane, win)),
+            "logits": (lambda: sp.strided_tail_logits(x, p, g0, logits),
+                       lambda: sp.strided_tail_logits_plain(x, p, g0, logits))}
+        # one PyTorch call computes the logits mode's function: the whole-tile
+        # align-corners upsample of the channels_last logits (NHWC bytes out);
+        # none the argmax or probs mode's
+        nchw = x.permute(0, 3, 1, 2)
+        library = {"logits": lambda: F.interpolate(nchw, size=(size, size), mode="bilinear",
+                                                   align_corners=True)}
+        modes = {}
+        for mode, (kern, plain) in calls.items():
+            ops, nbytes = strided_cost(g if mode != "logits" else g0, wins[mode], k, mode)
+            lib = library.get(mode)
+            modes[mode] = dict(mode=mode, ms=cuda_ms(kern, 10, 2),
+                               plain_ms=cuda_ms(plain, 3, 1),
+                               library_ms=cuda_ms(lib, 10, 2) if lib else None,
+                               bytes=nbytes, **bound(ops, nbytes, PEAK_FP32_FLOPS))
+        out["modes"] = modes
+    return out
+
+
+def check_strided_planes(gen, height: int, width: int, batch: int, up: int) -> dict:
+    """Argmax and probs through the owned windows of a zone with realigned
+    tiles, batch by batch, against plain tiles written in tile order."""
+    g = sp.strided_geometry(S, M, up)
+    s = g.out_extent
+    p = sp.StridedTail(up, K, torch.device("cuda"))
+    tiles = slice_grid(width, height, S, M).tiles
+    n = len(tiles)
+    n_total = n + (-n) % batch
+    x = head_logits(gen, n, S // up, K)
+    x = torch.cat([x, x[-1:].expand(n_total - n, -1, -1, -1)]).contiguous()
+    windows = torch.from_numpy(exact_windows(tiles, height, width, s, n_total)).to("cuda")
+    Ho, Wo = max(height, s), max(width, s)
+    planes = torch.zeros((2, Ho, Wo), dtype=torch.uint8, device="cuda")
+    plane = torch.zeros((Ho, Wo, K), dtype=torch.uint8, device="cuda")
+    for b0 in range(0, n_total, batch):
+        sp.strided_tail(x[b0:b0 + batch], p, g, planes, windows[b0:b0 + batch])
+        sp.strided_tail_probs(x[b0:b0 + batch], p, g, plane, windows[b0:b0 + batch])
+    cls_p, prob_p = sp.strided_tail_plain(x[:n], p, g)
+    gap_p = top2_gap_last(sp.upsample_window(x[:n], g))
+    probs_p = torch.zeros((n * s, s, K), dtype=torch.uint8, device="cuda")
+    sp.strided_tail_probs_plain(x[:n], p, g, probs_p, ft.full_windows(n, s, x.device))
+    ref = torch.zeros((3, Ho, Wo), dtype=torch.float32, device="cuda")
+    ref_probs = torch.zeros_like(plane)
+    for i, t in enumerate(tiles):  # the reference's tile-order writes, last wins
+        r0, c0 = min(t.irow0, Ho - s), min(t.icol0, Wo - s)
+        ref[:, r0:r0 + s, c0:c0 + s] = torch.stack([cls_p[i].float(), prob_p[i].float(),
+                                                    gap_p[i]])
+        ref_probs[r0:r0 + s, c0:c0 + s] = probs_p[i * s:(i + 1) * s]
+    torch.cuda.synchronize()
+    out = compare_tail(f"strided_tail into planes, {height}x{width} zone, {n} tiles, U={up}, "
+                       f"B={batch}", planes[0], planes[1], ref[0].to(torch.uint8),
+                       ref[1].to(torch.uint8), ref[2], STRIDED_GAP)
+    d = (plane.int() - ref_probs.int()).abs().max().item()
+    check(d <= 1, f"strided_tail probs into the plane, {height}x{width} zone: |diff| {d} <= 1")
+    return out
+
+
+def check_strided_kernels(gen) -> dict:
+    """strided_tail at the archs' main-path shapes (timed) and the odd cases."""
+    cases = {}
+    for label, up in STRIDED_CASES:
+        cases[label] = check_strided_tail(gen, label, S, M, up, K, BATCH, timed=True)
+        torch.cuda.empty_cache()
+    worst = max(r["max_abs_err"] for r in cases.values())
+    for size, margin, up, k, batch in STRIDED_EDGES:
+        worst = max(worst, check_strided_tail(gen, "edge", size, margin, up, k,
+                                              batch)["max_abs_err"])
+    for up in (4, 8, 1):
+        worst = max(worst, check_strided_planes(gen, 1000, 1100, 8, up)["max_abs_err"])
+    return {"cases": cases, "max_abs_err": worst,
+            "logits_err": max(r["logits_err"] for r in cases.values())}
+
+
+def check_group_norm(gen) -> dict:
+    """group_norm_relu at FPN's seven site shapes at batch 128 (bf16
+    channels_last conv outputs, random GroupNorm affines): within GN_TOL of
+    the plain version, two calls bit-identical; timed beside its plain
+    version and F.group_norm (GroupNorm alone, bf16, not the same function)."""
+    rows, worst = [], 0.0
+    for label, side, up in GN_SITES:
+        y = (torch.randn((BATCH, side, side, 128), generator=gen, device="cuda") * 1.5 + 0.3)
+        y = y.to(torch.bfloat16).permute(0, 3, 1, 2)
+        gamma = torch.rand(128, generator=gen, device="cuda") + 0.5
+        beta = torch.randn(128, generator=gen, device="cuda") * 0.2
+        got = gnr.group_norm_relu(y, gamma, beta, upsample=up)
+        again = gnr.group_norm_relu(y, gamma, beta, upsample=up)
+        want = gnr.group_norm_relu_plain(y, gamma, beta, upsample=up)
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        torch.cuda.synchronize()
+        name = f"group_norm_relu {label}: (128, 128, {side}, {side}){', 2x up' if up else ''}"
+        check(err <= GN_TOL * scale, f"{name}: largest |diff| {err:.2e} <= {GN_TOL} x {scale:.2f}")
+        check(torch.equal(got, again), f"{name}: two calls bit-identical")
+        worst = max(worst, err)
+        n_in, n_out = y.numel(), got.numel()
+        nbytes = 2 * n_in + 4 * n_out + 2 * 4 * 128
+        ops = 3 * n_in + 4 * n_in  # statistics (add, square, add), apply (sub, mul, add, max)
+        g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+        rows.append(dict(site=label, ms=cuda_ms(lambda: gnr.group_norm_relu(y, gamma, beta,
+                                                                             upsample=up), 10, 2),
+                         plain_ms=cuda_ms(lambda: gnr.group_norm_relu_plain(
+                             y, gamma, beta, upsample=up), 3, 1),
+                         library_ms=cuda_ms(lambda: F.group_norm(y, 32, g16, b16, 1e-5), 10, 2),
+                         bytes=nbytes, **bound(ops, nbytes, PEAK_FP32_FLOPS)))
+        del y, got, again, want
+        torch.cuda.empty_cache()
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                   "bytes")}
+    return dict(total, sites=rows, max_abs_err=worst,
+                bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                else "operations")
 
 
 def top2_gap_last(x: torch.Tensor) -> torch.Tensor:
@@ -1153,7 +1394,14 @@ def synth_inputs(tmp: Path, zone_hw: int, rng) -> tuple[Path, Path, Path]:
     write_array(zone, img, transform=transform, crs=2154, compress="deflate")
     write_array(truth, rng.integers(1, K + 1, (zone_hw, zone_hw), dtype=np.uint8),
                 transform=transform, crs=2154, compress="deflate")
-    model = FlairSegmentationModel("resnet34", K, C)
+    weights = tmp / "resnet34_unet_19cl.pth"
+    torch.save(random_weights(FlairSegmentationModel("resnet34", K, C), rng), weights)
+    return zone, truth, weights
+
+
+def random_weights(model: nn.Module, rng) -> dict:
+    """A seeded smp-keyed state dict for ``model``: He-scaled conv weights,
+    random BatchNorm statistics and affines (GroupNorm's too), small biases."""
     sd = {}
     for key, v in model.state_dict().items():
         if key.endswith("num_batches_tracked"):
@@ -1162,15 +1410,13 @@ def synth_inputs(tmp: Path, zone_hw: int, rng) -> tuple[Path, Path, Path]:
             sd[key] = torch.from_numpy(rng.uniform(0.5, 2.0, v.shape).astype(np.float32))
         elif key.endswith(("running_mean", ".bias")):
             sd[key] = torch.from_numpy(rng.normal(0, 0.1, v.shape).astype(np.float32))
-        elif v.dim() == 1:  # BatchNorm gamma
+        elif v.dim() == 1:  # BatchNorm / GroupNorm gamma
             sd[key] = torch.from_numpy(rng.uniform(0.5, 1.0, v.shape).astype(np.float32))
         else:  # conv weights, He-scaled
             fan_in = v[0].numel()
             sd[key] = torch.from_numpy(
                 (rng.standard_normal(v.shape) * np.sqrt(2.0 / fan_in)).astype(np.float32))
-    weights = tmp / "resnet34_unet_19cl.pth"
-    torch.save(sd, weights)
-    return zone, truth, weights
+    return sd
 
 
 def detect_config(tmp: Path, zone: Path, truth: Path, weights: Path) -> dict:
@@ -1217,25 +1463,19 @@ class PlainRunner(DeviceZoneRunner):
     stitch_ops = PlainStitch
     tile_ops = PlainTileOps
 
+    def __init__(self, config: dict, model, tail):
+        super().__init__(config, model, tail)
+        self.tail_fns = tail.plain_versions()
+
     def _tail_input(self, zone_p, origins, margin):
         x = ga.gather_normalize_plain(zone_p, origins, self.size,
                                       out_dtype=self.model.dtype, **self.norm)
         plain = dict(epilogue=ep.conv_epilogue_plain)
         if isinstance(self.model, pq.QuantizedZoneModel):
             plain.update(conv=ic.int8_conv_plain, quantize=qa.quantize_act_plain)
+        elif isinstance(self.model, FlairSegmentationModel):
+            plain.update(group_norm=gnr.group_norm_relu_plain)
         return self.model.tail_input(x, margin, **plain)
-
-    def _forward_tiles(self, zone_p, origins, planes, windows):
-        ft.fused_tail_plain(self._tail_input(zone_p, origins, self.margin), self.tail,
-                            self.geometry, planes, windows)
-
-    def _forward_probs(self, zone_p, origins, plane, windows):
-        ft.fused_tail_probs_plain(self._tail_input(zone_p, origins, self.margin), self.tail,
-                                  self.geometry, plane, windows)
-
-    def _forward_logits(self, zone_p, origins, out):
-        return ft.fused_tail_logits_plain(self._tail_input(zone_p, origins, 0), self.tail,
-                                          self.full_geometry)
 
 
 def run_plain(cfg: dict, method: str = "exact-clipping", stride: int | None = None,
@@ -1256,6 +1496,7 @@ def run_plain(cfg: dict, method: str = "exact-clipping", stride: int | None = No
 
 def reset_launches() -> None:
     ft.launches = ft.probs_launches = ft.logits_launches = ga.launches = ep.launches = 0
+    sp.launches = sp.probs_launches = sp.logits_launches = gnr.launches = 0
     ga.typed_launches = ic.launches = qa.launches = 0
     au.launches = au.tiled_launches = 0
     wc.launches = wc.backward_launches = bt.launches = bt.backward_launches = 0
@@ -1271,7 +1512,9 @@ def read_launches() -> dict:
             "int8_conv": ic.launches, "quantize_act": qa.launches,
             "augment_normalize": au.launches, "weighted_ce": wc.launches,
             "weighted_ce_backward": wc.backward_launches, "bn_stats": bt.launches,
-            "bn_backward": bt.backward_launches, **st.launches, **ts.launches}
+            "bn_backward": bt.backward_launches, "strided_tail": sp.launches,
+            "strided_tail_probs": sp.probs_launches, "strided_tail_logits": sp.logits_launches,
+            "group_norm_relu": gnr.launches, **st.launches, **ts.launches}
 
 
 def expected_launches(method: str, output_type: str, n_batches: int,
@@ -3313,6 +3556,281 @@ def run_flair_a1(tmp: Path, main: dict) -> dict:
     return out
 
 
+# -- phase 5: slice 5's smp decoders on the zone -------------------------------
+
+ARCHS5 = ("deeplabv3plus", "deeplabv3", "fpn", "pspnet", "pan", "linknet")
+# a class of an arch's raster may differ from its all-plain run's only where
+# the plain logits' top-2 gap is below ARCH_GAP: the routes share the
+# gather's and the epilogue's bits; the tail's upsample rounds an ulp apart
+# (STRIDED_TOL), and FPN's GroupNorm sums in another order, which moves bf16
+# roundings of the convolutions after it, as GAP_TOL allows the fused tail
+ARCH_GAP = GAP_TOL
+
+
+class GapRunner(PlainRunner):
+    """The all-plain route that also keeps, in ``gap`` (H, W) float32, the
+    top-2 gap of the plain logits at each owned pixel."""
+
+    gap = None
+
+    def _forward_tiles(self, zone_p, origins, planes, windows):
+        x = self._tail_input(zone_p, origins, self.margin)
+        sp.strided_tail_plain(x, self.tail, self.geometry, planes, windows)
+        gap = top2_gap_last(sp.upsample_window(x, self.geometry))
+        if self.gap is None:
+            self.gap = torch.zeros(planes.shape[1:], dtype=torch.float32, device=planes.device)
+        write_windows([self.gap], [gap], windows)
+
+
+def arch_config(cfg: dict, tmp: Path, arch: str, rng) -> dict:
+    """The main configuration with a random resnet34 ``arch`` (19 classes)."""
+    weights = tmp / f"resnet34_{arch}_19cl.pth"
+    torch.save(random_weights(FlairSegmentationModel("resnet34", K, C, arch=arch), rng), weights)
+    return dict(cfg, model_weights=str(weights), output_name=f"zone-{arch}",
+                output_path=str(tmp / f"out_{arch}"),
+                model_framework={"model_provider": "SegmentationModelsPytorch",
+                                 "SegmentationModelsPytorch": {"encoder_decoder":
+                                                               f"resnet34_{arch}"}})
+
+
+def arch_sites(model) -> int:
+    """conv_epilogue launches per batch, from the model's structure: every
+    BatchNorm but the encoder downsamples' (folded into their block's last
+    site)."""
+    mods = list(model.modules())
+    return (sum(isinstance(m, nn.BatchNorm2d) for m in mods)
+            - sum(getattr(m, "downsample", None) is not None for m in mods))
+
+
+def arch_launches(model, n_batches: int, method: str = "exact-clipping",
+                  output_type: str = "argmax") -> dict:
+    """Each kernel's launches for one device-route zone run of a strided-head
+    model: the gather and each BatchNorm site a batch, FPN's seven GroupNorm
+    sites a batch, and the tail's mode (or, averaging or max, its logits and
+    the stitch)."""
+    out = dict.fromkeys(read_launches(), 0)
+    out.update(gather_normalize=n_batches, conv_epilogue=arch_sites(model) * n_batches)
+    if model.arch == "fpn":
+        out["group_norm_relu"] = len(GN_SITES) * n_batches
+    if output_type == "class_prob":
+        out["strided_tail_probs"] = n_batches
+    elif method == "exact-clipping":
+        out["strided_tail"] = n_batches
+    else:
+        out.update(strided_tail_logits=n_batches, stitch_finalize=1)
+        out["merge_max" if method == "max" else "accumulate_probs"] = n_batches
+    return out
+
+
+def compare_arch(label: str, cls, prob, plain: dict, gap: torch.Tensor) -> dict:
+    """A raster's class and prob against the all-plain run's: every class
+    mismatch where the plain top-2 gap is below ARCH_GAP, prob within 1."""
+    off = cls != plain["cls"]
+    moved = off & (gap.cpu().numpy()[:cls.shape[0], :cls.shape[1]] >= ARCH_GAP)
+    dprob = int(np.abs(plain["prob"].astype(int) - prob.astype(int)).max())
+    agree = 1.0 - float(off.mean())
+    check(int(moved.sum()) == 0, f"{label} vs plain versions: {int(off.sum())} class "
+          f"mismatches, {int(moved.sum())} beyond the near-tie rule (top-2 gap < {ARCH_GAP})")
+    check(dprob <= 1, f"{label} vs plain versions: prob |diff| {dprob} <= 1")
+    return {"agree_plain": agree, "mismatches": int(off.sum()), "prob_diff_plain": dprob}
+
+
+def run_arch(cfg: dict, arch: str, zone_hw: int) -> dict:
+    """One arch's main path through detect_main (counts set to 0 just
+    before, peak device memory from a reset just before) against its
+    all-plain run on the same model."""
+    device = torch.device("cuda")
+    prepared = eng.prepare_model(cfg, device)
+    model = prepared[0]
+    pc = eng.setup_out_path(dict(cfg, compare=False))
+    with TiffReader(pc["input_img_path"]) as reader:
+        grid = slice_grid(reader.width, reader.height, S, M, S - 2 * M, reader.transform,
+                          reader.crs)
+    runner = GapRunner(pc, *prepared)
+    t0 = time.perf_counter()
+    plain = runner.run(grid, "exact-clipping", eng.stage_zone(pc, device))
+    plain_wall = time.perf_counter() - t0
+    conf = write_conf(cfg, f"arch_{arch}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    stats = cli.detect_main([f"--conf={conf}"])
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = -(-len(grid.tiles) // BATCH)
+    check_launches(f"{arch} main path, {n_batches} batches", launches,
+                   arch_launches(model, n_batches))
+    with TiffReader(cfg["input_img_path"]) as src, TiffReader(
+            Path(cfg["output_path"]) / f"{cfg['output_name']}.tif") as r:
+        check((r.width, r.height, r.count) == (zone_hw, zone_hw, 2),
+              f"{arch}: output raster {r.width}x{r.height}x{r.count}")
+        check(r.transform == src.transform and r.crs == src.crs,
+              f"{arch}: georeferencing kept (crs {r.crs})")
+        cls, prob = r.read(1), r.read(2)
+    check(bool((prob > 0).all()), f"{arch}: every pixel written (prob > 0)")
+    check(int(cls.max()) < K, f"{arch}: classes in [0, {K})")
+    out = compare_arch(arch, cls, prob, plain, runner.gap)
+    keep = {k: stats[k] for k in ("tiles", "seconds", "patches_per_sec", "read_seconds",
+                                  "h2d_seconds", "compute_seconds", "d2h_seconds")}
+    out.update(keep, launches=launches, peak_memory_gb=peak / 1e9,
+               plain_compute_seconds=plain["compute_seconds"], plain_wall_seconds=plain_wall,
+               sites=arch_sites(model))
+    print(f"  {arch}: {stats['tiles']} tiles, compute {stats['compute_seconds']:.4f} s, "
+          f"{stats['patches_per_sec']:.2f} patches/s, peak memory {peak / 1e9:.2f} GB, "
+          f"{out['sites']} epilogue sites a batch; plain compute "
+          f"{plain['compute_seconds']:.4f} s; class agreement {out['agree_plain']:.6f} "
+          f"({out['mismatches']} near-tie mismatches)", flush=True)
+    del prepared, model, runner
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_arch_class_prob(cfg: dict, zone_hw: int) -> dict:
+    """class_prob of an arch through detect_main against its all-plain run:
+    a K-band raster, the tail's probs mode once a batch, every band within 1."""
+    cp = dict(cfg, output_type="class_prob", output_name=f"{cfg['output_name']}-PROBS")
+    conf = write_conf(cp, f"{cp['output_name']}")
+    device = torch.device("cuda")
+    prepared = eng.prepare_model(cp, device)
+    reset_launches()
+    stats = cli.detect_main([f"--conf={conf}"])
+    launches = read_launches()
+    n_batches = -(-len(slice_grid(zone_hw, zone_hw, S, M).tiles) // BATCH)
+    check_launches(f"{cp['output_name']}, {n_batches} batches", launches,
+                   arch_launches(prepared[0], n_batches, output_type="class_prob"))
+    with TiffReader(Path(cp["output_path"]) / f"{cp['output_name']}.tif") as r:
+        check((r.width, r.height, r.count) == (zone_hw, zone_hw, K),
+              f"{cp['output_name']}: raster {r.width}x{r.height}x{r.count}")
+        probs = r.read()
+    plain = run_plain(cp, prepared=prepared)["probs"]
+    d = int(np.abs(plain.astype(np.int16) - probs.astype(np.int16)).max())
+    check(d <= 1, f"{cp['output_name']} vs plain versions: every band |diff| {d} <= 1 "
+          f"({float((plain == probs).mean()):.6f} of bytes equal)")
+    print(f"  {cp['output_name']}: compute {stats['compute_seconds']:.4f} s, "
+          f"{stats['patches_per_sec']:.2f} patches/s", flush=True)
+    return {"compute_seconds": stats["compute_seconds"],
+            "patches_per_sec": stats["patches_per_sec"], "launches": launches,
+            "max_abs_err": d}
+
+
+def run_arch_sweep(cfg: dict, zone_hw: int) -> dict:
+    """``detect_main -c -m`` of an arch with the compare config's strategies
+    at one size (512: the four stitching methods), each run's launches and
+    each against its all-plain run."""
+    sw = sweep_config(cfg)
+    strategies = json.loads(json.dumps(sw["strategies"]))
+    strategies["tiling"]["size_range"] = [S]
+    sw.update(strategies=strategies, output_name=f"{cfg['output_name']}-S",
+              output_path=str(Path(cfg["output_path"]).parent / f"{cfg['output_name']}_sweep"))
+    conf = write_conf(sw, sw["output_name"])
+    with counted_runs() as per_run:
+        results = cli.detect_main([f"--conf={conf}", "-c", "-m"])
+    combos = [(c["img_pixels_detection"], c["margin"], c["stride"], c["stitching"])
+              for c in gen_param_combination(validate_detect_config(dict(sw, compare=True)))]
+    check(len(combos) == 4 and len(per_run) == 4, f"{sw['output_name']}: {len(per_run)} runs")
+    stamped = [p for p in Path(sw["output_path"]).iterdir() if p.is_dir()]
+    device = torch.device("cuda")
+    prepared = eng.prepare_model(sw, device)
+    staged = eng.stage_zone(sw, device)
+    out = {}
+    for sz, mg, sd, m in combos:
+        method = method_string(sz, sd, mg, "no-padding", m)
+        n_batches = -(-len(slice_grid(zone_hw, zone_hw, sz, mg, sd).tiles) // sw["batch_size"])
+        check_launches(f"{sw['output_name']} {method}", per_run[method],
+                       arch_launches(prepared[0], n_batches, m))
+        plain = run_plain(dict(sw, img_pixels_detection=sz, margin=mg), m, sd, staged,
+                          prepared)
+        with TiffReader(stamped[0] / f"{sw['output_name']}_{method}.tif") as r:
+            cls, prob = r.read(1), r.read(2)
+        agree = float((plain["cls"] == cls).mean())
+        dprob = int(np.abs(plain["prob"].astype(int) - prob.astype(int)).max())
+        check(agree >= 0.999, f"{sw['output_name']} {method} vs plain versions: class "
+              f"agreement {agree:.6f} >= 0.999")
+        check(dprob <= 1, f"{sw['output_name']} {method} vs plain versions: prob |diff| "
+              f"{dprob} <= 1")
+        r_ = results[method]
+        out[m] = {"compute_seconds": r_["compute_seconds"],
+                  "patches_per_sec": r_["patches_per_sec"], "agree_plain": agree,
+                  "launches": per_run[method]}
+        print(f"  {sw['output_name']} {m}: {r_['tiles']} tiles, compute "
+              f"{r_['compute_seconds']:.4f} s, {r_['patches_per_sec']:.2f} patches/s, "
+              f"agreement with plain {agree:.6f}", flush=True)
+    return out
+
+
+def arch_breakdown(cfg: dict, zone_hw: int, profile: bool = False) -> dict:
+    """Where one main-path batch of an arch goes, by CUDA events around each
+    stage (gather, encoder, decoder, head, tail; each stage three times, the
+    last taken); the decoder's 4x resize by F.interpolate (the port's) beside
+    the dense weight-matrix einsum (flairtpu's TPU choice) at its shape; with
+    ``profile`` the profiler's kernel table of the batch."""
+    device = torch.device("cuda")
+    model, tail = eng.prepare_model(cfg, device)
+    runner = DeviceZoneRunner(cfg, model, tail)
+    staged = eng.stage_zone(cfg, device)
+    zone = staged["zone_dev"]
+    zp = torch.zeros((zone.shape[0] + 2 * M, zone.shape[1] + 2 * M, C), dtype=zone.dtype,
+                     device=device)
+    zp[M:-M, M:-M] = zone
+    tiles = slice_grid(zone_hw, zone_hw, S, M).tiles[:BATCH]
+    org = torch.tensor([(t.row0 + M, t.col0 + M) for t in tiles], dtype=torch.int32,
+                       device=device)
+    planes = torch.zeros((2, zone_hw, zone_hw), dtype=torch.uint8, device=device)
+    win = torch.from_numpy(exact_windows(tiles, zone_hw, zone_hw, S - 2 * M, BATCH)).to(device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    for _ in range(3):
+        ev[0].record()
+        x = ga.gather_normalize(zp, org, S, out_dtype=model.dtype, **runner.norm)
+        ev[1].record()
+        feats = model.features(x)
+        ev[2].record()
+        y = model.decoder(feats)
+        ev[3].record()
+        logits = model.segmentation_head(y).permute(0, 2, 3, 1).contiguous()
+        ev[4].record()
+        sp.strided_tail(logits, tail, runner.geometry, planes, win)
+        ev[5].record()
+        torch.cuda.synchronize()
+    names = ("gather", "encoder", "decoder", "head", "strided_tail")
+    out = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    out["batch"] = ev[0].elapsed_time(ev[5])
+    if cfg["model_framework"]["SegmentationModelsPytorch"]["encoder_decoder"].endswith(
+            "deeplabv3plus"):
+        a = torch.randn((BATCH, 32, 32, 256), device=device).to(torch.bfloat16)
+        a = a.permute(0, 3, 1, 2)
+        w = torch.from_numpy(align_corners_weights(128, 32)).to(device, torch.bfloat16)
+        out["resize_interpolate_ms"] = cuda_ms(lambda: F.interpolate(
+            a, size=(128, 128), mode="bilinear", align_corners=True), 10, 2)
+        out["resize_einsum_ms"] = cuda_ms(lambda: torch.einsum(
+            "pw,bcow->bcop", w, torch.einsum("oh,bchw->bcow", w, a)), 10, 2)
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+        with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            runner._forward_tiles(zp, org, planes, win)
+            torch.cuda.synchronize()
+        out["kernel_table"] = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
+    del model, runner, zp
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_archs(cfg: dict, tmp: Path, zone_hw: int, profile: bool = False) -> dict:
+    """Phase 5: the six archs on the main configuration, deeplabv3plus also
+    with class_prob and a one-size sweep, and their batch breakdowns."""
+    rng = np.random.default_rng(SEED + 5)
+    out = {}
+    for arch in ARCHS5:
+        acfg = arch_config(cfg, tmp, arch, rng)
+        out[arch] = run_arch(acfg, arch, zone_hw)
+        out[arch]["breakdown_ms"] = arch_breakdown(acfg, zone_hw, profile)
+        if arch == "deeplabv3plus":
+            out[arch]["class_prob"] = run_arch_class_prob(acfg, zone_hw)
+            out[arch]["sweep"] = run_arch_sweep(acfg, zone_hw)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3380,6 +3898,10 @@ def main() -> int:
             torch.cuda.empty_cache()
             softmax = check_tile_softmax(rng)
             torch.cuda.empty_cache()
+            strided = check_strided_kernels(gen)
+            torch.cuda.empty_cache()
+            gnorm = check_group_norm(gen)
+            torch.cuda.empty_cache()
             # flair's predict: the tail at margin 0 on whole 512 tiles
             tail0 = check_fused_tail(rng, S, 0, TRAIN_BATCH, K, timed=True)
             augment = check_augment(gen)
@@ -3427,6 +3949,20 @@ def main() -> int:
             print(f"    {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
 
+        for label, case in strided["cases"].items():
+            for r in case["modes"].values():
+                print(f"    strided_tail {r['mode']} ({label}), batch {BATCH}: {r['ms']:.4f} ms, "
+                      f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)",
+                      flush=True)
+        for r in gnorm["sites"]:
+            print(f"    group_norm_relu {r['site']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+                  f"ms, F.group_norm {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)", flush=True)
+        print(f"    group_norm_relu, FPN's 7 sites of one batch: {gnorm['ms']:.4f} ms, plain "
+              f"{gnorm['plain_ms']:.4f} ms, F.group_norm {gnorm['library_ms']:.4f} ms, bound "
+              f"{gnorm['bound_ms']:.4f} ms ({gnorm['bound_by']}, {gnorm['bytes'] / 1e9:.2f} GB)",
+              flush=True)
         r = tail0
         print(f"    fused_tail argmax, margin 0, batch 16: {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
@@ -3490,6 +4026,11 @@ def main() -> int:
             print("[4c] flair with accumulate_steps 2, resume from last, the step autosave",
                   flush=True)
             a1 = run_flair_a1(tmp, flair)
+            print("[5] slice 5's smp decoders: flair-detect on the card, resnet34, "
+                  f"{', '.join(ARCHS5)}", flush=True)
+            t5 = time.perf_counter()
+            archs = run_archs(cfg, tmp, ZONE, args.profile)
+            print(f"    phase 5: {time.perf_counter() - t5:.1f} s", flush=True)
         if args.profile:
             with torch.inference_mode():
                 prof = stage_breakdown(cfg, ZONE, rng, epi)
@@ -3516,6 +4057,21 @@ def main() -> int:
 
     def stream_launches(name: str) -> int:
         return sum(run["launches"][name] for run in streaming.values())
+
+    def case_launches(label: str, mode: str) -> int:
+        """strided_tail's launches in phase 5 for the archs of a phase 2 case:
+        argmax on their main paths; probs and logits on deeplabv3plus's
+        class_prob run and sweep (linknet's route hands its head logits
+        through: the logits mode at U = 1 is timed here, never launched)."""
+        of = label.split(", ")
+        if mode == "argmax":
+            return sum(archs[a]["launches"]["strided_tail"] for a in of)
+        if "deeplabv3plus" not in of:
+            return 0
+        dl = archs["deeplabv3plus"]
+        if mode == "probs":
+            return dl["class_prob"]["launches"]["strided_tail_probs"]
+        return sum(x["launches"]["strided_tail_logits"] for x in dl["sweep"].values())
 
     # fused_tail: the argmax mode's numbers on the main path, and each mode's
     # (launches counted on the run of its own path: class_prob, the sweep,
@@ -3647,6 +4203,28 @@ def main() -> int:
                         launches=flair["launches"]["bn_stats" if m == "stats" else
                                                    "bn_backward"]) for m in ("stats",
                                                                              "backward")]},
+        # the deeplabv3plus / fpn / pan head logits (U = 4) at the main path's
+        # shapes (launches: phase 5's six main-path runs); each case's modes
+        # (probs: deeplabv3plus's class_prob run, logits: its sweep)
+        {"name": "strided_tail", "route": "cuda", "source": f"{src}/strided_tail.cu",
+         "replaces": "flairtpu/models/deeplab.py:73-91 (via flairtpu/models/factory.py:285-293), "
+                     "flairtpu/ops/fused.py:38-45 and the plane writes "
+                     "flairtpu/zone/device_engine.py:140-160 (XLA-fused)",
+         "launches": sum(r["launches"]["strided_tail"] for r in archs.values()),
+         "max_abs_err": strided["max_abs_err"],
+         **numbers(strided["cases"]["deeplabv3plus, fpn, pan"]["modes"]["argmax"]),
+         "library_ms": None,
+         "modes": [dict(case=label, launches=case_launches(label, m["mode"]), **m)
+                   for label, case in strided["cases"].items() for m in case["modes"].values()]},
+        # FPN's 7 sites of one batch of 128, summed (launches: phase 5's fpn
+        # run); library: F.group_norm alone on each site's bf16 input (no
+        # ReLU, no upsample, bf16 out: not the same function)
+        {"name": "group_norm_relu", "route": "cuda", "source": f"{src}/group_norm.cu",
+         "replaces": "flairtpu/models/smp_extra.py:52-68 at :95-100 (XLA-fused GroupNorm(32), "
+                     "ReLU and 2x nearest upsample)",
+         "launches": archs["fpn"]["launches"]["group_norm_relu"],
+         "max_abs_err": gnorm["max_abs_err"], **numbers(gnorm),
+         "library_ms": gnorm["library_ms"]},
     ]
     print(json.dumps({"main_path": main_path["stats"], "card": card}))
     print(json.dumps({"class_prob": class_prob["stats"], "card": card}))
@@ -3668,6 +4246,12 @@ def main() -> int:
     print(json.dumps({"flair_metadata": meta["stats"], "train_step_vs_plain": meta["step"],
                       "launches": meta["launches"], "card": card}))
     print(json.dumps({"flair_a1": a1, "card": card}))
+    for arch, r in archs.items():
+        if "kernel_table" in r["breakdown_ms"]:
+            print(f"{arch}: one batch's kernels")
+            print(r["breakdown_ms"].pop("kernel_table"))
+    print(json.dumps({"archs": {a: {k: v for k, v in r.items() if k != "launches"}
+                                for a, r in archs.items()}, "card": card}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -63,15 +63,21 @@ def not_ported(what: str, where: str) -> NotImplementedError:
         f"{what} is not ported to flairtpu_torch yet ({where}).")
 
 
+# smp architectures the port builds over them: the U-Net, and slice 5's
+# strided-head decoders with linknet (flair-detect only)
+SMP_ARCHS = ("unet", "deeplabv3plus", "deeplabv3", "fpn", "pspnet", "pan", "linknet")
+
+
 def check_smp(encoder_decoder: str) -> tuple[str, str]:
-    """Split ``<encoder>_<arch>``; only the resnet U-Nets are ported."""
+    """Split ``<encoder>_<arch>``; the resnet encoders under ``SMP_ARCHS``
+    are ported (MAnet and UNet++ wait for slice 5's second part)."""
     if "_" not in encoder_decoder:
         raise ConfigError(
             f"encoder_decoder {encoder_decoder!r} is not of the form "
             "'<encoder>_<architecture>' (e.g. resnet34_unet)")
     encoder, arch = encoder_decoder.rsplit("_", 1)
-    if arch != "unet":
-        raise not_ported(f"smp architecture {arch!r}", "slice 5: other smp decoders")
+    if arch not in SMP_ARCHS:
+        raise not_ported(f"smp architecture {arch!r}", "slice 5: MAnet and UNet++")
     if encoder not in RESNET_ENCODERS:
         raise not_ported(f"smp encoder {encoder!r}", "slice 6: other smp encoders")
     return encoder, arch
@@ -91,10 +97,11 @@ def validate_model_framework(mf: dict) -> tuple[str, str]:
         raise ConfigError(f"model_framework is missing key {e}.") from None
 
 
-def validate_knobs(cfg: dict) -> None:
+def validate_knobs(cfg: dict, arch: str) -> None:
     """``quantize``, ``int8_decoder`` and ``bn_fold`` as
     ``flairtpu/config.py:306-318`` checks them. ``int8_decoder: 5`` puts
-    decoder block 4 in int8, which the fused tail does not run."""
+    decoder block 4 in int8, which the fused tail does not run; the knobs
+    run the U-Net only."""
     quant = cfg.get("quantize")
     if quant not in (None, False, "int8"):
         raise ConfigError("quantize: 'int8' is the only supported value (or omit the key).")
@@ -109,6 +116,9 @@ def validate_knobs(cfg: dict) -> None:
     if quant and dec_blocks is not True and dec_blocks == 5:
         raise not_ported("int8_decoder: 5 (decoder block 4 in int8)",
                          "slice 3 item 10b: a head-only fused_tail mode")
+    if (quant or fold) and arch != "unet":
+        raise not_ported(f"{'quantize: int8' if quant else 'bn_fold'} with smp architecture "
+                         f"{arch!r}", "slice 3 for the slice-5 decoders")
 
 
 # ---------------------------------------------------------------------------
@@ -175,7 +185,10 @@ def validate_train_config(cfg: dict) -> dict:
     channels = _require(cfg, "channels")
     if not (isinstance(channels, list) and all(isinstance(c, int) for c in channels)):
         raise ConfigError("channels should be a list of 1-based integers.")
-    validate_model_framework(mf)
+    _, arch = validate_model_framework(mf)
+    if arch != "unet":
+        raise not_ported(f"flair (training) with smp architecture {arch!r}",
+                         "slice 5: the group_norm_relu backward and bn_train at the decoders")
 
     norm_type = cfg.get("norm_type", "scaling")
     if norm_type not in _NORM_TYPES:
@@ -316,10 +329,16 @@ def validate_detect_config(cfg: dict) -> dict:
     if norma[0]["norm_type"] not in ("custom", "scaling"):
         raise ConfigError("Invalid normalization type: should be custom or scaling.")
 
-    # only the resnet U-Nets pass here, the encoders both knobs need
-    # (flairtpu/config.py:319-346; MiT encoders fail as slice 6 / 7)
-    validate_model_framework(_require(cfg, "model_framework"))
-    validate_knobs(cfg)
+    # the resnet encoders under the ported smp archs pass here; the knobs
+    # run the U-Nets only (flairtpu/config.py:319-346; MiT encoders fail as
+    # slice 6 / 7)
+    _, arch = validate_model_framework(_require(cfg, "model_framework"))
+    validate_knobs(cfg, arch)
+    if arch == "pan":  # FPA pools the stride-16 map three times
+        tiling = (cfg.get("strategies") or {}).get("tiling") or {}
+        sizes = [size] + list((tiling.get("size_range") or []) if cfg["compare"] else [])
+        if min(sizes) < 128:
+            raise ConfigError(f"pan needs tiles of at least 128 pixels (got {min(sizes)}).")
 
     weights = _require(cfg, "model_weights")
     if not os.path.isfile(weights):

@@ -1,5 +1,7 @@
 """Weight loading (counterpart of ``flairtpu/models/convert.py:25-37`` and the
-inverse of its ``torch_to_flax`` for the resnet/unet and metadata-MLP keys).
+inverse of its ``torch_to_flax`` for the resnet encoders, the unet,
+deeplabv3plus, deeplabv3, fpn, pspnet, linknet and pan decoders
+(``:160-166, 655-845``) and the metadata-MLP keys).
 
 The port's modules carry smp's key names, so an smp ``.pth`` state dict (or a
 Lightning ``.ckpt`` after ``normalize_keys``) loads into it strictly as it
@@ -67,9 +69,54 @@ _LEAF = {("params", "kernel"): "weight", ("params", "bias"): "bias",
          ("batch_stats", "var"): "running_var"}
 
 
-def _module_prefix(path: tuple[str, ...]) -> str:
-    """Flax module path -> smp module prefix (resnet encoder, unet decoder, head)."""
+# flax module paths of the slice-5 decoders (``decoder/<module>/...``) ->
+# smp prefixes, by architecture (deeplabv3plus and deeplabv3 share flax
+# names under other smp keys)
+_ASPP = {"aspp_conv/conv": "convs.0.0", "aspp_conv/bn": "convs.0.1",
+         "aspp_pool/conv": "convs.4.1", "aspp_pool/bn": "convs.4.2",
+         "aspp_project/conv": "project.0", "aspp_project/bn": "project.1"}
+_DECODER_KEYS = {
+    "deeplabv3plus": {
+        **{k: f"aspp.0.{v}" for k, v in _ASPP.items()},
+        **{f"aspp_sep{i}/{sub}": f"aspp.0.convs.{i + 1}.{key}" for i in range(3)
+           for sub, key in (("sep/dw", "0.0"), ("sep/pw", "0.1"), ("bn", "1"))},
+        "aspp_out/sep/dw": "aspp.1.0", "aspp_out/sep/pw": "aspp.1.1", "aspp_out/bn": "aspp.2",
+        "block1/conv": "block1.0", "block1/bn": "block1.1",
+        "block2/sep/dw": "block2.0.0", "block2/sep/pw": "block2.0.1", "block2/bn": "block2.1"},
+    "deeplabv3": {
+        **{k: f"0.{v}" for k, v in _ASPP.items()},
+        **{f"aspp_atrous{i}_{sub}": f"0.convs.{i + 1}.{key}" for i in range(3)
+           for sub, key in (("conv", "0"), ("bn", "1"))},
+        "out_conv": "1", "out_bn": "2"},
+    "fpn": {"p5": "p5", **{f"p{n}_skip": f"p{n}.skip_conv" for n in (2, 3, 4)},
+            **{f"seg{i}_c{j}/{sub}": f"seg_blocks.{i}.block.{j}.block.{key}"
+               for i in range(4) for j in range(3) for sub, key in (("conv", "0"), ("gn", "1"))}},
+    "pspnet": {**{f"psp_block{i}/{sub}": f"psp.blocks.{i}.pool.1.{key}" for i in range(4)
+                  for sub, key in (("conv", "0"), ("bn", "1"))},
+               "conv/conv": "conv.0", "conv/bn": "conv.1"},
+    "linknet": {f"block{i}/{sub}": f"blocks.{i}.block.{key}" for i in range(5)
+                for sub, key in (("conv_in/conv", "0.0"), ("conv_in/bn", "0.1"),
+                                 ("convt", "1.0"), ("convt_bn", "1.1"),
+                                 ("conv_out/conv", "2.0"), ("conv_out/bn", "2.1"))},
+    "pan": {**{f"fpa/{name}/{sub}": f"fpa.{key}.{sub}" for sub in ("conv", "bn")
+               for name, key in (("branch1", "branch1.1"), ("mid", "mid.0"),
+                                 ("down1", "down1.1"), ("down2", "down2.1"),
+                                 ("down3_0", "down3.1"), ("down3_1", "down3.2"),
+                                 ("conv1", "conv1"), ("conv2", "conv2"))},
+            **{f"gau{n}/{name}/{sub}": f"gau{n}.{key}.{sub}" for n in (1, 2, 3)
+               for sub in ("conv", "bn") for name, key in (("conv1", "conv1.1"),
+                                                           ("conv2", "conv2"))}},
+}
+
+
+def _module_prefix(path: tuple[str, ...], arch: str = "unet") -> str:
+    """Flax module path -> smp module prefix (resnet encoder, ``arch``'s
+    decoder, head, metadata MLP)."""
     top, rest = path[0], path[1:]
+    if top == "decoder" and arch != "unet":
+        key = _DECODER_KEYS[arch].get("/".join(rest))
+        if key is not None:
+            return f"decoder.{key}"
     if top == "encoder":
         if len(rest) == 1 and rest[0] in ("conv1", "bn1"):
             return f"encoder.{rest[0]}"
@@ -97,15 +144,19 @@ def _leaves(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def from_flax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
-    """flairtpu resnet-unet variables (numpy leaves), the metadata MLP's
-    included, -> the port's state_dict."""
+def from_flax(params: Mapping, batch_stats: Mapping, arch: str = "unet") -> dict[str, torch.Tensor]:
+    """flairtpu variables (numpy leaves) of a resnet encoder with ``arch``'s
+    decoder, the metadata MLP's included, -> the port's state_dict."""
     sd: dict[str, torch.Tensor] = {}
     for coll, tree in (("params", params), ("batch_stats", batch_stats)):
         for path, value in _leaves(tree):
-            prefix = _module_prefix(path[:-1])
+            prefix = _module_prefix(path[:-1], arch)
             arr = np.asarray(value, dtype=np.float32)
-            if path[-1] == "kernel":  # (kH, kW, I, O) -> (O, I, kH, kW); (I, O) -> (O, I)
+            if path[-2:] == ("convt", "kernel"):
+                # linknet's transposed conv: flax keeps torch's (I, O, kH, kW)
+                # flipped and transposed to (kH, kW, I, O) (smp_extra.py:158-172)
+                arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+            elif path[-1] == "kernel":  # (kH, kW, I, O) -> (O, I, kH, kW); (I, O) -> (O, I)
                 arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             sd[f"{prefix}.{_LEAF[(coll, path[-1])]}"] = torch.from_numpy(
                 np.ascontiguousarray(arr))

@@ -1,12 +1,15 @@
 """Model factory: config -> segmentation model
-(counterpart of ``flairtpu/models/factory.py:256-274, 304-327``).
+(counterpart of ``flairtpu/models/factory.py:36-51, 168-235, 256-327``).
 
-Slice 1 builds the smp U-Net over the resnet encoders; with
-``use_metadata`` the model also carries the metadata MLP (``enc``, the
-reference's key names) and adds its embedding to the deepest encoder
-feature (``models/metadata_mlp.py``). The model's public functions keep
-``flairtpu``'s layout: input (B, H, W, C), logits (B, h, w, K) float32.
-Inside, tensors are NCHW views of NHWC memory (``channels_last``).
+The smp models over the resnet encoders: the U-Net (slice 1) and the
+strided-head decoders of slice 5 (deeplabv3plus, deeplabv3, fpn, pspnet,
+pan) with linknet, each with smp's module names so that their state dicts
+load as they are. With ``use_metadata`` the model also carries the
+metadata MLP (``enc``, the reference's key names) and adds its embedding to
+the deepest encoder feature (``models/metadata_mlp.py``). The model's
+public functions keep ``flairtpu``'s layout: input (B, H, W, C), logits
+(B, h, w, K) float32. Inside, tensors are NCHW views of NHWC memory
+(``channels_last``).
 """
 
 from __future__ import annotations
@@ -15,28 +18,69 @@ import torch
 import torch.nn as nn
 
 from flairtpu_torch.config import check_smp, not_ported
+from flairtpu_torch.models.deeplab import DeepLabV3PlusDecoder
 from flairtpu_torch.models.metadata_mlp import MetadataMLP, fuse_metadata
+from flairtpu_torch.models.pan import PANDecoder
 from flairtpu_torch.models.resnet import ResNetEncoder, prepare_inference
+from flairtpu_torch.models.smp_extra import (DeepLabV3Decoder, FPNDecoder, LinknetDecoder,
+                                             PSPDecoder)
 from flairtpu_torch.models.unet import SegmentationHead, UnetDecoder
 from flairtpu_torch.ops.epilogue import conv_epilogue
+from flairtpu_torch.ops.group_norm import group_norm_relu
+from flairtpu_torch.ops.strided_tail import StridedGeometry, upsample_window
+
+# smp SegmentationHead upsampling factor (UpsamplingBilinear2d):
+# deeplabv3plus/fpn/pan emit stride-4 maps, deeplabv3/pspnet stride-8
+HEAD_UPSAMPLE = {"deeplabv3plus": 4, "fpn": 4, "pan": 4, "deeplabv3": 8, "pspnet": 8}
+# architectures whose zone decode keeps only the margin interior
+# (``decode``'s ``inner_margin``): unet by the plan_inner_crops walk, the
+# strided-head archs by the windowed upsample; linknet decodes whole tiles
+# and is cropped
+INNER_DECODE_ARCHS = frozenset({"unet", *HEAD_UPSAMPLE})
+# per architecture: the encoder's smp arguments, the decoder (built from
+# the encoder's channels), the head's input channels and kernel
+ARCHS = {
+    "unet": ({}, UnetDecoder, 16, 3),
+    "deeplabv3plus": ({"output_stride": 16}, DeepLabV3PlusDecoder, 256, 1),
+    "deeplabv3": ({"output_stride": 8}, DeepLabV3Decoder, 256, 1),
+    "fpn": ({}, FPNDecoder, 128, 1),
+    "pspnet": ({"depth": 3}, PSPDecoder, 512, 3),
+    "linknet": ({}, LinknetDecoder, 32, 1),
+    # smp's PAN fixes the encoder's output stride at 16 (decoders/pan/model.py)
+    "pan": ({"output_stride": 16}, PANDecoder, 32, 3),
+}
 
 
 class FlairSegmentationModel(nn.Module):
-    """smp ``Unet(encoder_name, classes, in_channels)`` with smp's key names."""
-
-    arch = "unet"
+    """smp ``create_model(arch, encoder_name, classes, in_channels)`` with
+    smp's key names, ``arch`` one of :data:`ARCHS`."""
 
     def __init__(self, encoder_name: str = "resnet34", classes: int = 13,
-                 in_channels: int = 5, dtype=torch.float32, use_metadata: bool = False):
+                 in_channels: int = 5, dtype=torch.float32, use_metadata: bool = False,
+                 arch: str = "unet"):
         super().__init__()
+        if arch not in ARCHS:
+            raise not_ported(f"smp architecture {arch!r}", "slice 5: MAnet and UNet++")
+        enc_kw, decoder, head_ch, head_k = ARCHS[arch]
+        self.arch = arch
         self.dtype = dtype
         self.encoder_name = encoder_name
         self.use_metadata = use_metadata
-        self.encoder = ResNetEncoder(encoder_name, in_channels, dtype=dtype)
-        self.decoder = UnetDecoder(self.encoder.out_channels, dtype=dtype)
-        self.segmentation_head = SegmentationHead(16, classes, dtype=dtype)
+        self.encoder = ResNetEncoder(encoder_name, in_channels, dtype=dtype, **enc_kw)
+        self.decoder = decoder(self.encoder.out_channels, dtype=dtype)
+        self.segmentation_head = SegmentationHead(head_ch, classes, dtype=dtype, kernel=head_k)
         if use_metadata:
             self.enc = MetadataMLP(dtype=dtype)
+
+    @property
+    def up(self) -> int:
+        """The head's upsample factor: the tile over the head's logits (1
+        for unet and linknet, which decode at full resolution)."""
+        return HEAD_UPSAMPLE.get(self.arch, 1)
+
+    @property
+    def n_classes(self) -> int:
+        return self.segmentation_head[0].out_channels
 
     def prepare_inference(self) -> None:
         """Conv weights in the compute dtype and each BatchNorm's (scale,
@@ -65,23 +109,46 @@ class FlairSegmentationModel(nn.Module):
         ``inner_margin`` m the interior logits (B, H-2m, W-2m, K)."""
         return self.decode(self.features(x, epilogue, mtd, dropout), inner_margin, epilogue)
 
+    def head_logits(self, feats: list[torch.Tensor], epilogue=conv_epilogue,
+                    group_norm=group_norm_relu) -> torch.Tensor:
+        """A non-unet model's decoder and head on whole tiles: the head's
+        float32 logits (B, S / up, S / up, K), contiguous. ``group_norm``
+        runs FPN's GroupNorm sites (the kernel wrapper, or a caller's plain
+        version)."""
+        kw = {"group_norm": group_norm} if self.arch == "fpn" else {}
+        logits = self.segmentation_head(self.decoder(feats, epilogue=epilogue, **kw))
+        return logits.permute(0, 2, 3, 1).contiguous()
+
     def decode(self, feats: list[torch.Tensor], inner_margin: int | None = None,
-               epilogue=conv_epilogue) -> torch.Tensor:
+               epilogue=conv_epilogue, group_norm=group_norm_relu) -> torch.Tensor:
+        """The decoder and head on encoder features -> float32 logits (B, H,
+        W, K), or with ``inner_margin`` m rows and columns [m, S - m) only:
+        unet's interior decode (bit-identical to the crop), the strided-head
+        archs' windowed upsample of the head (the rows of the full
+        upsample's matrices), linknet's crop of the full decode."""
+        S = feats[0].shape[-1]  # feats[0] is the input: the tile size
+        m = inner_margin or 0
+        if self.arch != "unet":
+            g = StridedGeometry(S, m, self.up)
+            return upsample_window(self.head_logits(feats, epilogue, group_norm), g)
         if inner_margin is None:
             logits = self.segmentation_head(self.decoder(feats, epilogue=epilogue))
         else:
-            m, S = inner_margin, feats[0].shape[-1]
             y, off = self.decoder(feats, inner_margin=m, epilogue=epilogue)
             logits = self.segmentation_head(y)[:, :, m - off:S - m - off,
                                                 m - off:S - m - off]
         return logits.permute(0, 2, 3, 1)
 
     def tail_input(self, x: torch.Tensor, margin: int, epilogue=conv_epilogue,
-                   mtd: torch.Tensor | None = None) -> torch.Tensor:
-        """Encoder and all decoder blocks but the last, on the interior plan:
-        the input of the fused decoder tail (ops/fused_tail.py), in the
-        compute dtype and channels_last."""
+                   mtd: torch.Tensor | None = None, group_norm=group_norm_relu) -> torch.Tensor:
+        """The input of the zone's tail kernel. unet: the encoder and all
+        decoder blocks but the last, on the interior plan, in the compute
+        dtype and channels_last (``ops/fused_tail.py``). The other archs:
+        the whole tile's head logits (:meth:`head_logits`), which
+        ``ops/strided_tail.py`` upsamples and crops to ``margin``."""
         feats = self.features(x, epilogue, mtd)
+        if self.arch != "unet":
+            return self.head_logits(feats, epilogue, group_norm)
         x3, _ = self.decoder.inner(feats, margin, len(self.decoder.blocks) - 1, epilogue)
         return x3.contiguous(memory_format=torch.channels_last)
 
@@ -120,7 +187,8 @@ def create_model(config: dict, dtype=torch.float32) -> FlairSegmentationModel:
     mf = config["model_framework"]
     if mf["model_provider"] != "SegmentationModelsPytorch":
         raise not_ported(f"model provider {mf['model_provider']!r}", "slice 7")
-    encoder, _ = check_smp(mf["SegmentationModelsPytorch"]["encoder_decoder"])
+    encoder, arch = check_smp(mf["SegmentationModelsPytorch"]["encoder_decoder"])
     n_classes = config.get("n_classes") or len(config["classes"])
     return FlairSegmentationModel(encoder, int(n_classes), len(config["channels"]), dtype=dtype,
-                                  use_metadata=bool(config.get("use_metadata", False)))
+                                  use_metadata=bool(config.get("use_metadata", False)),
+                                  arch=arch)

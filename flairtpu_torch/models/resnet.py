@@ -1,5 +1,6 @@
 """ResNet encoders, torchvision topology with smp's key names
-(counterpart of ``flairtpu/models/resnet.py:165-297``).
+(counterpart of ``flairtpu/models/resnet.py:165-297``), with smp's
+``output_stride`` (dilated last stages) and ``depth`` (fewer stages).
 
 Parameters are float32. Convolutions run in the model's compute dtype
 (bfloat16 on the card, float32 on the CPU) and BatchNorm in float32 on the
@@ -71,7 +72,7 @@ def prepare_inference(model: nn.Module, dtype: torch.dtype) -> None:
     (scale, shift) stored on it, so that no call recomputes either."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 m.weight.data = m.weight.data.to(dtype)
             elif isinstance(m, nn.BatchNorm2d):
                 m.scale_shift = tuple(v.contiguous() for v in bn_scale_shift(m))
@@ -115,12 +116,12 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_ch: int, width: int, stride: int = 1,
-                 downsample: bool = False, dtype=torch.float32):
+                 downsample: bool = False, dtype=torch.float32, dilation: int = 1):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = nn.Conv2d(in_ch, width, 3, stride, 1, bias=False)
+        self.conv1 = nn.Conv2d(in_ch, width, 3, stride, dilation, dilation, bias=False)
         self.bn1 = bn2d(width)
-        self.conv2 = nn.Conv2d(width, width, 3, 1, 1, bias=False)
+        self.conv2 = nn.Conv2d(width, width, 3, 1, dilation, dilation, bias=False)
         self.bn2 = bn2d(width)
         self.downsample = (nn.Sequential(nn.Conv2d(in_ch, width, 1, stride, bias=False),
                                          bn2d(width)) if downsample else None)
@@ -141,13 +142,13 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_ch: int, width: int, stride: int = 1,
-                 downsample: bool = False, dtype=torch.float32):
+                 downsample: bool = False, dtype=torch.float32, dilation: int = 1):
         super().__init__()
         self.dtype = dtype
         out = width * self.expansion
         self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False)
         self.bn1 = bn2d(width)
-        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, dilation, dilation, bias=False)
         self.bn2 = bn2d(width)
         self.conv3 = nn.Conv2d(width, out, 1, bias=False)
         self.bn3 = bn2d(out)
@@ -163,36 +164,47 @@ class Bottleneck(nn.Module):
                                  epilogue)
 
 
+# smp get_encoder(output_stride=...): the dilation of each dilated stage
+# (0-based); its strides become 1, the downsample conv's too, and each 3x3
+# pads by its dilation (smp encoders/_utils.replace_strides_with_dilation)
+STAGE_DILATIONS = {32: {}, 16: {3: 2}, 8: {2: 2, 3: 4}}
+
+
 class ResNetEncoder(nn.Module):
-    """Stem + 4 stages; returns the 6 U-Net pyramid levels [x, f1..f5] at
-    strides 1..32 (smp's identity stage 0 first)."""
+    """Stem + ``depth - 1`` stages; returns the pyramid [x, f1..f_depth]
+    (smp's identity stage 0 first): strides 1..32 at ``output_stride`` 32,
+    capped at 16 or 8 by dilating the last stages. ``depth`` 3 (PSPNet)
+    stops after layer2, and the model then has no layer3 or layer4."""
 
     def __init__(self, name: str = "resnet34", in_channels: int = 5,
-                 dtype=torch.float32):
+                 dtype=torch.float32, output_stride: int = 32, depth: int = 5):
         super().__init__()
         kind, units = RESNET_SPECS[name]
         block = BasicBlock if kind == "basic" else Bottleneck
+        dilations = STAGE_DILATIONS[output_stride]
         self.dtype = dtype
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = bn2d(64)
         in_ch = 64
-        for stage, n_units in enumerate(units):
+        for stage, n_units in enumerate(units[:depth - 1]):
             width = 64 * 2 ** stage
-            stride = 1 if stage == 0 else 2
+            dilation = dilations.get(stage, 1)
+            stride = 1 if stage == 0 or dilation > 1 else 2
             blocks = []
             for u in range(n_units):
                 first = u == 0
-                needs_ds = first and (stride != 1 or in_ch != width * block.expansion)
+                needs_ds = first and (stage > 0 or in_ch != width * block.expansion)
                 blocks.append(block(in_ch, width, stride if first else 1,
-                                    needs_ds, dtype=dtype))
+                                    needs_ds, dtype=dtype, dilation=dilation))
                 in_ch = width * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+        self.n_stages = min(depth - 1, len(units))
         self.out_channels = ((0, 64, 64, 128, 256, 512) if kind == "basic"
-                             else (0, 64, 256, 512, 1024, 2048))
+                             else (0, 64, 256, 512, 1024, 2048))[:depth + 1]
 
     def forward(self, x: torch.Tensor, epilogue=conv_epilogue) -> list[torch.Tensor]:
-        """The pyramid [x, f1..f5]; f1..f5 in the compute dtype."""
-        stages = [getattr(self, f"layer{i}") for i in range(1, 5)]
+        """The pyramid [x, f1..f_depth]; f1.. in the compute dtype."""
+        stages = [getattr(self, f"layer{i}") for i in range(1, self.n_stages + 1)]
         blocks = [(i, b) for i, stage in enumerate(stages) for b in stage]
         # float32 is written only where the next block adds it as its identity
         needs_f32 = [b.downsample is None for _, b in blocks[1:]] + [False]

@@ -127,14 +127,15 @@ class UnetDecoder(nn.Module):
 
 
 class SegmentationHead(nn.Sequential):
-    """3x3 conv to float32 class logits: operands rounded to the compute
+    """k x k conv to float32 class logits (k 3 for unet, pspnet and pan, 1
+    for deeplabv3(plus), fpn and linknet): operands rounded to the compute
     dtype, products summed in float32 (unrounded), then the float32 bias."""
 
-    def __init__(self, in_ch: int, classes: int, dtype=torch.float32):
-        super().__init__(nn.Conv2d(in_ch, classes, 3, padding=1))
+    def __init__(self, in_ch: int, classes: int, dtype=torch.float32, kernel: int = 3):
+        super().__init__(nn.Conv2d(in_ch, classes, kernel, padding=kernel // 2))
         self.dtype = dtype
 
     def forward(self, x):
         c = self[0]
         w = c.weight.to(self.dtype).float()
-        return F.conv2d(x.to(self.dtype).float(), w, c.bias.float(), padding=1)
+        return F.conv2d(x.to(self.dtype).float(), w, c.bias.float(), padding=c.padding)

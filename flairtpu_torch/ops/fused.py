@@ -46,6 +46,15 @@ def softmax(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return e / class_sum(e, dim).unsqueeze(dim)
 
 
+def write_windows(planes: list[torch.Tensor], tiles: list[torch.Tensor], windows) -> None:
+    """Tile i's owned window of each of ``tiles`` (N, s, s[, K]) into the
+    matching plane, ``windows[i] = (R0, C0, rlo, rhi, clo, chi)``: interior
+    pixel (r, c) with rlo <= r < rhi, clo <= c < chi lands at (R0 + r, C0 + c)."""
+    for i, (r0, c0, rlo, rhi, clo, chi) in enumerate(windows.tolist()):
+        for plane, t in zip(planes, tiles):
+            plane[r0 + rlo:r0 + rhi, c0 + clo:c0 + chi] = t[i, rlo:rhi, clo:chi]
+
+
 def scatter_accumulate(acc: torch.Tensor, tiles: torch.Tensor, origins,
                        weights: torch.Tensor | None = None) -> torch.Tensor:
     """acc[r0:r0+h, c0:c0+w] += tiles[i] (* weights), one tile after another

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
+from typing import ClassVar
 from functools import lru_cache
 
 import torch
@@ -42,7 +43,7 @@ import torch.nn.functional as F
 from flairtpu_torch.models.resnet import bn_scale_shift
 from flairtpu_torch.models.unet import plan_inner_crops, upsample2x_nearest
 from flairtpu_torch.ops import _build
-from flairtpu_torch.ops.fused import prob_to_u8, softmax, softmax_argmax
+from flairtpu_torch.ops.fused import prob_to_u8, softmax, softmax_argmax, write_windows
 
 C3, C4 = 32, 16  # channels into and of the last decoder block (every resnet unet)
 MAX_CLASSES = 32
@@ -103,6 +104,23 @@ class TailParams:
     bias: torch.Tensor
     packed: torch.Tensor = field(init=False, repr=False)
     epi: torch.Tensor = field(init=False, repr=False)
+    # the head's stride over the tile: none, the tail runs the last block
+    up: ClassVar[int] = 0
+
+    def wrappers(self) -> tuple:
+        """(argmax, probs, logits): this kind's kernel wrappers."""
+        return fused_tail, fused_tail_probs, fused_tail_logits
+
+    def plain_versions(self) -> tuple:
+        """(argmax, probs, logits): the wrappers' plain versions."""
+        return fused_tail_plain, fused_tail_probs_plain, fused_tail_logits_plain
+
+    def geometry(self, size: int, margin: int) -> TailGeometry:
+        return tail_geometry(size, margin)
+
+    @property
+    def device(self) -> torch.device:
+        return self.epi.device
 
     def __post_init__(self):
         kp = padded_classes(self.n_classes)
@@ -180,9 +198,7 @@ def fused_tail_plain(x3: torch.Tensor, p: TailParams, g: TailGeometry,
     cls, prob = cls.to(torch.uint8), prob_to_u8(prob)
     if planes is None:
         return cls, prob
-    for i, (r0, c0, rlo, rhi, clo, chi) in enumerate(windows.tolist()):
-        planes[0, r0 + rlo:r0 + rhi, c0 + clo:c0 + chi] = cls[i, rlo:rhi, clo:chi]
-        planes[1, r0 + rlo:r0 + rhi, c0 + clo:c0 + chi] = prob[i, rlo:rhi, clo:chi]
+    write_windows([planes[0], planes[1]], [cls, prob], windows)
     return planes
 
 
@@ -191,14 +207,16 @@ def fused_tail_probs_plain(x3: torch.Tensor, p: TailParams, g: TailGeometry,
     """Plain PyTorch tail: x3 -> round(255 * softmax) (B, s, s, K) uint8, each
     tile's owned window written into ``plane`` (H, W, K); returns the plane."""
     probs = prob_to_u8(softmax(tail_logits_plain(x3, p, g), dim=1)).permute(0, 2, 3, 1)
-    for i, (r0, c0, rlo, rhi, clo, chi) in enumerate(windows.tolist()):
-        plane[r0 + rlo:r0 + rhi, c0 + clo:c0 + chi] = probs[i, rlo:rhi, clo:chi]
+    write_windows([plane], [probs], windows)
     return plane
 
 
-def fused_tail_logits_plain(x3: torch.Tensor, p: TailParams, g: TailGeometry) -> torch.Tensor:
-    """Plain PyTorch tail: x3 -> float32 logits (B, s, s, K)."""
-    return tail_logits_plain(x3, p, g).permute(0, 2, 3, 1).contiguous()
+def fused_tail_logits_plain(x3: torch.Tensor, p: TailParams, g: TailGeometry,
+                            out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch tail: x3 -> float32 logits (B, s, s, K), into ``out``
+    when given."""
+    logits = tail_logits_plain(x3, p, g).permute(0, 2, 3, 1).contiguous()
+    return logits if out is None else out.copy_(logits)
 
 
 @lru_cache(maxsize=8)
@@ -318,8 +336,7 @@ def fused_tail_logits(x3: torch.Tensor, p: TailParams, g: TailGeometry,
     global logits_launches
     B, s, k = x3.shape[0], g.out_extent, p.n_classes
     if not _on_card("fused_tail_logits", x3):
-        logits = fused_tail_logits_plain(x3, p, g)
-        return logits if out is None else out.copy_(logits)
+        return fused_tail_logits_plain(x3, p, g, out)
     _check_input("fused_tail_logits", x3, p, g)
     if out is None:
         out = torch.empty((B, s, s, k), dtype=torch.float32, device=x3.device)

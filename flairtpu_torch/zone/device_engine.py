@@ -5,7 +5,10 @@ The whole margin-padded zone sits in device memory; each batch of
 tiles is gathered and normalized by one kernel (``ops/gather.py``) and runs
 through the encoder and all decoder blocks but the last (cuDNN convolutions,
 each followed by the conv-epilogue kernel, ``ops/epilogue.py``). Then, by
-stitching method and output type:
+stitching method and output type (a U-Net's tail; the strided-head smp
+models run their whole decoder and head and the same three modes of
+``ops/strided_tail.py``, which upsamples the head's logits, see
+``flairtpu/zone/device_engine.py:110-122``):
 
 - exact-clipping, argmax: the fused decoder-tail kernel
   (``ops/fused_tail.py``) writes the uint8 class and probability of each
@@ -17,7 +20,8 @@ stitching method and output type:
   probs mode writes round(255 * softmax) of each class through the same
   windows into one (H, W, K) plane;
 - average, average_weights and max decode the whole tile (margin 0): the
-  tail's logits mode writes each batch's float32 logits, and
+  tail's logits mode writes each batch's float32 logits (linknet's head
+  logits are those already, and are handed through), and
   ``ops/stitch.py``'s kernels add them, in tile order, into accumulators in
   padded zone coordinates, then crop them to the uint8 class and prob
   planes.
@@ -46,9 +50,9 @@ import torch
 
 from flairtpu_torch.config import not_ported
 from flairtpu_torch.ops import stitch, tile_softmax
-from flairtpu_torch.ops.fused_tail import (TailParams, fused_tail, fused_tail_logits,
-                                           fused_tail_probs, tail_geometry)
+from flairtpu_torch.ops.fused_tail import TailParams
 from flairtpu_torch.ops.gather import gather_normalize
+from flairtpu_torch.ops.strided_tail import StridedTail
 from flairtpu_torch.zone.grid import Tile, TileGrid
 from flairtpu_torch.zone.weights import patch_weights
 
@@ -127,16 +131,21 @@ def zone_padding(height: int, width: int, size: int, margin: int) -> tuple[int, 
 
 
 def estimate_bytes(grid: TileGrid, n_channels: int, n_classes: int, method: str,
-                   output_type: str, batch: int, itemsize: int = 1) -> int:
+                   output_type: str, batch: int, itemsize: int = 1, head_up: int = 0) -> int:
     """Device bytes a zone run allocates beyond the model: the staged zone
     and its padded copy (``itemsize`` bytes an element), and the planes and
-    buffers of the program that ``method`` and ``output_type`` select."""
+    buffers of the program that ``method`` and ``output_type`` select;
+    ``head_up`` > 0: a strided-head model's float32 head logits, (batch,
+    S / head_up, S / head_up, K), a batch (a U-Net's tail keeps them on
+    chip)."""
     H, W, S, m = grid.height, grid.width, grid.patch_size, grid.margin
     lo, hi_r, hi_c = zone_padding(H, W, S, m)
     Hp, Wp = H + lo + hi_r, W + lo + hi_c
     s = S - 2 * m
     Ho, Wo = max(H, s), max(W, s)
     zone = (H * W + Hp * Wp) * n_channels * itemsize
+    if head_up:
+        zone += batch * (S // head_up) ** 2 * n_classes * 4
     if output_type == "class_prob":
         return zone + Ho * Wo * n_classes
     if method == "exact-clipping":
@@ -352,7 +361,7 @@ class DeviceZoneRunner:
     stitch_ops = stitch
     tile_ops = tile_softmax
 
-    def __init__(self, config: dict, model, tail: TailParams):
+    def __init__(self, config: dict, model, tail: TailParams | StridedTail):
         self.config = config
         self.model = model
         self.tail = tail
@@ -365,16 +374,20 @@ class DeviceZoneRunner:
         self.norm = dict(norm_type=norma["norm_type"],
                          means=tuple(norma.get("norm_means") or ()),
                          stds=tuple(norma.get("norm_stds") or ()))
-        self.geometry = tail_geometry(self.size, self.margin)
-        self.full_geometry = tail_geometry(self.size, 0)
+        # the tail kernels' wrappers, (argmax, probs, logits) (a subclass may
+        # swap in functions of the same arguments)
+        self.tail_fns = tail.wrappers()
+        self.geometry = tail.geometry(self.size, self.margin)
+        self.full_geometry = tail.geometry(self.size, 0)
 
     @property
     def device(self) -> torch.device:
-        return self.tail.epi.device
+        return self.tail.device
 
     def _tail_input(self, zone: torch.Tensor, origins: torch.Tensor, margin: int):
-        """One batch, (B, 2) origins in the padded zone -> the fused tail's
-        input, decoded on the interior plan of ``margin``."""
+        """One batch, (B, 2) origins in the padded zone -> the tail's input:
+        a U-Net's decoded on the interior plan of ``margin``, a strided-head
+        model's head logits."""
         x = gather_normalize(zone, origins, self.size, out_dtype=self.model.dtype,
                              **self.norm)
         return self.model.tail_input(x, margin)
@@ -383,21 +396,25 @@ class DeviceZoneRunner:
                        planes: torch.Tensor, windows: torch.Tensor) -> None:
         """One batch: each tile's owned window (``windows`` (B, 6)) of class
         and prob goes into the (2, H, W) planes."""
-        fused_tail(self._tail_input(zone, origins, self.margin), self.tail, self.geometry,
-                   planes, windows)
+        self.tail_fns[0](self._tail_input(zone, origins, self.margin), self.tail,
+                         self.geometry, planes, windows)
 
     def _forward_probs(self, zone: torch.Tensor, origins: torch.Tensor,
                        plane: torch.Tensor, windows: torch.Tensor) -> None:
         """One batch: each tile's owned window of round(255 * softmax) goes
         into the (H, W, K) plane."""
-        fused_tail_probs(self._tail_input(zone, origins, self.margin), self.tail,
+        self.tail_fns[1](self._tail_input(zone, origins, self.margin), self.tail,
                          self.geometry, plane, windows)
 
     def _forward_logits(self, zone: torch.Tensor, origins: torch.Tensor,
                         out: torch.Tensor | None) -> torch.Tensor:
-        """One batch -> the whole tiles' float32 logits (B, S, S, K)."""
-        return fused_tail_logits(self._tail_input(zone, origins, 0), self.tail,
-                                 self.full_geometry, out)
+        """One batch -> the whole tiles' float32 logits (B, S, S, K). At
+        U = 1 (linknet) the head's logits are already those: they are handed
+        through (copied into ``out`` when given), with no tail launch."""
+        x = self._tail_input(zone, origins, 0)
+        if self.tail.up == 1:
+            return x if out is None else out.copy_(x)
+        return self.tail_fns[2](x, self.tail, self.full_geometry, out)
 
     def _run_exact(self, zone: torch.Tensor, origins: torch.Tensor,
                    windows: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

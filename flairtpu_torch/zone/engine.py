@@ -36,6 +36,7 @@ from flairtpu_torch.models.factory import create_model
 from flairtpu_torch.models.fold import fold_model
 from flairtpu_torch.models.quantize import quantize_model, read_calibration_batches
 from flairtpu_torch.ops.fused_tail import full_windows, tail_params
+from flairtpu_torch.ops.strided_tail import StridedTail
 from flairtpu_torch.utils.logger import tee_stdout, untee_stdout
 from flairtpu_torch.zone.device_engine import (DeviceZoneRunner, PinnedBuffers, as_bits,
                                                device_budget_bytes, estimate_bytes,
@@ -77,8 +78,10 @@ def compute_dtype(device: torch.device) -> torch.dtype:
 def prepare_model(config: dict, device: torch.device):
     """Build the model, load its weights strictly, move it to ``device``,
     prepare it for inference (conv weights in the compute dtype, BatchNorm
-    (scale, shift) pairs) and derive the fused tail's parameters. Returns
-    (model, tail).
+    (scale, shift) pairs) and derive its tail: a U-Net's fused tail
+    parameters, or the strided-head smp models' ``StridedTail`` (deeplabv3plus,
+    deeplabv3, fpn, pspnet, pan, linknet; ``flairtpu/zone/engine.py:51-53``).
+    Returns (model, tail).
 
     The knobs (``flairtpu/zone/engine.py:60-77``): ``quantize: int8`` folds,
     calibrates on 16 tiles of the zone and quantizes (``models/quantize.py``;
@@ -101,6 +104,8 @@ def prepare_model(config: dict, device: torch.device):
               f"{str(dtype).removeprefix('torch.')} walk)...")
         return zone_model, zone_model.tail
     model.prepare_inference()
+    if model.arch != "unet":
+        return model, StridedTail(model.up, model.n_classes, device)
     return model, tail_params(model, dtype)
 
 
@@ -513,7 +518,7 @@ def run_single(config: dict, model, tail, device: torch.device, stride: int,
 
         need = estimate_bytes(grid, len(config["channels"]), int(config["n_classes"]),
                               method, config["output_type"], int(config["batch_size"]),
-                              reader.dtype.itemsize)
+                              reader.dtype.itemsize, tail.up)
         use_device = (not os.environ.get("FLAIRTPU_STREAMING_ZONE")
                       and need <= device_budget_bytes())
         print(f"    [x] zone path: {'device-resident' if use_device else 'streaming'}")

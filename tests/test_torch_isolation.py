@@ -146,7 +146,7 @@ def test_wrappers_raise_on_other_devices():
         "model_provider": "SegmentationModelsPytorch",
         "SegmentationModelsPytorch": {"encoder_decoder": "mit_b0_unet"}}}, "slice 6"),
     ({"model_framework": {"model_provider": "SegmentationModelsPytorch",
-                          "SegmentationModelsPytorch": {"encoder_decoder": "resnet34_fpn"}}},
+                          "SegmentationModelsPytorch": {"encoder_decoder": "resnet34_manet"}}},
      "slice 5"),
     ({"model_framework": {"model_provider": "SegmentationModelsPytorch",
                           "SegmentationModelsPytorch": {"encoder_decoder": "efficientnet-b0_unet"}}},

@@ -82,12 +82,15 @@ Phases (any failure exits non-zero):
    kernels: strided_tail's three modes at the archs' main-path shapes
    (head logits (128, 128, 128, 19), (128, 64, 64, 19) and (128, 512, 512,
    19) float32 at U = 4, 8 and 1; argmax and probs at margin 128 into
-   whole-tile windows, logits at margin 0) and at STRIDED_EDGES (K = 4, 7
-   and 32, margins 0 to 20, 48 to 96 pixels), and argmax and probs into the
-   planes of the 1000 x 1100 zone at each U: logits within STRIDED_TOL of
-   the largest |logit|, classes equal except where the plain top-2 gap is
-   below STRIDED_GAP, prob and probs within 1; each mode timed beside its
-   plain version (and F.interpolate for the logits mode); group_norm_relu
+   whole-tile windows, logits at margin 0) and at STRIDED_EDGES (K = 1, 4,
+   7, 13, 19 and 32, margins 0 to 64, 48 to 256 pixels, window rows not a
+   multiple of a band), and argmax and probs into the planes of the 1000 x
+   1100 zone at each U: logits within STRIDED_TOL of the largest |logit|,
+   classes equal except where the plain top-2 gap is below STRIDED_GAP,
+   prob and probs within 1; each mode timed beside its plain version (and
+   F.interpolate for the logits mode), and printed beside the time of the
+   kernel it replaced (STRIDED_BEFORE_MS). The stem conv at the main path's shape, direct
+   and space-to-depth (s2d_stem), within STEM_TOL, each timed. group_norm_relu
    at FPN's seven site shapes at batch 128 (GN_SITES) within GN_TOL of its
    plain version, two calls bit-identical, timed beside its plain version
    and F.group_norm.
@@ -143,7 +146,10 @@ Phases (any failure exits non-zero):
    80, quantize_act 8, conv_epilogue 8, fused_tail 2), against its all-plain
    run on the same model (class agreement >= 0.999, prob |diff| <= 1), its
    class agreement with the float path's raster of the zone (>= FOLD_FLOOR
-   or INT8_FLOOR), patches/s and the calibration's seconds.
+   or INT8_FLOOR), patches/s and the calibration's seconds. 3h: the main
+   configuration with s2d_stem: true (the main path's launches), each class
+   equal to the default stem's raster except where the default model's
+   plain logits have a top-2 gap below GAP_TOL.
 4. ``flair`` on the card: a FLAIR-like set (512 x 512 x 5 uint8 patches with
    learnable blocky 19-class masks; 64 train, 16 val, 16 test) written with
    flairtpu_torch.io, and ``cli.flair_main`` with train, predict and metrics
@@ -234,6 +240,7 @@ from flairtpu_torch.io import TiffReader
 from flairtpu_torch.io.tiff import Affine, write_array
 from flairtpu_torch.models.deeplab import align_corners_weights
 from flairtpu_torch.models.factory import FlairSegmentationModel, init_weights
+from flairtpu_torch.models.resnet import stem_conv
 from flairtpu_torch.predict.runner import predict
 from flairtpu_torch.ops import _build
 from flairtpu_torch.ops import augment as au
@@ -550,8 +557,23 @@ STRIDED_GAP = 1e-5
 # the head logits of the archs at the main path's shapes (512 tiles,
 # batch 128, 19 classes): (archs, upsample)
 STRIDED_CASES = (("deeplabv3plus, fpn, pan", 4), ("deeplabv3, pspnet", 8), ("linknet", 1))
-# the odd cases: (tile, margin, upsample, classes, batch)
-STRIDED_EDGES = ((64, 16, 4, 4, 3), (64, 8, 8, 32, 2), (96, 20, 1, 32, 2), (48, 0, 4, 7, 2))
+# the odd cases: (tile, margin, upsample, classes, batch); then window rows
+# not a multiple of a band (140 at U = 4), K = 1 and FLAIR's 13 classes at
+# U = 4 and 8, and a 256-pixel tile with a 64 margin at U = 8
+STRIDED_EDGES = ((64, 16, 4, 4, 3), (64, 8, 8, 32, 2), (96, 20, 1, 32, 2), (48, 0, 4, 7, 2),
+                 (200, 30, 4, 19, 2), (64, 16, 4, 1, 2), (64, 8, 8, 1, 2), (64, 16, 4, 13, 2),
+                 (64, 8, 8, 13, 2), (256, 64, 8, 19, 2))
+# the one-thread-a-pixel kernel of fe34f71 at the main-path shapes (PERF.md
+# §6's "was" times: chip_smoke, H100 80GB HBM3 at 700 W), printed beside
+# this run's
+STRIDED_BEFORE_MS = {4: {"argmax": 0.3317, "probs": 0.4700, "logits": 1.6079},
+                   8: {"argmax": 0.3048, "probs": 0.4424, "logits": 1.2700},
+                   1: {"argmax": 0.2961, "probs": 0.3803, "logits": 1.9344}}
+# the stem conv (resnet, 7 x 7 / 2, 5 -> 64 channels) in its two forms, s2d_stem
+# false and true: cuDNN sums the same bf16 products in float32 in other orders,
+# then rounds to bf16, so the two may differ by a bf16 ulp of an output:
+# within STEM_TOL (two ulps) of the largest |output|
+STEM_TOL = 2.0 ** -6
 # group_norm_relu vs its plain version: float32 sums of up to 65536 values
 # a group in other orders, then the same per-element arithmetic: within
 # GN_TOL of the largest output
@@ -564,34 +586,6 @@ GN_SITES = (("seg0_c0 (p5)", 16, True), ("seg0_c1", 32, True), ("seg0_c2", 64, T
 
 def head_logits(gen, batch: int, n: int, k: int) -> torch.Tensor:
     return torch.randn((batch, n, n, k), generator=gen, device="cuda") * 2.0
-
-
-def taps_needed(g, lo: int, hi: int) -> int:
-    """Distinct source indices with a nonzero weight that output window
-    indices [lo, hi) read."""
-    idx, wts = sp.taps(g)
-    return len(set(idx[0][lo:hi][wts[0][lo:hi] > 0]) | set(idx[1][lo:hi][wts[1][lo:hi] > 0]))
-
-
-def strided_cost(g, windows: np.ndarray, k: int, mode: str) -> tuple[int, int]:
-    """(operations, bytes) of one call as the separable function needs them:
-    each needed source logit read once, each window pixel written once (2
-    bytes, k bytes or 4k bytes); for U > 1 the H pass's 3 operations (two
-    products, a sum) a class at each (window row, needed source column), the
-    W pass's 3 a class at each window pixel (U = 1: the identity, none); the
-    softmax 3 more a value (argmax) or 5 (probs)."""
-    ops = nbytes = 0
-    for _, _, rlo, rhi, clo, chi in windows.tolist():
-        if rlo >= rhi or clo >= chi:
-            continue
-        pix = (rhi - rlo) * (chi - clo)
-        cols = taps_needed(g, clo, chi)
-        nbytes += taps_needed(g, rlo, rhi) * cols * k * 4
-        nbytes += pix * {"argmax": 2, "probs": k, "logits": 4 * k}[mode]
-        if g.up > 1:
-            ops += 3 * k * ((rhi - rlo) * cols + pix)
-        ops += pix * k * {"argmax": 3, "probs": 5, "logits": 0}[mode]
-    return ops, nbytes
 
 
 def check_strided_tail(gen, label: str, size: int, margin: int, up: int, k: int, batch: int,
@@ -645,7 +639,8 @@ def check_strided_tail(gen, label: str, size: int, margin: int, up: int, k: int,
                                                    align_corners=True)}
         modes = {}
         for mode, (kern, plain) in calls.items():
-            ops, nbytes = strided_cost(g if mode != "logits" else g0, wins[mode], k, mode)
+            ops, nbytes = sp.strided_cost(g if mode != "logits" else g0, wins[mode], k,
+                                          mode)
             lib = library.get(mode)
             modes[mode] = dict(mode=mode, ms=cuda_ms(kern, 10, 2),
                                plain_ms=cuda_ms(plain, 3, 1),
@@ -709,6 +704,28 @@ def check_strided_kernels(gen) -> dict:
             "logits_err": max(r["logits_err"] for r in cases.values())}
 
 
+def check_stems(gen) -> dict:
+    """The stem conv at the main path's shape (batch 128, 512², bf16
+    channels_last, random weights): the direct 7 x 7 / 2 conv against its
+    space-to-depth form (``models/resnet.py:stem_conv``, the repacks
+    included), each timed."""
+    conv1 = nn.Conv2d(C, 64, 7, 2, 3, bias=False).to("cuda", torch.bfloat16)
+    conv1.weight.data = (torch.randn(conv1.weight.shape, generator=gen, device="cuda")
+                         * (2.0 / (C * 49)) ** 0.5).to(torch.bfloat16)
+    x = torch.rand((BATCH, S, S, C), generator=gen, device="cuda").to(torch.bfloat16)
+    x = x.permute(0, 3, 1, 2)  # an NCHW view of NHWC memory, as the encoder takes it
+    direct = stem_conv(x, conv1, torch.bfloat16, False)
+    s2d = stem_conv(x, conv1, torch.bfloat16, True)
+    scale = direct.abs().max().item()
+    err = (direct.float() - s2d.float()).abs().max().item()
+    check(err <= STEM_TOL * scale, f"stem conv, space-to-depth vs direct (batch {BATCH}): "
+          f"largest |diff| {err:.3e} <= {STEM_TOL} x {scale:.3f}")
+    del direct, s2d
+    return {"direct_ms": cuda_ms(lambda: stem_conv(x, conv1, torch.bfloat16, False), 10, 2),
+            "s2d_ms": cuda_ms(lambda: stem_conv(x, conv1, torch.bfloat16, True), 10, 2),
+            "max_abs_err": err}
+
+
 def check_group_norm(gen) -> dict:
     """group_norm_relu at FPN's seven site shapes at batch 128 (bf16
     channels_last conv outputs, random GroupNorm affines): within GN_TOL of
@@ -750,6 +767,9 @@ def check_group_norm(gen) -> dict:
 
 
 def top2_gap_last(x: torch.Tensor) -> torch.Tensor:
+    """The top-2 gap over the last axis (one class: no second, an infinite gap)."""
+    if x.shape[-1] == 1:
+        return torch.full(x.shape[:-1], float("inf"), device=x.device)
     top2 = x.topk(2, dim=-1).values
     return top2[..., 0] - top2[..., 1]
 
@@ -2106,6 +2126,51 @@ def run_small_int8(cfg: dict, tmp: Path) -> dict:
         out[label] = run_knobs(sc, f"small_{label}", knobs, ZONE_SMALL, INT8_FLOOR, float_raster,
                                int8_blocks=knobs["int8_decoder"])
     return out
+
+
+def plain_gap(cfg: dict) -> np.ndarray:
+    """The top-2 gap (H, W) of the plain logits of ``cfg``'s model at each
+    pixel of its zone (GapRunner's all-plain route)."""
+    device = torch.device("cuda")
+    pc = eng.setup_out_path(dict(cfg, compare=False))
+    with TiffReader(pc["input_img_path"]) as reader:
+        grid = slice_grid(reader.width, reader.height, S, M, S - 2 * M, reader.transform,
+                          reader.crs)
+    runner = GapRunner(pc, *eng.prepare_model(cfg, device))
+    runner.run(grid, "exact-clipping", eng.stage_zone(pc, device))
+    return runner.gap.cpu().numpy()
+
+
+def run_s2d_stem(cfg: dict, zone_hw: int, default_raster: np.ndarray) -> dict:
+    """The main configuration with ``s2d_stem: true`` through detect_main
+    (the counts set to 0 just before it: the main path's launches) against
+    the default stem's raster of the zone: a class may differ only where the
+    default model's plain logits have a top-2 gap below GAP_TOL (the two
+    stems round the same sums apart, in bf16, and the convolutions after
+    them carry it on); patches/s."""
+    sc = dict(cfg, output_path=str(Path(cfg["output_path"]).parent / "out_s2d"),
+              s2d_stem=True)
+    conf = write_conf(sc, "s2d_stem")
+    reset_launches()
+    stats = cli.detect_main([f"--conf={conf}"])
+    launches = read_launches()
+    n_batches = -(-len(slice_grid(zone_hw, zone_hw, S, M).tiles) // BATCH)
+    check_launches(f"s2d_stem, {n_batches} batches", launches,
+                   expected_launches("exact-clipping", "argmax", n_batches))
+    have = read_raster(Path(sc["output_path"]) / "zone-ARGMAX.tif")
+    check(have.shape == (2, zone_hw, zone_hw) and bool((have[1] > 0).all()),
+          f"s2d_stem: raster {have.shape}, every pixel written")
+    off = have[0] != default_raster[0]
+    moved = off & (plain_gap(cfg) >= GAP_TOL)
+    dprob = int(np.abs(have[1].astype(int) - default_raster[1].astype(int)).max())
+    check(int(moved.sum()) == 0, f"s2d_stem vs the default stem: {int(off.sum())} class "
+          f"mismatches, {int(moved.sum())} beyond the near-tie rule (top-2 gap < {GAP_TOL})")
+    print(f"  s2d_stem: {stats['tiles']} tiles, compute {stats['compute_seconds']:.4f} s, "
+          f"{stats['patches_per_sec']:.2f} patches/s; {int(off.sum())} near-tie class "
+          f"mismatches against the default stem, prob |diff| {dprob}", flush=True)
+    return {"patches_per_sec": stats["patches_per_sec"],
+            "compute_seconds": stats["compute_seconds"], "mismatches": int(off.sum()),
+            "prob_diff": dprob, "launches": launches}
 
 
 def stage_breakdown(cfg: dict, zone_hw: int, rng, epi: dict) -> dict:
@@ -3569,14 +3634,22 @@ ARCH_GAP = GAP_TOL
 
 class GapRunner(PlainRunner):
     """The all-plain route that also keeps, in ``gap`` (H, W) float32, the
-    top-2 gap of the plain logits at each owned pixel."""
+    top-2 gap of the plain logits at each owned pixel (a U-Net's from its
+    plain forward at the margin)."""
 
     gap = None
 
     def _forward_tiles(self, zone_p, origins, planes, windows):
-        x = self._tail_input(zone_p, origins, self.margin)
-        sp.strided_tail_plain(x, self.tail, self.geometry, planes, windows)
-        gap = top2_gap_last(sp.upsample_window(x, self.geometry))
+        if self.model.arch == "unet":
+            super()._forward_tiles(zone_p, origins, planes, windows)
+            x = ga.gather_normalize_plain(zone_p, origins, self.size,
+                                          out_dtype=self.model.dtype, **self.norm)
+            gap = top2_gap_last(self.model(x, inner_margin=self.margin,
+                                           epilogue=ep.conv_epilogue_plain))
+        else:
+            x = self._tail_input(zone_p, origins, self.margin)
+            sp.strided_tail_plain(x, self.tail, self.geometry, planes, windows)
+            gap = top2_gap_last(sp.upsample_window(x, self.geometry))
         if self.gap is None:
             self.gap = torch.zeros(planes.shape[1:], dtype=torch.float32, device=planes.device)
         write_windows([self.gap], [gap], windows)
@@ -3900,6 +3973,8 @@ def main() -> int:
             torch.cuda.empty_cache()
             strided = check_strided_kernels(gen)
             torch.cuda.empty_cache()
+            stems = check_stems(gen)
+            torch.cuda.empty_cache()
             gnorm = check_group_norm(gen)
             torch.cuda.empty_cache()
             # flair's predict: the tail at margin 0 on whole 512 tiles
@@ -3949,12 +4024,16 @@ def main() -> int:
             print(f"    {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
 
-        for label, case in strided["cases"].items():
+        for (label, up), case in zip(STRIDED_CASES, strided["cases"].values()):
             for r in case["modes"].values():
-                print(f"    strided_tail {r['mode']} ({label}), batch {BATCH}: {r['ms']:.4f} ms, "
-                      f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+                print(f"    strided_tail {r['mode']} ({label}), batch {BATCH}: {r['ms']:.4f} ms "
+                      f"(fe34f71's kernel {STRIDED_BEFORE_MS[up][r['mode']]:.4f} ms), plain "
+                      f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
                       f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)",
                       flush=True)
+        print(f"    stem conv, batch {BATCH} x {S}² x {C} -> 64, bf16: direct "
+              f"{stems['direct_ms']:.4f} ms, space-to-depth (s2d_stem) {stems['s2d_ms']:.4f} ms",
+              flush=True)
         for r in gnorm["sites"]:
             print(f"    group_norm_relu {r['site']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
                   f"ms, F.group_norm {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -4016,6 +4095,9 @@ def main() -> int:
         int8_run = run_knobs(cfg, "int8", INT8_KNOBS, ZONE, INT8_FLOOR, float_raster,
                              int8_blocks=INT8_KNOBS["int8_decoder"])
         int8_small = run_small_int8(cfg, tmp)
+        print("[3h] s2d_stem on the main configuration, against the default stem",
+              flush=True)
+        s2d = run_s2d_stem(cfg, ZONE, float_raster)
         print("[4] flair train / predict / metrics on the card: resnet34-unet, 512 patches, "
               f"batch {TRAIN_BATCH}, {K} classes", flush=True)
         with torch_defaults():
@@ -4237,6 +4319,8 @@ def main() -> int:
     print(json.dumps({"uint16_zone": u16, "card": card}))
     print(json.dumps({"bn_fold": fold, "int8": int8_run, "int8_small_zone": int8_small,
                       "card": card}))
+    print(json.dumps({"s2d_stem": {k: v for k, v in s2d.items() if k != "launches"},
+                      "stem_conv_ms": stems, "card": card}))
     print(json.dumps({"int8_timings": {k: {f: v for f, v in r.items() if f != "sites"}
                                        for k, r in int8.items() if isinstance(r, dict)},
                       "card": card}))

@@ -101,7 +101,12 @@ def validate_knobs(cfg: dict, arch: str) -> None:
     """``quantize``, ``int8_decoder`` and ``bn_fold`` as
     ``flairtpu/config.py:306-318`` checks them. ``int8_decoder: 5`` puts
     decoder block 4 in int8, which the fused tail does not run; the knobs
-    run the U-Net only."""
+    run the U-Net only. ``s2d_stem`` (read as ``bool(...)``, as
+    ``flairtpu/models/factory.py:325`` does) computes the resnet stem on a
+    space-to-depth repack in the float models of ``flair`` and
+    ``flair-detect``; the folded and int8 walks compute their stem as the
+    7 x 7 conv whatever it says, as ``flairtpu``'s walk (``flairtpu/models/
+    quantize.py:107``) does, which does not go through ``StemConv``."""
     quant = cfg.get("quantize")
     if quant not in (None, False, "int8"):
         raise ConfigError("quantize: 'int8' is the only supported value (or omit the key).")

@@ -53,11 +53,13 @@ ARCHS = {
 
 class FlairSegmentationModel(nn.Module):
     """smp ``create_model(arch, encoder_name, classes, in_channels)`` with
-    smp's key names, ``arch`` one of :data:`ARCHS`."""
+    smp's key names, ``arch`` one of :data:`ARCHS`; ``s2d_stem``: the
+    encoder's stem conv on the space-to-depth repack
+    (``models/resnet.py:stem_conv``)."""
 
     def __init__(self, encoder_name: str = "resnet34", classes: int = 13,
                  in_channels: int = 5, dtype=torch.float32, use_metadata: bool = False,
-                 arch: str = "unet"):
+                 arch: str = "unet", s2d_stem: bool = False):
         super().__init__()
         if arch not in ARCHS:
             raise not_ported(f"smp architecture {arch!r}", "slice 5: MAnet and UNet++")
@@ -66,7 +68,8 @@ class FlairSegmentationModel(nn.Module):
         self.dtype = dtype
         self.encoder_name = encoder_name
         self.use_metadata = use_metadata
-        self.encoder = ResNetEncoder(encoder_name, in_channels, dtype=dtype, **enc_kw)
+        self.encoder = ResNetEncoder(encoder_name, in_channels, dtype=dtype, s2d_stem=s2d_stem,
+                                     **enc_kw)
         self.decoder = decoder(self.encoder.out_channels, dtype=dtype)
         self.segmentation_head = SegmentationHead(head_ch, classes, dtype=dtype, kernel=head_k)
         if use_metadata:
@@ -191,4 +194,4 @@ def create_model(config: dict, dtype=torch.float32) -> FlairSegmentationModel:
     n_classes = config.get("n_classes") or len(config["classes"])
     return FlairSegmentationModel(encoder, int(n_classes), len(config["channels"]), dtype=dtype,
                                   use_metadata=bool(config.get("use_metadata", False)),
-                                  arch=arch)
+                                  arch=arch, s2d_stem=bool(config.get("s2d_stem", False)))

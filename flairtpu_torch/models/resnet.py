@@ -164,6 +164,39 @@ class Bottleneck(nn.Module):
                                  epilogue)
 
 
+def s2d_input(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, 4C, H/2 + 3, W/2 + 3), channels_last: the
+    space-to-depth repack of each 2 x 2 block (channels in (row, column,
+    channel) order), padded by 2 before and 1 after (``flairtpu/models/
+    resnet.py:_s2d`` and ``StemConv``'s padding)."""
+    B, C, H, W = x.shape
+    y = x.permute(0, 2, 3, 1).reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 2, 4, 5)
+    y = F.pad(y.reshape(B, H // 2, W // 2, 4 * C), (0, 0, 2, 1, 2, 1))
+    return y.permute(0, 3, 1, 2)
+
+
+def s2d_kernel(w: torch.Tensor) -> torch.Tensor:
+    """The stem's (O, C, 7, 7) stride-2 pad-3 kernel -> the (O, 4C, 4, 4)
+    stride-1 kernel of the same conv on :func:`s2d_input` (one leading zero
+    row and column; ``flairtpu/models/resnet.py:_s2d_kernel``)."""
+    O, C = w.shape[:2]
+    w = F.pad(w, (1, 0, 1, 0)).reshape(O, C, 4, 2, 4, 2)
+    return w.permute(0, 3, 5, 1, 2, 4).reshape(O, 4 * C, 4, 4)
+
+
+def stem_conv(x: torch.Tensor, m: nn.Conv2d, dtype: torch.dtype, s2d: bool) -> torch.Tensor:
+    """The 7 x 7 / 2 stem conv ``m`` as :func:`conv` computes it, or with
+    ``s2d`` as a 4 x 4 / 1 conv on the space-to-depth repack
+    (``flairtpu``'s ``StemConv(s2d=True)``, ``flairtpu/models/resnet.py:
+    137-162``): the same products, summed by cuDNN in another order. The
+    parameter stays the 7 x 7 kernel, so a ``.pth`` loads either way."""
+    if not s2d:
+        return conv(x, m, dtype)
+    w = m.weight if m.weight.dtype == dtype else m.weight.to(dtype)
+    y = F.conv2d(s2d_input(x.to(dtype)), s2d_kernel(w))
+    return y.contiguous(memory_format=torch.channels_last)
+
+
 # smp get_encoder(output_stride=...): the dilation of each dilated stage
 # (0-based); its strides become 1, the downsample conv's too, and each 3x3
 # pads by its dilation (smp encoders/_utils.replace_strides_with_dilation)
@@ -174,11 +207,15 @@ class ResNetEncoder(nn.Module):
     """Stem + ``depth - 1`` stages; returns the pyramid [x, f1..f_depth]
     (smp's identity stage 0 first): strides 1..32 at ``output_stride`` 32,
     capped at 16 or 8 by dilating the last stages. ``depth`` 3 (PSPNet)
-    stops after layer2, and the model then has no layer3 or layer4."""
+    stops after layer2, and the model then has no layer3 or layer4.
+    ``s2d_stem``: the stem conv on the space-to-depth repack
+    (:func:`stem_conv`)."""
 
     def __init__(self, name: str = "resnet34", in_channels: int = 5,
-                 dtype=torch.float32, output_stride: int = 32, depth: int = 5):
+                 dtype=torch.float32, output_stride: int = 32, depth: int = 5,
+                 s2d_stem: bool = False):
         super().__init__()
+        self.s2d_stem = s2d_stem
         kind, units = RESNET_SPECS[name]
         block = BasicBlock if kind == "basic" else Bottleneck
         dilations = STAGE_DILATIONS[output_stride]
@@ -210,7 +247,8 @@ class ResNetEncoder(nn.Module):
         needs_f32 = [b.downsample is None for _, b in blocks[1:]] + [False]
         feats = [x]
         keep = blocks[0][1].downsample is None
-        y, y32 = bn_site(epilogue, conv(x, self.conv1, self.dtype), self.bn1, keep_f32=keep)
+        y, y32 = bn_site(epilogue, stem_conv(x, self.conv1, self.dtype, self.s2d_stem), self.bn1,
+                         keep_f32=keep)
         feats.append(y)
         # with no float32 identity to keep, the compute-dtype copy is pooled:
         # max commutes with the monotone bf16 rounding, so the value is the same

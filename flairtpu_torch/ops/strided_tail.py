@@ -29,7 +29,10 @@ version multiplies by those weight matrices' rows, as ``flairtpu`` does,
 then runs ``ops/fused.py``'s softmax epilogues and writes the windows; at
 U = 1 the matrices are the identity and it crops. Each wrapper runs the
 plain version for a CPU tensor and launches the kernel for a float32 CUDA
-tensor, or raises; it counts its own launches.
+tensor, or raises; it counts its own launches. The kernel computes the H
+pass once per (window row, source column) of a band of window rows that
+one block stages; :func:`launch_plan` sizes the bands, the staged source
+run and the block's shared memory, and passes them to the C entry point.
 """
 
 from __future__ import annotations
@@ -48,7 +51,17 @@ from flairtpu_torch.ops.fused_tail import full_windows
 
 MAX_CLASSES = 32
 ARGMAX, PROBS, LOGITS = 0, 1, 2  # the kernel's modes
-ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+# the kernel's launch constants (csrc/strided_tail.cu: kThreads, kRunPad,
+# kOutPadBytes): threads a block, floats past a staged source run, bytes past
+# a staged output run
+THREADS, RUN_PAD, OUT_PAD_BYTES = 256, 6, 16
+# a band's window rows (at U = 1, where a staged row serves one window row:
+# IDENTITY_BAND_ROWS), a chunk's window columns, and the shared memory a
+# block may opt into on an H100
+BAND_ROWS, IDENTITY_BAND_ROWS = 8, 2
+CHUNK_COLS = 256
+MAX_SMEM_BYTES = 232448
 
 # kernel launches on CUDA tensors since the last reset, one count per
 # wrapper (the CPU path does not count)
@@ -115,10 +128,113 @@ def taps(g: StridedGeometry) -> tuple[np.ndarray, np.ndarray]:
             np.stack([w_lo[win], w_hi[win]]).astype(np.float32))
 
 
-@lru_cache(maxsize=16)
-def device_taps(g: StridedGeometry, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+def taps_needed(g: StridedGeometry, lo: int, hi: int) -> int:
+    """Distinct source indices with a nonzero weight that output window
+    indices [lo, hi) read."""
     idx, wts = taps(g)
+    return len(set(idx[0][lo:hi][wts[0][lo:hi] > 0]) | set(idx[1][lo:hi][wts[1][lo:hi] > 0]))
+
+
+def strided_cost(g: StridedGeometry, windows: np.ndarray, k: int, mode: str) -> tuple[int, int]:
+    """(operations, bytes) of one call as the separable function needs them:
+    each needed source logit read once, each window pixel written once (2
+    bytes, k bytes or 4k bytes); for U > 1 the H pass's 3 operations (two
+    products, a sum) a class at each (window row, needed source column), the
+    W pass's 3 a class at each window pixel (U = 1: the identity, none); the
+    softmax 3 more a value (argmax) or 5 (probs)."""
+    ops = nbytes = 0
+    for _, _, rlo, rhi, clo, chi in windows.tolist():
+        if rlo >= rhi or clo >= chi:
+            continue
+        pix = (rhi - rlo) * (chi - clo)
+        cols = taps_needed(g, clo, chi)
+        nbytes += taps_needed(g, rlo, rhi) * cols * k * 4
+        nbytes += pix * {"argmax": 2, "probs": k, "logits": 4 * k}[mode]
+        if g.up > 1:
+            ops += 3 * k * ((rhi - rlo) * cols + pix)
+        ops += pix * k * {"argmax": 3, "probs": 5, "logits": 0}[mode]
+    return ops, nbytes
+
+
+def kernel_taps(g: StridedGeometry) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`taps` as the kernel takes them: hi = lo where hi's weight is
+    0, so that every index a block reads carries a weight and lies in the
+    source run it stages (the product of a weight 0 is 0 either way)."""
+    idx, wts = taps(g)
+    idx = idx.copy()
+    idx[1] = np.where(wts[1] > 0, idx[1], idx[0])
+    return idx, wts
+
+
+@lru_cache(maxsize=None)
+def device_taps(g: StridedGeometry, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`kernel_taps` on ``device``, kept for every geometry a process
+    uses: a new one's blocking copy waits for all the work queued on the
+    card before it."""
+    idx, wts = kernel_taps(g)
     return torch.from_numpy(idx).to(device), torch.from_numpy(wts).to(device)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """A launch of the kernel: ``rows`` window rows by ``cols`` window
+    columns a block, the most source rows and columns any block stages, its
+    shared memory and the grid (column chunks, bands, tiles)."""
+
+    rows: int
+    cols: int
+    src_rows: int
+    src_cols: int
+    smem_bytes: int
+    grid: tuple[int, int, int]
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def smem_bytes(rows: int, cols: int, src_rows: int, src_cols: int, k: int, mode: int,
+               identity: bool) -> int:
+    """A block's shared memory, as the kernel lays it out: the staged source
+    rows (``src_cols * k`` floats and RUN_PAD, in whole 16-byte chunks), at
+    U > 1 the H pass's rows (each staged column an odd number of 16-byte
+    chunks of classes), and for probs and logits two output row buffers,
+    used in turn."""
+    stage = src_rows * _round4(src_cols * k + RUN_PAD)
+    hbuf = 0 if identity else rows * src_cols * 4 * (((k + 3) // 4) | 1)
+    out = {ARGMAX: 0, PROBS: (cols * k + OUT_PAD_BYTES + 15) & ~15,
+           LOGITS: 4 * _round4(cols * k + OUT_PAD_BYTES // 4)}[mode]
+    return 4 * (stage + hbuf) + 2 * out
+
+
+def staged_extent(lo: np.ndarray, hi: np.ndarray, step: int) -> int:
+    """The most source indices [lo[first], hi[last]] that a block of
+    ``step`` consecutive window indices stages (the taps are nondecreasing)."""
+    first = np.arange(0, len(lo), step)
+    last = np.minimum(first + step, len(lo)) - 1
+    return int((hi[last] - lo[first]).max()) + 1
+
+
+@lru_cache(maxsize=64)
+def launch_plan(g: StridedGeometry, k: int, mode: int, batch: int, rows: int | None = None,
+                cols: int | None = None) -> Plan:
+    """The launch of one call of ``batch`` tiles: a band of BAND_ROWS (or
+    ``rows``) window rows by CHUNK_COLS (or ``cols``) columns a block, the
+    chunk halved until a block's shared memory fits MAX_SMEM_BYTES."""
+    idx, _ = kernel_taps(g)
+    rows = rows or (IDENTITY_BAND_ROWS if g.up == 1 else BAND_ROWS)
+    s, cols = g.out_extent, cols or CHUNK_COLS
+    src_rows = staged_extent(idx[0], idx[1], rows)
+    while True:
+        src_cols = staged_extent(idx[0], idx[1], cols)
+        smem = smem_bytes(rows, cols, src_rows, src_cols, k, mode, g.up == 1)
+        if smem <= MAX_SMEM_BYTES or cols <= 32:
+            break
+        cols //= 2
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"strided_tail: no launch fits {MAX_SMEM_BYTES} bytes of shared "
+                         f"memory at {g}, {k} classes")
+    return Plan(rows, cols, src_rows, src_cols, smem, (-(-s // cols), -(-s // rows), batch))
 
 
 def upsample_window(x: torch.Tensor, g: StridedGeometry) -> torch.Tensor:
@@ -163,10 +279,18 @@ def strided_tail_logits_plain(x: torch.Tensor, p: StridedTail, g: StridedGeometr
     return logits if out is None else out.copy_(logits)
 
 
-def _check_input(name: str, x: torch.Tensor, p: StridedTail, g: StridedGeometry) -> None:
-    """Raise unless x is what the kernel takes on the card."""
+def _on_card(name: str, x: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version), True for a CUDA one (the
+    kernel); raises on any other device."""
+    if x.device.type == "cpu":
+        return False
     if x.device.type != "cuda":
         raise RuntimeError(f"{name}: unsupported device {x.device}")
+    return True
+
+
+def _check_input(name: str, x: torch.Tensor, p: StridedTail, g: StridedGeometry) -> None:
+    """Raise unless x is what the kernel takes."""
     if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{name}: logits must be a contiguous (B, n, n, K) float32 tensor "
                          f"(got {tuple(x.shape)} {x.dtype})")
@@ -195,10 +319,12 @@ def _check_windows(name: str, windows, x: torch.Tensor) -> None:
 def _launch(x: torch.Tensor, g: StridedGeometry, windows: torch.Tensor, out0: torch.Tensor,
             out1: torch.Tensor | None, pitch: int, mode: int) -> None:
     idx, wts = device_taps(g, x.device)
+    plan = launch_plan(g, x.shape[3], mode, x.shape[0])
     err = _build.entry("strided_tail", ARGTYPES)(
         x.data_ptr(), idx.data_ptr(), wts.data_ptr(), windows.data_ptr(), out0.data_ptr(),
         None if out1 is None else out1.data_ptr(), pitch, x.shape[0], g.n_in, g.out_extent,
-        x.shape[3], mode, _build.stream_handle(x))
+        x.shape[3], mode, plan.rows, plan.cols, plan.src_rows, plan.src_cols, int(g.up == 1),
+        plan.smem_bytes, _build.stream_handle(x))
     _build.check(err, "strided_tail")
 
 
@@ -211,7 +337,7 @@ def strided_tail(x: torch.Tensor, p: StridedTail, g: StridedGeometry,
     CPU tensor: the plain version. float32 CUDA tensor: the kernel, or an
     error."""
     global launches
-    if x.device.type == "cpu":
+    if not _on_card("strided_tail", x):
         return strided_tail_plain(x, p, g, planes, windows)
     _check_input("strided_tail", x, p, g)
     B, s = x.shape[0], g.out_extent
@@ -239,7 +365,7 @@ def strided_tail_probs(x: torch.Tensor, p: StridedTail, g: StridedGeometry,
     CPU tensor: the plain version. float32 CUDA tensor: the kernel, or an
     error."""
     global probs_launches
-    if x.device.type == "cpu":
+    if not _on_card("strided_tail_probs", x):
         return strided_tail_probs_plain(x, p, g, plane, windows)
     _check_input("strided_tail_probs", x, p, g)
     _check_plane("strided_tail_probs", plane, x, 3, torch.uint8, p.n_classes)
@@ -257,7 +383,7 @@ def strided_tail_logits(x: torch.Tensor, p: StridedTail, g: StridedGeometry,
     CPU tensor: the plain version. float32 CUDA tensor: the kernel, or an
     error."""
     global logits_launches
-    if x.device.type == "cpu":
+    if not _on_card("strided_tail_logits", x):
         return strided_tail_logits_plain(x, p, g, out)
     _check_input("strided_tail_logits", x, p, g)
     B, s, k = x.shape[0], g.out_extent, p.n_classes

@@ -21,6 +21,7 @@ import torch.nn as nn
 
 from flairtpu.models.convert import torch_to_flax
 from flairtpu.models.factory import create_model as flax_create_model
+from flairtpu_torch.config import ConfigError, validate_detect_config
 from flairtpu_torch.models.convert import from_flax, load_weights
 from flairtpu_torch.models.factory import HEAD_UPSAMPLE, FlairSegmentationModel
 from flairtpu_torch.ops import group_norm as gn
@@ -205,3 +206,40 @@ def test_group_norm_counts_no_cpu_launch(pair):
     with torch.inference_mode():
         port(torch.from_numpy(inputs(arch)))
     assert gn.launches == 0
+
+
+
+def test_pan_small_tiles_refused_as_flairtpu_fails():
+    """flairtpu's resnet18_pan fails below a 128-pixel tile (FPA's third max
+    pool leaves an empty map: an IndexError while it traces) and traces at
+    128 to whole-tile logits; the port's config check refuses the same
+    sizes (test_pan_config_check_tile_sizes)."""
+    fmodel, key = flax_model("pan"), jax.random.PRNGKey(0)
+
+    def logits_shape(size: int):
+        x = jax.numpy.zeros((1, size, size, 5))
+        variables = jax.eval_shape(lambda: fmodel.init(key, x, train=False))
+        return jax.eval_shape(lambda v: fmodel.apply(v, x, train=False), variables).shape
+
+    with pytest.raises(IndexError):
+        logits_shape(112)
+    assert logits_shape(128) == (1, 128, 128, N_CLASSES)
+
+
+@pytest.mark.parametrize("size,refused", [(112, True), (128, False)])
+def test_pan_config_check_tile_sizes(tmp_path, size, refused):
+    """The port refuses PAN tiles under 128 pixels when it reads the config,
+    with a ConfigError naming the limit, and takes 128."""
+    (tmp_path / "zone.tif").touch()
+    (tmp_path / "w.pth").touch()
+    cfg = {"input_img_path": str(tmp_path / "zone.tif"), "output_path": str(tmp_path / "out"),
+           "channels": [1, 2, 3, 4, 5], "img_pixels_detection": size, "margin": 16,
+           "output_type": "argmax", "n_classes": N_CLASSES,
+           "norma_task": [{"norm_type": "scaling"}], "model_weights": str(tmp_path / "w.pth"),
+           "model_framework": {"model_provider": "SegmentationModelsPytorch",
+                               "SegmentationModelsPytorch": {"encoder_decoder": "resnet18_pan"}}}
+    if refused:
+        with pytest.raises(ConfigError, match="pan needs tiles of at least 128"):
+            validate_detect_config(cfg)
+    else:
+        assert validate_detect_config(cfg)["img_pixels_detection"] == 128

@@ -47,7 +47,9 @@ Phases (any failure exits non-zero):
    not reach (batch 1 with M not a multiple of 128, Co 8 and 72, Kp not a
    multiple of 128, stride 2, dilation 2, Cp 8 and 24 through the 8-byte
    gathers, Cp 32 and 96 through the 16-byte ones, im2col TMA at stride 2,
-   dilation 2 and 1x1/2, a residual without ReLU). Each kernel and its plain version
+   dilation 2 and 1x1/2, a residual without ReLU, and the dilated encoders'
+   3x3 at dilation 4 over 512 channels and 1x1/1 downsample from 256 to
+   512). Each kernel and its plain version
    are timed with CUDA events; conv_epilogue at every site, summed over the
    batch, and so int8_conv (its 40 sites of one batch of 128, with
    torch._int_mm on each site's im2col operand as the library yardstick;
@@ -193,18 +195,30 @@ Phases (any failure exits non-zero):
    autosave cleared at the end). Each run with the counts set to 0 just
    before it.
 5. slice 5's smp decoders (``ARCHS5``: deeplabv3plus, deeplabv3, fpn,
-   pspnet, pan, linknet), each a random resnet34 (19 classes) on the main
-   configuration and zone through detect_main with the counts set to 0 just
-   before it: the raster's shape, georeferencing and coverage, the launches
-   (gather_normalize and strided_tail once a batch, conv_epilogue once per
-   BatchNorm site, FPN's group_norm_relu 7 a batch), and against its
-   all-plain run (GapRunner): no class moved where the plain logits' top-2
-   gap is at least ARCH_GAP, prob |diff| <= 1; zone patches/s, compute s
-   and peak device memory; one batch by stage (CUDA events; with
-   --profile the profiler's kernel table). deeplabv3plus also with
-   class_prob (the probs mode, every band within 1 of plain) and ``-c -m``
-   at size 512 (the four methods, each run's launches and agreement with
-   plain). Phase 5 runs with PyTorch's default precision flags.
+   pspnet, pan, linknet, manet, unetplusplus), each a random resnet34 (19
+   classes) on the main configuration and zone through detect_main with the
+   counts set to 0 just before it: the raster's shape, georeferencing and
+   coverage, the launches (gather_normalize and the tail once a batch:
+   strided_tail, or fused_tail for manet and unetplusplus, whose decoder
+   runs whole tiles through the node before the last; conv_epilogue once
+   per BatchNorm site outside the tail, FPN's group_norm_relu 7 a batch),
+   and against its all-plain run (GapRunner): no class moved where the
+   plain logits' top-2 gap is at least ARCH_GAP, prob |diff| <= 1; zone
+   patches/s, compute s and peak device memory; one batch by stage (CUDA
+   events; with --profile the profiler's kernel table). deeplabv3plus and
+   manet also with class_prob (the probs mode, every band within 1 of
+   plain) and ``-c -m`` at size 512 (the four methods, each run's launches
+   and agreement with plain). Phase 5 runs with PyTorch's default precision
+   flags.
+5b. the knobs off the U-Net: ``bn_fold: true`` and INT8_KNOBS (int8_decoder
+   ignored: the encoder alone in int8) for deeplabv3 (dilations 2 and 4) and
+   unetplusplus on the main zone, and INT8_KNOBS for the other six archs on
+   phase 3g's 1024² zone. Each run: its launches with the counts set to 0
+   just before it (int8_conv at each encoder conv and quantize_act twice a
+   batch, conv_epilogue at the decoder's BatchNorm sites), against its
+   all-plain run on the same model by phase 5's rule, its class agreement
+   with the arch's float raster of the zone (>= FOLD_FLOOR or INT8_FLOOR),
+   patches/s and the calibration's seconds.
 6. the kernels line, the card line, the script's seconds, and last the JSON
    result line.
 
@@ -241,6 +255,7 @@ from flairtpu_torch.io.tiff import Affine, write_array
 from flairtpu_torch.models.deeplab import align_corners_weights
 from flairtpu_torch.models.factory import FlairSegmentationModel, init_weights
 from flairtpu_torch.models.resnet import stem_conv
+from flairtpu_torch.models.unet import plan_inner_crops
 from flairtpu_torch.predict.runner import predict
 from flairtpu_torch.ops import _build
 from flairtpu_torch.ops import augment as au
@@ -328,6 +343,12 @@ INT8_EDGES = (
     ("im2col TMA: 1x1/2, Cp 384, no ReLU", 3, 15, 14, 384, 128, 1, 2, 0, 1, True, False),
     ("16-byte gathers: Cp 32, Co 64, ragged M", 1, 19, 23, 32, 64, 3, 1, 1, 1, True, True),
     ("16-byte gathers: Cp 96, Co 200, stride 2", 2, 21, 22, 96, 200, 3, 2, 1, 1, False, True),
+    # the dilated encoders of phase 5b (deeplabv3's output stride 8): layer4's
+    # 3x3 at dilation 4, padding 4, and layer3's 1x1 stride-1 downsample
+    ("dilation 4, padding 4, Cp 512 (output stride 8, layer4)", 2, 64, 64, 512, 512, 3, 1, 4,
+     4, True, True),
+    ("1x1/1 downsample 256 -> 512 (a dilated stage)", 2, 64, 64, 256, 512, 1, 1, 0, 1, False,
+     False),
 )
 # class agreement of the knobs' rasters with the float main path's
 # (random weights): bn_fold rounds in bf16 in other places, int8 quantizes
@@ -1490,11 +1511,9 @@ class PlainRunner(DeviceZoneRunner):
     def _tail_input(self, zone_p, origins, margin):
         x = ga.gather_normalize_plain(zone_p, origins, self.size,
                                       out_dtype=self.model.dtype, **self.norm)
-        plain = dict(epilogue=ep.conv_epilogue_plain)
+        plain = dict(epilogue=ep.conv_epilogue_plain, group_norm=gnr.group_norm_relu_plain)
         if isinstance(self.model, pq.QuantizedZoneModel):
             plain.update(conv=ic.int8_conv_plain, quantize=qa.quantize_act_plain)
-        elif isinstance(self.model, FlairSegmentationModel):
-            plain.update(group_norm=gnr.group_norm_relu_plain)
         return self.model.tail_input(x, margin, **plain)
 
 
@@ -3623,7 +3642,8 @@ def run_flair_a1(tmp: Path, main: dict) -> dict:
 
 # -- phase 5: slice 5's smp decoders on the zone -------------------------------
 
-ARCHS5 = ("deeplabv3plus", "deeplabv3", "fpn", "pspnet", "pan", "linknet")
+ARCHS5 = ("deeplabv3plus", "deeplabv3", "fpn", "pspnet", "pan", "linknet", "manet",
+          "unetplusplus")
 # a class of an arch's raster may differ from its all-plain run's only where
 # the plain logits' top-2 gap is below ARCH_GAP: the routes share the
 # gather's and the epilogue's bits; the tail's upsample rounds an ulp apart
@@ -3634,22 +3654,19 @@ ARCH_GAP = GAP_TOL
 
 class GapRunner(PlainRunner):
     """The all-plain route that also keeps, in ``gap`` (H, W) float32, the
-    top-2 gap of the plain logits at each owned pixel (a U-Net's from its
-    plain forward at the margin)."""
+    top-2 gap of the plain logits at each owned pixel (the logits of the
+    tail's plain version, of either kind)."""
 
     gap = None
 
     def _forward_tiles(self, zone_p, origins, planes, windows):
-        if self.model.arch == "unet":
-            super()._forward_tiles(zone_p, origins, planes, windows)
-            x = ga.gather_normalize_plain(zone_p, origins, self.size,
-                                          out_dtype=self.model.dtype, **self.norm)
-            gap = top2_gap_last(self.model(x, inner_margin=self.margin,
-                                           epilogue=ep.conv_epilogue_plain))
-        else:
-            x = self._tail_input(zone_p, origins, self.margin)
-            sp.strided_tail_plain(x, self.tail, self.geometry, planes, windows)
+        x = self._tail_input(zone_p, origins, self.margin)
+        self.tail_fns[0](x, self.tail, self.geometry, planes, windows)
+        if isinstance(self.tail, sp.StridedTail):
             gap = top2_gap_last(sp.upsample_window(x, self.geometry))
+        else:
+            gap = top2_gap_last(ft.tail_logits_plain(x, self.tail, self.geometry)
+                                .permute(0, 2, 3, 1))
         if self.gap is None:
             self.gap = torch.zeros(planes.shape[1:], dtype=torch.float32, device=planes.device)
         write_windows([self.gap], [gap], windows)
@@ -3666,32 +3683,56 @@ def arch_config(cfg: dict, tmp: Path, arch: str, rng) -> dict:
                                                                f"resnet34_{arch}"}})
 
 
-def arch_sites(model) -> int:
-    """conv_epilogue launches per batch, from the model's structure: every
-    BatchNorm but the encoder downsamples' (folded into their block's last
-    site)."""
-    mods = list(model.modules())
-    return (sum(isinstance(m, nn.BatchNorm2d) for m in mods)
-            - sum(getattr(m, "downsample", None) is not None for m in mods))
+def bn_count(module: nn.Module) -> int:
+    return sum(isinstance(m, nn.BatchNorm2d) for m in module.modules())
 
 
-def arch_launches(model, n_batches: int, method: str = "exact-clipping",
-                  output_type: str = "argmax") -> dict:
-    """Each kernel's launches for one device-route zone run of a strided-head
-    model: the gather and each BatchNorm site a batch, FPN's seven GroupNorm
-    sites a batch, and the tail's mode (or, averaging or max, its logits and
-    the stitch)."""
+def encoder_sites(model) -> int:
+    """conv_epilogue launches of the encoder a batch: every BatchNorm but the
+    downsamples' (folded into their block's last site); the folded walk's
+    too (one a conv but the downsamples)."""
+    return bn_count(model.encoder) - sum(getattr(m, "downsample", None) is not None
+                                         for m in model.encoder.modules())
+
+
+def decoder_sites(model, tail) -> int:
+    """conv_epilogue launches of the decoder a batch: every BatchNorm but the
+    two of the last block, which the fused tail runs."""
+    return bn_count(model.decoder) - 2 * isinstance(tail, ft.TailParams)
+
+
+def arch_sites(model, tail) -> int:
+    """conv_epilogue launches per batch, from the model's structure."""
+    return encoder_sites(model) + decoder_sites(model, tail)
+
+
+def arch_launches(model, tail, n_batches: int, method: str = "exact-clipping",
+                  output_type: str = "argmax", int8: bool = False) -> dict:
+    """Each kernel's launches for one device-route zone run of an smp model
+    (the float one, or of a folded or int8 zone model): the gather and each
+    BatchNorm site a batch, FPN's seven GroupNorm sites a batch, and the
+    tail's mode (or, averaging or max, its logits and the stitch), whose
+    kernels the tail's kind names (``fused_tail`` or ``strided_tail``; at
+    U = 1 strided_tail's logits are handed through). ``int8``: the int8
+    encoder (int8_conv at each of its conv sites, quantize_act at the stem's
+    input and the pooled stem output) before the float decoder."""
     out = dict.fromkeys(read_launches(), 0)
-    out.update(gather_normalize=n_batches, conv_epilogue=arch_sites(model) * n_batches)
+    out.update(gather_normalize=n_batches, conv_epilogue=arch_sites(model, tail) * n_batches)
+    if int8:
+        out.update(int8_conv=bn_count(model.encoder) * n_batches, quantize_act=2 * n_batches,
+                   conv_epilogue=decoder_sites(model, tail) * n_batches)
     if model.arch == "fpn":
         out["group_norm_relu"] = len(GN_SITES) * n_batches
+    name = "strided_tail" if isinstance(tail, sp.StridedTail) else "fused_tail"
     if output_type == "class_prob":
-        out["strided_tail_probs"] = n_batches
+        out[f"{name}_probs"] = n_batches
     elif method == "exact-clipping":
-        out["strided_tail"] = n_batches
+        out[name] = n_batches
     else:
-        out.update(strided_tail_logits=n_batches, stitch_finalize=1)
+        out.update(stitch_finalize=1)
         out["merge_max" if method == "max" else "accumulate_probs"] = n_batches
+        if tail.up != 1:
+            out[f"{name}_logits"] = n_batches
     return out
 
 
@@ -3733,7 +3774,7 @@ def run_arch(cfg: dict, arch: str, zone_hw: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     n_batches = -(-len(grid.tiles) // BATCH)
     check_launches(f"{arch} main path, {n_batches} batches", launches,
-                   arch_launches(model, n_batches))
+                   arch_launches(model, prepared[1], n_batches))
     with TiffReader(cfg["input_img_path"]) as src, TiffReader(
             Path(cfg["output_path"]) / f"{cfg['output_name']}.tif") as r:
         check((r.width, r.height, r.count) == (zone_hw, zone_hw, 2),
@@ -3748,7 +3789,7 @@ def run_arch(cfg: dict, arch: str, zone_hw: int) -> dict:
                                   "h2d_seconds", "compute_seconds", "d2h_seconds")}
     out.update(keep, launches=launches, peak_memory_gb=peak / 1e9,
                plain_compute_seconds=plain["compute_seconds"], plain_wall_seconds=plain_wall,
-               sites=arch_sites(model))
+               sites=arch_sites(model, prepared[1]), tail=type(prepared[1]).__name__)
     print(f"  {arch}: {stats['tiles']} tiles, compute {stats['compute_seconds']:.4f} s, "
           f"{stats['patches_per_sec']:.2f} patches/s, peak memory {peak / 1e9:.2f} GB, "
           f"{out['sites']} epilogue sites a batch; plain compute "
@@ -3771,7 +3812,7 @@ def run_arch_class_prob(cfg: dict, zone_hw: int) -> dict:
     launches = read_launches()
     n_batches = -(-len(slice_grid(zone_hw, zone_hw, S, M).tiles) // BATCH)
     check_launches(f"{cp['output_name']}, {n_batches} batches", launches,
-                   arch_launches(prepared[0], n_batches, output_type="class_prob"))
+                   arch_launches(*prepared, n_batches, output_type="class_prob"))
     with TiffReader(Path(cp["output_path"]) / f"{cp['output_name']}.tif") as r:
         check((r.width, r.height, r.count) == (zone_hw, zone_hw, K),
               f"{cp['output_name']}: raster {r.width}x{r.height}x{r.count}")
@@ -3811,7 +3852,7 @@ def run_arch_sweep(cfg: dict, zone_hw: int) -> dict:
         method = method_string(sz, sd, mg, "no-padding", m)
         n_batches = -(-len(slice_grid(zone_hw, zone_hw, sz, mg, sd).tiles) // sw["batch_size"])
         check_launches(f"{sw['output_name']} {method}", per_run[method],
-                       arch_launches(prepared[0], n_batches, m))
+                       arch_launches(*prepared, n_batches, m))
         plain = run_plain(dict(sw, img_pixels_detection=sz, margin=mg), m, sd, staged,
                           prepared)
         with TiffReader(stamped[0] / f"{sw['output_name']}_{method}.tif") as r:
@@ -3834,10 +3875,13 @@ def run_arch_sweep(cfg: dict, zone_hw: int) -> dict:
 
 def arch_breakdown(cfg: dict, zone_hw: int, profile: bool = False) -> dict:
     """Where one main-path batch of an arch goes, by CUDA events around each
-    stage (gather, encoder, decoder, head, tail; each stage three times, the
-    last taken); the decoder's 4x resize by F.interpolate (the port's) beside
-    the dense weight-matrix einsum (flairtpu's TPU choice) at its shape; with
-    ``profile`` the profiler's kernel table of the batch."""
+    stage (each stage three times, the last taken): gather, encoder, then a
+    strided-head model's decoder, head and strided_tail, or a fused-tail
+    model's decoder through the node before the last (whole tiles), the crop
+    to block 3's interior extent and fused_tail; the decoder's 4x resize by
+    F.interpolate (the port's) beside the dense weight-matrix einsum
+    (flairtpu's TPU choice) at its shape; with ``profile`` the profiler's
+    kernel table of the batch."""
     device = torch.device("cuda")
     model, tail = eng.prepare_model(cfg, device)
     runner = DeviceZoneRunner(cfg, model, tail)
@@ -3852,20 +3896,28 @@ def arch_breakdown(cfg: dict, zone_hw: int, profile: bool = False) -> dict:
     planes = torch.zeros((2, zone_hw, zone_hw), dtype=torch.uint8, device=device)
     win = torch.from_numpy(exact_windows(tiles, zone_hw, zone_hw, S - 2 * M, BATCH)).to(device)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    strided = isinstance(tail, sp.StridedTail)
+    lo, hi = plan_inner_crops(S, M)[-2]["post"]
     for _ in range(3):
         ev[0].record()
         x = ga.gather_normalize(zp, org, S, out_dtype=model.dtype, **runner.norm)
         ev[1].record()
         feats = model.features(x)
         ev[2].record()
-        y = model.decoder(feats)
-        ev[3].record()
-        logits = model.segmentation_head(y).permute(0, 2, 3, 1).contiguous()
+        if strided:
+            y = model.decoder(feats)
+            ev[3].record()
+            y = model.segmentation_head(y).permute(0, 2, 3, 1).contiguous()
+        else:
+            y = model.decoder.penultimate(feats)
+            ev[3].record()
+            y = y[:, :, lo:hi, lo:hi].contiguous(memory_format=torch.channels_last)
         ev[4].record()
-        sp.strided_tail(logits, tail, runner.geometry, planes, win)
+        runner.tail_fns[0](y, tail, runner.geometry, planes, win)
         ev[5].record()
         torch.cuda.synchronize()
-    names = ("gather", "encoder", "decoder", "head", "strided_tail")
+    names = (("gather", "encoder", "decoder", "head", "strided_tail") if strided else
+             ("gather", "encoder", "decoder_blocks_0_3", "crop", "fused_tail"))
     out = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
     out["batch"] = ev[0].elapsed_time(ev[5])
     if cfg["model_framework"]["SegmentationModelsPytorch"]["encoder_decoder"].endswith(
@@ -3889,18 +3941,99 @@ def arch_breakdown(cfg: dict, zone_hw: int, profile: bool = False) -> dict:
     return out
 
 
-def run_archs(cfg: dict, tmp: Path, zone_hw: int, profile: bool = False) -> dict:
-    """Phase 5: the six archs on the main configuration, deeplabv3plus also
-    with class_prob and a one-size sweep, and their batch breakdowns."""
+def run_archs(cfg: dict, tmp: Path, zone_hw: int,
+              profile: bool = False) -> tuple[dict, dict]:
+    """Phase 5: the eight archs on the main configuration, deeplabv3plus (the
+    strided tail) and manet (the fused tail on a whole-tile decode) also
+    with class_prob and a one-size sweep, and their batch breakdowns.
+    Returns (results, each arch's configuration)."""
     rng = np.random.default_rng(SEED + 5)
-    out = {}
+    out, configs = {}, {}
     for arch in ARCHS5:
-        acfg = arch_config(cfg, tmp, arch, rng)
+        configs[arch] = acfg = arch_config(cfg, tmp, arch, rng)
         out[arch] = run_arch(acfg, arch, zone_hw)
         out[arch]["breakdown_ms"] = arch_breakdown(acfg, zone_hw, profile)
-        if arch == "deeplabv3plus":
+        if arch in ("deeplabv3plus", "manet"):
             out[arch]["class_prob"] = run_arch_class_prob(acfg, zone_hw)
             out[arch]["sweep"] = run_arch_sweep(acfg, zone_hw)
+    return out, configs
+
+
+# -- phase 5b: bn_fold and int8 with the archs other than the U-Net -----------
+
+# on the main zone: a strided tail over a dilated encoder, and the fused tail
+# over the largest whole-tile decode; the other archs int8 on ZONE_SMALL
+KNOB_ARCHS_MAIN = ("deeplabv3", "unetplusplus")
+
+
+def run_arch_knob(acfg: dict, label: str, knobs: dict, zone_hw: int, floor: float,
+                  float_raster: np.ndarray) -> dict:
+    """detect_main of an arch's configuration with ``knobs``, the counts set
+    to 0 just before it: its launches (the int8 encoder's counted from its
+    walk), raster shape and coverage; against its all-plain run on the same
+    model (GapRunner: no class moved where the plain top-2 gap is at least
+    ARCH_GAP, prob |diff| <= 1) and against the float model's raster of the
+    zone (class agreement >= ``floor``); patches/s and calibration seconds."""
+    device = torch.device("cuda")
+    kc = dict(acfg, output_path=str(Path(acfg["output_path"]).parent / f"out_{label}"), **knobs)
+    conf = write_conf(kc, label)
+    with captured_models() as models:
+        reset_launches()
+        stats = cli.detect_main([f"--conf={conf}"])
+        launches = read_launches()
+    zone_model, tail = models[0]
+    pc = eng.setup_out_path(dict(kc, compare=False))
+    with TiffReader(pc["input_img_path"]) as reader:
+        grid = slice_grid(reader.width, reader.height, S, M, S - 2 * M, reader.transform,
+                          reader.crs)
+    n_batches = -(-len(grid.tiles) // BATCH)
+    check_launches(f"{label}, {n_batches} batches", launches,
+                   arch_launches(zone_model.model, tail, n_batches,
+                                 int8=bool(knobs.get("quantize"))))
+    have = read_raster(Path(kc["output_path"]) / f"{kc['output_name']}.tif")
+    check(have.shape == (2, zone_hw, zone_hw) and bool((have[1] > 0).all()),
+          f"{label}: raster {have.shape}, every pixel written")
+    runner = GapRunner(pc, zone_model, tail)
+    plain = runner.run(grid, "exact-clipping", eng.stage_zone(pc, device))
+    out = compare_arch(label, have[0], have[1], plain, runner.gap)
+    agree_float = float((float_raster[0] == have[0]).mean())
+    check(agree_float >= floor, f"{label} vs the float model: class agreement "
+          f"{agree_float:.6f} >= {floor}")
+    calib = stats.get("calibration_seconds")
+    print(f"  {label}: {stats['tiles']} tiles, compute {stats['compute_seconds']:.4f} s, "
+          f"{stats['patches_per_sec']:.2f} patches/s"
+          + (f", calibration {calib:.4f} s" if calib is not None else "")
+          + f"; agreement with the float model {agree_float:.6f}", flush=True)
+    keep = ("tiles", "seconds", "patches_per_sec", "compute_seconds", "calibration_seconds")
+    del models, zone_model, runner
+    torch.cuda.empty_cache()
+    return {**{k: stats[k] for k in keep if k in stats}, **out, "agree_float": agree_float,
+            "launches": launches}
+
+
+def run_arch_knobs(configs: dict, tmp: Path, zone_hw: int) -> dict:
+    """Phase 5b: bn_fold and int8 (INT8_KNOBS: int8_decoder is ignored off
+    the U-Net) for KNOB_ARCHS_MAIN on the main zone, each against the arch's
+    float raster of phase 5; int8 for the other archs on phase 3g's
+    ZONE_SMALL zone, each against its float raster of that zone."""
+    out = {}
+    for arch in KNOB_ARCHS_MAIN:
+        acfg = configs[arch]
+        float_raster = read_raster(Path(acfg["output_path"]) / f"{acfg['output_name']}.tif")
+        for label, knobs, floor in (("bn_fold", {"bn_fold": True}, FOLD_FLOOR),
+                                    ("int8", INT8_KNOBS, INT8_FLOOR)):
+            out[f"{arch} {label}"] = run_arch_knob(acfg, f"{arch}_{label}", knobs, zone_hw,
+                                                   floor, float_raster)
+    small = tmp / DPT / "Z_SMALL" / "zone.tif"
+    for arch in ARCHS5:
+        if arch in KNOB_ARCHS_MAIN:
+            continue
+        sc = dict(configs[arch], input_img_path=str(small),
+                  output_path=str(tmp / f"out_small_{arch}"))
+        cli.detect_main([f"--conf={write_conf(sc, f'small_{arch}')}"])
+        float_raster = read_raster(Path(sc["output_path"]) / f"{sc['output_name']}.tif")
+        out[f"{arch} int8, {ZONE_SMALL}² zone"] = run_arch_knob(
+            sc, f"small_{arch}_int8", INT8_KNOBS, ZONE_SMALL, INT8_FLOOR, float_raster)
     return out
 
 
@@ -4111,8 +4244,13 @@ def main() -> int:
             print("[5] slice 5's smp decoders: flair-detect on the card, resnet34, "
                   f"{', '.join(ARCHS5)}", flush=True)
             t5 = time.perf_counter()
-            archs = run_archs(cfg, tmp, ZONE, args.profile)
+            archs, arch_configs = run_archs(cfg, tmp, ZONE, args.profile)
             print(f"    phase 5: {time.perf_counter() - t5:.1f} s", flush=True)
+            print(f"[5b] bn_fold and int8 off the U-Net: {', '.join(KNOB_ARCHS_MAIN)} on the "
+                  f"main zone, int8 for the other archs on the {ZONE_SMALL}² zone", flush=True)
+            t5 = time.perf_counter()
+            arch_knobs = run_arch_knobs(arch_configs, tmp, ZONE)
+            print(f"    phase 5b: {time.perf_counter() - t5:.1f} s", flush=True)
         if args.profile:
             with torch.inference_mode():
                 prof = stage_breakdown(cfg, ZONE, rng, epi)
@@ -4140,6 +4278,16 @@ def main() -> int:
     def stream_launches(name: str) -> int:
         return sum(run["launches"][name] for run in streaming.values())
 
+    def arch_launch_sum(name: str) -> int:
+        """A kernel's launches on phase 5's main paths, class_prob runs and
+        sweeps, and phase 5b's knob runs."""
+        runs = [r["launches"] for r in archs.values()]
+        runs += [r[k]["launches"] for r in archs.values() for k in ("class_prob",) if k in r]
+        runs += [x["launches"] for r in archs.values() if "sweep" in r
+                 for x in r["sweep"].values()]
+        runs += [r["launches"] for r in arch_knobs.values()]
+        return sum(run[name] for run in runs)
+
     def case_launches(label: str, mode: str) -> int:
         """strided_tail's launches in phase 5 for the archs of a phase 2 case:
         argmax on their main paths; probs and logits on deeplabv3plus's
@@ -4160,11 +4308,11 @@ def main() -> int:
     # and the streaming runs)
     modes = [
         {"mode": "argmax", "launches": main_path["launches"]["fused_tail"]
-         + stream_launches("fused_tail"),
+         + stream_launches("fused_tail") + arch_launch_sum("fused_tail"),
          "max_abs_err": tail["max_abs_err"], **numbers(tail), "library_ms": tail["library_ms"]},
         {"mode": "probs", "replaces": "flairtpu/zone/device_engine.py:176-185",
          "launches": class_prob["launches"]["fused_tail_probs"]
-         + stream_launches("fused_tail_probs"),
+         + stream_launches("fused_tail_probs") + arch_launch_sum("fused_tail_probs"),
          "max_abs_err": probs["max_abs_err"], **numbers(probs),
          "library_ms": probs["library_ms"]},
         {"mode": "argmax, margin 0 (flair predict)", "replaces": "flairtpu/predict/runner.py:"
@@ -4172,7 +4320,8 @@ def main() -> int:
          "max_abs_err": tail0["max_abs_err"], **numbers(tail0),
          "library_ms": tail0["library_ms"]},
         {"mode": "logits", "replaces": "flairtpu/zone/device_engine.py:206, :519",
-         "launches": sweep_launches("fused_tail_logits") + stream_launches("fused_tail_logits"),
+         "launches": sweep_launches("fused_tail_logits") + stream_launches("fused_tail_logits")
+         + arch_launch_sum("fused_tail_logits"),
          "max_abs_err": logits["max_abs_err"], **numbers(logits),
          "library_ms": logits["library_ms"]},
     ]
@@ -4237,18 +4386,22 @@ def main() -> int:
          "max_abs_err": max(m["max_abs_err"] for m in softmax_modes),
          **numbers(softmax["probs"]), "library_ms": None, "modes": softmax_modes},
         # the 40 int8 sites of one batch of 128, summed (launches: phase 3g's
-        # main zone); library: torch._int_mm on each site's im2col operand
+        # main zone and phase 5b's runs); library: torch._int_mm on each
+        # site's im2col operand
         {"name": "int8_conv", "route": "cuda", "source": f"{src}/int8_conv.cu",
          "replaces": "flairtpu/models/quantize.py:218-230 (_quant_conv), with the walk's "
                      "residual and ReLU (:125-135, :174-175) and the next site's requantize "
                      "(:223)",
-         "launches": int8_run["launches"]["int8_conv"], "max_abs_err": int8["max_abs_err"],
+         "launches": int8_run["launches"]["int8_conv"] + arch_launch_sum("int8_conv"),
+         "max_abs_err": int8["max_abs_err"],
          **numbers(int8["conv"]), "library_ms": int8["conv"]["library_ms"]},
-        # its 4 sites of one batch of 128, summed (launches: phase 3g's main zone)
+        # its 4 sites of one batch of 128, summed (launches: phase 3g's main
+        # zone and phase 5b's runs)
         {"name": "quantize_act", "route": "cuda", "source": f"{src}/quantize_act.cu",
          "replaces": "flairtpu/models/quantize.py:223 (the requantize of the stem input, "
                      "the pooled stem and the int8 decoder blocks' inputs)",
-         "launches": int8_run["launches"]["quantize_act"], "max_abs_err": 0,
+         "launches": int8_run["launches"]["quantize_act"] + arch_launch_sum("quantize_act"),
+         "max_abs_err": 0,
          **numbers(int8["quantize"]), "library_ms": None},
         # the train batch's 16 patches (launches: phase 4's train, eval and predict)
         {"name": "augment_normalize", "route": "cuda", "source": f"{src}/augment_normalize.cu",
@@ -4286,25 +4439,25 @@ def main() -> int:
                                                    "bn_backward"]) for m in ("stats",
                                                                              "backward")]},
         # the deeplabv3plus / fpn / pan head logits (U = 4) at the main path's
-        # shapes (launches: phase 5's six main-path runs); each case's modes
+        # shapes (launches: phase 5's main-path runs and phase 5b's); each case's modes
         # (probs: deeplabv3plus's class_prob run, logits: its sweep)
         {"name": "strided_tail", "route": "cuda", "source": f"{src}/strided_tail.cu",
          "replaces": "flairtpu/models/deeplab.py:73-91 (via flairtpu/models/factory.py:285-293), "
                      "flairtpu/ops/fused.py:38-45 and the plane writes "
                      "flairtpu/zone/device_engine.py:140-160 (XLA-fused)",
-         "launches": sum(r["launches"]["strided_tail"] for r in archs.values()),
+         "launches": arch_launch_sum("strided_tail"),
          "max_abs_err": strided["max_abs_err"],
          **numbers(strided["cases"]["deeplabv3plus, fpn, pan"]["modes"]["argmax"]),
          "library_ms": None,
          "modes": [dict(case=label, launches=case_launches(label, m["mode"]), **m)
                    for label, case in strided["cases"].items() for m in case["modes"].values()]},
         # FPN's 7 sites of one batch of 128, summed (launches: phase 5's fpn
-        # run); library: F.group_norm alone on each site's bf16 input (no
+        # run and phase 5b's); library: F.group_norm alone on each site's bf16 input (no
         # ReLU, no upsample, bf16 out: not the same function)
         {"name": "group_norm_relu", "route": "cuda", "source": f"{src}/group_norm.cu",
          "replaces": "flairtpu/models/smp_extra.py:52-68 at :95-100 (XLA-fused GroupNorm(32), "
                      "ReLU and 2x nearest upsample)",
-         "launches": archs["fpn"]["launches"]["group_norm_relu"],
+         "launches": arch_launch_sum("group_norm_relu"),
          "max_abs_err": gnorm["max_abs_err"], **numbers(gnorm),
          "library_ms": gnorm["library_ms"]},
     ]
@@ -4336,6 +4489,8 @@ def main() -> int:
             print(r["breakdown_ms"].pop("kernel_table"))
     print(json.dumps({"archs": {a: {k: v for k, v in r.items() if k != "launches"}
                                 for a, r in archs.items()}, "card": card}))
+    print(json.dumps({"arch_knobs": {a: {k: v for k, v in r.items() if k != "launches"}
+                                     for a, r in arch_knobs.items()}, "card": card}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -63,21 +63,24 @@ def not_ported(what: str, where: str) -> NotImplementedError:
         f"{what} is not ported to flairtpu_torch yet ({where}).")
 
 
-# smp architectures the port builds over them: the U-Net, and slice 5's
-# strided-head decoders with linknet (flair-detect only)
-SMP_ARCHS = ("unet", "deeplabv3plus", "deeplabv3", "fpn", "pspnet", "pan", "linknet")
+# the nine smp architectures the port builds over them (every arch but the
+# U-Net on flair-detect only), as flairtpu/models/registry.py lists them
+SMP_ARCHS = ("unet", "unetplusplus", "manet", "linknet", "fpn", "pspnet", "deeplabv3",
+             "deeplabv3plus", "pan")
 
 
 def check_smp(encoder_decoder: str) -> tuple[str, str]:
     """Split ``<encoder>_<arch>``; the resnet encoders under ``SMP_ARCHS``
-    are ported (MAnet and UNet++ wait for slice 5's second part)."""
+    are ported. An arch smp does not have raises as
+    ``flairtpu/models/registry.py:98-100`` does, with the supported list."""
     if "_" not in encoder_decoder:
         raise ConfigError(
             f"encoder_decoder {encoder_decoder!r} is not of the form "
             "'<encoder>_<architecture>' (e.g. resnet34_unet)")
     encoder, arch = encoder_decoder.rsplit("_", 1)
     if arch not in SMP_ARCHS:
-        raise not_ported(f"smp architecture {arch!r}", "slice 5: MAnet and UNet++")
+        raise NotImplementedError(
+            f"architecture {arch!r} not ported (supported: {', '.join(SMP_ARCHS)})")
     if encoder not in RESNET_ENCODERS:
         raise not_ported(f"smp encoder {encoder!r}", "slice 6: other smp encoders")
     return encoder, arch
@@ -100,8 +103,9 @@ def validate_model_framework(mf: dict) -> tuple[str, str]:
 def validate_knobs(cfg: dict, arch: str) -> None:
     """``quantize``, ``int8_decoder`` and ``bn_fold`` as
     ``flairtpu/config.py:306-318`` checks them. ``int8_decoder: 5`` puts
-    decoder block 4 in int8, which the fused tail does not run; the knobs
-    run the U-Net only. ``s2d_stem`` (read as ``bool(...)``, as
+    the U-Net's decoder block 4 in int8, which the fused tail does not run;
+    the other archs fold and quantize their encoder only, as ``flairtpu``
+    does, and ignore ``int8_decoder``. ``s2d_stem`` (read as ``bool(...)``, as
     ``flairtpu/models/factory.py:325`` does) computes the resnet stem on a
     space-to-depth repack in the float models of ``flair`` and
     ``flair-detect``; the folded and int8 walks compute their stem as the
@@ -118,12 +122,9 @@ def validate_knobs(cfg: dict, arch: str) -> None:
     fold = cfg.get("bn_fold", False)
     if not isinstance(fold, bool):
         raise ConfigError(f"bn_fold: expected a bool (got {fold!r}).")
-    if quant and dec_blocks is not True and dec_blocks == 5:
+    if quant and arch == "unet" and dec_blocks is not True and dec_blocks == 5:
         raise not_ported("int8_decoder: 5 (decoder block 4 in int8)",
                          "slice 3 item 10b: a head-only fused_tail mode")
-    if (quant or fold) and arch != "unet":
-        raise not_ported(f"{'quantize: int8' if quant else 'bn_fold'} with smp architecture "
-                         f"{arch!r}", "slice 3 for the slice-5 decoders")
 
 
 # ---------------------------------------------------------------------------
@@ -334,9 +335,8 @@ def validate_detect_config(cfg: dict) -> dict:
     if norma[0]["norm_type"] not in ("custom", "scaling"):
         raise ConfigError("Invalid normalization type: should be custom or scaling.")
 
-    # the resnet encoders under the ported smp archs pass here; the knobs
-    # run the U-Nets only (flairtpu/config.py:319-346; MiT encoders fail as
-    # slice 6 / 7)
+    # the resnet encoders under the ported smp archs pass here, with the
+    # knobs (flairtpu/config.py:319-346; MiT encoders fail as slice 6 / 7)
     _, arch = validate_model_framework(_require(cfg, "model_framework"))
     validate_knobs(cfg, arch)
     if arch == "pan":  # FPA pools the stride-16 map three times

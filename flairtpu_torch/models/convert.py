@@ -1,7 +1,7 @@
 """Weight loading (counterpart of ``flairtpu/models/convert.py:25-37`` and the
 inverse of its ``torch_to_flax`` for the resnet encoders, the unet,
-deeplabv3plus, deeplabv3, fpn, pspnet, linknet and pan decoders
-(``:160-166, 655-845``) and the metadata-MLP keys).
+unetplusplus, manet, deeplabv3plus, deeplabv3, fpn, pspnet, linknet and pan
+decoders (``:158-177, 655-845``) and the metadata-MLP keys).
 
 The port's modules carry smp's key names, so an smp ``.pth`` state dict (or a
 Lightning ``.ckpt`` after ``normalize_keys``) loads into it strictly as it
@@ -60,7 +60,9 @@ def load_weights(model: torch.nn.Module, path: str | Path) -> None:
 
 
 _ENC_LAYER_RE = re.compile(r"^layer(\d+)_(\d+)$")
-_DEC_BLOCK_RE = re.compile(r"^block(\d+)$")
+# a U-Net block (blockN: blocks.N) or a UNet++ node (x_d_l: blocks.x_d_l);
+# MAnet's MFAB blocks keep the same conv1/bn1/conv2/bn2 names
+_DEC_BLOCK_RE = re.compile(r"^(?:block(\d+)|(x_\d+_\d+))$")
 _MLP_FC_RE = re.compile(r"^fc([012])$")
 _DEC_SUB = {"conv1": "conv1.0", "bn1": "conv1.1", "conv2": "conv2.0", "bn2": "conv2.1"}
 _ENC_SUB = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
@@ -98,6 +100,12 @@ _DECODER_KEYS = {
                 for sub, key in (("conv_in/conv", "0.0"), ("conv_in/bn", "0.1"),
                                  ("convt", "1.0"), ("convt_bn", "1.1"),
                                  ("conv_out/conv", "2.0"), ("conv_out/bn", "2.1"))},
+    "manet": {**{f"center/{c}": f"center.{c}" for c in ("top_conv", "center_conv",
+                                                         "bottom_conv", "out_conv")},
+              **{f"block{i}/hl{j}_{sub}": f"blocks.{i}.hl_conv.{j}.{key}" for i in range(4)
+                 for j in (0, 1) for sub, key in (("conv", "0"), ("bn", "1"))},
+              **{f"block{i}/se_{w}/fc{j}": f"blocks.{i}.SE_{w}.{2 * j + 1}" for i in range(4)
+                 for w in ("hl", "ll") for j in (0, 1)}},
     "pan": {**{f"fpa/{name}/{sub}": f"fpa.{key}.{sub}" for sub in ("conv", "bn")
                for name, key in (("branch1", "branch1.1"), ("mid", "mid.0"),
                                  ("down1", "down1.1"), ("down2", "down2.1"),
@@ -113,8 +121,8 @@ def _module_prefix(path: tuple[str, ...], arch: str = "unet") -> str:
     """Flax module path -> smp module prefix (resnet encoder, ``arch``'s
     decoder, head, metadata MLP)."""
     top, rest = path[0], path[1:]
-    if top == "decoder" and arch != "unet":
-        key = _DECODER_KEYS[arch].get("/".join(rest))
+    if top == "decoder":
+        key = _DECODER_KEYS.get(arch, {}).get("/".join(rest))
         if key is not None:
             return f"decoder.{key}"
     if top == "encoder":
@@ -126,7 +134,7 @@ def _module_prefix(path: tuple[str, ...], arch: str = "unet") -> str:
     if top == "decoder" and len(rest) == 2:
         m = _DEC_BLOCK_RE.match(rest[0])
         if m and rest[1] in _DEC_SUB:
-            return f"decoder.blocks.{m.group(1)}.{_DEC_SUB[rest[1]]}"
+            return f"decoder.blocks.{m.group(1) or m.group(2)}.{_DEC_SUB[rest[1]]}"
     if top == "segmentation_head" and rest == ("conv",):
         return "segmentation_head.0"
     if top == "metadata_mlp" and len(rest) == 1:

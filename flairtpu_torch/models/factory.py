@@ -1,15 +1,19 @@
 """Model factory: config -> segmentation model
 (counterpart of ``flairtpu/models/factory.py:36-51, 168-235, 256-327``).
 
-The smp models over the resnet encoders: the U-Net (slice 1) and the
+The nine smp models over the resnet encoders: the U-Net (slice 1), the
 strided-head decoders of slice 5 (deeplabv3plus, deeplabv3, fpn, pspnet,
-pan) with linknet, each with smp's module names so that their state dicts
-load as they are. With ``use_metadata`` the model also carries the
-metadata MLP (``enc``, the reference's key names) and adds its embedding to
-the deepest encoder feature (``models/metadata_mlp.py``). The model's
-public functions keep ``flairtpu``'s layout: input (B, H, W, C), logits
-(B, h, w, K) float32. Inside, tensors are NCHW views of NHWC memory
+pan), linknet, MAnet and UNet++, each with smp's module names so that their
+state dicts load as they are. With ``use_metadata`` the model also carries
+the metadata MLP (``enc``, the reference's key names) and adds its
+embedding to the deepest encoder feature (``models/metadata_mlp.py``). The
+model's public functions keep ``flairtpu``'s layout: input (B, H, W, C),
+logits (B, h, w, K) float32. Inside, tensors are NCHW views of NHWC memory
 (``channels_last``).
+
+The zone tail (:meth:`FlairSegmentationModel.zone_tail`) is ``fused_tail``
+for the archs that end in the U-Net's last block and 3x3 head
+(:data:`FUSED_TAIL_ARCHS`), ``strided_tail`` for the others.
 """
 
 from __future__ import annotations
@@ -19,28 +23,37 @@ import torch.nn as nn
 
 from flairtpu_torch.config import check_smp, not_ported
 from flairtpu_torch.models.deeplab import DeepLabV3PlusDecoder
+from flairtpu_torch.models.manet import MAnetDecoder
 from flairtpu_torch.models.metadata_mlp import MetadataMLP, fuse_metadata
 from flairtpu_torch.models.pan import PANDecoder
 from flairtpu_torch.models.resnet import ResNetEncoder, prepare_inference
 from flairtpu_torch.models.smp_extra import (DeepLabV3Decoder, FPNDecoder, LinknetDecoder,
                                              PSPDecoder)
-from flairtpu_torch.models.unet import SegmentationHead, UnetDecoder
+from flairtpu_torch.models.unet import SegmentationHead, UnetDecoder, UnetPlusPlusDecoder, \
+    plan_inner_crops
 from flairtpu_torch.ops.epilogue import conv_epilogue
+from flairtpu_torch.ops.fused_tail import TailParams, tail_params
 from flairtpu_torch.ops.group_norm import group_norm_relu
-from flairtpu_torch.ops.strided_tail import StridedGeometry, upsample_window
+from flairtpu_torch.ops.strided_tail import StridedGeometry, StridedTail, upsample_window
 
 # smp SegmentationHead upsampling factor (UpsamplingBilinear2d):
 # deeplabv3plus/fpn/pan emit stride-4 maps, deeplabv3/pspnet stride-8
 HEAD_UPSAMPLE = {"deeplabv3plus": 4, "fpn": 4, "pan": 4, "deeplabv3": 8, "pspnet": 8}
 # architectures whose zone decode keeps only the margin interior
 # (``decode``'s ``inner_margin``): unet by the plan_inner_crops walk, the
-# strided-head archs by the windowed upsample; linknet decodes whole tiles
-# and is cropped
+# strided-head archs by the windowed upsample; linknet, manet and
+# unetplusplus decode whole tiles and are cropped
 INNER_DECODE_ARCHS = frozenset({"unet", *HEAD_UPSAMPLE})
+# architectures that end in the U-Net's last block (32 -> 16 channels at
+# half resolution, upsampled) and a 3x3 head: their zone tail is fused_tail,
+# on the crop of that block's input (``tail_input``)
+FUSED_TAIL_ARCHS = frozenset({"unet", "manet", "unetplusplus"})
 # per architecture: the encoder's smp arguments, the decoder (built from
 # the encoder's channels), the head's input channels and kernel
 ARCHS = {
     "unet": ({}, UnetDecoder, 16, 3),
+    "unetplusplus": ({}, UnetPlusPlusDecoder, 16, 3),
+    "manet": ({}, MAnetDecoder, 16, 3),
     "deeplabv3plus": ({"output_stride": 16}, DeepLabV3PlusDecoder, 256, 1),
     "deeplabv3": ({"output_stride": 8}, DeepLabV3Decoder, 256, 1),
     "fpn": ({}, FPNDecoder, 128, 1),
@@ -61,8 +74,6 @@ class FlairSegmentationModel(nn.Module):
                  in_channels: int = 5, dtype=torch.float32, use_metadata: bool = False,
                  arch: str = "unet", s2d_stem: bool = False):
         super().__init__()
-        if arch not in ARCHS:
-            raise not_ported(f"smp architecture {arch!r}", "slice 5: MAnet and UNet++")
         enc_kw, decoder, head_ch, head_k = ARCHS[arch]
         self.arch = arch
         self.dtype = dtype
@@ -78,8 +89,16 @@ class FlairSegmentationModel(nn.Module):
     @property
     def up(self) -> int:
         """The head's upsample factor: the tile over the head's logits (1
-        for unet and linknet, which decode at full resolution)."""
+        for the archs that decode at full resolution)."""
         return HEAD_UPSAMPLE.get(self.arch, 1)
+
+    def zone_tail(self) -> TailParams | StridedTail:
+        """The zone tail's parameters: ``fused_tail``'s (the last block with
+        its BatchNorm as (scale, shift), and the head) for
+        :data:`FUSED_TAIL_ARCHS`, ``StridedTail`` for the others."""
+        if self.arch in FUSED_TAIL_ARCHS:
+            return tail_params(self, self.dtype)
+        return StridedTail(self.up, self.n_classes, self.segmentation_head[0].weight.device)
 
     @property
     def n_classes(self) -> int:
@@ -128,7 +147,8 @@ class FlairSegmentationModel(nn.Module):
         W, K), or with ``inner_margin`` m rows and columns [m, S - m) only:
         unet's interior decode (bit-identical to the crop), the strided-head
         archs' windowed upsample of the head (the rows of the full
-        upsample's matrices), linknet's crop of the full decode."""
+        upsample's matrices), the crop of the full decode for linknet,
+        manet and unetplusplus."""
         S = feats[0].shape[-1]  # feats[0] is the input: the tile size
         m = inner_margin or 0
         if self.arch != "unet":
@@ -144,15 +164,28 @@ class FlairSegmentationModel(nn.Module):
 
     def tail_input(self, x: torch.Tensor, margin: int, epilogue=conv_epilogue,
                    mtd: torch.Tensor | None = None, group_norm=group_norm_relu) -> torch.Tensor:
-        """The input of the zone's tail kernel. unet: the encoder and all
-        decoder blocks but the last, on the interior plan, in the compute
-        dtype and channels_last (``ops/fused_tail.py``). The other archs:
-        the whole tile's head logits (:meth:`head_logits`), which
+        """The input of the zone's tail kernel: the encoder, then
+        :meth:`decode_tail`."""
+        return self.decode_tail(self.features(x, epilogue, mtd), margin, epilogue, group_norm)
+
+    def decode_tail(self, feats: list[torch.Tensor], margin: int, epilogue=conv_epilogue,
+                    group_norm=group_norm_relu) -> torch.Tensor:
+        """The tail kernel's input from encoder features. unet: all decoder
+        blocks but the last on the interior plan of ``margin``; manet and
+        unetplusplus: the decoder through the node before the last on whole
+        tiles (their attention and dense nodes are not local), cropped to
+        the extent that plan gives block 3 (``plan_inner_crops(S, m)[-2]``,
+        the whole map at margin 0); both in the compute dtype and
+        channels_last (``ops/fused_tail.py``). The other archs: the whole
+        tile's head logits (:meth:`head_logits`), which
         ``ops/strided_tail.py`` upsamples and crops to ``margin``."""
-        feats = self.features(x, epilogue, mtd)
-        if self.arch != "unet":
+        if self.arch not in FUSED_TAIL_ARCHS:
             return self.head_logits(feats, epilogue, group_norm)
-        x3, _ = self.decoder.inner(feats, margin, len(self.decoder.blocks) - 1, epilogue)
+        if self.arch == "unet":
+            x3, _ = self.decoder.inner(feats, margin, len(self.decoder.blocks) - 1, epilogue)
+        else:
+            lo, hi = plan_inner_crops(feats[0].shape[-1], margin)[-2]["post"]
+            x3 = self.decoder.penultimate(feats, epilogue)[:, :, lo:hi, lo:hi]
         return x3.contiguous(memory_format=torch.channels_last)
 
 

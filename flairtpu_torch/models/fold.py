@@ -11,8 +11,9 @@ rounded to it as ``flairtpu``'s folded walk keeps it, and no float32 copies
 pass between blocks.
 
 The walks (:func:`walk_features`, :func:`walk_unet_decode`) recompute the
-ResNet encoder and the U-Net decoder, with its inner-margin plan, over
-conv sites named as ``flairtpu`` names them (``stem``,
+ResNet encoder, at the arch's output stride and depth, and the U-Net
+decoder, with its inner-margin plan, over conv sites named as ``flairtpu``
+names them (``stem``,
 ``layer{s}_{u}/conv{i}``, ``layer{s}_{u}/downsample``,
 ``block{i}/conv{1,2}``). They call an ``ops`` object for every site, pool
 and decoder input, so that the folded model (:class:`FloatSites`), the
@@ -27,6 +28,10 @@ or its downsample branch, in the same pass, so the port rounds ``y + b +
 identity`` once where ``flairtpu`` rounds twice (ROADMAP queue 3). Decoder
 block 4 and the head run in ``fused_tail`` with the parameters of
 :func:`fold_tail_params`.
+
+The other archs fold only their encoder, as ``flairtpu/models/fold.py:
+43-95`` does: the folded walk feeds the model's own float decoder and head,
+with their BatchNorms, and the model's zone tail.
 """
 
 from __future__ import annotations
@@ -35,11 +40,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from flairtpu_torch.models.resnet import RESNET_SPECS
+from flairtpu_torch.models.resnet import RESNET_SPECS, STAGE_DILATIONS
 from flairtpu_torch.models.unet import DEFAULT_DECODER_CHANNELS, plan_inner_crops, \
     upsample2x_nearest
 from flairtpu_torch.ops.epilogue import conv_epilogue
 from flairtpu_torch.ops.fused_tail import TailParams
+from flairtpu_torch.ops.group_norm import group_norm_relu
 
 N_DECODER_BLOCKS = len(DEFAULT_DECODER_CHANNELS)
 
@@ -59,7 +65,7 @@ def fold_bn(weight: torch.Tensor, bn: nn.BatchNorm2d) -> dict:
 def fold_encoder(encoder: nn.Module) -> dict:
     """The folded sites of a ResNet encoder (``quantize.py:65-88``)."""
     out = {"stem": fold_bn(encoder.conv1.weight, encoder.bn1)}
-    for s in range(1, 5):
+    for s in range(1, encoder.n_stages + 1):
         for u, blk in enumerate(getattr(encoder, f"layer{s}")):
             for i in (1, 2, 3):
                 if hasattr(blk, f"conv{i}"):
@@ -79,34 +85,41 @@ def fold_unet_decoder(decoder: nn.Module) -> dict:
             for i, blk in enumerate(decoder.blocks) for j in (1, 2)}
 
 
-def walk_features(spec: str, ops, x) -> list:
-    """The pyramid [x, f1..f5] of the ResNet encoder ``spec``
-    (``quantize.py:95-138``, output stride 32) through ``ops``."""
+def walk_features(spec: str, ops, x, output_stride: int = 32, depth: int = 5) -> list:
+    """The pyramid [x, f1..f_depth] of the ResNet encoder ``spec`` at
+    ``output_stride`` (dilated last stages, whose strides are 1 and whose
+    3x3 convs pad by their dilation) and ``depth`` (stages 1..depth - 1)
+    through ``ops`` (``quantize.py:95-138``, its laws)."""
     kind, units = RESNET_SPECS[spec]
     expansion = 1 if kind == "basic" else 4
-    blocks, in_ch = [], 64  # (stage, name, stride, has a downsample)
-    for stage, n_units in enumerate(units):
+    dilations = STAGE_DILATIONS[output_stride]
+    blocks, in_ch = [], 64  # (stage, name, stride, dilation, has a downsample)
+    for stage, n_units in enumerate(units[:max(depth - 1, 0)]):
         width = 64 * 2 ** stage
+        dilation = dilations.get(stage, 1)
+        stride = 1 if stage == 0 or dilation > 1 else 2
         for u in range(n_units):
-            s = 1 if stage == 0 or u else 2
-            blocks.append((stage, f"layer{stage + 1}_{u}", s,
-                           u == 0 and (s != 1 or in_ch != width * expansion)))
+            first = u == 0
+            blocks.append((stage, f"layer{stage + 1}_{u}", stride if first else 1, dilation,
+                           first and (in_ch != width * expansion
+                                      or (stage != 0 and dilation == 1))))
             in_ch = width * expansion
     feats = [x]
     y = ops.conv("stem", x, 2, 3)
     feats.append(y)
     y = ops.pool(y)
-    for k, (stage, name, s, ds) in enumerate(blocks):
-        # (conv, stride, padding): basic 3x3 / 3x3, bottleneck 1x1 / 3x3 / 1x1
-        convs = ([("conv1", s, 1), ("conv2", 1, 1)] if kind == "basic" else
-                 [("conv1", 1, 0), ("conv2", s, 1), ("conv3", 1, 0)])
+    for k, (stage, name, s, d, ds) in enumerate(blocks):
+        # (conv, stride, padding, dilation): basic 3x3 / 3x3, bottleneck 1x1 / 3x3 / 1x1
+        convs = ([("conv1", s, d, d), ("conv2", 1, d, d)] if kind == "basic" else
+                 [("conv1", 1, 0, 1), ("conv2", s, d, d), ("conv3", 1, 0, 1)])
         z = y
-        for (conv, stride, pad), (after, _, _) in zip(convs, convs[1:]):
-            z = ops.conv(f"{name}/{conv}", z, stride, pad, keep=False, feeds=f"{name}/{after}")
+        for (conv, stride, pad, dil), (after, *_) in zip(convs, convs[1:]):
+            z = ops.conv(f"{name}/{conv}", z, stride, pad, keep=False, feeds=f"{name}/{after}",
+                         dilation=dil)
         identity = ops.downsample(f"{name}/downsample", y, s) if ds else y
-        last, _, pad = convs[-1]
+        last, _, pad, dil = convs[-1]
         nxt = f"{blocks[k + 1][1]}/conv1" if k + 1 < len(blocks) else None
-        y = ops.conv(f"{name}/{last}", z, 1, pad, residual=identity, feeds=nxt)
+        y = ops.conv(f"{name}/{last}", z, 1, pad, residual=identity, feeds=nxt, dilation=dil)
         if k + 1 == len(blocks) or blocks[k + 1][0] != stage:
             feats.append(y)
     return feats
@@ -165,16 +178,17 @@ class FloatSites:
     def __init__(self, sites: dict, dtype: torch.dtype, epilogue=conv_epilogue):
         self.sites, self.dtype, self.epilogue = sites, dtype, epilogue
 
-    def _conv(self, name: str, x: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
-        y = F.conv2d(x.to(self.dtype), self.sites[name]["w"], None, stride, padding)
+    def _conv(self, name: str, x: torch.Tensor, stride: int, padding: int,
+              dilation: int = 1) -> torch.Tensor:
+        y = F.conv2d(x.to(self.dtype), self.sites[name]["w"], None, stride, padding, dilation)
         return y.contiguous(memory_format=torch.channels_last)
 
     def conv(self, name: str, x, stride: int, padding: int, relu: bool = True, residual=None,
-             keep: bool = True, feeds: str | None = None):
+             keep: bool = True, feeds: str | None = None, dilation: int = 1):
         c = self.sites[name]
         branch = residual if isinstance(residual, tuple) else None
         residual = None if branch is not None else residual
-        out, _ = self.epilogue(self._conv(name, x, stride, padding), c["one"], c["b"],
+        out, _ = self.epilogue(self._conv(name, x, stride, padding, dilation), c["one"], c["b"],
                                residual=residual, branch=branch, relu=relu)
         return out
 
@@ -218,32 +232,51 @@ def head_logits(y: torch.Tensor, tail: TailParams, x_size: int, inner_margin: in
 
 class FoldedZoneModel:
     """BatchNorm-folded zone inference (``flairtpu/models/fold.py:42-81``):
-    the zone runners' model surface (``dtype``, ``tail_input``) over the
-    folded walk, with ``tail`` for ``fused_tail``. Inference only."""
+    the zone runners' model surface (``dtype``, ``tail_input``) with
+    ``tail`` for the zone's tail kernel. The U-Net runs the folded walk
+    through decoder block 3 and ``fused_tail`` with :func:`fold_tail_params`;
+    the other archs (``model``: the prepared float model) the folded
+    encoder walk at their output stride and depth, then the model's float
+    decoder, head and zone tail. Inference only."""
 
-    def __init__(self, spec: str, enc: dict, dec: dict, head: nn.Conv2d, dtype: torch.dtype):
-        self.spec, self.dtype = spec, dtype
-        self.enc, self.dec = float_sites(enc, dtype), float_sites(dec, dtype)
-        self.tail = fold_tail_params(dec, head, dtype)
+    def __init__(self, spec: str, enc: dict, dec: dict | None, head: nn.Conv2d | None,
+                 dtype: torch.dtype, model=None):
+        self.spec, self.dtype, self.model = spec, dtype, model
+        self.enc = float_sites(enc, dtype)
+        if model is None:
+            self.encoder_geometry = (32, 5)
+            self.dec = float_sites(dec, dtype)
+            self.tail = fold_tail_params(dec, head, dtype)
+        else:
+            self.encoder_geometry = (model.encoder.output_stride, model.encoder.depth)
+            self.tail = model.zone_tail()
 
     def features(self, x: torch.Tensor, epilogue=conv_epilogue) -> list:
-        """x (B, H, W, C) -> [x, f1..f5], NCHW channels_last in ``dtype``."""
+        """x (B, H, W, C) -> [x, f1..], NCHW channels_last in ``dtype``."""
         return walk_features(self.spec, FloatSites(self.enc, self.dtype, epilogue),
-                             x.permute(0, 3, 1, 2).to(self.dtype))
+                             x.permute(0, 3, 1, 2).to(self.dtype), *self.encoder_geometry)
 
-    def tail_input(self, x: torch.Tensor, margin: int, epilogue=conv_epilogue) -> torch.Tensor:
-        """Encoder and decoder blocks 0-3 on the interior plan of ``margin``:
-        ``fused_tail``'s input."""
+    def tail_input(self, x: torch.Tensor, margin: int, epilogue=conv_epilogue,
+                   group_norm=group_norm_relu) -> torch.Tensor:
+        """The tail kernel's input: the U-Net's encoder and decoder blocks
+        0-3 on the interior plan of ``margin``, or the other archs' folded
+        encoder and ``decode_tail`` (``group_norm``: FPN's sites)."""
+        feats = self.features(x, epilogue)
+        if self.model is not None:
+            return self.model.decode_tail(feats, margin, epilogue, group_norm)
         ops = FloatSites(self.dec, self.dtype, epilogue)
-        x3, _ = walk_unet_decode(ops, self.features(x, epilogue), margin, N_DECODER_BLOCKS - 1)
+        x3, _ = walk_unet_decode(ops, feats, margin, N_DECODER_BLOCKS - 1)
         return x3.contiguous(memory_format=torch.channels_last)
 
     def forward(self, x: torch.Tensor, inner_margin: int | None = None,
                 epilogue=conv_epilogue) -> torch.Tensor:
-        """x (B, H, W, C) -> float32 logits (B, h, w, K), all five blocks and
-        the head through the walk (``FoldedZoneModel.apply``)."""
-        y, off = walk_unet_decode(FloatSites(self.dec, self.dtype, epilogue),
-                                  self.features(x, epilogue), inner_margin)
+        """x (B, H, W, C) -> float32 logits (B, h, w, K): the U-Net's five
+        blocks and the head through the walk, the other archs' float
+        ``decode`` (``FoldedZoneModel.apply``)."""
+        feats = self.features(x, epilogue)
+        if self.model is not None:
+            return self.model.decode(feats, inner_margin, epilogue)
+        y, off = walk_unet_decode(FloatSites(self.dec, self.dtype, epilogue), feats, inner_margin)
         return head_logits(y, self.tail, x.shape[1], inner_margin, off)
 
     __call__ = forward
@@ -251,12 +284,16 @@ class FoldedZoneModel:
 
 def fold_model(model) -> FoldedZoneModel:
     """Fold a loaded FlairSegmentationModel (float32 weights, before
-    ``prepare_inference``) in its compute dtype, on its device."""
+    ``prepare_inference``) in its compute dtype, on its device: the U-Net
+    whole, the other archs' encoder (their decoder is prepared here)."""
     if model.use_metadata:
         raise ValueError("bn_fold: use_metadata is not supported")
     if model.encoder_name not in RESNET_SPECS:
         raise ValueError(f"bn_fold: supports the ResNet encoder families "
                          f"({', '.join(sorted(RESNET_SPECS))}); got {model.encoder_name!r}")
-    return FoldedZoneModel(model.encoder_name, fold_encoder(model.encoder),
-                           fold_unet_decoder(model.decoder), model.segmentation_head[0],
-                           model.dtype)
+    enc = fold_encoder(model.encoder)
+    if model.arch == "unet":
+        return FoldedZoneModel(model.encoder_name, enc, fold_unet_decoder(model.decoder),
+                               model.segmentation_head[0], model.dtype)
+    model.prepare_inference()
+    return FoldedZoneModel(model.encoder_name, enc, None, None, model.dtype, model)

@@ -1,4 +1,4 @@
-"""Post-training int8 quantization (w8a8) of the ResNet U-Nets for zone
+"""Post-training int8 quantization (w8a8) of the ResNet encoders for zone
 inference (``quantize: int8``; counterpart of
 ``flairtpu/models/quantize.py:200-427, 495-518``, the ResNet part).
 
@@ -10,7 +10,10 @@ int8 -> int32, dequantize, bias, residual, ReLU, and the next site's
 requantize in one kernel; ``ops/quantize_act.py`` where a site's input is
 not an int8 site's output). The other decoder blocks and the head stay
 folded float in the model's compute dtype; ``int8_decoder: 0`` keeps the
-float decoder with its BatchNorms, as ``flairtpu`` does.
+float decoder with its BatchNorms, as ``flairtpu`` does. The other archs
+quantize their encoder only, at their output stride and depth, and keep
+their float decoder and head: ``int8_decoder`` has no effect there
+(``quantize.py:398-410``).
 
 Calibration (:func:`calibrate`) runs the folded float32 walk over the
 calibration tiles and takes ``max|x|`` at every site's input. On the card it
@@ -44,7 +47,7 @@ from flairtpu_torch.models.fold import (N_DECODER_BLOCKS, FloatSites, float_site
                                         walk_unet_decode)
 from flairtpu_torch.models.resnet import RESNET_SPECS
 from flairtpu_torch.ops.epilogue import conv_epilogue
-from flairtpu_torch.ops.fused_tail import tail_params
+from flairtpu_torch.ops.group_norm import group_norm_relu
 from flairtpu_torch.ops.int8_conv import Int8ConvParams, int8_conv
 from flairtpu_torch.ops.quantize_act import quantize_act
 
@@ -77,10 +80,11 @@ class CalibrationSites:
     def __init__(self, sites: dict, maxes: dict, prefix: str = ""):
         self.sites, self.maxes, self.prefix = sites, maxes, prefix
 
-    def conv(self, name, x, stride, padding, relu=True, residual=None, keep=True, feeds=None):
+    def conv(self, name, x, stride, padding, relu=True, residual=None, keep=True, feeds=None,
+             dilation=1):
         self.maxes[self.prefix + name] = x.abs().amax()
         c = self.sites[name]
-        y = F.conv2d(x, c["w"], None, stride, padding) + c["b"][:, None, None]
+        y = F.conv2d(x, c["w"], None, stride, padding, dilation) + c["b"][:, None, None]
         if residual is not None:
             y = y + residual
         return torch.relu(y) if relu else y
@@ -96,11 +100,12 @@ class CalibrationSites:
 
 
 def calibrate(spec: str, folded: dict, batches_u8, norm: dict, device: torch.device,
-              folded_dec: dict | None = None) -> dict:
+              folded_dec: dict | None = None, output_stride: int = 32,
+              depth: int = 5) -> dict:
     """Per-site input absmax over the calibration batches ((B, S, S, C) uint8
-    arrays) of the folded float32 walk (``quantize.py:254-285``); with
-    ``folded_dec`` the full decode too, under ``dec/<site>``. One fetch at
-    the end."""
+    arrays) of the folded float32 walk at ``output_stride`` and ``depth``
+    (``quantize.py:254-285``); with ``folded_dec`` the U-Net's full decode
+    too, under ``dec/<site>``. One fetch at the end."""
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     agg: dict = {}
@@ -110,7 +115,7 @@ def calibrate(spec: str, folded: dict, batches_u8, norm: dict, device: torch.dev
                 x = normalize(torch.from_numpy(np.asarray(b)).to(device), **norm)
                 maxes: dict = {}
                 feats = walk_features(spec, CalibrationSites(folded, maxes),
-                                      x.permute(0, 3, 1, 2))
+                                      x.permute(0, 3, 1, 2), output_stride, depth)
                 if folded_dec is not None:
                     walk_unet_decode(CalibrationSites(folded_dec, maxes, "dec/"), feats, None)
                 agg = maxes if not agg else {k: torch.maximum(agg[k], v)
@@ -183,18 +188,20 @@ class MixedSites:
         self.int8_conv, self.quantize_act = conv, quantize
 
     def conv(self, name, x: Act, stride, padding, relu=True, residual=None, keep=True,
-             feeds=None) -> Act:
+             feeds=None, dilation=1) -> Act:
         p = self.qparams.get(name)
         if p is None:
             return Act(self.floats.conv(name, x.value, stride, padding, relu,
-                                        None if residual is None else residual.value))
+                                        None if residual is None else residual.value,
+                                        dilation=dilation))
         if x.q is not None and x.sx == p.sx:
             q = x.q
         else:
             q = self.quantize_act(x.value, p.sx, p.in_channels)
         nxt = self.qparams.get(feeds)
         out32, outq = self.int8_conv(
-            q, p, stride, padding, residual=None if residual is None else residual.value,
+            q, p, stride, padding, dilation=dilation,
+            residual=None if residual is None else residual.value,
             relu=relu, keep_f32=keep or nxt is None, out_sx=None if nxt is None else nxt.sx)
         return Act(out32, outq, None if nxt is None else nxt.sx)
 
@@ -214,10 +221,11 @@ class MixedSites:
 class QuantizedZoneModel:
     """The int8 zone model (``flairtpu/models/quantize.py:304-353``): the
     zone runners' surface (``dtype``, ``tail_input``) over the int8 encoder
-    walk, then the mixed decoder walk (``dec_qparams``: blocks
-    0..int8_decoder-1 in int8, the others folded float) or, with no int8
-    decoder block, the float decoder with its BatchNorms (``decoder``, a
-    prepared ``UnetDecoder``); ``tail`` drives ``fused_tail`` for block 4.
+    walk (at ``output_stride`` and ``depth``), then the U-Net's mixed
+    decoder walk (``dec_qparams``: blocks 0..int8_decoder-1 in int8, the
+    others folded float, ``tail`` driving ``fused_tail`` for block 4) or,
+    with no int8 decoder block, ``model``'s float decoder and head with
+    their BatchNorms (any arch; ``tail``: its zone tail).
 
     ``dtype`` is float32, the type of the tile the stem quantizes (the
     gather's output); the float sites run in ``compute_dtype``."""
@@ -225,44 +233,53 @@ class QuantizedZoneModel:
     dtype = torch.float32
 
     def __init__(self, spec: str, qparams: dict, dec_qparams: dict | None, dec_float: dict,
-                 decoder, tail, compute_dtype: torch.dtype, calibration_seconds: float = 0.0):
+                 model, tail, compute_dtype: torch.dtype, calibration_seconds: float = 0.0,
+                 output_stride: int = 32, depth: int = 5):
         self.spec, self.qparams, self.dec_qparams = spec, qparams, dec_qparams
-        self.dec_float, self.decoder, self.tail = dec_float, decoder, tail
+        self.dec_float, self.model, self.tail = dec_float, model, tail
         self.compute_dtype = compute_dtype
         self.calibration_seconds = calibration_seconds
+        self.encoder_geometry = (output_stride, depth)
 
     def features(self, x: torch.Tensor, conv=int8_conv, quantize=quantize_act) -> list:
-        """x (B, H, W, C) float32 -> [x, f1..f5] as ``Act``s."""
+        """x (B, H, W, C) float32 -> [x, f1..] as ``Act``s."""
         ops = MixedSites(self.qparams, None, conv, quantize)
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        return walk_features(self.spec, ops, Act(x))
+        return walk_features(self.spec, ops, Act(x), *self.encoder_geometry)
+
+    def float_features(self, feats: list) -> list:
+        """The int8 walk's features as the float decoder takes them: in the
+        compute dtype (the input, which gives only the tile size, as it is)."""
+        return [feats[0].value] + [f.value.to(self.compute_dtype) for f in feats[1:]]
 
     def decode(self, feats: list, inner_margin: int | None, n_blocks: int,
                epilogue=conv_epilogue, conv=int8_conv, quantize=quantize_act):
-        """Decoder blocks [0, n_blocks) -> (x in the compute dtype or float32,
-        offset)."""
-        if self.decoder is not None:
-            values = [f.value for f in feats]
-            if inner_margin is None:  # the whole decoder (the tests' full logits)
-                return self.decoder(values, epilogue=epilogue), 0
-            return self.decoder.inner(values, inner_margin, n_blocks, epilogue)
+        """The U-Net's mixed decoder walk, blocks [0, n_blocks) -> (x in the
+        compute dtype or float32, offset)."""
         ops = MixedSites(self.dec_qparams, FloatSites(self.dec_float, self.compute_dtype, epilogue),
                          conv, quantize)
         x, off = walk_unet_decode(ops, feats, inner_margin, n_blocks)
         return x.value, off
 
     def tail_input(self, x: torch.Tensor, margin: int, epilogue=conv_epilogue, conv=int8_conv,
-                   quantize=quantize_act) -> torch.Tensor:
-        """The int8 encoder and decoder blocks 0-3 on the interior plan of
-        ``margin``: ``fused_tail``'s input, in the compute dtype."""
-        x3, _ = self.decode(self.features(x, conv, quantize), margin, N_DECODER_BLOCKS - 1,
-                            epilogue, conv, quantize)
+                   quantize=quantize_act, group_norm=group_norm_relu) -> torch.Tensor:
+        """The int8 encoder, then the U-Net's decoder blocks 0-3 on the
+        interior plan of ``margin`` (``fused_tail``'s input, in the compute
+        dtype) or the float model's ``decode_tail``."""
+        feats = self.features(x, conv, quantize)
+        if self.model is not None:
+            return self.model.decode_tail(self.float_features(feats), margin, epilogue,
+                                          group_norm)
+        x3, _ = self.decode(feats, margin, N_DECODER_BLOCKS - 1, epilogue, conv, quantize)
         return x3.to(self.compute_dtype).contiguous(memory_format=torch.channels_last)
 
     def forward(self, x: torch.Tensor, inner_margin: int | None = None) -> torch.Tensor:
         """x (B, H, W, C) -> float32 logits (B, h, w, K): every block and the
         head (``QuantizedZoneModel.apply``)."""
-        y, off = self.decode(self.features(x), inner_margin, N_DECODER_BLOCKS)
+        feats = self.features(x)
+        if self.model is not None:
+            return self.model.decode(self.float_features(feats), inner_margin)
+        y, off = self.decode(feats, inner_margin, N_DECODER_BLOCKS)
         return head_logits(y.to(self.compute_dtype), self.tail, x.shape[1], inner_margin, off)
 
     __call__ = forward
@@ -272,28 +289,30 @@ def quantize_model(config: dict, model, calib_batches) -> QuantizedZoneModel:
     """Fold, calibrate on ``calib_batches`` ((B, S, S, C) uint8 arrays,
     normalized as the zone is) and quantize a loaded FlairSegmentationModel
     (float32 weights, before ``prepare_inference``) on its device
-    (``quantize.py:378-427``)."""
+    (``quantize.py:378-427``): the encoder, and the U-Net's first
+    ``int8_decoder`` blocks."""
     if model.use_metadata:
         raise ValueError("quantize: int8 does not support use_metadata")
     if model.encoder_name not in RESNET_SPECS:
         raise ValueError(f"quantize: int8 supports the ResNet encoder families "
                          f"({', '.join(sorted(RESNET_SPECS))}); got {model.encoder_name!r}")
-    n_q = decoder_quant_blocks(config)  # 0..4: config.py refuses 5
+    n_q = decoder_quant_blocks(config) if model.arch == "unet" else 0  # config.py refuses 5
     norma = config["norma_task"][0]
     norm = dict(norm_type=norma["norm_type"], means=tuple(norma.get("norm_means") or ()),
                 stds=tuple(norma.get("norm_stds") or ()))
     device = next(model.parameters()).device
     dtype = model.dtype
+    geometry = dict(output_stride=model.encoder.output_stride, depth=model.encoder.depth)
     enc = fold_encoder(model.encoder)
     dec = fold_unet_decoder(model.decoder) if n_q else None
     t0 = time.perf_counter()
-    act_max = calibrate(model.encoder_name, enc, calib_batches, norm, device, dec)
+    act_max = calibrate(model.encoder_name, enc, calib_batches, norm, device, dec, **geometry)
     seconds = time.perf_counter() - t0
     qparams = quantize_folded(enc, act_max)
     if not n_q:  # the float decoder and tail, as FlairSegmentationModel runs them
         model.prepare_inference()
-        return QuantizedZoneModel(model.encoder_name, qparams, None, {}, model.decoder,
-                                  tail_params(model, dtype), dtype, seconds)
+        return QuantizedZoneModel(model.encoder_name, qparams, None, {}, model,
+                                  model.zone_tail(), dtype, seconds, **geometry)
     q_sites = {k: v for k, v in dec.items() if int(k[5]) < n_q}
     dec_q = quantize_folded(q_sites, {k: act_max[f"dec/{k}"] for k in q_sites})
     dec_f = {k: v for k, v in dec.items() if k not in q_sites}

@@ -216,6 +216,7 @@ class ResNetEncoder(nn.Module):
                  s2d_stem: bool = False):
         super().__init__()
         self.s2d_stem = s2d_stem
+        self.output_stride, self.depth = output_stride, depth
         kind, units = RESNET_SPECS[name]
         block = BasicBlock if kind == "basic" else Bottleneck
         dilations = STAGE_DILATIONS[output_stride]

@@ -1,10 +1,12 @@
-"""U-Net decoder and segmentation head, smp 0.3.3 topology and key names
-(counterpart of ``flairtpu/models/unet.py``).
+"""U-Net and UNet++ decoders and the segmentation head, smp 0.3.3 topology
+and key names (counterpart of ``flairtpu/models/unet.py``).
 
 Five decoder blocks (256, 128, 64, 32, 16 channels): 2x nearest upsample,
 skip concatenation, two conv3x3 + BN + ReLU. ``UnetDecoder.inner`` decodes
 only the margin interior a zone tile keeps (``plan_inner_crops``), which is
-bit-identical to full decoding followed by the crop.
+bit-identical to full decoding followed by the crop. UNet++'s dense nodes
+need whole tiles; its last node is the U-Net's last block, which the zone
+tail (``ops/fused_tail.py``) runs on the crop of its input.
 """
 
 from __future__ import annotations
@@ -93,6 +95,11 @@ class UnetDecoder(nn.Module):
             [DecoderBlock(i, s, o, dtype=dtype)
              for i, s, o in zip(in_chs, skip_chs, decoder_channels)])
 
+    @property
+    def last_block(self) -> DecoderBlock:
+        """The block the zone tail runs (``ops/fused_tail.py:tail_params``)."""
+        return self.blocks[-1]
+
     def forward(self, features: list[torch.Tensor], inner_margin: int | None = None,
                 epilogue=conv_epilogue):
         """Full decode, or with ``inner_margin`` the interior decode, which
@@ -124,6 +131,60 @@ class UnetDecoder(nn.Module):
             x = block.convs(x, skip, epilogue)
             off = lo
         return x, off
+
+
+class UnetPlusPlusDecoder(nn.Module):
+    """smp UnetPlusPlusDecoder (``flairtpu/models/unet.py:157-201``): node
+    ``x_{d}_{l}`` upsamples ``x_{d}_{l-1}`` (the encoder feature at l = d)
+    and fuses the dense nodes ``x_{d+1..l}_{l}`` with encoder skip l + 1;
+    the last node ``x_0_4`` is the U-Net's last block. Keys
+    ``blocks.x_{d}_{l}.conv{1,2}.{0,1}``."""
+
+    def __init__(self, encoder_channels: Sequence[int],
+                 decoder_channels: Sequence[int] = DEFAULT_DECODER_CHANNELS,
+                 dtype=torch.float32):
+        super().__init__()
+        enc = list(encoder_channels[1:])[::-1]
+        in_chs = [enc[0]] + list(decoder_channels[:-1])
+        skip_chs = enc[1:] + [0]
+        self.depth = len(in_chs) - 1
+        blocks = {}
+        for layer in range(self.depth):
+            for d in range(layer + 1):
+                if d == 0:
+                    i, s, o = in_chs[layer], skip_chs[layer] * (layer + 1), decoder_channels[layer]
+                else:
+                    i, s, o = skip_chs[layer - 1], skip_chs[layer] * (layer + 1 - d), \
+                        skip_chs[layer]
+                blocks[f"x_{d}_{layer}"] = DecoderBlock(i, s, o, dtype=dtype)
+        blocks[f"x_0_{self.depth}"] = DecoderBlock(in_chs[-1], 0, decoder_channels[-1],
+                                                   dtype=dtype)
+        self.blocks = nn.ModuleDict(blocks)
+
+    @property
+    def last_block(self) -> DecoderBlock:
+        return self.blocks[f"x_0_{self.depth}"]
+
+    def penultimate(self, features: list[torch.Tensor], epilogue=conv_epilogue) -> torch.Tensor:
+        """Every node but the last, on whole tiles: ``x_0_3``, the last
+        block's input. Each node's skip is one concatenation of its dense
+        nodes and the encoder feature."""
+        feats = features[1:][::-1]
+        dense = {}
+        for layer in range(self.depth):
+            for d in range(self.depth - layer):
+                j = d + layer
+                if layer == 0:
+                    x, skip = feats[d], feats[d + 1]
+                else:
+                    x = dense[f"x_{d}_{j - 1}"]
+                    skip = torch.cat([dense[f"x_{i}_{j}"] for i in range(d + 1, j + 1)]
+                                     + [feats[j + 1].to(x.dtype)], dim=1)
+                dense[f"x_{d}_{j}"] = self.blocks[f"x_{d}_{j}"](x, skip, epilogue)
+        return dense[f"x_0_{self.depth - 1}"]
+
+    def forward(self, features: list[torch.Tensor], epilogue=conv_epilogue) -> torch.Tensor:
+        return self.last_block(self.penultimate(features, epilogue), None, epilogue)
 
 
 class SegmentationHead(nn.Sequential):

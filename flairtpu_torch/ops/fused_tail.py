@@ -1,4 +1,5 @@
-"""Fused decoder tail: the last U-Net decoder block, the segmentation head,
+"""Fused decoder tail: the last U-Net decoder block (MAnet's and UNet++'s
+last block too), the segmentation head,
 the softmax max/argmax epilogue and the exact-clipping plane writes in one
 CUDA kernel (``csrc/fused_tail.cu``, tensor cores).
 
@@ -154,9 +155,11 @@ def pack_conv(w: torch.Tensor, rows: int, row: int) -> torch.Tensor:
 
 
 def tail_params(model, dtype: torch.dtype) -> TailParams:
-    """The tail's weights from a FlairSegmentationModel: the last decoder
-    block's convs with their BatchNorm as (scale, shift), and the head."""
-    block, head = model.decoder.blocks[-1], model.segmentation_head[0]
+    """The tail's weights from a FlairSegmentationModel whose decoder ends in
+    the U-Net's last block (``decoder.last_block``: the U-Net's, MAnet's
+    and UNet++'s): its convs with their BatchNorm as (scale, shift), and the
+    head."""
+    block, head = model.decoder.last_block, model.segmentation_head[0]
 
     def w(conv):
         return conv.weight.detach().to(dtype).float().contiguous()

@@ -35,8 +35,7 @@ from flairtpu_torch.models.convert import load_weights
 from flairtpu_torch.models.factory import create_model
 from flairtpu_torch.models.fold import fold_model
 from flairtpu_torch.models.quantize import quantize_model, read_calibration_batches
-from flairtpu_torch.ops.fused_tail import full_windows, tail_params
-from flairtpu_torch.ops.strided_tail import StridedTail
+from flairtpu_torch.ops.fused_tail import full_windows
 from flairtpu_torch.utils.logger import tee_stdout, untee_stdout
 from flairtpu_torch.zone.device_engine import (DeviceZoneRunner, PinnedBuffers, as_bits,
                                                device_budget_bytes, estimate_bytes,
@@ -78,10 +77,12 @@ def compute_dtype(device: torch.device) -> torch.dtype:
 def prepare_model(config: dict, device: torch.device):
     """Build the model, load its weights strictly, move it to ``device``,
     prepare it for inference (conv weights in the compute dtype, BatchNorm
-    (scale, shift) pairs) and derive its tail: a U-Net's fused tail
-    parameters, or the strided-head smp models' ``StridedTail`` (deeplabv3plus,
-    deeplabv3, fpn, pspnet, pan, linknet; ``flairtpu/zone/engine.py:51-53``).
-    Returns (model, tail).
+    (scale, shift) pairs) and derive its tail (``models/factory.py:
+    FlairSegmentationModel.zone_tail``): the fused tail's parameters for the
+    archs that end in the U-Net's last block (unet, manet, unetplusplus), or
+    the strided-head smp models' ``StridedTail`` (deeplabv3plus, deeplabv3,
+    fpn, pspnet, pan, linknet; ``flairtpu/zone/engine.py:51-53``). Returns
+    (model, tail).
 
     The knobs (``flairtpu/zone/engine.py:60-77``): ``quantize: int8`` folds,
     calibrates on 16 tiles of the zone and quantizes (``models/quantize.py``;
@@ -104,9 +105,7 @@ def prepare_model(config: dict, device: torch.device):
               f"{str(dtype).removeprefix('torch.')} walk)...")
         return zone_model, zone_model.tail
     model.prepare_inference()
-    if model.arch != "unet":
-        return model, StridedTail(model.up, model.n_classes, device)
-    return model, tail_params(model, dtype)
+    return model, model.zone_tail()
 
 
 # ---------------------------------------------------------------------------

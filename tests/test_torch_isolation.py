@@ -146,8 +146,8 @@ def test_wrappers_raise_on_other_devices():
         "model_provider": "SegmentationModelsPytorch",
         "SegmentationModelsPytorch": {"encoder_decoder": "mit_b0_unet"}}}, "slice 6"),
     ({"model_framework": {"model_provider": "SegmentationModelsPytorch",
-                          "SegmentationModelsPytorch": {"encoder_decoder": "resnet34_manet"}}},
-     "slice 5"),
+                          "SegmentationModelsPytorch": {"encoder_decoder": "mobilenet_v2_manet"}}},
+     "slice 6"),
     ({"model_framework": {"model_provider": "SegmentationModelsPytorch",
                           "SegmentationModelsPytorch": {"encoder_decoder": "efficientnet-b0_unet"}}},
      "slice 6"),

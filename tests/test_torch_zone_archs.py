@@ -230,27 +230,37 @@ def test_sweep_average_weights_matches_flairtpu(setup, arch):
 
 
 def test_unported_knobs_and_training_raise(setup):
-    """bn_fold and int8 run the U-Nets only, and so does flair's training;
-    PAN refuses tiles under 128 pixels (its pyramid pools the stride-16 map
-    three times); MAnet and UNet++ wait for slice 5's second part."""
+    """The knobs run every arch; int8_decoder: 5 (the U-Net's block 4 in
+    int8) raises, as training with any arch but the U-Net does; PAN refuses
+    tiles under 128 pixels (its pyramid pools the stride-16 map three
+    times); MAnet and UNet++ validate, and an arch smp lacks raises with
+    the supported list."""
     from flairtpu_torch import config as cfgmod
 
     make = setup["make_config"]
-    for knobs in ({"bn_fold": True}, {"quantize": "int8"}):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            cfgmod.validate_detect_config(make(STRIDED, "knobs", **knobs))
+    for knobs in ({"bn_fold": True}, {"quantize": "int8"},
+                  {"quantize": "int8", "int8_decoder": 5}):
+        cfgmod.validate_detect_config(make(STRIDED, "knobs", **knobs))
+    unet = dict(make(STRIDED, "knobs_unet"), model_framework={
+        "model_provider": "SegmentationModelsPytorch",
+        "SegmentationModelsPytorch": {"encoder_decoder": "resnet18_unet"}})
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        cfgmod.validate_detect_config(dict(unet, quantize="int8", int8_decoder=5))
     with pytest.raises(cfgmod.ConfigError, match="at least 128"):
         cfgmod.validate_detect_config(make("pan", "pan64", img_pixels_detection=64))
     for arch in ("manet", "unetplusplus"):
+        assert cfgmod.check_smp(f"resnet34_{arch}") == ("resnet34", arch)
+    with pytest.raises(NotImplementedError, match="not ported \\(supported: unet"):
+        cfgmod.check_smp("resnet34_segformer")
+    for arch in ("fpn", "manet", "unetplusplus"):
+        train = {"paths": {"out_folder": str(setup["tmp"] / "flair")}, "tasks": {"train": True},
+                 "model_framework": {"model_provider": "SegmentationModelsPytorch",
+                                     "SegmentationModelsPytorch": {"encoder_decoder":
+                                                                   f"resnet34_{arch}"}},
+                 "channels": [1, 2, 3, 4, 5], "classes": {1: [1, "a"], 2: [1, "b"]},
+                 "accelerator": "cpu"}
         with pytest.raises(NotImplementedError, match="slice 5"):
-            cfgmod.check_smp(f"resnet34_{arch}")
-    train = {"paths": {"out_folder": str(setup["tmp"] / "flair")}, "tasks": {"train": True},
-             "model_framework": {"model_provider": "SegmentationModelsPytorch",
-                                 "SegmentationModelsPytorch": {"encoder_decoder": "resnet34_fpn"}},
-             "channels": [1, 2, 3, 4, 5], "classes": {1: [1, "a"], 2: [1, "b"]},
-             "accelerator": "cpu"}
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        cfgmod.validate_train_config(train)
+            cfgmod.validate_train_config(train)
 
 
 def test_batch_mode(setup):

@@ -95,7 +95,15 @@ Phases (any failure exits non-zero):
    and space-to-depth (s2d_stem), within STEM_TOL, each timed. group_norm_relu
    at FPN's seven site shapes at batch 128 (GN_SITES) within GN_TOL of its
    plain version, two calls bit-identical, timed beside its plain version
-   and F.group_norm.
+   and F.group_norm; its train-mode forward (the saved mean and rstd) and
+   its backward at the same sites at the train batch (16): dy within
+   GN_DY_TOL of the largest, dgamma and dbeta within GN_GRAD_TOL, two calls
+   bit-identical, timed beside the plain version and aten's
+   native_group_norm_backward (GroupNorm alone, not the same function).
+   bn_train's narrow entry points (channels not a multiple of 8) at PAN's
+   six 1-channel sites at the train batch (PAN_NARROW_SITES), statistics
+   and backward against their plain versions, two calls bit-identical,
+   timed by device time.
 3. main path: ``flairtpu_torch.cli.detect_main`` on a synthetic 4096 x 4096 x
    5 GeoTIFF zone (``<dpt>/<zone>/zone.tif``, with a synthetic truth raster
    at ``truth/<dpt>/<zone>/truth.tif``) with a random resnet34-unet (19
@@ -194,6 +202,31 @@ Phases (any failure exits non-zero):
    snapshot at epoch 1 step 1 (the epoch's last 3 steps trained, the
    autosave cleared at the end). Each run with the counts set to 0 just
    before it.
+4d. ``flair`` with slice 5's decoders: each of ``ARCHS5`` (a random
+   resnet34, 19 classes) through ``cli.flair_main`` (train, predict,
+   metrics) at phase 4's configuration on its written set, 1 epoch of 4
+   steps (deeplabv3plus 2, for its train patches/s past the warm-up), each
+   with the counts set to 0 just before it: the launches against steps x
+   sites from the model's structure (bn_train's statistics and backward at
+   every BatchNorm, the narrow entry points at PAN's 1-channel ones,
+   conv_epilogue's apply; FPN's group_norm_relu 7 a forward and its
+   backward 7 a step; weighted_ce; augment_normalize through its tiled
+   instance; per predict batch one strided_tail into (B, S, S) tiles at
+   margin 0, U = 4, 8 or 1, or one fused_tail for manet and unetplusplus),
+   finite losses, every artifact and metrics.json's schema; train and
+   predict patches/s (flair_main's, and warm: WARM_STEPS steps on one batch,
+   predict again) and the peak device memory. Then one train step from
+   the trained weights on one batch with fixed choices and dropout masks
+   (ARCH_DROPOUT): the kernels' step site by site against the plain
+   versions (the GroupNorm sites' forward and backward too), then free-
+   running against the plain step under STEP_LOSS_RTOL, STEP_SLACK and
+   STEP_CM_SHARE beside the plain step in four other orders (no float32
+   runs; the noise-dominated tensors under STEP_NOISE_SLACK, all tensors
+   together under STEP_SLACK, the loss under STEP_LOSS_RTOL or
+   STEP_NOISE_SLACK x the reordered runs' drift); and flair predict's tail
+   on one batch
+   against its plain version (the near-tie rule). PyTorch's default
+   precision flags, as a user's run has them.
 5. slice 5's smp decoders (``ARCHS5``: deeplabv3plus, deeplabv3, fpn,
    pspnet, pan, linknet, manet, unetplusplus), each a random resnet34 (19
    classes) on the main configuration and zone through detect_main with the
@@ -232,6 +265,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import re
 import json
 import os
 import subprocess
@@ -785,6 +820,164 @@ def check_group_norm(gen) -> dict:
     return dict(total, sites=rows, max_abs_err=worst,
                 bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows)
                 else "operations")
+
+
+# group_norm_relu's backward vs its plain version: dy in bf16 (two ulps of
+# the largest |dy|, as bn_train's), dgamma and dbeta float32 sums over up to
+# 262144 values in other orders (of 1 + the largest |value|)
+GN_DY_TOL = 2.0 ** -6
+GN_GRAD_TOL = 1e-4
+# PAN's 1-channel BatchNorm sites at the train batch (512 tiles, the FPA on
+# the stride-16 map): (label, map side)
+PAN_NARROW_SITES = (("fpa.down1", 16), ("fpa.down2", 8), ("fpa.down3.1", 4),
+                    ("fpa.down3.2", 4), ("fpa.conv2", 8), ("fpa.conv1", 16))
+
+
+def gn_backward_cost(y: torch.Tensor, up: bool) -> tuple[int, int]:
+    """(operations, bytes) of one group_norm_relu backward: y and the
+    gradient read once, dy written once, the statistics and affines."""
+    n = y.numel()
+    B, C = y.shape[:2]
+    u2 = 4 if up else 1
+    nbytes = 2 * n + 4 * u2 * n + 2 * n + 2 * 4 * B * 32 + 4 * 4 * C
+    return (u2 - 1) * n + 14 * n, nbytes
+
+
+def gn_library_backward(y, g, mean, rstd, gamma):
+    """aten's native_group_norm_backward on the site's bf16 map and the
+    bf16 gradient (GroupNorm alone: no ReLU, no upsample; not the same
+    function), or the error PyTorch raised."""
+    B, C, H, W = y.shape
+    yc = y.contiguous()
+    gc = g[:, :, :H, :W].to(torch.bfloat16).contiguous()
+    m, r = mean.to(torch.bfloat16), rstd.to(torch.bfloat16)
+    g16 = gamma.to(torch.bfloat16)
+
+    def run():
+        torch.ops.aten.native_group_norm_backward(gc, yc, m, r, g16, B, C, H * W, 32,
+                                                  [True, True, True])
+
+    try:
+        run()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as e:
+        return f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    return run
+
+
+def check_group_norm_backward(gen) -> dict:
+    """group_norm_relu's train-mode forward (its saved statistics) and its
+    backward at FPN's seven site shapes at the train batch (16): dy within
+    GN_DY_TOL of the largest, dgamma and dbeta within GN_GRAD_TOL, two calls
+    bit-identical; timed beside the plain version and aten's
+    native_group_norm_backward."""
+    rows, worst = [], 0.0
+    library_error = None
+    for label, side, up in GN_SITES:
+        y = (torch.randn((TRAIN_BATCH, side, side, 128), generator=gen, device="cuda") * 1.5
+             + 0.3).to(torch.bfloat16).permute(0, 3, 1, 2)
+        gamma = torch.rand(128, generator=gen, device="cuda") + 0.5
+        beta = torch.randn(128, generator=gen, device="cuda") * 0.2
+        u = 2 if up else 1
+        g = torch.randn((TRAIN_BATCH, u * side, u * side, 128), generator=gen,
+                        device="cuda").permute(0, 3, 1, 2)
+        out, mean, rstd = gnr.group_norm_relu(y, gamma, beta, upsample=up, stats=True)
+        out_p, mean_p, rstd_p = gnr.group_norm_relu_plain(y, gamma, beta, upsample=up,
+                                                           stats=True)
+        stat_err = max(vec_err(mean, mean_p), vec_err(rstd, rstd_p))
+        got = gnr.group_norm_relu_backward(g, y, mean, rstd, gamma, beta, upsample=up)
+        again = gnr.group_norm_relu_backward(g, y, mean, rstd, gamma, beta, upsample=up)
+        want = gnr.group_norm_relu_backward_plain(g, y, mean, rstd, gamma, beta, upsample=up)
+        torch.cuda.synchronize()
+        dy_err = scaled_err(got[0], want[0])
+        grad_err = max(vec_err(got[1], want[1]), vec_err(got[2], want[2]))
+        name = (f"group_norm_relu backward {label}: ({TRAIN_BATCH}, 128, {side}, {side})"
+                f"{', 2x up' if up else ''}")
+        check(stat_err <= BN_STAT_TOL, f"{name}: saved mean and rstd within {stat_err:.1e} <= "
+              f"{BN_STAT_TOL} of the plain forward's")
+        check(dy_err <= GN_DY_TOL and grad_err <= GN_GRAD_TOL,
+              f"{name}: dy within {dy_err:.1e} <= {GN_DY_TOL:.1e} of the largest, dgamma and "
+              f"dbeta within {grad_err:.1e} <= {GN_GRAD_TOL}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{name}: two calls bit-identical")
+        worst = max(worst, dy_err, grad_err)
+        ops, nbytes = gn_backward_cost(y, up)
+        lib = gn_library_backward(y, g, mean, rstd, gamma)
+        if isinstance(lib, str):
+            library_error = lib
+        rows.append(dict(
+            site=label,
+            ms=cuda_ms(lambda: gnr.group_norm_relu_backward(g, y, mean, rstd, gamma, beta,
+                                                            upsample=up), 10, 2),
+            plain_ms=cuda_ms(lambda: gnr.group_norm_relu_backward_plain(
+                g, y, mean, rstd, gamma, beta, upsample=up), 3, 1),
+            library_ms=None if isinstance(lib, str) else cuda_ms(lib, 10, 2),
+            bytes=nbytes, **bound(ops, nbytes, PEAK_FP32_FLOPS)))
+        del y, g, out, out_p, got, again, want, lib
+        torch.cuda.empty_cache()
+    libs = [r["library_ms"] for r in rows]
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "bytes")}
+    return dict(total, sites=rows, max_abs_err=worst, library_error=library_error,
+                library_ms=None if None in libs else sum(libs),
+                bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                else "operations")
+
+
+def check_bn_narrow(gen) -> dict:
+    """bn_train's narrow entry points at PAN's six 1-channel sites at the
+    train batch: the statistics (running ones too) within BN_STAT_TOL, the
+    backward's dy within BN_DY_TOL of the largest, dgamma and dbeta within
+    BN_STAT_TOL, of their plain versions; two calls bit-identical; timed
+    (device ms) beside the plain versions."""
+    rows, worst = [], 0.0
+    for label, side in PAN_NARROW_SITES:
+        y = torch.randn((TRAIN_BATCH, 1, side, side), generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        gamma, beta = torch.rand(1, generator=gen, device="cuda") + 0.5, torch.zeros(1,
+                                                                                    device="cuda")
+        runs = []
+        for _ in range(2):
+            rm, rv = torch.zeros(1, device="cuda"), torch.ones(1, device="cuda")
+            runs.append(bt.bn_stats(y, gamma, beta, rm, rv) + (rm, rv))
+        rmp, rvp = torch.zeros(1, device="cuda"), torch.ones(1, device="cuda")
+        want = bt.bn_stats_plain(y, gamma, beta, rmp, rvp) + (rmp, rvp)
+        stat_err = max(vec_err(a, b) for a, b in zip(runs[0], want))
+        mean, invstd, scale, shift = want[:4]
+        out, _ = ep.conv_epilogue(y, scale, shift)
+        g32 = torch.randn(y.shape, generator=gen, device="cuda").contiguous(
+            memory_format=torch.channels_last)
+        args = (None, g32, out, y, mean, invstd, gamma)
+        got = [bt.bn_backward(*args) for _ in range(2)]
+        wantb = bt.bn_backward_plain(*args)
+        torch.cuda.synchronize()
+        dy_err = scaled_err(got[0][0], wantb[0])
+        grad_err = max(vec_err(got[0][1], wantb[1]), vec_err(got[0][2], wantb[2]))
+        name = f"bn_train narrow {label}: ({TRAIN_BATCH}, 1, {side}, {side})"
+        check(stat_err <= BN_STAT_TOL and dy_err <= BN_DY_TOL and grad_err <= BN_STAT_TOL,
+              f"{name}: statistics within {stat_err:.1e}, dy {dy_err:.1e} of the largest, "
+              f"dgamma and dbeta {grad_err:.1e} (limits {BN_STAT_TOL}, {BN_DY_TOL:.1e})")
+        check(all(torch.equal(a, b) for a, b in zip(*runs)) and
+              all(torch.equal(a, b) for a, b in zip(got[0][:3], got[1][:3])),
+              f"{name}: two calls of each entry point bit-identical")
+        worst = max(worst, stat_err, dy_err, grad_err)
+        n = y.numel()
+        rows.append({
+            "site": label,
+            "stats_ms": device_ms(lambda: bt.bn_stats(y, gamma, beta, rmp, rvp)),
+            "stats_plain_ms": cuda_ms(lambda: bt.bn_stats_plain(y, gamma, beta, rmp, rvp), 3, 1),
+            "stats_bound": bound(3 * n, 2 * n + 4 * 8, PEAK_FP32_FLOPS),
+            "backward_ms": device_ms(lambda: bt.bn_backward(*args)),
+            "backward_plain_ms": cuda_ms(lambda: bt.bn_backward_plain(*args), 3, 1),
+            "backward_bound": bound(12 * n, 4 * n + 2 * n + 2 * n + 2 * n, PEAK_FP32_FLOPS)})
+    out = {"sites": rows, "max_abs_err": worst}
+    for mode in ("stats", "backward"):
+        out[mode] = {"ms": sum(r[f"{mode}_ms"] for r in rows),
+                     "plain_ms": sum(r[f"{mode}_plain_ms"] for r in rows),
+                     "bound_ms": sum(r[f"{mode}_bound"]["bound_ms"] for r in rows),
+                     "bound_by": "bytes" if all(r[f"{mode}_bound"]["bound_by"] == "bytes"
+                                                for r in rows) else "operations",
+                     "library_ms": None}
+    return out
 
 
 def top2_gap_last(x: torch.Tensor) -> torch.Tensor:
@@ -1539,6 +1732,7 @@ def reset_launches() -> None:
     ga.typed_launches = ic.launches = qa.launches = 0
     au.launches = au.tiled_launches = 0
     wc.launches = wc.backward_launches = bt.launches = bt.backward_launches = 0
+    bt.narrow_launches = bt.narrow_backward_launches = gnr.backward_launches = 0
     for counts in (st.launches, ts.launches):
         for name in counts:
             counts[name] = 0
@@ -1551,9 +1745,11 @@ def read_launches() -> dict:
             "int8_conv": ic.launches, "quantize_act": qa.launches,
             "augment_normalize": au.launches, "weighted_ce": wc.launches,
             "weighted_ce_backward": wc.backward_launches, "bn_stats": bt.launches,
-            "bn_backward": bt.backward_launches, "strided_tail": sp.launches,
+            "bn_backward": bt.backward_launches, "bn_stats_narrow": bt.narrow_launches,
+            "bn_backward_narrow": bt.narrow_backward_launches, "strided_tail": sp.launches,
             "strided_tail_probs": sp.probs_launches, "strided_tail_logits": sp.logits_launches,
-            "group_norm_relu": gnr.launches, **st.launches, **ts.launches}
+            "group_norm_relu": gnr.launches,
+            "group_norm_relu_backward": gnr.backward_launches, **st.launches, **ts.launches}
 
 
 def expected_launches(method: str, output_type: str, n_batches: int,
@@ -2300,6 +2496,18 @@ BN_GRAD_TOL = 1e-3
 STEP_LOSS_RTOL = 1e-3
 STEP_SLACK = 2.0, 0.02  # rel L2 <= 2 x the reordered run's + 0.02
 STEP_CM_SHARE = 0.01  # pixels whose argmax moves, beyond the reordered run's
+# phase 4d: a tensor whose gradient moves by STEP_NOISE or more in relative
+# L2 between two orders of the same plain step is noise-dominated in bf16
+# (the slice-5 decoders' few-value sites: PAN's 1-channel pyramid, the SE
+# gates' and PSP's 1 x 1 pools, BatchNorms over a few close values). The
+# kernels' step also rounds elementwise where a reordered plain step only
+# sums in another order (the loss gradient's exp, every BatchNorm's dy in
+# bf16), so its drift there runs above the reordered runs': 2.6 x at MAnet's
+# SE gates, 2.8-3.1 x at PAN's fpa.down1 BatchNorm. Those tensors are held
+# to STEP_NOISE_SLACK x the largest reordered drift, all tensors together
+# to STEP_SLACK, and the loss, where the reordered runs move it by more
+# than STEP_LOSS_RTOL (PAN: about 1e-3), to STEP_NOISE_SLACK x that drift
+STEP_NOISE, STEP_NOISE_SLACK = 0.25, 6.0
 
 
 def choices_all(n: int, device="cuda") -> torch.Tensor:
@@ -2770,11 +2978,18 @@ def train_model(device="cuda") -> FlairSegmentationModel:
 def train_site_counts(model) -> dict:
     """From the model's structure: BatchNorms (a statistics launch each a
     step), train-mode sites (a conv_epilogue and a backward launch each, a
-    downsample's BatchNorm inside its block's last site) and the inference
-    sites of tail_input (encoder and decoder blocks 0-3)."""
+    downsample's BatchNorm inside its block's last site), of them the
+    narrow ones (channels not a multiple of 8: bn_train's narrow entry
+    points), GroupNorm sites, the inference sites of tail_input (all but
+    the fused tail's last block) and the tail's kernel."""
     n_bn = sum(isinstance(m, nn.BatchNorm2d) for m in model.modules())
     n_ds = sum(getattr(m, "downsample", None) is not None for m in model.encoder.modules())
-    return {"bn": n_bn, "sites": n_bn - n_ds, "tail_sites": epilogue_sites(model)}
+    narrow = sum(isinstance(m, nn.BatchNorm2d) and m.num_features % 8 != 0
+                 for m in model.modules())
+    tail = model.zone_tail()
+    return {"bn": n_bn, "sites": n_bn - n_ds, "tail_sites": arch_sites(model, tail),
+            "narrow": narrow, "gn": sum(isinstance(m, nn.GroupNorm) for m in model.modules()),
+            "tail": "strided_tail" if isinstance(tail, sp.StridedTail) else "fused_tail"}
 
 
 def check_bn_train(gen) -> dict:
@@ -2866,16 +3081,24 @@ def flair_expected(counts: dict, steps: int, eval_batches: int, predict_batches:
     conv_epilogue and a backward launch a site; per eval batch one
     augment_normalize, one weighted_ce and the full model's conv_epilogue
     sites; per predict batch one augment_normalize, the encoder's and
-    decoder blocks 0-3's sites and one fused_tail. The metadata MLP and its
-    fusion launch none of these."""
+    decoder blocks 0-3's sites and one fused_tail (the other archs: every
+    site outside the tail and its tail, fused_tail or strided_tail). The
+    narrow BatchNorms (PAN's) take the narrow entry points; FPN's GroupNorm
+    sites launch group_norm_relu each forward (train, eval, predict) and its
+    backward each step. The metadata MLP and its fusion launch none of
+    these."""
     out = dict.fromkeys(read_launches(), 0)
     m = steps * micro
+    narrow, gn = counts["narrow"], counts["gn"]
     out.update(augment_normalize=steps + eval_batches + predict_batches,
                weighted_ce=m + eval_batches, weighted_ce_backward=m,
-               bn_stats=counts["bn"] * m, bn_backward=counts["sites"] * m,
+               bn_stats=(counts["bn"] - narrow) * m, bn_backward=(counts["sites"] - narrow) * m,
+               bn_stats_narrow=narrow * m, bn_backward_narrow=narrow * m,
                conv_epilogue=counts["sites"] * (m + eval_batches)
                + counts["tail_sites"] * predict_batches,
-               fused_tail=predict_batches)
+               group_norm_relu=gn * (m + eval_batches + predict_batches),
+               group_norm_relu_backward=gn * m)
+    out[counts["tail"]] = predict_batches
     return out
 
 
@@ -2898,6 +3121,8 @@ class PlainSiteFns:
     stats = staticmethod(bt.bn_stats_plain)
     epilogue = staticmethod(ep.conv_epilogue_plain)
     backward = staticmethod(bt.bn_backward_plain)
+    gn_forward = staticmethod(gnr.group_norm_relu_plain)
+    gn_backward = staticmethod(gnr.group_norm_relu_backward_plain)
 
 
 class StepChecker:
@@ -2907,7 +3132,8 @@ class StepChecker:
 
     def __init__(self):
         self.worst: dict[str, tuple[float, tuple]] = {}
-        self.calls = dict.fromkeys(("stats", "epilogue", "backward"), 0)
+        self.calls = dict.fromkeys(("stats", "epilogue", "backward", "gn_forward",
+                                    "gn_backward"), 0)
 
     def note(self, part: str, err: float, shape) -> None:
         if part not in self.worst or err > self.worst[part][0]:
@@ -2940,6 +3166,24 @@ class StepChecker:
         self.calls["backward"] += 1
         return got
 
+    def gn_forward(self, y, gamma, beta, groups, eps, upsample, stats=True):
+        got = gnr.group_norm_relu(y, gamma, beta, groups, eps, upsample, stats=True)
+        want = gnr.group_norm_relu_plain(y, gamma, beta, groups, eps, upsample, stats=True)
+        self.note("gn_out", scaled_err(got[0], want[0]), y.shape)
+        self.note("gn_stats", max(vec_err(got[1], want[1]), vec_err(got[2], want[2])), y.shape)
+        self.calls["gn_forward"] += 1
+        return got
+
+    def gn_backward(self, *args):
+        got = gnr.group_norm_relu_backward(*args)
+        want = gnr.group_norm_relu_backward_plain(*args)
+        shape = args[1].shape
+        self.note("gn_dy", scaled_err(got[0], want[0]), shape)
+        self.note("gn_dgamma_dbeta", max(vec_err(got[1], want[1]), vec_err(got[2], want[2])),
+                  shape)
+        self.calls["gn_backward"] += 1
+        return got
+
 
 class SiteFunction(torch.autograd.Function):
     """A train-mode site through ``impl``'s stats, epilogue and backward
@@ -2955,12 +3199,30 @@ class SiteFunction(torch.autograd.Function):
         return (None, *bt.site_backward(ctx, ctx.impl.backward, g, g32))
 
 
+class GroupNormFunction(torch.autograd.Function):
+    """A train-mode GroupNorm site through ``impl``'s gn_forward and
+    gn_backward (group_norm's gn_forward and gn_backward seam, as
+    GroupNormReLU runs it)."""
+
+    @staticmethod
+    def forward(ctx, impl, *args):
+        ctx.impl = impl
+        return gnr.gn_forward(ctx, impl.gn_forward, *args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *gnr.gn_backward(ctx, ctx.impl.gn_backward, g))
+
+
 class SitesThrough(TrainSites):
     def __init__(self, impl):
         self.impl = impl
 
     def apply(self, *args):
         return SiteFunction.apply(self.impl, *args)
+
+    def group_norm(self, y, gamma, beta, groups, eps, upsample):
+        return GroupNormFunction.apply(self.impl, y, gamma, beta, groups, eps, upsample)
 
 
 class PlainWeightedCE(torch.autograd.Function):
@@ -3094,14 +3356,19 @@ def check_step_sites(checker: StepChecker, counts: dict, micro: int = 1) -> dict
     """The site-by-site check of the kernels' step (StepChecker's records),
     over ``micro`` microbatches."""
     calls = checker.calls
+    gn = counts["gn"]
     check(calls == {"stats": micro * counts["bn"], "epilogue": micro * counts["sites"],
-                    "backward": micro * counts["sites"]},
+                    "backward": micro * counts["sites"], "gn_forward": micro * gn,
+                    "gn_backward": micro * gn},
           f"train step, site by site: {calls} kernel calls each held to its plain version on "
           f"the step's own operands ({micro} x {counts['bn']} BatchNorms, {counts['sites']} "
-          "sites)")
+          f"sites, {gn} GroupNorm sites)")
     limits = {"augment": 0.0, "stats": BN_STAT_TOL, "epilogue": 0.0, "dy": BN_DY_TOL,
               "dgamma_dbeta": BN_GRAD_TOL, "dres": 0.0, "ce_loss": CE_LOSS_RTOL,
               "ce_weight_sum": 0.0, "ce_confmat": 0.0, "ce_grad": CE_GRAD_TOL}
+    if gn:
+        limits.update(gn_out=GN_TOL, gn_stats=BN_STAT_TOL, gn_dy=GN_DY_TOL,
+                      gn_dgamma_dbeta=BN_GRAD_TOL)
     for part, limit in limits.items():
         err, shape = checker.worst[part]
         check(err <= limit, f"train step, site by site: {part} within {err:.2e} <= {limit:.2e} "
@@ -3109,25 +3376,57 @@ def check_step_sites(checker: StepChecker, counts: dict, micro: int = 1) -> dict
     return {part: {"err": e, "shape": list(sh)} for part, (e, sh) in checker.worst.items()}
 
 
+def permute_masks(masks: dict, idx: torch.Tensor) -> dict:
+    """A microbatch's keep masks by module name (each a tensor or a list of
+    them) for its samples in the order ``idx``."""
+    idx = idx.to("cuda")
+    return {k: [m[idx] for m in v] if isinstance(v, list) else v[idx]
+            for k, v in masks.items()}
+
+
+# conv biases in front of a train-mode BatchNorm (PAN's ConvBnRelu convs,
+# LinkNet's transposed convs): their gradient is zero in exact arithmetic,
+# so each step's value is rounding noise, reported but not held to a
+# relative bound
+BIAS_BEFORE_BN = re.compile(r"^decoder\.(fpa|gau\d)\..*conv\.bias$|"
+                            r"^decoder\.blocks\.\d\.block\.1\.0\.bias$")
+
+
 def compare_train_step(cfg: dict, state: dict, batch: dict, counts: dict, masks=None,
-                       drift: bool = True) -> dict:
+                       drift: bool = True, reorders: int = 1, noise: bool = False) -> dict:
     """One train step, from the same weights, batch, choices (and dropout
-    ``masks``, one entry a microbatch): the kernels' step held site by site
-    to the plain versions, then against the plain step, beside the plain
-    step on the samples reversed (within each microbatch: the same
-    microbatches in another order) and, with ``drift``, repeated and both
-    orders in float32."""
+    ``masks``, one dict by module name a microbatch): the kernels' step held
+    site by site to the plain versions, then against the plain step, beside
+    the plain step on the samples reversed (within each microbatch: the same
+    microbatches in another order) and, with ``reorders`` up to 4, also
+    rolled by half and a quarter of a microbatch and reversed and rolled
+    (each tensor's drift then the largest of theirs) and, with ``drift``,
+    repeated and both orders in float32. Tensors whose gradient is zero in
+    exact arithmetic (BIAS_BEFORE_BN) are reported, not held to the drift
+    bound; with ``noise``, the noise-dominated ones (STEP_NOISE) are held to
+    STEP_NOISE_SLACK x their drift, all tensors together to STEP_SLACK, and
+    the loss to STEP_LOSS_RTOL or STEP_NOISE_SLACK x the reordered runs'
+    loss drift, whichever is larger."""
     runs = {}
     A = int(cfg.get("accumulate_steps", 1))
-    perm = torch.arange(TRAIN_BATCH).view(A, TRAIN_BATCH // A).flip(1).flatten()
+    n = TRAIN_BATCH // A
+    orders = {"plain, reversed": torch.arange(n).flip(0),
+              "plain, rolled": torch.arange(n).roll(n // 2),
+              "plain, rolled by a quarter": torch.arange(n).roll(n // 4),
+              "plain, reversed and rolled": torch.arange(n).flip(0).roll(n // 2)}
+    orders = dict(list(orders.items())[:reorders])
     choices = choices_all(TRAIN_BATCH)
-    rev = {k: v[perm] for k, v in batch.items() if k != "id"}
-    rev_choices = choices[perm.to(choices.device)].contiguous()
-    rev_masks = masks and [[m.flip(0) for m in mb] for mb in masks]
     checker = StepChecker()
     variants = [("kernels", lambda: CheckedTrainer(cfg, checker), batch, choices, masks),
-                ("plain", lambda: PlainTrainer(cfg), batch, choices, masks),
-                ("plain, reversed", lambda: PlainTrainer(cfg), rev, rev_choices, rev_masks)]
+                ("plain", lambda: PlainTrainer(cfg), batch, choices, masks)]
+    reordered = {}
+    for name, idx in orders.items():
+        perm = (torch.arange(A)[:, None] * n + idx[None]).flatten()
+        reordered[name] = ({k: v[perm] for k, v in batch.items() if k != "id"},
+                           choices[perm.to(choices.device)].contiguous(),
+                           masks and [permute_masks(mb, idx) for mb in masks])
+        variants.append((name, lambda: PlainTrainer(cfg), *reordered[name]))
+    rev, rev_choices, rev_masks = reordered["plain, reversed"]
     if drift:
         variants += [
             ("plain, again", lambda: PlainTrainer(cfg), batch, choices, masks),
@@ -3143,23 +3442,52 @@ def compare_train_step(cfg: dict, state: dict, batch: dict, counts: dict, masks=
         torch.cuda.empty_cache()
     out = {"sites": check_step_sites(checker, counts, A)}
     k, p, r = runs["kernels"], runs["plain"], runs["plain, reversed"]
-    rel_loss = abs(k["loss"] - p["loss"]) / abs(p["loss"])
-    check(rel_loss <= STEP_LOSS_RTOL, f"train step, free-running: loss {k['loss']:.6f} vs "
-          f"plain {p['loss']:.6f} (reversed {r['loss']:.6f}): relative {rel_loss:.1e} <= "
-          f"{STEP_LOSS_RTOL}")
     a, b0 = STEP_SLACK
+    rel_loss = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    loss_tol = STEP_LOSS_RTOL
+    if noise:  # the loss moves with the order too where the step is noise-dominated
+        loss_tol = max(loss_tol, STEP_NOISE_SLACK * max(
+            abs(runs[name]["loss"] - p["loss"]) / abs(p["loss"]) for name in orders))
+    check(rel_loss <= loss_tol, f"train step, free-running: loss {k['loss']:.6f} vs "
+          f"plain {p['loss']:.6f} (reversed {r['loss']:.6f}): relative {rel_loss:.1e} <= "
+          f"{loss_tol:.1e}" + (f" (STEP_LOSS_RTOL {STEP_LOSS_RTOL}, or {STEP_NOISE_SLACK} x "
+                               "the reordered runs' drift)" if noise else ""))
     out.update(loss=k["loss"], plain_loss=p["loss"], reversed_loss=r["loss"])
     for what in ("grads", "stats"):
-        got, floor = grad_rel(k[what], p[what]), grad_rel(r[what], p[what])
-        bad = [n for n in got if got[n] > a * floor[n] + b0]
-        worst = max(got, key=lambda n: got[n] - a * floor[n])
+        got = grad_rel(k[what], p[what])
+        floors = [grad_rel(runs[name][what], p[what]) for name in orders]
+        floor = {t: max(f[t] for f in floors) for t in got}
+        zero = sorted(t for t in got if BIAS_BEFORE_BN.match(t))
+        noisy = sorted(t for t in got if noise and t not in zero and floor[t] >= STEP_NOISE)
+        held = [t for t in got if t not in zero and t not in noisy]
+        bad = [t for t in held if got[t] > a * floor[t] + b0]
+        worst = max(held or got, key=lambda t: got[t] - a * floor[t])
         check(not bad, f"train step, free-running {what}: every tensor's relative L2 to the "
-              f"plain step <= {a} x the reversed run's + {b0} (a bound on the drift; worst "
-              f"{worst}: {got[worst]:.3e}, reversed {floor[worst]:.3e}; {len(bad)} over)")
+              f"plain step <= {a} x the reordered runs' ({len(orders)}) + {b0} (a bound on "
+              f"the drift; worst {worst}: {got[worst]:.3e}, "
+              f"reordered {floor[worst]:.3e}; {len(bad)} over)")
+        if noisy:
+            over = [t for t in noisy if got[t] > STEP_NOISE_SLACK * floor[t]]
+            check(not over, f"train step, free-running {what}: the {len(noisy)} "
+                  f"noise-dominated tensors (reordered drift >= {STEP_NOISE}) within "
+                  f"{STEP_NOISE_SLACK} x their drift: " + ", ".join(
+                      f"{t} {got[t]:.2e} / {floor[t]:.2e}" for t in noisy))
+            out[f"{what}_noise_dominated"] = {t: (got[t], floor[t]) for t in noisy}
+        if zero:
+            out[f"{what}_zero_in_exact_arithmetic"] = {t: (got[t], floor[t]) for t in zero}
+            print(f"    {len(zero)} {what} zero in exact arithmetic (conv biases before a "
+                  f"train-mode BatchNorm), relative L2 kernels / reordered: "
+                  + ", ".join(f"{got[t]:.2e} / {floor[t]:.2e}" for t in zero), flush=True)
         rel = {"kernels": all_rel(k[what], p[what]), "reversed": all_rel(r[what], p[what])}
+        if noise:
+            rel["reordered"] = max(all_rel(runs[name][what], p[what]) for name in orders)
+            check(rel["kernels"] <= a * rel["reordered"] + b0,
+                  f"train step, free-running {what}: relative L2 over all tensors "
+                  f"{rel['kernels']:.3e} <= {a} x the reordered runs' {rel['reordered']:.3e} + "
+                  f"{b0}")
         out[what] = {"worst": worst, "worst_rel_l2": got[worst], "reversed": floor[worst],
-                     "median_rel_l2": float(np.median(list(got.values()))),
-                     "median_rel_l2_reversed": float(np.median(list(floor.values()))),
+                     "median_rel_l2": float(np.median([got[t] for t in held or got])),
+                     "median_rel_l2_reversed": float(np.median([floor[t] for t in held or got])),
                      "all_rel_l2": rel}
         line = (f"    train step {what}, relative L2 over all tensors to the plain bf16 step: "
                 f"kernels {rel['kernels']:.3e}, plain reversed {rel['reversed']:.3e}")
@@ -3552,12 +3880,12 @@ def run_flair_metadata(tmp: Path, rng, card: str, main: dict, profile: bool = Fa
           "choices, dropout masks)", flush=True)
     state = ckpt_lib.CheckpointManager.restore(result["train"]["best_path"])
     batch = first_batch(cfg)
-    masks = [MetadataMLP().draw_masks(TRAIN_BATCH,
-                                      torch.Generator("cuda").manual_seed(SEED))]
+    masks = [{"enc": MetadataMLP().draw_masks(TRAIN_BATCH,
+                                              torch.Generator("cuda").manual_seed(SEED))}]
     step = compare_train_step(cfg, state, batch, counts, masks, drift=False)
     out = {"stats": stats, "launches": launches, "step": step}
     if profile:
-        out["metadata_ms"] = metadata_ms(cfg, state, batch, masks[0])
+        out["metadata_ms"] = metadata_ms(cfg, state, batch, masks[0]["enc"])
         out["breakdown"] = train_breakdown(cfg, state, batch)
     return out
 
@@ -3637,6 +3965,172 @@ def run_flair_a1(tmp: Path, main: dict) -> dict:
     for name, r in out.items():
         print(f"  flair {name}: launches " + ", ".join(f"{k} {v}" for k, v in
                                                       r["launches"].items() if v), flush=True)
+    return out
+
+
+# -- phase 4d: flair with the slice-5 decoders ---------------------------------
+
+# epochs of each arch's flair run (4 steps an epoch): deeplabv3plus's second
+# epoch gives its train patches/s past the first steps' warm-up
+ARCH_EPOCHS = {"deeplabv3plus": 2}
+WARM_STEPS = 3  # timed train steps after one untimed, on one batch
+# the train-mode dropout of the decoders that have one: (keep probability,
+# channels a keep value covers the map of), by arch (models/factory.py:
+# DROPOUT_ARCHS)
+ARCH_DROPOUT = {"deeplabv3plus": (0.5, False), "deeplabv3": (0.5, False),
+                "fpn": (0.8, True), "pspnet": (0.8, True)}
+
+
+def arch_flair_config(cfg: dict, arch: str, root: Path) -> dict:
+    """Phase 4's flair config (configs/flair-1-config.yaml's values) with
+    resnet34 ``arch``, into its own out_folder."""
+    out = copy.deepcopy(cfg)
+    out["paths"]["out_folder"] = str(root / arch)
+    out["model_framework"]["SegmentationModelsPytorch"]["encoder_decoder"] = f"resnet34_{arch}"
+    out["num_epochs"] = ARCH_EPOCHS.get(arch, 1)
+    return out
+
+
+def decoder_keep(arch: str, batch: int, size: int, gen) -> dict | None:
+    """Keep masks for the decoder's dropout of a batch of ``batch`` tiles of
+    ``size`` (one microbatch's dict by module name), drawn from ``gen``, or
+    None: deeplabv3(plus)'s ASPP output at stride 16 (8), 256 channels, one
+    value an element; FPN's merge (128 channels) and PSPNet's fuse (512) one
+    value a (sample, channel)."""
+    if arch not in ARCH_DROPOUT:
+        return None
+    keep, channels = ARCH_DROPOUT[arch]
+    ch, stride = {"deeplabv3plus": (256, 16), "deeplabv3": (256, 8), "fpn": (128, 4),
+                  "pspnet": (512, 8)}[arch]
+    shape = (batch, ch, 1, 1) if channels else (batch, ch, size // stride, size // stride)
+    return {"decoder": torch.rand(shape, generator=gen, device="cuda") < keep}
+
+
+def check_predict_tail(cfg: dict, state: dict, batch: dict) -> dict:
+    """flair predict's tail at margin 0 into (B, S, S) tiles (strided_tail
+    at the arch's U, or fused_tail) on one batch of the trained model's
+    tail input, against its plain version: classes equal except where the
+    plain logits' top-2 gap is below GAP_TOL (STRIDED_GAP for
+    strided_tail), prob within 1; both timed."""
+    tr = SegmentationTrainer(cfg)
+    tr.load_state(state)
+    with torch.inference_mode():
+        x, _ = tr.prepare(batch)
+        xin = tr.model.tail_input(x, 0)
+        tail = tr.model.zone_tail()
+        kern, plain = tail.wrappers()[0], tail.plain_versions()[0]
+        g = tail.geometry(S, 0)
+        cls_k, prob_k = kern(xin, tail, g)
+        cls_p, prob_p = plain(xin, tail, g)
+        strided = isinstance(tail, sp.StridedTail)
+        if strided:
+            gap, tol = top2_gap_last(sp.upsample_window(xin, g)), STRIDED_GAP
+            ops, nbytes = sp.strided_cost(g, ft.full_windows(x.shape[0], S, x.device).cpu()
+                                          .numpy(), K, "argmax")
+            costs = bound(ops, nbytes, PEAK_FP32_FLOPS)
+        else:
+            gap = top2_gap_last(ft.tail_logits_plain(xin, tail, g).permute(0, 2, 3, 1))
+            tol = GAP_TOL
+            nbytes = xin.numel() * xin.element_size() + 2 * x.shape[0] * S * S
+            costs = bound(tail_flops(g, x.shape[0], K), nbytes)
+        name = (f"{cfg['model_framework']['SegmentationModelsPytorch']['encoder_decoder']} "
+                f"predict tail ({'strided_tail, U = %d' % tail.up if strided else 'fused_tail'}"
+                f", margin 0, batch {x.shape[0]})")
+        out = compare_tail(name, cls_k, prob_k, cls_p, prob_p, gap, tol)
+        out.update(kernel="strided_tail" if strided else "fused_tail", up=tail.up,
+                   ms=cuda_ms(lambda: kern(xin, tail, g), 10, 2),
+                   plain_ms=cuda_ms(lambda: plain(xin, tail, g), 3, 1), bytes=nbytes, **costs)
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def warm_rates(cfg: dict, state: dict, batch: dict, out: Path) -> tuple[float, float]:
+    """(train, predict) patches/s once warm: WARM_STEPS train steps on one
+    batch after one untimed (no loader), and predict over the test split
+    again."""
+    tr = SegmentationTrainer(cfg)
+    tr.load_state(state)
+    ch = choices_all(TRAIN_BATCH)
+    tr.train_step(batch, choices=ch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(WARM_STEPS):
+        tr.train_step(batch, choices=ch)
+    torch.cuda.synchronize()
+    train = WARM_STEPS * TRAIN_BATCH / (time.perf_counter() - t0)
+    pred = predict(cfg, gather_paths(cfg, "test"), out, tr, progress=lambda _: None)
+    del tr
+    torch.cuda.empty_cache()
+    return train, pred["patches"] / pred["seconds"]
+
+
+def run_flair_archs(tmp: Path, main: dict) -> dict:
+    """Phase 4d: flair (train, predict, metrics through cli.flair_main) for
+    each of ARCHS5 on phase 4's written set, a random resnet34 (19 classes)
+    at configs/flair-1-config.yaml's values, with the counts set to 0 just
+    before each run: its launches against steps x sites, finite losses,
+    every artifact; train and predict patches/s and the peak device memory.
+    Then one train step from the trained weights on one batch with fixed
+    choices and dropout masks, the kernels' step held site by site to the
+    plain versions and free-running against the plain step (without the
+    float32 runs), and the predict tail on one batch against its plain
+    version."""
+    n_train, n_val, n_test = (n for _, n in FLAIR_SPLITS)
+    (tmp / "flair_archs").mkdir(exist_ok=True)
+    print(f"    precision flags, kernels' and plain steps alike: cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    out = {}
+    for arch in ARCHS5:
+        t0 = time.perf_counter()
+        cfg = arch_flair_config(main["cfg"], arch, tmp / "flair_archs")
+        counts = train_site_counts(FlairSegmentationModel("resnet34", K, C, arch=arch))
+        torch.cuda.reset_peak_memory_stats()
+        result, launches, wall = counted_flair_main(
+            cfg, tmp / "flair_archs" / f"{arch}.yaml")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        label = f"flair {arch}"
+        losses = check_flair_run(label, cfg, result, launches, counts, -(-n_test // TRAIN_BATCH))
+        check_flair_outputs(label, cfg, result, main["csvs"]["test"], n_test)
+        epochs = result["train"]["epochs"]
+        timed = epochs[1:] or epochs
+        train_ps = (sum(e["train_patches"] for e in timed)
+                    / sum(e["train_seconds"] for e in timed))
+        pred = result["predict"]
+        state = ckpt_lib.CheckpointManager.restore(Path(result["train"]["best_path"]))
+        batch = first_batch(cfg)
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        keep = decoder_keep(arch, TRAIN_BATCH, S, gen)
+        warm_train, warm_predict = warm_rates(cfg, state, batch,
+                                              tmp / "flair_archs" / f"{arch}_predict_warm")
+        step = compare_train_step(cfg, state, batch, counts,
+                                  None if keep is None else [keep], drift=False, reorders=4,
+                                  noise=True)
+        tail = check_predict_tail(cfg, state, batch)
+        r = out[arch] = {
+            "train_patches_per_sec": train_ps,
+            "train_patches_per_sec_from": "epoch 2" if len(epochs) > 1 else "epoch 1",
+            "predict_patches_per_sec": pred["patches"] / pred["seconds"],
+            "warm_train_patches_per_sec": warm_train,
+            "warm_predict_patches_per_sec": warm_predict,
+            "peak_gb": peak, "losses": losses, "flair_main_wall_seconds": wall,
+            "launches": launches, "step": step, "predict_tail": tail,
+            "seconds": time.perf_counter() - t0}
+        print(f"  flair {arch}: train {train_ps:.2f} patches/s ({r['train_patches_per_sec_from']}"
+              f", {len(epochs)} epoch(s) of {n_train // TRAIN_BATCH} steps), warm "
+              f"{warm_train:.2f} ({WARM_STEPS} steps on one batch); predict "
+              f"{r['predict_patches_per_sec']:.2f} patches/s (first call, {pred['patches']} "
+              f"patches), warm {warm_predict:.2f}; peak {peak:.2f} GB, losses "
+              f"{', '.join(f'{a:.4f}/{b:.4f}' for a, b in losses)}; step loss "
+              f"{step['loss']:.5f} vs plain {step['plain_loss']:.5f}; predict tail "
+              f"{tail['kernel']} {tail['ms']:.4f} ms, plain {tail['plain_ms']:.4f} ms, bound "
+              f"{tail['bound_ms']:.4f} ms; {r['seconds']:.1f} s", flush=True)
+        for name_, got in launches.items():
+            if got:
+                print(f"    launches {name_}: {got}")
+        del state, batch
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4110,6 +4604,9 @@ def main() -> int:
             torch.cuda.empty_cache()
             gnorm = check_group_norm(gen)
             torch.cuda.empty_cache()
+            gnorm_back = check_group_norm_backward(gen)
+            bn_narrow = check_bn_narrow(gen)
+            torch.cuda.empty_cache()
             # flair's predict: the tail at margin 0 on whole 512 tiles
             tail0 = check_fused_tail(rng, S, 0, TRAIN_BATCH, K, timed=True)
             augment = check_augment(gen)
@@ -4175,6 +4672,23 @@ def main() -> int:
               f"{gnorm['plain_ms']:.4f} ms, F.group_norm {gnorm['library_ms']:.4f} ms, bound "
               f"{gnorm['bound_ms']:.4f} ms ({gnorm['bound_by']}, {gnorm['bytes'] / 1e9:.2f} GB)",
               flush=True)
+        for r in gnorm_back["sites"]:
+            print(f"    group_norm_relu backward {r['site']}, batch {TRAIN_BATCH}: "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, native_group_norm_backward "
+                  f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                  f"{r['bytes'] / 1e6:.1f} MB)", flush=True)
+        print(f"    group_norm_relu backward, FPN's 7 sites of one batch-{TRAIN_BATCH} step: "
+              f"{gnorm_back['ms']:.4f} ms, plain {gnorm_back['plain_ms']:.4f} ms, "
+              f"native_group_norm_backward {gnorm_back['library_ms']} ms, bound "
+              f"{gnorm_back['bound_ms']:.4f} ms ({gnorm_back['bound_by']}, "
+              f"{gnorm_back['bytes'] / 1e9:.3f} GB)"
+              + (f"; library: none ({gnorm_back['library_error']})"
+                 if gnorm_back["library_error"] else ""), flush=True)
+        for mode in ("stats", "backward"):
+            r = bn_narrow[mode]
+            print(f"    bn_train narrow {mode}, PAN's 6 one-channel sites of one batch-"
+                  f"{TRAIN_BATCH} step: device {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
         r = tail0
         print(f"    fused_tail argmax, margin 0, batch 16: {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
@@ -4241,6 +4755,11 @@ def main() -> int:
             print("[4c] flair with accumulate_steps 2, resume from last, the step autosave",
                   flush=True)
             a1 = run_flair_a1(tmp, flair)
+            print("[4d] flair train / predict / metrics with slice 5's decoders: resnet34, "
+                  f"{', '.join(ARCHS5)}", flush=True)
+            t4 = time.perf_counter()
+            flair_archs = run_flair_archs(tmp, flair)
+            print(f"    phase 4d: {time.perf_counter() - t4:.1f} s", flush=True)
             print("[5] slice 5's smp decoders: flair-detect on the card, resnet34, "
                   f"{', '.join(ARCHS5)}", flush=True)
             t5 = time.perf_counter()
@@ -4288,6 +4807,10 @@ def main() -> int:
         runs += [r["launches"] for r in arch_knobs.values()]
         return sum(run[name] for run in runs)
 
+    def flair_arch_launches(name: str) -> int:
+        """A kernel's launches on phase 4d's flair runs."""
+        return sum(r["launches"][name] for r in flair_archs.values())
+
     def case_launches(label: str, mode: str) -> int:
         """strided_tail's launches in phase 5 for the archs of a phase 2 case:
         argmax on their main paths; probs and logits on deeplabv3plus's
@@ -4317,6 +4840,7 @@ def main() -> int:
          "library_ms": probs["library_ms"]},
         {"mode": "argmax, margin 0 (flair predict)", "replaces": "flairtpu/predict/runner.py:"
          "80-81 with flairtpu/train/loop.py:405-415", "launches": flair["launches"]["fused_tail"],
+         "launches_flair_archs": flair_arch_launches("fused_tail"),
          "max_abs_err": tail0["max_abs_err"], **numbers(tail0),
          "library_ms": tail0["library_ms"]},
         {"mode": "logits", "replaces": "flairtpu/zone/device_engine.py:206, :519",
@@ -4361,6 +4885,7 @@ def main() -> int:
          "replaces": "flairtpu/models/resnet.py:177-189, :208-222, :269-273 and "
                      "flairtpu/models/unet.py:71-76 (XLA-fused BatchNorm, residual, ReLU)",
          "launches": main_path["launches"]["conv_epilogue"],
+         "launches_flair_archs": flair_arch_launches("conv_epilogue"),
          "max_abs_err": epi["max_abs_err"], "ms": epi["ms"], "plain_ms": epi["plain_ms"],
          "bound_ms": epi["bound_ms"], "bound_by": epi["bound_by"], "library_ms": None},
         {"name": "accumulate_probs", "route": "cuda", "source": f"{src}/accumulate_probs.cu",
@@ -4407,7 +4932,8 @@ def main() -> int:
         {"name": "augment_normalize", "route": "cuda", "source": f"{src}/augment_normalize.cu",
          "replaces": "flairtpu/data/augment.py:35-54, flairtpu/train/loop.py:271-274 and "
                      ":339-342 (XLA-fused D4 augmentation, label cleaning, normalize_device)",
-         "launches": flair["launches"]["augment_normalize"], "max_abs_err": 0,
+         "launches": flair["launches"]["augment_normalize"],
+         "launches_flair_archs": flair_arch_launches("augment_normalize"), "max_abs_err": 0,
          **numbers(augment), "library_ms": None},
         # the forward's numbers on the random input, by device time (launches:
         # phase 4's train steps and eval batches); each entry point on each
@@ -4418,6 +4944,7 @@ def main() -> int:
          "replaces": "flairtpu/train/loop.py:255-269 (_loss and its VJP) with :307-310 and "
                      "flairtpu/ops/confmat.py:19-41 (the confusion matrix)",
          "launches": flair["launches"]["weighted_ce"],
+         "launches_flair_archs": flair_arch_launches("weighted_ce"),
          "max_abs_err": max(r["max_abs_err"] for r in ce.values()),
          **numbers(ce["forward random"]), "call_ms": ce["forward random"]["call_ms"],
          "library_ms": ce["forward random"]["library_ms"],
@@ -4431,7 +4958,9 @@ def main() -> int:
          "replaces": "flairtpu/models/resnet.py:40-70 (flax train-mode BatchNorm) at the sites "
                      "of resnet.py:177-189, :208-222, :269-273 and flairtpu/models/unet.py:71-76, "
                      "with their VJP",
-         "launches": flair["launches"]["bn_stats"], "max_abs_err": bn["max_abs_err"],
+         "launches": flair["launches"]["bn_stats"],
+         "launches_flair_archs": flair_arch_launches("bn_stats"),
+         "max_abs_err": bn["max_abs_err"],
          **numbers(bn["stats"]), "call_ms": bn["stats"]["call_ms"],
          "library_ms": bn["stats"]["library_ms"],
          "modes": [dict({k: v for k, v in bn[m].items() if k not in ("sites", "routes")},
@@ -4449,8 +4978,14 @@ def main() -> int:
          "max_abs_err": strided["max_abs_err"],
          **numbers(strided["cases"]["deeplabv3plus, fpn, pan"]["modes"]["argmax"]),
          "library_ms": None,
+         "launches_flair_archs": flair_arch_launches("strided_tail"),
          "modes": [dict(case=label, launches=case_launches(label, m["mode"]), **m)
-                   for label, case in strided["cases"].items() for m in case["modes"].values()]},
+                   for label, case in strided["cases"].items() for m in case["modes"].values()]
+         + [dict(case=f"{arch} (flair predict: argmax into tiles, margin 0, batch "
+                      f"{TRAIN_BATCH})", launches=r["launches"]["strided_tail"],
+                 **{k: r["predict_tail"][k] for k in ("up", "ms", "plain_ms", "bound_ms",
+                                                       "bound_by", "max_abs_err")})
+            for arch, r in flair_archs.items() if r["predict_tail"]["kernel"] == "strided_tail"]},
         # FPN's 7 sites of one batch of 128, summed (launches: phase 5's fpn
         # run and phase 5b's); library: F.group_norm alone on each site's bf16 input (no
         # ReLU, no upsample, bf16 out: not the same function)
@@ -4458,8 +4993,31 @@ def main() -> int:
          "replaces": "flairtpu/models/smp_extra.py:52-68 at :95-100 (XLA-fused GroupNorm(32), "
                      "ReLU and 2x nearest upsample)",
          "launches": arch_launch_sum("group_norm_relu"),
+         "launches_flair_archs": flair_arch_launches("group_norm_relu"),
          "max_abs_err": gnorm["max_abs_err"], **numbers(gnorm),
          "library_ms": gnorm["library_ms"]},
+        # FPN's 7 sites of one batch-16 step, summed (launches: phase 4d's
+        # fpn run); library: aten's native_group_norm_backward on each site's
+        # bf16 map (GroupNorm alone: no ReLU, no upsample; not the same
+        # function)
+        {"name": "group_norm_relu_backward", "route": "cuda", "source": f"{src}/group_norm.cu",
+         "replaces": "the VJP of flairtpu/models/smp_extra.py:52-68 at :95-100 in "
+                     "flairtpu/train/loop.py:286-311 (jax.value_and_grad, XLA-fused)",
+         "launches": flair_arch_launches("group_norm_relu_backward"),
+         "max_abs_err": gnorm_back["max_abs_err"], **numbers(gnorm_back),
+         "library_ms": gnorm_back["library_ms"]},
+        # PAN's 6 one-channel sites of one batch-16 step, summed, device time
+        # (launches: phase 4d's pan run); the backward in its mode
+        {"name": "bn_train_narrow", "route": "cuda", "source": f"{src}/bn_train.cu",
+         "replaces": "flairtpu/models/pan.py:39-55 (flax train-mode BatchNorm) at the "
+                     "1-channel sites of :83-95, with their VJP",
+         "launches": flair_arch_launches("bn_stats_narrow"),
+         "max_abs_err": bn_narrow["max_abs_err"], **numbers(bn_narrow["stats"]),
+         "library_ms": None,
+         "modes": [dict(numbers(bn_narrow[m]), mode=m, library_ms=None, launches=
+                        flair_arch_launches("bn_stats_narrow" if m == "stats" else
+                                            "bn_backward_narrow")) for m in ("stats",
+                                                                             "backward")]},
     ]
     print(json.dumps({"main_path": main_path["stats"], "card": card}))
     print(json.dumps({"class_prob": class_prob["stats"], "card": card}))
@@ -4483,6 +5041,8 @@ def main() -> int:
     print(json.dumps({"flair_metadata": meta["stats"], "train_step_vs_plain": meta["step"],
                       "launches": meta["launches"], "card": card}))
     print(json.dumps({"flair_a1": a1, "card": card}))
+    print(json.dumps({"flair_archs": {a: {k: v for k, v in r.items() if k != "launches"}
+                                      for a, r in flair_archs.items()}, "card": card}))
     for arch, r in archs.items():
         if "kernel_table" in r["breakdown_ms"]:
             print(f"{arch}: one batch's kernels")

@@ -63,8 +63,8 @@ def not_ported(what: str, where: str) -> NotImplementedError:
         f"{what} is not ported to flairtpu_torch yet ({where}).")
 
 
-# the nine smp architectures the port builds over them (every arch but the
-# U-Net on flair-detect only), as flairtpu/models/registry.py lists them
+# the nine smp architectures the port builds over them, as
+# flairtpu/models/registry.py lists them
 SMP_ARCHS = ("unet", "unetplusplus", "manet", "linknet", "fpn", "pspnet", "deeplabv3",
              "deeplabv3plus", "pan")
 
@@ -191,10 +191,7 @@ def validate_train_config(cfg: dict) -> dict:
     channels = _require(cfg, "channels")
     if not (isinstance(channels, list) and all(isinstance(c, int) for c in channels)):
         raise ConfigError("channels should be a list of 1-based integers.")
-    _, arch = validate_model_framework(mf)
-    if arch != "unet":
-        raise not_ported(f"flair (training) with smp architecture {arch!r}",
-                         "slice 5: the group_norm_relu backward and bn_train at the decoders")
+    validate_model_framework(mf)
 
     norm_type = cfg.get("norm_type", "scaling")
     if norm_type not in _NORM_TYPES:

@@ -68,6 +68,16 @@
 // (layer3, layer4 and decoder block 0: 13-42 MB) can read them from HBM
 // about once; the others read them twice, which caps their backward at
 // about 8/14 of its byte bound.
+//
+// Narrow sites (bn_train_narrow_stats, bn_train_narrow_backward): a channel
+// count that is not a multiple of 8 (PAN's FPA pyramid, flairtpu/models/
+// pan.py:83-95: six 1-channel sites on maps of at most B x 16 x 16 pixels
+// at 512 tiles), with no residual or branch. A block a channel walks its
+// pixels at a stride of C values, two-byte loads, sums in double, then a
+// fixed shared-memory tree: the statistics in one launch (the same
+// formulas as the combiners'), the backward in one (the block that reduced
+// a channel applies it). Deterministic; no scratch, no counters. Bound by
+// its latency at these sizes, a few microseconds a call.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -530,6 +540,82 @@ __global__ void __launch_bounds__(kThreads) backward_apply(BackArgs a) {
   }
 }
 
+// A block's fixed-order tree of kSums doubles a thread (every thread gets
+// the totals).
+template <int kSums>
+__device__ void tree_sums(double (&v)[kSums]) {
+  __shared__ double part[kSums][kThreads];
+#pragma unroll
+  for (int s = 0; s < kSums; ++s) part[s][threadIdx.x] = v[s];
+  __syncthreads();
+  for (int off = kThreads / 2; off > 0; off >>= 1) {
+    if ((int)threadIdx.x < off)
+#pragma unroll
+      for (int s = 0; s < kSums; ++s) part[s][threadIdx.x] += part[s][threadIdx.x + off];
+    __syncthreads();
+  }
+#pragma unroll
+  for (int s = 0; s < kSums; ++s) v[s] = part[s][0];
+}
+
+__global__ void __launch_bounds__(kThreads) narrow_stats_kernel(StatsArgs a) {
+  const int c = blockIdx.x, C = a.channels;
+  double v[2] = {0.0, 0.0};
+  for (long long p = threadIdx.x; p < a.m; p += kThreads) {
+    const float f = __bfloat162float(a.x[p * C + c]);
+    v[0] += (double)f;
+    v[1] += (double)(f * f);
+  }
+  tree_sums<2>(v);
+  if (threadIdx.x != 0) return;
+  const float mean = (float)(v[0] / (double)a.m);
+  const float ex2 = (float)(v[1] / (double)a.m);
+  const float var = fmaxf(__fsub_rn(ex2, __fmul_rn(mean, mean)), 0.f);
+  const float invstd = rsqrtf(__fadd_rn(var, a.eps));
+  const float scale = __fmul_rn(a.gamma[c], invstd);
+  a.mean[c] = mean;
+  a.invstd[c] = invstd;
+  a.scale[c] = scale;
+  a.shift[c] = __fsub_rn(a.beta[c], __fmul_rn(mean, scale));
+  const float keep = 1.f - a.momentum;
+  a.running_mean[c] = __fadd_rn(__fmul_rn(a.momentum, a.running_mean[c]), __fmul_rn(keep, mean));
+  a.running_var[c] = __fadd_rn(__fmul_rn(a.momentum, a.running_var[c]), __fmul_rn(keep, var));
+}
+
+// gz of one value: (g + g32) masked by the ReLU
+__device__ __forceinline__ float narrow_grad(const BackArgs& a, long long off) {
+  float gz = 0.f;
+  if (a.g) gz += __bfloat162float(a.g[off]);
+  if (a.g32) gz += a.g32[off];
+  if (a.out && !(__bfloat162float(a.out[off]) > 0.f)) gz = 0.f;
+  return gz;
+}
+
+__global__ void __launch_bounds__(kThreads) narrow_backward_kernel(BackArgs a) {
+  const int c = blockIdx.x, C = a.channels;
+  const float mean = a.mean[c], invstd = a.invstd[c];
+  double v[2] = {0.0, 0.0};
+  for (long long p = threadIdx.x; p < a.m; p += kThreads) {
+    const long long off = p * C + c;
+    const float gz = narrow_grad(a, off);
+    const float xh = (__bfloat162float(a.y[off]) - mean) * invstd;
+    v[0] += (double)gz;
+    v[1] += (double)(gz * xh);
+  }
+  tree_sums<2>(v);
+  const float dbeta = (float)v[0], dgamma = (float)v[1];
+  if (threadIdx.x == 0) {
+    a.sums[c] = dbeta;
+    a.sums[C + c] = dgamma;
+  }
+  const float k = a.gamma[c] * invstd, inv_m = 1.f / (float)a.m;
+  for (long long p = threadIdx.x; p < a.m; p += kThreads) {
+    const long long off = p * C + c;
+    const float xh = (__bfloat162float(a.y[off]) - mean) * invstd;
+    a.dy[off] = __float2bfloat16_rn(k * (narrow_grad(a, off) - (dbeta + xh * dgamma) * inv_m));
+  }
+}
+
 bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15) == 0; }
 
 bool layout_ok(int channels) {
@@ -648,5 +734,41 @@ extern "C" int bn_train_backward(const void* g, const void* g32, const void* out
     backward_apply<true><<<blocks, kThreads, 0, s>>>(a);
   else
     backward_apply<false><<<blocks, kThreads, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Narrow sites: x (m, channels) bfloat16, any channel count up to 2048 (the
+// wrapper sends those that are not a multiple of 8); gamma ... shift as
+// bn_train_stats'. One launch of `channels` blocks.
+extern "C" int bn_train_narrow_stats(const void* x, const void* gamma, const void* beta,
+                                     void* running_mean, void* running_var, void* mean,
+                                     void* invstd, void* scale, void* shift, long long m,
+                                     int channels, float eps, float momentum, void* stream) {
+  if (m < 1 || channels < 1 || channels > 8 * kThreads) return (int)cudaErrorInvalidValue;
+  StatsArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
+              static_cast<const float*>(beta), static_cast<float*>(running_mean),
+              static_cast<float*>(running_var), nullptr, nullptr, static_cast<float*>(mean),
+              static_cast<float*>(invstd), static_cast<float*>(scale),
+              static_cast<float*>(shift), m, channels, 0, eps, momentum};
+  narrow_stats_kernel<<<channels, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Narrow sites' backward with no residual or branch: g, g32, out, y, mean,
+// invstd, gamma as bn_train_backward's; sums: 2 * channels float32 outputs
+// (dbeta, dgamma); dy: (m, channels) bf16. One launch of `channels` blocks.
+extern "C" int bn_train_narrow_backward(const void* g, const void* g32, const void* out,
+                                        const void* y, const void* mean, const void* invstd,
+                                        const void* gamma, void* sums, void* dy, long long m,
+                                        int channels, void* stream) {
+  if (m < 1 || channels < 1 || channels > 8 * kThreads || !(g || g32))
+    return (int)cudaErrorInvalidValue;
+  BackArgs a{static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(g32),
+             static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(y),
+             static_cast<const float*>(mean), static_cast<const float*>(invstd),
+             static_cast<const float*>(gamma), nullptr, nullptr, nullptr, nullptr, nullptr,
+             nullptr, static_cast<float*>(sums), static_cast<__nv_bfloat16*>(dy), nullptr,
+             nullptr, m, channels, 0};
+  narrow_backward_kernel<<<channels, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

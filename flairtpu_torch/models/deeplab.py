@@ -11,10 +11,15 @@
   ``F.interpolate(mode="bilinear", align_corners=True)``, two taps a pixel,
   in the compute dtype.
 - :func:`bn_act`: a BatchNorm site through the conv epilogue
-  (``ops/epilogue.py``), a conv bias folded into its shift, ReLU or not.
+  (``ops/epilogue.py``), a conv bias folded into its shift, ReLU or not; in
+  train mode through ``ops/bn_train.py:TrainSites``.
+- :func:`dropout`: Flax's train-mode ``nn.Dropout`` (elementwise, or one
+  value a (sample, channel) for smp's ``Dropout2d``) on a keep mask drawn
+  from the trainer's generator or handed in.
 - ``SeparableConv`` (depthwise, then pointwise), the ASPP (1x1 branch,
   three atrous branches, separable or plain, and the pooling branch, then
-  the 1x1 projection) and :class:`DeepLabV3PlusDecoder`.
+  the 1x1 projection and, in train mode, ``Dropout(0.5)``) and
+  :class:`DeepLabV3PlusDecoder`.
 
 Activations are NCHW views of NHWC memory in the compute dtype, as in
 ``models/resnet.py``; a BatchNorm's output is rounded to the compute dtype
@@ -31,7 +36,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from flairtpu_torch.models.resnet import bn2d, conv, scale_shift
+from flairtpu_torch.models.resnet import bn2d, bn_site, conv, scale_shift
+from flairtpu_torch.ops.bn_train import TrainSites
 from flairtpu_torch.ops.epilogue import conv_epilogue
 
 ATROUS_RATES = (12, 24, 36)
@@ -82,10 +88,19 @@ def cat(tensors: list[torch.Tensor]) -> torch.Tensor:
 
 def bn_act(epilogue, y: torch.Tensor, bn: nn.BatchNorm2d, relu: bool = True,
            bias: torch.Tensor | None = None, keep_f32: bool = False):
-    """Inference BatchNorm ``bn`` on the conv output ``y``, the conv's
-    ``bias`` folded into the shift (scale * bias + shift), then ReLU if
-    ``relu``: one epilogue call. Returns the compute-dtype output, or with
-    ``keep_f32`` its float32 value."""
+    """BatchNorm ``bn`` on the output ``y`` of a conv whose ``bias`` (if any)
+    was left out, then ReLU if ``relu``: one site (``models/resnet.py:
+    bn_site``). Inference folds the bias into the shift (scale * bias +
+    shift). In train mode (``TrainSites``) the bias is added to ``y`` in its
+    dtype, as ``flairtpu``'s conv adds it, and the site normalizes the sum:
+    the running mean then includes the bias, as Flax's does, and neither the
+    output nor the loss depends on it. Returns the compute-dtype output, or
+    with ``keep_f32`` its float32 value."""
+    if isinstance(epilogue, TrainSites):
+        if bias is not None:
+            y = (y + bias.to(y.dtype)[:, None, None]).contiguous(memory_format=CL)
+        out, out32 = bn_site(epilogue, y, bn, relu=relu, keep_f32=keep_f32)
+        return out32 if keep_f32 else out
     scale, shift = scale_shift(bn)
     if bias is not None:
         shift = shift + scale * bias.float()
@@ -126,6 +141,21 @@ def sep_bn_relu(sep: nn.Sequential, bn: nn.BatchNorm2d, x: torch.Tensor, dtype,
     return bn_act(epilogue, conv(conv(x, sep[0], dtype), sep[1], dtype), bn)
 
 
+def dropout(x: torch.Tensor, rate: float, keep, channels: bool = False) -> torch.Tensor:
+    """Flax's train-mode ``nn.Dropout(rate)`` on x (B, C, H, W): kept values
+    divided by 1 - rate, the others zero; with ``channels`` one keep value a
+    (sample, channel), as ``broadcast_dims=(1, 2)`` on NHWC (smp's
+    ``Dropout2d``). ``keep``: None (eval: the identity), a ``torch.Generator``
+    to draw the keep mask from (on its device), or the bool keep mask, (B, C,
+    H, W) or with ``channels`` (B, C, 1, 1)."""
+    if keep is None:
+        return x
+    if isinstance(keep, torch.Generator):
+        shape = (*x.shape[:2], 1, 1) if channels else x.shape
+        keep = torch.rand(shape, generator=keep, device=keep.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).contiguous(memory_format=CL)
+
+
 def pooled_mean(x: torch.Tensor) -> torch.Tensor:
     """The global average over H, W of a compute-dtype map, summed in
     float32: (B, C, 1, 1) float32 (the next conv rounds it once)."""
@@ -136,7 +166,8 @@ class ASPP(nn.Module):
     """smp ASPP: ``convs`` = [1x1 conv_bn, three atrous branches (separable
     + BatchNorm for DeepLabV3+, plain 3x3 conv_bn for DeepLabV3), the pooling
     branch (AdaptiveAvgPool, conv, BatchNorm)], ``project`` = 1x1 conv_bn
-    over the five; ReLU after each, dropout (eval: none) after the project."""
+    over the five; ReLU after each, Dropout(0.5) after the project
+    (``flairtpu/models/deeplab.py:161``, ``smp_extra.py:260``)."""
 
     def __init__(self, in_ch: int, out_ch: int = OUT_CHANNELS, separable_conv: bool = True,
                  rates=ATROUS_RATES, dtype=torch.float32):
@@ -152,7 +183,8 @@ class ASPP(nn.Module):
         self.convs = nn.ModuleList(branches)
         self.project = conv_bn(len(branches) * out_ch, out_ch)
 
-    def forward(self, x: torch.Tensor, epilogue=conv_epilogue) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, epilogue=conv_epilogue, keep=None) -> torch.Tensor:
+        """``keep``: the dropout's (:func:`dropout`; None in eval)."""
         dt = self.dtype
         outs = [conv_bn_relu(self.convs[0], x, dt, epilogue)]
         for branch in self.convs[1:-1]:
@@ -161,7 +193,7 @@ class ASPP(nn.Module):
         pool = self.convs[-1]
         p = bn_act(epilogue, conv(pooled_mean(x), pool[1], dt), pool[2])
         outs.append(p.expand(-1, -1, *x.shape[2:]))
-        return conv_bn_relu(self.project, cat(outs), dt, epilogue)
+        return dropout(conv_bn_relu(self.project, cat(outs), dt, epilogue), 0.5, keep)
 
 
 class DeepLabV3PlusDecoder(nn.Module):
@@ -179,10 +211,11 @@ class DeepLabV3PlusDecoder(nn.Module):
         self.block2 = nn.Sequential(separable(OUT_CHANNELS + HIGHRES_CHANNELS, OUT_CHANNELS),
                                     bn2d(OUT_CHANNELS))
 
-    def forward(self, feats: list[torch.Tensor], epilogue=conv_epilogue) -> torch.Tensor:
+    def forward(self, feats: list[torch.Tensor], epilogue=conv_epilogue,
+                keep=None) -> torch.Tensor:
         dt = self.dtype
         deep, high = feats[-1], feats[-4]
-        x = self.aspp[0](deep, epilogue)
+        x = self.aspp[0](deep, epilogue, keep)
         x = sep_bn_relu(self.aspp[1], self.aspp[2], x, dt, epilogue)
         x = resize(x, (4 * x.shape[2], 4 * x.shape[3]))
         skip = conv_bn_relu(self.block1, high, dt, epilogue)

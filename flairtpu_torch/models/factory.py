@@ -11,6 +11,14 @@ model's public functions keep ``flairtpu``'s layout: input (B, H, W, C),
 logits (B, h, w, K) float32. Inside, tensors are NCHW views of NHWC memory
 (``channels_last``).
 
+To train, the forward takes ``ops/bn_train.py:TrainSites`` as its epilogue
+and a ``dropout``: the trainer's ``torch.Generator``, from which the
+metadata MLP (``enc``) and then the decoder (:data:`DROPOUT_ARCHS`) draw
+their keep masks in that order, or the masks themselves, by module name
+(:func:`dropout_part`). The training logits are the full (B, S, S, K)
+map: ``decode`` at no margin (the strided-head archs' align-corners
+upsample as ``flairtpu`` computes it, outside any kernel).
+
 The zone tail (:meth:`FlairSegmentationModel.zone_tail`) is ``fused_tail``
 for the archs that end in the U-Net's last block and 3x3 head
 (:data:`FUSED_TAIL_ARCHS`), ``strided_tail`` for the others.
@@ -48,6 +56,10 @@ INNER_DECODE_ARCHS = frozenset({"unet", *HEAD_UPSAMPLE})
 # half resolution, upsampled) and a 3x3 head: their zone tail is fused_tail,
 # on the crop of that block's input (``tail_input``)
 FUSED_TAIL_ARCHS = frozenset({"unet", "manet", "unetplusplus"})
+# architectures whose decoder drops out in train mode: the ASPP's
+# Dropout(0.5) (flairtpu/models/deeplab.py:161, smp_extra.py:260), FPN's and
+# PSPNet's Dropout2d(0.2) (smp_extra.py:98-100, 150-151)
+DROPOUT_ARCHS = frozenset({"deeplabv3plus", "deeplabv3", "fpn", "pspnet"})
 # per architecture: the encoder's smp arguments, the decoder (built from
 # the encoder's channels), the head's input channels and kernel
 ARCHS = {
@@ -62,6 +74,15 @@ ARCHS = {
     # smp's PAN fixes the encoder's output stride at 16 (decoders/pan/model.py)
     "pan": ({"output_stride": 16}, PANDecoder, 32, 3),
 }
+
+
+def dropout_part(dropout, name: str):
+    """What module ``name`` (``enc``, the metadata MLP; ``decoder``) takes of
+    a forward's ``dropout``: None (eval), the generator itself, or the keep
+    masks of a dict of them by module name."""
+    if dropout is None or isinstance(dropout, torch.Generator):
+        return dropout
+    return dropout[name]
 
 
 class FlairSegmentationModel(nn.Module):
@@ -115,34 +136,40 @@ class FlairSegmentationModel(nn.Module):
         """x (B, H, W, C) -> encoder features, NCHW views of NHWC memory.
         ``epilogue`` runs every conv epilogue of the model (the kernel
         wrapper, or a caller's plain version). A metadata model adds the
-        MLP's embedding of ``mtd`` (B, 45) to the deepest feature;
-        ``dropout`` is the MLP's (``MetadataMLP.forward``: None in eval)."""
+        MLP's embedding of ``mtd`` (B, 45) to the deepest feature, its
+        dropout ``dropout_part(dropout, "enc")`` (``MetadataMLP.forward``:
+        None in eval)."""
         feats = self.encoder(x.permute(0, 3, 1, 2), epilogue)
         if self.use_metadata:
             if mtd is None:
                 raise ValueError("use_metadata=True but no metadata passed")
-            feats[-1] = fuse_metadata(feats[-1], self.enc(mtd, dropout))
+            feats[-1] = fuse_metadata(feats[-1], self.enc(mtd, dropout_part(dropout, "enc")))
         return feats
 
     def forward(self, x: torch.Tensor, inner_margin: int | None = None,
                 epilogue=conv_epilogue, mtd: torch.Tensor | None = None,
                 dropout=None) -> torch.Tensor:
         """x (B, H, W, C) -> float32 logits (B, H, W, K), or with
-        ``inner_margin`` m the interior logits (B, H-2m, W-2m, K)."""
-        return self.decode(self.features(x, epilogue, mtd, dropout), inner_margin, epilogue)
+        ``inner_margin`` m the interior logits (B, H-2m, W-2m, K);
+        ``dropout``: see :func:`dropout_part` (None in eval)."""
+        return self.decode(self.features(x, epilogue, mtd, dropout), inner_margin, epilogue,
+                           dropout=dropout)
 
     def head_logits(self, feats: list[torch.Tensor], epilogue=conv_epilogue,
-                    group_norm=group_norm_relu) -> torch.Tensor:
+                    group_norm=group_norm_relu, dropout=None) -> torch.Tensor:
         """A non-unet model's decoder and head on whole tiles: the head's
         float32 logits (B, S / up, S / up, K), contiguous. ``group_norm``
-        runs FPN's GroupNorm sites (the kernel wrapper, or a caller's plain
-        version)."""
+        runs FPN's GroupNorm sites at inference (the kernel wrapper, or a
+        caller's plain version); ``dropout`` as :meth:`forward`'s."""
         kw = {"group_norm": group_norm} if self.arch == "fpn" else {}
+        if self.arch in DROPOUT_ARCHS:
+            kw["keep"] = dropout_part(dropout, "decoder")
         logits = self.segmentation_head(self.decoder(feats, epilogue=epilogue, **kw))
         return logits.permute(0, 2, 3, 1).contiguous()
 
     def decode(self, feats: list[torch.Tensor], inner_margin: int | None = None,
-               epilogue=conv_epilogue, group_norm=group_norm_relu) -> torch.Tensor:
+               epilogue=conv_epilogue, group_norm=group_norm_relu,
+               dropout=None) -> torch.Tensor:
         """The decoder and head on encoder features -> float32 logits (B, H,
         W, K), or with ``inner_margin`` m rows and columns [m, S - m) only:
         unet's interior decode (bit-identical to the crop), the strided-head
@@ -153,7 +180,8 @@ class FlairSegmentationModel(nn.Module):
         m = inner_margin or 0
         if self.arch != "unet":
             g = StridedGeometry(S, m, self.up)
-            return upsample_window(self.head_logits(feats, epilogue, group_norm), g)
+            return upsample_window(self.head_logits(feats, epilogue, group_norm, dropout),
+                                   g).contiguous()
         if inner_margin is None:
             logits = self.segmentation_head(self.decoder(feats, epilogue=epilogue))
         else:
@@ -200,11 +228,16 @@ def init_weights(model: nn.Module, seed: int) -> None:
     a CPU ``torch.Generator`` seeded with ``seed``: conv and dense kernels
     ``lecun_normal`` (a normal truncated at two standard deviations, scaled
     to variance 1 / fan_in), biases zero, BatchNorm gamma 1, beta 0, mean 0,
-    var 1. The same distributions as ``flairtpu``'s, not the same values."""
+    var 1. A transposed conv's fan_in is k * k * its input channels, as
+    ``flairtpu``'s ``TorchConvTranspose`` draws its (k, k, in, out) kernel
+    (``flairtpu/models/smp_extra.py:176-177``); torch keeps that weight as
+    (in, out, k, k). The same distributions as ``flairtpu``'s, not the same
+    values."""
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            fan_in = (m.weight[:, 0].numel() if isinstance(m, nn.ConvTranspose2d)
+                      else m.weight[0].numel())
             std = (1.0 / fan_in) ** 0.5 / TRUNC_STD
             w = torch.empty(m.weight.shape, dtype=torch.float32)
             nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)

@@ -13,9 +13,14 @@ at one width (32):
   times the 3x3 ConvBnRelu of the low-level feature, plus the high-level
   map resized.
 
-Every ConvBnRelu conv has a bias, folded into its BatchNorm's shift. The
+Every ConvBnRelu conv has a bias, folded into its BatchNorm's shift at
+inference and added to the conv output before a train-mode BatchNorm
+(``models/deeplab.py:bn_act``); the 1-channel pyramid's BatchNorms train
+through ``bn_train``'s narrow entry points. The
 FPA's output and the GAUs' are float32, as ``flairtpu``'s; its tiles must
-be at least 128 pixels (the pyramid pools the stride-16 map three times).
+be at least 128 pixels (the pyramid pools the stride-16 map three times),
+which ``flair-detect`` checks when it reads its config and ``flair`` at
+its first batch (:meth:`PANDecoder.forward`).
 """
 
 from __future__ import annotations
@@ -115,6 +120,10 @@ class PANDecoder(nn.Module):
         self.gau1 = GAUBlock(encoder_channels[-4], decoder_channels, dtype)
 
     def forward(self, feats: list[torch.Tensor], epilogue=conv_epilogue) -> torch.Tensor:
+        if min(feats[0].shape[-2:]) < MIN_TILE:  # flairtpu fails there with an IndexError
+            raise ValueError(f"pan needs patches of at least {MIN_TILE} pixels (got "
+                             f"{tuple(feats[0].shape[-2:])}): its FPA pools the stride-16 map "
+                             "three times")
         x5 = self.fpa(feats[-1], epilogue)
         x4 = self.gau3(feats[-2], x5, epilogue)
         x3 = self.gau2(feats[-3], x4, epilogue)

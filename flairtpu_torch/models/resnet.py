@@ -86,16 +86,19 @@ def bn2d(ch: int) -> nn.BatchNorm2d:
 
 
 def bn_site(epilogue, y: torch.Tensor, bn: nn.BatchNorm2d, residual=None, branch=None,
-            keep_f32: bool = False):
+            keep_f32: bool = False, relu: bool = True):
     """One BatchNorm site: ``bn`` on the conv output ``y``, plus ``residual``
-    or, for ``branch`` = (d, bn_d), ``bn_d`` on d; ReLU. An inference
-    epilogue gets each BatchNorm as its (scale, shift); ``TrainSites`` gets
-    the modules. Returns (out, its float32 value if ``keep_f32``)."""
+    or, for ``branch`` = (d, bn_d), ``bn_d`` on d; ReLU if ``relu``. An
+    inference epilogue gets each BatchNorm as its (scale, shift);
+    ``TrainSites`` gets the modules. Returns (out, its float32 value if
+    ``keep_f32``)."""
     if isinstance(epilogue, TrainSites):
-        return epilogue.site(y, bn, residual=residual, branch=branch, keep_f32=keep_f32)
+        return epilogue.site(y, bn, residual=residual, branch=branch, relu=relu,
+                             keep_f32=keep_f32)
     if branch is not None:
         branch = (branch[0], *scale_shift(branch[1]))
-    return epilogue(y, *scale_shift(bn), residual=residual, branch=branch, keep_f32=keep_f32)
+    return epilogue(y, *scale_shift(bn), residual=residual, branch=branch, relu=relu,
+                    keep_f32=keep_f32)
 
 
 def residual_epilogue(block: nn.Module, y: torch.Tensor, bn: nn.BatchNorm2d, x, x32,

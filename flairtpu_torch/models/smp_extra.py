@@ -15,7 +15,13 @@ names (counterpart of ``flairtpu/models/smp_extra.py``).
   stride-2 transposed conv (torch's ``(I, O, kH, kW)`` weight; its bias
   folded into the next BatchNorm's shift), 1x1 expand, additive skip.
 
-Dropout is the identity at inference.
+Dropout is the identity at inference; in train mode DeepLabV3's ASPP drops
+elements (``Dropout(0.5)``), FPN's merge and PSPNet's fuse whole channels
+(``Dropout2d(0.2)``), from the keep mask each forward is given or draws
+(``models/deeplab.py:dropout``). FPN's GroupNorm sites train through
+``TrainSites.group_norm`` (the ``group_norm_relu`` kernels' autograd
+Function); LinkNet's transposed-conv bias is added before its train-mode
+BatchNorm (``models/deeplab.py:bn_act``).
 """
 
 from __future__ import annotations
@@ -25,9 +31,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from flairtpu_torch.models.deeplab import (ASPP, CL, bn_act, cat, conv_bias, conv_bn,
-                                           conv_bn_relu, resize)
+                                           conv_bn_relu, dropout, resize)
 from flairtpu_torch.models.resnet import bn2d, conv
 from flairtpu_torch.models.unet import upsample2x_nearest
+from flairtpu_torch.ops.bn_train import TrainSites
 from flairtpu_torch.ops.epilogue import conv_epilogue
 from flairtpu_torch.ops.group_norm import GN_EPS, GN_GROUPS, group_norm_relu
 
@@ -43,8 +50,9 @@ class DeepLabV3Decoder(nn.Sequential):
                          bn2d(out_channels))
         self.dtype = dtype
 
-    def forward(self, feats: list[torch.Tensor], epilogue=conv_epilogue) -> torch.Tensor:
-        x = self[0](feats[-1], epilogue)
+    def forward(self, feats: list[torch.Tensor], epilogue=conv_epilogue,
+                keep=None) -> torch.Tensor:
+        x = self[0](feats[-1], epilogue, keep)
         return bn_act(epilogue, conv(x, self[1], self.dtype), self[2])
 
 
@@ -104,8 +112,12 @@ class FPNDecoder(nn.Module):
             for n in (3, 2, 1, 0)])
 
     def forward(self, feats: list[torch.Tensor], epilogue=conv_epilogue,
-                group_norm=group_norm_relu) -> torch.Tensor:
+                group_norm=group_norm_relu, keep=None) -> torch.Tensor:
+        """``group_norm`` runs the GroupNorm sites at inference (in train
+        mode ``epilogue.group_norm``); ``keep``: the Dropout2d's."""
         dt = self.dtype
+        if isinstance(epilogue, TrainSites):
+            group_norm = epilogue.group_norm
         c2, c3, c4, c5 = feats[-4:]
         pyramid = [conv_bias(c5, self.p5, dt)]
         for block, c in ((self.p4, c4), (self.p3, c3), (self.p2, c2)):
@@ -117,7 +129,7 @@ class FPNDecoder(nn.Module):
             for block in seg.block:
                 x = block(x, group_norm)
             merged = x if merged is None else merged + x
-        return merged
+        return dropout(merged, 0.2, keep, channels=True)
 
 
 class PSPBlock(nn.Module):
@@ -146,7 +158,8 @@ class PSPDecoder(nn.Module):
         self.psp = PSPModule(in_ch)
         self.conv = conv_bn(2 * in_ch, out_channels)
 
-    def forward(self, feats: list[torch.Tensor], epilogue=conv_epilogue) -> torch.Tensor:
+    def forward(self, feats: list[torch.Tensor], epilogue=conv_epilogue,
+                keep=None) -> torch.Tensor:
         dt = self.dtype
         x = feats[-1]
         x32 = x.float()  # the pools average in float32; each conv rounds once
@@ -155,7 +168,8 @@ class PSPDecoder(nn.Module):
             b = F.adaptive_avg_pool2d(x32, block.size)
             b = conv_bn_relu(block.pool[1], b, dt, epilogue)
             branches.append(resize(b, x.shape[2:]))
-        return conv_bn_relu(self.conv, cat(branches + [x.to(branches[0].dtype)]), dt, epilogue)
+        y = conv_bn_relu(self.conv, cat(branches + [x.to(branches[0].dtype)]), dt, epilogue)
+        return dropout(y, 0.2, keep, channels=True)
 
 
 class TransposeX2(nn.Sequential):

@@ -28,8 +28,11 @@ inference epilogue (``models/resnet.py:bn_site``).
 Each wrapper runs the plain PyTorch version for CPU tensors and launches the
 kernel for bfloat16 CUDA tensors; it has no fallback, and counts its
 launches (one a call, however many kernels the call runs: the statistics
-are one, the backward two). :func:`launch_plan` sizes a call's grid and
-scratch; each call allocates its partials with ``torch.empty``, and the
+are one, the backward two). A site whose channel count is not a multiple of
+8 (PAN's 1-channel pyramid) takes the narrow entry points, a block a
+channel, one launch each way, with no residual or branch; they count in
+``narrow_launches`` and ``narrow_backward_launches``. :func:`launch_plan`
+sizes a call's grid and scratch; each call allocates its partials with ``torch.empty``, and the
 kernels' int32 ticket counters are cached, one pair per (device, stream):
 the kernels leave them at 0, and calls on one stream run in order, so no
 call needs a memset (a fresh zeroed pair would cost a fill launch a call,
@@ -47,6 +50,7 @@ import torch
 
 from flairtpu_torch.ops import _build
 from flairtpu_torch.ops.epilogue import conv_epilogue
+from flairtpu_torch.ops.group_norm import GroupNormReLU
 
 MOMENTUM = 0.9  # flax's, on the running average (torch's momentum 0.1)
 EPS = 1e-5
@@ -64,11 +68,17 @@ BACKWARD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_void_p
                                               ctypes.c_int] + [ctypes.c_void_p] * 4 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+NARROW_STATS_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                                                 ctypes.c_float, ctypes.c_void_p]
+NARROW_BACKWARD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int,
+                                                    ctypes.c_void_p]
 
 # kernel launches on CUDA tensors since the last reset, one count per entry
 # point (the CPU path does not count)
 launches = 0  # statistics
 backward_launches = 0
+narrow_launches = 0  # the narrow entry points'
+narrow_backward_launches = 0
 
 
 def _chw(v: torch.Tensor) -> torch.Tensor:
@@ -79,10 +89,16 @@ def bn_stats_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    running_mean: torch.Tensor, running_var: torch.Tensor,
                    eps: float = EPS, momentum: float = MOMENTUM):
     """x (B, C, H, W) -> float32 (mean, invstd, scale, shift) per channel;
-    the running statistics updated in place."""
+    the running statistics updated in place. A narrow site's sums run in
+    double, as its kernel's do."""
     xf = x.float()
-    mean = xf.mean(dim=(0, 2, 3))
-    var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0)
+    if x.shape[1] % 8:
+        m = xf.numel() // x.shape[1]
+        mean = (xf.sum(dim=(0, 2, 3), dtype=torch.float64) / m).float()
+        ex2 = ((xf * xf).sum(dim=(0, 2, 3), dtype=torch.float64) / m).float()
+    else:
+        mean, ex2 = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+    var = torch.clamp_min(ex2 - mean * mean, 0)
     invstd = torch.rsqrt(var + eps)
     scale = gamma * invstd
     shift = beta - mean * scale
@@ -183,9 +199,9 @@ def _on_card(x: torch.Tensor, what: str) -> bool:
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{what}: dtype {x.dtype} (the kernel takes bfloat16)")
     C = x.shape[1]
-    if C % 8 or not 8 <= C <= 8 * THREADS:
-        raise ValueError(f"{what}: {C} channels (the kernel takes a multiple of 8 up to "
-                         f"{8 * THREADS})")
+    if not 1 <= C <= 8 * THREADS:
+        raise ValueError(f"{what}: {C} channels (the kernels take 1 to {8 * THREADS}; a "
+                         "multiple of 8, or the narrow entry points)")
     return True
 
 
@@ -194,7 +210,7 @@ def bn_stats(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              eps: float = EPS, momentum: float = MOMENTUM):
     """As :func:`bn_stats_plain`; x channels_last. CPU tensors: the plain
     version. bfloat16 CUDA tensors: the kernel, or an error."""
-    global launches
+    global launches, narrow_launches
     if x.dim() != 4:
         raise ValueError(f"bn_stats: x must be (B, C, H, W), got {tuple(x.shape)}")
     if not _on_card(x, "bn_stats"):
@@ -205,12 +221,20 @@ def bn_stats(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     for name, v in (("gamma", gamma), ("beta", beta), ("running_mean", running_mean),
                     ("running_var", running_var)):
         _check_vector(v, C, x.device, name)
+    out = torch.empty((4, C), dtype=torch.float32, device=x.device)
+    mean, invstd, scale, shift = out
+    if C % 8:
+        err = _build.entry("bn_train", NARROW_STATS_ARGTYPES, "bn_train_narrow_stats")(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), running_mean.data_ptr(),
+            running_var.data_ptr(), mean.data_ptr(), invstd.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), m, C, eps, momentum, _build.stream_handle(x))
+        _build.check(err, "bn_stats (narrow)")
+        narrow_launches += 1
+        return mean, invstd, scale, shift
     plan = launch_plan(m, C, "stats", _co_resident(x.device, "stats", C))
     stream = _build.stream_handle(x)
     partials = torch.empty(plan.partials, dtype=torch.float32, device=x.device)
     counters = _counters(x.device, stream)
-    out = torch.empty((4, C), dtype=torch.float32, device=x.device)
-    mean, invstd, scale, shift = out
     err = _build.entry("bn_train", STATS_ARGTYPES, "bn_train_stats")(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), running_mean.data_ptr(),
         running_var.data_ptr(), partials.data_ptr(), partials.numel(), counters.data_ptr(),
@@ -231,11 +255,15 @@ def _grad_in(g, g32, out, relu: bool) -> torch.Tensor:
 
 
 def _bn_input_grad(gz, x, mean, invstd, gamma):
-    """(dx, dgamma, dbeta) of a train-mode BatchNorm for the output gradient gz."""
+    """(dx, dgamma, dbeta) of a train-mode BatchNorm for the output gradient
+    gz; a narrow site's sums in double, as its kernel's (one channel's sum
+    over the batch cancels to a small fraction of its terms: PAN's
+    pyramid)."""
     m = x.numel() // x.shape[1]
     xh = (x.float() - _chw(mean)) * _chw(invstd)
-    dbeta = gz.sum(dim=(0, 2, 3))
-    dgamma = (gz * xh).sum(dim=(0, 2, 3))
+    acc = torch.float64 if x.shape[1] % 8 else torch.float32
+    dbeta = gz.sum(dim=(0, 2, 3), dtype=acc).float()
+    dgamma = (gz * xh).sum(dim=(0, 2, 3), dtype=acc).float()
     dx = _chw(gamma * invstd) * (gz - (_chw(dbeta) + xh * _chw(dgamma)) / m)
     return dx.to(x.dtype), dgamma, dbeta
 
@@ -259,7 +287,7 @@ def bn_backward(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = T
                 residual: bool = False):
     """As :func:`bn_backward_plain`; every map channels_last. CPU tensors:
     the plain version. bfloat16 CUDA tensors: the kernel, or an error."""
-    global backward_launches
+    global backward_launches, narrow_backward_launches
     if not _on_card(y, "bn_backward"):
         return bn_backward_plain(g, g32, out, y, mean, invstd, gamma, branch, relu, residual)
     if residual and branch is not None:
@@ -283,6 +311,18 @@ def bn_backward(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = T
             _check_vector(v, C, y.device, name)
         dd = torch.empty_like(d)
     dy = torch.empty_like(y)
+    if C % 8:
+        if residual or branch is not None:
+            raise ValueError(f"bn_backward: a {C}-channel site takes no residual or branch "
+                             "(the narrow entry point)")
+        sums = torch.empty((2, C), dtype=torch.float32, device=y.device)
+        err = _build.entry("bn_train", NARROW_BACKWARD_ARGTYPES, "bn_train_narrow_backward")(
+            None if g is None else g.data_ptr(), None if g32 is None else g32.data_ptr(),
+            out.data_ptr() if relu else None, y.data_ptr(), mean.data_ptr(), invstd.data_ptr(),
+            gamma.data_ptr(), sums.data_ptr(), dy.data_ptr(), m, C, _build.stream_handle(y))
+        _build.check(err, "bn_backward (narrow)")
+        narrow_backward_launches += 1
+        return dy, sums[1], sums[0], None, None
     dres = torch.empty_like(y, dtype=torch.float32) if residual else None
     branched = branch is not None
     plan = launch_plan(m, C, "backward", _co_resident(y.device, "backward", C, branched),
@@ -367,7 +407,8 @@ class BNTrainSite(torch.autograd.Function):
 class TrainSites:
     """What a model's forward takes in place of its inference epilogue to
     train: each BatchNorm site through :class:`BNTrainSite`, with the
-    BatchNorm modules (their gamma, beta and running statistics)."""
+    BatchNorm modules (their gamma, beta and running statistics), and each
+    GroupNorm site through ``GroupNormReLU``."""
 
     def apply(self, *args):
         """One site's autograd Function applied to :class:`BNTrainSite`'s
@@ -382,3 +423,8 @@ class TrainSites:
                          *((bn_d.weight, bn_d.bias, bn_d.running_mean, bn_d.running_var)
                            if bn_d is not None else (None,) * 4), relu, keep_f32)
         return res if keep_f32 else (res, None)
+
+    def group_norm(self, y, gamma, beta, groups: int, eps: float, upsample: bool):
+        """A GroupNorm + ReLU (+ 2x nearest) site in train mode (FPN's):
+        ``ops/group_norm.py:GroupNormReLU``, float32 out."""
+        return GroupNormReLU.apply(y, gamma, beta, groups, eps, upsample)

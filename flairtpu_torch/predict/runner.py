@@ -2,11 +2,16 @@
 reference flair/main.py:187-203, tasks.py:113-142).
 
 Each batch of test patches goes to the device once; ``augment_normalize``
-normalizes it (every choice the identity); the encoder and decoder blocks
-0-3 run with their running statistics through ``conv_epilogue``; and
-``fused_tail`` (the port of the Pallas tail, ``ops/fused_tail.py``) runs
-decoder block 4, the head and the argmax at margin 0, writing the class
-tiles through ``full_windows``. Only the uint8 classes come back, into
+normalizes it (every choice the identity); the model's zone tail runs at
+margin 0 into (B, S, S) class tiles (``full_windows``), its argmax taken
+from the whole tile as ``flairtpu``'s predict takes it from the full
+logits (``flairtpu/predict/runner.py:50``): for the U-Net, MAnet and UNet++
+the encoder and the decoder through the node before the last run with
+their running statistics through ``conv_epilogue`` and ``fused_tail`` (the
+port of the Pallas tail, ``ops/fused_tail.py``) runs the last block, the
+head and the argmax; for the other archs the decoder and head run on whole
+tiles and ``strided_tail`` (``ops/strided_tail.py``) upsamples the head's
+logits (U = 4, 8, or 1 for linknet) and takes the argmax. Only the uint8 classes come back, into
 pinned memory; PRED files are written on a thread pool while the next batch
 computes. The ragged last batch is padded with copies of its last patch (and
 of its last metadata row, for a metadata model), so every batch has one
@@ -25,7 +30,6 @@ import torch
 from flairtpu_torch.data.patches import PatchDataset, PatchLoader
 from flairtpu_torch.io import TiffReader, TiffWriter
 from flairtpu_torch.ops.augment import augment_normalize
-from flairtpu_torch.ops.fused_tail import fused_tail, tail_geometry, tail_params
 
 
 def write_prediction(pred: np.ndarray, src_path: str, out_dir: Path,
@@ -85,13 +89,15 @@ def predict(config: dict, dict_test: dict, out_dir: str | Path, trainer,
                 if mtd is not None:
                     mtd = torch.cat([mtd, mtd[-1:].expand(bs - n, *mtd.shape[1:])])
             if tail is None:
-                tail = tail_params(model, dtype)
+                tail = model.zone_tail()
+                argmax = tail.wrappers()[0]
+                geometry = tail.geometry(size, 0)
             x, _ = augment_normalize(img.to(device, non_blocking=True), None, None,
                                      trainer.norm_mean, trainer.norm_mul, trainer.num_classes,
                                      dtype)
             if mtd is not None:
                 mtd = mtd.to(device, non_blocking=True)
-            cls, _ = fused_tail(model.tail_input(x, 0, mtd=mtd), tail, tail_geometry(size, 0))
+            cls, _ = argmax(model.tail_input(x, 0, mtd=mtd), tail, geometry)
             host = torch.empty(cls.shape, dtype=torch.uint8, pin_memory=on_card)
             host.copy_(cls, non_blocking=on_card)
             event = None

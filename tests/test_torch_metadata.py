@@ -363,7 +363,7 @@ def test_train_step_matches_flairtpu(flax_trainer):
     cm = tr.new_confmat()
     loss = tr.train_step({"img": torch.from_numpy(img), "msk": torch.from_numpy(msk),
                           "mtd": torch.from_numpy(mtd)}, cm, choices=torch.from_numpy(choices),
-                         masks=[masks])
+                         masks=[{"enc": masks}])
 
     np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
     moved = int(np.abs(cm.numpy() - np.asarray(cm_j)).sum()) // 2

@@ -335,6 +335,22 @@ def test_init_distributions():
     assert torch.equal(other.encoder.conv1.weight, model.encoder.conv1.weight)
 
 
+def test_init_distributions_transposed_conv():
+    """LinkNet's transposed convs are drawn as flairtpu's TorchConvTranspose
+    (lecun_normal on its (k, k, in, out) kernel): std sqrt(1 / (k * k *
+    in)), cut at two standard deviations, from torch's (in, out, k, k)
+    weight; bias zero."""
+    model = FlairSegmentationModel("resnet18", N_CLASSES, 5, arch="linknet")
+    init_weights(model, 3)
+    t = model.decoder.blocks[0].block[1][0]  # ConvTranspose2d(128, 128, 4)
+    assert isinstance(t, torch.nn.ConvTranspose2d) and t.weight.shape == (128, 128, 4, 4)
+    w = t.weight.detach()
+    std = (1 / (128 * 16)) ** 0.5
+    assert abs(float(w.std()) / std - 1) < 0.02
+    assert float(w.abs().max()) <= 2 * std / 0.87962566103423978 + 1e-6
+    assert not t.bias.any()
+
+
 @pytest.mark.parametrize("over,match", [
     ({"param_sharding": "fsdp"}, "param_sharding"),
     ({"tensor_parallel": 2, "param_sharding": "tensor"}, "param_sharding"),

@@ -96,14 +96,21 @@ Phases (any failure exits non-zero):
    at FPN's seven site shapes at batch 128 (GN_SITES) within GN_TOL of its
    plain version, two calls bit-identical, timed beside its plain version
    and F.group_norm; its train-mode forward (the saved mean and rstd) and
-   its backward at the same sites at the train batch (16): dy within
-   GN_DY_TOL of the largest, dgamma and dbeta within GN_GRAD_TOL, two calls
-   bit-identical, timed beside the plain version and aten's
+   its backward (one launch a call) at the same sites at the train batch
+   (16) and at the edges of its plan (GN_EDGES: batch 1, ragged items,
+   other channel and group counts; the on-chip route's largest sample and
+   the next, re-read): dy within GN_DY_TOL of the largest, dgamma and dbeta
+   within GN_GRAD_TOL, two calls bit-identical, FPN's sites timed by device
+   and call time beside the earlier three-launch kernel's device time
+   (GN_BACKWARD_BEFORE_MS), the plain version and aten's
    native_group_norm_backward (GroupNorm alone, not the same function).
    bn_train's narrow entry points (channels not a multiple of 8) at PAN's
-   six 1-channel sites at the train batch (PAN_NARROW_SITES), statistics
-   and backward against their plain versions, two calls bit-identical,
-   timed by device time.
+   six 1-channel sites at the train batch (PAN_NARROW_SITES): the
+   statistics, the fused forward's output (bit for bit conv_epilogue's
+   arithmetic) and the backward against their plain versions, two calls
+   bit-identical, one launch each way and no conv_epilogue, timed by
+   device time beside torch.var_mean, native_batch_norm_backward and the
+   card's launch floors (an empty kernel, one block's reduction).
 3. main path: ``flairtpu_torch.cli.detect_main`` on a synthetic 4096 x 4096 x
    5 GeoTIFF zone (``<dpt>/<zone>/zone.tif``, with a synthetic truth raster
    at ``truth/<dpt>/<zone>/truth.tif``) with a random resnet34-unet (19
@@ -208,8 +215,8 @@ Phases (any failure exits non-zero):
    steps (deeplabv3plus 2, for its train patches/s past the warm-up), each
    with the counts set to 0 just before it: the launches against steps x
    sites from the model's structure (bn_train's statistics and backward at
-   every BatchNorm, the narrow entry points at PAN's 1-channel ones,
-   conv_epilogue's apply; FPN's group_norm_relu 7 a forward and its
+   every BatchNorm, the narrow entry points at PAN's 1-channel ones (their
+   forward writes the output), conv_epilogue's apply elsewhere; FPN's group_norm_relu 7 a forward and its
    backward 7 a step; weighted_ce; augment_normalize through its tiled
    instance; per predict batch one strided_tail into (B, S, S) tiles at
    margin 0, U = 4, 8 or 1, or one fused_tail for manet and unetplusplus),
@@ -266,6 +273,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import ctypes
 import re
 import json
 import os
@@ -296,6 +304,8 @@ from flairtpu_torch.ops import _build
 from flairtpu_torch.ops import augment as au
 from flairtpu_torch.ops import bn_train as bt
 from flairtpu_torch.ops.bn_train_phases import device_ms
+# FPN's seven Conv3x3GNReLU sites at 512 tiles: (label, input side, upsample)
+from flairtpu_torch.ops.group_norm_phases import SITES as GN_SITES
 from flairtpu_torch.ops.weighted_ce_phases import inputs as ce_inputs
 from flairtpu_torch.ops import epilogue as ep
 from flairtpu_torch.ops import weighted_ce as wc
@@ -634,10 +644,6 @@ STEM_TOL = 2.0 ** -6
 # a group in other orders, then the same per-element arithmetic: within
 # GN_TOL of the largest output
 GN_TOL = 1e-5
-# FPN's seven Conv3x3GNReLU sites at 512 tiles: (label, input side, upsample)
-GN_SITES = (("seg0_c0 (p5)", 16, True), ("seg0_c1", 32, True), ("seg0_c2", 64, True),
-            ("seg1_c0 (p4)", 32, True), ("seg1_c1", 64, True), ("seg2_c0 (p3)", 64, True),
-            ("seg3_c0 (p2)", 128, False))
 
 
 def head_logits(gen, batch: int, n: int, k: int) -> torch.Tensor:
@@ -827,6 +833,22 @@ def check_group_norm(gen) -> dict:
 # 262144 values in other orders (of 1 + the largest |value|)
 GN_DY_TOL = 2.0 ** -6
 GN_GRAD_TOL = 1e-4
+# the backward's device ms at FPN's sites before its one-launch design: the
+# three-launch kernel of commit 0510a73 (group_norm_phases --baseline, one
+# H100 80GB HBM3 at 700 W)
+GN_BACKWARD_BEFORE_MS = {"seg0_c0 (p5)": 0.0367, "seg0_c1": 0.0953, "seg0_c2": 0.1453,
+                         "seg1_c0 (p4)": 0.0961, "seg1_c1": 0.1451, "seg2_c0 (p3)": 0.1464,
+                         "seg3_c0 (p2)": 0.1889}
+# the backward at the edges of its plan: (label, batch, side, width,
+# channels, groups, upsample)
+GN_EDGES = (("batch 1", 1, 64, 64, 128, 32, True),
+            ("an item's last pass ragged (37 x 29 pixels)", 2, 37, 29, 128, 32, True),
+            ("the re-read route, ragged (45 x 45 pixels)", 3, 45, 45, 128, 32, False),
+            ("256 channels", 2, 32, 32, 256, 32, True),
+            ("16 groups", 2, 48, 48, 128, 16, False),
+            ("8 channels, one group", 2, 20, 20, 8, 1, True),
+            ("512 channels (two warps a pixel)", 2, 12, 12, 512, 32, True),
+            ("2048 channels", 1, 8, 8, 2048, 32, False))
 # PAN's 1-channel BatchNorm sites at the train batch (512 tiles, the FPA on
 # the stride-16 map): (label, map side)
 PAN_NARROW_SITES = (("fpa.down1", 16), ("fpa.down2", 8), ("fpa.down3.1", 4),
@@ -865,88 +887,211 @@ def gn_library_backward(y, g, mean, rstd, gamma):
     return run
 
 
+def gn_backward_operands(gen, batch: int, side: int, channels: int, up: bool,
+                         width: int | None = None) -> tuple:
+    """(y, gamma, beta, g) of one group_norm_relu site: y a bf16 channels_last
+    (batch, channels, side, width) map, g its float32 gradient at 2x where
+    ``up``."""
+    width = width or side
+    y = (torch.randn((batch, side, width, channels), generator=gen, device="cuda") * 1.5
+         + 0.3).to(torch.bfloat16).permute(0, 3, 1, 2)
+    gamma = torch.rand(channels, generator=gen, device="cuda") + 0.5
+    beta = torch.randn(channels, generator=gen, device="cuda") * 0.2
+    u = 2 if up else 1
+    g = torch.randn((batch, u * side, u * width, channels), generator=gen,
+                    device="cuda").permute(0, 3, 1, 2)
+    return y, gamma, beta, g
+
+
+def hold_gn_backward(name: str, y, gamma, beta, g, groups: int, up: bool) -> tuple:
+    """The train-mode forward's saved statistics, then the backward against
+    its plain version (dy within GN_DY_TOL of the largest, dgamma and dbeta
+    within GN_GRAD_TOL) and two calls bit-identical, each launching once.
+    Returns (worst error, the statistics, the plan)."""
+    out, mean, rstd = gnr.group_norm_relu(y, gamma, beta, groups, upsample=up, stats=True)
+    _, mean_p, rstd_p = gnr.group_norm_relu_plain(y, gamma, beta, groups, upsample=up,
+                                                  stats=True)
+    stat_err = max(vec_err(mean, mean_p), vec_err(rstd, rstd_p))
+    before = gnr.backward_launches
+    got = gnr.group_norm_relu_backward(g, y, mean, rstd, gamma, beta, groups, upsample=up)
+    again = gnr.group_norm_relu_backward(g, y, mean, rstd, gamma, beta, groups, upsample=up)
+    want = gnr.group_norm_relu_backward_plain(g, y, mean, rstd, gamma, beta, groups,
+                                              upsample=up)
+    torch.cuda.synchronize()
+    dy_err = scaled_err(got[0], want[0])
+    grad_err = max(vec_err(got[1], want[1]), vec_err(got[2], want[2]))
+    B, C, H, W = y.shape
+    plan = gnr.launch_plan(B, H, W, C, groups, up, gnr.device_limits(y.device))
+    route = (f"{'on chip' if plan.on_chip else 're-read'}, {plan.part} px an item, "
+             f"{plan.slots} of {B} samples in flight, grid {plan.grid}")
+    check(stat_err <= BN_STAT_TOL, f"{name}: saved mean and rstd within {stat_err:.1e} <= "
+          f"{BN_STAT_TOL} of the plain forward's")
+    check(dy_err <= GN_DY_TOL and grad_err <= GN_GRAD_TOL,
+          f"{name} ({route}): dy within {dy_err:.1e} <= {GN_DY_TOL:.1e} of the largest, dgamma "
+          f"and dbeta within {grad_err:.1e} <= {GN_GRAD_TOL}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again))
+          and gnr.backward_launches - before == 2,
+          f"{name}: two calls bit-identical, one launch each")
+    return max(dy_err, grad_err), (mean, rstd), plan
+
+
+def gn_on_chip_edge(limits) -> int:
+    """The largest side of a square upsampling map (128 channels, 32 groups)
+    whose sample fits the on-chip route: the next side takes the re-read
+    route."""
+    side = 16
+    while gnr.launch_plan(2, side + 1, side + 1, 128, 32, True, limits).on_chip:
+        side += 1
+    return side
+
+
 def check_group_norm_backward(gen) -> dict:
     """group_norm_relu's train-mode forward (its saved statistics) and its
-    backward at FPN's seven site shapes at the train batch (16): dy within
-    GN_DY_TOL of the largest, dgamma and dbeta within GN_GRAD_TOL, two calls
-    bit-identical; timed beside the plain version and aten's
-    native_group_norm_backward."""
+    backward at FPN's seven site shapes at the train batch (16), then at the
+    edges of its plan (GN_EDGES and the on-chip route's largest sample and
+    the next): dy within GN_DY_TOL of the largest, dgamma and dbeta within
+    GN_GRAD_TOL, two calls bit-identical and one launch each; FPN's sites
+    timed by device time (device_ms) and call time (cuda_ms) beside the
+    earlier three-launch kernel's (GN_BACKWARD_BEFORE_MS), the plain
+    version and aten's native_group_norm_backward."""
     rows, worst = [], 0.0
     library_error = None
     for label, side, up in GN_SITES:
-        y = (torch.randn((TRAIN_BATCH, side, side, 128), generator=gen, device="cuda") * 1.5
-             + 0.3).to(torch.bfloat16).permute(0, 3, 1, 2)
-        gamma = torch.rand(128, generator=gen, device="cuda") + 0.5
-        beta = torch.randn(128, generator=gen, device="cuda") * 0.2
-        u = 2 if up else 1
-        g = torch.randn((TRAIN_BATCH, u * side, u * side, 128), generator=gen,
-                        device="cuda").permute(0, 3, 1, 2)
-        out, mean, rstd = gnr.group_norm_relu(y, gamma, beta, upsample=up, stats=True)
-        out_p, mean_p, rstd_p = gnr.group_norm_relu_plain(y, gamma, beta, upsample=up,
-                                                           stats=True)
-        stat_err = max(vec_err(mean, mean_p), vec_err(rstd, rstd_p))
-        got = gnr.group_norm_relu_backward(g, y, mean, rstd, gamma, beta, upsample=up)
-        again = gnr.group_norm_relu_backward(g, y, mean, rstd, gamma, beta, upsample=up)
-        want = gnr.group_norm_relu_backward_plain(g, y, mean, rstd, gamma, beta, upsample=up)
-        torch.cuda.synchronize()
-        dy_err = scaled_err(got[0], want[0])
-        grad_err = max(vec_err(got[1], want[1]), vec_err(got[2], want[2]))
+        y, gamma, beta, g = gn_backward_operands(gen, TRAIN_BATCH, side, 128, up)
         name = (f"group_norm_relu backward {label}: ({TRAIN_BATCH}, 128, {side}, {side})"
                 f"{', 2x up' if up else ''}")
-        check(stat_err <= BN_STAT_TOL, f"{name}: saved mean and rstd within {stat_err:.1e} <= "
-              f"{BN_STAT_TOL} of the plain forward's")
-        check(dy_err <= GN_DY_TOL and grad_err <= GN_GRAD_TOL,
-              f"{name}: dy within {dy_err:.1e} <= {GN_DY_TOL:.1e} of the largest, dgamma and "
-              f"dbeta within {grad_err:.1e} <= {GN_GRAD_TOL}")
-        check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              f"{name}: two calls bit-identical")
-        worst = max(worst, dy_err, grad_err)
+        err, (mean, rstd), plan = hold_gn_backward(name, y, gamma, beta, g, 32, up)
+        worst = max(worst, err)
         ops, nbytes = gn_backward_cost(y, up)
         lib = gn_library_backward(y, g, mean, rstd, gamma)
         if isinstance(lib, str):
             library_error = lib
+
+        def run():
+            gnr.group_norm_relu_backward(g, y, mean, rstd, gamma, beta, upsample=up)
+
         rows.append(dict(
-            site=label,
-            ms=cuda_ms(lambda: gnr.group_norm_relu_backward(g, y, mean, rstd, gamma, beta,
-                                                            upsample=up), 10, 2),
+            site=label, ms=device_ms(run), call_ms=cuda_ms(run, 10, 2),
+            before_ms=GN_BACKWARD_BEFORE_MS[label],
             plain_ms=cuda_ms(lambda: gnr.group_norm_relu_backward_plain(
                 g, y, mean, rstd, gamma, beta, upsample=up), 3, 1),
-            library_ms=None if isinstance(lib, str) else cuda_ms(lib, 10, 2),
+            library_ms=None if isinstance(lib, str) else device_ms(lib),
+            route="on_chip" if plan.on_chip else "reread", grid=plan.grid,
+            blocks_per_sm=plan.blocks_per_sm, hbm_bytes=plan.hbm_bytes,
             bytes=nbytes, **bound(ops, nbytes, PEAK_FP32_FLOPS)))
-        del y, g, out, out_p, got, again, want, lib
+        del y, g, lib
         torch.cuda.empty_cache()
+    edge = gn_on_chip_edge(gnr.device_limits(torch.device("cuda")))
+    for label, batch, side, width, channels, groups, up in GN_EDGES + (
+            ("the on-chip route's largest sample", 2, edge, edge, 128, 32, True),
+            ("one side more: the re-read route", 2, edge + 1, edge + 1, 128, 32, True)):
+        y, gamma, beta, g = gn_backward_operands(gen, batch, side, channels, up, width)
+        name = (f"group_norm_relu backward, {label}: ({batch}, {channels}, {side}, {width}), "
+                f"{groups} groups{', 2x up' if up else ''}")
+        worst = max(worst, hold_gn_backward(name, y, gamma, beta, g, groups, up)[0])
+        del y, g
+    torch.cuda.empty_cache()
     libs = [r["library_ms"] for r in rows]
-    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "bytes")}
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "call_ms", "before_ms", "plain_ms",
+                                                  "bound_ms", "bytes", "hbm_bytes")}
     return dict(total, sites=rows, max_abs_err=worst, library_error=library_error,
                 library_ms=None if None in libs else sum(libs),
                 bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows)
                 else "operations")
 
 
+def bn_narrow_library_backward(g32, out, y, mean, invstd, gamma):
+    """aten's native_batch_norm_backward on the ReLU-masked gradient in bf16
+    at a narrow site; a function to time, or the error PyTorch raised."""
+    gm = (g32 * (out > 0)).to(torch.bfloat16)
+
+    def run():
+        torch.ops.aten.native_batch_norm_backward(gm, y, gamma, None, None, mean, invstd, True,
+                                                  bt.EPS, [True, True, True])
+
+    try:
+        run()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as e:
+        return f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    return run
+
+
+def launch_floors() -> dict:
+    """The card's floor for one launch, by device time (device_ms): an empty
+    kernel, and a kernel of one block that reduces 256 values as the narrow
+    entry points do (bn_train_launch_floor)."""
+    fn = _build.entry("bn_train", [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_void_p], "bn_train_launch_floor")
+    src = torch.rand(256, device="cuda")
+    dst = torch.empty(1, device="cuda")
+    stream = _build.stream_handle(src)
+
+    def launch(mode: int):
+        _build.check(fn(mode, src.data_ptr(), dst.data_ptr(), stream), "bn_train_launch_floor")
+
+    launch(1)
+    torch.cuda.synchronize()
+    want = src.double().sum().float()
+    check(abs(dst.item() - want.item()) <= 1e-6 * (1 + abs(want.item())),
+          f"launch floor: the one-block reduction gives {dst.item():.6f} for {want.item():.6f}")
+    return {"empty_ms": device_ms(lambda: launch(0)), "reduce_ms": device_ms(lambda: launch(1))}
+
+
 def check_bn_narrow(gen) -> dict:
     """bn_train's narrow entry points at PAN's six 1-channel sites at the
-    train batch: the statistics (running ones too) within BN_STAT_TOL, the
+    train batch: the statistics alone (bn_stats) and with the site's output
+    (bn_stats_apply, ReLU and the float32 copy as PAN's sites take them;
+    also without either), the statistics (running ones too) within
+    BN_STAT_TOL, the output bit for bit, of the plain versions; the
     backward's dy within BN_DY_TOL of the largest, dgamma and dbeta within
-    BN_STAT_TOL, of their plain versions; two calls bit-identical; timed
-    (device ms) beside the plain versions."""
+    BN_STAT_TOL; two calls bit-identical, one launch each and no
+    conv_epilogue launch; timed (device ms) beside the plain versions,
+    torch.var_mean(correction=0) and aten's native_batch_norm_backward, and
+    the card's launch floors."""
     rows, worst = [], 0.0
+    library_error = None
     for label, side in PAN_NARROW_SITES:
         y = torch.randn((TRAIN_BATCH, 1, side, side), generator=gen, device="cuda").to(
             torch.bfloat16).contiguous(memory_format=torch.channels_last)
         gamma, beta = torch.rand(1, generator=gen, device="cuda") + 0.5, torch.zeros(1,
                                                                                     device="cuda")
+
+        def fresh():
+            return torch.zeros(1, device="cuda"), torch.ones(1, device="cuda")
+
+        launches = (bt.narrow_launches, ep.launches)
         runs = []
         for _ in range(2):
-            rm, rv = torch.zeros(1, device="cuda"), torch.ones(1, device="cuda")
+            rm, rv = fresh()
             runs.append(bt.bn_stats(y, gamma, beta, rm, rv) + (rm, rv))
-        rmp, rvp = torch.zeros(1, device="cuda"), torch.ones(1, device="cuda")
+        rmp, rvp = fresh()
         want = bt.bn_stats_plain(y, gamma, beta, rmp, rvp) + (rmp, rvp)
         stat_err = max(vec_err(a, b) for a, b in zip(runs[0], want))
+        out_same = True
+        for relu, keep_f32 in ((True, True), (False, False)):
+            fused = []
+            for _ in range(2):
+                rm, rv = fresh()
+                fused.append(bt.bn_stats_apply(y, gamma, beta, rm, rv, relu, keep_f32)
+                             + (rm, rv))
+            rmp, rvp = fresh()
+            wantf = bt.bn_stats_apply_plain(y, gamma, beta, rmp, rvp, relu, keep_f32) + (rmp,
+                                                                                       rvp)
+            stat_err = max(stat_err, *(vec_err(fused[0][i], wantf[i]) for i in (0, 1, 2, 3, 6, 7)))
+            # the output from the kernel's own scale and shift, by the plain epilogue
+            out_p = ep.conv_epilogue_plain(y, fused[0][2], fused[0][3], relu=relu,
+                                           keep_f32=keep_f32)
+            out_same &= torch.equal(fused[0][4], out_p[0]) and (
+                not keep_f32 or torch.equal(fused[0][5], out_p[1]))
+            out_same &= all(a is b or torch.equal(a, b) for a, b in zip(*fused))
+        n_calls = (bt.narrow_launches - launches[0], ep.launches - launches[1])
         mean, invstd, scale, shift = want[:4]
-        out, _ = ep.conv_epilogue(y, scale, shift)
+        out = ep.conv_epilogue_plain(y, scale, shift)[0]
         g32 = torch.randn(y.shape, generator=gen, device="cuda").contiguous(
             memory_format=torch.channels_last)
         args = (None, g32, out, y, mean, invstd, gamma)
+        before = bt.narrow_backward_launches
         got = [bt.bn_backward(*args) for _ in range(2)]
         wantb = bt.bn_backward_plain(*args)
         torch.cuda.synchronize()
@@ -956,27 +1101,42 @@ def check_bn_narrow(gen) -> dict:
         check(stat_err <= BN_STAT_TOL and dy_err <= BN_DY_TOL and grad_err <= BN_STAT_TOL,
               f"{name}: statistics within {stat_err:.1e}, dy {dy_err:.1e} of the largest, "
               f"dgamma and dbeta {grad_err:.1e} (limits {BN_STAT_TOL}, {BN_DY_TOL:.1e})")
+        check(out_same, f"{name}: the fused forward's output (ReLU and float32 copy, and "
+              "neither) bit for bit conv_epilogue's arithmetic from its scale and shift")
         check(all(torch.equal(a, b) for a, b in zip(*runs)) and
               all(torch.equal(a, b) for a, b in zip(got[0][:3], got[1][:3])),
               f"{name}: two calls of each entry point bit-identical")
+        check(n_calls == (6, 0) and bt.narrow_backward_launches - before == 2,
+              f"{name}: one launch a call each way ({n_calls[0]} forward for 6 calls, "
+              f"{bt.narrow_backward_launches - before} backward for 2), {n_calls[1]} "
+              "conv_epilogue")
         worst = max(worst, stat_err, dy_err, grad_err)
+        lib = bn_narrow_library_backward(g32, out, y, mean, invstd, gamma)
+        if isinstance(lib, str):
+            library_error = lib
         n = y.numel()
         rows.append({
             "site": label,
-            "stats_ms": device_ms(lambda: bt.bn_stats(y, gamma, beta, rmp, rvp)),
-            "stats_plain_ms": cuda_ms(lambda: bt.bn_stats_plain(y, gamma, beta, rmp, rvp), 3, 1),
-            "stats_bound": bound(3 * n, 2 * n + 4 * 8, PEAK_FP32_FLOPS),
+            "stats_ms": device_ms(lambda: bt.bn_stats_apply(y, gamma, beta, rmp, rvp, True, True)),
+            "stats_plain_ms": cuda_ms(lambda: bt.bn_stats_apply_plain(
+                y, gamma, beta, rmp, rvp, True, True), 3, 1),
+            "stats_library_ms": device_ms(lambda: torch.var_mean(y, dim=(0, 2, 3),
+                                                                 correction=0)),
+            "stats_bound": bound(5 * n, 2 * n + 2 * n + 4 * n + 4 * 8, PEAK_FP32_FLOPS),
             "backward_ms": device_ms(lambda: bt.bn_backward(*args)),
             "backward_plain_ms": cuda_ms(lambda: bt.bn_backward_plain(*args), 3, 1),
+            "backward_library_ms": None if isinstance(lib, str) else device_ms(lib),
             "backward_bound": bound(12 * n, 4 * n + 2 * n + 2 * n + 2 * n, PEAK_FP32_FLOPS)})
-    out = {"sites": rows, "max_abs_err": worst}
+    out = {"sites": rows, "max_abs_err": worst, "library_error": library_error,
+           "floors": launch_floors()}
     for mode in ("stats", "backward"):
+        libs = [r[f"{mode}_library_ms"] for r in rows]
         out[mode] = {"ms": sum(r[f"{mode}_ms"] for r in rows),
                      "plain_ms": sum(r[f"{mode}_plain_ms"] for r in rows),
                      "bound_ms": sum(r[f"{mode}_bound"]["bound_ms"] for r in rows),
                      "bound_by": "bytes" if all(r[f"{mode}_bound"]["bound_by"] == "bytes"
                                                 for r in rows) else "operations",
-                     "library_ms": None}
+                     "library_ms": None if None in libs else sum(libs)}
     return out
 
 
@@ -3078,7 +3238,8 @@ def flair_expected(counts: dict, steps: int, eval_batches: int, predict_batches:
     """Each kernel's launches for a flair run: per train step one
     augment_normalize and, for each of its ``micro`` microbatches, one
     weighted_ce forward and backward, a statistics launch a BatchNorm, a
-    conv_epilogue and a backward launch a site; per eval batch one
+    conv_epilogue and a backward launch a site (a narrow site's statistics
+    launch writes its output: no conv_epilogue); per eval batch one
     augment_normalize, one weighted_ce and the full model's conv_epilogue
     sites; per predict batch one augment_normalize, the encoder's and
     decoder blocks 0-3's sites and one fused_tail (the other archs: every
@@ -3094,7 +3255,7 @@ def flair_expected(counts: dict, steps: int, eval_batches: int, predict_batches:
                weighted_ce=m + eval_batches, weighted_ce_backward=m,
                bn_stats=(counts["bn"] - narrow) * m, bn_backward=(counts["sites"] - narrow) * m,
                bn_stats_narrow=narrow * m, bn_backward_narrow=narrow * m,
-               conv_epilogue=counts["sites"] * (m + eval_batches)
+               conv_epilogue=(counts["sites"] - narrow) * m + counts["sites"] * eval_batches
                + counts["tail_sites"] * predict_batches,
                group_norm_relu=gn * (m + eval_batches + predict_batches),
                group_norm_relu_backward=gn * m)
@@ -3120,6 +3281,7 @@ class PlainSiteFns:
     """A train-mode site's parts as the plain versions."""
     stats = staticmethod(bt.bn_stats_plain)
     epilogue = staticmethod(ep.conv_epilogue_plain)
+    stats_apply = staticmethod(bt.bn_stats_apply_plain)
     backward = staticmethod(bt.bn_backward_plain)
     gn_forward = staticmethod(gnr.group_norm_relu_plain)
     gn_backward = staticmethod(gnr.group_norm_relu_backward_plain)
@@ -3132,8 +3294,8 @@ class StepChecker:
 
     def __init__(self):
         self.worst: dict[str, tuple[float, tuple]] = {}
-        self.calls = dict.fromkeys(("stats", "epilogue", "backward", "gn_forward",
-                                    "gn_backward"), 0)
+        self.calls = dict.fromkeys(("stats", "epilogue", "stats_apply", "backward",
+                                    "gn_forward", "gn_backward"), 0)
 
     def note(self, part: str, err: float, shape) -> None:
         if part not in self.worst or err > self.worst[part][0]:
@@ -3153,6 +3315,18 @@ class StepChecker:
         want = ep.conv_epilogue_plain(y, scale, shift, **kw)
         self.note("epilogue", max(max_diff(a, b) for a, b in zip(got, want)), y.shape)
         self.calls["epilogue"] += 1
+        return got
+
+    def stats_apply(self, y, gamma, beta, rm, rv, relu, keep_f32):
+        rmp, rvp = rm.clone(), rv.clone()
+        got = bt.bn_stats_apply(y, gamma, beta, rm, rv, relu, keep_f32)
+        want = bt.bn_stats_apply_plain(y, gamma, beta, rmp, rvp, relu, keep_f32)
+        self.note("stats", max(vec_err(a, b) for a, b in zip(got[:4] + (rm, rv),
+                                                                 want[:4] + (rmp, rvp))), y.shape)
+        # the output against the plain epilogue from the kernel's own scale and shift
+        out = ep.conv_epilogue_plain(y, got[2], got[3], relu=relu, keep_f32=keep_f32)
+        self.note("epilogue", max(max_diff(a, b) for a, b in zip(got[4:], out)), y.shape)
+        self.calls["stats_apply"] += 1
         return got
 
     def backward(self, *args):
@@ -3192,7 +3366,7 @@ class SiteFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, impl, *args):
         ctx.impl = impl
-        return bt.site_forward(ctx, impl.stats, impl.epilogue, *args)
+        return bt.site_forward(ctx, impl.stats, impl.epilogue, impl.stats_apply, *args)
 
     @staticmethod
     def backward(ctx, g, g32=None):
@@ -3356,13 +3530,14 @@ def check_step_sites(checker: StepChecker, counts: dict, micro: int = 1) -> dict
     """The site-by-site check of the kernels' step (StepChecker's records),
     over ``micro`` microbatches."""
     calls = checker.calls
-    gn = counts["gn"]
-    check(calls == {"stats": micro * counts["bn"], "epilogue": micro * counts["sites"],
-                    "backward": micro * counts["sites"], "gn_forward": micro * gn,
-                    "gn_backward": micro * gn},
+    gn, narrow = counts["gn"], counts["narrow"]
+    check(calls == {"stats": micro * (counts["bn"] - narrow),
+                    "epilogue": micro * (counts["sites"] - narrow),
+                    "stats_apply": micro * narrow, "backward": micro * counts["sites"],
+                    "gn_forward": micro * gn, "gn_backward": micro * gn},
           f"train step, site by site: {calls} kernel calls each held to its plain version on "
           f"the step's own operands ({micro} x {counts['bn']} BatchNorms, {counts['sites']} "
-          f"sites, {gn} GroupNorm sites)")
+          f"sites, {narrow} of them narrow, {gn} GroupNorm sites)")
     limits = {"augment": 0.0, "stats": BN_STAT_TOL, "epilogue": 0.0, "dy": BN_DY_TOL,
               "dgamma_dbeta": BN_GRAD_TOL, "dres": 0.0, "ce_loss": CE_LOSS_RTOL,
               "ce_weight_sum": 0.0, "ce_confmat": 0.0, "ce_grad": CE_GRAD_TOL}
@@ -4673,22 +4848,37 @@ def main() -> int:
               f"{gnorm['bound_ms']:.4f} ms ({gnorm['bound_by']}, {gnorm['bytes'] / 1e9:.2f} GB)",
               flush=True)
         for r in gnorm_back["sites"]:
-            print(f"    group_norm_relu backward {r['site']}, batch {TRAIN_BATCH}: "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, native_group_norm_backward "
-                  f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-                  f"{r['bytes'] / 1e6:.1f} MB)", flush=True)
+            print(f"    group_norm_relu backward {r['site']}, batch {TRAIN_BATCH}: device "
+                  f"{r['ms']:.4f} ms (0510a73's three launches {r['before_ms']:.4f}), call "
+                  f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"native_group_norm_backward {r['library_ms']} ms, bound {r['bound_ms']:.4f} "
+                  f"ms ({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB; the design moves "
+                  f"{r['hbm_bytes'] / 1e6:.1f} MB), {r['route']}, grid {r['grid']}, "
+                  f"{r['blocks_per_sm']} a SM", flush=True)
         print(f"    group_norm_relu backward, FPN's 7 sites of one batch-{TRAIN_BATCH} step: "
-              f"{gnorm_back['ms']:.4f} ms, plain {gnorm_back['plain_ms']:.4f} ms, "
+              f"device {gnorm_back['ms']:.4f} ms (0510a73's {gnorm_back['before_ms']:.4f}), "
+              f"call {gnorm_back['call_ms']:.4f} ms, plain {gnorm_back['plain_ms']:.4f} ms, "
               f"native_group_norm_backward {gnorm_back['library_ms']} ms, bound "
               f"{gnorm_back['bound_ms']:.4f} ms ({gnorm_back['bound_by']}, "
               f"{gnorm_back['bytes'] / 1e9:.3f} GB)"
               + (f"; library: none ({gnorm_back['library_error']})"
                  if gnorm_back["library_error"] else ""), flush=True)
+        for r in bn_narrow["sites"]:
+            print(f"    bn_train narrow {r['site']}: forward (statistics and output) device "
+                  f"{r['stats_ms']:.4f} ms, torch.var_mean {r['stats_library_ms']:.4f} ms; "
+                  f"backward {r['backward_ms']:.4f} ms, native_batch_norm_backward "
+                  f"{r['backward_library_ms']} ms", flush=True)
         for mode in ("stats", "backward"):
             r = bn_narrow[mode]
             print(f"    bn_train narrow {mode}, PAN's 6 one-channel sites of one batch-"
                   f"{TRAIN_BATCH} step: device {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+                  f"library {r['library_ms']} ms, bound {r['bound_ms']:.6f} ms "
+                  f"({r['bound_by']})", flush=True)
+        fl = bn_narrow["floors"]
+        print(f"    launch floor, device: an empty kernel {fl['empty_ms']:.4f} ms, one block's "
+              f"reduction of 256 values {fl['reduce_ms']:.4f} ms"
+              + (f"; narrow library: {bn_narrow['library_error']}"
+                 if bn_narrow["library_error"] else ""), flush=True)
         r = tail0
         print(f"    fused_tail argmax, margin 0, batch 16: {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
@@ -4996,28 +5186,31 @@ def main() -> int:
          "launches_flair_archs": flair_arch_launches("group_norm_relu"),
          "max_abs_err": gnorm["max_abs_err"], **numbers(gnorm),
          "library_ms": gnorm["library_ms"]},
-        # FPN's 7 sites of one batch-16 step, summed (launches: phase 4d's
-        # fpn run); library: aten's native_group_norm_backward on each site's
-        # bf16 map (GroupNorm alone: no ReLU, no upsample; not the same
-        # function)
+        # FPN's 7 sites of one batch-16 step, summed, device time (call_ms:
+        # events around the calls; launches: phase 4d's fpn run); library:
+        # aten's native_group_norm_backward on each site's bf16 map
+        # (GroupNorm alone: no ReLU, no upsample; not the same function)
         {"name": "group_norm_relu_backward", "route": "cuda", "source": f"{src}/group_norm.cu",
          "replaces": "the VJP of flairtpu/models/smp_extra.py:52-68 at :95-100 in "
                      "flairtpu/train/loop.py:286-311 (jax.value_and_grad, XLA-fused)",
          "launches": flair_arch_launches("group_norm_relu_backward"),
          "max_abs_err": gnorm_back["max_abs_err"], **numbers(gnorm_back),
-         "library_ms": gnorm_back["library_ms"]},
+         "call_ms": gnorm_back["call_ms"], "library_ms": gnorm_back["library_ms"]},
         # PAN's 6 one-channel sites of one batch-16 step, summed, device time
-        # (launches: phase 4d's pan run); the backward in its mode
+        # (launches: phase 4d's pan run): the forward (statistics and the
+        # site's output, one launch), the backward in its mode; library
+        # torch.var_mean(correction=0) and aten's native_batch_norm_backward;
+        # floors: an empty kernel's launch and one block's reduction
         {"name": "bn_train_narrow", "route": "cuda", "source": f"{src}/bn_train.cu",
          "replaces": "flairtpu/models/pan.py:39-55 (flax train-mode BatchNorm) at the "
                      "1-channel sites of :83-95, with their VJP",
          "launches": flair_arch_launches("bn_stats_narrow"),
          "max_abs_err": bn_narrow["max_abs_err"], **numbers(bn_narrow["stats"]),
-         "library_ms": None,
-         "modes": [dict(numbers(bn_narrow[m]), mode=m, library_ms=None, launches=
-                        flair_arch_launches("bn_stats_narrow" if m == "stats" else
-                                            "bn_backward_narrow")) for m in ("stats",
-                                                                             "backward")]},
+         "library_ms": bn_narrow["stats"]["library_ms"], "floors_ms": bn_narrow["floors"],
+         "modes": [dict(numbers(bn_narrow[m]), mode=m, library_ms=bn_narrow[m]["library_ms"],
+                        launches=flair_arch_launches("bn_stats_narrow" if m == "stats" else
+                                                     "bn_backward_narrow"))
+                   for m in ("stats", "backward")]},
     ]
     print(json.dumps({"main_path": main_path["stats"], "card": card}))
     print(json.dumps({"class_prob": class_prob["stats"], "card": card}))

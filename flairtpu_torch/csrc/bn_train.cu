@@ -7,9 +7,10 @@
 // use_fast_variance, momentum 0.9, epsilon 1e-5, statistics in float32) at
 // every site of the resnet encoders' blocks and stem (resnet.py:177-189,
 // :208-222, :269-273) and of the U-Net decoder (flairtpu/models/unet.py:
-// 71-76), and its VJP with the residual add and the ReLU after it. The
-// forward's apply (y * scale + shift, residual or branch, ReLU, casts) is
-// the conv_epilogue kernel, fed the batch (scale, shift) written here.
+// 71-76), and its VJP with the residual add and the ReLU after it. At the
+// wide sites the forward's apply (y * scale + shift, residual or branch,
+// ReLU, casts) is the conv_epilogue kernel, fed the batch (scale, shift)
+// written here; the narrow sites' forward applies them itself (below).
 //
 // bn_train_stats, over x (M, C) bfloat16 (NHWC: M = B H W pixels):
 //   mean = sum(x) / M;  var = max(sum(x^2) / M - mean^2, 0)      (biased)
@@ -69,15 +70,21 @@
 // about once; the others read them twice, which caps their backward at
 // about 8/14 of its byte bound.
 //
-// Narrow sites (bn_train_narrow_stats, bn_train_narrow_backward): a channel
-// count that is not a multiple of 8 (PAN's FPA pyramid, flairtpu/models/
-// pan.py:83-95: six 1-channel sites on maps of at most B x 16 x 16 pixels
-// at 512 tiles), with no residual or branch. A block a channel walks its
-// pixels at a stride of C values, two-byte loads, sums in double, then a
-// fixed shared-memory tree: the statistics in one launch (the same
-// formulas as the combiners'), the backward in one (the block that reduced
-// a channel applies it). Deterministic; no scratch, no counters. Bound by
-// its latency at these sizes, a few microseconds a call.
+// Narrow sites (bn_train_narrow_forward, bn_train_narrow_backward): a
+// channel count that is not a multiple of 8 (PAN's FPA pyramid, flairtpu/
+// models/pan.py:83-95: six 1-channel sites on maps of at most B x 16 x 16
+// pixels at 512 tiles), with no residual or branch. At these sizes (256 to
+// 4096 values a channel) the bytes take nanoseconds and the card's floor for
+// one launch bounds a call, so each direction is one launch of a block a
+// channel that reads its values once: a thread keeps up to 16 of them (and
+// in the backward its gz and xh) in registers from the sums to the apply,
+// sums in double, and the block adds its threads by warp shuffles, then its
+// warps in order (the same bits in every thread; no scratch, no counters).
+// The forward writes the statistics as the combiners do and, at a train
+// site, applies them from the registers: the site's output with
+// conv_epilogue's arithmetic, so no conv_epilogue launch follows. The
+// backward writes dgamma, dbeta and dy. bn_train_launch_floor times the
+// floor they are held to: an empty kernel and one block's reduction.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -540,80 +547,193 @@ __global__ void __launch_bounds__(kThreads) backward_apply(BackArgs a) {
   }
 }
 
-// A block's fixed-order tree of kSums doubles a thread (every thread gets
-// the totals).
-template <int kSums>
-__device__ void tree_sums(double (&v)[kSums]) {
-  __shared__ double part[kSums][kThreads];
+// The narrow sites: a block a channel; a thread keeps its values in
+// registers (kNarrowHeld, p = threadIdx.x + 256 i) from the sums to the
+// apply where the channel has at most 256 x kNarrowHeld values, else reads
+// them again by chunks of that size.
+constexpr int kNarrowHeld = 16;
+constexpr long long kNarrowChunk = (long long)kThreads * kNarrowHeld;
+
+// The block's totals of two doubles a thread, the same bits in every
+// thread: a shuffle butterfly in each warp (commutative steps: every lane
+// ends with the same sums), then the warps' sums in warp order. Once a
+// launch (part is not reused).
+__device__ double2 block_totals(double a, double b, double2* part) {
 #pragma unroll
-  for (int s = 0; s < kSums; ++s) part[s][threadIdx.x] = v[s];
-  __syncthreads();
-  for (int off = kThreads / 2; off > 0; off >>= 1) {
-    if ((int)threadIdx.x < off)
-#pragma unroll
-      for (int s = 0; s < kSums; ++s) part[s][threadIdx.x] += part[s][threadIdx.x + off];
-    __syncthreads();
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(kFull, a, off);
+    b += __shfl_xor_sync(kFull, b, off);
   }
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = make_double2(a, b);
+  __syncthreads();
+  double2 t = make_double2(0.0, 0.0);
 #pragma unroll
-  for (int s = 0; s < kSums; ++s) v[s] = part[s][0];
+  for (int w = 0; w < kWarps; ++w) {
+    t.x += part[w].x;
+    t.y += part[w].y;
+  }
+  return t;
 }
 
-__global__ void __launch_bounds__(kThreads) narrow_stats_kernel(StatsArgs a) {
+// bf16 bits -> float32, exactly
+__device__ __forceinline__ float bf16_bits(unsigned short u) {
+  return __uint_as_float((uint32_t)u << 16);
+}
+
+struct NarrowArgs {
+  const __nv_bfloat16* x;
+  const float* gamma;
+  const float* beta;
+  float* running_mean;
+  float* running_var;
+  float* mean;
+  float* invstd;
+  float* scale;
+  float* shift;
+  __nv_bfloat16* out;  // null: the statistics alone
+  float* out32;        // null: no float32 output
+  long long m;
+  int channels, relu;
+  float eps, momentum;
+};
+
+// The statistics of a channel (the combiners' formulas), then, where `out`
+// is given, the apply from the values the block holds: y * scale + shift,
+// ReLU, bf16 (and float32) with conv_epilogue's arithmetic, so the same
+// bits as bn_stats then conv_epilogue. The channel's scalars are loaded
+// first, so their latency overlaps the values'.
+__global__ void __launch_bounds__(kThreads) narrow_forward_kernel(NarrowArgs a) {
+  __shared__ double2 part[kWarps];
   const int c = blockIdx.x, C = a.channels;
-  double v[2] = {0.0, 0.0};
-  for (long long p = threadIdx.x; p < a.m; p += kThreads) {
-    const float f = __bfloat162float(a.x[p * C + c]);
-    v[0] += (double)f;
-    v[1] += (double)(f * f);
+  const float gamma = a.gamma[c], beta = a.beta[c];
+  float rm = 0.f, rv = 0.f;
+  if (threadIdx.x == 0) {
+    rm = a.running_mean[c];
+    rv = a.running_var[c];
   }
-  tree_sums<2>(v);
-  if (threadIdx.x != 0) return;
-  const float mean = (float)(v[0] / (double)a.m);
-  const float ex2 = (float)(v[1] / (double)a.m);
+  const unsigned short* x = reinterpret_cast<const unsigned short*>(a.x);
+  unsigned short raw[kNarrowHeld];
+  double s = 0.0, q = 0.0;
+  const auto load = [&](long long base) {
+#pragma unroll
+    for (int i = 0; i < kNarrowHeld; ++i) {
+      const long long p = base + threadIdx.x + (long long)i * kThreads;
+      raw[i] = p < a.m ? x[p * C + c] : (unsigned short)0;
+    }
+  };
+  for (long long base = 0; base < a.m; base += kNarrowChunk) {
+    load(base);
+#pragma unroll
+    for (int i = 0; i < kNarrowHeld; ++i)
+      if (base + threadIdx.x + (long long)i * kThreads < a.m) {
+        const float f = bf16_bits(raw[i]);
+        s += (double)f;
+        q += (double)(f * f);
+      }
+  }
+  const double2 t = block_totals(s, q, part);
+  const float mean = (float)(t.x / (double)a.m);
+  const float ex2 = (float)(t.y / (double)a.m);
   const float var = fmaxf(__fsub_rn(ex2, __fmul_rn(mean, mean)), 0.f);
   const float invstd = rsqrtf(__fadd_rn(var, a.eps));
-  const float scale = __fmul_rn(a.gamma[c], invstd);
-  a.mean[c] = mean;
-  a.invstd[c] = invstd;
-  a.scale[c] = scale;
-  a.shift[c] = __fsub_rn(a.beta[c], __fmul_rn(mean, scale));
-  const float keep = 1.f - a.momentum;
-  a.running_mean[c] = __fadd_rn(__fmul_rn(a.momentum, a.running_mean[c]), __fmul_rn(keep, mean));
-  a.running_var[c] = __fadd_rn(__fmul_rn(a.momentum, a.running_var[c]), __fmul_rn(keep, var));
-}
-
-// gz of one value: (g + g32) masked by the ReLU
-__device__ __forceinline__ float narrow_grad(const BackArgs& a, long long off) {
-  float gz = 0.f;
-  if (a.g) gz += __bfloat162float(a.g[off]);
-  if (a.g32) gz += a.g32[off];
-  if (a.out && !(__bfloat162float(a.out[off]) > 0.f)) gz = 0.f;
-  return gz;
-}
-
-__global__ void __launch_bounds__(kThreads) narrow_backward_kernel(BackArgs a) {
-  const int c = blockIdx.x, C = a.channels;
-  const float mean = a.mean[c], invstd = a.invstd[c];
-  double v[2] = {0.0, 0.0};
-  for (long long p = threadIdx.x; p < a.m; p += kThreads) {
-    const long long off = p * C + c;
-    const float gz = narrow_grad(a, off);
-    const float xh = (__bfloat162float(a.y[off]) - mean) * invstd;
-    v[0] += (double)gz;
-    v[1] += (double)(gz * xh);
+  const float scale = __fmul_rn(gamma, invstd);
+  const float shift = __fsub_rn(beta, __fmul_rn(mean, scale));
+  if (threadIdx.x == 0) {
+    a.mean[c] = mean;
+    a.invstd[c] = invstd;
+    a.scale[c] = scale;
+    a.shift[c] = shift;
+    const float keep = 1.f - a.momentum;
+    a.running_mean[c] = __fadd_rn(__fmul_rn(a.momentum, rm), __fmul_rn(keep, mean));
+    a.running_var[c] = __fadd_rn(__fmul_rn(a.momentum, rv), __fmul_rn(keep, var));
   }
-  tree_sums<2>(v);
-  const float dbeta = (float)v[0], dgamma = (float)v[1];
+  if (!a.out) return;
+  for (long long base = 0; base < a.m; base += kNarrowChunk) {
+    if (a.m > kNarrowChunk) load(base);
+#pragma unroll
+    for (int i = 0; i < kNarrowHeld; ++i) {
+      const long long p = base + threadIdx.x + (long long)i * kThreads;
+      if (p >= a.m) continue;
+      float o = __fadd_rn(__fmul_rn(bf16_bits(raw[i]), scale), shift);
+      if (a.relu) o = o < 0.f ? 0.f : o;  // NaN passes, as torch.relu
+      a.out[p * C + c] = __float2bfloat16_rn(o);
+      if (a.out32) a.out32[p * C + c] = o;
+    }
+  }
+}
+
+// The backward of a channel: every operand of the thread's values loaded
+// before any is used, gz and xh kept in registers from the sums to the
+// apply (read again by chunks past kNarrowChunk values); the channel's
+// scalars loaded first.
+__global__ void __launch_bounds__(kThreads) narrow_backward_kernel(BackArgs a) {
+  __shared__ double2 part[kWarps];
+  const int c = blockIdx.x, C = a.channels;
+  const float mean = a.mean[c], invstd = a.invstd[c], gamma = a.gamma[c];
+  const unsigned short* g = reinterpret_cast<const unsigned short*>(a.g);
+  const unsigned short* out = reinterpret_cast<const unsigned short*>(a.out);
+  const unsigned short* y = reinterpret_cast<const unsigned short*>(a.y);
+  float gz[kNarrowHeld], xh[kNarrowHeld];
+  double s = 0.0, q = 0.0;
+  const auto load = [&](long long base) {
+    unsigned short rg[kNarrowHeld], ro[kNarrowHeld], ry[kNarrowHeld];
+    float r32[kNarrowHeld];
+#pragma unroll
+    for (int i = 0; i < kNarrowHeld; ++i) {
+      const long long p = base + threadIdx.x + (long long)i * kThreads;
+      const long long off = p * C + c;
+      const bool in = p < a.m;
+      rg[i] = in && g ? g[off] : (unsigned short)0;
+      r32[i] = in && a.g32 ? a.g32[off] : 0.f;
+      ro[i] = in && out ? out[off] : (unsigned short)0;
+      ry[i] = in ? y[off] : (unsigned short)0;
+    }
+#pragma unroll
+    for (int i = 0; i < kNarrowHeld; ++i) {  // gz = (g + g32) masked by the ReLU
+      float v = 0.f;
+      if (g) v += bf16_bits(rg[i]);
+      if (a.g32) v += r32[i];
+      if (out && !(bf16_bits(ro[i]) > 0.f)) v = 0.f;
+      gz[i] = v;
+      xh[i] = (bf16_bits(ry[i]) - mean) * invstd;
+    }
+  };
+  for (long long base = 0; base < a.m; base += kNarrowChunk) {
+    load(base);
+#pragma unroll
+    for (int i = 0; i < kNarrowHeld; ++i)
+      if (base + threadIdx.x + (long long)i * kThreads < a.m) {
+        s += (double)gz[i];
+        q += (double)(gz[i] * xh[i]);
+      }
+  }
+  const double2 t = block_totals(s, q, part);
+  const float dbeta = (float)t.x, dgamma = (float)t.y;
   if (threadIdx.x == 0) {
     a.sums[c] = dbeta;
     a.sums[C + c] = dgamma;
   }
-  const float k = a.gamma[c] * invstd, inv_m = 1.f / (float)a.m;
-  for (long long p = threadIdx.x; p < a.m; p += kThreads) {
-    const long long off = p * C + c;
-    const float xh = (__bfloat162float(a.y[off]) - mean) * invstd;
-    a.dy[off] = __float2bfloat16_rn(k * (narrow_grad(a, off) - (dbeta + xh * dgamma) * inv_m));
+  const float k = gamma * invstd, inv_m = 1.f / (float)a.m;
+  for (long long base = 0; base < a.m; base += kNarrowChunk) {
+    if (a.m > kNarrowChunk) load(base);
+#pragma unroll
+    for (int i = 0; i < kNarrowHeld; ++i) {
+      const long long p = base + threadIdx.x + (long long)i * kThreads;
+      if (p < a.m)
+        a.dy[p * C + c] = __float2bfloat16_rn(k * (gz[i] - (dbeta + xh[i] * dgamma) * inv_m));
+    }
   }
+}
+
+// The card's floor for one launch (chip_smoke phase 2): a kernel that does
+// nothing, and one block's reduction of 256 values as the narrow kernels do.
+__global__ void floor_empty_kernel() {}
+
+__global__ void __launch_bounds__(kThreads) floor_reduce_kernel(const float* in, float* out) {
+  __shared__ double2 part[kWarps];
+  const double v = in[threadIdx.x];
+  const double2 t = block_totals(v, v * v, part);
+  if (threadIdx.x == 0) out[0] = (float)t.x;
 }
 
 bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15) == 0; }
@@ -739,18 +859,23 @@ extern "C" int bn_train_backward(const void* g, const void* g32, const void* out
 
 // Narrow sites: x (m, channels) bfloat16, any channel count up to 2048 (the
 // wrapper sends those that are not a multiple of 8); gamma ... shift as
-// bn_train_stats'. One launch of `channels` blocks.
-extern "C" int bn_train_narrow_stats(const void* x, const void* gamma, const void* beta,
-                                     void* running_mean, void* running_var, void* mean,
-                                     void* invstd, void* scale, void* shift, long long m,
-                                     int channels, float eps, float momentum, void* stream) {
-  if (m < 1 || channels < 1 || channels > 8 * kThreads) return (int)cudaErrorInvalidValue;
-  StatsArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
-              static_cast<const float*>(beta), static_cast<float*>(running_mean),
-              static_cast<float*>(running_var), nullptr, nullptr, static_cast<float*>(mean),
-              static_cast<float*>(invstd), static_cast<float*>(scale),
-              static_cast<float*>(shift), m, channels, 0, eps, momentum};
-  narrow_stats_kernel<<<channels, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+// bn_train_stats'. out: null (the statistics alone), or (m, channels) bf16,
+// the site's output: y * scale + shift, ReLU where `relu`, with out32 null or
+// its float32 copy. One launch of `channels` blocks.
+extern "C" int bn_train_narrow_forward(const void* x, const void* gamma, const void* beta,
+                                       void* running_mean, void* running_var, void* mean,
+                                       void* invstd, void* scale, void* shift, void* out,
+                                       void* out32, long long m, int channels, int relu,
+                                       float eps, float momentum, void* stream) {
+  if (m < 1 || channels < 1 || channels > 8 * kThreads || (out32 && !out))
+    return (int)cudaErrorInvalidValue;
+  NarrowArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
+               static_cast<const float*>(beta), static_cast<float*>(running_mean),
+               static_cast<float*>(running_var), static_cast<float*>(mean),
+               static_cast<float*>(invstd), static_cast<float*>(scale),
+               static_cast<float*>(shift), static_cast<__nv_bfloat16*>(out),
+               static_cast<float*>(out32), m, channels, relu, eps, momentum};
+  narrow_forward_kernel<<<channels, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -770,5 +895,19 @@ extern "C" int bn_train_narrow_backward(const void* g, const void* g32, const vo
              nullptr, static_cast<float*>(sums), static_cast<__nv_bfloat16*>(dy), nullptr,
              nullptr, m, channels, 0};
   narrow_backward_kernel<<<channels, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// One launch of a floor kernel: mode 0 the empty one (in, out unused), 1 the
+// reduction of in[0..255] into out[0] (float32).
+extern "C" int bn_train_launch_floor(int mode, const void* in, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 0)
+    floor_empty_kernel<<<1, 1, 0, s>>>();
+  else if (mode == 1 && in && out)
+    floor_reduce_kernel<<<1, kThreads, 0, s>>>(static_cast<const float*>(in),
+                                               static_cast<float*>(out));
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,8 @@ the U-Net decoder, with its VJP:
   Flax does, ``ra = 0.9 ra + 0.1 stat`` with the biased variance (torch's
   ``nn.BatchNorm2d`` keeps the unbiased one, so it is not used); then
   ``conv_epilogue`` applies (scale, shift), the residual or the branch's own
-  batch (scale, shift), the ReLU and the casts;
+  batch (scale, shift), the ReLU and the casts. At a narrow site (below)
+  :func:`bn_stats_apply` does both in one launch;
 - backward: :func:`bn_backward` masks the incoming gradient (the bf16 one
   and, where the site also handed on its float32 value, the float32 one,
   summed) by the ReLU from the saved output, reduces sum(g) and sum(g x^)
@@ -30,8 +31,10 @@ kernel for bfloat16 CUDA tensors; it has no fallback, and counts its
 launches (one a call, however many kernels the call runs: the statistics
 are one, the backward two). A site whose channel count is not a multiple of
 8 (PAN's 1-channel pyramid) takes the narrow entry points, a block a
-channel, one launch each way, with no residual or branch; they count in
-``narrow_launches`` and ``narrow_backward_launches``. :func:`launch_plan`
+channel, one launch each way, with no residual or branch: the forward
+(:func:`bn_stats_apply`) writes the statistics and the site's output, so
+no ``conv_epilogue`` follows; they count in ``narrow_launches`` and
+``narrow_backward_launches``. :func:`launch_plan`
 sizes a call's grid and scratch; each call allocates its partials with ``torch.empty``, and the
 kernels' int32 ticket counters are cached, one pair per (device, stream):
 the kernels leave them at 0, and calls on one stream run in order, so no
@@ -49,7 +52,7 @@ from typing import NamedTuple
 import torch
 
 from flairtpu_torch.ops import _build
-from flairtpu_torch.ops.epilogue import conv_epilogue
+from flairtpu_torch.ops.epilogue import conv_epilogue, conv_epilogue_plain
 from flairtpu_torch.ops.group_norm import GroupNormReLU
 
 MOMENTUM = 0.9  # flax's, on the running average (torch's momentum 0.1)
@@ -68,8 +71,8 @@ BACKWARD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_void_p
                                               ctypes.c_int] + [ctypes.c_void_p] * 4 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-NARROW_STATS_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                                                 ctypes.c_float, ctypes.c_void_p]
+NARROW_FORWARD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                                    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 NARROW_BACKWARD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int,
                                                     ctypes.c_void_p]
 
@@ -105,6 +108,17 @@ def bn_stats_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     running_mean.copy_(momentum * running_mean + (1 - momentum) * mean)
     running_var.copy_(momentum * running_var + (1 - momentum) * var)
     return mean, invstd, scale, shift
+
+
+def bn_stats_apply_plain(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                         running_mean: torch.Tensor, running_var: torch.Tensor,
+                         relu: bool = True, keep_f32: bool = False, eps: float = EPS,
+                         momentum: float = MOMENTUM):
+    """A site's statistics and its output, no residual or branch: the bits
+    of :func:`bn_stats_plain` then ``conv_epilogue_plain``. Returns (mean,
+    invstd, scale, shift, out, out32 or None)."""
+    stats = bn_stats_plain(y, gamma, beta, running_mean, running_var, eps, momentum)
+    return (*stats, *conv_epilogue_plain(y, stats[2], stats[3], relu=relu, keep_f32=keep_f32))
 
 
 class Plan(NamedTuple):
@@ -210,7 +224,7 @@ def bn_stats(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              eps: float = EPS, momentum: float = MOMENTUM):
     """As :func:`bn_stats_plain`; x channels_last. CPU tensors: the plain
     version. bfloat16 CUDA tensors: the kernel, or an error."""
-    global launches, narrow_launches
+    global launches
     if x.dim() != 4:
         raise ValueError(f"bn_stats: x must be (B, C, H, W), got {tuple(x.shape)}")
     if not _on_card(x, "bn_stats"):
@@ -224,12 +238,7 @@ def bn_stats(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     out = torch.empty((4, C), dtype=torch.float32, device=x.device)
     mean, invstd, scale, shift = out
     if C % 8:
-        err = _build.entry("bn_train", NARROW_STATS_ARGTYPES, "bn_train_narrow_stats")(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), running_mean.data_ptr(),
-            running_var.data_ptr(), mean.data_ptr(), invstd.data_ptr(), scale.data_ptr(),
-            shift.data_ptr(), m, C, eps, momentum, _build.stream_handle(x))
-        _build.check(err, "bn_stats (narrow)")
-        narrow_launches += 1
+        _narrow_forward(x, gamma, beta, running_mean, running_var, out)
         return mean, invstd, scale, shift
     plan = launch_plan(m, C, "stats", _co_resident(x.device, "stats", C))
     stream = _build.stream_handle(x)
@@ -243,6 +252,51 @@ def bn_stats(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     _build.check(err, "bn_stats")
     launches += 1
     return mean, invstd, scale, shift
+
+
+def _narrow_forward(x, gamma, beta, running_mean, running_var, stats, out=None, out32=None,
+                    relu: bool = True, eps: float = EPS, momentum: float = MOMENTUM) -> None:
+    """One launch of the narrow forward into ``stats`` (4, C) (and the
+    site's ``out`` and ``out32`` where given)."""
+    global narrow_launches
+    C = x.shape[1]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _build.entry("bn_train", NARROW_FORWARD_ARGTYPES, "bn_train_narrow_forward")(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), running_mean.data_ptr(),
+        running_var.data_ptr(), *(t.data_ptr() for t in stats), ptr(out), ptr(out32),
+        x.numel() // C, C, int(relu), eps, momentum, _build.stream_handle(x))
+    _build.check(err, "bn_stats (narrow)")
+    narrow_launches += 1
+
+
+def bn_stats_apply(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   running_mean: torch.Tensor, running_var: torch.Tensor, relu: bool = True,
+                   keep_f32: bool = False, eps: float = EPS, momentum: float = MOMENTUM):
+    """As :func:`bn_stats_apply_plain` at a narrow site (channels not a
+    multiple of 8); y channels_last. CPU tensors: the plain version.
+    bfloat16 CUDA tensors: one launch of the narrow forward, or an error."""
+    if y.dim() != 4:
+        raise ValueError(f"bn_stats_apply: y must be (B, C, H, W), got {tuple(y.shape)}")
+    if not _on_card(y, "bn_stats_apply"):
+        return bn_stats_apply_plain(y, gamma, beta, running_mean, running_var, relu, keep_f32,
+                                    eps, momentum)
+    C = y.shape[1]
+    if C % 8 == 0:
+        raise ValueError(f"bn_stats_apply: {C} channels (the narrow entry point takes a count "
+                         "that is not a multiple of 8; bn_stats and conv_epilogue the others)")
+    _check_map(y, y, torch.bfloat16, "y")
+    for name, v in (("gamma", gamma), ("beta", beta), ("running_mean", running_mean),
+                    ("running_var", running_var)):
+        _check_vector(v, C, y.device, name)
+    stats = torch.empty((4, C), dtype=torch.float32, device=y.device)
+    out = torch.empty_like(y)
+    out32 = torch.empty_like(y, dtype=torch.float32) if keep_f32 else None
+    _narrow_forward(y, gamma, beta, running_mean, running_var, stats, out, out32, relu, eps,
+                    momentum)
+    return (*stats, out, out32)
 
 
 def _grad_in(g, g32, out, relu: bool) -> torch.Tensor:
@@ -350,19 +404,25 @@ def _channels_last(t):
     return None if t is None else t.contiguous(memory_format=torch.channels_last)
 
 
-def site_forward(ctx, stats, epilogue, y, gamma, beta, rm, rv, residual, d, gamma_d, beta_d,
-                 rm_d, rv_d, relu, keep_f32):
+def site_forward(ctx, stats, epilogue, stats_apply, y, gamma, beta, rm, rv, residual, d, gamma_d,
+                 beta_d, rm_d, rv_d, relu, keep_f32):
     """The forward of :class:`BNTrainSite` through ``stats`` and
-    ``epilogue`` (:func:`bn_stats` and ``conv_epilogue``, or functions of
-    their signatures), saving on ``ctx`` what :func:`site_backward` needs."""
+    ``epilogue`` (:func:`bn_stats` and ``conv_epilogue``), or at a narrow
+    site with no residual or branch ``stats_apply`` (:func:`bn_stats_apply`),
+    or functions of their signatures, saving on ``ctx`` what
+    :func:`site_backward` needs."""
     ctx.set_materialize_grads(False)
-    mean, invstd, scale, shift = stats(y, gamma, beta, rm, rv)
     branch = stats_d = None
-    if d is not None:
-        stats_d = stats(d, gamma_d, beta_d, rm_d, rv_d)
-        branch = (d, stats_d[2], stats_d[3])
-    out, out32 = epilogue(y, scale, shift, residual=residual, branch=branch, relu=relu,
-                          keep_f32=keep_f32)
+    if y.shape[1] % 8 and residual is None and d is None:
+        mean, invstd, scale, shift, out, out32 = stats_apply(y, gamma, beta, rm, rv, relu,
+                                                             keep_f32)
+    else:
+        mean, invstd, scale, shift = stats(y, gamma, beta, rm, rv)
+        if d is not None:
+            stats_d = stats(d, gamma_d, beta_d, rm_d, rv_d)
+            branch = (d, stats_d[2], stats_d[3])
+        out, out32 = epilogue(y, scale, shift, residual=residual, branch=branch, relu=relu,
+                              keep_f32=keep_f32)
     ctx.relu = relu
     ctx.residual = residual is not None
     ctx.residual_dtype = None if residual is None else residual.dtype
@@ -397,7 +457,7 @@ class BNTrainSite(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, *args):
-        return site_forward(ctx, bn_stats, conv_epilogue, *args)
+        return site_forward(ctx, bn_stats, conv_epilogue, bn_stats_apply, *args)
 
     @staticmethod
     def backward(ctx, g, g32=None):

@@ -17,17 +17,23 @@ pixels a block, in a fixed order, into (B, chunks, G, 2) partials. Pass 2
 normalizes and writes each pixel, or its 2 x 2 copies.
 
 In train mode (``stats=True``) the apply pass also writes each (sample,
-group)'s float32 mean and rstd, and :func:`group_norm_relu_backward` (three
-launches: ``back_reduce``, ``back_apply``, ``back_params``) computes the
-VJP: the u x u sum of the output gradient masked by the ReLU (recomputed
-from the map and the saved statistics), the per-channel sums of dz and dz *
-xh for dbeta and dgamma, the per-group means of dz * gamma and dz * gamma
-* xh, then dy = rstd * (dz gamma - mean(dz gamma) - xh mean(dz gamma xh))
-in bfloat16. :class:`GroupNormReLU` is the ``autograd.Function`` over the
-pair (``ops/bn_train.py:TrainSites.group_norm``, which FPN's
-``Conv3x3GNReLU`` takes in train mode); :func:`gn_forward` and
-:func:`gn_backward` are its seam, through which a caller may run other
-functions of the same signatures.
+group)'s float32 mean and rstd, and :func:`group_norm_relu_backward` (one
+launch, ``csrc/group_norm.cu``'s ``group_norm_backward``) computes the VJP:
+the u x u sum of the output gradient masked by the ReLU (recomputed from
+the map and the saved statistics), the per-channel sums of dz and dz * xh
+for dbeta and dgamma, the per-group means of dz * gamma and dz * gamma *
+xh, then dy = rstd * (dz gamma - mean(dz gamma) - xh mean(dz gamma xh)) in
+bfloat16. Its grid is one the card holds at once; a sample's blocks meet at
+a barrier between the reduce and the apply. :func:`launch_plan` picks, per
+site, whether each item's dz and x stay in shared memory across it (the
+upsampling sites: g read from HBM once) or are read again (from L2 where
+the samples in flight fit there), the pixels an item covers and the grid,
+from the card's limits (:func:`device_limits`, queried once).
+:class:`GroupNormReLU` is the ``autograd.Function`` over the pair
+(``ops/bn_train.py:TrainSites.group_norm``, which FPN's ``Conv3x3GNReLU``
+takes in train mode); :func:`gn_forward` and :func:`gn_backward` are its
+seam, through which a caller may run other functions of the same
+signatures.
 
 Each wrapper runs the plain PyTorch version for a CPU tensor and launches
 its kernels for a bfloat16 CUDA tensor, or raises; each counts one launch a
@@ -37,6 +43,7 @@ call.
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -51,7 +58,19 @@ STATS_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong] + [ct
     + [ctypes.c_void_p]
 APPLY_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                                                  ctypes.c_void_p]
-BACKWARD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+BACKWARD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                                             ctypes.c_void_p, ctypes.c_void_p] \
+    + [ctypes.c_int] * 9 + [ctypes.c_longlong, ctypes.c_void_p]
+LIMITS_ARGTYPES = [ctypes.POINTER(ctypes.c_int)]
+OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+WARPS = THREADS // 32
+FOLD_FAN_IN = 16  # blocks whose dgamma / dbeta sums one fold adds (csrc/group_norm.cu kFoldFanIn)
+L2_SHARE = 0.5  # of the L2, what the re-read route's samples in flight may take
+# the re-read route's cp.async ring: pixels a thread, 16-byte words a pixel
+# (x, and g at each of the u x u copies; csrc/group_norm.cu ring_slots,
+# pixel_words), by upsample
+RING_SLOTS = {False: 4, True: 2}
+PIXEL_WORDS = {False: 3, True: 9}
 CL = torch.channels_last
 
 # calls that launched the kernels on CUDA tensors since the last reset
@@ -175,12 +194,172 @@ def group_norm_relu(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (out, saved[0], saved[1]) if stats else out
 
 
+def pass_pixels(C: int) -> int:
+    """Pixels a block's threads cover at once: 8 channels a thread."""
+    return THREADS // (C // 8)
+
+
+def backward_smem(C: int, groups: int, part: int, on_chip: bool, upsample: bool) -> int:
+    """Dynamic shared memory bytes of a backward block (csrc/group_norm.cu
+    backward_smem): on chip, dz (float32) and x (bf16) of each of its
+    threads' pixels of the item, 6 C bytes a pixel in whole passes, else
+    the cp.async ring; the rows of the channel fold (a warp's or, past 256
+    channels, a pixel's), the item's and the block's channel sums, the
+    sample's group means, the combine's partials and four ints."""
+    lanes = C // 8
+    if on_chip:
+        staged = -(-part // pass_pixels(C)) * 3 * THREADS * 16
+    else:
+        staged = RING_SLOTS[upsample] * PIXEL_WORDS[upsample] * THREADS * 16
+    rows = WARPS if lanes <= 32 else THREADS // lanes
+    return staged + 4 * (rows * 2 * C + 4 * C + -(-2 * groups // 4) * 4 + THREADS + 4)
+
+
+class Limits(NamedTuple):
+    """What :func:`launch_plan` needs of the card: its SMs, the dynamic
+    shared memory a block may opt in to, its L2 bytes, and
+    ``blocks_per_sm(upsample, on_chip, smem)``, the occupancy of the
+    backward's instance with that much dynamic shared memory."""
+    sms: int
+    smem_block: int
+    l2_bytes: int
+    blocks_per_sm: Callable[[bool, bool, int], int]
+
+
+class BackwardPlan(NamedTuple):
+    """One backward launch: a sample cut into ``parts`` items of ``part``
+    pixels; ``grid`` = ``slots`` x ``parts`` blocks (``slots`` samples in
+    flight, every block resident: ``blocks_per_sm`` a SM at ``smem`` bytes);
+    ``on_chip``: each item's dz and x stay in shared memory from the reduce
+    to the apply, else the apply reads x and g again. ``sample_bytes``: x
+    and g of one sample; ``in_flight_bytes``: of the samples in flight;
+    ``hbm_bytes``: what the design reads from and writes to device memory
+    (x, g, dy; a second x and g where the samples in flight do not fit in
+    the L2 share), scratch aside."""
+    on_chip: bool
+    part: int
+    parts: int
+    slots: int
+    grid: int
+    smem: int
+    blocks_per_sm: int
+    sample_bytes: int
+    in_flight_bytes: int
+    hbm_bytes: int
+
+
+def launch_plan(batch: int, h: int, w: int, C: int, groups: int, upsample: bool,
+                limits: Limits, route: str | None = None) -> BackwardPlan:
+    """The backward's launch at a site. At an upsampling site the on-chip
+    route (g, 4x the map, read from HBM once) where a sample's items fit in
+    the blocks the card holds at once: of the item sizes (whole passes,
+    doubling, up to the shared memory a block may take), the one with the
+    fewest rounds of samples, then the largest grid, then the smallest item.
+    Elsewhere, or where no item size fits, the re-read route: as many
+    samples in flight as fit in ``L2_SHARE`` of the L2 (at least one), and
+    as many blocks a sample as fill the card. ``route`` ("on_chip" or
+    "reread") forces one (for the phases tool); forcing the on-chip route
+    where it does not fit raises."""
+    check_channels(C, groups)
+    if route not in (None, "on_chip", "reread"):
+        raise ValueError(f"group_norm backward: route {route!r}")
+    hw = h * w
+    u2 = 4 if upsample else 1
+    sample = hw * C * (2 + 4 * u2)
+    io = batch * hw * C * (2 + 4 * u2 + 2)
+    ppass = pass_pixels(C)
+    if route == "on_chip" or (route is None and upsample):
+        best = None
+        part = ppass
+        while (smem := backward_smem(C, groups, part, True, upsample)) <= limits.smem_block:
+            per_sm = limits.blocks_per_sm(upsample, True, smem)
+            parts = -(-hw // part)
+            if per_sm >= 1 and parts <= limits.sms * per_sm:
+                slots = min(batch, limits.sms * per_sm // parts)
+                key = (-(-batch // slots), -slots * parts, part)
+                if best is None or key < best[0]:
+                    best = key, BackwardPlan(True, part, parts, slots, slots * parts, smem,
+                                             per_sm, sample, slots * sample, io)
+            if part >= hw:
+                break
+            part *= 2
+        if best is not None:
+            return best[1]
+        if route == "on_chip":
+            raise ValueError(f"group_norm backward: a {h} x {w} x {C} sample does not fit on "
+                             "chip")
+    smem = backward_smem(C, groups, ppass, False, upsample)
+    per_sm = limits.blocks_per_sm(upsample, False, smem)
+    if per_sm < 1:
+        raise RuntimeError("group_norm backward: the card holds no block of the kernel")
+    budget = int(limits.l2_bytes * L2_SHARE)
+    slots = max(1, min(batch, budget // sample))
+    per = max(1, limits.sms * per_sm // slots)
+    part = -(-(-(-hw // per)) // ppass) * ppass
+    parts = -(-hw // part)
+    reread = 0 if slots * sample <= budget else batch * sample
+    return BackwardPlan(False, part, parts, slots, slots * parts, smem, per_sm, sample,
+                        slots * sample, io + reread)
+
+
+def scratch_sizes(plan: BackwardPlan, batch: int, C: int, groups: int) -> tuple[int, int]:
+    """(float32, int32) scratch of a backward launch: the items' and the
+    samples' group sums, the blocks' and the folds' channel sums; a barrier
+    ticket pair a sample, a ticket a fold, one for the last fold."""
+    folds = -(-plan.grid // FOLD_FAN_IN)
+    return (batch * (plan.parts + 1) * 2 * groups + (plan.grid + folds) * 2 * C,
+            2 * batch + folds + 1)
+
+
+_LIMITS: dict[int, Limits] = {}
+_PLANS: dict[tuple, BackwardPlan] = {}
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def device_limits(device: torch.device) -> Limits:
+    """The card's :class:`Limits`, queried once; the occupancy of each
+    (instance, shared memory) queried at its first use."""
+    lim = _LIMITS.get(device.index)
+    if lim is None:
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            err = _build.entry("group_norm", LIMITS_ARGTYPES, "group_norm_device_limits")(out)
+        _build.check(err, "group_norm device limits")
+        occupancy: dict[tuple, int] = {}
+
+        def blocks_per_sm(upsample: bool, on_chip: bool, smem: int) -> int:
+            key = (upsample, on_chip, smem)
+            if key not in occupancy:
+                n = ctypes.c_int(0)
+                with torch.cuda.device(device):
+                    err = _build.entry("group_norm", OCCUPANCY_ARGTYPES,
+                                       "group_norm_backward_occupancy")(
+                        int(upsample), int(on_chip), smem, ctypes.byref(n))
+                _build.check(err, "group_norm_backward occupancy")
+                occupancy[key] = n.value
+            return occupancy[key]
+
+        lim = _LIMITS[device.index] = Limits(out[0], out[1], out[2], blocks_per_sm)
+    return lim
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The backward's int32 tickets of calls on ``stream``: zero, left zero
+    by every call, grown (zeroed anew) when a call needs more."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    return buf
+
+
 def group_norm_relu_backward(g: torch.Tensor, y: torch.Tensor, mean: torch.Tensor,
                              rstd: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                              groups: int = GN_GROUPS, upsample: bool = False):
     """As :func:`group_norm_relu_backward_plain`. CPU tensors: the plain
     version. A bfloat16 channels_last y and a float32 channels_last g on the
-    card: the kernels, or an error."""
+    card: the kernel (one launch, planned by :func:`launch_plan`), or an
+    error."""
     global backward_launches
     if not _on_card("group_norm_relu_backward", y, gamma, beta, groups):
         return group_norm_relu_backward_plain(g, y, mean, rstd, gamma, beta, groups, upsample)
@@ -196,20 +375,24 @@ def group_norm_relu_backward(g: torch.Tensor, y: torch.Tensor, mean: torch.Tenso
                 or not v.is_contiguous()):
             raise ValueError(f"group_norm_relu_backward: {what} must be a contiguous "
                              f"({B}, {groups}) float32 tensor on {y.device}")
-    n = chunks(H * W)
-    chan = torch.empty((B, n, C, 2), dtype=torch.float32, device=y.device)
-    grp = torch.empty((B, n, groups, 2), dtype=torch.float32, device=y.device)
+    key = (y.device.index, B, H, W, C, groups, upsample)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = launch_plan(B, H, W, C, groups, upsample, device_limits(y.device))
+    n_scratch, n_counters = scratch_sizes(plan, B, C, groups)
+    stream = _build.stream_handle(y)
+    # dgamma and dbeta, then the scratch: one float32 allocation
+    buf = torch.empty(2 * C + n_scratch, dtype=torch.float32, device=y.device)
+    counters = _counters(y.device, stream, n_counters)
     dy = torch.empty_like(y)
-    dgamma = torch.empty(C, dtype=torch.float32, device=y.device)
-    dbeta = torch.empty(C, dtype=torch.float32, device=y.device)
     err = _build.entry("group_norm", BACKWARD_ARGTYPES, "group_norm_backward")(
         y.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(),
-        chan.data_ptr(), grp.data_ptr(), dy.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-        B, H, W, C, groups, n, int(upsample), _build.stream_handle(y))
+        beta.data_ptr(), buf.data_ptr() + 8 * C, n_scratch, counters.data_ptr(),
+        counters.numel(), dy.data_ptr(), buf.data_ptr(), B, H, W, C, groups, int(upsample),
+        int(plan.on_chip), plan.part, plan.grid, plan.smem, stream)
     _build.check(err, "group_norm_backward")
     backward_launches += 1
-    return dy, dgamma, dbeta
+    return dy, buf[:C], buf[C:2 * C]
 
 
 def gn_forward(ctx, forward, y, gamma, beta, groups, eps, upsample):

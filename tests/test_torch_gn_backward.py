@@ -12,8 +12,12 @@ decoders' dropout.
   ReLU passes nothing (beta -100) and with a group whose conv output is
   zero (its variance at the clamp ``max(0, E[x^2] - E[x]^2)``).
 - the wrappers' card paths on CPU tensors with their C entry points
-  recorded (``group_norm_backward``'s and the narrow BatchNorm's
-  arguments), and the checks they raise on.
+  recorded (``group_norm_backward``'s plan and scratch, the narrow
+  BatchNorm's arguments: one launch each way at a 1-channel site, no
+  ``conv_epilogue``), and the checks they raise on.
+- the narrow sites' fused forward's plain version
+  (``bn_stats_apply_plain``) against ``bn_stats_plain`` then
+  ``conv_epilogue_plain``, bit for bit.
 - ``models/deeplab.py:dropout``: keep masks from the generator it is given,
   one value a (sample, channel) for Dropout2d, Flax's scaling.
 """
@@ -31,6 +35,7 @@ from flairtpu_torch.models.smp_extra import Conv3x3GNReLU
 from flairtpu_torch.ops import bn_train as bt
 from flairtpu_torch.ops import group_norm as gn
 from flairtpu_torch.ops.bn_train import TrainSites
+from flairtpu_torch.ops.epilogue import conv_epilogue_plain
 
 B, CIN, C, H = 2, 16, 64, 8
 TOL = 1e-5
@@ -160,12 +165,22 @@ def cl(shape, dtype=torch.float32):
     return torch.zeros(shape, dtype=dtype).contiguous(memory_format=CL)
 
 
+# an H100's limits, the backward's occupancy as shared memory allows at two
+# blocks of 256 threads an SM at most
+H100 = gn.Limits(132, 232448, 50 * 2 ** 20, lambda up, on_chip, smem: min(2, 233472 // (smem + 1024)))
+
+
 @pytest.mark.parametrize("upsample", [False, True])
-def test_group_norm_wrappers_pass_the_entry_points_their_shapes(fake_card, upsample):
+def test_group_norm_wrappers_pass_the_entry_points_their_shapes(fake_card, monkeypatch,
+                                                                upsample):
     """The forward with ``stats`` hands the apply pass a (2, B, G) buffer
     (none without); the backward launches once with (B, H, W, C, G,
-    chunks, upsample) and scratch of (B, chunks, C) and (B, chunks, G)
-    float2; one launch counted a call."""
+    upsample) and its plan (route, item pixels, grid, shared memory), one
+    float32 scratch of the plan's size and the stream's int32 tickets; one
+    launch counted a call."""
+    monkeypatch.setattr(gn, "device_limits", lambda device: H100)
+    monkeypatch.setattr(gn, "_PLANS", {})
+    monkeypatch.setattr(gn, "_COUNTERS", {})
     Bn, Cn, Hn, Wn = 3, 128, 32, 16
     y = cl((Bn, Cn, Hn, Wn), torch.bfloat16)
     vec = torch.ones(Cn)
@@ -180,8 +195,13 @@ def test_group_norm_wrappers_pass_the_entry_points_their_shapes(fake_card, upsam
     dy, dgamma, dbeta = gn.group_norm_relu_backward(g, y, mean, rstd, vec, vec,
                                                     upsample=upsample)
     sym, args = fake_card[-1]
-    n = gn.chunks(Hn * Wn)
-    assert sym == "group_norm_backward" and args[11:] == (Bn, Hn, Wn, Cn, 32, n, int(upsample), 7)
+    plan = gn.launch_plan(Bn, Hn, Wn, Cn, 32, upsample, H100)
+    assert plan.on_chip == upsample
+    n_scratch, n_counters = gn.scratch_sizes(plan, Bn, Cn, 32)
+    assert sym == "group_norm_backward" and len(fake_card) == 5
+    assert args[7] == n_scratch and args[9] >= n_counters and args[6] == args[11] + 8 * Cn
+    assert args[12:] == (Bn, Hn, Wn, Cn, 32, int(upsample), int(upsample), plan.part, plan.grid,
+                         plan.smem, 7)
     assert dy.dtype == torch.bfloat16 and dy.is_contiguous(memory_format=CL)
     assert dgamma.shape == dbeta.shape == (Cn,)
     assert (gn.launches, gn.backward_launches) == (2, 1)
@@ -193,27 +213,68 @@ def test_group_norm_wrappers_pass_the_entry_points_their_shapes(fake_card, upsam
 
 
 def test_narrow_batchnorm_sites_take_their_entry_points(fake_card, monkeypatch):
-    """A 1-channel site (PAN's pyramid) launches bn_train_narrow_stats and
-    bn_train_narrow_backward, one launch each counted in their own counts; a
-    residual or a
-    branch at such a site raises; 8 channels take the main entry points."""
+    """A 1-channel site (PAN's pyramid) through ``BNTrainSite``: one launch
+    each way, bn_train_narrow_forward (the statistics and the site's output,
+    so no conv_epilogue) and bn_train_narrow_backward, counted in their own
+    counts; bn_stats alone takes the forward entry point without an output;
+    a residual or a branch at such a site raises; 8 channels take the main
+    entry points."""
     monkeypatch.setattr(bt, "_co_resident", lambda device, mode, c, branch=False: 528)
     monkeypatch.setattr(bt, "_COUNTERS", {})
-    y = cl((4, 1, 16, 16), torch.bfloat16)
+
+    def no_epilogue(*args, **kw):
+        raise AssertionError("conv_epilogue at a narrow site")
+
+    monkeypatch.setattr(bt, "conv_epilogue", no_epilogue)
+    y = cl((4, 1, 16, 16), torch.bfloat16).requires_grad_(True)
     vec = [torch.ones(1) for _ in range(4)]
-    bt.bn_stats(y, *vec)
-    dy, dgamma, dbeta, dres, db = bt.bn_backward(cl((4, 1, 16, 16), torch.bfloat16), None,
-                                                 y.clone(), y, *vec[:3])
-    assert [c[0] for c in fake_card] == ["bn_train_narrow_stats", "bn_train_narrow_backward"]
-    assert fake_card[0][1][9:11] == (4 * 16 * 16, 1) and fake_card[1][1][9:11] == (1024, 1)
-    assert dres is None and db is None and dy.shape == y.shape
+    out = bt.BNTrainSite.apply(y, *vec, None, None, None, None, None, None, True, False)
+    out.backward(cl((4, 1, 16, 16), torch.bfloat16))
+    assert [c[0] for c in fake_card] == ["bn_train_narrow_forward", "bn_train_narrow_backward"]
+    fwd, back = fake_card[0][1], fake_card[1][1]
+    assert fwd[9] is not None and fwd[10] is None  # the output, no float32 copy
+    assert fwd[11:14] == (4 * 16 * 16, 1, 1) and back[9:11] == (1024, 1)
+    assert y.grad.shape == y.shape
     assert (bt.narrow_launches, bt.narrow_backward_launches) == (1, 1)
     assert bt.launches == bt.backward_launches == 0
+    bt.bn_stats(y.detach(), *vec)
+    assert fake_card[-1][0] == "bn_train_narrow_forward" and fake_card[-1][1][9] is None
+    assert bt.narrow_launches == 2
     with pytest.raises(ValueError, match="no residual or branch"):
         bt.bn_backward(y, None, y, y, *vec[:3], residual=True)
     y8 = cl((4, 8, 4, 4), torch.bfloat16)
     bt.bn_stats(y8, *[torch.ones(8) for _ in range(4)])
     assert fake_card[-1][0] == "bn_train_stats"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("relu,keep_f32", [(True, True), (True, False), (False, True),
+                                           (False, False)])
+def test_fused_narrow_forward_plain_gives_stats_then_epilogue(dtype, relu, keep_f32):
+    """bn_stats_apply on CPU tensors (its plain version): the bits of
+    bn_stats_plain then conv_epilogue_plain from its scale and shift, the
+    running statistics included; and BNTrainSite at a 1-channel site gives
+    them too, with the CPU's launch counts untouched."""
+    rng = np.random.default_rng(7)
+    y = torch.from_numpy(rng.normal(0.3, 1.5, (4, 1, 9, 7)).astype(np.float32)).to(
+        dtype).contiguous(memory_format=CL)
+    gamma = torch.tensor([1.3])
+    beta = torch.tensor([-0.2])
+    ra = [torch.tensor([0.1]), torch.tensor([0.9])]
+    rb = [t.clone() for t in ra]
+    got = bt.bn_stats_apply(y, gamma, beta, *ra, relu, keep_f32)
+    stats = bt.bn_stats_plain(y, gamma, beta, *rb)
+    want = (*stats, *conv_epilogue_plain(y, stats[2], stats[3], relu=relu, keep_f32=keep_f32))
+    for a, b in zip(got + tuple(ra), want + tuple(rb)):
+        assert (a is None and b is None) or torch.equal(a, b)
+    bt.launches = bt.narrow_launches = 0
+    site = bt.BNTrainSite.apply(y, gamma, beta, *[t.clone() for t in rb], None, None, None,
+                                None, None, None, relu, keep_f32)
+    if keep_f32:
+        assert torch.equal(site[0], want[4]) and torch.equal(site[1], want[5])
+    else:
+        assert torch.equal(site, want[4])
+    assert bt.launches == bt.narrow_launches == 0
 
 
 def test_dropout_draws_from_its_generator():

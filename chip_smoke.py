@@ -259,7 +259,28 @@ Phases (any failure exits non-zero):
    all-plain run on the same model by phase 5's rule, its class agreement
    with the arch's float raster of the zone (>= FOLD_FLOOR or INT8_FLOOR),
    patches/s and the calibration's seconds.
-6. the kernels line, the card line, the script's seconds, and last the JSON
+   Phase 2 also holds the grouped int8_conv (int8_conv_grouped, a
+   ResNeXt's 3x3) bit for bit to its plain version at the 16 grouped sites
+   of resnext50_32x4d-unet's int8 walk (batch 2; the int8 output the walk
+   asks for, and float32 beside it) and at GROUPED_EDGES (dilations 2 and 4
+   of the off-U-Net walks, Wo not a multiple of 4, stride 2 with a residual
+   and no ReLU, 48 channels a group), and times it at batch 128 beside its
+   bound (HBM bytes, or multiply-adds at PEAK_INT8_OPS) and plain version.
+6. native weights: the port's ``tools.py make-toy-zone`` at its defaults (a
+   2048² zone, 13 classes, resnet34-unet, .msgpack weights), flair-detect
+   on its detect YAML (launches as the main path's) and its compare YAML
+   with ``-c -m`` from the .msgpack; the argmax raster of the same weights
+   saved as .pth is byte-equal; save_weights_msgpack's file reads back to
+   the same state dict; the zone's patches/s.
+7. resnext50_32x4d-unet at full width (random weights, 19 classes): the
+   main path on the 4096² zone (512/128, batch 128, argmax, exact
+   clipping) against its all-plain run, bn_fold and INT8_KNOBS held as 3f
+   and 3g hold resnet34 (int8_conv_grouped 16 a batch), launches,
+   patches/s, peak memory; then flair (phase 4's values, batch 16, one
+   epoch of 4 steps) initialized from a .msgpack through
+   init_weights_only_from_ckpt, one train step held to the plain step as
+   phase 4d holds the other archs, and its predict tail.
+8. the kernels line, the card line, the script's seconds, and last the JSON
    result line.
 
     python3 chip_smoke.py --profile  # also one batch per program by stage, the profiler
@@ -289,14 +310,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 import yaml
 
-from flairtpu_torch import cli
+from flairtpu_torch import cli, tools
 from flairtpu_torch.config import gen_param_combination, validate_detect_config
 from flairtpu_torch.data.manifest import gather_paths
 from flairtpu_torch.data.patches import PatchDataset, PatchLoader
 from flairtpu_torch.io import TiffReader
 from flairtpu_torch.io.tiff import Affine, write_array
 from flairtpu_torch.models.deeplab import align_corners_weights
-from flairtpu_torch.models.factory import FlairSegmentationModel, init_weights
+from flairtpu_torch.models.convert import load_weights, write_native
+from flairtpu_torch.models.factory import FlairSegmentationModel, create_model, init_weights
 from flairtpu_torch.models.resnet import stem_conv
 from flairtpu_torch.models.unet import plan_inner_crops
 from flairtpu_torch.predict.runner import predict
@@ -394,6 +416,22 @@ INT8_EDGES = (
      4, True, True),
     ("1x1/1 downsample 256 -> 512 (a dilated stage)", 2, 64, 64, 256, 512, 1, 1, 0, 1, False,
      False),
+)
+# the grouped int8_conv (int8_conv_grouped): resnext50_32x4d's 16 grouped
+# 3x3 sites (layer1-4: 32 groups of 4, 8, 16 and 32 channels), and at
+# geometries its U-Net walk does not reach: (label, B, H, W, groups,
+# channels a group, stride, pad, dilation, residual, ReLU), each with both
+# outputs
+RESNEXT = "resnext50_32x4d"
+RESNEXT_GROUPED_SITES = 16
+GROUPED_EDGES = (
+    ("dilation 2, 32 a group (output stride 16, layer4)", 2, 32, 32, 32, 32, 1, 2, 2, False,
+     True),
+    ("dilation 2, 16 a group (output stride 8, layer3)", 2, 64, 64, 32, 16, 1, 2, 2, False, True),
+    ("dilation 4, 32 a group (output stride 8, layer4)", 2, 64, 64, 32, 32, 1, 4, 4, True, True),
+    ("Wo 13 (not a multiple of 4), batch 1", 1, 13, 13, 32, 4, 1, 1, 1, True, True),
+    ("stride 2, odd sides, residual without ReLU", 3, 33, 31, 32, 8, 2, 1, 1, True, False),
+    ("48 a group (resnext101_32x48d's layer1)", 1, 32, 32, 32, 48, 1, 1, 1, False, True),
 )
 # class agreement of the knobs' rasters with the float main path's
 # (random weights): bn_fold rounds in bf16 in other places, int8 quantizes
@@ -1590,10 +1628,11 @@ def check_fold_epilogue(model: FoldedZoneModel, x: torch.Tensor) -> float:
 class Int8Recorder:
     """int8_conv and quantize_act wrappers that launch the kernels and keep
     each call's operands: the int8 sites of a batch, at their shapes and on
-    their data."""
+    their data (with ``grouped``, the grouped sites' only)."""
 
-    def __init__(self, model: pq.QuantizedZoneModel | None = None):
+    def __init__(self, model: pq.QuantizedZoneModel | None = None, grouped: bool = False):
         self.convs: list[dict] = []
+        self.grouped = grouped
         self.quants: list[dict] = []
         self.names: list[str] = []  # each conv's site name, with a model
         self._names = {} if model is None else {
@@ -1602,8 +1641,9 @@ class Int8Recorder:
 
     def conv(self, x, p, stride, padding, dilation=1, **kw):
         site = dict(x=x, p=p, stride=stride, padding=padding, dilation=dilation, **kw)
-        self.convs.append(site)
-        self.names.append(self._names.get(id(p), "?"))
+        if p.groups > 1 or not self.grouped:
+            self.convs.append(site)
+            self.names.append(self._names.get(id(p), "?"))
         return ic.int8_conv(**site)
 
     def quantize(self, x, sx, channels=None):
@@ -1623,15 +1663,19 @@ def int8_shape(site: dict) -> tuple[int, int, int, int, int, int]:
 def int8_label(k: int, site: dict) -> str:
     B, co, ho, wo, kh, _ = int8_shape(site)
     outs = ("f32 " if site["keep_f32"] else "") + ("int8" if site["out_sx"] is not None else "")
+    (groups, cg), dil = (site["p"].groups, site["p"].wq.shape[1]), site["dilation"]
     return (f"site {k} {tuple(site['x'].shape)} -> ({B}, {co}, {ho}, {wo}) {kh}x{kh}/"
-            f"{site['stride']}{', residual' if site['residual'] is not None else ''}"
+            f"{site['stride']}{f' d{dil}' if dil > 1 else ''}"
+            f"{f', {groups} groups of {cg}' if groups > 1 else ''}"
+            f"{', residual' if site['residual'] is not None else ''}"
             f"{'' if site['relu'] else ', no ReLU'}, out {outs.strip()}")
 
 
 def int8_cost(site: dict) -> tuple[int, int]:
-    """(operations, bytes): 2 per int8 MAC over the real channels; each input
-    read once (activations, weights, deq and b, the residual), each output
-    written once."""
+    """(operations, bytes): 2 per int8 MAC over the real channels (a grouped
+    site's over each output channel's group); each input read once
+    (activations, weights, deq and b, the residual), each output written
+    once."""
     B, co, ho, wo, kh, kw = int8_shape(site)
     m, ci = B * ho * wo, site["p"].wq.shape[1]
     out_bytes = 4 * (site["residual"] is not None) + 4 * site["keep_f32"] + (
@@ -1776,6 +1820,75 @@ def check_int8(model: pq.QuantizedZoneModel, x: torch.Tensor, timed: bool = Fals
     return out
 
 
+def check_grouped_edges(device: str = "cuda") -> int:
+    """int8_conv_grouped exactly equal to its plain version at GROUPED_EDGES
+    on random int8 operands, float32 and int8 outputs."""
+    gen = torch.Generator(device).manual_seed(SEED + 19)
+    for k, (label, B, H, W, groups, cg, stride, pad, dil, res, relu) in enumerate(
+            GROUPED_EDGES):
+        co = groups * cg
+        p = ic.Int8ConvParams(
+            torch.randint(-127, 128, (co, cg, 3, 3), generator=gen, device=device,
+                          dtype=torch.int8), 0.05,
+            torch.rand(co, generator=gen, device=device) * 2e-3 + 1e-4,
+            torch.randn(co, generator=gen, device=device), groups)
+        x = torch.randint(-127, 128, (B, H, W, co), generator=gen, device=device,
+                          dtype=torch.int8).permute(0, 3, 1, 2)
+        ho, wo = (ic._out_hw(n, 3, stride, pad, dil) for n in (H, W))
+        r = (torch.randn((B, ho, wo, co), generator=gen, device=device).permute(0, 3, 1, 2)
+             if res else None)
+        site = dict(x=x, p=p, stride=stride, padding=pad, dilation=dil, residual=r, relu=relu,
+                    keep_f32=True, out_sx=0.04)
+        compare_int8(f"grouped {label}: {int8_label(k, site)}", site)
+    return len(GROUPED_EDGES)
+
+
+def check_int8_grouped(qmodel: pq.QuantizedZoneModel, x: torch.Tensor) -> dict:
+    """The grouped int8_conv against its plain version, bit for bit, at
+    every grouped site of resnext50_32x4d-unet's int8 walk on 2 tiles of x
+    (the int8 output the walk asks for, and float32 beside it) and at
+    GROUPED_EDGES; then timed at every site of one batch of x (each
+    distinct geometry once, weighted by its sites), with its bound (bytes
+    over HBM or multiply-adds at the card's int8 rate, whichever is larger)
+    and the plain version's time. No PyTorch call computes a grouped int8
+    convolution: library none."""
+
+    def grouped_sites(batch: torch.Tensor) -> list[dict]:
+        rec = Int8Recorder(grouped=True)
+        qmodel.tail_input(batch, M, conv=rec.conv, quantize=rec.quantize)
+        return rec.convs
+
+    sites = grouped_sites(x[:2])
+    check(len(sites) == RESNEXT_GROUPED_SITES,
+          f"{RESNEXT}: {len(sites)} grouped int8 sites ({RESNEXT_GROUPED_SITES})")
+    for k, site in enumerate(sites):
+        compare_int8(f"grouped {int8_label(k, site)} B=2", site)
+        compare_int8(f"grouped site {k}, float32 out too", dict(site, keep_f32=True))
+    out = {"max_abs_err": 0, "sites": len(sites), "edge_cases": check_grouped_edges()}
+    geometries: dict = {}
+    for site in grouped_sites(x):
+        key = (tuple(site["x"].shape), tuple(site["p"].wq.shape), site["stride"],
+               site["dilation"], site["keep_f32"], site["out_sx"] is not None)
+        geometries.setdefault(key, [site, 0])[1] += 1
+    rows = []
+    for k, (site, n) in enumerate(geometries.values()):
+        ops, nbytes = int8_cost(site)
+        rows.append({"site": int8_label(k, site), "count": n,
+                     "ms": cuda_ms(lambda a=site: ic.int8_conv_grouped(**a), 10, 2),
+                     "plain_ms": cuda_ms(lambda a=site: ic.int8_conv_plain(**a), 1, 1),
+                     "ops": ops, "bytes": nbytes, **bound(ops, nbytes, PEAK_INT8_OPS)})
+        torch.cuda.empty_cache()
+    del geometries
+    ms = sum(r["count"] * r["ms"] for r in rows)
+    bound_ms = sum(r["count"] * r["bound_ms"] for r in rows)
+    out.update(rows=rows, ms=ms, plain_ms=sum(r["count"] * r["plain_ms"] for r in rows),
+               bound_ms=bound_ms, library_ms=None,
+               bytes=sum(r["count"] * r["bytes"] for r in rows),
+               bound_by=max(("bytes", "operations"), key=lambda b: sum(
+                   r["count"] * r["bound_ms"] for r in rows if r["bound_by"] == b)))
+    return out
+
+
 def synth_inputs(tmp: Path, zone_hw: int, rng) -> tuple[Path, Path, Path]:
     """The zone at <dpt>/<zone>/zone.tif, a truth raster (classes 1..K) at
     truth/<dpt>/<zone>/truth.tif, and the weights."""
@@ -1889,7 +2002,7 @@ def run_plain(cfg: dict, method: str = "exact-clipping", stride: int | None = No
 def reset_launches() -> None:
     ft.launches = ft.probs_launches = ft.logits_launches = ga.launches = ep.launches = 0
     sp.launches = sp.probs_launches = sp.logits_launches = gnr.launches = 0
-    ga.typed_launches = ic.launches = qa.launches = 0
+    ga.typed_launches = ic.launches = ic.grouped_launches = qa.launches = 0
     au.launches = au.tiled_launches = 0
     wc.launches = wc.backward_launches = bt.launches = bt.backward_launches = 0
     bt.narrow_launches = bt.narrow_backward_launches = gnr.backward_launches = 0
@@ -1902,7 +2015,8 @@ def read_launches() -> dict:
     return {"fused_tail": ft.launches, "fused_tail_probs": ft.probs_launches,
             "fused_tail_logits": ft.logits_launches, "gather_normalize": ga.launches,
             "gather_normalize_typed": ga.typed_launches, "conv_epilogue": ep.launches,
-            "int8_conv": ic.launches, "quantize_act": qa.launches,
+            "int8_conv": ic.launches, "int8_conv_grouped": ic.grouped_launches,
+            "quantize_act": qa.launches,
             "augment_normalize": au.launches, "weighted_ce": wc.launches,
             "weighted_ce_backward": wc.backward_launches, "bn_stats": bt.launches,
             "bn_backward": bt.backward_launches, "bn_stats_narrow": bt.narrow_launches,
@@ -1914,18 +2028,26 @@ def read_launches() -> dict:
 
 def expected_launches(method: str, output_type: str, n_batches: int,
                       streaming: bool = False, typed: bool = False,
-                      int8_blocks: int | None = None) -> dict:
+                      int8_blocks: int | None = None, sites: int = EPILOGUE_SITES,
+                      int8_sites: int = ENCODER_INT8_SITES, grouped: int = 0,
+                      quantized: int = 2) -> dict:
     """Each kernel's launches for one zone run of ``n_batches`` batches, on
     the device route or the streaming route (whose stitches run on the
     host, after the full-tile softmax kernel); ``typed``: a zone that is
     not uint8; ``int8_blocks``: the int8 model with that many int8 decoder
-    blocks (the others' two convs each an epilogue)."""
+    blocks (the others' two convs each an epilogue). ``sites``,
+    ``int8_sites``, ``grouped`` and ``quantized``: the U-Net's conv_epilogue
+    sites a batch, its encoder's int8 sites, of them the grouped ones, and
+    the encoder's quantize_act launches (resnet34-unet's by default: the
+    tile and the pooled stem output; a bottleneck encoder quantizes the
+    pooled output twice, for layer1's conv1 and its downsample)."""
     out = dict.fromkeys(read_launches(), 0)
     out["gather_normalize_typed" if typed else "gather_normalize"] = n_batches
-    out["conv_epilogue"] = EPILOGUE_SITES * n_batches
+    out["conv_epilogue"] = sites * n_batches
     if int8_blocks is not None:
-        out.update(int8_conv=(ENCODER_INT8_SITES + 2 * int8_blocks) * n_batches,
-                   quantize_act=(2 + int8_blocks) * n_batches,
+        out.update(int8_conv=(int8_sites - grouped + 2 * int8_blocks) * n_batches,
+                   int8_conv_grouped=grouped * n_batches,
+                   quantize_act=(quantized + int8_blocks) * n_batches,
                    conv_epilogue=2 * (4 - int8_blocks) * n_batches)
     if output_type == "class_prob":
         out["fused_tail_probs"] = n_batches
@@ -1944,20 +2066,23 @@ def check_launches(label: str, got: dict, want: dict) -> None:
     check(got == want, f"{label}: launches {got} == expected {want}")
 
 
-def run_main_path(cfg: dict, conf: Path, zone_hw: int, card: str) -> dict:
+def run_main_path(cfg: dict, conf: Path, zone_hw: int, card: str,
+                  sites: int = EPILOGUE_SITES) -> dict:
     # the plain versions first: their run also warms cuDNN up for the encoder
     plain = run_plain(cfg)
     print(f"  plain-version run: compute {plain['compute_seconds']:.4f} s, "
           f"{plain['patches_per_sec']:.2f} patches/s", flush=True)
 
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     stats = cli.detect_main([f"--conf={conf}"])
     wall = time.perf_counter() - t0
     launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
 
     n_batches = -(-len(slice_grid(zone_hw, zone_hw, S, M).tiles) // BATCH)
-    expected = expected_launches("exact-clipping", "argmax", n_batches)
+    expected = expected_launches("exact-clipping", "argmax", n_batches, sites=sites)
     out = Path(cfg["output_path"]) / "zone-ARGMAX.tif"
     with TiffReader(cfg["input_img_path"]) as src, TiffReader(out) as r:
         check((r.width, r.height, r.count) == (zone_hw, zone_hw, 2),
@@ -1979,7 +2104,8 @@ def run_main_path(cfg: dict, conf: Path, zone_hw: int, card: str) -> dict:
     check(dprob <= 1, f"main path vs plain versions: prob |diff| {dprob} <= 1")
     stats = {k: v for k, v in stats.items() if k != "patch_times_ms"}
     return {"stats": stats, "launches": launches, "plain_compute_seconds":
-            plain["compute_seconds"], "agree_plain": agree, "prob_diff_plain": dprob}
+            plain["compute_seconds"], "agree_plain": agree, "prob_diff_plain": dprob,
+            "peak_gb": peak}
 
 
 def write_conf(cfg: dict, name: str) -> Path:
@@ -2443,22 +2569,27 @@ def captured_models():
 
 
 def run_knobs(cfg: dict, label: str, knobs: dict, zone_hw: int, floor: float,
-              float_raster: np.ndarray, int8_blocks: int | None = None) -> dict:
+              float_raster: np.ndarray, int8_blocks: int | None = None,
+              expect: dict | None = None) -> dict:
     """detect_main with ``knobs`` on the zone of ``cfg``, the counts set to 0
     just before it: its launches, raster shape and coverage; against its
     all-plain run on the same model (class agreement >= 0.999, prob |diff|
     <= 1) and against the float path's raster of the zone (class agreement
-    >= ``floor``); patches/s and calibration seconds."""
+    >= ``floor``); patches/s and calibration seconds. ``expect``: the
+    model's site counts for expected_launches (resnet34-unet's by
+    default)."""
     kc = dict(cfg, output_path=str(Path(cfg["output_path"]).parent / f"out_{label}"), **knobs)
     conf = write_conf(kc, label)
     with captured_models() as models:
+        torch.cuda.reset_peak_memory_stats()
         reset_launches()
         stats = cli.detect_main([f"--conf={conf}"])
         launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
     n_batches = -(-len(slice_grid(zone_hw, zone_hw, S, M).tiles) // BATCH)
     check_launches(f"{label}, {n_batches} batches", launches,
                    expected_launches("exact-clipping", "argmax", n_batches,
-                                     int8_blocks=int8_blocks))
+                                     int8_blocks=int8_blocks, **(expect or {})))
     have = read_raster(Path(kc["output_path"]) / "zone-ARGMAX.tif")
     check(have.shape == (2, zone_hw, zone_hw) and bool((have[1] > 0).all()),
           f"{label}: raster {have.shape}, every pixel written")
@@ -2477,7 +2608,8 @@ def run_knobs(cfg: dict, label: str, knobs: dict, zone_hw: int, floor: float,
     keep = ("tiles", "seconds", "patches_per_sec", "read_seconds", "h2d_seconds",
             "compute_seconds", "d2h_seconds", "write_seconds", "calibration_seconds")
     return {**{k: stats[k] for k in keep if k in stats}, "agree_plain": agree,
-            "prob_diff_plain": dprob, "agree_float": agree_float, "launches": launches}
+            "prob_diff_plain": dprob, "agree_float": agree_float, "peak_gb": peak,
+            "launches": launches}
 
 
 def run_small_int8(cfg: dict, tmp: Path) -> dict:
@@ -4706,6 +4838,160 @@ def run_arch_knobs(configs: dict, tmp: Path, zone_hw: int) -> dict:
     return out
 
 
+# -- phase 6: native weights on the card -------------------------------------
+
+def run_native_weights(tmp: Path, card: str) -> dict:
+    """The port's make-toy-zone at its defaults (a 2048² zone, 13 classes,
+    resnet34-unet at full width, its weights as .msgpack), then flair-detect
+    on its detect YAML and on its compare YAML with -c -m from the .msgpack,
+    each with the counts set to 0 just before it; the same weights saved as
+    .pth by the port give the same argmax raster byte for byte; a .msgpack
+    written by save_weights_msgpack reads back to the same state dict."""
+    root = tmp / "toy_zone"
+    t0 = time.perf_counter()
+    conf = tools.make_toy_zone(root)
+    made = time.perf_counter() - t0
+    dcfg = yaml.safe_load(conf.read_text())
+    weights = Path(dcfg["model_weights"])
+    check(weights.suffix == ".msgpack" and dcfg["use_gpu"] is True,
+          f"make-toy-zone: {weights.name}, use_gpu true ({made:.1f} s)")
+    reset_launches()
+    stats = cli.detect_main([f"--conf={conf}"])
+    launches = read_launches()
+    n_batches = -(-len(slice_grid(2048, 2048, dcfg["img_pixels_detection"],
+                                  dcfg["margin"]).tiles) // dcfg["batch_size"])
+    check_launches(f"toy zone from .msgpack, {n_batches} batches", launches,
+                   expected_launches("exact-clipping", "argmax", n_batches))
+    raster = read_raster(Path(dcfg["output_path"]) / f"{dcfg['output_name']}.tif")
+    model = create_model(dcfg)
+    load_weights(model, weights)
+    pth = root / "toy-weights.pth"
+    torch.save(model.state_dict(), pth)
+    pcfg = dict(dcfg, model_weights=str(pth), output_path=str(root / "out-pth"))
+    pconf = root / "toy-config-detect-pth.yaml"
+    pconf.write_text(yaml.safe_dump(pcfg))
+    cli.detect_main([f"--conf={pconf}"])
+    from_pth = read_raster(Path(pcfg["output_path"]) / f"{pcfg['output_name']}.tif")
+    check(raster.shape == (2, 2048, 2048) and raster.tobytes() == from_pth.tobytes(),
+          f"toy zone: the .msgpack and .pth rasters are byte-equal ({raster.shape})")
+    compare = root / "toy-config-detect-compare.yaml"
+    ccfg = yaml.safe_load(compare.read_text())
+    with counted_runs() as per_run:
+        cli.detect_main([f"--conf={compare}", "-c", "-m"])
+    check(len(per_run) == 2 and all(r["fused_tail_logits"] or r["fused_tail"]
+                                    for r in per_run.values()),
+          f"toy zone -c -m: {len(per_run)} runs ({', '.join(per_run)})")
+    metrics = Path(ccfg["metrics_out"])
+    stamped = [p for p in Path(ccfg["output_path"]).iterdir() if p.is_dir()]
+    per_patch = [q for p in stamped for q in p.glob("metrics_per-patch_*.json")]
+    check(metrics.exists() or bool(per_patch),
+          f"toy zone -c -m: metrics written ({[q.name for q in per_patch]})")
+    again = root / "again.msgpack"
+    ckpt_lib.save_weights_msgpack(again, model)
+    back = create_model(dcfg)
+    load_weights(back, again)
+    same = all(torch.equal(v, back.state_dict()[k]) for k, v in model.state_dict().items())
+    check(same and again.read_bytes() == weights.read_bytes(),
+          "save_weights_msgpack: read back, the same state dict (and make-toy-zone's bytes)")
+    print(f"  toy zone from .msgpack on {card}: {stats['tiles']} tiles, "
+          f"{stats['patches_per_sec']:.2f} patches/s, compute {stats['compute_seconds']:.4f} s",
+          flush=True)
+    keep = ("tiles", "patches_per_sec", "compute_seconds", "read_seconds", "h2d_seconds")
+    return {**{k: stats[k] for k in keep}, "make_toy_zone_seconds": made,
+            "msgpack_bytes": weights.stat().st_size, "launches": launches,
+            "compare_runs": sorted(per_run)}
+
+
+# -- phase 7: ResNeXt at full width -------------------------------------------
+
+def resnext_detect_config(cfg: dict, tmp: Path, rng) -> dict:
+    """The main configuration with resnext50_32x4d-unet, random weights."""
+    weights = tmp / f"{RESNEXT}_unet_19cl.pth"
+    torch.save(random_weights(FlairSegmentationModel(RESNEXT, K, C), rng), weights)
+    rcfg = copy.deepcopy(cfg)
+    rcfg.update(model_weights=str(weights), output_path=str(tmp / "out_resnext"))
+    rcfg["model_framework"]["SegmentationModelsPytorch"]["encoder_decoder"] = f"{RESNEXT}_unet"
+    return rcfg
+
+
+def resnext_sites(model) -> dict:
+    """expected_launches' site counts of a resnext U-Net."""
+    convs = [m for m in model.encoder.modules() if isinstance(m, nn.Conv2d)]
+    return {"sites": epilogue_sites(model), "int8_sites": len(convs),
+            "grouped": sum(m.groups > 1 for m in convs), "quantized": 3}
+
+
+def run_resnext(rcfg: dict, zone_hw: int, card: str) -> dict:
+    """resnext50_32x4d-unet on the main zone through detect_main (512/128,
+    batch 128, argmax, exact clipping) against its all-plain run, then
+    bn_fold and INT8_KNOBS against their all-plain runs and the float
+    raster, as phases 3f and 3g hold resnet34; launches, patches/s, peak
+    memory."""
+    sites = resnext_sites(FlairSegmentationModel(RESNEXT, K, C))
+    conf = write_conf(rcfg, "resnext")
+    main = run_main_path(rcfg, conf, zone_hw, card, sites=sites["sites"])
+    float_raster = read_raster(Path(rcfg["output_path"]) / "zone-ARGMAX.tif")
+    fold = run_knobs(rcfg, "resnext_bn_fold", {"bn_fold": True}, zone_hw, FOLD_FLOOR,
+                     float_raster, expect={"sites": sites["sites"]})
+    int8 = run_knobs(rcfg, "resnext_int8", INT8_KNOBS, zone_hw, INT8_FLOOR, float_raster,
+                     int8_blocks=INT8_KNOBS["int8_decoder"], expect=sites)
+    print(f"  {RESNEXT}-unet: {main['stats']['patches_per_sec']:.2f} patches/s, peak "
+          f"{main['peak_gb']:.2f} GB; bn_fold "
+          f"{fold['patches_per_sec']:.2f} (peak {fold['peak_gb']:.2f} GB), int8 "
+          f"{int8['patches_per_sec']:.2f} patches/s (peak {int8['peak_gb']:.2f} GB)", flush=True)
+    return {"main": main, "bn_fold": fold, "int8": int8, "sites": sites}
+
+
+def run_resnext_flair(tmp: Path, main: dict, rng) -> dict:
+    """flair (train, predict, metrics) of resnext50_32x4d-unet at phase 4's
+    values (batch 16) for one 4-step epoch, initialized from a .msgpack of
+    random weights through init_weights_only_from_ckpt (which loads with no
+    surgery), its launches against steps x sites; then one train step from
+    the trained weights held to the plain step as phase 4d holds the other
+    archs, and the predict tail against its plain version."""
+    root = tmp / "flair_resnext"
+    root.mkdir(exist_ok=True)
+    model = FlairSegmentationModel(RESNEXT, K, C)
+    init_sd = random_weights(model, rng)
+    ckpt = root / f"{RESNEXT}_init.msgpack"
+    write_native(ckpt, init_sd)
+    cfg = copy.deepcopy(main["cfg"])
+    cfg["paths"]["out_folder"] = str(root)
+    cfg["paths"]["ckpt_model_path"] = str(ckpt)
+    cfg["tasks"]["train_tasks"]["init_weights_only_from_ckpt"] = True
+    cfg["model_framework"]["SegmentationModelsPytorch"]["encoder_decoder"] = f"{RESNEXT}_unet"
+    cfg["num_epochs"] = 1
+    zeroed = ckpt_lib.init_weights_with_surgery(ckpt, model, verbose=False)
+    same = all(torch.equal(model.state_dict()[k], v) for k, v in init_sd.items())
+    check(not zeroed and same, f"{ckpt.name}: every tensor loads, none zeroed")
+    counts = train_site_counts(model)
+    n_test = sum(n for split, n in FLAIR_SPLITS if split == "test")
+    torch.cuda.reset_peak_memory_stats()
+    result, launches, wall = counted_flair_main(cfg, root / "flair.yaml")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    label = f"flair {RESNEXT}-unet"
+    losses = check_flair_run(label, cfg, result, launches, counts, -(-n_test // TRAIN_BATCH))
+    check_flair_outputs(label, cfg, result, main["csvs"]["test"], n_test)
+    epochs = result["train"]["epochs"]
+    train_ps = sum(e["train_patches"] for e in epochs) / sum(e["train_seconds"] for e in epochs)
+    pred = result["predict"]
+    state = ckpt_lib.CheckpointManager.restore(Path(result["train"]["best_path"]))
+    batch = first_batch(cfg)
+    step = compare_train_step(cfg, state, batch, counts, None, drift=False, reorders=4,
+                              noise=True)
+    tail = check_predict_tail(cfg, state, batch)
+    print(f"  {label}: train {train_ps:.2f} patches/s (1 epoch of 4 steps, with its warm-up), "
+          f"predict {pred['patches'] / pred['seconds']:.2f} patches/s, peak {peak:.2f} GB, "
+          f"losses {', '.join(f'{a:.4f}/{b:.4f}' for a, b in losses)}; step loss "
+          f"{step['loss']:.5f} vs plain {step['plain_loss']:.5f}", flush=True)
+    del state, batch
+    torch.cuda.empty_cache()
+    return {"train_patches_per_sec": train_ps,
+            "predict_patches_per_sec": pred["patches"] / pred["seconds"], "peak_gb": peak,
+            "losses": losses, "flair_main_wall_seconds": wall, "launches": launches,
+            "step": step, "predict_tail": tail}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4735,8 +5021,9 @@ def main() -> int:
         cfg = detect_config(tmp, zone, truth, weights)
         conf = tmp / "detect.yaml"
         conf.write_text(yaml.safe_dump(cfg))
-        print(f"    synthesized a {ZONE}x{ZONE}x{C} zone and resnet34-unet weights in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rcfg = resnext_detect_config(cfg, tmp, np.random.default_rng(SEED + 700))
+        print(f"    synthesized a {ZONE}x{ZONE}x{C} zone, resnet34-unet and {RESNEXT}-unet "
+              f"weights in {time.perf_counter() - t0:.1f} s", flush=True)
 
         print("[2] kernels against their plain versions", flush=True)
         torch.backends.cudnn.allow_tf32 = False
@@ -4760,6 +5047,11 @@ def main() -> int:
             int8 = check_int8(qmodel, torch.rand((BATCH, S, S, C), generator=gen,
                                                  device="cuda"), timed=True)
             del qmodel
+            torch.cuda.empty_cache()
+            rqmodel, _ = eng.prepare_model(dict(rcfg, **INT8_KNOBS), torch.device("cuda"))
+            grouped = check_int8_grouped(rqmodel, torch.rand((BATCH, S, S, C), generator=gen,
+                                                             device="cuda"))
+            del rqmodel
             torch.cuda.empty_cache()
             probs = check_tail_probs(rng, S, M, BATCH, K, timed=True)
             for size, margin, k in ((64, 16, K), (32, 1, 4), (96, 8, 32)):
@@ -4823,6 +5115,15 @@ def main() -> int:
             print(f"    {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
                   f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
                   f"{r['bytes'] / 1e9:.2f} GB)", flush=True)
+        for r in grouped["rows"]:
+            print(f"    int8_conv_grouped {r['site']}, x {r['count']}: {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, library none, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})")
+        print(f"    int8_conv_grouped, the {grouped['sites']} grouped sites of one {RESNEXT} "
+              f"batch of {BATCH}: {grouped['ms']:.4f} ms, plain {grouped['plain_ms']:.4f} ms, "
+              f"library none, bound {grouped['bound_ms']:.4f} ms ({grouped['bound_by']}, "
+              f"{grouped['bytes'] / 1e9:.2f} GB)",
+              flush=True)
         for name, r in (("fused_tail probs", probs), ("fused_tail logits", logits),
                         *stitch["timed"].items(), ("tile_softmax probs", softmax["probs"]),
                         ("tile_softmax argmax", softmax["argmax"])):
@@ -4960,6 +5261,17 @@ def main() -> int:
             t5 = time.perf_counter()
             arch_knobs = run_arch_knobs(arch_configs, tmp, ZONE)
             print(f"    phase 5b: {time.perf_counter() - t5:.1f} s", flush=True)
+            print("[6] native weights: make-toy-zone (.msgpack), flair-detect and -c -m from it",
+                  flush=True)
+            t6 = time.perf_counter()
+            native = run_native_weights(tmp, card)
+            print(f"    phase 6: {time.perf_counter() - t6:.1f} s", flush=True)
+            print(f"[7] {RESNEXT}-unet at full width: the main path, bn_fold, int8; flair "
+                  "from a .msgpack", flush=True)
+            t7 = time.perf_counter()
+            resnext = run_resnext(rcfg, ZONE, card)
+            resnext["flair"] = run_resnext_flair(tmp, flair, np.random.default_rng(SEED + 701))
+            print(f"    phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
         if args.profile:
             with torch.inference_mode():
                 prof = stage_breakdown(cfg, ZONE, rng, epi)
@@ -5110,6 +5422,16 @@ def main() -> int:
          "launches": int8_run["launches"]["int8_conv"] + arch_launch_sum("int8_conv"),
          "max_abs_err": int8["max_abs_err"],
          **numbers(int8["conv"]), "library_ms": int8["conv"]["library_ms"]},
+        # the 16 grouped sites of one resnext50_32x4d batch of 128, summed
+        # (launches: phase 7's int8 run); bound by the card's int8 rate
+        # (PEAK_INT8_OPS) or HBM bytes; no PyTorch call computes a grouped
+        # int8 convolution
+        {"name": "int8_conv_grouped", "route": "cuda", "source": f"{src}/int8_conv.cu",
+         "replaces": "flairtpu/models/quantize.py:218-230 (_quant_conv with "
+                     "feature_group_count=groups) at the resnext walk's grouped 3x3 "
+                     "(:122-124)",
+         "launches": resnext["int8"]["launches"]["int8_conv_grouped"],
+         "max_abs_err": grouped["max_abs_err"], **numbers(grouped), "library_ms": None},
         # its 4 sites of one batch of 128, summed (launches: phase 3g's main
         # zone and phase 5b's runs)
         {"name": "quantize_act", "route": "cuda", "source": f"{src}/quantize_act.cu",
@@ -5212,6 +5534,19 @@ def main() -> int:
                                                      "bn_backward_narrow"))
                    for m in ("stats", "backward")]},
     ]
+    # each kernel's launches on phase 6's toy-zone run and phase 7's runs
+    # (the resnext main path, bn_fold, int8 and flair)
+    counters = {"fused_tail": "fused_tail", "gather_normalize": "gather_normalize",
+                "conv_epilogue": "conv_epilogue", "int8_conv": "int8_conv",
+                "int8_conv_grouped": "int8_conv_grouped", "quantize_act": "quantize_act",
+                "augment_normalize": "augment_normalize", "weighted_ce": "weighted_ce",
+                "bn_train": "bn_stats"}
+    resnext_runs = [resnext[k]["launches"] for k in ("main", "bn_fold", "int8", "flair")]
+    for kernel in kernels:
+        name = counters.get(kernel["name"])
+        if name:
+            kernel["launches_native_weights"] = native["launches"][name]
+            kernel["launches_resnext"] = sum(run[name] for run in resnext_runs)
     print(json.dumps({"main_path": main_path["stats"], "card": card}))
     print(json.dumps({"class_prob": class_prob["stats"], "card": card}))
     print(json.dumps({"compare_sweep": sweep["results"], "card": card}))
@@ -5244,6 +5579,15 @@ def main() -> int:
                                 for a, r in archs.items()}, "card": card}))
     print(json.dumps({"arch_knobs": {a: {k: v for k, v in r.items() if k != "launches"}
                                      for a, r in arch_knobs.items()}, "card": card}))
+    print(json.dumps({"native_weights": {k: v for k, v in native.items() if k != "launches"},
+                      "card": card}))
+    print(json.dumps({"resnext": {
+        "main": resnext["main"]["stats"], "main_peak_gb": resnext["main"]["peak_gb"],
+        **{k: {f: v for f, v in resnext[k].items() if f != "launches"}
+           for k in ("bn_fold", "int8")},
+        "flair": {k: v for k, v in resnext["flair"].items() if k != "launches"},
+        "launches": {k: resnext[k]["launches"] for k in ("main", "bn_fold", "int8")},
+        "flair_launches": resnext["flair"]["launches"]}, "card": card}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

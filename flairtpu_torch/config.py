@@ -51,8 +51,11 @@ def _coerce_list(value: Any, expected_type: type) -> list:
     return value
 
 
-# encoders of the resnet family the port's models/resnet.py builds
-RESNET_ENCODERS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")
+# encoders of the resnet family the port's models/resnet.py builds: the
+# resnets and the resnexts (flairtpu/models/resnet.py:23-37)
+RESNET_ENCODERS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+                   "resnext50_32x4d", "resnext101_32x4d", "resnext101_32x8d",
+                   "resnext101_32x16d", "resnext101_32x32d", "resnext101_32x48d")
 
 _OUTPUT_TYPES = ("class_prob", "argmax")
 _STITCH_METHODS = ("exact-clipping", "average", "average_weights", "max")
@@ -346,11 +349,10 @@ def validate_detect_config(cfg: dict) -> dict:
     if not os.path.isfile(weights):
         raise ConfigError(f"Model weights file does not exist: {weights}")
     ext = os.path.splitext(str(weights))[1]
-    if ext in (".msgpack", ".flax"):
-        raise not_ported("native .msgpack/.flax weights", "a later slice; use .pth")
-    if ext not in (".pth", ".pt", ".ckpt"):
+    if ext not in (".pth", ".pt", ".ckpt", ".msgpack", ".flax"):
         raise ConfigError(
-            f"Model weights should be a .pth/.pt/.ckpt (torch) file. Got {ext!r}")
+            "Model weights should be a .pth/.ckpt (torch) or .msgpack/.flax (native) file. "
+            f"Got {ext!r}")
 
     if cfg["compare"]:
         strat = _require(cfg, "strategies")

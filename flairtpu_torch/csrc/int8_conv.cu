@@ -721,3 +721,213 @@ extern "C" int int8_conv(const void* x, const void* w, const void* deq, const vo
   if (wide) return vec16 ? launch<128, 16>(w, a, s) : launch<128, 8>(w, a, s);
   return vec16 ? launch<64, 16>(w, a, s) : launch<64, 8>(w, a, s);
 }
+
+// ---------------------------------------------------------------------------
+// int8_conv_grouped: the grouped convolution of a ResNeXt's 3x3
+// ---------------------------------------------------------------------------
+//
+// Replaces the same XLA int8 convolution (flairtpu/models/quantize.py:
+// 218-230, _quant_conv with feature_group_count = groups), reached from the
+// encoder walk's grouped 3x3 (:122-124) of the resnext encoders
+// (flairtpu/models/resnet.py:30-37, :192-222), with the same epilogue as
+// the ungrouped entry point above, operation for operation: fma(acc, deq,
+// b), the optional residual, ReLU, float32 and / or the next site's int8.
+//
+// Each output channel n of group g = n / cog sums over the cg = Cp / groups
+// input channels of its group only: K = kh * kw * cg, 36 at resnext50's
+// first stage (cg 4), 288 at its last (cg 32). Such a K is far too short for
+// wgmma's 64 x N x 32 tiles over one group, so this kernel uses __dp4a:
+// one instruction multiplies 4 int8 channels of one group by 4 weights and
+// adds them to an int32 sum, and every group of the resnexts has a multiple
+// of 4 channels. Bound on an H100: at most 288 multiply-adds an output
+// value (cg 32) against 1 byte of input and 1 or 5 bytes of output, so at
+// the card's int8 rate every site is bound by HBM; dp4a's own rate on
+// Hopper is lower and not published.
+//
+// Design (simple; the wgmma form of a grouped GEMM is later work). A block
+// owns a run of 32 output pixels of one output row and a slab of whole
+// groups, about 256 output channels (the groups' input channels with
+// them). It first stages the input its run needs, kh rows by the run's
+// input columns by the slab's channels, in shared memory (zeros outside
+// the image), by 16-byte loads where the slab and the pixel pitch allow,
+// else 4-byte ones; neighbouring threads load neighbouring chunks, so a
+// warp reads whole lines. Then a thread takes 4 neighbouring pixels and 4
+// output channels of one group at a time: for each tap and run of 4 of
+// the group's channels, one 16-byte load of the 4 channels' packed weights
+// (through L1: a slab's weights are 4.5-72 KB at resnext50) and, for each
+// pixel, one 4-byte shared-memory word, into 4 dp4a. A warp's 32 threads
+// hold 32 neighbouring 4-channel runs, so their shared-memory words are
+// distinct banks or one broadcast. The weights are packed (kh * kw,
+// cg / 4, Co, 4) by ops/int8_conv.py. The int32 sums are exact (K * 127^2 < 2^31).
+
+namespace {
+
+constexpr int kGroupedRun = 32;      // output pixels a block, along one row
+constexpr int kGroupedPixels = 4;    // output pixels a thread, along the run
+constexpr int kGroupedThreads = 256;
+constexpr int kSlabChannels = 256;   // output channels a block, in whole groups
+
+struct GroupedArgs {
+  const int8_t* x;     // (B, H, W, Cp)
+  const int4* w;       // (kh * kw, cg / 4, Co / 4) of 4 output channels' words
+  const float* deq;
+  const float* bias;
+  const float* res;    // (M, Co) or null
+  float* out32;        // (M, Co) or null
+  int8_t* outq;        // (M, Co) or null
+  float inv_sx;
+  int H, W, Cp, Ho, Wo, Co, kh, kw, stride, pad, dil, cg, cog, relu;
+  int slab_groups;     // groups a block
+  int n_slabs;         // blocks along the channels
+  int cols;            // input columns a run stages: (kGroupedRun - 1) * stride + dil * (kw - 1) + 1
+  int vec16;           // stage by 16-byte loads
+};
+
+__global__ void __launch_bounds__(kGroupedThreads) int8_conv_grouped_kernel(const GroupedArgs a) {
+  extern __shared__ __align__(16) int8_t tile[];  // (kh, cols, slab input channels)
+  const int slab = blockIdx.x % a.n_slabs;
+  const int run0 = blockIdx.x / a.n_slabs * kGroupedRun;  // first output column
+  const int oy = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int g0 = slab * a.slab_groups;
+  const int slab_groups = min(a.slab_groups, a.Cp / a.cg - g0);
+  const int in_ch = slab_groups * a.cg, c0 = g0 * a.cg;  // the slab's input channels
+  const int ix0 = run0 * a.stride - a.pad;
+  // stage the input of the run: (kh, cols, in_ch), zeros outside the image
+  // (16-byte loads unless the slab, the last one of fewer groups included,
+  // is not whole 16-byte chunks)
+  if (a.vec16 && (in_ch & 15) == 0) {
+    const int per = in_ch >> 4, n = a.kh * a.cols * per;
+    for (int i = threadIdx.x; i < n; i += kGroupedThreads) {
+      const int v = i % per, rc = i / per, c = rc % a.cols, r = rc / a.cols;
+      const int iy = oy * a.stride - a.pad + r * a.dil, ix = ix0 + c;
+      int4 val = make_int4(0, 0, 0, 0);
+      if (iy >= 0 && iy < a.H && ix >= 0 && ix < a.W)
+        val = __ldg(reinterpret_cast<const int4*>(a.x + ((b * a.H + iy) * a.W + ix) * a.Cp + c0) + v);
+      reinterpret_cast<int4*>(tile)[i] = val;
+    }
+  } else {
+    const int per = in_ch >> 2, n = a.kh * a.cols * per;
+    for (int i = threadIdx.x; i < n; i += kGroupedThreads) {
+      const int v = i % per, rc = i / per, c = rc % a.cols, r = rc / a.cols;
+      const int iy = oy * a.stride - a.pad + r * a.dil, ix = ix0 + c;
+      int val = 0;
+      if (iy >= 0 && iy < a.H && ix >= 0 && ix < a.W)
+        val = __ldg(reinterpret_cast<const int*>(a.x + ((b * a.H + iy) * a.W + ix) * a.Cp + c0) + v);
+      reinterpret_cast<int*>(tile)[i] = val;
+    }
+  }
+  __syncthreads();
+  const int* words = reinterpret_cast<const int*>(tile);
+  const int steps = a.cg >> 2, c4n = a.Co >> 2, px_words = in_ch >> 2;
+  const int row_words = a.cols * px_words;   // words a staged row
+  const int pitch = a.stride * px_words;     // words between neighbouring output pixels
+  const int out4 = slab_groups * a.cog >> 2;  // 4-channel runs of the slab's outputs
+  const int items = kGroupedRun / kGroupedPixels * out4;
+  for (int item = threadIdx.x; item < items; item += kGroupedThreads) {
+    const int q = item / out4, l4 = item % out4;  // pixel quad of the run, 4-channel run
+    const int co = g0 * a.cog + 4 * l4;
+    const int px0 = q * kGroupedPixels;
+    if (run0 + px0 >= a.Wo) continue;
+    const int first = px0 * pitch + (4 * l4 / a.cog) * steps;  // the group's first word
+    int acc[kGroupedPixels][4];
+#pragma unroll
+    for (int p = 0; p < kGroupedPixels; ++p)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][e] = 0;
+    for (int ky = 0; ky < a.kh; ++ky) {
+      for (int kx = 0; kx < a.kw; ++kx) {
+        const int base = first + ky * row_words + kx * a.dil * px_words;
+        const int4* wt = a.w + (ky * a.kw + kx) * steps * c4n + (co >> 2);
+        for (int j = 0; j < steps; ++j) {
+          const int4 wv = __ldg(wt + j * c4n);
+#pragma unroll
+          for (int p = 0; p < kGroupedPixels; ++p) {
+            const int xv = words[base + p * pitch + j];
+            acc[p][0] = __dp4a(xv, wv.x, acc[p][0]);
+            acc[p][1] = __dp4a(xv, wv.y, acc[p][1]);
+            acc[p][2] = __dp4a(xv, wv.z, acc[p][2]);
+            acc[p][3] = __dp4a(xv, wv.w, acc[p][3]);
+          }
+        }
+      }
+    }
+    const float4 d = *reinterpret_cast<const float4*>(a.deq + co);
+    const float4 bb = *reinterpret_cast<const float4*>(a.bias + co);
+#pragma unroll
+    for (int p = 0; p < kGroupedPixels; ++p) {
+      const int ox = run0 + px0 + p;
+      if (ox >= a.Wo) break;
+      const long long o = ((b * a.Ho + oy) * a.Wo + ox) * a.Co + co;
+      float v[4] = {__fmaf_rn(__int2float_rn(acc[p][0]), d.x, bb.x),
+                    __fmaf_rn(__int2float_rn(acc[p][1]), d.y, bb.y),
+                    __fmaf_rn(__int2float_rn(acc[p][2]), d.z, bb.z),
+                    __fmaf_rn(__int2float_rn(acc[p][3]), d.w, bb.w)};
+      if (a.res) {
+        const float4 rv = __ldcs(reinterpret_cast<const float4*>(a.res + o));
+        v[0] = __fadd_rn(v[0], rv.x);
+        v[1] = __fadd_rn(v[1], rv.y);
+        v[2] = __fadd_rn(v[2], rv.z);
+        v[3] = __fadd_rn(v[3], rv.w);
+      }
+      if (a.relu) {  // NaN passes, as jax.nn.relu
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = v[e] < 0.f ? 0.f : v[e];
+      }
+      if (a.out32) *reinterpret_cast<float4*>(a.out32 + o) = make_float4(v[0], v[1], v[2], v[3]);
+      if (a.outq) {
+        char4 q4;
+        q4.x = quantize(v[0], a.inv_sx);
+        q4.y = quantize(v[1], a.inv_sx);
+        q4.z = quantize(v[2], a.inv_sx);
+        q4.w = quantize(v[3], a.inv_sx);
+        *reinterpret_cast<char4*>(a.outq + o) = q4;
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// x: (batch, H, W, cp) int8, 4-byte aligned; w: (kh * kw, cp / groups / 4,
+// co, 4) int8 packed, 16-byte aligned; deq, bias: co float32, 16-byte
+// aligned; res: (batch * ho * wo, co) float32 or null; out32: the same
+// shape float32 or null; outq: the same shape int8 or null (at least one
+// output). cp and co multiples of groups, with a multiple of 4 channels a
+// group on either side. res and out32 16-byte aligned, outq 4. Returns
+// cudaGetLastError() after the launch, or an error where the staged input
+// of a block does not fit in shared memory.
+extern "C" int int8_conv_grouped(const void* x, const void* w, const void* deq, const void* bias,
+                                 const void* res, void* out32, void* outq, float inv_sx,
+                                 int batch, int H, int W, int cp, int ho, int wo, int co, int kh,
+                                 int kw, int stride, int pad, int dil, int groups, int relu,
+                                 void* stream) {
+  if (batch < 0 || H < 1 || W < 1 || ho < 0 || wo < 0 || kh < 1 || kw < 1 || groups < 1 ||
+      cp % groups || co % groups || (cp / groups) % 4 || (co / groups) % 4 || cp < 4 ||
+      co < 4 || stride < 1 || dil < 1 || pad < 0 || (!out32 && !outq) || !aligned(x, 4) ||
+      !aligned(w, 16) || !aligned(deq, 16) || !aligned(bias, 16) || !aligned(res, 16) ||
+      !aligned(out32, 16) || !aligned(outq, 4) || batch > 65535 || ho > 65535)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)batch * ho * wo == 0) return (int)cudaSuccess;
+  const int cg = cp / groups, cog = co / groups;
+  const int slab_groups = cog >= kSlabChannels ? 1 : kSlabChannels / cog;
+  const int n_slabs = (groups + slab_groups - 1) / slab_groups;
+  const int cols = (kGroupedRun - 1) * stride + dil * (kw - 1) + 1;
+  const long long smem = (long long)kh * cols * slab_groups * cg;
+  const int runs = (wo + kGroupedRun - 1) / kGroupedRun;
+  if (smem > 227 * 1024 || (long long)runs * n_slabs > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  // 16-byte staging: whole 16-byte chunks of the slab at 16-byte addresses
+  const int vec16 = (slab_groups * cg) % 16 == 0 && cp % 16 == 0 && aligned(x, 16);
+  const GroupedArgs a{static_cast<const int8_t*>(x), static_cast<const int4*>(w),
+                      static_cast<const float*>(deq), static_cast<const float*>(bias),
+                      static_cast<const float*>(res), static_cast<float*>(out32),
+                      static_cast<int8_t*>(outq), inv_sx, H, W, cp, ho, wo, co, kh, kw, stride,
+                      pad, dil, cg, cog, relu, slab_groups, n_slabs, cols, vec16};
+  cudaError_t err = cudaFuncSetAttribute(int8_conv_grouped_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(runs * n_slabs), (unsigned)ho, (unsigned)batch);
+  int8_conv_grouped_kernel<<<grid, kGroupedThreads, (size_t)smem,
+                             static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}

@@ -1,16 +1,21 @@
-"""Weight loading (counterpart of ``flairtpu/models/convert.py:25-37`` and the
-inverse of its ``torch_to_flax`` for the resnet encoders, the unet,
+"""Weight loading (counterpart of ``flairtpu/models/convert.py:25-37`` and of
+its ``torch_to_flax`` for the resnet and resnext encoders, the unet,
 unetplusplus, manet, deeplabv3plus, deeplabv3, fpn, pspnet, linknet and pan
-decoders (``:158-177, 655-845``) and the metadata-MLP keys).
+decoders (``:158-177, 655-845``) and the metadata-MLP keys, both ways).
 
 The port's modules carry smp's key names, so an smp ``.pth`` state dict (or a
 Lightning ``.ckpt`` after ``normalize_keys``) loads into it strictly as it
 is. ``from_flax`` brings ``flairtpu``'s Flax variables, as numpy arrays, into
-the port's ``state_dict``.
+the port's ``state_dict``, and ``to_flax`` takes a state dict back to the
+tree ``flairtpu``'s ``any_state_dict_to_flax`` makes of it. ``flairtpu``'s
+native weights (``.msgpack`` / ``.flax``: ``{"params", "batch_stats"}`` in
+flax's msgpack form, ``flairtpu/train/checkpoints.py:195-222``) are read
+and written through ``io/msgpack.py``.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from pathlib import Path
 from typing import Mapping
@@ -18,7 +23,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from flairtpu_torch.config import not_ported
+from flairtpu_torch.io import msgpack
+
+NATIVE_SUFFIXES = (".msgpack", ".flax")
 
 
 def load_torch_state_dict(path: str | Path) -> dict[str, np.ndarray]:
@@ -45,10 +52,13 @@ def normalize_keys(sd: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
 
 
 def load_weights(model: torch.nn.Module, path: str | Path) -> None:
-    """Strict load of smp-keyed torch weights into ``model`` (the analog of
-    the reference's ``load_state_dict(strict=True)``)."""
-    if str(path).endswith((".msgpack", ".flax")):
-        raise not_ported("native .msgpack/.flax weights", "a later slice; use .pth")
+    """Strict load of smp-keyed torch weights, or of ``flairtpu``'s native
+    ``.msgpack`` / ``.flax`` weights through :func:`from_flax`, into
+    ``model`` (the analog of the reference's ``load_state_dict(strict=True)``;
+    ``flairtpu/train/checkpoints.py:205-222``)."""
+    if str(path).endswith(NATIVE_SUFFIXES):
+        model.load_state_dict(from_flax(*read_native(path), model.arch), strict=True)
+        return
     sd = normalize_keys(load_torch_state_dict(path))
     sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()
           if not k.startswith(("criterion.", "optimizer."))}
@@ -152,14 +162,21 @@ def _leaves(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def from_flax(params: Mapping, batch_stats: Mapping, arch: str = "unet") -> dict[str, torch.Tensor]:
+def from_flax(params: Mapping, batch_stats: Mapping, arch: str = "unet",
+              skip_unknown: bool = False) -> dict[str, torch.Tensor]:
     """flairtpu variables (numpy leaves) of a resnet encoder with ``arch``'s
-    decoder, the metadata MLP's included, -> the port's state_dict."""
+    decoder, the metadata MLP's included, -> the port's state_dict. A flax
+    module with no smp key raises, or with ``skip_unknown`` is left out."""
     sd: dict[str, torch.Tensor] = {}
     for coll, tree in (("params", params), ("batch_stats", batch_stats)):
         for path, value in _leaves(tree):
-            prefix = _module_prefix(path[:-1], arch)
-            arr = np.asarray(value, dtype=np.float32)
+            try:
+                prefix = _module_prefix(path[:-1], arch)
+            except KeyError:
+                if skip_unknown:
+                    continue
+                raise
+            arr = np.array(value, dtype=np.float32)  # a writable copy
             if path[-2:] == ("convt", "kernel"):
                 # linknet's transposed conv: flax keeps torch's (I, O, kH, kW)
                 # flipped and transposed to (kH, kW, I, O) (smp_extra.py:158-172)
@@ -171,3 +188,91 @@ def from_flax(params: Mapping, batch_stats: Mapping, arch: str = "unet") -> dict
             if coll == "batch_stats" and path[-1] == "mean":
                 sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return sd
+
+
+def read_native(path: str | Path) -> tuple[dict, dict]:
+    """(params, batch_stats) of a native ``.msgpack`` / ``.flax`` file
+    (``flairtpu``'s ``load_weights_msgpack``); a ``ValueError`` for a file
+    that is not flax's msgpack form of such a tree."""
+    tree = msgpack.unpackb(Path(path).read_bytes())
+    if not isinstance(tree, dict) or not isinstance(tree.get("params"), dict):
+        raise ValueError(f"{path}: not a native weights file (a msgpack map with 'params')")
+    stats = tree.get("batch_stats", {})
+    if not isinstance(stats, dict):
+        raise ValueError(f"{path}: its 'batch_stats' is not a map")
+    return tree["params"], stats
+
+
+_DECODER_INV = {arch: {v: k for k, v in keys.items()} for arch, keys in _DECODER_KEYS.items()}
+_DEC_SUB_INV = {v: k for k, v in _DEC_SUB.items()}
+_ENC_SUB_INV = {v: k for k, v in _ENC_SUB.items()}
+_SMP_LAYER_RE = re.compile(r"^layer(\d+)\.(\d+)\.(.+)$")
+_SMP_DEC_BLOCK_RE = re.compile(r"^blocks\.(\d+|x_\d+_\d+)\.(conv[12]\.[01])$")
+_SMP_MLP_RE = re.compile(r"^enc\.enc_mlp\.(\d+)$")
+
+
+def _flax_module(prefix: str, arch: str = "unet") -> tuple[str, ...]:
+    """smp module prefix -> flax module path: the inverse of :func:`_module_prefix`."""
+    top, _, rest = prefix.partition(".")
+    if top == "decoder":
+        if rest in _DECODER_INV.get(arch, {}):
+            return ("decoder", *_DECODER_INV[arch][rest].split("/"))
+        m = _SMP_DEC_BLOCK_RE.match(rest)
+        if m:
+            block = m.group(1)
+            return ("decoder", f"block{block}" if block.isdigit() else block,
+                    _DEC_SUB_INV[m.group(2)])
+    if top == "encoder":
+        if rest in ("conv1", "bn1"):
+            return ("encoder", rest)
+        m = _SMP_LAYER_RE.match(rest)
+        if m:
+            return ("encoder", f"layer{m.group(1)}_{m.group(2)}",
+                    _ENC_SUB_INV.get(m.group(3), m.group(3)))
+    if prefix == "segmentation_head.0":
+        return ("segmentation_head", "conv")
+    m = _SMP_MLP_RE.match(prefix)
+    if m and int(m.group(1)) % 3 == 0:
+        return ("metadata_mlp", f"fc{int(m.group(1)) // 3}")
+    raise KeyError(f"no flax module for smp module {prefix!r}")
+
+
+def to_flax(state_dict: Mapping, arch: str = "unet") -> dict[str, dict]:
+    """The port's (or an smp) state dict -> ``{"params", "batch_stats"}`` of
+    float32 numpy leaves, as ``flairtpu``'s ``any_state_dict_to_flax`` maps
+    it (``flairtpu/models/convert.py:209-866``): the exact inverse of
+    :func:`from_flax`. Conv kernels (O, I, kh, kw) -> (kh, kw, I, O), dense
+    (O, I) -> (I, O), a norm's weight -> its scale, running statistics ->
+    ``batch_stats``; linknet's transposed kernel (I, O, kh, kw) flipped to
+    (kh, kw, I, O); BatchNorm counters dropped."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        prefix, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        path = _flax_module(prefix, arch)
+        arr = np.asarray(value.detach().cpu() if isinstance(value, torch.Tensor) else value,
+                         dtype=np.float32)
+        if leaf == "weight" and path[-1] == "convt":
+            coll, name, arr = "params", "kernel", arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+        elif leaf == "weight":
+            coll, name = ("params", "scale") if arr.ndim == 1 else ("params", "kernel")
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T if arr.ndim == 2 else arr
+        else:
+            coll, name = {"bias": ("params", "bias"), "running_mean": ("batch_stats", "mean"),
+                          "running_var": ("batch_stats", "var")}[leaf]
+        node = out[coll]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(arr)
+    return out
+
+
+def write_native(path: str | Path, state_dict: Mapping, arch: str = "unet") -> None:
+    """``{"params", "batch_stats"}`` of :func:`to_flax` written as flax's
+    msgpack (``flairtpu``'s ``save_weights_msgpack``), through a temporary
+    name and an atomic rename."""
+    path = Path(path)
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    tmp.write_bytes(msgpack.packb(to_flax(state_dict, arch)))
+    tmp.replace(path)

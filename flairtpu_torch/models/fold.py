@@ -63,14 +63,18 @@ def fold_bn(weight: torch.Tensor, bn: nn.BatchNorm2d) -> dict:
 
 
 def fold_encoder(encoder: nn.Module) -> dict:
-    """The folded sites of a ResNet encoder (``quantize.py:65-88``)."""
+    """The folded sites of a ResNet encoder (``quantize.py:65-88``); a
+    grouped conv's site carries its ``groups``."""
     out = {"stem": fold_bn(encoder.conv1.weight, encoder.bn1)}
     for s in range(1, encoder.n_stages + 1):
         for u, blk in enumerate(getattr(encoder, f"layer{s}")):
             for i in (1, 2, 3):
                 if hasattr(blk, f"conv{i}"):
-                    out[f"layer{s}_{u}/conv{i}"] = fold_bn(getattr(blk, f"conv{i}").weight,
-                                                          getattr(blk, f"bn{i}"))
+                    conv = getattr(blk, f"conv{i}")
+                    site = out[f"layer{s}_{u}/conv{i}"] = fold_bn(conv.weight,
+                                                                 getattr(blk, f"bn{i}"))
+                    if conv.groups > 1:
+                        site["groups"] = conv.groups
             if blk.downsample is not None:
                 out[f"layer{s}_{u}/downsample"] = fold_bn(blk.downsample[0].weight,
                                                          blk.downsample[1])
@@ -89,8 +93,9 @@ def walk_features(spec: str, ops, x, output_stride: int = 32, depth: int = 5) ->
     """The pyramid [x, f1..f_depth] of the ResNet encoder ``spec`` at
     ``output_stride`` (dilated last stages, whose strides are 1 and whose
     3x3 convs pad by their dilation) and ``depth`` (stages 1..depth - 1)
-    through ``ops`` (``quantize.py:95-138``, its laws)."""
-    kind, units = RESNET_SPECS[spec]
+    through ``ops`` (``quantize.py:95-138``, its laws; a ResNeXt's 3x3 is
+    grouped)."""
+    kind, units, groups, _ = RESNET_SPECS[spec]
     expansion = 1 if kind == "basic" else 4
     dilations = STAGE_DILATIONS[output_stride]
     blocks, in_ch = [], 64  # (stage, name, stride, dilation, has a downsample)
@@ -109,15 +114,16 @@ def walk_features(spec: str, ops, x, output_stride: int = 32, depth: int = 5) ->
     feats.append(y)
     y = ops.pool(y)
     for k, (stage, name, s, d, ds) in enumerate(blocks):
-        # (conv, stride, padding, dilation): basic 3x3 / 3x3, bottleneck 1x1 / 3x3 / 1x1
-        convs = ([("conv1", s, d, d), ("conv2", 1, d, d)] if kind == "basic" else
-                 [("conv1", 1, 0, 1), ("conv2", s, d, d), ("conv3", 1, 0, 1)])
+        # (conv, stride, padding, dilation, groups): basic 3x3 / 3x3,
+        # bottleneck 1x1 / 3x3 (grouped) / 1x1
+        convs = ([("conv1", s, d, d, 1), ("conv2", 1, d, d, 1)] if kind == "basic" else
+                 [("conv1", 1, 0, 1, 1), ("conv2", s, d, d, groups), ("conv3", 1, 0, 1, 1)])
         z = y
-        for (conv, stride, pad, dil), (after, *_) in zip(convs, convs[1:]):
+        for (conv, stride, pad, dil, g), (after, *_) in zip(convs, convs[1:]):
             z = ops.conv(f"{name}/{conv}", z, stride, pad, keep=False, feeds=f"{name}/{after}",
-                         dilation=dil)
+                         dilation=dil, groups=g)
         identity = ops.downsample(f"{name}/downsample", y, s) if ds else y
-        last, _, pad, dil = convs[-1]
+        last, _, pad, dil, _ = convs[-1]
         nxt = f"{blocks[k + 1][1]}/conv1" if k + 1 < len(blocks) else None
         y = ops.conv(f"{name}/{last}", z, 1, pad, residual=identity, feeds=nxt, dilation=dil)
         if k + 1 == len(blocks) or blocks[k + 1][0] != stage:
@@ -179,17 +185,18 @@ class FloatSites:
         self.sites, self.dtype, self.epilogue = sites, dtype, epilogue
 
     def _conv(self, name: str, x: torch.Tensor, stride: int, padding: int,
-              dilation: int = 1) -> torch.Tensor:
-        y = F.conv2d(x.to(self.dtype), self.sites[name]["w"], None, stride, padding, dilation)
+              dilation: int = 1, groups: int = 1) -> torch.Tensor:
+        y = F.conv2d(x.to(self.dtype), self.sites[name]["w"], None, stride, padding, dilation,
+                     groups)
         return y.contiguous(memory_format=torch.channels_last)
 
     def conv(self, name: str, x, stride: int, padding: int, relu: bool = True, residual=None,
-             keep: bool = True, feeds: str | None = None, dilation: int = 1):
+             keep: bool = True, feeds: str | None = None, dilation: int = 1, groups: int = 1):
         c = self.sites[name]
         branch = residual if isinstance(residual, tuple) else None
         residual = None if branch is not None else residual
-        out, _ = self.epilogue(self._conv(name, x, stride, padding, dilation), c["one"], c["b"],
-                               residual=residual, branch=branch, relu=relu)
+        out, _ = self.epilogue(self._conv(name, x, stride, padding, dilation, groups), c["one"],
+                               c["b"], residual=residual, branch=branch, relu=relu)
         return out
 
     def downsample(self, name: str, x, stride: int) -> tuple:

@@ -81,10 +81,10 @@ class CalibrationSites:
         self.sites, self.maxes, self.prefix = sites, maxes, prefix
 
     def conv(self, name, x, stride, padding, relu=True, residual=None, keep=True, feeds=None,
-             dilation=1):
+             dilation=1, groups=1):
         self.maxes[self.prefix + name] = x.abs().amax()
         c = self.sites[name]
-        y = F.conv2d(x, c["w"], None, stride, padding, dilation) + c["b"][:, None, None]
+        y = F.conv2d(x, c["w"], None, stride, padding, dilation, groups) + c["b"][:, None, None]
         if residual is not None:
             y = y + residual
         return torch.relu(y) if relu else y
@@ -138,18 +138,29 @@ def quantize_folded(folded: dict, act_max: dict) -> dict:
             wq = torch.clamp(torch.round(w / sw[:, None, None, None]), -127, 127)
             sx = float(np.float32(max(float(act_max[name]), 1e-12) / 127.0))
             qp[name] = Int8ConvParams(wq.to(torch.int8), sx, (sw * sx).float(),
-                                      c["b"].float().contiguous())
+                                      c["b"].float().contiguous(), c.get("groups", 1))
     return qp
 
 
-def qparams_from_numpy(qparams: dict, device="cpu") -> dict:
+def site_groups(spec: str) -> dict:
+    """{site: groups} of the grouped sites of ``spec``'s walk: a ResNeXt's
+    3x3s (``layer{s}_{u}/conv2``); none for a ResNet."""
+    kind, units, groups, _ = RESNET_SPECS[spec]
+    if groups == 1:
+        return {}
+    return {f"layer{s + 1}_{u}/conv2": groups for s, n in enumerate(units) for u in range(n)}
+
+
+def qparams_from_numpy(qparams: dict, device="cpu", groups: dict | None = None) -> dict:
     """``flairtpu``'s qparams ({site: {"wq": HWIO int8, "sx", "deq", "b"}} as
-    numpy) -> {site: Int8ConvParams}: the same scales for both packages."""
+    numpy) -> {site: Int8ConvParams}: the same scales for both packages;
+    ``groups``: {site: groups} of the grouped sites (:func:`site_groups`)."""
+    groups = groups or {}
     return {name: Int8ConvParams(
         torch.from_numpy(np.array(c["wq"], np.int8)).permute(3, 2, 0, 1).contiguous()
         .to(device), float(np.float32(c["sx"])),
         torch.from_numpy(np.array(c["deq"], np.float32)).to(device),
-        torch.from_numpy(np.array(c["b"], np.float32)).to(device))
+        torch.from_numpy(np.array(c["b"], np.float32)).to(device), groups.get(name, 1))
         for name, c in qparams.items()}
 
 
@@ -188,12 +199,14 @@ class MixedSites:
         self.int8_conv, self.quantize_act = conv, quantize
 
     def conv(self, name, x: Act, stride, padding, relu=True, residual=None, keep=True,
-             feeds=None, dilation=1) -> Act:
+             feeds=None, dilation=1, groups=1) -> Act:
         p = self.qparams.get(name)
         if p is None:
             return Act(self.floats.conv(name, x.value, stride, padding, relu,
                                         None if residual is None else residual.value,
-                                        dilation=dilation))
+                                        dilation=dilation, groups=groups))
+        if p.groups != groups:
+            raise ValueError(f"int8 site {name}: {p.groups} groups, the walk has {groups}")
         if x.q is not None and x.sx == p.sx:
             q = x.q
         else:

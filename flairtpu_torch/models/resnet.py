@@ -1,6 +1,8 @@
-"""ResNet encoders, torchvision topology with smp's key names
+"""ResNet and ResNeXt encoders, torchvision topology with smp's key names
 (counterpart of ``flairtpu/models/resnet.py:165-297``), with smp's
-``output_stride`` (dilated last stages) and ``depth`` (fewer stages).
+``output_stride`` (dilated last stages) and ``depth`` (fewer stages). A
+ResNeXt is the bottleneck ResNet with a grouped 3x3 (``groups`` groups of
+``base_width * 2**stage`` channels).
 
 Parameters are float32. Convolutions run in the model's compute dtype
 (bfloat16 on the card, float32 on the CPU) and BatchNorm in float32 on the
@@ -26,14 +28,27 @@ import torch.nn.functional as F
 from flairtpu_torch.ops.bn_train import TrainSites
 from flairtpu_torch.ops.epilogue import conv_epilogue
 
-# block kind and units per stage (torchvision layer specs)
+# block kind, units per stage, groups and width per group (torchvision
+# layer specs; flairtpu/models/resnet.py:23-37, the resnext101 ladder smp
+# registers)
 RESNET_SPECS = {
-    "resnet18": ("basic", (2, 2, 2, 2)),
-    "resnet34": ("basic", (3, 4, 6, 3)),
-    "resnet50": ("bottleneck", (3, 4, 6, 3)),
-    "resnet101": ("bottleneck", (3, 4, 23, 3)),
-    "resnet152": ("bottleneck", (3, 8, 36, 3)),
+    "resnet18": ("basic", (2, 2, 2, 2), 1, 64),
+    "resnet34": ("basic", (3, 4, 6, 3), 1, 64),
+    "resnet50": ("bottleneck", (3, 4, 6, 3), 1, 64),
+    "resnet101": ("bottleneck", (3, 4, 23, 3), 1, 64),
+    "resnet152": ("bottleneck", (3, 8, 36, 3), 1, 64),
+    "resnext50_32x4d": ("bottleneck", (3, 4, 6, 3), 32, 4),
+    "resnext101_32x4d": ("bottleneck", (3, 4, 23, 3), 32, 4),
+    "resnext101_32x8d": ("bottleneck", (3, 4, 23, 3), 32, 8),
+    "resnext101_32x16d": ("bottleneck", (3, 4, 23, 3), 32, 16),
+    "resnext101_32x32d": ("bottleneck", (3, 4, 23, 3), 32, 32),
+    "resnext101_32x48d": ("bottleneck", (3, 4, 23, 3), 32, 48),
 }
+
+
+def bottleneck_width(features: int, groups: int = 1, base_width: int = 64) -> int:
+    """A bottleneck's inner width (``flairtpu/models/resnet.py:207``)."""
+    return int(features * base_width / 64) * groups
 
 BN_EPS = 1e-5  # torch nn.BatchNorm2d default, as flairtpu/models/resnet.py:40
 
@@ -140,18 +155,23 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1x1-3x3-1x1 with 4x expansion (torchvision Bottleneck, groups 1)."""
+    """1x1-3x3-1x1 with 4x expansion (torchvision Bottleneck); ResNeXt by
+    ``groups`` and ``base_width``: the 3x3 is grouped, its width
+    :func:`bottleneck_width`."""
 
     expansion = 4
 
-    def __init__(self, in_ch: int, width: int, stride: int = 1,
-                 downsample: bool = False, dtype=torch.float32, dilation: int = 1):
+    def __init__(self, in_ch: int, features: int, stride: int = 1,
+                 downsample: bool = False, dtype=torch.float32, dilation: int = 1,
+                 groups: int = 1, base_width: int = 64):
         super().__init__()
         self.dtype = dtype
-        out = width * self.expansion
+        out = features * self.expansion
+        width = bottleneck_width(features, groups, base_width)
         self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False)
         self.bn1 = bn2d(width)
-        self.conv2 = nn.Conv2d(width, width, 3, stride, dilation, dilation, bias=False)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, dilation, dilation, groups=groups,
+                               bias=False)
         self.bn2 = bn2d(width)
         self.conv3 = nn.Conv2d(width, out, 1, bias=False)
         self.bn3 = bn2d(out)
@@ -220,8 +240,9 @@ class ResNetEncoder(nn.Module):
         super().__init__()
         self.s2d_stem = s2d_stem
         self.output_stride, self.depth = output_stride, depth
-        kind, units = RESNET_SPECS[name]
+        kind, units, groups, base_width = RESNET_SPECS[name]
         block = BasicBlock if kind == "basic" else Bottleneck
+        grouping = {} if kind == "basic" else dict(groups=groups, base_width=base_width)
         dilations = STAGE_DILATIONS[output_stride]
         self.dtype = dtype
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
@@ -236,7 +257,7 @@ class ResNetEncoder(nn.Module):
                 first = u == 0
                 needs_ds = first and (stage > 0 or in_ch != width * block.expansion)
                 blocks.append(block(in_ch, width, stride if first else 1,
-                                    needs_ds, dtype=dtype, dilation=dilation))
+                                    needs_ds, dtype=dtype, dilation=dilation, **grouping))
                 in_ch = width * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         self.n_stages = min(depth - 1, len(units))

@@ -29,6 +29,13 @@ cp.async gathers or by im2col TMA boxes of 128- or 64-byte rows. The
 wrapper picks one per site and checks what it needs of the operands on
 either device: channels_last, and the bases the loads, the weights' TMA
 map and the 16-byte epilogue accesses need (:func:`_check`).
+
+A grouped site (a ResNeXt's 3x3, ``Int8ConvParams.groups`` > 1) goes to
+the second entry point, :func:`int8_conv_grouped` (``int8_conv_grouped``
+in the same source): ``__dp4a`` over 4 int8 channels of one group, each
+output channel summing over its group's channels only, with the same
+epilogue. Its weights are packed (kh * kw, Cg / 4, Co, 4); it counts its
+launches in ``grouped_launches``.
 """
 
 from __future__ import annotations
@@ -44,28 +51,42 @@ from flairtpu_torch.ops.quantize_act import inverse_scale, padded_channels, quan
 
 ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_int] * 14
             + [ctypes.c_void_p, ctypes.c_int])
+GROUPED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_int] * 14
+                    + [ctypes.c_void_p])
 K_CHUNK = 32  # bytes of K per wgmma step: the packed rows' multiple
 
-# kernel launches on CUDA tensors since the last reset (the CPU path does not count)
+# kernel launches on CUDA tensors since the last reset (the CPU path does not
+# count): the ungrouped entry point's, and the grouped one's
 launches = 0
+grouped_launches = 0
 
 
 @dataclass
 class Int8ConvParams:
-    """One int8 site: weights (Co, Ci, kh, kw) int8 and their per-channel
-    dequantize factor ``deq`` = sw * sx and bias ``b`` (float32), with the
-    input's scale ``sx`` (a float32 value). ``packed`` is the kernel's
-    (Co, Kp) copy: row co holds tap-major, channel-minor weights over
-    :func:`padded_channels` channels, zero past Ci and past K."""
+    """One int8 site: weights (Co, Ci / groups, kh, kw) int8 and their
+    per-channel dequantize factor ``deq`` = sw * sx and bias ``b``
+    (float32), with the input's scale ``sx`` (a float32 value). ``packed``
+    is the kernel's copy: ungrouped, (Co, Kp), row co holding tap-major,
+    channel-minor weights over :func:`padded_channels` channels, zero past
+    Ci and past K; grouped, (kh * kw, Cg / 4, Co, 4): for each tap and run
+    of 4 of the group's input channels, each output channel's 4 weights."""
 
     wq: torch.Tensor
     sx: float
     deq: torch.Tensor
     b: torch.Tensor
+    groups: int = 1
     packed: torch.Tensor = field(init=False, repr=False)
 
     def __post_init__(self):
         co, ci, kh, kw = self.wq.shape
+        if self.groups > 1:
+            if ci % 4 or co % (4 * self.groups) or (ci * self.groups) % 8:
+                raise ValueError(f"int8_conv: {self.groups} groups of {ci} input and "
+                                 f"{co // self.groups} output channels (multiples of 4)")
+            w = self.wq.permute(2, 3, 1, 0).reshape(kh * kw, ci // 4, 4, co)
+            self.packed = w.permute(0, 1, 3, 2).contiguous()
+            return
         cp = padded_channels(ci)
         k = kh * kw * cp
         w = self.wq.new_zeros((co, kh, kw, cp))
@@ -75,8 +96,9 @@ class Int8ConvParams:
 
     @property
     def in_channels(self) -> int:
-        """Channels of the int8 input the site takes (Ci padded to 8)."""
-        return padded_channels(self.wq.shape[1])
+        """Channels of the int8 input the site takes (Ci padded to 8; a
+        grouped site's Ci, a multiple of 8)."""
+        return padded_channels(self.wq.shape[1] * self.groups)
 
 
 def fma_f32(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -127,11 +149,12 @@ def _out_hw(size: int, k: int, stride: int, padding: int, dilation: int) -> int:
 
 def int8_conv_acc_plain(x: torch.Tensor, p: Int8ConvParams, stride: int, padding: int,
                         dilation: int = 1) -> torch.Tensor:
-    """The int32 sums: x (B, Cp, H, W) int8 -> (B, Co, Ho, Wo) int32."""
+    """The int32 sums: x (B, Cp, H, W) int8 -> (B, Co, Ho, Wo) int32 (each
+    group's output channels over its input channels)."""
     w = p.wq.double()
-    if x.shape[1] != w.shape[1]:  # channels padded to 8: their weights are 0
+    if x.shape[1] != w.shape[1] * p.groups:  # channels padded to 8: their weights are 0
         w = F.pad(w, (0, 0, 0, 0, 0, x.shape[1] - w.shape[1]))
-    acc = F.conv2d(x.double(), w, None, stride, padding, dilation)
+    acc = F.conv2d(x.double(), w, None, stride, padding, dilation, p.groups)
     return acc.to(torch.int32).contiguous(memory_format=torch.channels_last)
 
 
@@ -160,7 +183,8 @@ def _check(x: torch.Tensor, p: Int8ConvParams, residual, out_shape: tuple,
                          f"got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("int8_conv: x must be channels_last")
-    align = 16 if p.in_channels % 16 == 0 else 8  # TMA and 16-byte gathers, or 8-byte ones
+    align = (4 if p.groups > 1  # the grouped kernel's 4-byte loads
+             else 16 if p.in_channels % 16 == 0 else 8)  # TMA and 16-byte gathers, or 8-byte
     if x.data_ptr() % align:
         raise ValueError(f"int8_conv: x must be {align}-byte aligned for its loads")
     if p.packed.data_ptr() % 16:
@@ -170,6 +194,10 @@ def _check(x: torch.Tensor, p: Int8ConvParams, residual, out_shape: tuple,
     for name, t in (("weights", p.packed), ("deq", p.deq), ("b", p.b)):
         if t.device != x.device:
             raise ValueError(f"int8_conv: {name} must be on {x.device}")
+    if p.groups > 1 and any(t.dtype != torch.float32 or not t.is_contiguous()
+                            or t.data_ptr() % 16 for t in (p.deq, p.b)):
+        raise ValueError("int8_conv: a grouped site's deq and b must be contiguous, "
+                         "16-byte aligned float32 (the kernel's 16-byte loads)")
     if residual is not None and (
             residual.dtype != torch.float32 or tuple(residual.shape) != out_shape
             or residual.device != x.device
@@ -181,12 +209,60 @@ def _check(x: torch.Tensor, p: Int8ConvParams, residual, out_shape: tuple,
         raise ValueError("int8_conv: no output asked for (keep_f32 or out_sx)")
 
 
+def _outputs(x: torch.Tensor, shape: tuple, keep_f32: bool, out_sx):
+    out32 = outq = None
+    if keep_f32:
+        out32 = torch.empty(shape, dtype=torch.float32, device=x.device,
+                            memory_format=torch.channels_last)
+    if out_sx is not None:
+        outq = torch.empty(shape, dtype=torch.int8, device=x.device,
+                           memory_format=torch.channels_last)
+    return out32, outq
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def int8_conv_grouped(x: torch.Tensor, p: Int8ConvParams, stride: int, padding: int,
+                      dilation: int = 1, residual: torch.Tensor | None = None,
+                      relu: bool = True, keep_f32: bool = True, out_sx: float | None = None):
+    """:func:`int8_conv` at a grouped site (``p.groups`` > 1), as
+    :func:`int8_conv_plain`. CPU tensors: the plain version. CUDA tensors:
+    the grouped kernel, or an error."""
+    global grouped_launches
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"int8_conv_grouped: unsupported device {x.device}")
+    if p.groups < 2:
+        raise ValueError("int8_conv_grouped: an ungrouped site (int8_conv takes it)")
+    B, _, H, W = x.shape
+    co, _, kh, kw = p.wq.shape
+    ho, wo = (_out_hw(H, kh, stride, padding, dilation), _out_hw(W, kw, stride, padding,
+                                                                 dilation))
+    _check(x, p, residual, (B, co, ho, wo), keep_f32, out_sx)
+    if x.device.type == "cpu":
+        return int8_conv_plain(x, p, stride, padding, dilation, residual, relu, keep_f32,
+                               out_sx)
+    out32, outq = _outputs(x, (B, co, ho, wo), keep_f32, out_sx)
+    err = _build.entry("int8_conv", GROUPED_ARGTYPES, "int8_conv_grouped")(
+        _ptr(x), _ptr(p.packed), _ptr(p.deq), _ptr(p.b), _ptr(residual), _ptr(out32),
+        _ptr(outq), inverse_scale(out_sx) if out_sx is not None else 0.0, B, H, W,
+        p.in_channels, ho, wo, co, kh, kw, stride, padding, dilation, p.groups, int(relu),
+        _build.stream_handle(x))
+    _build.check(err, "int8_conv_grouped")
+    grouped_launches += 1
+    return out32, outq
+
+
 def int8_conv(x: torch.Tensor, p: Int8ConvParams, stride: int, padding: int,
               dilation: int = 1, residual: torch.Tensor | None = None, relu: bool = True,
               keep_f32: bool = True, out_sx: float | None = None):
     """As :func:`int8_conv_plain`. CPU tensors: the plain version. CUDA
-    tensors: the kernel, or an error."""
+    tensors: the kernel (the grouped one for a grouped site), or an error."""
     global launches
+    if p.groups > 1:
+        return int8_conv_grouped(x, p, stride, padding, dilation, residual, relu, keep_f32,
+                                 out_sx)
     if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"int8_conv: unsupported device {x.device}")
     B, _, H, W = x.shape
@@ -197,19 +273,10 @@ def int8_conv(x: torch.Tensor, p: Int8ConvParams, stride: int, padding: int,
     if x.device.type == "cpu":
         return int8_conv_plain(x, p, stride, padding, dilation, residual, relu, keep_f32,
                                out_sx)
-    out32 = outq = None
-    if keep_f32:
-        out32 = torch.empty((B, co, ho, wo), dtype=torch.float32, device=x.device,
-                            memory_format=torch.channels_last)
-    if out_sx is not None:
-        outq = torch.empty((B, co, ho, wo), dtype=torch.int8, device=x.device,
-                           memory_format=torch.channels_last)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    out32, outq = _outputs(x, (B, co, ho, wo), keep_f32, out_sx)
     err = _build.entry("int8_conv", ARGTYPES)(
-        ptr(x), ptr(p.packed), ptr(p.deq), ptr(p.b), ptr(residual), ptr(out32), ptr(outq),
+        _ptr(x), _ptr(p.packed), _ptr(p.deq), _ptr(p.b), _ptr(residual), _ptr(out32),
+        _ptr(outq),
         inverse_scale(out_sx) if out_sx is not None else 0.0, B, H, W, p.in_channels, ho, wo,
         co, kh, kw, stride, padding, dilation, p.packed.shape[1], int(relu),
         _build.stream_handle(x),

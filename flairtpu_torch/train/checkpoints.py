@@ -10,8 +10,12 @@ mode (one kept, and a ``best`` file naming it), ``last`` after every epoch,
 ``state_dict`` (the model's smp-keyed parameters and BatchNorm running
 statistics, on the CPU), and unless ``ckpt_weights_only`` the epoch, the
 epoch's metrics and ``opt_state`` (the learning rate: SGD has no other
-state). ``flairtpu``'s Orbax directories and ``.msgpack`` weights are not
-read (neither package is installed beside the card).
+state). ``flairtpu``'s native ``.msgpack`` / ``.flax`` weights are read
+(``paths.ckpt_model_path`` of a predict-only run or of
+``init_weights_only_from_ckpt``) and written (:func:`save_weights_msgpack`)
+as ``flairtpu`` reads and writes them; its Orbax checkpoint directories are
+not read (Orbax's zstd-compressed OCDBT stores need ``tensorstore``, which
+is not installed beside the card).
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import numpy as np
 import torch
 
 from flairtpu_torch.config import not_ported
-from flairtpu_torch.models.convert import normalize_keys
+from flairtpu_torch.models.convert import (NATIVE_SUFFIXES, from_flax, normalize_keys,
+                                           read_native, write_native)
 
 
 def _cpu(value):
@@ -153,16 +158,18 @@ class StepAutosaver:
             self.dir.rmdir()
 
 
-def load_state_dict_file(path: str | Path) -> dict[str, np.ndarray]:
+def load_state_dict_file(path: str | Path, arch: str = "unet") -> dict[str, np.ndarray]:
     """{smp key: array} of a torch ``.pth``/``.pt``/``.ckpt`` (Lightning
-    wrappers stripped) or of a checkpoint this package wrote."""
+    wrappers stripped), of a checkpoint this package wrote, or of
+    ``flairtpu``'s native ``.msgpack`` / ``.flax`` weights of ``arch`` (its
+    modules that ``arch`` does not have are left out)."""
     p = Path(path)
     if p.is_dir():
         raise not_ported(f"the Orbax checkpoint directory {str(p)!r}",
                          "slice 4 follow-up: checkpoint interchange with flairtpu")
-    if p.suffix in (".msgpack", ".flax"):
-        raise not_ported("native .msgpack/.flax weights",
-                         "slice 4 follow-up: checkpoint interchange with flairtpu")
+    if p.suffix in NATIVE_SUFFIXES:
+        sd = from_flax(*read_native(p), arch, skip_unknown=True)
+        return {k: v.numpy() for k, v in sd.items()}
     obj = torch.load(p, map_location="cpu", weights_only=True)
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
@@ -174,10 +181,11 @@ def init_weights_with_surgery(path: str | Path, model: torch.nn.Module,
                               verbose: bool = True) -> list[str]:
     """Weights-only init tolerating a class-count mismatch
     (``flairtpu/train/checkpoints.py:225-262``; reference
-    flair/main.py:120-138): every model tensor whose key and shape the file
-    has loads; the others (the head when the class counts differ, or keys
-    the file lacks) become zeros. Returns the keys zeroed."""
-    loaded = load_state_dict_file(path)
+    flair/main.py:120-138), from a torch file or native weights: every model
+    tensor whose key and shape the file has loads; the others (the head when
+    the class counts differ, or keys the file lacks) become zeros. Returns
+    the keys zeroed."""
+    loaded = load_state_dict_file(path, getattr(model, "arch", "unet"))
     surgeries = []
     with torch.no_grad():
         for key, t in model.state_dict().items():
@@ -194,6 +202,13 @@ def init_weights_with_surgery(path: str | Path, model: torch.nn.Module,
         for s in surgeries:
             print(f"    - {s}")
     return surgeries
+
+
+def save_weights_msgpack(path: str | Path, model: torch.nn.Module) -> None:
+    """Weights-only native export (``flairtpu``'s ``save_weights_msgpack``,
+    ``checkpoints.py:195-200``): ``{"params", "batch_stats"}`` of ``model``
+    in ``flairtpu``'s tree, loadable by ``flairtpu`` and by ``flair-detect``."""
+    write_native(path, model.state_dict(), getattr(model, "arch", "unet"))
 
 
 def write_history(out_dir: str | Path, history: list[dict]) -> None:

@@ -1,9 +1,12 @@
-"""Tile starts and the distance-decay weight map of ``average_weights``
-(own copy of ``flairtpu/zone/weights.py:14-31``, numpy).
+"""Tile starts, the distance-decay weight map of ``average_weights``, and
+the overlap counts and summed weights of a tiling (own copy of
+``flairtpu/zone/weights.py``, numpy).
 
 The tiling law and weight map are the reference's
-(src/zone_detect/test/tiles.py:30-51, :97-108): a regular stride grid with
-the last tile clamped inward, and a Chebyshev distance-to-centre decay.
+(src/zone_detect/test/tiles.py:30-51, :54-169): a regular stride grid with
+the last tile clamped inward, a Chebyshev distance-to-centre decay, and
+the per-pixel count (``patch_overlap``) and weight sum (``total_weights``)
+of the tiles that cover a query window.
 """
 
 from __future__ import annotations
@@ -29,3 +32,44 @@ def patch_weights(patch_size: int, sigma: float = 0.5, mode: str = "exp") -> np.
     if mode == "gaussian":
         return np.exp(-dist / dist.max() ** 2) / (2 * sigma**2)
     return np.exp(-dist / dist.max() * sigma)
+
+
+def _accumulate(image_size: tuple[int, int], patch_size: int,
+                query_bounds: list[int], stride: int,
+                contribution: np.ndarray | None) -> np.ndarray:
+    """Shared overlap/total-weight accumulation over intersecting tiles."""
+    x_min, x_max, y_min, y_max = query_bounds
+    sx, sy = image_size
+    dtype = np.float32 if contribution is not None else np.uint8
+    out = np.zeros((y_max - y_min, x_max - x_min), dtype)
+    for ty in tile_starts(sy, patch_size, stride):
+        iy0, iy1 = max(ty, y_min), min(ty + patch_size, y_max)
+        if iy1 <= iy0:
+            continue
+        for tx in tile_starts(sx, patch_size, stride):
+            ix0, ix1 = max(tx, x_min), min(tx + patch_size, x_max)
+            if ix1 <= ix0:
+                continue
+            if contribution is None:
+                out[iy0 - y_min: iy1 - y_min, ix0 - x_min: ix1 - x_min] += 1
+            else:
+                out[iy0 - y_min: iy1 - y_min, ix0 - x_min: ix1 - x_min] += (
+                    contribution[iy0 - ty: iy1 - ty, ix0 - tx: ix1 - tx])
+    return out
+
+
+def patch_overlap(image_size: tuple[int, int], patch_size: int,
+                  query_bounds: list[int], stride: int) -> np.ndarray:
+    """Per-pixel count of covering tiles within the query (pixels)."""
+    return _accumulate(image_size, patch_size, query_bounds, stride, None)
+
+
+def total_weights(image_size: tuple[int, int], patch_size: int,
+                  query_bounds: list[int], stride: int,
+                  sigma: float = 0.5, mode: str = "exp") -> np.ndarray:
+    """Summed decay weights of all covering tiles (the average_weights
+    divisor). As ``flairtpu``'s, it returns the map alone, where the
+    reference returns a (map, steps) tuple and then divides by the tuple
+    (SURVEY.md, bug #2)."""
+    w = patch_weights(patch_size, sigma=sigma, mode=mode).astype(np.float32)
+    return _accumulate(image_size, patch_size, query_bounds, stride, w)

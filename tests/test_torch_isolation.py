@@ -177,11 +177,14 @@ def test_zone_over_device_budget_raises(tmp_path, monkeypatch, capsys):
 
 
 def test_msgpack_weights_and_flair_raise(tmp_path):
-    (tmp_path / "w.msgpack").write_bytes(b"")
-    conf = _tiny_detect_setup(tmp_path, use_gpu=False,
-                              model_weights=str(tmp_path / "w.msgpack"))
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    # native weights are read since step 3: an empty or garbled .msgpack
+    # passes the config and raises the decoder's ValueError at the load
+    for name, data in (("empty.msgpack", b""), ("garbled.msgpack", b"\xc1\x00\x01")):
+        (tmp_path / name).write_bytes(data)
+        conf = _tiny_detect_setup(tmp_path, use_gpu=False, model_weights=str(tmp_path / name))
         cfgmod.validate_detect_config(cfgmod.read_config(conf))
+        with pytest.raises(ValueError, match="msgpack"):
+            detect_main([f"--conf={conf}"])
     # flair runs since slice 4; what it does not run yet raises, naming its slice
     flair_conf = tmp_path / "flair.yaml"
     flair_conf.write_text(yaml.safe_dump({
@@ -195,7 +198,9 @@ def test_msgpack_weights_and_flair_raise(tmp_path):
 
 
 @pytest.mark.parametrize("encoder", ["resnet18", "resnet34", "resnet50", "resnet101",
-                                     "resnet152"])
+                                     "resnet152", "resnext50_32x4d", "resnext101_32x4d",
+                                     "resnext101_32x8d", "resnext101_32x16d",
+                                     "resnext101_32x32d", "resnext101_32x48d"])
 def test_resnet_unets_validate(encoder):
     assert cfgmod.validate_model_framework({
         "model_provider": "SegmentationModelsPytorch",

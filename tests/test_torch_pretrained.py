@@ -150,7 +150,7 @@ def test_encoders_the_port_does_not_build():
     with pytest.raises(NotImplementedError, match="slice 6"):
         ppre.classifier_to_encoder_state_dict(sd, "efficientnet-b0", 5)
     with pytest.raises(NotImplementedError, match="slice 6"):
-        ppre.classifier_to_encoder_state_dict(sd, "resnext50_32x4d", 5)
+        ppre.classifier_to_encoder_state_dict(sd, "se_resnext50_32x4d", 5)
     for pkg in (ppre, fpre):
         with pytest.raises(ValueError, match="no classifier-checkpoint converter"):
             pkg.classifier_to_encoder_state_dict(sd, "squeezenet1_0", 5)

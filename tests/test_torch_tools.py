@@ -63,6 +63,11 @@ def test_module_entry_point(tmp_path):
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert (tmp_path / "t" / "toy-config.yaml").exists()
-    out = subprocess.run([sys.executable, "-m", "flairtpu_torch.tools", "make-toy-zone"],
+    # make-toy-zone is ported since step 3; export-model is not (slice 8)
+    out = subprocess.run([sys.executable, "-m", "flairtpu_torch.tools", "export-model",
+                          "--conf", "c.yaml", "--out", "m"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 1 and "slice 8" in out.stderr
+    out = subprocess.run([sys.executable, "-m", "flairtpu_torch.tools", "make-toy-model"],
                          cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 2 and "invalid choice" in out.stderr

@@ -733,201 +733,708 @@ extern "C" int int8_conv(const void* x, const void* w, const void* deq, const vo
 // the ungrouped entry point above, operation for operation: fma(acc, deq,
 // b), the optional residual, ReLU, float32 and / or the next site's int8.
 //
-// Each output channel n of group g = n / cog sums over the cg = Cp / groups
-// input channels of its group only: K = kh * kw * cg, 36 at resnext50's
-// first stage (cg 4), 288 at its last (cg 32). Such a K is far too short for
-// wgmma's 64 x N x 32 tiles over one group, so this kernel uses __dp4a:
-// one instruction multiplies 4 int8 channels of one group by 4 weights and
-// adds them to an int32 sum, and every group of the resnexts has a multiple
-// of 4 channels. Bound on an H100: at most 288 multiply-adds an output
-// value (cg 32) against 1 byte of input and 1 or 5 bytes of output, so at
-// the card's int8 rate every site is bound by HBM; dp4a's own rate on
-// Hopper is lower and not published.
+// Each output channel n of group n / cg sums over the cg input channels of
+// its group only (a ResNeXt has as many output as input channels a group).
+// Bound on an H100: 9 cg multiply-adds an output value against about 1
+// byte of input and 1 (int8) or 5 (float32 too) bytes of output, so at the
+// card's int8 rate (1,979 TOPS) every site of the resnext walk is bound by
+// HBM bytes, 36 to 288 multiply-adds a byte.
 //
-// Design (simple; the wgmma form of a grouped GEMM is later work). A block
-// owns a run of 32 output pixels of one output row and a slab of whole
-// groups, about 256 output channels (the groups' input channels with
-// them). It first stages the input its run needs, kh rows by the run's
-// input columns by the slab's channels, in shared memory (zeros outside
-// the image), by 16-byte loads where the slab and the pixel pitch allow,
-// else 4-byte ones; neighbouring threads load neighbouring chunks, so a
-// warp reads whole lines. Then a thread takes 4 neighbouring pixels and 4
-// output channels of one group at a time: for each tap and run of 4 of
-// the group's channels, one 16-byte load of the 4 channels' packed weights
-// (through L1: a slab's weights are 4.5-72 KB at resnext50) and, for each
-// pixel, one 4-byte shared-memory word, into 4 dp4a. A warp's 32 threads
-// hold 32 neighbouring 4-channel runs, so their shared-memory words are
-// distinct banks or one broadcast. The weights are packed (kh * kw,
-// cg / 4, Co, 4) by ops/int8_conv.py. The int32 sums are exact (K * 127^2 < 2^31).
+// Design: s8 tensor cores (mma.sync m16n8k32, int32 sums, exact in any
+// order: K * 127^2 < 2^31), the input of a band of output rows staged row
+// by row in shared memory, each input row once.
+// - The MMA. Rows (M) are 16 output pixels of one row; columns (N) 8 output
+//   channels; K runs over one tap row (ky): kx = 0..2 by the channels of a
+//   bundle, the smallest run of whole groups that is a multiple of 8
+//   channels (cb = lcm(cg, 8): 2 groups at cg 4). K comes in 8-byte units,
+//   unit t = kx * cb / 8 + (channels / 8); a k32 step holds units 4 s ..
+//   4 s + 3, lane tig taking unit 4 s + tig (its a0 / a2 words, 8 bytes of
+//   one pixel: one shared-memory load a row half); units past 3 cb / 8 read
+//   the last unit again against zero weights. The weights (packed once a
+//   site by ops/int8_conv.py, (bundles, 3, steps, cb / 8, 32 lanes) of
+//   8-byte b0 / b1 pairs) are block-diagonal: zero where an output
+//   channel's group does not own the input channel. Multiply-adds done /
+//   useful: 2.67 at cg 4, 1.33 at cg 8 and 16, 1 at cg 32.
+// - Blocks. A block owns a band of output rows of one image, a segment of
+//   at most 128 of their columns (64 at stride 2, so a staged row stays
+//   within 256 columns at any width) and a slab of 128 channels (whole
+//   bundles). It walks down the band; the input rows it needs come one by
+//   one into a ring in shared memory, depth output rows ahead of the row
+//   it computes, so each input row of the band is read once and its copy
+//   overlaps the rows before.
+// - Staging, fast instances: one thread loads a row by one TMA box
+//   (128 channels by the segment's columns, zeros outside the image), its
+//   arrival counted on the slot's mbarrier, so no other thread spends an
+//   instruction on copies. The box lands in TMA's 128-byte swizzle (chunk
+//   q of column c at c * 128 + (q ^ (c & 7)) * 16): each lane's column
+//   offset within a tile is constant, so the swizzle folds into its
+//   per-lane offsets, and the 8 (16 at cg 32) bytes a lane reads hit
+//   distinct banks across the warp (at cg 32, stride 1, with the tile's
+//   rows taking pixels 0, 2, 4, 6, 1, 3, 5, 7: neighbouring pixels' chunk
+//   pairs would collide).
+// - Staging, the general instance: 16-byte cp.async by all threads, one
+//   commit group an output row; a staged row is chunk-major (16-byte chunk
+//   q of column c at q * cs + c, cs odd).
+// - A step's rhythm (a step: rows_step output rows of the fast instances,
+//   up to 4 where a row has few tiles, so the fixed costs below come once
+//   a step; one row for the general one): the copies of the rows depth
+//   ahead; the wait for the step's inputs (each thread on the slots'
+//   barriers, or the copies and a block barrier); the MMAs and epilogue of
+//   each row into one of two output tiles; one block barrier; the tile's
+//   stores. The slots and laps roll on without a division. The fast
+//   instances store the int8 tile by one TMA store a row (the tile is in
+//   the 128-byte swizzle already), issued by one thread, which waits for
+//   the step before's to have read their tile just before the next
+//   barrier; the general one by 16-byte stores of every thread.
+// - Warps. A warp owns 16 (cg 4, 8: two bundles, one 16-byte load a row
+//   half), 16 or 32 of the slab's channels and keeps their weights in
+//   registers for the whole band; it takes every 16-pixel tile of the
+//   segment. The fast instances are compiled for cg in {4, 8, 16, 32} and
+//   stride 1 or 2 at pad 1, dilation 1: every offset then folds to a
+//   constant and no division runs past the block's set-up. The general
+//   instance (CG 0) takes any other 3x3 (dilation, padding, other cg): its
+//   warps walk (tile, n8) items and load the weights from L1 each step.
+// - Epilogue. Each lane's sums are finished in registers (float32 and the
+//   residual straight to and from global memory, 8 bytes a lane, only when
+//   asked), with the conversions on the FMA pipes (small_int_to_float,
+//   quantize_bits: the same bits); the walk's case (ReLU, int8 only) takes
+//   lean_pair, about 9 instructions an output, with no bounds test inside
+//   a whole tile. The int8 outputs go to a tile in shared memory (16-byte
+//   chunks XOR-swizzled by pixel), then out as whole 16-byte lines of each
+//   pixel's channels. An output costs instructions more than bytes: at 20
+//   instructions an output, resnext50's 16 sites' 1.84 G outputs would
+//   take longer to issue than their bytes take to move.
+// - The grid. ops/int8_conv.py:grouped_plan picks the band (a cost of
+//   waves x band rows with their halo), the copy depth (about 24 KB of a
+//   block's input in flight) and the rows a step per site; a block is 256
+//   threads (128 at cg 32, whose 72 weight registers a lane allow three
+//   blocks an SM).
 
 namespace {
 
-constexpr int kGroupedRun = 32;      // output pixels a block, along one row
-constexpr int kGroupedPixels = 4;    // output pixels a thread, along the run
-constexpr int kGroupedThreads = 256;
-constexpr int kSlabChannels = 256;   // output channels a block, in whole groups
+// the fast instances' constants (CG 0: the general instance)
+template <int CG>
+struct Grouped {
+  static constexpr int kCB = CG == 4 ? 8 : CG;  // channels a bundle
+  static constexpr int kU = kCB / 8;            // 8-byte units a tap
+  static constexpr int kT = 3 * kU;             // units a tap row (kw = 3)
+  static constexpr int kS = (kT + 3) / 4;       // k32 steps a tap row
+  static constexpr int kNJ = kCB / 8;           // n8 tiles a bundle
+  static constexpr int kBW = kCB == 8 ? 2 : 1;  // bundles a warp
+  static constexpr int kWarps = CG == 32 ? 4 : 8;
+  static constexpr int kMinBlocks = CG == 32 ? 3 : 2;
+  static constexpr int kMT = CG == 32 ? 1 : 2;  // 16-pixel tiles an item
+  static_assert(kWarps * kBW * kCB == 128, "a slab is 128 channels");
+};
+template <>
+struct Grouped<0> {
+  static constexpr int kWarps = 8, kMinBlocks = 2;
+};
+
+constexpr int kGroupedSlab = 128;  // channels a block of the fast instances
+constexpr int kGroupedMaxDepth = 8;
 
 struct GroupedArgs {
   const int8_t* x;     // (B, H, W, Cp)
-  const int4* w;       // (kh * kw, cg / 4, Co / 4) of 4 output channels' words
-  const float* deq;
-  const float* bias;
+  const int2* w;       // (bundles, 3, steps, nj, 32) b0 / b1 pairs
+  const float* deq;    // (Co,)
+  const float* bias;   // (Co,)
   const float* res;    // (M, Co) or null
   float* out32;        // (M, Co) or null
   int8_t* outq;        // (M, Co) or null
   float inv_sx;
-  int H, W, Cp, Ho, Wo, Co, kh, kw, stride, pad, dil, cg, cog, relu;
-  int slab_groups;     // groups a block
-  int n_slabs;         // blocks along the channels
-  int cols;            // input columns a run stages: (kGroupedRun - 1) * stride + dil * (kw - 1) + 1
-  int vec16;           // stage by 16-byte loads
+  int H, W, Cp, Ho, Wo, Co, stride, pad, dil, relu;
+  int cb, u, steps, nj;  // the bundle: channels, units a tap, k32 steps a tap row, n8 tiles
+  int slab, n_slabs, seg, n_segs, band, n_bands, depth, rows_step, ring, cols, cs, slot_bytes, osw,
+      vec16;
 };
 
-__global__ void __launch_bounds__(kGroupedThreads) int8_conv_grouped_kernel(const GroupedArgs a) {
-  extern __shared__ __align__(16) int8_t tile[];  // (kh, cols, slab input channels)
-  const int slab = blockIdx.x % a.n_slabs;
-  const int run0 = blockIdx.x / a.n_slabs * kGroupedRun;  // first output column
-  const int oy = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int g0 = slab * a.slab_groups;
-  const int slab_groups = min(a.slab_groups, a.Cp / a.cg - g0);
-  const int in_ch = slab_groups * a.cg, c0 = g0 * a.cg;  // the slab's input channels
-  const int ix0 = run0 * a.stride - a.pad;
-  // stage the input of the run: (kh, cols, in_ch), zeros outside the image
-  // (16-byte loads unless the slab, the last one of fewer groups included,
-  // is not whole 16-byte chunks)
-  if (a.vec16 && (in_ch & 15) == 0) {
-    const int per = in_ch >> 4, n = a.kh * a.cols * per;
-    for (int i = threadIdx.x; i < n; i += kGroupedThreads) {
-      const int v = i % per, rc = i / per, c = rc % a.cols, r = rc / a.cols;
-      const int iy = oy * a.stride - a.pad + r * a.dil, ix = ix0 + c;
-      int4 val = make_int4(0, 0, 0, 0);
-      if (iy >= 0 && iy < a.H && ix >= 0 && ix < a.W)
-        val = __ldg(reinterpret_cast<const int4*>(a.x + ((b * a.H + iy) * a.W + ix) * a.Cp + c0) + v);
-      reinterpret_cast<int4*>(tile)[i] = val;
-    }
-  } else {
-    const int per = in_ch >> 2, n = a.kh * a.cols * per;
-    for (int i = threadIdx.x; i < n; i += kGroupedThreads) {
-      const int v = i % per, rc = i / per, c = rc % a.cols, r = rc / a.cols;
-      const int iy = oy * a.stride - a.pad + r * a.dil, ix = ix0 + c;
-      int val = 0;
-      if (iy >= 0 && iy < a.H && ix >= 0 && ix < a.W)
-        val = __ldg(reinterpret_cast<const int*>(a.x + ((b * a.H + iy) * a.W + ix) * a.Cp + c0) + v);
-      reinterpret_cast<int*>(tile)[i] = val;
-    }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most n commit groups are in flight (n <= kGroupedMaxDepth)
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    case 7: cp_async_wait<7>(); break;
+    case 8: cp_async_wait<8>(); break;
+    default: cp_async_wait<0>();
   }
-  __syncthreads();
-  const int* words = reinterpret_cast<const int*>(tile);
-  const int steps = a.cg >> 2, c4n = a.Co >> 2, px_words = in_ch >> 2;
-  const int row_words = a.cols * px_words;   // words a staged row
-  const int pitch = a.stride * px_words;     // words between neighbouring output pixels
-  const int out4 = slab_groups * a.cog >> 2;  // 4-channel runs of the slab's outputs
-  const int items = kGroupedRun / kGroupedPixels * out4;
-  for (int item = threadIdx.x; item < items; item += kGroupedThreads) {
-    const int q = item / out4, l4 = item % out4;  // pixel quad of the run, 4-channel run
-    const int co = g0 * a.cog + 4 * l4;
-    const int px0 = q * kGroupedPixels;
-    if (run0 + px0 >= a.Wo) continue;
-    const int first = px0 * pitch + (4 * l4 / a.cog) * steps;  // the group's first word
-    int acc[kGroupedPixels][4];
+}
+
+// a TMA box of the (B, H, W, Cp) input: channels from c, columns from w
+// (negative: zeros), row h of image n
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c, int w, int h, int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n)
+      : "memory");
+}
+
+// a TMA store of the output tile: 128 channels from c by the segment's
+// pixels from w, of row h of image n (outside the tensor: dropped)
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c, int w,
+                                             int h, int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c), "r"(w), "r"(h), "r"(n)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's shared-memory writes ordered before later async-proxy
+// reads (a TMA store's)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the last bulk store has read its tile
+__device__ __forceinline__ void tma_store_read_wait() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The epilogue's conversions on the FMA pipes: the conversion unit does 16
+// a clock an SM, and three an output (int to float, rintf, float to int)
+// would hold the kernel above its bytes (1.84 G outputs at resnext50's 16
+// sites). Both give the conversion unit's bits.
+// float(acc) for |acc| <= 2^22 (cg <= 16: |acc| <= 144 * 127^2), from the
+// sum biased by the bits of 1.5 * 2^23 (the MMA's accumulators start at
+// kSmallBias), whose unit in the last place is 1: 1.5 * 2^23 taken off,
+// exactly
+constexpr int kSmallBias = 0x4B400000;
+__device__ __forceinline__ float small_int_to_float(int biased) {
+  return __fsub_rn(__int_as_float(biased), 12582912.f);
+}
+
+// ReLU letting NaN pass in one instruction; -0 becomes +0, which quantizes
+// to the same int8 (the int8-only epilogue's ReLU)
+__device__ __forceinline__ float relu_nan(float v) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;\n" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// quantize(v, inv) as the low byte of the result: clamping to [-127, 127]
+// before rounding gives the same integer (the bounds are integers; NaN
+// becomes -127 either way), and adding 1.5 * 2^23 rounds half to even as
+// rintf does, leaving the integer in the low bits of the sum
+__device__ __forceinline__ uint32_t quantize_bits(float v, float inv) {
+  const float c = fminf(fmaxf(__fmul_rn(v, inv), -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(c, 12582912.f));
+}
+
+// The walk's epilogue (ReLU, int8 out only) of two sums of one pixel,
+// columns n and n + 1, into the output tile at dst
+template <bool kSmall>
+__device__ __forceinline__ void lean_pair(int d0, int d1, float2 dq, float2 bb, float inv,
+                                          uint8_t* dst) {
+  const float f0 = kSmall ? small_int_to_float(d0) : __int2float_rn(d0);
+  const float f1 = kSmall ? small_int_to_float(d1) : __int2float_rn(d1);
+  const float v0 = relu_nan(__fmaf_rn(f0, dq.x, bb.x)), v1 = relu_nan(__fmaf_rn(f1, dq.y, bb.y));
+  *reinterpret_cast<uint16_t*>(dst) =
+      static_cast<uint16_t>(__byte_perm(quantize_bits(v0, inv), quantize_bits(v1, inv), 0x0040));
+}
+
+// one n8 tile's sums of a 16-pixel tile (d: the segment's pixels px and px
+// + 8, columns n and n + 1, n the lane's first output channel and cl its
+// place in the slab; pix0 the output pixel of the segment's first, end its
+// width): the epilogue, float32 out and int8 into the output tile. kSmall:
+// the sums are within 2^22, biased by kSmallBias (small_int_to_float)
+template <bool kSmall>
+__device__ __forceinline__ void grouped_epilogue(const GroupedArgs& a, const int (&d)[4],
+                                                 float2 dq, float2 bb, long long pix0, int px,
+                                                 int end, int n, int cl, uint8_t* out_tile) {
 #pragma unroll
-    for (int p = 0; p < kGroupedPixels; ++p)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[p][e] = 0;
-    for (int ky = 0; ky < a.kh; ++ky) {
-      for (int kx = 0; kx < a.kw; ++kx) {
-        const int base = first + ky * row_words + kx * a.dil * px_words;
-        const int4* wt = a.w + (ky * a.kw + kx) * steps * c4n + (co >> 2);
-        for (int j = 0; j < steps; ++j) {
-          const int4 wv = __ldg(wt + j * c4n);
-#pragma unroll
-          for (int p = 0; p < kGroupedPixels; ++p) {
-            const int xv = words[base + p * pitch + j];
-            acc[p][0] = __dp4a(xv, wv.x, acc[p][0]);
-            acc[p][1] = __dp4a(xv, wv.y, acc[p][1]);
-            acc[p][2] = __dp4a(xv, wv.z, acc[p][2]);
-            acc[p][3] = __dp4a(xv, wv.w, acc[p][3]);
-          }
-        }
-      }
+  for (int h = 0; h < 2; ++h, px += 8) {
+    if (px >= end) return;
+    const float f0 = kSmall ? small_int_to_float(d[2 * h]) : __int2float_rn(d[2 * h]);
+    const float f1 = kSmall ? small_int_to_float(d[2 * h + 1]) : __int2float_rn(d[2 * h + 1]);
+    float v0 = __fmaf_rn(f0, dq.x, bb.x);
+    float v1 = __fmaf_rn(f1, dq.y, bb.y);
+    const long long o = (pix0 + px) * a.Co + n;
+    if (a.res) {
+      const float2 r = __ldcs(reinterpret_cast<const float2*>(a.res + o));
+      v0 = __fadd_rn(v0, r.x);
+      v1 = __fadd_rn(v1, r.y);
     }
-    const float4 d = *reinterpret_cast<const float4*>(a.deq + co);
-    const float4 bb = *reinterpret_cast<const float4*>(a.bias + co);
-#pragma unroll
-    for (int p = 0; p < kGroupedPixels; ++p) {
-      const int ox = run0 + px0 + p;
-      if (ox >= a.Wo) break;
-      const long long o = ((b * a.Ho + oy) * a.Wo + ox) * a.Co + co;
-      float v[4] = {__fmaf_rn(__int2float_rn(acc[p][0]), d.x, bb.x),
-                    __fmaf_rn(__int2float_rn(acc[p][1]), d.y, bb.y),
-                    __fmaf_rn(__int2float_rn(acc[p][2]), d.z, bb.z),
-                    __fmaf_rn(__int2float_rn(acc[p][3]), d.w, bb.w)};
-      if (a.res) {
-        const float4 rv = __ldcs(reinterpret_cast<const float4*>(a.res + o));
-        v[0] = __fadd_rn(v[0], rv.x);
-        v[1] = __fadd_rn(v[1], rv.y);
-        v[2] = __fadd_rn(v[2], rv.z);
-        v[3] = __fadd_rn(v[3], rv.w);
-      }
-      if (a.relu) {  // NaN passes, as jax.nn.relu
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = v[e] < 0.f ? 0.f : v[e];
-      }
-      if (a.out32) *reinterpret_cast<float4*>(a.out32 + o) = make_float4(v[0], v[1], v[2], v[3]);
-      if (a.outq) {
-        char4 q4;
-        q4.x = quantize(v[0], a.inv_sx);
-        q4.y = quantize(v[1], a.inv_sx);
-        q4.z = quantize(v[2], a.inv_sx);
-        q4.w = quantize(v[3], a.inv_sx);
-        *reinterpret_cast<char4*>(a.outq + o) = q4;
-      }
+    if (a.relu) {  // NaN passes, as jax.nn.relu
+      v0 = v0 < 0.f ? 0.f : v0;
+      v1 = v1 < 0.f ? 0.f : v1;
+    }
+    if (a.out32) *reinterpret_cast<float2*>(a.out32 + o) = make_float2(v0, v1);
+    if (a.outq) {
+      const uint32_t q = __byte_perm(quantize_bits(v0, a.inv_sx), quantize_bits(v1, a.inv_sx),
+                                     0x0040);  // the two low bytes
+      *reinterpret_cast<uint16_t*>(out_tile + px * a.slab + ((((cl >> 4) ^ (px & a.osw))) << 4) +
+                                   (cl & 15)) = static_cast<uint16_t>(q);
     }
   }
 }
 
+template <int CG, int STRIDE>
+__global__ void __launch_bounds__(32 * Grouped<CG>::kWarps, Grouped<CG>::kMinBlocks)
+    int8_conv_grouped_kernel(const __grid_constant__ CUtensorMap xmap,
+                             const __grid_constant__ CUtensorMap ymap, const GroupedArgs a) {
+  using G = Grouped<CG>;
+  constexpr int kThreads = 32 * G::kWarps;
+  constexpr bool kFast = CG > 0;
+  extern __shared__ uint8_t gsm_raw[];
+  // TMA's 128-byte swizzle wants the slots 1024-byte aligned
+  uint8_t* gsm = gsm_raw + ((1024 - (smem_u32(gsm_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  // the block: slab, segment, band, image (slabs, then segments, then bands
+  // of an image, side by side)
+  int rest = blockIdx.x;
+  const int slab_i = rest % a.n_slabs;
+  rest /= a.n_slabs;
+  const int seg_i = rest % a.n_segs;
+  rest /= a.n_segs;
+  const int band_i = rest % a.n_bands;
+  const long long b = rest / a.n_bands;
+  const int c0 = slab_i * a.slab, slab_valid = min(a.slab, a.Co - c0);
+  const int ox0 = seg_i * a.seg, seg_w = min(a.seg, a.Wo - ox0), n_mt = (seg_w + 15) / 16;
+  const int oy0 = band_i * a.band, rows = min(a.band, a.Ho - oy0);
+  const int stride = kFast ? STRIDE : a.stride, dil = kFast ? 1 : a.dil;
+  const int span = 2 * dil + 1;                      // input rows an output row reads
+  const int in_rows = (rows - 1) * stride + span;    // input rows the band reads
+  const int iy0 = oy0 * stride - a.pad, ix0 = ox0 * stride - a.pad;
+  const int slot_bytes = a.slot_bytes;
+  // two (rows_step, seg, slab) int8 output tiles, swizzled, in turns: a
+  // step writes one while the step before's leaves from the other
+  uint8_t* const tiles = gsm + a.ring * slot_bytes;
+  const int tile_bytes = a.rows_step * a.seg * a.slab;
+  const uint32_t ring0 = smem_u32(gsm);
+  const uint32_t full0 = smem_u32(tiles + 2 * tile_bytes);  // fast: a barrier a slot
+  const long long img_row0 = b * a.Ho;               // output rows before this image's
+
+  if constexpr (kFast) {
+    if (tid == 0) {
+      for (int s = 0; s < a.ring; ++s) mbar_init(full0 + 8 * s, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  // general staging: thread tid copies the 16-byte chunk sq of columns
+  // scol0 + k sstep, chunk-major
+  const int q16n = a.slab >> 4;
+  const int sq = tid % q16n, scol0 = tid / q16n, sstep = kThreads / q16n;
+  const int sbytes = 16 * sq < slab_valid ? min(16, slab_valid - 16 * sq) : 0;
+  const uint32_t sdst0 = ring0 + sq * a.cs * 16;
+  const int8_t* sx0 = a.x + c0 + 16 * sq + b * a.H * (long long)a.W * a.Cp;
+  // the ring's slots go round without a division: a row's slot and the
+  // count of its slot's fills so far
+  auto next_slot = [&](int& slot, int& lap) {
+    if (++slot == a.ring) slot = 0, ++lap;
+  };
+  int issued = 0, issue_slot = 0, issue_lap = 0;
+  // stage input rows [issued, upto) of the band (fast: one TMA box a row by
+  // thread 0; general: one commit group)
+  auto issue_to = [&](int upto) {
+    upto = min(upto, in_rows);
+    if constexpr (kFast) {
+      for (; issued < upto; ++issued, next_slot(issue_slot, issue_lap))
+        if (tid == 0) {
+          const int slot = issue_slot;
+          const uint32_t bar = full0 + 8 * slot;
+          mbar_expect_tx(bar, slot_bytes);
+          tma_load_4d(ring0 + slot * slot_bytes, &xmap, bar, c0, ix0, iy0 + issued, (int)b);
+        }
+    } else {
+      for (; issued < upto; ++issued, next_slot(issue_slot, issue_lap)) {
+        const int iy = iy0 + issued;
+        const uint32_t dst = sdst0 + issue_slot * slot_bytes;
+        const bool row_in = (unsigned)iy < (unsigned)a.H && sbytes > 0;
+        const int8_t* src_row = sx0 + (long long)iy * a.W * a.Cp;
+        if (scol0 < sstep)
+          for (int col = scol0; col < a.cols; col += sstep) {
+            const int ix = ix0 + col;
+            const bool ok = row_in && (unsigned)ix < (unsigned)a.W;
+            cp_async<16>(dst + col * 16, ok ? src_row + (long long)ix * a.Cp : a.x,
+                         ok ? sbytes : 0);
+          }
+      }
+      cp_async_commit();
+    }
+  };
+  for (int i = 0; i < a.depth; ++i) issue_to(i * stride + span);
+  // fast: the rows whose barrier this thread has seen complete, the slot and
+  // lap of the next
+  int landed = 0, land_slot = 0, land_lap = 0;
+  // the rows of output row i: landed for this thread (fast: its own wait on
+  // the slots' barriers; general: its copies, then a block barrier)
+  auto wait_rows = [&](int i) {
+    if constexpr (kFast) {
+      for (const int need = min(i * stride + span, in_rows); landed < need;
+           ++landed, next_slot(land_slot, land_lap))
+        mbar_wait(full0 + 8 * land_slot, land_lap & 1);
+    } else {
+      cp_async_wait_n(a.depth);
+      __syncthreads();
+    }
+  };
+  // the slots of output row i's three tap rows (i stride + ky dil), rolled
+  // on by stride a row
+  int tap_slot[3];
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky) tap_slot[ky] = (ky * dil) % a.ring;
+  auto next_taps = [&]() {
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky)
+      for (int k = 0; k < stride; ++k)
+        if (++tap_slot[ky] == a.ring) tap_slot[ky] = 0;
+  };
+
+  // the stores: thread tid writes vec-byte piece oq of pixels opx0 + k ostep
+  const int ovec = a.vec16 ? 16 : 8, per_px = slab_valid / ovec;
+  const int oq = tid % per_px, opx0 = tid / per_px, ostep = kThreads / per_px;
+  auto store_row = [&](long long pix0, const uint8_t* out_tile) {
+    if (a.outq && opx0 < ostep)
+      for (int px = opx0; px < seg_w; px += ostep) {
+        const int byte = oq * ovec;
+        const uint8_t* src = out_tile + px * a.slab + ((((byte >> 4) ^ (px & a.osw))) << 4) +
+                             (byte & 15);
+        int8_t* dst = a.outq + (pix0 + px) * a.Co + c0 + byte;
+        if (a.vec16)
+          *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
+        else
+          *reinterpret_cast<int2*>(dst) = *reinterpret_cast<const int2*>(src);
+      }
+  };
+
+  if constexpr (kFast) {
+    // this warp's bundles, their weights, deq and b, for the whole band
+    constexpr int kS = G::kS, kNJ = G::kNJ, kBW = G::kBW, kCB = G::kCB, kU = G::kU;
+    constexpr bool kSmall = CG <= 16, kPerm = CG == 32 && STRIDE == 1;
+    constexpr int kRow = 128, kCol = STRIDE * kRow;  // a staged column; an output pixel's step
+    const int cw0 = warp * kBW * kCB;  // the warp's first channel in the slab
+    const int gb0 = c0 / kCB + warp * kBW;
+    int2 bw[kBW][3][kS][kNJ];
+    float2 dq[kBW][kNJ], bb[kBW][kNJ];
+#pragma unroll
+    for (int k = 0; k < kBW; ++k) {
+      const bool valid = cw0 + k * kCB < slab_valid;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+        for (int s = 0; s < kS; ++s)
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j)
+            bw[k][ky][s][j] = valid ? __ldg(a.w + ((((gb0 + k) * 3 + ky) * kS + s) * kNJ + j) * 32 +
+                                            lane)
+                                    : make_int2(0, 0);
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) {
+        const int n = c0 + cw0 + k * kCB + 8 * j + 2 * tig;
+        dq[k][j] = valid ? __ldg(reinterpret_cast<const float2*>(a.deq + n)) : make_float2(0.f, 0.f);
+        bb[k][j] = valid ? __ldg(reinterpret_cast<const float2*>(a.bias + n)) : make_float2(0.f, 0.f);
+      }
+    }
+    // rows g and g + 8 of a tile: its pixels prow and prow + 8
+    const int prow = kPerm ? ((g & 3) << 1 | (g >> 2)) : g;
+    // this lane's A bytes in a staged row, k32 step s: unit t of the tap row
+    // at column prow * STRIDE + kx, swizzled; a tile's and a row half's
+    // columns are whole swizzle periods (multiples of 8) further
+    int a_off[kS];
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      const int t = min(4 * s + tig, G::kT - 1), kx = t / kU, byte = cw0 + 8 * (t % kU);
+      const int col = prow * STRIDE + kx;
+      a_off[s] = col * kRow + (((byte >> 4) ^ (col & 7)) << 4) + (byte & 15);
+    }
+    const bool active = cw0 < slab_valid;
+    // the walk's case: ReLU, int8 out only (lean_pair)
+    const bool lean = a.outq && !a.res && !a.out32 && a.relu;
+    using Acc = int[G::kMT][kBW * kNJ][4];
+    const int row_bytes = a.seg * kGroupedSlab;     // one output row of the tile
+
+    // an item's MMAs: tiles mt .. mt + kMT - 1 of the row whose tap rows
+    // start at tap[0..2] bytes into the ring
+    auto mma_item = [&](const int (&tap)[3], int mt, Acc& acc) {
+#pragma unroll
+      for (int m = 0; m < G::kMT; ++m)
+#pragma unroll
+        for (int r = 0; r < kBW * kNJ; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][r][e] = kSmall ? kSmallBias : 0;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          uint32_t af[G::kMT][kBW][4];
+#pragma unroll
+          for (int m = 0; m < G::kMT; ++m) {
+            const uint8_t* p0 = gsm + tap[ky] + a_off[s] + 16 * (mt + m) * kCol;
+            const uint8_t* p1 = p0 + 8 * kCol;
+            if constexpr (kBW == 2) {
+              const uint4 v0 = *reinterpret_cast<const uint4*>(p0);
+              const uint4 v1 = *reinterpret_cast<const uint4*>(p1);
+              af[m][0][0] = v0.x, af[m][0][1] = v1.x, af[m][0][2] = v0.y, af[m][0][3] = v1.y;
+              af[m][1][0] = v0.z, af[m][1][1] = v1.z, af[m][1][2] = v0.w, af[m][1][3] = v1.w;
+            } else {
+              const uint2 v0 = *reinterpret_cast<const uint2*>(p0);
+              const uint2 v1 = *reinterpret_cast<const uint2*>(p1);
+              af[m][0][0] = v0.x, af[m][0][1] = v1.x, af[m][0][2] = v0.y, af[m][0][3] = v1.y;
+            }
+          }
+#pragma unroll
+          for (int m = 0; m < G::kMT; ++m)
+#pragma unroll
+            for (int k = 0; k < kBW; ++k)
+#pragma unroll
+              for (int j = 0; j < kNJ; ++j)
+                mma_s8(acc[m][k * kNJ + j], af[m][k], bw[k][ky][s][j].x, bw[k][ky][s][j].y);
+        }
+      }
+    };
+    // an item's epilogue into its row of the output tile (row_tile; oy:
+    // the output row)
+    auto epilogue_item = [&](uint8_t* row_tile, int oy, int mt, const Acc& acc) {
+#pragma unroll
+      for (int m = 0; m < G::kMT; ++m) {
+        if (mt + m >= n_mt) break;
+        const int px = 16 * (mt + m) + prow;
+        if (lean && px + 8 < seg_w) {
+          // pixels px and px + 8 in; px & 7 == prow picks the tile's swizzle
+          uint8_t* row_p = row_tile + px * kGroupedSlab;
+#pragma unroll
+          for (int k = 0; k < kBW; ++k)
+#pragma unroll
+            for (int j = 0; j < kNJ; ++j) {
+              const int cl = cw0 + k * kCB + 8 * j + 2 * tig;
+              uint8_t* dst = row_p + (((cl >> 4) ^ prow) << 4) + (cl & 15);
+              const int(&d)[4] = acc[m][k * kNJ + j];
+              lean_pair<kSmall>(d[0], d[1], dq[k][j], bb[k][j], a.inv_sx, dst);
+              lean_pair<kSmall>(d[2], d[3], dq[k][j], bb[k][j], a.inv_sx, dst + 8 * kGroupedSlab);
+            }
+          continue;
+        }
+#pragma unroll
+        for (int k = 0; k < kBW; ++k) {
+          const int cl = cw0 + k * kCB;
+          if (cl >= slab_valid) break;
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j)
+            grouped_epilogue<kSmall>(a, acc[m][k * kNJ + j], dq[k][j], bb[k][j],
+                                     (img_row0 + oy) * a.Wo + ox0, px, seg_w,
+                                     c0 + cl + 8 * j + 2 * tig, cl + 8 * j + 2 * tig, row_tile);
+        }
+      }
+    };
+
+    // a step: rows_step output rows (the last of the band fewer), row by row
+    for (int i = 0, step = 0; i < rows; i += a.rows_step, ++step) {
+      const int nr = min(a.rows_step, rows - i);
+      issue_to((i + nr - 1 + a.depth) * stride + span);
+      wait_rows(i + nr - 1);
+      uint8_t* const out_tile = tiles + (step & 1) * tile_bytes;
+#pragma unroll 1
+      for (int r = 0; r < nr; ++r, next_taps()) {
+        int tap[3];
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) tap[ky] = tap_slot[ky] * slot_bytes;
+        uint8_t* const row_tile = out_tile + r * row_bytes;
+        if (active)
+#pragma unroll 1
+          for (int mt = 0; mt < n_mt; mt += G::kMT) {
+            Acc acc;
+            mma_item(tap, mt, acc);
+            epilogue_item(row_tile, oy0 + i + r, mt, acc);
+          }
+      }
+      // the output tile is whole (its writes ordered before the bulk
+      // stores' reads), the step before's stores have read the other tile,
+      // and the ring slots of rows before the next step's are free
+      if (a.outq) {
+        fence_proxy_async();
+        if (tid == 0 && step > 0) tma_store_read_wait();
+      }
+      __syncthreads();
+      if (a.outq && tid == 0)
+        for (int r = 0; r < nr; ++r)
+          tma_store_4d(&ymap, smem_u32(out_tile + r * row_bytes), c0, ox0, oy0 + i + r, (int)b);
+    }
+    if (a.outq && tid == 0) tma_store_read_wait();  // the tiles stay until read
+  } else {
+    // the general instance: warps walk (16-pixel tile, n8 tile) items, the
+    // weights from L1 each k32 step
+    const int n8 = slab_valid >> 3, items = n_mt * n8, t_last = 3 * a.u - 1;
+    const int chunk_bytes = a.cs * 16;
+    for (int i = 0; i < rows; ++i, next_taps()) {
+      issue_to((i + a.depth) * stride + span);
+      wait_rows(i);
+      const long long pix0 = (img_row0 + oy0 + i) * a.Wo + ox0;
+      uint8_t* const out_tile = tiles + (i & 1) * tile_bytes;
+      for (int it = warp; it < items; it += G::kWarps) {
+        const int mt = it / n8, nt = it - mt * n8;
+        const int bi = nt / a.nj, j = nt - bi * a.nj, gb = c0 / a.cb + bi;
+        const int px = 16 * mt + g;
+        int acc[4] = {0, 0, 0, 0};
+        for (int ky = 0; ky < 3; ++ky) {
+          const uint8_t* tap = gsm + tap_slot[ky] * slot_bytes;
+          for (int s = 0; s < a.steps; ++s) {
+            const int t = min(4 * s + tig, t_last), kx = t / a.u;
+            const int byte = bi * a.cb + 8 * (t - kx * a.u);
+            const uint8_t* p0 = tap + (byte >> 4) * chunk_bytes +
+                                (px * stride + kx * dil) * 16 + (byte & 15);
+            const uint2 v0 = *reinterpret_cast<const uint2*>(p0);
+            const uint2 v1 = *reinterpret_cast<const uint2*>(p0 + 8 * stride * 16);
+            const uint32_t af[4] = {v0.x, v1.x, v0.y, v1.y};
+            const int2 w = __ldg(a.w + (((gb * 3 + ky) * a.steps + s) * a.nj + j) * 32 + lane);
+            mma_s8(acc, af, w.x, w.y);
+          }
+        }
+        const int cl = 8 * nt + 2 * tig, n = c0 + cl;
+        grouped_epilogue<false>(a, acc, __ldg(reinterpret_cast<const float2*>(a.deq + n)),
+                                __ldg(reinterpret_cast<const float2*>(a.bias + n)), pix0, px,
+                                seg_w, n, cl, out_tile);
+      }
+      __syncthreads();
+      store_row(pix0, out_tile);
+    }
+    cp_async_wait<0>();  // the last groups are empty; no copy outlives the block
+  }
+}
+
+template <int CG, int STRIDE>
+int launch_grouped(const CUtensorMap& xmap, const CUtensorMap& ymap, GroupedArgs a, int smem,
+                   int blocks, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(int8_conv_grouped_kernel<CG, STRIDE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int8_conv_grouped_kernel<CG, STRIDE>
+      <<<blocks, 32 * Grouped<CG>::kWarps, (size_t)smem, stream>>>(xmap, ymap, a);
+  return (int)cudaGetLastError();
+}
+
+int gcd(int p, int q) { return q ? gcd(q, p % q) : p; }
+
 }  // namespace
 
-// x: (batch, H, W, cp) int8, 4-byte aligned; w: (kh * kw, cp / groups / 4,
-// co, 4) int8 packed, 16-byte aligned; deq, bias: co float32, 16-byte
-// aligned; res: (batch * ho * wo, co) float32 or null; out32: the same
-// shape float32 or null; outq: the same shape int8 or null (at least one
-// output). cp and co multiples of groups, with a multiple of 4 channels a
-// group on either side. res and out32 16-byte aligned, outq 4. Returns
-// cudaGetLastError() after the launch, or an error where the staged input
-// of a block does not fit in shared memory.
+// x: (batch, H, W, cp) int8, 16-byte aligned, cp a multiple of 16; w: the
+// packed weights of ops/int8_conv.py:pack_grouped, 8-byte aligned; deq,
+// bias: co float32, 8-byte aligned; res: (batch * ho * wo, co) float32 or
+// null; out32: the same shape float32 or null; outq: the same shape int8
+// or null (at least one output); res, out32 and outq 8-byte aligned. co ==
+// cp, cg = cp / groups a multiple of 4; a 3x3 kernel. instance: 0 the
+// general one, else 1 + 2 log2(cg / 4) + stride - 1 (pad 1, dilation 1);
+// slab: channels a block (128 for a fast instance, else a multiple of
+// lcm(cg, 8, 16)); band: output rows a block; depth: output rows of input
+// staged ahead (1-8); rows_step: output rows a step (1-4; 1 for the general
+// one). The plan's shared-memory layout, which the entry point takes as it
+// is (ops/int8_conv.py:grouped_layout): seg, a block's output columns (a
+// multiple of 16); cols, the input columns a staged row holds; ring, its
+// slots (input rows); slot_bytes, a slot (fast: a TMA box of slot_bytes /
+// 128 columns by 128 channels; general: slab channels by slot_bytes / slab
+// columns, an odd chunk stride); smem, the launch's dynamic shared memory,
+// refused where it does not hold the ring, two output tiles and a barrier a
+// slot after 1024 bytes of alignment, or is over the H100's 227 KB.
+// Returns cudaGetLastError() after the launch, or an error where the
+// arguments or the plan do not fit.
 extern "C" int int8_conv_grouped(const void* x, const void* w, const void* deq, const void* bias,
                                  const void* res, void* out32, void* outq, float inv_sx,
-                                 int batch, int H, int W, int cp, int ho, int wo, int co, int kh,
-                                 int kw, int stride, int pad, int dil, int groups, int relu,
-                                 void* stream) {
-  if (batch < 0 || H < 1 || W < 1 || ho < 0 || wo < 0 || kh < 1 || kw < 1 || groups < 1 ||
-      cp % groups || co % groups || (cp / groups) % 4 || (co / groups) % 4 || cp < 4 ||
-      co < 4 || stride < 1 || dil < 1 || pad < 0 || (!out32 && !outq) || !aligned(x, 4) ||
-      !aligned(w, 16) || !aligned(deq, 16) || !aligned(bias, 16) || !aligned(res, 16) ||
-      !aligned(out32, 16) || !aligned(outq, 4) || batch > 65535 || ho > 65535)
+                                 int batch, int H, int W, int cp, int ho, int wo, int co,
+                                 int stride, int pad, int dil, int groups, int relu,
+                                 void* stream, int instance, int slab, int band, int depth,
+                                 int rows_step, int seg, int cols, int ring, int slot_bytes,
+                                 int smem) {
+  if (batch < 0 || H < 1 || W < 1 || ho < 0 || wo < 0 || groups < 1 || cp != co ||
+      cp % groups || cp % 16 || (cp / groups) % 4 || stride < 1 || dil < 1 || pad < 0 ||
+      (!out32 && !outq) || !aligned(x, 16) || !aligned(w, 8) || !aligned(deq, 8) ||
+      !aligned(bias, 8) || !aligned(res, 8) || !aligned(out32, 8) || !aligned(outq, 8) ||
+      instance < 0 || instance > 8 || band < 1 || depth < 1 || depth > kGroupedMaxDepth ||
+      rows_step < 1 || rows_step > 4 || (!instance && rows_step != 1))
     return (int)cudaErrorInvalidValue;
   if ((long long)batch * ho * wo == 0) return (int)cudaSuccess;
-  const int cg = cp / groups, cog = co / groups;
-  const int slab_groups = cog >= kSlabChannels ? 1 : kSlabChannels / cog;
-  const int n_slabs = (groups + slab_groups - 1) / slab_groups;
-  const int cols = (kGroupedRun - 1) * stride + dil * (kw - 1) + 1;
-  const long long smem = (long long)kh * cols * slab_groups * cg;
-  const int runs = (wo + kGroupedRun - 1) / kGroupedRun;
-  if (smem > 227 * 1024 || (long long)runs * n_slabs > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  // 16-byte staging: whole 16-byte chunks of the slab at 16-byte addresses
-  const int vec16 = (slab_groups * cg) % 16 == 0 && cp % 16 == 0 && aligned(x, 16);
-  const GroupedArgs a{static_cast<const int8_t*>(x), static_cast<const int4*>(w),
+  const int cg = cp / groups, cb = cg * 8 / gcd(cg, 8), step16 = cb * 16 / gcd(cb, 16);
+  const int fast_cg = instance ? 4 << ((instance - 1) / 2) : 0;
+  const int fast_stride = instance ? 1 + (instance - 1) % 2 : 0;
+  if (instance && (cg != fast_cg || stride != fast_stride || pad != 1 || dil != 1 ||
+                   slab != kGroupedSlab))
+    return (int)cudaErrorInvalidValue;
+  if (slab < cb || slab % step16) return (int)cudaErrorInvalidValue;
+  const int box_cols = slot_bytes / 128, cs = instance ? 0 : slot_bytes / slab;
+  if (seg < 16 || seg % 16 || cols < 1 || ring < 1 || slot_bytes < 1 ||
+      (instance ? slot_bytes % 1024 || box_cols < cols || box_cols > 256 || seg > 256
+                : slot_bytes % slab || cs < cols || cs % 2 == 0))
+    return (int)cudaErrorInvalidValue;
+  const int q = slab / 16;
+  const int osw = (q & -q) >= 8 ? 7 : (q & -q) - 1;  // XOR within the largest power of 2 dividing q
+  const long long n_segs = (wo + seg - 1) / seg, n_bands = (ho + band - 1) / band;
+  const long long n_slabs = (co + slab - 1) / slab, blocks = n_slabs * n_segs * n_bands * batch;
+  if (smem < 1024 + (long long)ring * slot_bytes + 2ll * rows_step * seg * slab + 8ll * ring ||
+      smem > 227 * 1024 || blocks > 0x7fffffff || (long long)H * W * cp >= (1ll << 40))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap = {}, ymap = {};
+  if (instance) {
+    // (B, H, W, cp) uint8 in boxes of 128 channels by box_cols columns, and
+    // the (B, ho, wo, co) int8 output in boxes of 128 channels by a
+    // segment, both in the 128-byte swizzle
+    const EncodeTiled encode = encode_tiled();
+    if (!encode) return (int)cudaErrorNotSupported;
+    const cuuint32_t elem[4] = {1, 1, 1, 1};
+    const cuuint64_t dims[4] = {(cuuint64_t)cp, (cuuint64_t)W, (cuuint64_t)H,
+                                (cuuint64_t)batch};
+    const cuuint64_t strides[3] = {(cuuint64_t)cp, (cuuint64_t)cp * W, (cuuint64_t)cp * W * H};
+    const cuuint32_t box[4] = {(cuuint32_t)kGroupedSlab, (cuuint32_t)box_cols, 1, 1};
+    if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x), dims, strides, box,
+               elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+    if (outq) {
+      if (!aligned(outq, 16)) return (int)cudaErrorInvalidValue;
+      const cuuint64_t ydims[4] = {(cuuint64_t)co, (cuuint64_t)wo, (cuuint64_t)ho,
+                                   (cuuint64_t)batch};
+      const cuuint64_t ystrides[3] = {(cuuint64_t)co, (cuuint64_t)co * wo,
+                                      (cuuint64_t)co * wo * ho};
+      const cuuint32_t ybox[4] = {(cuuint32_t)kGroupedSlab, (cuuint32_t)seg, 1, 1};
+      if (encode(&ymap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, outq, ydims, ystrides, ybox, elem,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  const GroupedArgs a{static_cast<const int8_t*>(x), static_cast<const int2*>(w),
                       static_cast<const float*>(deq), static_cast<const float*>(bias),
                       static_cast<const float*>(res), static_cast<float*>(out32),
-                      static_cast<int8_t*>(outq), inv_sx, H, W, cp, ho, wo, co, kh, kw, stride,
-                      pad, dil, cg, cog, relu, slab_groups, n_slabs, cols, vec16};
-  cudaError_t err = cudaFuncSetAttribute(int8_conv_grouped_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(runs * n_slabs), (unsigned)ho, (unsigned)batch);
-  int8_conv_grouped_kernel<<<grid, kGroupedThreads, (size_t)smem,
-                             static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+                      static_cast<int8_t*>(outq), inv_sx, H, W, cp, ho, wo, co, stride, pad, dil,
+                      relu, cb, cb / 8, (3 * (cb / 8) + 3) / 4, cb / 8, slab, (int)n_slabs, seg,
+                      (int)n_segs, band, (int)n_bands, depth, rows_step, ring, cols, cs,
+                      slot_bytes, osw, co % 16 == 0 && aligned(outq, 16)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int sm = smem, nb = (int)blocks;
+  switch (instance) {
+    case 1: return launch_grouped<4, 1>(xmap, ymap, a, sm, nb, s);
+    case 2: return launch_grouped<4, 2>(xmap, ymap, a, sm, nb, s);
+    case 3: return launch_grouped<8, 1>(xmap, ymap, a, sm, nb, s);
+    case 4: return launch_grouped<8, 2>(xmap, ymap, a, sm, nb, s);
+    case 5: return launch_grouped<16, 1>(xmap, ymap, a, sm, nb, s);
+    case 6: return launch_grouped<16, 2>(xmap, ymap, a, sm, nb, s);
+    case 7: return launch_grouped<32, 1>(xmap, ymap, a, sm, nb, s);
+    case 8: return launch_grouped<32, 2>(xmap, ymap, a, sm, nb, s);
+    default: return launch_grouped<0, 0>(xmap, ymap, a, sm, nb, s);
+  }
 }

@@ -14,8 +14,9 @@ the forward and the int8 walk (one train step is held in
   walk's plain version (encoder features, int8 decoder blocks 0-1) bit for
   bit against ``flairtpu``'s jitted walk given the same qparams, as
   ``tests/test_torch_quantize.py`` holds the resnet walk; the grouped
-  kernel's loop over its packed weights, transcribed in numpy, against the
-  plain sums.
+  kernel's MMA loop over its packed weights, transcribed in numpy, against
+  lax's grouped sums (``tests/test_torch_grouped_plan.py`` holds the
+  packed layout's zeros and the launch plan).
 - init_encoder_weights from a torchvision-keyed resnext classifier: the
   encoder equals ``flairtpu``'s conversion of the same dict.
 """
@@ -126,16 +127,45 @@ def test_bn_fold_matches_flairtpu(setup):
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
 
 
-@pytest.mark.parametrize("cg,stride,pad,dil", [(4, 1, 1, 1), (8, 2, 1, 1), (16, 1, 2, 2),
-                                               (32, 1, 4, 4)])
-def test_grouped_sums_match_lax_and_the_kernel_loop(cg, stride, pad, dil):
+def grouped_kernel_loop(x: np.ndarray, packed: np.ndarray, cg: int, stride: int, pad: int,
+                        dil: int, ho: int, wo: int) -> np.ndarray:
+    """The grouped kernel's MMA loop over its packed weights, in numpy: for
+    each bundle, tap row ky and k32 step s, word p of the step (lane tig =
+    p % 4; b0 / a0 for p < 4, b1 / a2 after) reads unit t = min(4 s + tig,
+    last) of the tap row, 4 bytes of channels 8 (t % u) + 4 (p // 4) of the
+    bundle at tap kx = t // u, for every output pixel, against the packed
+    words of lane (g, tig) for output channel 8 j + g."""
+    B, H, W, C = x.shape
+    cb, units, steps = ic.grouped_bundle(cg)
+    u, nb = cb // 8, C // cb
+    xp = np.pad(x.astype(np.int64), ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+    pk = packed.astype(np.int64).reshape(nb, 3, steps, cb // 8, 8, 4, 2, 4)
+    out = np.zeros((B, ho, wo, C), np.int64)
+    for bi in range(nb):
+        for ky in range(3):
+            rows = xp[:, ky * dil: ky * dil + stride * (ho - 1) + 1: stride]
+            for s in range(steps):
+                for p in range(8):
+                    t = min(4 * s + p % 4, units - 1)
+                    kx, c = t // u, bi * cb + 8 * (t % u) + 4 * (p // 4)
+                    a = rows[:, :, kx * dil: kx * dil + stride * (wo - 1) + 1: stride, c:c + 4]
+                    b = pk[bi, ky, s, :, :, p % 4, p // 4, :].reshape(cb, 4)  # n = 8 j + g
+                    out[..., bi * cb:(bi + 1) * cb] += a @ b.T
+    return out
+
+
+@pytest.mark.parametrize("cg,groups,stride,pad,dil", [
+    (4, 8, 1, 1, 1), (8, 8, 2, 1, 1), (16, 8, 1, 2, 2), (32, 8, 1, 4, 4),
+    (48, 2, 1, 1, 1),   # resnext101_32x48d's layer1 (the general instance)
+    (4, 20, 2, 1, 1),   # 80 channels: a slab of 128 left part empty
+])
+def test_grouped_sums_match_lax_and_the_kernel_loop(cg, groups, stride, pad, dil):
     """int8_conv_acc_plain at a grouped 3x3 against lax's grouped int8 conv,
-    exactly; and the kernel's loop (for each tap and run of 4 of the group's
-    channels, the thread's 4 output channels' packed words against the
-    input's word, dp4a's sums) transcribed in numpy, exactly."""
-    rng = np.random.default_rng(cg)
-    groups, co = 8, 8 * cg
-    x = rng.integers(-127, 128, (2, 11, 13, groups * cg)).astype(np.int8)
+    exactly; and the kernel's MMA loop over its packed weights (bundles of
+    whole groups, block-diagonal), transcribed in numpy, exactly."""
+    rng = np.random.default_rng(cg + groups)
+    co = groups * cg
+    x = rng.integers(-127, 128, (2, 11, 13, co)).astype(np.int8)
     w = rng.integers(-127, 128, (3, 3, cg, co)).astype(np.int8)
     want = np.asarray(jax.lax.conv_general_dilated(
         jnp.asarray(x), jnp.asarray(w), (stride, stride), ((pad, pad), (pad, pad)),
@@ -143,25 +173,14 @@ def test_grouped_sums_match_lax_and_the_kernel_loop(cg, stride, pad, dil):
         feature_group_count=groups, preferred_element_type=jnp.int32))
     p = ic.Int8ConvParams(torch.from_numpy(w).permute(3, 2, 0, 1).contiguous(), 1.0,
                           torch.ones(co), torch.zeros(co), groups)
-    assert p.in_channels == groups * cg and p.packed.shape == (9, cg // 4, co, 4)
+    cb, _, steps = ic.grouped_bundle(cg)
+    assert p.in_channels == co and p.packed.shape == (co // cb, 3, steps, cb // 8, 32, 8)
     xt = torch.from_numpy(x).permute(0, 3, 1, 2)
     got = ic.int8_conv_acc_plain(xt, p, stride, pad, dil)
     np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want)
-
-    packed = p.packed.numpy().astype(np.int64)
-    xp = np.pad(x.astype(np.int64), ((0, 0), (pad, pad), (pad, pad), (0, 0)))
     ho, wo = want.shape[1:3]
-    loop = np.zeros(want.shape, np.int64)
-    for ky in range(3):
-        for kx in range(3):
-            win = xp[:, ky * dil: ky * dil + stride * (ho - 1) + 1: stride,
-                     kx * dil: kx * dil + stride * (wo - 1) + 1: stride]
-            for j in range(cg // 4):
-                for n in range(co):
-                    g = n // cg
-                    words = win[..., g * cg + 4 * j: g * cg + 4 * j + 4]
-                    loop[..., n] += words @ packed[ky * 3 + kx, j, n]
-    np.testing.assert_array_equal(loop, want)
+    np.testing.assert_array_equal(
+        grouped_kernel_loop(x, p.packed.numpy(), cg, stride, pad, dil, ho, wo), want)
 
 
 def test_grouped_wrapper_on_the_cpu():
@@ -184,6 +203,19 @@ def test_grouped_wrapper_on_the_cpu():
     with pytest.raises(ValueError, match="ungrouped"):
         ic.int8_conv_grouped(x, ic.Int8ConvParams(torch.zeros((8, 64, 1, 1), dtype=torch.int8),
                                                   0.1, torch.ones(8), torch.zeros(8)), 1, 0)
+    # the kernel's layout: a 3x3 with as many output as input channels a group
+    with pytest.raises(ValueError, match="as many output as input"):
+        ic.Int8ConvParams(torch.cat([wq, wq]), 0.1, torch.ones(128), torch.zeros(128), 16)
+    with pytest.raises(ValueError, match="as many output as input"):
+        ic.Int8ConvParams(wq[..., :1, :1].contiguous(), 0.1, torch.ones(64), torch.zeros(64), 16)
+    # 16-byte lines: channels a multiple of 16, x 16-byte aligned
+    p8 = ic.Int8ConvParams(wq[:8].contiguous(), 0.1, torch.ones(8), torch.zeros(8), 2)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ic.int8_conv(x[:, :8].contiguous(memory_format=torch.channels_last), p8, 1, 1)
+    buf = torch.zeros(64 * 81 + 8, dtype=torch.int8)
+    off = torch.as_strided(buf, (1, 64, 9, 9), (81 * 64, 1, 9 * 64, 64), 8)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ic.int8_conv(off, p, 1, 1, out_sx=0.05)
 
 
 def to_numpy(qparams: dict) -> dict:

@@ -287,7 +287,19 @@ Phases (any failure exits non-zero):
    epoch of 4 steps) initialized from a .msgpack through
    init_weights_only_from_ckpt, one train step held to the plain step as
    phase 4d holds the other archs, and its predict tail.
-8. the kernels line, the card line, the script's seconds, and last the JSON
+8. EfficientNet, serving (random weights, 19 classes): the SiLU epilogue
+   (conv_epilogue with silu) and the squeeze-excite kernels (se_gate.cu:
+   se_squeeze, se_excite) at every site of one efficientnet-b4-unet batch
+   of 128 tiles against their plain versions (bf16 within one ulp, the
+   squeeze's mean within SQUEEZE_REL_TOL of its largest value; every other
+   conv_epilogue site bit for bit), each timed beside its bound, plain
+   version and library call; the depthwise convs' share of that batch;
+   efficientnet-b4-unet on the 4096² zone (argmax and class_prob) and
+   efficientnet-b0 under deeplabv3plus and pspnet through detect_main,
+   each against its all-plain run by phase 5's rule, with launches and
+   patches/s; flair predict and metrics of b4-unet from a .msgpack (the
+   PRED classes against the all-plain run of the first batch).
+9. the kernels line, the card line, the script's seconds, and last the JSON
    result line.
 
     python3 chip_smoke.py --profile  # also one batch per program by stage, the profiler
@@ -331,6 +343,7 @@ from flairtpu_torch.data.patches import PatchDataset, PatchLoader
 from flairtpu_torch.io import TiffReader
 from flairtpu_torch.io.tiff import Affine, write_array
 from flairtpu_torch.models.deeplab import align_corners_weights
+from flairtpu_torch.models import efficientnet as en
 from flairtpu_torch.models.convert import load_weights, write_native
 from flairtpu_torch.models.factory import FlairSegmentationModel, create_model, init_weights
 from flairtpu_torch.models.resnet import stem_conv
@@ -358,6 +371,7 @@ from flairtpu_torch.ops import group_norm as gnr
 from flairtpu_torch.ops import strided_tail as sp
 from flairtpu_torch.ops import int8_conv as ic
 from flairtpu_torch.ops import quantize_act as qa
+from flairtpu_torch.ops import se_gate as sg
 from flairtpu_torch.ops import stitch as st
 from flairtpu_torch.ops import tile_softmax as ts
 from flairtpu_torch.zone import device_engine as de
@@ -2072,6 +2086,8 @@ class PlainRunner(DeviceZoneRunner):
         x = ga.gather_normalize_plain(zone_p, origins, self.size,
                                       out_dtype=self.model.dtype, **self.norm)
         plain = dict(epilogue=ep.conv_epilogue_plain, group_norm=gnr.group_norm_relu_plain)
+        if isinstance(self.model, FlairSegmentationModel):
+            plain.update(se_gate=sg.squeeze_excite_plain)
         if isinstance(self.model, pq.QuantizedZoneModel):
             plain.update(conv=ic.int8_conv_plain, quantize=qa.quantize_act_plain)
         return self.model.tail_input(x, margin, **plain)
@@ -2100,6 +2116,7 @@ def reset_launches() -> None:
     au.launches = au.tiled_launches = 0
     wc.launches = wc.backward_launches = bt.launches = bt.backward_launches = 0
     bt.narrow_launches = bt.narrow_backward_launches = gnr.backward_launches = 0
+    ep.silu_launches = sg.squeeze_launches = sg.excite_launches = 0
     for counts in (st.launches, ts.launches):
         for name in counts:
             counts[name] = 0
@@ -2117,7 +2134,9 @@ def read_launches() -> dict:
             "bn_backward_narrow": bt.narrow_backward_launches, "strided_tail": sp.launches,
             "strided_tail_probs": sp.probs_launches, "strided_tail_logits": sp.logits_launches,
             "group_norm_relu": gnr.launches,
-            "group_norm_relu_backward": gnr.backward_launches, **st.launches, **ts.launches}
+            "group_norm_relu_backward": gnr.backward_launches,
+            "conv_epilogue_silu": ep.silu_launches, "se_squeeze": sg.squeeze_launches,
+            "se_excite": sg.excite_launches, **st.launches, **ts.launches}
 
 
 def expected_launches(method: str, output_type: str, n_batches: int,
@@ -4829,7 +4848,11 @@ def bn_count(module: nn.Module) -> int:
 def encoder_sites(model) -> int:
     """conv_epilogue launches of the encoder a batch: every BatchNorm but the
     downsamples' (folded into their block's last site); the folded walk's
-    too (one a conv but the downsamples)."""
+    too (one a conv but the downsamples); an EfficientNet's SiLU and
+    project sites (its depthwise BatchNorms are squeeze-excite sites)."""
+    counts = effnet_counts(model) if hasattr(model, "encoder") else None
+    if counts is not None:
+        return counts["sites"]
     return bn_count(model.encoder) - sum(getattr(m, "downsample", None) is not None
                                          for m in model.encoder.modules())
 
@@ -4862,6 +4885,10 @@ def arch_launches(model, tail, n_batches: int, method: str = "exact-clipping",
                    conv_epilogue=decoder_sites(model, tail) * n_batches)
     if model.arch == "fpn":
         out["group_norm_relu"] = len(GN_SITES) * n_batches
+    counts = effnet_counts(model) if not int8 else None
+    if counts is not None:
+        out.update(conv_epilogue_silu=counts["silu"] * n_batches,
+                   se_squeeze=counts["se"] * n_batches, se_excite=counts["se"] * n_batches)
     name = "strided_tail" if isinstance(tail, sp.StridedTail) else "fused_tail"
     if output_type == "class_prob":
         out[f"{name}_probs"] = n_batches
@@ -5331,6 +5358,337 @@ def run_resnext_flair(tmp: Path, main: dict, rng) -> dict:
             "step": step, "predict_tail": tail}
 
 
+# -- phase 8: EfficientNet, serving ---------------------------------------------
+
+EFFNET = "efficientnet-b4"
+EFFNET_SMALL = "efficientnet-b0"
+EFFNET_ARCHS = ("deeplabv3plus", "pspnet")  # under EFFNET_SMALL: output stride 16, depth 3
+SQUEEZE_REL_TOL = 1e-5  # the squeeze's mean: max |kernel - plain| / max |plain|
+
+
+def effnet_config(cfg: dict, tmp: Path, encoder: str, arch: str, rng) -> dict:
+    """The main configuration with a random ``encoder`` ``arch`` (19 classes)."""
+    name = f"{encoder}_{arch}"
+    weights = tmp / f"{name}_19cl.pth"
+    torch.save(random_weights(FlairSegmentationModel(encoder, K, C, arch=arch), rng), weights)
+    return dict(cfg, model_weights=str(weights), output_name=f"zone-{name}",
+                output_path=str(tmp / f"out_{name}"),
+                model_framework={"model_provider": "SegmentationModelsPytorch",
+                                 "SegmentationModelsPytorch": {"encoder_decoder": name}})
+
+
+def effnet_counts(model) -> dict | None:
+    """An EfficientNet encoder's launches a batch: SiLU epilogues (the stem
+    and each expand), squeeze-excite sites (one a block), all its
+    conv_epilogue sites (the SiLU ones and each project); None for another
+    encoder."""
+    if not isinstance(model.encoder, en.EfficientNetEncoder):
+        return None
+    blocks = list(model.encoder._blocks)
+    silu = 1 + sum(b.expand != 1 for b in blocks)
+    return {"silu": silu, "se": len(blocks), "sites": silu + len(blocks)}
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| of two bf16 tensors in units of the bf16 ulp at
+    the larger magnitude of each pair (0 where both are 0)."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return float(((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)).max())
+
+
+class EffnetChecker:
+    """An epilogue and a squeeze-excite site that launch the kernels on the
+    main path's operands and hold each against its plain version on the
+    same operands: conv_epilogue bit for bit (its bf16 and float32
+    outputs), the SiLU epilogue and the excite within one bf16 ulp, the
+    squeeze's mean within SQUEEZE_REL_TOL of the largest |mean|; with
+    ``timed``, the SiLU epilogue's and both squeeze-excite kernels' times,
+    their plain versions', their library calls' and their bounds, a site at
+    a time. Nothing is kept of a site but its numbers."""
+
+    def __init__(self, timed: bool = False):
+        self.timed = timed
+        self.rows = {"conv_epilogue_silu": [], "se_squeeze": [], "se_excite": []}
+        self.err = {"conv_epilogue_silu": 0.0, "se_squeeze": 0.0, "se_excite": 0.0}
+        # the worst reading of each check: bf16 ulps, the squeeze's relative error
+        self.worst = {"conv_epilogue_silu": 0.0, "se_squeeze": 0.0, "se_excite": 0.0}
+        self.exact_sites = 0  # conv_epilogue sites without SiLU, held bit for bit
+
+    @staticmethod
+    def hold(ok: bool, msg: str) -> None:
+        """A site's check: silent when it holds, the run's failure when not."""
+        if not ok:
+            check(False, msg)
+
+    def __call__(self, y, scale, shift, residual=None, branch=None, relu=True, keep_f32=False,
+                 silu=False):
+        args = dict(y=y, scale=scale, shift=shift, residual=residual, branch=branch, relu=relu,
+                    keep_f32=True, silu=silu)
+        out, out32 = ep.conv_epilogue(**args)
+        ref, ref32 = ep.conv_epilogue_plain(**args)
+        label = f"{tuple(y.shape)}{' SiLU' if silu else ''}"
+        if silu:
+            ulps = bf16_ulps(out, ref)
+            self.hold(ulps <= 1, f"conv_epilogue SiLU {label}: bf16 within one ulp ({ulps:.2f})")
+            err = (out32 - ref32).abs().max().item()
+            self.err["conv_epilogue_silu"] = max(self.err["conv_epilogue_silu"], err)
+            self.worst["conv_epilogue_silu"] = max(self.worst["conv_epilogue_silu"], ulps)
+        else:
+            self.hold(torch.equal(out, ref) and torch.equal(out32, ref32),
+                      f"conv_epilogue {label}: bf16 and fp32 outputs exactly equal")
+            self.exact_sites += 1
+        if silu and self.timed:
+            n, c = y.numel(), y.shape[1]
+            nbytes = 2 * n + 2 * 4 * c + 2 * n
+            self.rows["conv_epilogue_silu"].append(dict(
+                shape=tuple(y.shape), bytes=nbytes,
+                ms=cuda_ms(lambda: ep.conv_epilogue(y, scale, shift, relu=False, silu=True),
+                           5, 1),
+                plain_ms=cuda_ms(lambda: ep.conv_epilogue_plain(y, scale, shift, relu=False,
+                                                                silu=True), 2, 1),
+                library_ms=cuda_ms(lambda: F.silu(y), 5, 1),
+                **bound(6 * n, nbytes, PEAK_FP32_FLOPS)))
+        return out, (out32 if keep_f32 else None)
+
+    def se_gate(self, y, scale, shift, reduce, expand):
+        mean = sg.se_squeeze(y, scale, shift)
+        ref = sg.se_squeeze_plain(y, scale, shift)
+        rel = ((mean - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+        label = f"{tuple(y.shape)}"
+        self.hold(rel <= SQUEEZE_REL_TOL, f"se_squeeze {label}: mean within {SQUEEZE_REL_TOL} "
+                  f"of the largest |mean| ({rel:.2e})")
+        self.err["se_squeeze"] = max(self.err["se_squeeze"], (mean - ref).abs().max().item())
+        self.worst["se_squeeze"] = max(self.worst["se_squeeze"], rel)
+        gate = sg.se_gate_vector(mean, reduce, expand, y.dtype)
+        out = sg.se_excite(y, scale, shift, gate)
+        want = sg.se_excite_plain(y, scale, shift, gate)
+        ulps = bf16_ulps(out, want)
+        self.hold(ulps <= 1, f"se_excite {label}: bf16 within one ulp ({ulps:.2f})")
+        self.err["se_excite"] = max(self.err["se_excite"],
+                                    (out.float() - want.float()).abs().max().item())
+        self.worst["se_excite"] = max(self.worst["se_excite"], ulps)
+        if self.timed:
+            n, c, bc = y.numel(), y.shape[1], y.shape[0] * y.shape[1]
+            sq_bytes, ex_bytes = 2 * n + 2 * 4 * c + 4 * bc, 2 * n + 2 * 4 * c + 4 * bc + 2 * n
+            self.rows["se_squeeze"].append(dict(
+                shape=tuple(y.shape), bytes=sq_bytes,
+                ms=cuda_ms(lambda: sg.se_squeeze(y, scale, shift), 5, 1),
+                plain_ms=cuda_ms(lambda: sg.se_squeeze_plain(y, scale, shift), 2, 1),
+                library_ms=cuda_ms(lambda: torch.mean(y, dim=(2, 3)), 5, 1),
+                **bound(7 * n, sq_bytes, PEAK_FP32_FLOPS)))
+            self.rows["se_excite"].append(dict(
+                shape=tuple(y.shape), bytes=ex_bytes,
+                ms=cuda_ms(lambda: sg.se_excite(y, scale, shift, gate), 5, 1),
+                plain_ms=cuda_ms(lambda: sg.se_excite_plain(y, scale, shift, gate), 2, 1),
+                library_ms=None, **bound(7 * n, ex_bytes, PEAK_FP32_FLOPS)))
+        return out
+
+    def summary(self, name: str) -> dict:
+        rows = self.rows[name]
+        lib = [r["library_ms"] for r in rows]
+        return {"sites": len(rows), "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                             else "operations"),
+                "bytes": sum(r["bytes"] for r in rows),
+                "library_ms": None if None in lib else sum(lib),
+                "largest": max(rows, key=lambda r: r["bytes"]),
+                "max_abs_err": self.err[name]}
+
+
+def check_effnet_kernels(model, x: torch.Tensor) -> dict:
+    """The SiLU epilogue, the squeeze and the excite at every site of one
+    main-path batch of tiles ``x`` through ``model`` (every other
+    conv_epilogue site held too), timed; then a 20-channel map (not a
+    multiple of 8) through the SiLU epilogue's one-element-a-thread
+    kernel, and the excite's and squeeze's refusal of it."""
+    chk = EffnetChecker(timed=True)
+    model.tail_input(x, M, epilogue=chk, se_gate=chk.se_gate)
+    counts = effnet_counts(model)
+    check(len(chk.rows["conv_epilogue_silu"]) == counts["silu"]
+          and len(chk.rows["se_squeeze"]) == counts["se"]
+          and chk.exact_sites == counts["sites"] - counts["silu"] + bn_count(model.decoder) - 2,
+          f"{EFFNET}: {counts['silu']} SiLU sites within one bf16 ulp (worst "
+          f"{chk.worst['conv_epilogue_silu']:.2f}), {counts['se']} squeeze-excite sites (squeeze "
+          f"worst {chk.worst['se_squeeze']:.2e} of the largest |mean|, excite worst "
+          f"{chk.worst['se_excite']:.2f} ulp), {chk.exact_sites} other conv_epilogue sites bit "
+          "for bit; every site timed")
+    gen = torch.Generator("cuda").manual_seed(SEED + 8)
+    site = random_site(gen, (3, 20, 17, 19), "none")
+    edge = EffnetChecker()
+    edge(**dict(site, relu=False, silu=True))
+    try:
+        sg.se_squeeze(site["y"], site["scale"], site["shift"])
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "se_squeeze: C = 20 (not a multiple of 8) raises")
+    ulps = edge.worst["conv_epilogue_silu"]
+    check(ulps <= 1, "conv_epilogue SiLU, C = 20 (the one-element-a-thread kernel): within "
+          f"one bf16 ulp ({ulps:.2f})")
+    out = {name: chk.summary(name) for name in chk.rows}
+    for name in out:
+        out[name]["worst"] = chk.worst[name]
+    return out
+
+
+def depthwise_share(model, x: torch.Tensor) -> dict:
+    """One main-path batch of tiles ``x`` by CUDA events: the whole
+    tail_input and the tail, and around each depthwise conv (cuDNN's
+    grouped conv, with the F.pad copy of an asymmetric stride-2 pad); the
+    pad copies timed alone on maps of the same shapes."""
+    tail = model.zone_tail()
+    g = tail.geometry(S, M)
+    kern = tail.wrappers()[0]
+    planes = torch.zeros((2, ZONE, ZONE), dtype=torch.uint8, device=x.device)
+    win = torch.from_numpy(exact_windows(slice_grid(ZONE, ZONE, S, M).tiles[:BATCH], ZONE, ZONE,
+                                         S - 2 * M, BATCH)).to(x.device)
+    events, pads = [], []
+    inner = en.same_conv
+
+    def timed_conv(h, m, pad, dtype):
+        if m.groups == 1:
+            return inner(h, m, pad, dtype)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        y = inner(h, m, pad, dtype)
+        b.record()
+        events.append((a, b))
+        if pad[0] != pad[1]:
+            pads.append((tuple(h.shape), pad))
+        return y
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    en.same_conv = timed_conv
+    try:
+        for _ in range(2):  # the second pass is taken
+            events.clear()
+            pads.clear()
+            torch.cuda.synchronize()
+            start.record()
+            kern(model.tail_input(x, M), tail, g, planes, win)
+            end.record()
+            torch.cuda.synchronize()
+    finally:
+        en.same_conv = inner
+    batch = start.elapsed_time(end)
+    dw = sum(a.elapsed_time(b) for a, b in events)
+    pad_ms = 0.0
+    for shape, (lo, hi) in pads:
+        h = torch.empty(shape, dtype=x.dtype, device=x.device).contiguous(
+            memory_format=torch.channels_last)
+        pad_ms += cuda_ms(lambda: F.pad(h, (lo, hi, lo, hi)), 5, 1)
+        del h
+    return {"batch_ms": batch, "depthwise_ms": dw, "depthwise_share": dw / batch,
+            "depthwise_sites": len(events), "pad_copy_ms": pad_ms, "pad_sites": len(pads)}
+
+
+def run_effnet_predict(main: dict, tmp: Path, rng) -> dict:
+    """flair predict and metrics of EFFNET-unet (19 classes) at phase 4's
+    values (batch 16) on phase 4's test split, from a .msgpack of random
+    weights (paths.ckpt_model_path): its launches (one predict batch: the
+    gather and tail kernels of a batch, every encoder and decoder site),
+    the PRED rasters and metrics.json, and the first batch's classes
+    against its all-plain run by the near-tie rule; patches/s."""
+    root = tmp / "flair_effnet"
+    root.mkdir(exist_ok=True)
+    model = FlairSegmentationModel(EFFNET, K, C)
+    ckpt = root / f"{EFFNET}_unet.msgpack"
+    write_native(ckpt, random_weights(model, rng))
+    cfg = copy.deepcopy(main["cfg"])
+    cfg["paths"].update(out_folder=str(root), ckpt_model_path=str(ckpt))
+    cfg["tasks"].update(train=False, predict=True, metrics=True)
+    cfg["model_framework"]["SegmentationModelsPytorch"]["encoder_decoder"] = f"{EFFNET}_unet"
+    n_test = sum(n for split, n in FLAIR_SPLITS if split == "test")
+    batches = -(-n_test // TRAIN_BATCH)
+    result, launches, wall = counted_flair_main(cfg, root / "flair.yaml")
+    counts = effnet_counts(model)
+    want = dict.fromkeys(read_launches(), 0)
+    want.update(augment_normalize=batches, fused_tail=batches,
+                conv_epilogue=(counts["sites"] + bn_count(model.decoder) - 2) * batches,
+                conv_epilogue_silu=counts["silu"] * batches, se_squeeze=counts["se"] * batches,
+                se_excite=counts["se"] * batches)
+    label = f"flair predict {EFFNET}-unet (.msgpack)"
+    check_launches(f"{label}, {batches} batch(es)", launches, want)
+    out = Path(cfg["paths"]["out_folder"], cfg["paths"]["out_model_name"])
+    name = cfg["paths"]["out_model_name"]
+    preds = sorted((out / f"predictions_{name}").glob("PRED_*.tif"))
+    check(len(preds) == n_test, f"{label}: {len(preds)} PRED files")
+    check((out / "metrics" / "metrics.json").exists(), f"{label}: metrics.json")
+    tr = SegmentationTrainer(cfg)
+    zeroed = ckpt_lib.init_weights_with_surgery(ckpt, tr.model, verbose=False)
+    check(not zeroed, f"{label}: every tensor of the .msgpack loads")
+    batch = first_batch(cfg, "test")
+    with torch.inference_mode():
+        x, _ = tr.prepare(batch)
+        xin = tr.model.tail_input(x, 0, epilogue=ep.conv_epilogue_plain,
+                                  se_gate=sg.squeeze_excite_plain)
+        tail = tr.model.zone_tail()
+        g = tail.geometry(S, 0)
+        cls_p, prob_p = tail.plain_versions()[0](xin, tail, g)
+        gap = top2_gap_last(ft.tail_logits_plain(xin, tail, g).permute(0, 2, 3, 1))
+    cls_k = []
+    for src in batch["id"]:
+        with TiffReader(out / f"predictions_{name}" / f"PRED_{Path(src).name}") as r:
+            cls_k.append(r.read(1))
+    cls_k = torch.from_numpy(np.stack(cls_k)).to(cls_p.device)
+    off = cls_k != cls_p.to(cls_k.dtype)
+    moved = int((off & (gap >= GAP_TOL)).sum())
+    check(moved == 0, f"{label}: PRED classes vs the all-plain run: {int(off.sum())} "
+          f"mismatches, {moved} beyond the near-tie rule (top-2 gap < {GAP_TOL})")
+    pred = result["predict"]
+    rate = pred["patches"] / pred["seconds"]
+    print(f"  {label}: {pred['patches']} patches, {rate:.2f} patches/s (its first batch, "
+          f"warm-up included), flair_main wall {wall:.2f} s; {int(off.sum())} near-tie "
+          "mismatches against the plain run", flush=True)
+    del tr, x, xin
+    torch.cuda.empty_cache()
+    return {"patches_per_sec": rate, "wall_seconds": wall, "launches": launches,
+            "mismatches": int(off.sum())}
+
+
+def run_effnet(cfg: dict, tmp: Path, main: dict, card: str) -> dict:
+    """Phase 8: EFFNET-unet on the main zone (argmax and class_prob) and
+    EFFNET_SMALL under EFFNET_ARCHS, each through detect_main against its
+    all-plain run with its launches; the new kernels at every site of one
+    EFFNET batch against their plain versions, timed; the depthwise convs'
+    share of that batch; flair predict from a .msgpack."""
+    rng = np.random.default_rng(SEED + 800)
+    bcfg = effnet_config(cfg, tmp, EFFNET, "unet", rng)
+    device = torch.device("cuda")
+    model, _ = eng.prepare_model(bcfg, device)
+    gen = torch.Generator("cuda").manual_seed(SEED + 80)
+    x = torch.rand((BATCH, S, S, C), generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        kernels = check_effnet_kernels(model, x)
+        share = depthwise_share(model, x)
+    del model, x
+    torch.cuda.empty_cache()
+    out = {"kernels": kernels, "depthwise": share}
+    out["main"] = run_arch(bcfg, f"{EFFNET}_unet", ZONE)
+    print(f"  {EFFNET}-unet: {out['main']['patches_per_sec']:.2f} patches/s on {card}",
+          flush=True)
+    out["class_prob"] = run_arch_class_prob(bcfg, ZONE)
+    for arch in EFFNET_ARCHS:
+        acfg = effnet_config(cfg, tmp, EFFNET_SMALL, arch, rng)
+        out[f"{EFFNET_SMALL}_{arch}"] = run_arch(acfg, f"{EFFNET_SMALL}_{arch}", ZONE)
+    out["predict"] = run_effnet_predict(main, tmp, rng)
+    for name, r in kernels.items():
+        big = r["largest"]
+        print(f"    {name}, {r['sites']} sites of one {EFFNET} batch: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e9:.2f} GB); largest "
+              f"site {big['shape']}: {big['ms']:.4f} ms, bound {big['bound_ms']:.4f} ms",
+              flush=True)
+    print(f"    {EFFNET}-unet batch of {BATCH}: {share['batch_ms']:.2f} ms, depthwise convs "
+          f"{share['depthwise_ms']:.2f} ms ({100 * share['depthwise_share']:.1f}%, "
+          f"{share['depthwise_sites']} sites; their {share['pad_sites']} F.pad copies "
+          f"{share['pad_copy_ms']:.2f} ms alone) on {card}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5629,6 +5987,12 @@ def main() -> int:
             resnext = run_resnext(rcfg, ZONE, card)
             resnext["flair"] = run_resnext_flair(tmp, flair, np.random.default_rng(SEED + 701))
             print(f"    phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
+            print(f"[8] EfficientNet: {EFFNET}-unet on the main zone (argmax, class_prob), "
+                  f"{EFFNET_SMALL} under {', '.join(EFFNET_ARCHS)}, flair predict from a "
+                  ".msgpack; the SiLU epilogue and squeeze-excite kernels", flush=True)
+            t8 = time.perf_counter()
+            effnet = run_effnet(cfg, tmp, flair, card)
+            print(f"    phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
         if args.profile:
             with torch.inference_mode():
                 prof = stage_breakdown(cfg, ZONE, rng, epi)
@@ -5892,6 +6256,27 @@ def main() -> int:
                                                      "bn_backward_narrow"))
                    for m in ("stats", "backward")]},
     ]
+    # the SiLU epilogue and squeeze-excite kernels: their sites of one
+    # efficientnet-b4-unet batch of 128 (phase 8), summed; launches on its
+    # main path, and on phase 8's other runs beside
+    ek = effnet["kernels"]
+    effnet_runs = [effnet[k]["launches"] for k in
+                   ("class_prob", *(f"{EFFNET_SMALL}_{a}" for a in EFFNET_ARCHS), "predict")]
+    for name, replaces, library in (
+            ("conv_epilogue_silu", "flairtpu/models/efficientnet.py:182, :244-245 (XLA-fused "
+             "BatchNorm and SiLU after the expand and stem convs)", "F.silu on the bf16 map"),
+            ("se_squeeze", "flairtpu/models/efficientnet.py:191-193 (XLA-fused depthwise "
+             "BatchNorm, SiLU and the squeeze-excite mean)", "torch.mean on the bf16 map"),
+            ("se_excite", "flairtpu/models/efficientnet.py:191, :199-201 (XLA-fused depthwise "
+             "BatchNorm, SiLU, the gate multiply and the cast)", None)):
+        r = ek[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"{src}/{'conv_epilogue' if name.startswith('conv') else 'se_gate'}.cu",
+            "replaces": replaces, "launches": effnet["main"]["launches"][name],
+            "launches_effnet_other_runs": sum(run[name] for run in effnet_runs),
+            "max_abs_err": r["max_abs_err"], **numbers(r), "library_ms": r["library_ms"],
+            "library": library, "sites": r["sites"]})
     # each kernel's launches on phase 6's toy-zone run and phase 7's runs
     # (the resnext main path, bn_fold, int8 and flair)
     counters = {"fused_tail": "fused_tail", "gather_normalize": "gather_normalize",
@@ -5946,6 +6331,13 @@ def main() -> int:
         "flair": {k: v for k, v in resnext["flair"].items() if k != "launches"},
         "launches": {k: resnext[k]["launches"] for k in ("main", "bn_fold", "int8")},
         "flair_launches": resnext["flair"]["launches"]}, "card": card}))
+    print(json.dumps({"effnet": {
+        **{k: {f: v for f, v in effnet[k].items() if f != "launches"}
+           for k in ("main", "class_prob", *(f"{EFFNET_SMALL}_{a}" for a in EFFNET_ARCHS),
+                     "predict")},
+        "depthwise": effnet["depthwise"],
+        "kernels": {k: {f: v for f, v in r.items() if f != "largest"} for k, r in ek.items()},
+        "launches": {k: effnet[k]["launches"] for k in ("main", "predict")}}, "card": card}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

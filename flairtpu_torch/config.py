@@ -57,6 +57,10 @@ RESNET_ENCODERS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
                    "resnext50_32x4d", "resnext101_32x4d", "resnext101_32x8d",
                    "resnext101_32x16d", "resnext101_32x32d", "resnext101_32x48d")
 
+# the efficientnet-b0..b7 encoders (models/efficientnet.py; flairtpu/models/
+# registry.py:30); no arch refuses them (flairtpu/models/registry.py:78-82)
+EFFICIENTNET_ENCODERS = tuple(f"efficientnet-b{i}" for i in range(8))
+
 _OUTPUT_TYPES = ("class_prob", "argmax")
 _STITCH_METHODS = ("exact-clipping", "average", "average_weights", "max")
 
@@ -73,9 +77,10 @@ SMP_ARCHS = ("unet", "unetplusplus", "manet", "linknet", "fpn", "pspnet", "deepl
 
 
 def check_smp(encoder_decoder: str) -> tuple[str, str]:
-    """Split ``<encoder>_<arch>``; the resnet encoders under ``SMP_ARCHS``
-    are ported. An arch smp does not have raises as
-    ``flairtpu/models/registry.py:98-100`` does, with the supported list."""
+    """Split ``<encoder>_<arch>``; the resnet, resnext and efficientnet
+    encoders under ``SMP_ARCHS`` are ported. An arch smp does not have
+    raises as ``flairtpu/models/registry.py:98-100`` does, with the
+    supported list."""
     if "_" not in encoder_decoder:
         raise ConfigError(
             f"encoder_decoder {encoder_decoder!r} is not of the form "
@@ -84,7 +89,7 @@ def check_smp(encoder_decoder: str) -> tuple[str, str]:
     if arch not in SMP_ARCHS:
         raise NotImplementedError(
             f"architecture {arch!r} not ported (supported: {', '.join(SMP_ARCHS)})")
-    if encoder not in RESNET_ENCODERS:
+    if encoder not in RESNET_ENCODERS + EFFICIENTNET_ENCODERS:
         raise not_ported(f"smp encoder {encoder!r}", "slice 6: other smp encoders")
     return encoder, arch
 
@@ -194,7 +199,7 @@ def validate_train_config(cfg: dict) -> dict:
     channels = _require(cfg, "channels")
     if not (isinstance(channels, list) and all(isinstance(c, int) for c in channels)):
         raise ConfigError("channels should be a list of 1-based integers.")
-    validate_model_framework(mf)
+    encoder, _ = validate_model_framework(mf)
 
     norm_type = cfg.get("norm_type", "scaling")
     if norm_type not in _NORM_TYPES:
@@ -282,6 +287,9 @@ def validate_train_config(cfg: dict) -> dict:
 
     paths.setdefault("out_folder", "")
     paths.setdefault("out_model_name", "flair-model")
+    if tasks["train"] and encoder in EFFICIENTNET_ENCODERS:
+        raise not_ported(f"training the {encoder!r} encoder (predict and metrics run)",
+                         "slice 6: EfficientNet training")
     return cfg
 
 

@@ -1,5 +1,5 @@
-// Conv epilogue: inference BatchNorm + residual + ReLU + casts in one pass
-// over a convolution's output.
+// Conv epilogue: inference BatchNorm + residual + ReLU or SiLU + casts in one
+// pass over a convolution's output.
 //
 // Replaces what XLA fused into the output of each encoder and decoder conv
 // on the TPU: the BatchNorm, the residual add and the ReLU of
@@ -9,7 +9,7 @@
 //
 //   v = y * scale + shift                      (y: the bf16 conv output)
 //   v = v + r            or   v = v + (d * scale_d + shift_d)    (optional)
-//   v = max(v, 0)                                                (optional)
+//   v = max(v, 0)   or   v = v * (1 / (1 + exp(-v)))               (optional)
 //   out = bf16(v) (round to nearest even); out32 = v             (optional)
 //
 // y, d, out: (n_pix, C) bfloat16, NHWC (an NCHW channels_last tensor);
@@ -19,7 +19,10 @@
 // an inference BatchNorm as gamma * rsqrt(var + eps) and beta - mean * scale.
 // d is the downsample conv's output, its BatchNorm folded into this pass.
 // __fmul_rn/__fadd_rn keep every multiply and add rounded on its own, as the
-// plain PyTorch version (ops/epilogue.py) does; no FMA contraction.
+// plain PyTorch version (ops/epilogue.py) does; no FMA contraction. The SiLU
+// (EfficientNet's stem and expand sites, flairtpu/models/efficientnet.py:182,
+// :244-245) is v * sigmoid(v) with sigmoid = 1 / (1 + expf(-v)), the accurate
+// expf and a rounded divide, as torch.sigmoid computes it on the card.
 //
 // Bound: bytes. Per element the pass does at most 7 float32 operations on 2
 // to 16 bytes of traffic, far below the card's operations-per-byte balance.
@@ -40,6 +43,7 @@ namespace {
 
 constexpr int kThreads = 256;
 enum Residual { kNone = 0, kFloat = 1, kBranch = 2, kHalf = 3 };
+enum Activation { kIdentity = 0, kRelu = 1, kSilu = 2 };
 
 struct Args {
   const __nv_bfloat16* y;
@@ -56,13 +60,14 @@ struct Args {
   int channels;
 };
 
-template <int kRes, bool kRelu>
+template <int kRes, int kAct>
 __device__ __forceinline__ float epilogue(float y, float s, float t, float r, float d, float sd,
                                           float td) {
   float v = __fadd_rn(__fmul_rn(y, s), t);
   if constexpr (kRes == kFloat || kRes == kHalf) v = __fadd_rn(v, r);
   if constexpr (kRes == kBranch) v = __fadd_rn(v, __fadd_rn(__fmul_rn(d, sd), td));
-  if constexpr (kRelu) v = v < 0.f ? 0.f : v;  // NaN passes, as torch.relu
+  if constexpr (kAct == kRelu) v = v < 0.f ? 0.f : v;  // NaN passes, as torch.relu
+  if constexpr (kAct == kSilu) v = __fmul_rn(v, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v))));
   return v;
 }
 
@@ -83,7 +88,7 @@ __device__ __forceinline__ uint32_t pack2(float a, float b) {
 
 // One group of 8 channels a step; `lanes` (the grid's threads rounded down
 // to a multiple of C / 8) is the step, so a thread's channel group is fixed.
-template <int kRes, bool kRelu, bool kF32>
+template <int kRes, int kAct, bool kF32>
 __global__ void __launch_bounds__(kThreads)
     conv_epilogue_vec(const Args a, long long n_groups, int groups_per_pix, int lanes) {
   const int lane = blockIdx.x * kThreads + threadIdx.x;
@@ -127,7 +132,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 8; ++j) dv[j] = 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = epilogue<kRes, kRelu>(v[j], s[j], t[j], rv[j], dv[j], sd[j], td[j]);
+    for (int j = 0; j < 8; ++j) v[j] = epilogue<kRes, kAct>(v[j], s[j], t[j], rv[j], dv[j], sd[j], td[j]);
     out[g] = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]), pack2(v[6], v[7]));
     if constexpr (kF32) {
       out32[2 * g] = make_float4(v[0], v[1], v[2], v[3]);
@@ -137,7 +142,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Any C and alignment: one element a step.
-template <int kRes, bool kRelu, bool kF32>
+template <int kRes, int kAct, bool kF32>
 __global__ void __launch_bounds__(kThreads) conv_epilogue_scalar(const Args a) {
   const long long n = a.n_pix * a.channels;
   const long long step = (long long)gridDim.x * kThreads;
@@ -151,7 +156,7 @@ __global__ void __launch_bounds__(kThreads) conv_epilogue_scalar(const Args a) {
       sd = a.scale_d[c];
       td = a.shift_d[c];
     }
-    const float v = epilogue<kRes, kRelu>(__bfloat162float(a.y[e]), a.scale[c], a.shift[c], r, d,
+    const float v = epilogue<kRes, kAct>(__bfloat162float(a.y[e]), a.scale[c], a.shift[c], r, d,
                                           sd, td);
     a.out[e] = __float2bfloat16_rn(v);
     if constexpr (kF32) a.out32[e] = v;
@@ -178,7 +183,7 @@ cudaError_t grid_size(Kernel kernel, long long work, int* grid) {
   return cudaSuccess;
 }
 
-template <int kRes, bool kRelu, bool kF32>
+template <int kRes, int kAct, bool kF32>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   cudaError_t err;
   int grid = 0;
@@ -189,26 +194,32 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (vec) {
     const int groups_per_pix = a.channels / 8;
     const long long n_groups = a.n_pix * groups_per_pix;
-    if ((err = grid_size(conv_epilogue_vec<kRes, kRelu, kF32>, n_groups, &grid)) != cudaSuccess)
+    if ((err = grid_size(conv_epilogue_vec<kRes, kAct, kF32>, n_groups, &grid)) != cudaSuccess)
       return err;
     if ((long long)grid * kThreads < groups_per_pix)
       grid = (groups_per_pix + kThreads - 1) / kThreads;
     const int lanes = grid * kThreads / groups_per_pix * groups_per_pix;
-    conv_epilogue_vec<kRes, kRelu, kF32><<<grid, kThreads, 0, stream>>>(a, n_groups,
+    conv_epilogue_vec<kRes, kAct, kF32><<<grid, kThreads, 0, stream>>>(a, n_groups,
                                                                        groups_per_pix, lanes);
   } else {
-    if ((err = grid_size(conv_epilogue_scalar<kRes, kRelu, kF32>, a.n_pix * a.channels,
+    if ((err = grid_size(conv_epilogue_scalar<kRes, kAct, kF32>, a.n_pix * a.channels,
                          &grid)) != cudaSuccess)
       return err;
-    conv_epilogue_scalar<kRes, kRelu, kF32><<<grid, kThreads, 0, stream>>>(a);
+    conv_epilogue_scalar<kRes, kAct, kF32><<<grid, kThreads, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
+template <int kRes, int kAct>
+cudaError_t dispatch_f32(const Args& a, cudaStream_t stream) {
+  return a.out32 ? launch<kRes, kAct, true>(a, stream) : launch<kRes, kAct, false>(a, stream);
+}
+
 template <int kRes>
-cudaError_t dispatch(const Args& a, bool relu, cudaStream_t stream) {
-  if (relu) return a.out32 ? launch<kRes, true, true>(a, stream) : launch<kRes, true, false>(a, stream);
-  return a.out32 ? launch<kRes, false, true>(a, stream) : launch<kRes, false, false>(a, stream);
+cudaError_t dispatch(const Args& a, int act, cudaStream_t stream) {
+  if (act == kRelu) return dispatch_f32<kRes, kRelu>(a, stream);
+  if (act == kSilu) return dispatch_f32<kRes, kSilu>(a, stream);
+  return dispatch_f32<kRes, kIdentity>(a, stream);
 }
 
 }  // namespace
@@ -217,13 +228,14 @@ cudaError_t dispatch(const Args& a, bool relu, cudaStream_t stream) {
 // residual ((n_pix, channels) float32, or bf16 where residual_bf16 is
 // nonzero) and branch ((n_pix, channels) bf16, with scale_d and shift_d) is
 // non-null. out: (n_pix, channels) bf16; out32:
-// (n_pix, channels) float32 or null. Returns cudaGetLastError() after the
-// launch.
+// (n_pix, channels) float32 or null. act: 0 none, 1 ReLU, 2 SiLU. Returns
+// cudaGetLastError() after the launch.
 extern "C" int conv_epilogue(const void* y, const void* scale, const void* shift,
                              const void* residual, const void* branch, const void* scale_d,
                              const void* shift_d, void* out, void* out32, long long n_pix,
-                             int channels, int relu, int residual_bf16, void* stream) {
-  if (channels < 1 || n_pix < 0 || (residual && branch) || (branch && !(scale_d && shift_d)))
+                             int channels, int act, int residual_bf16, void* stream) {
+  if (channels < 1 || n_pix < 0 || (residual && branch) || (branch && !(scale_d && shift_d)) ||
+      act < kIdentity || act > kSilu)
     return (int)cudaErrorInvalidValue;
   if (n_pix == 0) return (int)cudaSuccess;
   const Args a{static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(scale),
@@ -234,8 +246,8 @@ extern "C" int conv_epilogue(const void* y, const void* scale, const void* shift
                static_cast<const float*>(shift_d), static_cast<__nv_bfloat16*>(out),
                static_cast<float*>(out32), n_pix, channels};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (branch) return (int)dispatch<kBranch>(a, relu != 0, s);
-  if (residual && residual_bf16) return (int)dispatch<kHalf>(a, relu != 0, s);
-  if (residual) return (int)dispatch<kFloat>(a, relu != 0, s);
-  return (int)dispatch<kNone>(a, relu != 0, s);
+  if (branch) return (int)dispatch<kBranch>(a, act, s);
+  if (residual && residual_bf16) return (int)dispatch<kHalf>(a, act, s);
+  if (residual) return (int)dispatch<kFloat>(a, act, s);
+  return (int)dispatch<kNone>(a, act, s);
 }

@@ -1,5 +1,6 @@
 """Weight loading (counterpart of ``flairtpu/models/convert.py:25-37`` and of
-its ``torch_to_flax`` for the resnet and resnext encoders, the unet,
+its ``torch_to_flax`` for the resnet, resnext and efficientnet encoders
+(``:53-64, 400-421``), the unet,
 unetplusplus, manet, deeplabv3plus, deeplabv3, fpn, pspnet, linknet and pan
 decoders (``:158-177, 655-845``) and the metadata-MLP keys, both ways).
 
@@ -70,6 +71,13 @@ def load_weights(model: torch.nn.Module, path: str | Path) -> None:
 
 
 _ENC_LAYER_RE = re.compile(r"^layer(\d+)_(\d+)$")
+# EfficientNet (smp's encoder._conv_stem / _bn0 / _blocks.{j}.<member>):
+# flax's stem and block member names by smp's
+_EN_STEM = {"stem_conv": "_conv_stem", "stem_bn": "_bn0"}
+_EN_MEMBER = {"expand_conv": "_expand_conv", "expand_bn": "_bn0", "dw_conv": "_depthwise_conv",
+              "dw_bn": "_bn1", "se_reduce": "_se_reduce", "se_expand": "_se_expand",
+              "project_conv": "_project_conv", "project_bn": "_bn2"}
+_EN_BLOCK_RE = re.compile(r"^block(\d+)$")
 # a U-Net block (blockN: blocks.N) or a UNet++ node (x_d_l: blocks.x_d_l);
 # MAnet's MFAB blocks keep the same conv1/bn1/conv2/bn2 names
 _DEC_BLOCK_RE = re.compile(r"^(?:block(\d+)|(x_\d+_\d+))$")
@@ -141,6 +149,11 @@ def _module_prefix(path: tuple[str, ...], arch: str = "unet") -> str:
         m = _ENC_LAYER_RE.match(rest[0])
         if m and len(rest) == 2:
             return f"encoder.layer{m.group(1)}.{m.group(2)}.{_ENC_SUB.get(rest[1], rest[1])}"
+        if len(rest) == 1 and rest[0] in _EN_STEM:
+            return f"encoder.{_EN_STEM[rest[0]]}"
+        m = _EN_BLOCK_RE.match(rest[0])
+        if m and len(rest) == 2 and rest[1] in _EN_MEMBER:
+            return f"encoder._blocks.{m.group(1)}.{_EN_MEMBER[rest[1]]}"
     if top == "decoder" and len(rest) == 2:
         m = _DEC_BLOCK_RE.match(rest[0])
         if m and rest[1] in _DEC_SUB:
@@ -164,9 +177,10 @@ def _leaves(tree: Mapping, prefix=()):
 
 def from_flax(params: Mapping, batch_stats: Mapping, arch: str = "unet",
               skip_unknown: bool = False) -> dict[str, torch.Tensor]:
-    """flairtpu variables (numpy leaves) of a resnet encoder with ``arch``'s
-    decoder, the metadata MLP's included, -> the port's state_dict. A flax
-    module with no smp key raises, or with ``skip_unknown`` is left out."""
+    """flairtpu variables (numpy leaves) of a resnet or efficientnet encoder
+    with ``arch``'s decoder, the metadata MLP's included, -> the port's
+    state_dict. A flax module with no smp key raises, or with
+    ``skip_unknown`` is left out."""
     sd: dict[str, torch.Tensor] = {}
     for coll, tree in (("params", params), ("batch_stats", batch_stats)):
         for path, value in _leaves(tree):
@@ -209,6 +223,9 @@ _ENC_SUB_INV = {v: k for k, v in _ENC_SUB.items()}
 _SMP_LAYER_RE = re.compile(r"^layer(\d+)\.(\d+)\.(.+)$")
 _SMP_DEC_BLOCK_RE = re.compile(r"^blocks\.(\d+|x_\d+_\d+)\.(conv[12]\.[01])$")
 _SMP_MLP_RE = re.compile(r"^enc\.enc_mlp\.(\d+)$")
+_EN_STEM_INV = {v: k for k, v in _EN_STEM.items()}
+_EN_MEMBER_INV = {v: k for k, v in _EN_MEMBER.items()}
+_SMP_EN_BLOCK_RE = re.compile(r"^_blocks\.(\d+)\.(_\w+)$")
 
 
 def _flax_module(prefix: str, arch: str = "unet") -> tuple[str, ...]:
@@ -229,6 +246,11 @@ def _flax_module(prefix: str, arch: str = "unet") -> tuple[str, ...]:
         if m:
             return ("encoder", f"layer{m.group(1)}_{m.group(2)}",
                     _ENC_SUB_INV.get(m.group(3), m.group(3)))
+        if rest in _EN_STEM_INV:
+            return ("encoder", _EN_STEM_INV[rest])
+        m = _SMP_EN_BLOCK_RE.match(rest)
+        if m and m.group(2) in _EN_MEMBER_INV:
+            return ("encoder", f"block{m.group(1)}", _EN_MEMBER_INV[m.group(2)])
     if prefix == "segmentation_head.0":
         return ("segmentation_head", "conv")
     m = _SMP_MLP_RE.match(prefix)

@@ -1,10 +1,13 @@
 """Model factory: config -> segmentation model
 (counterpart of ``flairtpu/models/factory.py:36-51, 168-235, 256-327``).
 
-The nine smp models over the resnet encoders: the U-Net (slice 1), the
-strided-head decoders of slice 5 (deeplabv3plus, deeplabv3, fpn, pspnet,
-pan), linknet, MAnet and UNet++, each with smp's module names so that their
-state dicts load as they are. With ``use_metadata`` the model also carries
+The nine smp models over the resnet and resnext encoders and the
+efficientnet-b0..b7 encoders (``models/efficientnet.py``): the U-Net (slice
+1), the strided-head decoders of slice 5 (deeplabv3plus, deeplabv3, fpn,
+pspnet, pan), linknet, MAnet and UNet++, each with smp's module names so
+that their state dicts load as they are. The encoder follows its name, as
+``flairtpu/models/factory.py:114-118`` dispatches it, at the arch's output
+stride and depth (:data:`ARCHS`). With ``use_metadata`` the model also carries
 the metadata MLP (``enc``, the reference's key names) and adds its
 embedding to the deepest encoder feature (``models/metadata_mlp.py``). The
 model's public functions keep ``flairtpu``'s layout: input (B, H, W, C),
@@ -31,6 +34,7 @@ import torch.nn as nn
 
 from flairtpu_torch.config import check_smp, not_ported
 from flairtpu_torch.models.deeplab import DeepLabV3PlusDecoder
+from flairtpu_torch.models.efficientnet import EFFICIENTNET_SPECS, EfficientNetEncoder
 from flairtpu_torch.models.manet import MAnetDecoder
 from flairtpu_torch.models.metadata_mlp import MetadataMLP, fuse_metadata
 from flairtpu_torch.models.pan import PANDecoder
@@ -42,6 +46,7 @@ from flairtpu_torch.models.unet import SegmentationHead, UnetDecoder, UnetPlusPl
 from flairtpu_torch.ops.epilogue import conv_epilogue
 from flairtpu_torch.ops.fused_tail import TailParams, tail_params
 from flairtpu_torch.ops.group_norm import group_norm_relu
+from flairtpu_torch.ops.se_gate import squeeze_excite
 from flairtpu_torch.ops.strided_tail import StridedGeometry, StridedTail, upsample_window
 
 # smp SegmentationHead upsampling factor (UpsamplingBilinear2d):
@@ -88,8 +93,10 @@ def dropout_part(dropout, name: str):
 class FlairSegmentationModel(nn.Module):
     """smp ``create_model(arch, encoder_name, classes, in_channels)`` with
     smp's key names, ``arch`` one of :data:`ARCHS`; ``s2d_stem``: the
-    encoder's stem conv on the space-to-depth repack
-    (``models/resnet.py:stem_conv``)."""
+    resnet encoder's stem conv on the space-to-depth repack
+    (``models/resnet.py:stem_conv``), ignored by EfficientNet, as
+    ``flairtpu`` passes it to the resnet encoder only
+    (``flairtpu/models/factory.py:166``)."""
 
     def __init__(self, encoder_name: str = "resnet34", classes: int = 13,
                  in_channels: int = 5, dtype=torch.float32, use_metadata: bool = False,
@@ -100,8 +107,11 @@ class FlairSegmentationModel(nn.Module):
         self.dtype = dtype
         self.encoder_name = encoder_name
         self.use_metadata = use_metadata
-        self.encoder = ResNetEncoder(encoder_name, in_channels, dtype=dtype, s2d_stem=s2d_stem,
-                                     **enc_kw)
+        if encoder_name in EFFICIENTNET_SPECS:
+            self.encoder = EfficientNetEncoder(encoder_name, in_channels, dtype=dtype, **enc_kw)
+        else:
+            self.encoder = ResNetEncoder(encoder_name, in_channels, dtype=dtype,
+                                         s2d_stem=s2d_stem, **enc_kw)
         self.decoder = decoder(self.encoder.out_channels, dtype=dtype)
         self.segmentation_head = SegmentationHead(head_ch, classes, dtype=dtype, kernel=head_k)
         if use_metadata:
@@ -128,18 +138,30 @@ class FlairSegmentationModel(nn.Module):
     def prepare_inference(self) -> None:
         """Conv weights in the compute dtype and each BatchNorm's (scale,
         shift), once, after the weights are loaded and moved (see
-        ``models/resnet.py:prepare_inference``)."""
+        ``models/resnet.py:prepare_inference``); the squeeze-excite convs'
+        biases in the compute dtype too, as their convs run in it."""
         prepare_inference(self, self.dtype)
+        if isinstance(self.encoder, EfficientNetEncoder):
+            with torch.no_grad():
+                for block in self.encoder._blocks:
+                    for m in (block._se_reduce, block._se_expand):
+                        m.bias.data = m.bias.data.to(self.dtype)
 
     def features(self, x: torch.Tensor, epilogue=conv_epilogue, mtd: torch.Tensor | None = None,
-                 dropout=None) -> list[torch.Tensor]:
+                 dropout=None, se_gate=squeeze_excite) -> list[torch.Tensor]:
         """x (B, H, W, C) -> encoder features, NCHW views of NHWC memory.
         ``epilogue`` runs every conv epilogue of the model (the kernel
-        wrapper, or a caller's plain version). A metadata model adds the
-        MLP's embedding of ``mtd`` (B, 45) to the deepest feature, its
-        dropout ``dropout_part(dropout, "enc")`` (``MetadataMLP.forward``:
-        None in eval)."""
-        feats = self.encoder(x.permute(0, 3, 1, 2), epilogue)
+        wrapper, or a caller's plain version), ``se_gate`` EfficientNet's
+        squeeze-excite sites (``ops/se_gate.py``: the kernels, or
+        ``squeeze_excite_plain``). A metadata model adds the MLP's
+        embedding of ``mtd`` (B, 45) to the deepest feature, its dropout
+        ``dropout_part(dropout, "enc")`` (``MetadataMLP.forward``: None in
+        eval)."""
+        x = x.permute(0, 3, 1, 2)
+        if isinstance(self.encoder, EfficientNetEncoder):
+            feats = self.encoder(x, epilogue, se_gate)
+        else:
+            feats = self.encoder(x, epilogue)
         if self.use_metadata:
             if mtd is None:
                 raise ValueError("use_metadata=True but no metadata passed")
@@ -148,12 +170,12 @@ class FlairSegmentationModel(nn.Module):
 
     def forward(self, x: torch.Tensor, inner_margin: int | None = None,
                 epilogue=conv_epilogue, mtd: torch.Tensor | None = None,
-                dropout=None) -> torch.Tensor:
+                dropout=None, se_gate=squeeze_excite) -> torch.Tensor:
         """x (B, H, W, C) -> float32 logits (B, H, W, K), or with
         ``inner_margin`` m the interior logits (B, H-2m, W-2m, K);
         ``dropout``: see :func:`dropout_part` (None in eval)."""
-        return self.decode(self.features(x, epilogue, mtd, dropout), inner_margin, epilogue,
-                           dropout=dropout)
+        return self.decode(self.features(x, epilogue, mtd, dropout, se_gate), inner_margin,
+                           epilogue, dropout=dropout)
 
     def head_logits(self, feats: list[torch.Tensor], epilogue=conv_epilogue,
                     group_norm=group_norm_relu, dropout=None) -> torch.Tensor:
@@ -191,10 +213,12 @@ class FlairSegmentationModel(nn.Module):
         return logits.permute(0, 2, 3, 1)
 
     def tail_input(self, x: torch.Tensor, margin: int, epilogue=conv_epilogue,
-                   mtd: torch.Tensor | None = None, group_norm=group_norm_relu) -> torch.Tensor:
+                   mtd: torch.Tensor | None = None, group_norm=group_norm_relu,
+                   se_gate=squeeze_excite) -> torch.Tensor:
         """The input of the zone's tail kernel: the encoder, then
         :meth:`decode_tail`."""
-        return self.decode_tail(self.features(x, epilogue, mtd), margin, epilogue, group_norm)
+        return self.decode_tail(self.features(x, epilogue, mtd, se_gate=se_gate), margin,
+                                epilogue, group_norm)
 
     def decode_tail(self, feats: list[torch.Tensor], margin: int, epilogue=conv_epilogue,
                     group_norm=group_norm_relu) -> torch.Tensor:

@@ -298,17 +298,25 @@ class QuantizedZoneModel:
     __call__ = forward
 
 
+def check_quantizable(model) -> None:
+    """The ``ValueError`` of ``flairtpu/models/quantize.py:388-395`` for a
+    model the int8 walk does not take (a metadata model, an encoder outside
+    the resnet families); the zone engine asks before it reads the
+    calibration tiles."""
+    if model.use_metadata:
+        raise ValueError("quantize: int8 does not support use_metadata")
+    if model.encoder_name not in RESNET_SPECS:
+        raise ValueError(f"quantize: int8 supports the ResNet encoder families "
+                         f"({', '.join(sorted(RESNET_SPECS))}); got {model.encoder_name!r}")
+
+
 def quantize_model(config: dict, model, calib_batches) -> QuantizedZoneModel:
     """Fold, calibrate on ``calib_batches`` ((B, S, S, C) uint8 arrays,
     normalized as the zone is) and quantize a loaded FlairSegmentationModel
     (float32 weights, before ``prepare_inference``) on its device
     (``quantize.py:378-427``): the encoder, and the U-Net's first
     ``int8_decoder`` blocks."""
-    if model.use_metadata:
-        raise ValueError("quantize: int8 does not support use_metadata")
-    if model.encoder_name not in RESNET_SPECS:
-        raise ValueError(f"quantize: int8 supports the ResNet encoder families "
-                         f"({', '.join(sorted(RESNET_SPECS))}); got {model.encoder_name!r}")
+    check_quantizable(model)
     n_q = decoder_quant_blocks(config) if model.arch == "unet" else 0  # config.py refuses 5
     norma = config["norma_task"][0]
     norm = dict(norm_type=norma["norm_type"], means=tuple(norma.get("norm_means") or ()),

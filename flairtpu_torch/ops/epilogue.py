@@ -1,6 +1,6 @@
 """Conv epilogue: an inference BatchNorm as a per-channel (scale, shift), an
-optional residual or second BatchNorm'd branch, an optional ReLU and the
-casts, in one pass over a convolution's output (``csrc/conv_epilogue.cu``).
+optional residual or second BatchNorm'd branch, an optional ReLU or SiLU and
+the casts, in one pass over a convolution's output (``csrc/conv_epilogue.cu``).
 
 Replaces what XLA fused into each conv's output on the TPU:
 ``flairtpu/models/resnet.py:177-189`` (BasicBlock), ``:208-222``
@@ -11,7 +11,9 @@ conv. Each site writes the compute-dtype copy, and the float32 value as well
 only where a later op reads float32 (``keep_f32``: the identity of a block
 without a downsample). The BatchNorm-folded walk (``models/fold.py``) passes
 scale 1, the folded bias as shift, and its identity in the compute dtype,
-as ``flairtpu``'s folded walk keeps no float32 copies.
+as ``flairtpu``'s folded walk keeps no float32 copies. SiLU (``v *
+sigmoid(v)``) is EfficientNet's activation after the stem's and each
+expand conv's BatchNorm (``flairtpu/models/efficientnet.py:182, 244-245``).
 
 ``conv_epilogue`` runs the plain PyTorch version for a CPU tensor and
 launches the kernel for a bfloat16 CUDA tensor; it has no fallback.
@@ -28,8 +30,12 @@ from flairtpu_torch.ops import _build
 ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_void_p]
 
-# kernel launches on CUDA tensors since the last reset (the CPU path does not count)
+ACT_SILU = 2  # csrc/conv_epilogue.cu's activation codes: 0 none, 1 ReLU, 2 SiLU
+
+# kernel launches on CUDA tensors since the last reset (the CPU path does not
+# count); silu_launches: those of them with the SiLU
 launches = 0
+silu_launches = 0
 
 
 def _chw(v: torch.Tensor) -> torch.Tensor:
@@ -38,12 +44,13 @@ def _chw(v: torch.Tensor) -> torch.Tensor:
 
 def conv_epilogue_plain(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                         residual: torch.Tensor | None = None, branch=None, relu: bool = True,
-                        keep_f32: bool = False):
+                        keep_f32: bool = False, silu: bool = False):
     """y (B, C, H, W) in the compute dtype -> (out in y's dtype, float32 value
     or None): ``y * scale + shift`` in float32, ``+ residual`` (float32 or
     y's dtype) or
-    ``+ d * scale_d + shift_d`` for ``branch = (d, scale_d, shift_d)``, ReLU,
-    cast. With a float32 ``y`` both outputs are one tensor."""
+    ``+ d * scale_d + shift_d`` for ``branch = (d, scale_d, shift_d)``, ReLU
+    (or with ``silu`` and ``relu`` False, ``v * sigmoid(v)``), cast. With a
+    float32 ``y`` both outputs are one tensor."""
     v = y.float() * _chw(scale) + _chw(shift)
     if branch is not None:
         d, scale_d, shift_d = branch
@@ -52,6 +59,8 @@ def conv_epilogue_plain(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tenso
         v = v + residual.float()
     if relu:
         v = torch.relu(v)
+    elif silu:
+        v = v * torch.sigmoid(v)
     return v.to(y.dtype), (v if keep_f32 else None)
 
 
@@ -71,11 +80,11 @@ def _check_map(t: torch.Tensor, y: torch.Tensor, dtype: torch.dtype, what: str) 
 
 def conv_epilogue(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                   residual: torch.Tensor | None = None, branch=None, relu: bool = True,
-                  keep_f32: bool = False):
+                  keep_f32: bool = False, silu: bool = False):
     """As :func:`conv_epilogue_plain`; every operand channels_last on one
     device. CPU tensors: the plain version. bfloat16 CUDA tensors: the
     kernel, or an error."""
-    global launches
+    global launches, silu_launches
     if y.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"conv_epilogue: unsupported device {y.device}")
     if y.dim() != 4 or not y.dtype.is_floating_point:
@@ -87,6 +96,8 @@ def conv_epilogue(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     _check_vector(shift, C, y.device, "shift")
     if residual is not None and branch is not None:
         raise ValueError("conv_epilogue: a residual or a branch, not both")
+    if relu and silu:
+        raise ValueError("conv_epilogue: ReLU or SiLU, not both")
     if residual is not None:
         _check_map(residual, y, torch.float32 if residual.dtype == torch.float32 else y.dtype,
                    "residual")
@@ -96,7 +107,7 @@ def conv_epilogue(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
         _check_vector(scale_d, C, y.device, "branch scale")
         _check_vector(shift_d, C, y.device, "branch shift")
     if y.device.type == "cpu":
-        return conv_epilogue_plain(y, scale, shift, residual, branch, relu, keep_f32)
+        return conv_epilogue_plain(y, scale, shift, residual, branch, relu, keep_f32, silu)
     if y.dtype != torch.bfloat16:
         raise TypeError(f"conv_epilogue: y dtype {y.dtype} (the kernel takes bfloat16)")
     out = torch.empty_like(y)
@@ -108,8 +119,9 @@ def conv_epilogue(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
     err = _build.entry("conv_epilogue", ARGTYPES)(
         ptr(y), ptr(scale), ptr(shift), ptr(residual), ptr(d), ptr(scale_d), ptr(shift_d),
-        ptr(out), ptr(out32), y.numel() // C, C, int(relu),
+        ptr(out), ptr(out32), y.numel() // C, C, ACT_SILU if silu else int(relu),
         int(residual is not None and residual.dtype != torch.float32), _build.stream_handle(y))
     _build.check(err, "conv_epilogue")
     launches += 1
+    silu_launches += int(silu)
     return out, out32

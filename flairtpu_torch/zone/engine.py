@@ -34,7 +34,8 @@ from flairtpu_torch.io import TiffReader, TiffWriter, Window
 from flairtpu_torch.models.convert import load_weights
 from flairtpu_torch.models.factory import create_model
 from flairtpu_torch.models.fold import fold_model
-from flairtpu_torch.models.quantize import quantize_model, read_calibration_batches
+from flairtpu_torch.models.quantize import (check_quantizable, quantize_model,
+                                            read_calibration_batches)
 from flairtpu_torch.ops.fused_tail import full_windows
 from flairtpu_torch.utils.logger import tee_stdout, untee_stdout
 from flairtpu_torch.zone.device_engine import (DeviceZoneRunner, PinnedBuffers, as_bits,
@@ -96,6 +97,7 @@ def prepare_model(config: dict, device: torch.device):
     print("    [x] loaded model and weights...")
     model = model.to(device, memory_format=torch.channels_last).eval()
     if config.get("quantize"):
+        check_quantizable(model)  # before the zone's calibration tiles are read
         zone_model = quantize_model(config, model, read_calibration_batches(config))
         print("    [x] int8-quantized encoder (w8a8, calibrated on the zone)...")
         return zone_model, zone_model.tail

@@ -290,8 +290,9 @@ Phases (any failure exits non-zero):
 8. EfficientNet, serving (random weights, 19 classes): the SiLU epilogue
    (conv_epilogue with silu) and the squeeze-excite kernels (se_gate.cu:
    se_squeeze, se_excite) at every site of one efficientnet-b4-unet batch
-   of 128 tiles against their plain versions (bf16 within one ulp, the
-   squeeze's mean within SQUEEZE_REL_TOL of its largest value; every other
+   of 128 tiles and at SE_EDGES against their plain versions (bf16 within
+   one ulp, the squeeze's mean within SQUEEZE_REL_TOL of its largest value
+   and the same bits from a second call; every other
    conv_epilogue site bit for bit), each timed beside its bound, plain
    version and library call; the depthwise convs' share of that batch;
    efficientnet-b4-unet on the 4096² zone (argmax and class_prob) and
@@ -3546,10 +3547,10 @@ class StepChecker:
         if part not in self.worst or err > self.worst[part][0]:
             self.worst[part] = (err, tuple(shape))
 
-    def stats(self, x, gamma, beta, rm, rv):
+    def stats(self, x, gamma, beta, rm, rv, eps=bt.EPS, momentum=bt.MOMENTUM):
         rmp, rvp = rm.clone(), rv.clone()
-        got = bt.bn_stats(x, gamma, beta, rm, rv)
-        want = bt.bn_stats_plain(x, gamma, beta, rmp, rvp)
+        got = bt.bn_stats(x, gamma, beta, rm, rv, eps, momentum)
+        want = bt.bn_stats_plain(x, gamma, beta, rmp, rvp, eps, momentum)
         self.note("stats", max(vec_err(a, b) for a, b in zip(got + (rm, rv), want + (rmp, rvp))),
                   x.shape)
         self.calls["stats"] += 1
@@ -3562,10 +3563,11 @@ class StepChecker:
         self.calls["epilogue"] += 1
         return got
 
-    def stats_apply(self, y, gamma, beta, rm, rv, relu, keep_f32):
+    def stats_apply(self, y, gamma, beta, rm, rv, relu, keep_f32, eps=bt.EPS,
+                    momentum=bt.MOMENTUM):
         rmp, rvp = rm.clone(), rv.clone()
-        got = bt.bn_stats_apply(y, gamma, beta, rm, rv, relu, keep_f32)
-        want = bt.bn_stats_apply_plain(y, gamma, beta, rmp, rvp, relu, keep_f32)
+        got = bt.bn_stats_apply(y, gamma, beta, rm, rv, relu, keep_f32, eps, momentum)
+        want = bt.bn_stats_apply_plain(y, gamma, beta, rmp, rvp, relu, keep_f32, eps, momentum)
         self.note("stats", max(vec_err(a, b) for a, b in zip(got[:4] + (rm, rv),
                                                                  want[:4] + (rmp, rvp))), y.shape)
         # the output against the plain epilogue from the kernel's own scale and shift
@@ -5364,6 +5366,8 @@ EFFNET = "efficientnet-b4"
 EFFNET_SMALL = "efficientnet-b0"
 EFFNET_ARCHS = ("deeplabv3plus", "pspnet")  # under EFFNET_SMALL: output stride 16, depth 3
 SQUEEZE_REL_TOL = 1e-5  # the squeeze's mean: max |kernel - plain| / max |plain|
+# squeeze-excite maps off b4's path: a small odd map (one block), b7's widest
+SE_EDGES = ((2, 48, 9, 7), (128, 3840, 16, 16))
 
 
 def effnet_config(cfg: dict, tmp: Path, encoder: str, arch: str, rng) -> dict:
@@ -5458,6 +5462,8 @@ class EffnetChecker:
         label = f"{tuple(y.shape)}"
         self.hold(rel <= SQUEEZE_REL_TOL, f"se_squeeze {label}: mean within {SQUEEZE_REL_TOL} "
                   f"of the largest |mean| ({rel:.2e})")
+        self.hold(torch.equal(sg.se_squeeze(y, scale, shift), mean),
+                  f"se_squeeze {label}: a second call gives the same bits")
         self.err["se_squeeze"] = max(self.err["se_squeeze"], (mean - ref).abs().max().item())
         self.worst["se_squeeze"] = max(self.worst["se_squeeze"], rel)
         gate = sg.se_gate_vector(mean, reduce, expand, y.dtype)
@@ -5471,11 +5477,14 @@ class EffnetChecker:
         if self.timed:
             n, c, bc = y.numel(), y.shape[1], y.shape[0] * y.shape[1]
             sq_bytes, ex_bytes = 2 * n + 2 * 4 * c + 4 * bc, 2 * n + 2 * 4 * c + 4 * bc + 2 * n
+            # device time (the queue filled first): a small site's kernel
+            # takes less than the wrapper's host call
             self.rows["se_squeeze"].append(dict(
                 shape=tuple(y.shape), bytes=sq_bytes,
-                ms=cuda_ms(lambda: sg.se_squeeze(y, scale, shift), 5, 1),
+                ms=device_ms(lambda: sg.se_squeeze(y, scale, shift)),
+                call_ms=cuda_ms(lambda: sg.se_squeeze(y, scale, shift), 5, 1),
                 plain_ms=cuda_ms(lambda: sg.se_squeeze_plain(y, scale, shift), 2, 1),
-                library_ms=cuda_ms(lambda: torch.mean(y, dim=(2, 3)), 5, 1),
+                library_ms=device_ms(lambda: torch.mean(y, dim=(2, 3))),
                 **bound(7 * n, sq_bytes, PEAK_FP32_FLOPS)))
             self.rows["se_excite"].append(dict(
                 shape=tuple(y.shape), bytes=ex_bytes,
@@ -5488,6 +5497,7 @@ class EffnetChecker:
         rows = self.rows[name]
         lib = [r["library_ms"] for r in rows]
         return {"sites": len(rows), "ms": sum(r["ms"] for r in rows),
+                "call_ms": sum(r.get("call_ms", r["ms"]) for r in rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows),
                 "bound_ms": sum(r["bound_ms"] for r in rows),
                 "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
@@ -5501,7 +5511,8 @@ class EffnetChecker:
 def check_effnet_kernels(model, x: torch.Tensor) -> dict:
     """The SiLU epilogue, the squeeze and the excite at every site of one
     main-path batch of tiles ``x`` through ``model`` (every other
-    conv_epilogue site held too), timed; then a 20-channel map (not a
+    conv_epilogue site held too), timed; the squeeze (twice, the same
+    bits) and the excite at SE_EDGES; then a 20-channel map (not a
     multiple of 8) through the SiLU epilogue's one-element-a-thread
     kernel, and the excite's and squeeze's refusal of it."""
     chk = EffnetChecker(timed=True)
@@ -5516,8 +5527,18 @@ def check_effnet_kernels(model, x: torch.Tensor) -> dict:
           f"{chk.worst['se_excite']:.2f} ulp), {chk.exact_sites} other conv_epilogue sites bit "
           "for bit; every site timed")
     gen = torch.Generator("cuda").manual_seed(SEED + 8)
-    site = random_site(gen, (3, 20, 17, 19), "none")
     edge = EffnetChecker()
+    for shape in SE_EDGES:
+        site = random_site(gen, shape, "none")
+        gate_convs = [nn.Conv2d(c_in, c_out, 1).to("cuda", torch.bfloat16)
+                      for c_in, c_out in ((shape[1], 8), (8, shape[1]))]
+        edge.se_gate(site["y"], site["scale"], site["shift"], *gate_convs)
+        del site
+    check(edge.worst["se_squeeze"] <= SQUEEZE_REL_TOL and edge.worst["se_excite"] <= 1,
+          f"se_squeeze and se_excite at {', '.join(map(str, SE_EDGES))}: the squeeze "
+          f"within {SQUEEZE_REL_TOL} (worst {edge.worst['se_squeeze']:.2e}), the same bits "
+          f"twice; the excite within one bf16 ulp ({edge.worst['se_excite']:.2f})")
+    site = random_site(gen, (3, 20, 17, 19), "none")
     edge(**dict(site, relu=False, silu=True))
     try:
         sg.se_squeeze(site["y"], site["scale"], site["shift"])
@@ -5677,11 +5698,11 @@ def run_effnet(cfg: dict, tmp: Path, main: dict, card: str) -> dict:
     out["predict"] = run_effnet_predict(main, tmp, rng)
     for name, r in kernels.items():
         big = r["largest"]
-        print(f"    {name}, {r['sites']} sites of one {EFFNET} batch: {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e9:.2f} GB); largest "
-              f"site {big['shape']}: {big['ms']:.4f} ms, bound {big['bound_ms']:.4f} ms",
-              flush=True)
+        print(f"    {name}, {r['sites']} sites of one {EFFNET} batch: {r['ms']:.4f} ms (call "
+              f"{r['call_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e9:.2f} "
+              f"GB); largest site {big['shape']}: {big['ms']:.4f} ms, bound "
+              f"{big['bound_ms']:.4f} ms", flush=True)
     print(f"    {EFFNET}-unet batch of {BATCH}: {share['batch_ms']:.2f} ms, depthwise convs "
           f"{share['depthwise_ms']:.2f} ms ({100 * share['depthwise_share']:.1f}%, "
           f"{share['depthwise_sites']} sites; their {share['pad_sites']} F.pad copies "
@@ -6275,8 +6296,8 @@ def main() -> int:
             "source": f"{src}/{'conv_epilogue' if name.startswith('conv') else 'se_gate'}.cu",
             "replaces": replaces, "launches": effnet["main"]["launches"][name],
             "launches_effnet_other_runs": sum(run[name] for run in effnet_runs),
-            "max_abs_err": r["max_abs_err"], **numbers(r), "library_ms": r["library_ms"],
-            "library": library, "sites": r["sites"]})
+            "max_abs_err": r["max_abs_err"], **numbers(r), "call_ms": r["call_ms"],
+            "library_ms": r["library_ms"], "library": library, "sites": r["sites"]})
     # each kernel's launches on phase 6's toy-zone run and phase 7's runs
     # (the resnext main path, bn_fold, int8 and flair)
     counters = {"fused_tail": "fused_tail", "gather_normalize": "gather_normalize",

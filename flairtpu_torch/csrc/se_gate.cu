@@ -11,38 +11,57 @@
 //   squeeze: mean[b, c] = sum_p silu(y[b, p, c] * scale[c] + shift[c]) / HW
 //   excite:  out[b, p, c] = bf16(silu(y[b, p, c] * scale[c] + shift[c]) * gate[b, c])
 //
-// with silu(v) = v * (1 / (1 + exp(-v))), every multiply, add and divide
-// rounded on its own (no FMA contraction) and expf the accurate one, as the
-// plain PyTorch version (ops/se_gate.py: v * torch.sigmoid(v)) computes it.
 // y, out: (B, HW, C) bfloat16, NHWC (an NCHW channels_last tensor), C a
 // multiple of 8, 16-byte aligned; scale, shift: C float32 (the inference
 // BatchNorm); gate: (B, C) float32, the sigmoid of the small convs' output.
+// Both read in 16-byte accesses, 8 channels a thread, neighbouring threads
+// on neighbouring channel groups of a pixel and then of the next pixel, each
+// thread issuing its loads of several pixels before it computes any of them.
 //
-// Bound: bytes. The squeeze reads the bf16 map once and writes B x C
-// floats; the excite reads it once more and writes it once: 6 bytes an
-// element over the pair, against about 8 float32 operations and one exp
-// an element. Both read in 16-byte accesses, 8 channels a thread,
-// neighbouring threads on neighbouring channel groups of a pixel and then of
-// the next pixel, each thread issuing kUnroll loads before it computes any
-// of them, so that enough bytes are in flight. The accurate expf and the
-// rounded divide (which keep the bits of torch.sigmoid) cost some 20-40
-// instructions an element, so on an H100 the squeeze, with half the bytes
-// of the excite an element, is held by instruction issue rather than by
-// its bytes (PERF.md).
+// Excite: silu(v) = v * (1 / (1 + exp(-v))), every multiply, add and divide
+// rounded on its own (no FMA contraction) and expf the accurate one, as the
+// plain PyTorch version (ops/se_gate.py: v * torch.sigmoid(v)) computes it,
+// so its bf16 output has the plain version's bits. Block (x, b) walks b's
+// map with a grid-stride step that is a multiple of C / 8, so each thread
+// keeps one channel group, with its scale, shift and gate in registers, for
+// the whole walk. Bound: bytes (4 an element, read and write).
 //
-// Squeeze: block (channel tile, split, b) reduces a tile of `group_tile`
-// 8-channel groups (a divisor of C / 8, at most 32) over its split of the
-// pixels: each thread a fixed group and every `rows`-th pixel, then the
-// block's rows summed in a fixed order in shared memory into partial[b,
-// split, tile]. The splits fill the card (ops/se_gate.py:squeeze_plan).
-// The last block of (b, tile) to finish, by an atomic ticket, sums the
-// partials in split order and divides by HW: the result does not depend on
-// which block finished when. The tickets are zeroed by the entry point
-// before the launch.
+// Squeeze: its output is a float32 mean that the gate casts to the compute
+// dtype, so it takes the sigmoid from the special-function units (SFU):
+// v = fma(y, s, t), silu = v * rcp.approx(1 + ex2.approx(-log2(e) v)),
+// added to the sum by an FMA: 4 float32 operations, 2 SFU operations and
+// one integer unpack an element, where the accurate expf and rounded divide
+// take about 40 instructions (PERF.md). The largest error is a few float32 ulps of
+// each term. At 16 SFU results a clock on an SM, 2 an element take 80% of
+// the time the 2 bytes an element take from HBM, and the SFU then set the
+// pace with the loads (se_gate_phases): so half the channels (kNewtonRcp
+// of each 8) take the reciprocal by Newton steps on the FMA pipe instead,
+// 1.5 SFU and 7 float32 operations an element. (-log2(e) v costs one
+// multiply: folding it into a second scale and shift pair would save none
+// and hold 16 more registers a thread.)
 //
-// Excite: block (x, b) walks b's map with a grid-stride step that is a
-// multiple of C / 8, so each thread keeps one channel group, with its
-// scale, shift and gate in registers, for the whole walk.
+// The squeeze's work is balanced over a grid of at most as many blocks as
+// the card holds at once (ops/se_gate.py:squeeze_plan, from the occupancy
+// se_squeeze_occupancy reports). A map's channels are cut into tiles of
+// `group_tile` 8-channel groups (a divisor of C / 8, at most 256, as wide
+// as keeps 90% of a block's threads busy: most maps take whole pixels, the
+// widest a few tiles, whose pixels' rows another block reads at another
+// time); a column is one (b, tile) over its HW pixels, and
+// the batch's columns laid end to end make batch x tiles x HW units.
+// Block i takes units [U i / G, U (i + 1) / G): a run of columns, the
+// first and last in part. In each column it meets, each thread sums a
+// fixed group and every `rows`-th pixel (rows = 256 / group_tile) of its
+// share; the block's rows are summed in a fixed order in shared memory into
+// its partial for the column, at row i + col (no two (block, column) pairs
+// that meet share a row). The last block of a column to finish, by an
+// atomic ticket, sums the column's partials in block order and divides by
+// HW: the result does not depend on which block finished when. It sets the
+// ticket back to 0, so the tickets are zero before and after every launch
+// and no launch clears them (ops/se_gate.py keeps them a stream). A block
+// that holds a whole column writes its mean at once, with no partial,
+// fence or ticket. Each thread keeps kSqueezeUnroll 16-byte loads in
+// flight, and its registers are capped so that an SM holds
+// kSqueezeMinBlocks blocks (4 was no faster, PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -51,14 +70,62 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxGroupTile = 32;
-// pixels (squeeze) or channel groups (excite) a thread loads before it
-// computes any of them: 16-byte loads in flight a thread
+constexpr int kMaxGroupTile = kThreads;
+// channel groups the excite loads before it computes any of them: 16-byte
+// loads in flight a thread
 constexpr int kUnroll = 2;
+// pixels the squeeze loads before it computes any of them
+constexpr int kSqueezeUnroll = 4;
+// of each 8 channels, how many the squeeze takes the reciprocal of by
+// Newton steps on the FMA pipe rather than on the SFU
+constexpr int kNewtonRcp = 4;
+// the squeeze's blocks an SM at the least: its registers a thread are
+// capped to fit them
+constexpr int kSqueezeMinBlocks = 3;
+constexpr float kNegLog2e = -1.4426950408889634f;
 
 __device__ __forceinline__ float silu_bn(float y, float s, float t) {
   const float v = __fadd_rn(__fmul_rn(y, s), t);
   return __fmul_rn(v, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v))));
+}
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// 1 / x for x in [1, 2^126]: a bit-trick seed (within 12%) and three Newton
+// steps, 1 integer and 6 float32 operations
+__device__ __forceinline__ float rcp_newton(float x) {
+  float r = __int_as_float(0x7ef311c3 - __float_as_int(x));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r = fmaf(r, fmaf(-x, r, 1.f), r);
+  return r;
+}
+
+// acc + silu(y * s + t), the sigmoid on the SFU (or its reciprocal by
+// rcp_newton, where `newton`)
+__device__ __forceinline__ float silu_bn_fast(float y, float s, float t, float acc,
+                                              bool newton) {
+  const float v = fmaf(y, s, t);
+  if (newton) return fmaf(v, rcp_newton(1.f + ex2_approx(fminf(v * kNegLog2e, 126.f))), acc);
+  return fmaf(v, rcp_approx(1.f + ex2_approx(v * kNegLog2e)), acc);
+}
+
+// 16 bytes of a map that the squeeze reads once: not kept in L1
+__device__ __forceinline__ uint4 load_once(const uint4* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
 }
 
 // 8 bf16 -> float32, exactly (a bf16 is the top half of a float32)
@@ -80,72 +147,102 @@ struct SqueezeArgs {
   const uint4* y;
   const float* scale;
   const float* shift;
-  float* partial;           // (B, n_split, C)
-  unsigned int* tickets;    // (B, tiles), zero before the launch
-  float* mean;              // (B, C)
+  float* partial;           // (blocks + batch * tiles - 1, group_tile * 8)
+  unsigned int* tickets;    // (batch, tiles), zero before and after the launch
+  float* mean;              // (batch, C)
   long long hw;
+  long long units;          // batch * tiles * hw
   int channels;
   int group_tile;
-  int n_split;
+  int tiles;
 };
 
-__global__ void __launch_bounds__(kThreads) se_squeeze_kernel(const SqueezeArgs a) {
+// the block whose units hold unit x
+__device__ __forceinline__ long long block_of(long long x, long long units, long long blocks) {
+  return ((x + 1) * blocks - 1) / units;
+}
+
+// acc[j] += silu of each of the 8 channels of w
+__device__ __forceinline__ void squeeze8(const uint4 w, const float (&s)[8], const float (&sh)[8],
+                                         float (&acc)[8]) {
+  float v[8];
+  unpack8(w, v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = silu_bn_fast(v[j], s[j], sh[j], acc[j], j < kNewtonRcp);
+}
+
+__global__ void __launch_bounds__(kThreads, kSqueezeMinBlocks)
+    se_squeeze_kernel(const SqueezeArgs a) {
   __shared__ float sums[kThreads * 8];
   __shared__ bool last;
-  const int tile = blockIdx.x, split = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
-  const int gt = a.group_tile, rows = kThreads / gt, width = gt * 8;
-  const int c8 = a.channels / 8;
-  const int g = t % gt, r = t / gt;
-  const int c0 = (tile * gt + g) * 8;
-  float acc[8];
+  const int t = threadIdx.x, gt = a.group_tile, rows = kThreads / gt, width = gt * 8;
+  const int c8 = a.channels / 8, g = t % gt, r = t / gt;
+  const long long blocks = gridDim.x, i = blockIdx.x;
+  const long long u1 = a.units * (i + 1) / blocks;
+  for (long long u = a.units * i / blocks; u < u1;) {
+    const long long col = u / a.hw, col_end = min(u1, (col + 1) * a.hw);
+    const long long b = col / a.tiles;
+    const int tile = (int)(col - b * a.tiles);
+    float acc[8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-  if (r < rows) {
-    float s[8], sh[8];
+    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+    // this thread's pixels of the segment: p0 + r, p0 + r + rows, ...
+    const long long p0 = u - col * a.hw + r;
+    int count = r < rows && p0 < col_end - col * a.hw
+                    ? (int)((col_end - col * a.hw - p0 + rows - 1) / rows) : 0;
+    if (count > 0) {
+      const int c0 = (tile * gt + g) * 8;
+      float s[8], sh[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j] = __ldg(a.scale + c0 + j);
-      sh[j] = __ldg(a.shift + c0 + j);
-    }
-    const long long p0 = a.hw * split / a.n_split, p1 = a.hw * (split + 1) / a.n_split;
-    const uint4* y = a.y + (long long)b * a.hw * c8 + c0 / 8;
-    for (long long p = p0 + r; p < p1; p += kUnroll * rows) {
-      uint4 w[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (p + u * rows < p1) w[u] = __ldg(y + (p + u * rows) * c8);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (p + u * rows >= p1) break;
-        float v[8];
-        unpack8(w[u], v);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[j] = __fadd_rn(acc[j], silu_bn(v[j], s[j], sh[j]));
+      for (int j = 0; j < 8; ++j) {
+        s[j] = __ldg(a.scale + c0 + j);
+        sh[j] = __ldg(a.shift + c0 + j);
       }
-    }
-  }
+      const long long step = (long long)rows * c8;
+      const uint4* y = a.y + (b * a.hw + p0) * c8 + c0 / 8;
+      for (; count >= kSqueezeUnroll; count -= kSqueezeUnroll, y += kSqueezeUnroll * step) {
+        uint4 w[kSqueezeUnroll];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) sums[t * 8 + j] = acc[j];  // row r, column g * 8 + j
-  __syncthreads();
-  const long long col0 = (long long)tile * width;
-  if (t < width) {
-    float total = 0.f;
-    for (int rr = 0; rr < rows; ++rr) total = __fadd_rn(total, sums[rr * width + t]);
-    a.partial[((long long)b * a.n_split + split) * a.channels + col0 + t] = total;
-    __threadfence();
+        for (int k = 0; k < kSqueezeUnroll; ++k) w[k] = load_once(y + k * step);
+#pragma unroll
+        for (int k = 0; k < kSqueezeUnroll; ++k) squeeze8(w[k], s, sh, acc);
+      }
+      for (; count > 0; --count, y += step) squeeze8(load_once(y), s, sh, acc);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sums[t * 8 + j] = acc[j];  // row r, column g * 8 + j
+    __syncthreads();
+    // the block's rows summed in order, a column of the tile a thread
+    const long long first = block_of(col * a.hw, a.units, blocks);
+    const long long n = block_of((col + 1) * a.hw - 1, a.units, blocks) - first + 1;
+    float* mean = a.mean + b * a.channels + (long long)tile * width;
+    for (int c = t; c < width; c += kThreads) {
+      float total = 0.f;
+      for (int rr = 0; rr < rows; ++rr) total = __fadd_rn(total, sums[rr * width + c]);
+      if (n == 1)  // the block holds the whole column: the combine's 0 + total, at once
+        mean[c] = __fdiv_rn(total, (float)a.hw);
+      else
+        a.partial[(i + col) * width + c] = total;
+    }
+    if (n > 1) {
+      __threadfence();
+      __syncthreads();
+      if (t == 0) {
+        last = atomicAdd(a.tickets + col, 1u) == (unsigned int)(n - 1);
+        if (last) a.tickets[col] = 0u;  // every block of the column has counted
+      }
+      __syncthreads();
+      if (last)
+        for (int c = t; c < width; c += kThreads) {
+          float total = 0.f;
+          for (long long k = first; k < first + n; ++k)
+            total = __fadd_rn(total, __ldcg(a.partial + (k + col) * width + c));
+          mean[c] = __fdiv_rn(total, (float)a.hw);
+        }
+    }
+    __syncthreads();  // the rows are read before the next column writes them
+    u = col_end;
   }
-  __syncthreads();
-  if (t == 0) {
-    const unsigned int ticket = atomicAdd(a.tickets + (long long)b * gridDim.x + tile, 1u);
-    last = ticket == (unsigned int)(a.n_split - 1);
-  }
-  __syncthreads();
-  if (!last || t >= width) return;
-  const float* col = a.partial + (long long)b * a.n_split * a.channels + col0 + t;
-  float total = 0.f;
-  for (int sp = 0; sp < a.n_split; ++sp)
-    total = __fadd_rn(total, __ldcg(col + (long long)sp * a.channels));
-  a.mean[(long long)b * a.channels + col0 + t] = __fdiv_rn(total, (float)a.hw);
 }
 
 struct ExciteArgs {
@@ -196,27 +293,32 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 }  // namespace
 
 // y: (batch, hw, channels) bf16; scale, shift: channels float32; partial:
-// (batch, n_split, channels) float32 scratch; tickets: batch x
-// (channels / 8 / group_tile) uint32 scratch; mean: (batch, channels)
-// float32. group_tile divides channels / 8 and is at most 32 (ops/se_gate.py:
-// squeeze_plan). Returns cudaGetLastError() after the launch.
+// (blocks + batch * tiles - 1) x group_tile * 8 float32 scratch; tickets:
+// batch x tiles uint32, zero (and left zero); mean: (batch, channels)
+// float32, where tiles = channels / 8 / group_tile. group_tile divides
+// channels / 8 and is at most 32; blocks is at most batch * tiles * hw
+// (ops/se_gate.py:squeeze_plan). Returns cudaGetLastError() after the
+// launch.
 extern "C" int se_squeeze(const void* y, const void* scale, const void* shift, void* partial,
                           void* tickets, void* mean, int batch, long long hw, int channels,
-                          int group_tile, int n_split, void* stream) {
+                          int group_tile, int blocks, void* stream) {
   if (batch < 1 || hw < 1 || channels < 8 || channels % 8 || group_tile < 1 ||
-      group_tile > kMaxGroupTile || (channels / 8) % group_tile || n_split < 1 ||
-      n_split > hw || n_split > 65535 || batch > 65535 || !aligned16(y))
+      group_tile > kMaxGroupTile || (channels / 8) % group_tile || blocks < 1 || !aligned16(y))
     return (int)cudaErrorInvalidValue;
   const int tiles = channels / 8 / group_tile;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(tickets, 0, sizeof(unsigned int) * batch * tiles, s);
-  if (err != cudaSuccess) return (int)err;
   const SqueezeArgs a{static_cast<const uint4*>(y), static_cast<const float*>(scale),
                       static_cast<const float*>(shift), static_cast<float*>(partial),
                       static_cast<unsigned int*>(tickets), static_cast<float*>(mean), hw,
-                      channels, group_tile, n_split};
-  se_squeeze_kernel<<<dim3(tiles, n_split, batch), kThreads, 0, s>>>(a);
+                      (long long)batch * tiles * hw, channels, group_tile, tiles};
+  if (blocks > a.units) return (int)cudaErrorInvalidValue;
+  se_squeeze_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The squeeze kernel's blocks an SM holds at once, into *per_sm.
+extern "C" int se_squeeze_occupancy(int* per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, se_squeeze_kernel, kThreads,
+                                                           0);
 }
 
 // y, out: (batch, hw, channels) bf16; scale, shift: channels float32; gate:

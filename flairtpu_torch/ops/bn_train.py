@@ -5,13 +5,15 @@ after it, forward and backward (``csrc/bn_train.cu``, and
 Ports Flax's train-mode ``BatchNorm`` as ``flairtpu`` builds it
 (``flairtpu/models/resnet.py:40-70``: momentum 0.9, epsilon 1e-5, float32
 statistics, ``use_fast_variance``) at every site of the resnet encoders and
-the U-Net decoder, with its VJP:
+the U-Net decoder, with its VJP; a site takes its module's eps and momentum
+(:meth:`TrainSites.site`), so EfficientNet's 1e-3 and 0.99 too:
 
 - forward: :func:`bn_stats` reduces the conv output's per-channel float32
   sum and sum of squares, takes var = E[x^2] - E[x]^2 clipped at 0 (biased),
   derives the batch (scale, shift) and updates the running statistics as
-  Flax does, ``ra = 0.9 ra + 0.1 stat`` with the biased variance (torch's
-  ``nn.BatchNorm2d`` keeps the unbiased one, so it is not used); then
+  Flax does, ``ra = m ra + (1 - m) stat`` (m = 0.9 at the resnet sites)
+  with the biased variance (torch's ``nn.BatchNorm2d`` keeps the unbiased
+  one, so it is not used); then
   ``conv_epilogue`` applies (scale, shift), the residual or the branch's own
   batch (scale, shift), the ReLU and the casts. At a narrow site (below)
   :func:`bn_stats_apply` does both in one launch;
@@ -238,7 +240,8 @@ def bn_stats(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     out = torch.empty((4, C), dtype=torch.float32, device=x.device)
     mean, invstd, scale, shift = out
     if C % 8:
-        _narrow_forward(x, gamma, beta, running_mean, running_var, out)
+        _narrow_forward(x, gamma, beta, running_mean, running_var, out, eps=eps,
+                        momentum=momentum)
         return mean, invstd, scale, shift
     plan = launch_plan(m, C, "stats", _co_resident(x.device, "stats", C))
     stream = _build.stream_handle(x)
@@ -405,21 +408,22 @@ def _channels_last(t):
 
 
 def site_forward(ctx, stats, epilogue, stats_apply, y, gamma, beta, rm, rv, residual, d, gamma_d,
-                 beta_d, rm_d, rv_d, relu, keep_f32):
+                 beta_d, rm_d, rv_d, relu, keep_f32, eps=EPS, momentum=MOMENTUM):
     """The forward of :class:`BNTrainSite` through ``stats`` and
     ``epilogue`` (:func:`bn_stats` and ``conv_epilogue``), or at a narrow
     site with no residual or branch ``stats_apply`` (:func:`bn_stats_apply`),
     or functions of their signatures, saving on ``ctx`` what
-    :func:`site_backward` needs."""
+    :func:`site_backward` needs. ``eps`` and the Flax ``momentum`` are the
+    site's BatchNorm's (and its branch's)."""
     ctx.set_materialize_grads(False)
     branch = stats_d = None
     if y.shape[1] % 8 and residual is None and d is None:
         mean, invstd, scale, shift, out, out32 = stats_apply(y, gamma, beta, rm, rv, relu,
-                                                             keep_f32)
+                                                             keep_f32, eps, momentum)
     else:
-        mean, invstd, scale, shift = stats(y, gamma, beta, rm, rv)
+        mean, invstd, scale, shift = stats(y, gamma, beta, rm, rv, eps, momentum)
         if d is not None:
-            stats_d = stats(d, gamma_d, beta_d, rm_d, rv_d)
+            stats_d = stats(d, gamma_d, beta_d, rm_d, rv_d, eps, momentum)
             branch = (d, stats_d[2], stats_d[3])
         out, out32 = epilogue(y, scale, shift, residual=residual, branch=branch, relu=relu,
                               keep_f32=keep_f32)
@@ -445,7 +449,8 @@ def site_backward(ctx, backward, g, g32):
     if dres is not None:
         dres = dres.to(ctx.residual_dtype)
     dd, dgamma_d, dbeta_d = db if db is not None else (None, None, None)
-    return dy, dgamma, dbeta, None, None, dres, dd, dgamma_d, dbeta_d, None, None, None, None
+    return (dy, dgamma, dbeta, None, None, dres, dd, dgamma_d, dbeta_d, None, None, None, None,
+            None, None)
 
 
 class BNTrainSite(torch.autograd.Function):
@@ -453,7 +458,9 @@ class BNTrainSite(torch.autograd.Function):
     with batch statistics; returns (out, out32) where ``keep_f32``, else out.
 
     apply(y, gamma, beta, running_mean, running_var, residual, d, gamma_d,
-    beta_d, running_mean_d, running_var_d, relu, keep_f32)."""
+    beta_d, running_mean_d, running_var_d, relu, keep_f32[, eps, momentum]):
+    ``momentum`` in Flax's sense (``ra = momentum ra + (1 - momentum)
+    stat``)."""
 
     @staticmethod
     def forward(ctx, *args):
@@ -462,6 +469,14 @@ class BNTrainSite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, g32=None):
         return site_backward(ctx, bn_backward, g, g32)
+
+
+def bn_constants(bn) -> tuple[float, float]:
+    """An ``nn.BatchNorm2d``'s (eps, Flax momentum)."""
+    if bn.momentum is None:
+        raise ValueError("TrainSites: a BatchNorm with momentum None (a cumulative average) "
+                         "has no Flax counterpart")
+    return float(bn.eps), 1.0 - float(bn.momentum)
 
 
 class TrainSites:
@@ -477,11 +492,17 @@ class TrainSites:
 
     def site(self, y, bn, residual=None, branch=None, relu: bool = True,
              keep_f32: bool = False):
-        """``branch`` = (d, bn_d). Returns (out, out32 or None)."""
+        """``branch`` = (d, bn_d). Returns (out, out32 or None). The site
+        takes ``bn``'s eps and momentum (torch's ``momentum`` m is Flax's
+        1 - m)."""
         d, bn_d = branch if branch is not None else (None, None)
+        eps, momentum = bn_constants(bn)
+        if bn_d is not None and bn_constants(bn_d) != (eps, momentum):
+            raise ValueError("TrainSites.site: the branch's BatchNorm has another eps or "
+                             "momentum than the site's")
         res = self.apply(y, bn.weight, bn.bias, bn.running_mean, bn.running_var, residual, d,
                          *((bn_d.weight, bn_d.bias, bn_d.running_mean, bn_d.running_var)
-                           if bn_d is not None else (None,) * 4), relu, keep_f32)
+                           if bn_d is not None else (None,) * 4), relu, keep_f32, eps, momentum)
         return res if keep_f32 else (res, None)
 
     def group_norm(self, y, gamma, beta, groups: int, eps: float, upsample: bool):

@@ -13,7 +13,12 @@ the excite recomputes it from the bf16 depthwise output.
 
 ``se_squeeze`` and ``se_excite`` run the plain PyTorch version for a CPU
 tensor and launch the kernel for a bfloat16 CUDA tensor; they have no
-fallback. :func:`squeeze_excite` runs the whole site through them,
+fallback. The squeeze's sigmoid runs on the special-function units, so its
+mean is within a few float32 ulps of the plain version's terms, not bit for
+bit; the excite keeps the plain version's bits. The squeeze's grid is the
+card's co-resident blocks (:func:`squeeze_plan`), and its ticket counters
+are kept a (device, stream), zero between launches, so a call is one
+launch. :func:`squeeze_excite` runs the whole site through them,
 :func:`squeeze_excite_plain` through the plain versions.
 """
 
@@ -32,21 +37,21 @@ SQUEEZE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong, cty
                                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 EXCITE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_void_p]
+OCCUPANCY_ARGTYPES = [ctypes.POINTER(ctypes.c_int)]
 
 # kernel launches on CUDA tensors since the last reset (the CPU path does not count)
 squeeze_launches = 0
 excite_launches = 0
 
 THREADS = 256        # csrc/se_gate.cu kThreads
-MAX_GROUP_TILE = 32  # csrc/se_gate.cu kMaxGroupTile
-BLOCKS_PER_SM = 8    # 2048 threads an SM over 256-thread blocks
-WAVES = 2            # the squeeze's blocks: this many full waves of the card, or fewer
-MIN_PIXELS = 4       # pixels a thread sums at the least, where the map allows
+MAX_GROUP_TILE = 256  # csrc/se_gate.cu kMaxGroupTile
+MIN_PIXELS = 4        # pixels a thread sums at the least, where the map allows
+BUSY = 0.9            # the share of a block's threads a tile keeps busy, where it can
 
 
 def silu_bn(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
-    """float32 ``silu(y * scale + shift)`` over (B, C, H, W), as the kernels
-    compute it: ``v * sigmoid(v)``, each step rounded on its own."""
+    """float32 ``silu(y * scale + shift)`` over (B, C, H, W), as the excite
+    computes it: ``v * sigmoid(v)``, each step rounded on its own."""
     v = y.float() * scale[:, None, None] + shift[:, None, None]
     return v * torch.sigmoid(v)
 
@@ -65,24 +70,68 @@ def se_excite_plain(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 
 class SqueezePlan(NamedTuple):
-    group_tile: int  # 8-channel groups a block reduces
-    tiles: int       # channel tiles: C / 8 / group_tile
-    n_split: int     # pixel splits of a map
+    group_tile: int  # 8-channel groups of a column
+    tiles: int       # columns of a map: C / 8 / group_tile
+    blocks: int      # the grid
+    partials: int    # float32 scratch: (blocks + batch x tiles - 1) x group_tile x 8
 
 
-def squeeze_plan(batch: int, hw: int, channels: int, sms: int) -> SqueezePlan:
-    """The squeeze's grid: channel tiles of the largest divisor of C / 8 up
-    to 32 groups (a 256-thread block covers 256 / group_tile pixel rows of
-    them), and as many pixel splits as make ``WAVES`` full waves of the card
-    over (tile, split, b), with every thread summing at least ``MIN_PIXELS``
-    pixels where the map allows."""
+def group_tile(channels: int) -> int:
+    """The widest divisor of C / 8 up to MAX_GROUP_TILE groups whose rows
+    (THREADS // tile of them) keep ``BUSY`` of a block's threads busy; where
+    none does, the one that keeps the most."""
     c8 = channels // 8
-    group_tile = max(d for d in range(1, MAX_GROUP_TILE + 1) if c8 % d == 0)
-    tiles = c8 // group_tile
-    rows = THREADS // group_tile
-    want = -(-WAVES * sms * BLOCKS_PER_SM // (tiles * batch))
-    n_split = max(1, min(want, hw // (rows * MIN_PIXELS), 65535))
-    return SqueezePlan(group_tile, tiles, n_split)
+    fits = [d for d in range(1, MAX_GROUP_TILE + 1) if c8 % d == 0]
+
+    def busy(d: int) -> float:
+        return THREADS // d * d / THREADS
+
+    good = [d for d in fits if busy(d) >= BUSY]
+    return max(good) if good else max(fits, key=lambda d: (busy(d), d))
+
+
+def squeeze_plan(batch: int, hw: int, channels: int, co_resident: int) -> SqueezePlan:
+    """The squeeze's grid: one block for each block the card holds at once
+    (``co_resident``: its SMs times the kernel's occupancy), fewer where the
+    map would give a thread under ``MIN_PIXELS`` pixels, each taking an
+    equal share of the batch x tiles x HW units (csrc/se_gate.cu)."""
+    gt = group_tile(channels)
+    tiles = channels // 8 // gt
+    rows = THREADS // gt
+    units = batch * tiles * hw
+    blocks = max(1, min(co_resident, units // (rows * MIN_PIXELS)))
+    return SqueezePlan(gt, tiles, blocks, (blocks + batch * tiles - 1) * gt * 8)
+
+
+_CO_RESIDENT: dict[int, int] = {}
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def co_resident(device: torch.device) -> int:
+    """The squeeze kernel's blocks ``device`` holds at once: its SMs times
+    the occupancy the CUDA runtime reports for the built kernel (queried
+    once a device)."""
+    n = _CO_RESIDENT.get(device.index)
+    if n is None:
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = _build.entry("se_gate", OCCUPANCY_ARGTYPES, "se_squeeze_occupancy")(
+                ctypes.byref(per_sm))
+        _build.check(err, "se_squeeze occupancy")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        n = _CO_RESIDENT[device.index] = sms * max(1, per_sm.value)
+    return n
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` of the squeeze's ticket counters for calls on
+    ``stream``: zero, and left zero by every launch (a larger set replaces
+    a smaller one)."""
+    key = (device.index, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return buf
 
 
 def _check(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, what: str) -> None:
@@ -117,15 +166,14 @@ def se_squeeze(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> tor
         return se_squeeze_plain(y, scale, shift)
     _check_kernel(y, "se_squeeze")
     B, C, H, W = y.shape
-    sms = torch.cuda.get_device_properties(y.device).multi_processor_count
-    plan = squeeze_plan(B, H * W, C, sms)
-    partial = torch.empty((B, plan.n_split, C), dtype=torch.float32, device=y.device)
-    tickets = torch.empty((B, plan.tiles), dtype=torch.int32, device=y.device)
+    plan = squeeze_plan(B, H * W, C, co_resident(y.device))
+    stream = _build.stream_handle(y)
+    partial = torch.empty(plan.partials, dtype=torch.float32, device=y.device)
+    tickets = _tickets(y.device, stream, B * plan.tiles)
     mean = torch.empty((B, C), dtype=torch.float32, device=y.device)
     err = _build.entry("se_gate", SQUEEZE_ARGTYPES, "se_squeeze")(
         y.data_ptr(), scale.data_ptr(), shift.data_ptr(), partial.data_ptr(),
-        tickets.data_ptr(), mean.data_ptr(), B, H * W, C, plan.group_tile, plan.n_split,
-        _build.stream_handle(y))
+        tickets.data_ptr(), mean.data_ptr(), B, H * W, C, plan.group_tile, plan.blocks, stream)
     _build.check(err, "se_squeeze")
     squeeze_launches += 1
     return mean

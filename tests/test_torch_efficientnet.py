@@ -250,52 +250,84 @@ def test_wrappers_take_cpu_or_raise():
 
 def squeeze_transcription(y: np.ndarray, scale, shift, plan: sg.SqueezePlan) -> np.ndarray:
     """csrc/se_gate.cu's squeeze in numpy float32, block by block in its
-    order: each thread's pixels, the block's rows, the splits; and each
-    (pixel, channel) counted once."""
+    order: each block's share of the batch x tiles x HW units, cut at the
+    columns it meets; in each, each row's pixels, the block's rows, its
+    partial at row block + column; each column's partials in block order
+    (its SiLU: the FMAs in float64 rounded once, 2^x and the reciprocal in
+    float32). Checks that each (pixel, channel) is counted once and that no
+    two partials share a row of the plan's scratch."""
     B, H, W, C = y.shape
-    hw, gt = H * W, plan.group_tile
+    hw, gt, width = H * W, plan.group_tile, plan.group_tile * 8
     rows = sg.THREADS // gt
-    flat = y.reshape(B, hw, C)
-    v = flat * scale + shift
-    silu = (v * np.float32(1) / (np.float32(1) + np.exp(-v))).astype(np.float32)
+    f32, f64 = np.float32, np.float64
+    v = (y.reshape(B, hw, C).astype(f64) * scale + shift).astype(f32)
+    silu_r = (f32(1) / (f32(1) + np.exp2(v * f32(-1.4426950408889634)))).astype(f32)
     seen = np.zeros((B, hw, C), int)
-    mean = np.zeros((B, C), np.float32)
-    for b in range(B):
-        for tile in range(plan.tiles):
-            cols = slice(tile * gt * 8, (tile + 1) * gt * 8)
-            partial = []
-            for split in range(plan.n_split):
-                p0, p1 = hw * split // plan.n_split, hw * (split + 1) // plan.n_split
-                row_sums = []
-                for r in range(rows):
-                    acc = np.zeros(gt * 8, np.float32)
-                    for p in range(p0 + r, p1, rows):
-                        acc += silu[b, p, cols]
-                        seen[b, p, cols] += 1
-                    row_sums.append(acc)
-                total = np.zeros(gt * 8, np.float32)
-                for acc in row_sums:
-                    total += acc
-                partial.append(total)
-            total = np.zeros(gt * 8, np.float32)
-            for part in partial:
-                total += part
-            mean[b, cols] = total / np.float32(hw)
+    units = B * plan.tiles * hw
+    partial = {}
+    for i in range(plan.blocks):
+        u, u1 = units * i // plan.blocks, units * (i + 1) // plan.blocks
+        while u < u1:
+            col = u // hw
+            end = min(u1, (col + 1) * hw)
+            b, tile = divmod(col, plan.tiles)
+            cols = slice(tile * width, (tile + 1) * width)
+            acc = np.zeros((rows, width), f32)
+            for p in range(u - col * hw, end - col * hw, rows):
+                n = min(rows, end - col * hw - p)
+                term = v[b, p:p + n, cols].astype(f64) * silu_r[b, p:p + n, cols]
+                acc[:n] = (term + acc[:n]).astype(f32)
+                seen[b, p:p + n, cols] += 1
+            total = np.zeros(width, f32)
+            for row in acc:
+                total += row
+            assert i + col not in partial
+            partial[i + col] = (col, total)
+            u = end
     assert (seen == 1).all()
+    assert max(partial) < plan.partials // width
+    mean = np.zeros((B, C), f32)
+    for col in range(B * plan.tiles):
+        b, tile = divmod(col, plan.tiles)
+        total = np.zeros(width, f32)
+        for row in sorted(k for k, (c, _) in partial.items() if c == col):
+            total += partial[row][1]
+        mean[b, tile * width:(tile + 1) * width] = total / f32(hw)
     return mean
 
 
-@pytest.mark.parametrize("shape,sms", [((2, 5, 7, 48), 4), ((1, 12, 12, 8), 132),
-                                       ((2, 3, 3, 264), 2)])
-def test_squeeze_reduction_order_covers_the_map(shape, sms):
-    """The kernel's tiles, splits and rows (a numpy transcription) sum every
-    pixel of every channel once and give the plain mean within 1e-6."""
+@pytest.mark.parametrize("shape,co_resident", [((2, 5, 7, 48), 4), ((2, 20, 20, 48), 3),
+                                               ((1, 12, 12, 8), 132), ((2, 3, 3, 264), 2),
+                                               ((3, 16, 16, 1632), 20), ((2, 4, 4, 3840), 7)])
+def test_squeeze_reduction_order_covers_the_map(shape, co_resident):
+    """The kernel's blocks, columns and rows (a numpy transcription) sum
+    every pixel of every channel once, blocks that share a column and
+    blocks that span several included, and give the plain mean within
+    1e-6."""
     y, scale, shift, _ = bn_site(np.random.default_rng(8), shape)
     B, H, W, C = shape
-    plan = sg.squeeze_plan(B, H * W, C, sms)
+    plan = sg.squeeze_plan(B, H * W, C, co_resident)
     got = squeeze_transcription(y, scale, shift, plan)
     want = sg.se_squeeze_plain(nchw(y), torch.from_numpy(scale), torch.from_numpy(shift))
     np.testing.assert_allclose(got, want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_newton_reciprocal_within_float32_rounding():
+    """csrc/se_gate.cu:rcp_newton in numpy float32 (the bit-trick seed, three
+    Newton steps as FMAs, each rounded once): within 2^-23 of 1 / x over
+    the [1, 2^126] that the clamped 1 + 2^a spans, the seed within 12%."""
+    f32, f64 = np.float32, np.float64
+    x = np.concatenate([np.geomspace(1, 2.0 ** 126, 20001), 1 + np.random.default_rng(
+        3).uniform(0, 1, 10000), [1, 2, 2.0 ** 126]]).astype(f32)
+
+    def fma(a, b, c):
+        return (a.astype(f64) * b.astype(f64) + c).astype(f32)
+
+    r = (np.int32(0x7ef311c3) - x.view(np.int32)).view(f32)
+    assert np.abs(r.astype(f64) * x - 1).max() < 0.12
+    for _ in range(3):
+        r = fma(r, fma(-x, r, f32(1)), r)
+    assert np.abs(r.astype(f64) * x - 1).max() < 2.0 ** -23
 
 
 def site_shapes(name: str, output_stride: int = 32, size: int = 512) -> list[tuple]:
@@ -309,20 +341,34 @@ def site_shapes(name: str, output_stride: int = 32, size: int = 512) -> list[tup
     return out
 
 
+@pytest.mark.parametrize("per_sm", [4, 5, 8])
 @pytest.mark.parametrize("name", sorted(en.EFFICIENTNET_SPECS))
-def test_squeeze_plan_at_every_site(name):
-    """At batch 128 on an H100's 132 SMs: tiles of at most 32 groups that
-    divide C / 8 (3840 channels at b7), splits within the map and the
-    grid's limits, and a grid of at least one full wave wherever the map
-    gives every thread MIN_PIXELS pixels."""
+def test_squeeze_plan_at_every_site(name, per_sm):
+    """At batch 128 on an H100's 132 SMs holding ``per_sm`` blocks each:
+    tiles that divide C / 8 (3840 channels at b7), the widest that keep
+    BUSY of a block's threads busy (a whole pixel where one does); a grid
+    of exactly the co-resident blocks wherever the map gives every thread
+    MIN_PIXELS pixels, never more, and the scratch the kernel indexes."""
+    co = 132 * per_sm
     for hw, c in site_shapes(name):
-        plan = sg.squeeze_plan(128, hw, c, 132)
-        assert c % 8 == 0 and (c // 8) % plan.group_tile == 0
-        assert plan.group_tile <= sg.MAX_GROUP_TILE and plan.tiles * plan.group_tile == c // 8
+        plan = sg.squeeze_plan(128, hw, c, co)
+        c8 = c // 8
+        assert c % 8 == 0 and c8 % plan.group_tile == 0
+        assert plan.group_tile <= sg.MAX_GROUP_TILE and plan.tiles * plan.group_tile == c8
         rows = sg.THREADS // plan.group_tile
-        assert 1 <= plan.n_split <= max(1, hw // (rows * sg.MIN_PIXELS))
-        if hw >= rows * sg.MIN_PIXELS * 2 * 132 * sg.BLOCKS_PER_SM // 128:
-            assert plan.tiles * plan.n_split * 128 >= 132 * sg.BLOCKS_PER_SM
+        busy = [d for d in range(1, sg.MAX_GROUP_TILE + 1)
+                if c8 % d == 0 and sg.THREADS // d * d >= sg.BUSY * sg.THREADS]
+        assert rows * plan.group_tile >= sg.BUSY * sg.THREADS or not busy
+        assert plan.group_tile == max(busy, default=plan.group_tile)
+        if c8 <= sg.MAX_GROUP_TILE and sg.THREADS // c8 * c8 >= sg.BUSY * sg.THREADS:
+            assert plan.tiles == 1
+        units = 128 * plan.tiles * hw
+        assert 1 <= plan.blocks <= co and plan.blocks <= units
+        if units >= co * rows * sg.MIN_PIXELS:
+            assert plan.blocks == co
+        if plan.blocks > 1:
+            assert units // plan.blocks >= rows * sg.MIN_PIXELS
+        assert plan.partials == (plan.blocks + 128 * plan.tiles - 1) * plan.group_tile * 8
     assert max(c for _, c in site_shapes("efficientnet-b7")) == 3840
 
 

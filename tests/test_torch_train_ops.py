@@ -10,6 +10,7 @@ its plain version there.
 
 from types import SimpleNamespace
 
+import flax.linen
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -237,6 +238,49 @@ def test_bn_train_site_matches_flax(kind, keep_f32):
         close(bn_d.weight.grad, dpd_j["scale"])
         close(bn_d.bias.grad, dpd_j["bias"])
         close(bn_d.running_var, sd_j["var"], 1e-6)
+
+
+@pytest.mark.parametrize("channels,eps,momentum", [(16, 1e-3, 0.01), (3, 1e-3, 0.01),
+                                                   (16, 1e-5, 0.1)])
+def test_bn_train_site_takes_the_modules_eps_and_momentum(channels, eps, momentum):
+    """TrainSites.site with an ``nn.BatchNorm2d(eps, momentum)``: EfficientNet's
+    1e-3 and 0.01 at a wide site and a narrow one (3 channels, its own entry
+    point), and the resnet sites' 1e-5 and 0.1, against Flax's BatchNorm with
+    that epsilon and momentum 1 - 0.01 / 1 - 0.1: the output, the running
+    statistics and the gradients within 1e-5."""
+    rng = np.random.default_rng(11)
+    shape = (3, 6, 7, channels)
+    y = rng.standard_normal(shape).astype(np.float32) * 0.3
+    g = rng.standard_normal(shape).astype(np.float32)
+    v = bn_vars(rng, channels)
+    jv = jax.tree_util.tree_map(jnp.asarray, v)
+    flax_bn = flax.linen.BatchNorm(use_running_average=False, epsilon=eps,
+                                   momentum=1 - momentum, dtype=jnp.float32)
+
+    def f(yy, params):
+        out, mut = flax_bn.apply({"params": params, "batch_stats": jv["batch_stats"]}, yy,
+                                 mutable=["batch_stats"])
+        return jax.nn.relu(out), mut["batch_stats"]
+
+    out_j, vjp, stats_j = jax.vjp(f, jnp.asarray(y), jv["params"], has_aux=True)
+    dy_j, dp_j = vjp(jnp.asarray(g))
+
+    bn = bn_module(v)
+    bn.eps, bn.momentum = eps, momentum
+    yt = nchw(y).requires_grad_(True)
+    out, _ = bt.TrainSites().site(yt, bn)
+    out.backward(nchw(g))
+
+    def close(t, a):
+        t = t.permute(0, 2, 3, 1) if t.dim() == 4 else t
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(a), atol=1e-5, rtol=1e-5)
+
+    close(out, out_j)
+    close(bn.running_mean, stats_j["mean"])
+    close(bn.running_var, stats_j["var"])
+    close(yt.grad, dy_j)
+    close(bn.weight.grad, dp_j["scale"])
+    close(bn.bias.grad, dp_j["bias"])
 
 
 def test_running_variance_is_biased_unlike_batchnorm2d():

@@ -300,6 +300,24 @@ Phases (any failure exits non-zero):
    each against its all-plain run by phase 5's rule, with launches and
    patches/s; flair predict and metrics of b4-unet from a .msgpack (the
    PRED classes against the all-plain run of the first batch).
+8b. EfficientNet, training: flair (train, predict, metrics) of
+   efficientnet-b4-unet at phase 4's values (512², batch 16, one epoch of 4
+   steps on phase 4's set) from phase 8's .msgpack, its launches against
+   steps x sites (the SiLU, affine and channel-tiled bn_train modes,
+   se_backward, conv_epilogue's drop-connect mode counted apart), the
+   artifacts, the trained gate biases and running statistics float32 in the
+   checkpoint and in a .msgpack written after a predict, warm train and
+   predict rates; one step by CUDA events (the forward, the depthwise convs'
+   forward and backward, the host's issue time) and the profiler's kernel
+   groups; the new kernel modes at every site of one step against their
+   plain versions (TrainKernelTimer: dy within BN_DY_TOL, the gate's
+   gradient within GATE_GRAD_TOL, the drop-connect bit for bit) and timed
+   beside their bounds, plain versions and library calls; one step held site
+   by site and free-running against the plain step on injected dropout
+   masks (a sample dropped); the channel-tiled statistics, SiLU and affine
+   backward and gate gradient at every site above 2048 channels of
+   WIDE_ENCODERS at batch 2; one efficientnet-b0-deeplabv3plus step held the
+   same way, from random weights after EFFNET_WARM_STEPS train steps.
 9. the kernels line, the card line, the script's seconds, and last the JSON
    result line.
 
@@ -312,6 +330,9 @@ Phases (any failure exits non-zero):
         # (step_order_study): its flair run on the set written from seed S,
         # then the kernels' and the plain step in each order, judged by the
         # check's own rule; one JSON line, no result line
+    python3 chip_smoke.py --effnet-train
+        # only phase 8b, on its own written set (phase 4's) and .msgpack
+        # (phase 8's); one JSON line, no result line
 """
 
 from __future__ import annotations
@@ -2118,6 +2139,8 @@ def reset_launches() -> None:
     wc.launches = wc.backward_launches = bt.launches = bt.backward_launches = 0
     bt.narrow_launches = bt.narrow_backward_launches = gnr.backward_launches = 0
     ep.silu_launches = sg.squeeze_launches = sg.excite_launches = 0
+    bt.wide_launches = bt.wide_backward_launches = bt.silu_backward_launches = 0
+    bt.affine_backward_launches = sg.backward_launches = ep.drop_launches = 0
     for counts in (st.launches, ts.launches):
         for name in counts:
             counts[name] = 0
@@ -2137,7 +2160,11 @@ def read_launches() -> dict:
             "group_norm_relu": gnr.launches,
             "group_norm_relu_backward": gnr.backward_launches,
             "conv_epilogue_silu": ep.silu_launches, "se_squeeze": sg.squeeze_launches,
-            "se_excite": sg.excite_launches, **st.launches, **ts.launches}
+            "se_excite": sg.excite_launches, "bn_stats_wide": bt.wide_launches,
+            "bn_backward_wide": bt.wide_backward_launches,
+            "bn_backward_silu": bt.silu_backward_launches,
+            "bn_backward_affine": bt.affine_backward_launches, "se_backward": sg.backward_launches,
+            "conv_epilogue_drop": ep.drop_launches, **st.launches, **ts.launches}
 
 
 def expected_launches(method: str, output_type: str, n_batches: int,
@@ -3143,9 +3170,9 @@ class TrainSiteRecorder(TrainSites):
         super().__init__()
         self.sites: list[dict] = []
 
-    def site(self, y, bn, residual=None, branch=None, relu=True, keep_f32=False):
+    def site(self, y, bn, residual=None, branch=None, act="relu", keep_f32=False, drop=None):
         self.sites.append(dict(y=y, bn=bn, residual=residual, branch=branch, keep_f32=keep_f32))
-        return super().site(y, bn, residual, branch, relu, keep_f32)
+        return super().site(y, bn, residual, branch, act, keep_f32, drop)
 
 
 def record_train_sites(model, x: torch.Tensor) -> list[dict]:
@@ -3387,15 +3414,24 @@ def train_site_counts(model) -> dict:
     downsample's BatchNorm inside its block's last site), of them the
     narrow ones (channels not a multiple of 8: bn_train's narrow entry
     points), GroupNorm sites, the inference sites of tail_input (all but
-    the fused tail's last block) and the tail's kernel."""
+    the fused tail's last block) and the tail's kernel. An EfficientNet's:
+    its SiLU sites (the stem, each expand), squeeze-excite sites (each
+    block's depthwise BatchNorm: no conv_epilogue in training, a squeeze,
+    an excite and a gate backward), drop-connect sites (each block j > 0
+    with an identity) and the BatchNorms above 2048 channels (``wide``)."""
     n_bn = sum(isinstance(m, nn.BatchNorm2d) for m in model.modules())
     n_ds = sum(getattr(m, "downsample", None) is not None for m in model.encoder.modules())
     narrow = sum(isinstance(m, nn.BatchNorm2d) and m.num_features % 8 != 0
                  for m in model.modules())
     tail = model.zone_tail()
+    enc = effnet_counts(model) or {"silu": 0, "se": 0}
+    drop = (sum(b.skip for j, b in enumerate(model.encoder._blocks) if j) if enc["se"] else 0)
     return {"bn": n_bn, "sites": n_bn - n_ds, "tail_sites": arch_sites(model, tail),
             "narrow": narrow, "gn": sum(isinstance(m, nn.GroupNorm) for m in model.modules()),
-            "tail": "strided_tail" if isinstance(tail, sp.StridedTail) else "fused_tail"}
+            "tail": "strided_tail" if isinstance(tail, sp.StridedTail) else "fused_tail",
+            "silu": enc["silu"], "se": enc["se"], "drop": drop,
+            "wide": sum(isinstance(m, nn.BatchNorm2d) and m.num_features > 8 * bt.THREADS
+                        for m in model.modules())}
 
 
 def check_bn_train(gen) -> dict:
@@ -3492,19 +3528,31 @@ def flair_expected(counts: dict, steps: int, eval_batches: int, predict_batches:
     site outside the tail and its tail, fused_tail or strided_tail). The
     narrow BatchNorms (PAN's) take the narrow entry points; FPN's GroupNorm
     sites launch group_norm_relu each forward (train, eval, predict) and its
+    backward each step. An EfficientNet's squeeze-excite sites launch a
+    squeeze and an excite each forward and, in training, a gate backward,
+    and no conv_epilogue; its SiLU sites launch conv_epilogue's SiLU mode
+    each forward and bn_train's SiLU backward each step, its depthwise and
+    drop-connect sites the affine backward each step, its drop-connect
+    sites conv_epilogue's drop mode each step (the generator's masks),
+    its BatchNorms above 2048 channels the channel-tiled statistics and
     backward each step. The metadata MLP and its fusion launch none of
     these."""
     out = dict.fromkeys(read_launches(), 0)
     m = steps * micro
     narrow, gn = counts["narrow"], counts["gn"]
+    se, silu, drop, wide = (counts.get(k, 0) for k in ("se", "silu", "drop", "wide"))
+    forwards = m + eval_batches + predict_batches
     out.update(augment_normalize=steps + eval_batches + predict_batches,
                weighted_ce=m + eval_batches, weighted_ce_backward=m,
                bn_stats=(counts["bn"] - narrow) * m, bn_backward=(counts["sites"] - narrow) * m,
                bn_stats_narrow=narrow * m, bn_backward_narrow=narrow * m,
-               conv_epilogue=(counts["sites"] - narrow) * m + counts["sites"] * eval_batches
-               + counts["tail_sites"] * predict_batches,
-               group_norm_relu=gn * (m + eval_batches + predict_batches),
-               group_norm_relu_backward=gn * m)
+               conv_epilogue=(counts["sites"] - narrow - se) * m
+               + (counts["sites"] - se) * eval_batches + counts["tail_sites"] * predict_batches,
+               group_norm_relu=gn * forwards, group_norm_relu_backward=gn * m,
+               conv_epilogue_silu=silu * forwards, se_squeeze=se * forwards,
+               se_excite=se * forwards, se_backward=se * m, bn_backward_silu=silu * m,
+               bn_backward_affine=(se + drop) * m, conv_epilogue_drop=drop * m,
+               bn_stats_wide=wide * m, bn_backward_wide=wide * m)
     out[counts["tail"]] = predict_batches
     return out
 
@@ -3531,6 +3579,9 @@ class PlainSiteFns:
     backward = staticmethod(bt.bn_backward_plain)
     gn_forward = staticmethod(gnr.group_norm_relu_plain)
     gn_backward = staticmethod(gnr.group_norm_relu_backward_plain)
+    squeeze = staticmethod(sg.se_squeeze_plain)
+    excite = staticmethod(sg.se_excite_plain)
+    squeeze_backward = staticmethod(sg.se_backward_plain)
 
 
 class StepChecker:
@@ -3541,7 +3592,8 @@ class StepChecker:
     def __init__(self):
         self.worst: dict[str, tuple[float, tuple]] = {}
         self.calls = dict.fromkeys(("stats", "epilogue", "stats_apply", "backward",
-                                    "gn_forward", "gn_backward"), 0)
+                                    "gn_forward", "gn_backward", "squeeze", "excite",
+                                    "squeeze_backward"), 0)
 
     def note(self, part: str, err: float, shape) -> None:
         if part not in self.worst or err > self.worst[part][0]:
@@ -3559,7 +3611,10 @@ class StepChecker:
     def epilogue(self, y, scale, shift, **kw):
         got = ep.conv_epilogue(y, scale, shift, **kw)
         want = ep.conv_epilogue_plain(y, scale, shift, **kw)
-        self.note("epilogue", max(max_diff(a, b) for a, b in zip(got, want)), y.shape)
+        if kw.get("silu"):  # the accurate expf on the card, torch.sigmoid plain
+            self.note("epilogue_silu", bf16_ulps(got[0], want[0]), y.shape)
+        else:
+            self.note("epilogue", max(max_diff(a, b) for a, b in zip(got, want)), y.shape)
         self.calls["epilogue"] += 1
         return got
 
@@ -3576,8 +3631,8 @@ class StepChecker:
         self.calls["stats_apply"] += 1
         return got
 
-    def backward(self, *args):
-        got, want = bt.bn_backward(*args), bt.bn_backward_plain(*args)
+    def backward(self, *args, **kw):
+        got, want = bt.bn_backward(*args, **kw), bt.bn_backward_plain(*args, **kw)
         shape = args[3].shape
         pairs = [(got[:3], want[:3])] + ([(got[4], want[4])] if got[4] is not None else [])
         for g, w in pairs:  # (dy, dgamma, dbeta), then the branch's
@@ -3585,6 +3640,24 @@ class StepChecker:
             self.note("dgamma_dbeta", max(scaled_err(g[1], w[1]), scaled_err(g[2], w[2])), shape)
         self.note("dres", max_diff(got[3], want[3]), shape)
         self.calls["backward"] += 1
+        return got
+
+    def squeeze(self, y, scale, shift):
+        got, want = sg.se_squeeze(y, scale, shift), sg.se_squeeze_plain(y, scale, shift)
+        self.note("squeeze", scaled_err(got, want), y.shape)
+        self.calls["squeeze"] += 1
+        return got
+
+    def excite(self, y, scale, shift, gate):
+        got, want = sg.se_excite(y, scale, shift, gate), sg.se_excite_plain(y, scale, shift, gate)
+        self.note("excite", bf16_ulps(got, want), y.shape)
+        self.calls["excite"] += 1
+        return got
+
+    def squeeze_backward(self, g, y, scale, shift):
+        got, want = sg.se_backward(g, y, scale, shift), sg.se_backward_plain(g, y, scale, shift)
+        self.note("gate_grad", scaled_err(got, want), y.shape)
+        self.calls["squeeze_backward"] += 1
         return got
 
     def gn_forward(self, y, gamma, beta, groups, eps, upsample, stats=True):
@@ -3635,12 +3708,30 @@ class GroupNormFunction(torch.autograd.Function):
         return (None, *gnr.gn_backward(ctx, ctx.impl.gn_backward, g))
 
 
+class SEFunction(torch.autograd.Function):
+    """An EfficientNet depthwise site through ``impl``'s stats, squeeze,
+    excite, squeeze_backward and backward (bn_train's se_site_forward and
+    se_site_backward, as SEGateSite runs them)."""
+
+    @staticmethod
+    def forward(ctx, impl, *args):
+        ctx.impl = impl
+        return bt.se_site_forward(ctx, impl, *args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *bt.se_site_backward(ctx, ctx.impl, g))
+
+
 class SitesThrough(TrainSites):
     def __init__(self, impl):
         self.impl = impl
 
     def apply(self, *args):
         return SiteFunction.apply(self.impl, *args)
+
+    def apply_se(self, *args):
+        return SEFunction.apply(self.impl, *args)
 
     def group_norm(self, y, gamma, beta, groups, eps, upsample):
         return GroupNormFunction.apply(self.impl, y, gamma, beta, groups, eps, upsample)
@@ -3773,15 +3864,21 @@ def no_tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def step_site_limits(gn: bool) -> dict:
+def step_site_limits(gn: bool, se: bool = False) -> dict:
     """Each part's limit in the site-by-site check of a step (GroupNorm's
-    parts where the model has GroupNorm sites)."""
+    parts where the model has GroupNorm sites, an EfficientNet's SiLU and
+    squeeze-excite parts where it has them: the SiLU epilogue and the
+    excite within one bf16 ulp, the squeeze and the gate's gradient within
+    SQUEEZE_REL_TOL and GATE_GRAD_TOL of their largest value)."""
     limits = {"augment": 0.0, "stats": BN_STAT_TOL, "epilogue": 0.0, "dy": BN_DY_TOL,
               "dgamma_dbeta": BN_GRAD_TOL, "dres": 0.0, "ce_loss": CE_LOSS_RTOL,
               "ce_weight_sum": 0.0, "ce_confmat": 0.0, "ce_grad": CE_GRAD_TOL}
     if gn:
         limits.update(gn_out=GN_TOL, gn_stats=BN_STAT_TOL, gn_dy=GN_DY_TOL,
                       gn_dgamma_dbeta=BN_GRAD_TOL)
+    if se:
+        limits.update(epilogue_silu=1.0, squeeze=SQUEEZE_REL_TOL, excite=1.0,
+                      gate_grad=GATE_GRAD_TOL)
     return limits
 
 
@@ -3789,15 +3886,16 @@ def check_step_sites(checker: StepChecker, counts: dict, micro: int = 1) -> dict
     """The site-by-site check of the kernels' step (StepChecker's records),
     over ``micro`` microbatches."""
     calls = checker.calls
-    gn, narrow = counts["gn"], counts["narrow"]
+    gn, narrow, se = counts["gn"], counts["narrow"], counts.get("se", 0)
     check(calls == {"stats": micro * (counts["bn"] - narrow),
-                    "epilogue": micro * (counts["sites"] - narrow),
+                    "epilogue": micro * (counts["sites"] - narrow - se),
                     "stats_apply": micro * narrow, "backward": micro * counts["sites"],
-                    "gn_forward": micro * gn, "gn_backward": micro * gn},
+                    "gn_forward": micro * gn, "gn_backward": micro * gn,
+                    "squeeze": micro * se, "excite": micro * se, "squeeze_backward": micro * se},
           f"train step, site by site: {calls} kernel calls each held to its plain version on "
           f"the step's own operands ({micro} x {counts['bn']} BatchNorms, {counts['sites']} "
-          f"sites, {narrow} of them narrow, {gn} GroupNorm sites)")
-    for part, limit in step_site_limits(gn).items():
+          f"sites, {narrow} of them narrow, {gn} GroupNorm sites, {se} squeeze-excite sites)")
+    for part, limit in step_site_limits(gn, se > 0).items():
         err, shape = checker.worst[part]
         check(err <= limit, f"train step, site by site: {part} within {err:.2e} <= {limit:.2e} "
               f"(worst at {shape})")
@@ -3805,10 +3903,12 @@ def check_step_sites(checker: StepChecker, counts: dict, micro: int = 1) -> dict
 
 
 def permute_masks(masks: dict, idx: torch.Tensor) -> dict:
-    """A microbatch's keep masks by module name (each a tensor or a list of
-    them) for its samples in the order ``idx``."""
+    """A microbatch's keep masks by module name (each a tensor, a list of
+    them, or the drop-connect's dict of them by block) for its samples in
+    the order ``idx``."""
     idx = idx.to("cuda")
-    return {k: [m[idx] for m in v] if isinstance(v, list) else v[idx]
+    return {k: [m[idx] for m in v] if isinstance(v, list) else
+            {j: m[idx] for j, m in v.items()} if isinstance(v, dict) else v[idx]
             for k, v in masks.items()}
 
 
@@ -5710,6 +5810,440 @@ def run_effnet(cfg: dict, tmp: Path, main: dict, card: str) -> dict:
     return out
 
 
+# -- phase 8b: EfficientNet, training ------------------------------------------
+
+GATE_GRAD_TOL = 1e-5  # se_backward: max |kernel - plain| / max |plain| of the (B, C) gradient
+EFFNET_TRAIN_ARCH = "deeplabv3plus"  # one EFFNET_SMALL step under it: the dilated blocks
+EFFNET_WARM_STEPS = 4  # train steps before that step is held (its state's training)
+# the encoders whose maps above 2048 channels phase 8b holds at batch 2, off b4's path
+WIDE_ENCODERS = ("efficientnet-b2", "efficientnet-b6", "efficientnet-b7")
+WIDE_BATCH = 2
+# the new kernel modes of an EfficientNet train step, as the kernels line names them
+TRAIN_KERNELS = ("bn_train_wide", "bn_backward_silu", "se_backward", "bn_backward_affine",
+                 "conv_epilogue_drop")
+
+
+def wide_site_shapes(encoder: str, batch: int) -> list[tuple]:
+    """(B, C, H, W) of each BatchNorm site of ``encoder`` above 2048
+    channels on 512² tiles: an expand site at its block's input side, a
+    depthwise site at its output side."""
+    side, out = S // 2, set()
+    for b in en.efficientnet_plan(encoder)["blocks"]:
+        mid, before = b["cin"] * b["expand"], side
+        side = -(-side // b["stride"])
+        if mid > 8 * bt.THREADS:
+            out |= {(batch, mid, before, before), (batch, mid, side, side)}
+    return sorted(out)
+
+
+def effnet_masks(model, gen, arch: str = "unet") -> dict:
+    """One microbatch's dropout masks by module name for an EfficientNet
+    model's train step: each dropping block's (B,) keep mask drawn at its
+    rate (sample 0 dropped at the first, so at least one sample drops), and
+    the decoder's (decoder_keep)."""
+    enc = model.encoder
+    drop = {j: torch.rand(TRAIN_BATCH, generator=gen, device="cuda")
+            >= en.DROP_CONNECT_RATE * j / enc.n_blocks
+            for j, b in enumerate(enc._blocks) if j and b.skip}
+    drop[min(drop)][0] = False
+    return {"drop_connect": drop, **(decoder_keep(arch, TRAIN_BATCH, S, gen) or {})}
+
+
+def bn_library(gz, y, mean, invstd, gamma):
+    """aten's native_batch_norm_backward on the pre-multiplied gradient
+    (the affine and the SiLU's derivative already in gz, cast to y's
+    dtype): BatchNorm's VJP alone, not the same function."""
+    g = gz.to(y.dtype).contiguous(memory_format=torch.channels_last)
+    return lambda: torch.ops.aten.native_batch_norm_backward(
+        g, y, gamma, None, None, mean, invstd, True, en.BN_EPS, [True, True, True])
+
+
+class TrainKernelTimer:
+    """A train step's sites through the kernels, each call of a new kernel
+    mode (the channel-tiled statistics and backward above 2048 channels,
+    the SiLU backward, the affine backward, the gate's gradient, the
+    drop-connect epilogue) also through its plain version on the same
+    operands, held to its limit, and both timed (device_ms; the plain by
+    events) beside the bound and the library call."""
+
+    def __init__(self):
+        self.rows = {name: [] for name in TRAIN_KERNELS}
+
+    def add(self, name: str, err: float, fn, plain, library, ops: float, nbytes: float,
+            **extra) -> None:
+        self.rows[name].append(dict(
+            err=err, ms=device_ms(fn), plain_ms=cuda_ms(plain, 2, 1),
+            library_ms=None if library is None else device_ms(library), bytes=nbytes,
+            **bound(ops, nbytes, PEAK_FP32_FLOPS), **extra))
+
+    def stats(self, x, gamma, beta, rm, rv, eps=bt.EPS, momentum=bt.MOMENTUM):
+        rm0, rv0 = rm.clone(), rv.clone()
+        got = bt.bn_stats(x, gamma, beta, rm, rv, eps, momentum)
+        if x.shape[1] > 8 * bt.THREADS:
+            want = bt.bn_stats_plain(x, gamma, beta, rm0.clone(), rv0.clone(), eps, momentum)
+            err = max(vec_err(a, b) for a, b in zip(got, want))
+            EffnetChecker.hold(err <= BN_STAT_TOL, f"bn_stats, {x.shape[1]} channels in "
+                               f"{bt.channel_tiles(x.shape[1])} tiles, {tuple(x.shape)}: "
+                               f"within {err:.1e}")
+            n = x.numel()
+            self.add("bn_train_wide", err, lambda: bt.bn_stats(x, gamma, beta, rm0, rv0, eps,
+                                                                momentum),
+                     lambda: bt.bn_stats_plain(x, gamma, beta, rm0, rv0, eps, momentum),
+                     lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0), 3 * n,
+                     2 * n + 4 * 8 * x.shape[1], mode="stats", shape=tuple(x.shape))
+        return got
+
+    def epilogue(self, y, scale, shift, **kw):
+        got = ep.conv_epilogue(y, scale, shift, **kw)
+        if kw.get("drop") is not None:
+            want = ep.conv_epilogue_plain(y, scale, shift, **kw)
+            err = max(max_diff(a, b) for a, b in zip(got, want))
+            EffnetChecker.hold(err == 0, f"conv_epilogue drop-connect {tuple(y.shape)}: bit "
+                               f"for bit ({err:.1e})")
+            n = y.numel()
+            self.add("conv_epilogue_drop", err, lambda: ep.conv_epilogue(y, scale, shift, **kw),
+                     lambda: ep.conv_epilogue_plain(y, scale, shift, **kw), None, 5 * n,
+                     2 * n + 4 * n + 2 * n + 4 * n * kw.get("keep_f32", False),
+                     shape=tuple(y.shape))
+        return got
+
+    def stats_apply(self, *args):
+        return bt.bn_stats_apply(*args)
+
+    def backward(self, *args, **kw):
+        got = bt.bn_backward(*args, **kw)
+        g, g32, out, y, mean, invstd, gamma, branch, relu, residual = args
+        wide = y.shape[1] > 8 * bt.THREADS
+        affine = "gmul" in kw or "gadd" in kw
+        if not (wide or affine or "shift" in kw):
+            return got
+        want = bt.bn_backward_plain(*args, **kw)
+        dy_err = scaled_err(got[0], want[0])
+        vec = max(vec_err(got[1], want[1]), vec_err(got[2], want[2]))
+        err = max(dy_err, vec)
+        EffnetChecker.hold(
+            dy_err <= BN_DY_TOL and vec <= BN_GRAD_TOL
+            and (got[3] is None or torch.equal(got[3], want[3])),
+            f"bn_backward {'affine' if affine else 'SiLU'} {tuple(y.shape)}: dy within "
+            f"{dy_err:.1e}, dgamma and dbeta within {vec:.1e}"
+            + (", the identity's gradient exact" if got[3] is not None else ""))
+        n, bc = y.numel(), 2 * 4 * y.shape[0] * y.shape[1]
+        nbytes = (2 * n * (g is not None) + 4 * n * (g32 is not None) + 2 * n
+                  + 2 * n * relu + bc * affine + 2 * n + 4 * n * residual)
+        ops = 12 * n + 10 * n * ("shift" in kw) + 2 * n * affine
+        gz = bt._site_grad(bt._grad_in(g, g32, out, relu), y, gamma, invstd, kw.get("shift"),
+                           kw.get("gmul"), kw.get("gadd"))
+        library = bn_library(gz, y, mean, invstd, gamma)
+        del gz
+        fn = lambda: bt.bn_backward(*args, **kw)  # noqa: E731
+        plain = lambda: bt.bn_backward_plain(*args, **kw)  # noqa: E731
+        name = "bn_backward_affine" if affine else "bn_backward_silu"
+        self.add(name, err, fn, plain, library, ops, nbytes, shape=tuple(y.shape))
+        if wide:
+            self.rows["bn_train_wide"].append(dict(self.rows[name][-1], mode="backward"))
+        return got
+
+    def squeeze(self, y, scale, shift):
+        return sg.se_squeeze(y, scale, shift)
+
+    def excite(self, y, scale, shift, gate):
+        return sg.se_excite(y, scale, shift, gate)
+
+    def squeeze_backward(self, g, y, scale, shift):
+        got = sg.se_backward(g, y, scale, shift)
+        want = sg.se_backward_plain(g, y, scale, shift)
+        err = scaled_err(got, want)
+        EffnetChecker.hold(err <= GATE_GRAD_TOL, f"se_backward {tuple(y.shape)}: within "
+                           f"{err:.1e} of the largest |dgate| <= {GATE_GRAD_TOL}")
+        n, bc = y.numel(), y.shape[0] * y.shape[1]
+        self.add("se_backward", err, lambda: sg.se_backward(g, y, scale, shift),
+                 lambda: sg.se_backward_plain(g, y, scale, shift),
+                 lambda: torch.linalg.vecdot(g.flatten(2), y.flatten(2)), 8 * n,
+                 4 * n + 2 * 4 * y.shape[1] + 4 * bc, shape=tuple(y.shape))
+        return got
+
+
+def time_train_kernels(cfg: dict, state: dict, batch: dict, masks: dict) -> dict:
+    """One train step of ``cfg``'s model from ``state`` through
+    TrainKernelTimer: each new kernel mode held and timed at every one of
+    its sites, summed by kernel."""
+    timer = TrainKernelTimer()
+    tr = SegmentationTrainer(cfg)
+    tr.load_state(state)
+    tr.sites = SitesThrough(timer)
+    tr.train_step(batch, choices=choices_all(TRAIN_BATCH), masks=[masks])
+    torch.cuda.synchronize()
+    del tr
+    torch.cuda.empty_cache()
+    out = {}
+    for name, rows in timer.rows.items():
+        check(bool(rows), f"{name}: at least one site in the step")
+        libs = [r["library_ms"] for r in rows]
+        out[name] = {"sites": len(rows), "ms": sum(r["ms"] for r in rows),
+                     "plain_ms": sum(r["plain_ms"] for r in rows),
+                     "bound_ms": sum(r["bound_ms"] for r in rows),
+                     "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                                  else "operations"),
+                     "bytes": sum(r["bytes"] for r in rows),
+                     "library_ms": None if None in libs else sum(libs),
+                     "max_abs_err": max(r["err"] for r in rows),
+                     "largest": max(rows, key=lambda r: r["bytes"])}
+        if name == "bn_train_wide":
+            out[name]["modes"] = [
+                {"mode": m, "sites": len(rs), "ms": sum(r["ms"] for r in rs),
+                 "plain_ms": sum(r["plain_ms"] for r in rs),
+                 "bound_ms": sum(r["bound_ms"] for r in rs),
+                 "library_ms": sum(r["library_ms"] for r in rs),
+                 "shapes": sorted({r["shape"] for r in rs})}
+                for m in ("stats", "backward") for rs in [[r for r in rows if r["mode"] == m]]]
+    return out
+
+
+def check_wide_sites(gen) -> dict:
+    """The channel-tiled statistics, the SiLU and the affine backward and
+    the gate's gradient at every site above 2048 channels of WIDE_ENCODERS
+    at batch WIDE_BATCH, random operands, against their plain versions;
+    two statistics calls give the same bits."""
+    out = {}
+    for encoder in WIDE_ENCODERS:
+        for shape in wide_site_shapes(encoder, WIDE_BATCH):
+            B, C = shape[:2]
+            y = random_site(gen, shape, "none")["y"]
+            g = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            vec = [torch.rand(C, device="cuda", generator=gen) + 0.5 for _ in range(4)]
+            runs = [bt.bn_stats(y, *[v.clone() for v in vec], en.BN_EPS, 0.99)
+                    for _ in range(2)]
+            want = bt.bn_stats_plain(y, *[v.clone() for v in vec], en.BN_EPS, 0.99)
+            errs = {"stats": max(vec_err(a, b) for a, b in zip(runs[0], want))}
+            same = all(torch.equal(a, b) for a, b in zip(*runs))
+            mean, invstd, _, shift = want
+            gate = torch.rand((B, C), device="cuda", generator=gen)
+            gadd = torch.randn((B, C), device="cuda", generator=gen) * 1e-3
+            for mode, kw in (("silu", {"shift": shift}),
+                             ("affine", {"shift": shift, "gmul": gate, "gadd": gadd})):
+                args = (g, None, None, y, mean, invstd, vec[0], None, False, False)
+                a, b = bt.bn_backward(*args, **kw), bt.bn_backward_plain(*args, **kw)
+                errs[f"dy_{mode}"] = scaled_err(a[0], b[0])
+                errs[f"dgamma_dbeta_{mode}"] = max(vec_err(a[1], b[1]), vec_err(a[2], b[2]))
+            errs["gate_grad"] = scaled_err(sg.se_backward(g, y, want[2], shift),
+                                           sg.se_backward_plain(g, y, want[2], shift))
+            torch.cuda.synchronize()
+            check(same and errs["stats"] <= BN_STAT_TOL and errs["gate_grad"] <= GATE_GRAD_TOL
+                  and max(errs["dy_silu"], errs["dy_affine"]) <= BN_DY_TOL
+                  and max(errs["dgamma_dbeta_silu"], errs["dgamma_dbeta_affine"]) <= BN_GRAD_TOL,
+                  f"{encoder} {shape} ({bt.channel_tiles(C)} channel tiles): {errs}, two "
+                  "statistics calls the same bits")
+            out[f"{encoder} {shape}"] = errs
+            del y, g
+    return out
+
+
+def effnet_step_breakdown(cfg: dict, state: dict, batch: dict, masks: dict) -> dict:
+    """One train step (the second of two) of ``cfg``'s model by CUDA
+    events: the whole step, the forward, the depthwise convs' forward and
+    backward (events around each forward, and recorded by autograd hooks
+    when the conv's output gradient is ready and when its input gradient
+    is written), the host's time to issue the step, and the profiler's
+    device time by kernel group with the card's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = SegmentationTrainer(cfg)
+    tr.load_state(state)
+    ch = choices_all(TRAIN_BATCH)
+    events = {"forward": [], "backward": []}
+    inner = en.same_conv
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    def timed(h, m, pad, dtype):
+        if m.groups == 1 or not torch.is_grad_enabled():
+            return inner(h, m, pad, dtype)
+        a, b, c, d = event(), event(), event(), event()
+        a.record()
+        y = inner(h, m, pad, dtype)
+        b.record()
+        y.register_hook(lambda g: c.record())
+        h.register_hook(lambda g: d.record())
+        events["forward"].append((a, b))
+        events["backward"].append((c, d))
+        return y
+
+    def step():
+        tr.train_step(batch, choices=ch, masks=[masks])
+
+    x, tgt = tr.prepare(batch, True, ch)
+    ms = {"forward": cuda_ms(lambda: tr.model(x, epilogue=tr.sites, dropout=masks), 3, 1)}
+    del x, tgt
+    en.same_conv = timed
+    try:
+        for _ in range(2):
+            for v in events.values():
+                v.clear()
+            start, end = event(), event()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            step()
+            issued = time.perf_counter() - t0
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        en.same_conv = inner
+    ms.update(step=start.elapsed_time(end), step_wall=wall * 1e3, host_issue=issued * 1e3,
+              depthwise_forward=sum(a.elapsed_time(b) for a, b in events["forward"]),
+              depthwise_backward=sum(a.elapsed_time(b) for a, b in events["backward"]),
+              depthwise_sites=len(events["forward"]))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+
+    def group(*keys) -> float:
+        return sum(e.self_device_time_total for e in rows if any(k in e.key for k in keys)) / 1e3
+
+    ms.update(profiled_wall=wall_ms, profiled_busy=busy,
+              bn_train=group("stats_kernel", "backward_reduce", "backward_apply"),
+              se_squeeze_excite=group("se_squeeze_kernel<false>", "se_excite_kernel"),
+              se_backward=group("se_squeeze_kernel<true>"),
+              conv_epilogue=group("conv_epilogue_"),
+              weighted_ce_augment=group("weighted_ce", "augment"))
+    ms["other_kernels"] = busy - sum(ms[k] for k in ("bn_train", "se_squeeze_excite",
+                                                     "se_backward", "conv_epilogue",
+                                                     "weighted_ce_augment"))
+    del tr
+    torch.cuda.empty_cache()
+    return {"ms": ms, "busy_share": busy / wall_ms,
+            "depthwise_backward_share": ms["depthwise_backward"] / busy,
+            "kernel_table": prof.key_averages().table(sort_by="self_cuda_time_total",
+                                                      row_limit=15)}
+
+
+def check_trained_dtypes(cfg: dict, state: dict, root: Path) -> dict:
+    """The trained model's gate biases and running statistics stay float32:
+    in flair's checkpoint, and in a .msgpack written from the model after a
+    predict (which never casts the weights, as prepare_inference would)."""
+    sd = state["state_dict"]
+    keys = [k for k in sd if re.search(r"_se_(reduce|expand)\.bias$|running_(mean|var)$", k)]
+    tr = SegmentationTrainer(cfg)
+    tr.load_state(state)
+    predict(cfg, gather_paths(cfg, "test"), root / "predict_after", tr, progress=lambda _: None)
+    path = root / "trained.msgpack"
+    ckpt_lib.save_weights_msgpack(path, tr.model)
+    back = ckpt_lib.load_state_dict_file(path)
+    del tr
+    bad = [k for k in keys if sd[k].dtype != torch.float32 or back[k].dtype != np.float32]
+    check(not bad and len(keys) > 0, f"{len(keys)} gate biases and running statistics float32 "
+          f"in the checkpoint and in {path.name} written after a predict"
+          + (f"; not: {bad[:4]}" if bad else ""))
+    return {"tensors": len(keys)}
+
+
+def run_effnet_train(tmp: Path, main: dict, card: str) -> dict:
+    """Phase 8b: flair (train, predict, metrics) of EFFNET-unet for one
+    epoch of 4 steps at phase 4's values from phase 8's .msgpack
+    (init_weights_only_from_ckpt), its launches against steps x sites; the
+    trained tensors' dtypes; warm rates; one step by stage; the new kernel
+    modes at every site of one step held and timed; one step held site by
+    site and free-running against the plain step (injected dropout masks,
+    a sample dropped); the sites above 2048 channels of WIDE_ENCODERS; one
+    EFFNET_SMALL-EFFNET_TRAIN_ARCH step held the same way, from random
+    weights after EFFNET_WARM_STEPS steps."""
+    t0 = time.perf_counter()
+    root = tmp / "flair_effnet_train"
+    root.mkdir(exist_ok=True)
+    cfg = copy.deepcopy(main["cfg"])
+    cfg["paths"].update(out_folder=str(root),
+                        ckpt_model_path=str(tmp / "flair_effnet" / f"{EFFNET}_unet.msgpack"))
+    cfg["tasks"].update(train=True, predict=True, metrics=True)
+    cfg["tasks"]["train_tasks"]["init_weights_only_from_ckpt"] = True
+    cfg["model_framework"]["SegmentationModelsPytorch"]["encoder_decoder"] = f"{EFFNET}_unet"
+    cfg["num_epochs"] = 1
+    model = FlairSegmentationModel(EFFNET, K, C)
+    counts = train_site_counts(model)
+    n_test = sum(n for split, n in FLAIR_SPLITS if split == "test")
+    torch.cuda.reset_peak_memory_stats()
+    result, launches, wall = counted_flair_main(cfg, root / "flair.yaml")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    label = f"flair {EFFNET}-unet"
+    losses = check_flair_run(label, cfg, result, launches, counts, -(-n_test // TRAIN_BATCH))
+    check_flair_outputs(label, cfg, result, main["csvs"]["test"], n_test)
+    for name in TRAIN_KERNELS[1:] + ("bn_stats_wide", "bn_backward_wide"):
+        check(launches[name] > 0, f"{label}: {name} launched ({launches[name]})")
+    epochs = result["train"]["epochs"]
+    train_ps = sum(e["train_patches"] for e in epochs) / sum(e["train_seconds"] for e in epochs)
+    pred = result["predict"]
+    state = ckpt_lib.CheckpointManager.restore(Path(result["train"]["best_path"]))
+    dtypes = check_trained_dtypes(cfg, state, root)
+    batch = first_batch(cfg)
+    warm_train, warm_predict = warm_rates(cfg, state, batch, root / "predict_warm")
+    gen = torch.Generator("cuda").manual_seed(SEED + 81)
+    masks = effnet_masks(model, gen)
+    breakdown = effnet_step_breakdown(cfg, state, batch, masks)
+    kernels = time_train_kernels(cfg, state, batch, masks)
+    step = compare_train_step(cfg, state, batch, counts, [masks], drift=False,
+                              reorders=STEP_REORDERS_DEFAULT, noise=True)
+    wide = check_wide_sites(gen)
+    name = f"{EFFNET_SMALL}_{EFFNET_TRAIN_ARCH}"
+    dcfg = copy.deepcopy(cfg)
+    dcfg["model_framework"]["SegmentationModelsPytorch"]["encoder_decoder"] = name
+    # a trained state, as phases 4d and 7 hold theirs: at the initial one
+    # every beta is 0, so an expand site's batch mean is 0 in exact
+    # arithmetic and the steps' values of it are bf16 rounding noise, which
+    # reordering the batch does not sample
+    dtr = SegmentationTrainer(dcfg)
+    for _ in range(EFFNET_WARM_STEPS):
+        dtr.train_step(batch, choices=choices_all(TRAIN_BATCH))
+    dstate = dtr.state()
+    dmodel = dtr.model
+    dmasks = effnet_masks(dmodel, gen, EFFNET_TRAIN_ARCH)
+    dcounts = train_site_counts(dmodel)
+    del dtr
+    small = compare_train_step(dcfg, dstate, batch, dcounts, [dmasks], drift=False,
+                               reorders=STEP_REORDERS_DEFAULT, noise=True)
+    del state, dstate, batch
+    torch.cuda.empty_cache()
+    bd = breakdown["ms"]
+    print(f"  {label}: train {train_ps:.2f} patches/s (1 epoch of 4 steps, with its warm-up), "
+          f"warm {warm_train:.2f} ({WARM_STEPS} steps on one batch); predict "
+          f"{pred['patches'] / pred['seconds']:.2f} patches/s (first call), warm "
+          f"{warm_predict:.2f}; peak {peak:.2f} GB; losses "
+          f"{', '.join(f'{a:.4f}/{b:.4f}' for a, b in losses)}; step loss {step['loss']:.5f} vs "
+          f"plain {step['plain_loss']:.5f}; {name} step loss {small['loss']:.5f} vs plain "
+          f"{small['plain_loss']:.5f} on {card}", flush=True)
+    print(f"    {label} step: {bd['step']:.2f} ms device-timed ({bd['step_wall']:.2f} ms wall, "
+          f"the host issued it in {bd['host_issue']:.2f} ms), forward {bd['forward']:.2f} ms; "
+          f"depthwise convs forward {bd['depthwise_forward']:.2f} ms, backward "
+          f"{bd['depthwise_backward']:.2f} ms ({100 * breakdown['depthwise_backward_share']:.1f}% "
+          f"of the profiled step's {bd['profiled_busy']:.2f} ms of kernels, busy "
+          f"{100 * breakdown['busy_share']:.1f}% of {bd['profiled_wall']:.2f} ms); kernels: "
+          f"bn_train {bd['bn_train']:.2f}, squeeze and excite {bd['se_squeeze_excite']:.2f}, "
+          f"se_backward {bd['se_backward']:.2f}, conv_epilogue {bd['conv_epilogue']:.2f}, "
+          f"weighted_ce and augment {bd['weighted_ce_augment']:.2f}, other (cuDNN, PyTorch) "
+          f"{bd['other_kernels']:.2f}", flush=True)
+    for kname, r in kernels.items():
+        big = r["largest"]
+        print(f"    {kname}, {r['sites']} sites of one {EFFNET}-unet step: device "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e9:.3f} GB), worst error "
+              f"{r['max_abs_err']:.2e}; largest site {big['shape']}: {big['ms']:.4f} ms, bound "
+              f"{big['bound_ms']:.4f}", flush=True)
+    for kname, got in launches.items():
+        if got:
+            print(f"    launches {kname}: {got}")
+    return {"train_patches_per_sec": train_ps, "warm_train_patches_per_sec": warm_train,
+            "predict_patches_per_sec": pred["patches"] / pred["seconds"],
+            "warm_predict_patches_per_sec": warm_predict, "peak_gb": peak, "losses": losses,
+            "flair_main_wall_seconds": wall, "launches": launches, "dtypes": dtypes,
+            "breakdown": breakdown, "kernels": kernels, "step": step, "wide_sites": wide,
+            f"{name}_step": small, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5718,6 +6252,9 @@ def main() -> int:
     ap.add_argument("--step-study", metavar="ARCH",
                     help="only the sample-order study of ARCH's phase-4d step check "
                          "(step_order_study), one JSON line")
+    ap.add_argument("--effnet-train", action="store_true",
+                    help="only phase 8b, on its own written set and .msgpack (phase 4's and "
+                         "phase 8's), one JSON line")
     ap.add_argument("--orders", type=int, default=10, help="the study's sample orders")
     ap.add_argument("--study-seed", type=int, default=SEED,
                     help="the numpy seed of the study's written set")
@@ -5743,6 +6280,23 @@ def main() -> int:
             study = step_order_study(args.step_study, args.orders, Path(tmp),
                                      np.random.default_rng(args.study_seed))
         print(json.dumps({"step_order_study": study, "study_seed": args.study_seed, "card": card,
+                          "seconds": time.perf_counter() - t_start}), flush=True)
+        return 0
+    if args.effnet_train:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, torch_defaults():
+            tmp = Path(tmp)
+            csvs = write_flair_dataset(tmp / "flair", rng)
+            (tmp / "flair_effnet").mkdir()
+            write_native(tmp / "flair_effnet" / f"{EFFNET}_unet.msgpack",
+                         random_weights(FlairSegmentationModel(EFFNET, K, C),
+                                        np.random.default_rng(SEED + 800)))
+            out = run_effnet_train(tmp, {"cfg": flair_config(tmp / "flair", csvs),
+                                         "csvs": csvs}, card)
+        print(out["breakdown"].pop("kernel_table"))
+        for r in out["kernels"].values():
+            r.pop("largest")
+        out.pop("launches")
+        print(json.dumps({"effnet_train": out, "card": card,
                           "seconds": time.perf_counter() - t_start}), flush=True)
         return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -6014,6 +6568,13 @@ def main() -> int:
             t8 = time.perf_counter()
             effnet = run_effnet(cfg, tmp, flair, card)
             print(f"    phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
+            print(f"[8b] EfficientNet training: flair {EFFNET}-unet (one epoch of 4 steps, "
+                  f"predict, metrics) from phase 8's .msgpack; one step by stage and site by "
+                  f"site; the sites above 2048 channels of {', '.join(WIDE_ENCODERS)}; one "
+                  f"{EFFNET_SMALL}-{EFFNET_TRAIN_ARCH} step", flush=True)
+            t8 = time.perf_counter()
+            effnet_train = run_effnet_train(tmp, flair, card)
+            print(f"    phase 8b: {time.perf_counter() - t8:.1f} s", flush=True)
         if args.profile:
             with torch.inference_mode():
                 prof = stage_breakdown(cfg, ZONE, rng, epi)
@@ -6298,6 +6859,35 @@ def main() -> int:
             "launches_effnet_other_runs": sum(run[name] for run in effnet_runs),
             "max_abs_err": r["max_abs_err"], **numbers(r), "call_ms": r["call_ms"],
             "library_ms": r["library_ms"], "library": library, "sites": r["sites"]})
+    # EfficientNet training's kernel modes: their sites of one
+    # efficientnet-b4-unet train step at batch 16 (phase 8b), summed, device
+    # time; launches on its flair run (one epoch of 4 steps); library: the
+    # nearest PyTorch call, not the same function (torch.var_mean and aten's
+    # native_batch_norm_backward on the pre-multiplied gradient: BatchNorm
+    # alone; torch.linalg.vecdot of g and the raw map: no BatchNorm, no SiLU)
+    tk, tl = effnet_train["kernels"], effnet_train["launches"]
+    for name, source, replaces, counter, library in (
+            ("bn_train_wide", "bn_train.cu", "flairtpu/models/efficientnet.py:170-182, :191 "
+             "(flax train-mode BatchNorm and its VJP at the maps above 2048 channels)",
+             "bn_stats_wide", "torch.var_mean; native_batch_norm_backward"),
+            ("bn_backward_silu", "bn_train.cu", "the VJP of flairtpu/models/efficientnet.py:182,"
+             " :244-245 (train-mode BatchNorm + SiLU at the stem and expand sites; XLA-fused)",
+             "bn_backward_silu", "native_batch_norm_backward"),
+            ("se_backward", "se_gate.cu", "the VJP of flairtpu/models/efficientnet.py:193-199 "
+             "(the squeeze-excite gate's gradient; XLA-fused)", "se_backward",
+             "torch.linalg.vecdot"),
+            ("bn_backward_affine", "bn_train.cu", "the VJP of flairtpu/models/efficientnet.py:"
+             "191-199, :202-211 (the depthwise site's BatchNorm, SiLU, gate and mean; the "
+             "drop-connect; XLA-fused)", "bn_backward_affine", "native_batch_norm_backward"),
+            ("conv_epilogue_drop", "conv_epilogue.cu", "flairtpu/models/efficientnet.py:"
+             "202-211 (the project BatchNorm, drop-connect and identity; XLA-fused)",
+             "conv_epilogue_drop", None)):
+        r = tk[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}/{source}", "replaces": replaces,
+            "launches": tl[counter], "max_abs_err": r["max_abs_err"], **numbers(r),
+            "ms_is": "device", "library_ms": r["library_ms"], "library": library,
+            "sites": r["sites"], **({"modes": r["modes"]} if "modes" in r else {})})
     # each kernel's launches on phase 6's toy-zone run and phase 7's runs
     # (the resnext main path, bn_fold, int8 and flair)
     counters = {"fused_tail": "fused_tail", "gather_normalize": "gather_normalize",
@@ -6359,6 +6949,14 @@ def main() -> int:
         "depthwise": effnet["depthwise"],
         "kernels": {k: {f: v for f, v in r.items() if f != "largest"} for k, r in ek.items()},
         "launches": {k: effnet[k]["launches"] for k in ("main", "predict")}}, "card": card}))
+    bd = effnet_train["breakdown"]
+    print(bd["kernel_table"])
+    print(json.dumps({"effnet_train": {
+        **{k: v for k, v in effnet_train.items() if k not in ("launches", "kernels",
+                                                               "breakdown")},
+        "breakdown": {k: v for k, v in bd.items() if k != "kernel_table"},
+        "kernels": {k: {f: v for f, v in r.items() if f != "largest"} for k, r in tk.items()},
+        "launches": {k: v for k, v in tl.items() if v}}, "card": card}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

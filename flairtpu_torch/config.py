@@ -199,7 +199,7 @@ def validate_train_config(cfg: dict) -> dict:
     channels = _require(cfg, "channels")
     if not (isinstance(channels, list) and all(isinstance(c, int) for c in channels)):
         raise ConfigError("channels should be a list of 1-based integers.")
-    encoder, _ = validate_model_framework(mf)
+    validate_model_framework(mf)
 
     norm_type = cfg.get("norm_type", "scaling")
     if norm_type not in _NORM_TYPES:
@@ -287,9 +287,6 @@ def validate_train_config(cfg: dict) -> dict:
 
     paths.setdefault("out_folder", "")
     paths.setdefault("out_model_name", "flair-model")
-    if tasks["train"] and encoder in EFFICIENTNET_ENCODERS:
-        raise not_ported(f"training the {encoder!r} encoder (predict and metrics run)",
-                         "slice 6: EfficientNet training")
     return cfg
 
 

@@ -16,12 +16,23 @@
 //   mean = sum(x) / M;  var = max(sum(x^2) / M - mean^2, 0)      (biased)
 //   invstd = rsqrt(var + eps);  scale = gamma * invstd;  shift = beta - mean * scale
 //   running_mean = m * running_mean + (1 - m) * mean;  running_var likewise with var
-// bn_train_backward, with gz = (g + g32) * [out > 0] (the ReLU's mask read
-// from the saved bf16 output) and xh = (y - mean) * invstd:
+// bn_train_backward, with gr = (g + g32) * [out > 0] (the ReLU's mask read
+// from the saved bf16 output), then at EfficientNet's sites (flairtpu/models/
+// efficientnet.py:170-212, :234-262) the per-(b, c) gradient affine and the
+// SiLU's derivative, and xh = (y - mean) * invstd:
+//   ga = gr * gmul[b, c] + gadd[b, c]      (each optional; b the pixel's sample)
+//   gz = ga * s (1 + z (1 - s)),  z = y * scale + shift,  s = 1 / (1 + exp(-z))
+//                                          (SiLU sites; else gz = ga)
 //   dbeta = sum(gz);  dgamma = sum(gz * xh)
 //   dy = gamma * invstd * (gz - (dbeta + xh * dgamma) / M)        (bf16)
-//   dres = gz (float32), or for a branch d the same dy formula with its own
+//   dres = gr (float32), or for a branch d the same dy formula with its own
 //   statistics into dd (bf16).
+// z is recomputed from the saved bf16 y with the forward's float32 scale
+// (gamma * invstd, as the statistics round it) and shift, in the order
+// conv_epilogue computes it, so it has the forward's bits. The affine is the
+// depthwise site's two gradients summed before the SiLU (gmul the squeeze-
+// excite gate, gadd the squeeze's mean gradient over HW), and the project
+// site's drop-connect (gmul = mask[b] / keep): one backward, not two.
 //
 // Bound: bytes, both entry points. The statistics read x once (2 M C
 // bytes). The backward reads g, out, y (and g32, d) and writes dy (and dres
@@ -59,6 +70,17 @@
 // on the tiles the reduce read last, still in the 50 MB L2. The statistics
 // walk in reverse too, so the conv_epilogue that applies them (a forward
 // grid-stride walk) starts on the tiles they read last.
+//
+// Above 2048 channels (EfficientNet-b2..b7's expanded maps, up to 3840) a
+// pixel's C / 8 threads would not fit a block, so the channels are cut into
+// `channel_tiles` equal tiles of `width` channels (ops/bn_train.py:
+// channel_tiles: the fewest, of at least 512 channels, that keep the most of
+// a block's threads busy): block i takes tile i % channel_tiles and walks
+// the pixels as block i / channel_tiles of the tile's grid / channel_tiles,
+// and each channel's partials are that grid's. The ticket still counts the
+// whole grid, and the combiners take every channel, so each channel is
+// reduced once, in the same fixed order. At 2048 channels or fewer there is
+// one tile and nothing changes.
 //
 // The wrapper (ops/bn_train.py:launch_plan) sizes the grid by the work: at
 // least 64 KB of x (bf16) a block, at most the blocks the card holds at
@@ -122,44 +144,54 @@ __device__ __forceinline__ uint4 load16(const __nv_bfloat16* p, long long off) {
   return *reinterpret_cast<const uint4*>(p + off);
 }
 
-// The block's thread layout: lanes = C / 8 threads a pixel, rows = 256 /
-// lanes pixels at a time; threads past rows * lanes only join the barriers.
-// Where lanes divides 32, a warp holds 32 / lanes whole pixels.
+// The block's thread layout over its channel tile of `width` channels:
+// lanes = width / 8 threads a pixel, rows = 256 / lanes pixels at a time;
+// threads past rows * lanes only join the barriers. Where lanes divides 32,
+// a warp holds 32 / lanes whole pixels. The block is block `bi` of the
+// tile's `nb` (block i: tile i % tiles, bi = i / tiles); c0 is the thread's
+// first channel.
 struct Layout {
-  int lanes, rows, lane, row;
+  int lanes, rows, lane, row, ctile, width, bi, nb, c0;
   bool active, warp_rows;
-  __device__ Layout(int channels) {
-    lanes = channels / 8;
+  __device__ Layout(int channels, int tiles) {
+    width = channels / tiles;
+    ctile = blockIdx.x % tiles;
+    bi = blockIdx.x / tiles;
+    nb = gridDim.x / tiles;
+    lanes = width / 8;
     rows = kThreads / lanes;
     lane = threadIdx.x % lanes;
     row = threadIdx.x / lanes;
     active = row < rows;
     warp_rows = 32 % lanes == 0;
+    c0 = ctile * width + lane * 8;
   }
 };
 
-// The block's tiles of rows * U pixels, b, b + grid, ...: k = 0 ... last
+// The block's tiles of rows * U pixels, bi, bi + nb, ...: k = 0 ... last
 // in walk order, the k-th starting at pixel first(k, reverse).
 template <int U>
 struct Tiles {
-  long long pixels, last;
+  long long pixels, last, bi, nb;
   __device__ Tiles(const Layout& t, long long m) {
     pixels = (long long)t.rows * U;
+    bi = t.bi;
+    nb = t.nb;
     const long long tiles = (m + pixels - 1) / pixels;
-    last = blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x : -1;
+    last = bi < tiles ? (tiles - 1 - bi) / nb : -1;
   }
   __device__ long long first(long long k, bool reverse) const {
-    return (blockIdx.x + (reverse ? last - k : k) * (long long)gridDim.x) * pixels;
+    return (bi + (reverse ? last - k : k) * nb) * pixels;
   }
 };
 
 // Folds the block's per-thread partials (kSums of 8 channels each) over its
-// rows in a fixed order and writes the block's column of kSums * C sums:
-// partials[e * grid + block], e = s * C + c.
+// rows in a fixed order and writes the block's column of kSums * width sums
+// of its channel tile: partials[e * nb + bi], e = s * C + c.
 template <int kSums>
 __device__ void block_sums(const Layout& t, float (&acc)[kSums][8], float* smem,
                            float* __restrict__ partials, int channels) {
-  const int width = kSums * channels;
+  const int width = kSums * t.width;
   int prow = t.row, nrows = t.rows;
   bool write = t.active;
   if (t.warp_rows) {
@@ -176,12 +208,13 @@ __device__ void block_sums(const Layout& t, float (&acc)[kSums][8], float* smem,
 #pragma unroll
     for (int s = 0; s < kSums; ++s)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) smem[prow * width + s * channels + t.lane * 8 + i] = acc[s][i];
+      for (int i = 0; i < 8; ++i) smem[prow * width + s * t.width + t.lane * 8 + i] = acc[s][i];
   __syncthreads();
   for (int e = threadIdx.x; e < width; e += kThreads) {
     float v = 0.f;
     for (int r = 0; r < nrows; ++r) v += smem[r * width + e];
-    partials[(long long)e * gridDim.x + blockIdx.x] = v;
+    const int s = e / t.width, c = t.ctile * t.width + e % t.width;
+    partials[((long long)s * channels + c) * t.nb + t.bi] = v;
   }
 }
 
@@ -229,8 +262,8 @@ int combiners_for(int blocks, int channels) {
   return blocks < want ? blocks : want;
 }
 
-// The combine: the totals over the grid's blocks of each sum s < kSums of
-// the channels this combiner takes (channel c in rounds of `teams`, the
+// The combine: the totals over a channel tile's `grid` blocks of each sum
+// s < kSums of the channels this combiner takes (channel c in rounds of `teams`, the
 // combiners' teams interleaved), handed to done(c, totals, prefetch(c)) on
 // one thread, which called prefetch(c) before the round's loads.
 // A team of `seg` warps takes a channel: warp j of the team adds blocks
@@ -239,10 +272,9 @@ int combiners_for(int blocks, int channels) {
 // team's leader adds its warps' totals in order. Every total has the same
 // bits whichever block computes it.
 template <int kSums, typename Prefetch, typename Done>
-__device__ void combine(const float* partials, int channels, int rank, int combiners,
+__device__ void combine(const float* partials, int channels, int grid, int rank, int combiners,
                         Prefetch prefetch, Done done) {
   __shared__ double part[kWarps][kSums];
-  const int grid = gridDim.x;
   const int seg = combine_warps(grid);
   const int teams = kWarps / seg, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int team = warp / seg, per = (grid + seg - 1) / seg;
@@ -305,15 +337,15 @@ struct StatsArgs {
   float* scale;
   float* shift;
   long long m;
-  int channels, combiners;
+  int channels, combiners, tiles;
   float eps, momentum;
 };
 
 __global__ void __launch_bounds__(kThreads) stats_kernel(StatsArgs a) {
   extern __shared__ float smem[];
-  const Layout t(a.channels);
+  const Layout t(a.channels, a.tiles);
   const Tiles<kStatsUnroll> tiles(t, a.m);
-  const int c0 = t.lane * 8;
+  const int c0 = t.c0;
   float acc[2][8] = {};
   if (t.active)
     for (long long k = 0; k <= tiles.last; ++k) {
@@ -341,7 +373,7 @@ __global__ void __launch_bounds__(kThreads) stats_kernel(StatsArgs a) {
   const auto vectors = [&](int c) {
     return make_float4(a.gamma[c], a.beta[c], a.running_mean[c], a.running_var[c]);
   };
-  combine<2>(a.partials, a.channels, rank, a.combiners, vectors,
+  combine<2>(a.partials, a.channels, t.nb, rank, a.combiners, vectors,
              [&](int c, const double (&sum)[2], float4 v) {
     const float mean = (float)(sum[0] / (double)a.m);
     const float ex2 = (float)(sum[1] / (double)a.m);
@@ -378,7 +410,11 @@ struct BackArgs {
   float* dres;               // null: no residual
   __nv_bfloat16* dd;         // the branch's
   long long m;
-  int channels, combiners;
+  int channels, combiners, tiles;
+  const float* shift;        // null: no SiLU; else the forward's shift (SiLU site)
+  const float* gmul;         // (B, C) or null: the gradient affine's factor
+  const float* gadd;         // (B, C) or null: its term
+  long long hw;              // pixels a sample (b = p / hw)
 };
 
 // One pixel's raw operands: 8 channels of each map.
@@ -403,7 +439,7 @@ __device__ __forceinline__ void load_pixel(const BackArgs& a, long long off, boo
   }
 }
 
-// gz of the pixel's 8 channels: (g + g32) masked by the ReLU
+// gr of the pixel's 8 channels: (g + g32) masked by the ReLU
 __device__ __forceinline__ void masked_grad(const BackArgs& a, const Pixel& px, float (&gz)[8]) {
   float f[8];
   unpack8(px.g, f);
@@ -419,6 +455,64 @@ __device__ __forceinline__ void masked_grad(const BackArgs& a, const Pixel& px, 
     unpack8(px.out, f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) gz[i] = f[i] > 0.f ? gz[i] : 0.f;
+  }
+}
+
+// 8 floats of a (B, C) float32 operand
+__device__ __forceinline__ void load8(const float* p, long long off, float (&f)[8]) {
+  const float4 u = __ldg(reinterpret_cast<const float4*>(p + off));
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p + off + 4));
+  f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
+  f[4] = v.x; f[5] = v.y; f[6] = v.z; f[7] = v.w;
+}
+
+// The SiLU's derivative at z = y * scale + shift, each step rounded on its
+// own as conv_epilogue's SiLU and the plain version compute them
+__device__ __forceinline__ float silu_grad(float y, float scale, float shift) {
+  const float z = __fadd_rn(__fmul_rn(y, scale), shift);
+  const float s = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-z)));
+  return __fmul_rn(s, __fadd_rn(1.f, __fmul_rn(z, __fsub_rn(1.f, s))));
+}
+
+// The SiLU site's per-channel constants: the forward's scale and shift
+struct SiluConsts {
+  float scale[8], shift[8];
+  __device__ void load(const float* gamma, const float* invstd, const float* shift_, int c0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      scale[i] = __fmul_rn(gamma[c0 + i], invstd[c0 + i]);
+      shift[i] = shift_[c0 + i];
+    }
+  }
+};
+
+// gz from gr at pixel p, channels c0..c0 + 7: the affine, then the SiLU's
+// derivative (both where the call has them); 0 past the last pixel
+__device__ __forceinline__ void site_grad(const BackArgs& a, const SiluConsts& sc, const uint4 y,
+                                          long long p, int c0, const float (&gr)[8],
+                                          float (&gz)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) gz[i] = p < a.m ? gr[i] : 0.f;
+  if (p >= a.m) return;
+  if (a.gmul || a.gadd) {
+    const long long off = (p / a.hw) * a.channels + c0;
+    float f[8];
+    if (a.gmul) {
+      load8(a.gmul, off, f);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) gz[i] = __fmul_rn(gz[i], f[i]);
+    }
+    if (a.gadd) {
+      load8(a.gadd, off, f);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) gz[i] = __fadd_rn(gz[i], f[i]);
+    }
+  }
+  if (a.shift) {
+    float f[8];
+    unpack8(y, f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) gz[i] = __fmul_rn(gz[i], silu_grad(f[i], sc.scale[i], sc.shift[i]));
   }
 }
 
@@ -443,14 +537,16 @@ template <bool kBranch>
 __global__ void __launch_bounds__(kThreads) backward_reduce(BackArgs a) {
   constexpr int kSums = kBranch ? 3 : 2;
   extern __shared__ float smem[];
-  const Layout t(a.channels);
+  const Layout t(a.channels, a.tiles);
   const Tiles<kBackUnroll> tiles(t, a.m);
-  const int c0 = t.lane * 8;
+  const int c0 = t.c0;
   float acc[kSums][8] = {};
   if (t.active) {
     Consts cy, cd;
+    SiluConsts sc;
     cy.load(a.mean, a.invstd, c0);
     if (kBranch) cd.load(a.mean_d, a.invstd_d, c0);
+    if (a.shift) sc.load(a.gamma, a.invstd, a.shift, c0);
     for (long long k = 0; k <= tiles.last; ++k) {
       const long long p0 = tiles.first(k, false) + t.row;
       Pixel px[kBackUnroll];
@@ -461,8 +557,9 @@ __global__ void __launch_bounds__(kThreads) backward_reduce(BackArgs a) {
       }
 #pragma unroll
       for (int u = 0; u < kBackUnroll; ++u) {
-        float gz[8], xh[8];
-        masked_grad(a, px[u], gz);
+        float gr[8], gz[8], xh[8];
+        masked_grad(a, px[u], gr);
+        site_grad(a, sc, px[u].y, p0 + (long long)u * t.rows, c0, gr, gz);
         cy.normalized(px[u].y, xh);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
@@ -480,7 +577,7 @@ __global__ void __launch_bounds__(kThreads) backward_reduce(BackArgs a) {
   block_sums<kSums>(t, acc, smem, a.partials, a.channels);
   const int rank = arrive(a.counters, a.combiners);
   if (rank < 0) return;
-  combine<kSums>(a.partials, a.channels, rank, a.combiners, [](int) { return 0; },
+  combine<kSums>(a.partials, a.channels, t.nb, rank, a.combiners, [](int) { return 0; },
                  [&](int c, const double (&sum)[kSums], int) {
 #pragma unroll
                    for (int s = 0; s < kSums; ++s) a.sums[s * a.channels + c] = (float)sum[s];
@@ -513,15 +610,17 @@ struct Apply {
 
 template <bool kBranch>
 __global__ void __launch_bounds__(kThreads) backward_apply(BackArgs a) {
-  const Layout t(a.channels);
+  const Layout t(a.channels, a.tiles);
   if (!t.active) return;
   const Tiles<kBackUnroll> tiles(t, a.m);
-  const int c0 = t.lane * 8;
+  const int c0 = t.c0;
   const int C = a.channels;
   const float inv_m = 1.f / (float)a.m;
   Apply fy, fd;
+  SiluConsts sc;
   fy.load(a.mean, a.invstd, a.gamma, a.sums, a.sums + C, c0);
   if (kBranch) fd.load(a.mean_d, a.invstd_d, a.gamma_d, a.sums, a.sums + 2 * C, c0);
+  if (a.shift) sc.load(a.gamma, a.invstd, a.shift, c0);
   for (long long k = 0; k <= tiles.last; ++k) {
     const long long p0 = tiles.first(k, true) + t.row;
     Pixel px[kBackUnroll];
@@ -535,12 +634,13 @@ __global__ void __launch_bounds__(kThreads) backward_apply(BackArgs a) {
       const long long p = p0 + (long long)u * t.rows;
       if (p >= a.m) continue;
       const long long off = p * C + c0;
-      float gz[8];
-      masked_grad(a, px[u], gz);
+      float gr[8], gz[8];
+      masked_grad(a, px[u], gr);
+      site_grad(a, sc, px[u].y, p, c0, gr, gz);
       *reinterpret_cast<uint4*>(a.dy + off) = fy(px[u].y, gz, inv_m);
       if (a.dres) {
-        *reinterpret_cast<float4*>(a.dres + off) = make_float4(gz[0], gz[1], gz[2], gz[3]);
-        *reinterpret_cast<float4*>(a.dres + off + 4) = make_float4(gz[4], gz[5], gz[6], gz[7]);
+        *reinterpret_cast<float4*>(a.dres + off) = make_float4(gr[0], gr[1], gr[2], gr[3]);
+        *reinterpret_cast<float4*>(a.dres + off + 4) = make_float4(gr[4], gr[5], gr[6], gr[7]);
       }
       if (kBranch) *reinterpret_cast<uint4*>(a.dd + off) = fd(px[u].d, gz, inv_m);
     }
@@ -738,15 +838,21 @@ __global__ void __launch_bounds__(kThreads) floor_reduce_kernel(const float* in,
 
 bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15) == 0; }
 
-bool layout_ok(int channels) {
-  return channels >= 8 && channels % 8 == 0 && channels / 8 <= kThreads;
+// A tile `width` channels wide: a multiple of 8, at most 8 a thread.
+bool layout_ok(int width) { return width >= 8 && width % 8 == 0 && width / 8 <= kThreads; }
+
+// `channels` cut into `tiles` equal tiles that a block takes, and a grid
+// of whole tiles' blocks
+bool tiles_ok(int channels, int tiles, int blocks) {
+  return tiles >= 1 && channels % (8 * tiles) == 0 && layout_ok(channels / tiles) &&
+         blocks % tiles == 0;
 }
 
-// block_sums' shared memory: its rows of sums * C floats
-size_t smem_bytes(int channels, int sums) {
-  const int lanes = channels / 8;
+// block_sums' shared memory: its rows of sums * width floats
+size_t smem_bytes(int width, int sums) {
+  const int lanes = width / 8;
   const int rows = 32 % lanes == 0 ? kWarps : kThreads / lanes;
-  return (size_t)rows * sums * channels * sizeof(float);
+  return (size_t)rows * sums * width * sizeof(float);
 }
 
 bool scratch_ok(long long partial_floats, int n_counters, int blocks, int sums, int channels) {
@@ -762,7 +868,7 @@ int occupancy(const void* kernel, size_t smem, int* blocks_per_sm) {
 }  // namespace
 
 // The blocks of `mode` (0: statistics; 1: the backward, the lesser of its
-// two kernels') that one SM holds at once at this channel count, into
+// two kernels') that one SM holds at once at this channel tile width, into
 // *blocks_per_sm. Returns a cudaError_t.
 extern "C" int bn_train_occupancy(int mode, int channels, int branch, int* blocks_per_sm) {
   if (!layout_ok(channels) || !blocks_per_sm) return (int)cudaErrorInvalidValue;
@@ -781,21 +887,22 @@ extern "C" int bn_train_occupancy(int mode, int channels, int branch, int* block
   return err;
 }
 
-// x: (m, channels) bfloat16, 16-byte aligned, channels a multiple of 8 up to
-// 2048; gamma, beta: channels float32; running_mean, running_var: channels
-// float32, updated in place; partials: partial_floats >= 2 * channels *
-// blocks float32 scratch; counters: n_counters >= 2 int32, zero, and left
-// zero; mean, invstd, scale, shift: channels float32 outputs. One launch of
-// `blocks` blocks, at most as many as the card holds at once (its SMs x
-// bn_train_occupancy). Returns cudaGetLastError() after it.
+// x: (m, channels) bfloat16, 16-byte aligned, channels a multiple of 8 *
+// tiles, at most 2048 a tile; gamma, beta: channels float32; running_mean,
+// running_var: channels float32, updated in place; partials: partial_floats
+// >= 2 * channels * blocks / tiles float32 scratch; counters: n_counters >=
+// 2 int32, zero, and left zero; mean, invstd, scale, shift: channels float32
+// outputs. One launch of `blocks` blocks (a multiple of tiles), at most as
+// many as the card holds at once (its SMs x bn_train_occupancy at the tile
+// width). Returns cudaGetLastError() after it.
 extern "C" int bn_train_stats(const void* x, const void* gamma, const void* beta,
                               void* running_mean, void* running_var, void* partials,
                               long long partial_floats, void* counters, int n_counters,
                               int blocks, void* mean, void* invstd, void* scale, void* shift,
-                              long long m, int channels, float eps, float momentum,
+                              long long m, int channels, float eps, float momentum, int tiles,
                               void* stream) {
-  if (m < 1 || !layout_ok(channels) || !aligned16(x) ||
-      !scratch_ok(partial_floats, n_counters, blocks, 2, channels))
+  if (m < 1 || !tiles_ok(channels, tiles, blocks) || !aligned16(x) ||
+      !scratch_ok(partial_floats, n_counters, blocks / tiles, 2, channels))
     return (int)cudaErrorInvalidValue;
   StatsArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
               static_cast<const float*>(beta), static_cast<float*>(running_mean),
@@ -803,8 +910,9 @@ extern "C" int bn_train_stats(const void* x, const void* gamma, const void* beta
               static_cast<int*>(counters), static_cast<float*>(mean),
               static_cast<float*>(invstd), static_cast<float*>(scale),
               static_cast<float*>(shift), m, channels,
-              combiners_for(blocks, channels), eps, momentum};
-  stats_kernel<<<blocks, kThreads, smem_bytes(channels, 2), static_cast<cudaStream_t>(stream)>>>(a);
+              combiners_for(blocks / tiles, channels), tiles, eps, momentum};
+  stats_kernel<<<blocks, kThreads, smem_bytes(channels / tiles, 2),
+                 static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -816,21 +924,29 @@ extern "C" int bn_train_stats(const void* x, const void* gamma, const void* beta
 // counters: n_counters >= 2 int32, zero, and left zero; sums: 3 * channels
 // float32 outputs (dbeta, dgamma, dgamma_d; the branch's dbeta is dbeta);
 // dy: (m, channels) bf16; dres: (m, channels) float32 or null; dd: (m,
-// channels) bf16 where d is given. Two launches of `blocks` blocks (the
-// reduce, then the apply), at most as many as the card holds at once (its
-// SMs x bn_train_occupancy). Returns cudaGetLastError() after them.
+// channels) bf16 where d is given. shift: null, or the SiLU site's forward
+// shift (channels float32; the SiLU's derivative, scale = gamma * invstd);
+// gmul, gadd: null or (m / hw, channels) float32, 16-byte aligned, the
+// gradient affine, hw the pixels of a sample. Neither with a branch. Two
+// launches of `blocks` blocks (the reduce, then the apply; a multiple of
+// tiles, as bn_train_stats takes them), at most as many as the card holds
+// at once (its SMs x bn_train_occupancy at the tile width). Returns
+// cudaGetLastError() after them.
 extern "C" int bn_train_backward(const void* g, const void* g32, const void* out, const void* y,
                                  const void* mean, const void* invstd, const void* gamma,
                                  const void* d, const void* mean_d, const void* invstd_d,
                                  const void* gamma_d, void* partials, long long partial_floats,
                                  void* counters, int n_counters, int blocks, void* sums,
                                  void* dy, void* dres, void* dd, long long m, int channels,
-                                 void* stream) {
+                                 int tiles, const void* shift, const void* gmul,
+                                 const void* gadd, long long hw, void* stream) {
   const int n_sums = d ? 3 : 2;
-  if (m < 1 || !layout_ok(channels) || (d && !dd) || (d && dres) ||
-      !scratch_ok(partial_floats, n_counters, blocks, n_sums, channels) ||
+  if (m < 1 || !tiles_ok(channels, tiles, blocks) || (d && !dd) || (d && dres) ||
+      (d && (shift || gmul || gadd)) || ((gmul || gadd) && (hw < 1 || m % hw)) ||
+      !scratch_ok(partial_floats, n_counters, blocks / tiles, n_sums, channels) ||
       !(aligned16(g) && aligned16(g32) && aligned16(out) && aligned16(y) && aligned16(d) &&
-        aligned16(dy) && aligned16(dres) && aligned16(dd)))
+        aligned16(dy) && aligned16(dres) && aligned16(dd) && aligned16(gmul) &&
+        aligned16(gadd)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BackArgs a{static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(g32),
@@ -842,8 +958,9 @@ extern "C" int bn_train_backward(const void* g, const void* g32, const void* out
              static_cast<int*>(counters), static_cast<float*>(sums),
              static_cast<__nv_bfloat16*>(dy), static_cast<float*>(dres),
              static_cast<__nv_bfloat16*>(dd), m, channels,
-             combiners_for(blocks, channels)};
-  const size_t smem = smem_bytes(channels, n_sums);
+             combiners_for(blocks / tiles, channels), tiles, static_cast<const float*>(shift),
+             static_cast<const float*>(gmul), static_cast<const float*>(gadd), hw};
+  const size_t smem = smem_bytes(channels / tiles, n_sums);
   if (d)
     backward_reduce<true><<<blocks, kThreads, smem, s>>>(a);
   else

@@ -8,6 +8,7 @@
 // with the casts between the bfloat16 convs and the float32 BatchNorm:
 //
 //   v = y * scale + shift                      (y: the bf16 conv output)
+//   v = (v * inv_keep) * mask[b]               (optional: the drop-connect)
 //   v = v + r            or   v = v + (d * scale_d + shift_d)    (optional)
 //   v = max(v, 0)   or   v = v * (1 / (1 + exp(-v)))               (optional)
 //   out = bf16(v) (round to nearest even); out32 = v             (optional)
@@ -22,7 +23,15 @@
 // plain PyTorch version (ops/epilogue.py) does; no FMA contraction. The SiLU
 // (EfficientNet's stem and expand sites, flairtpu/models/efficientnet.py:182,
 // :244-245) is v * sigmoid(v) with sigmoid = 1 / (1 + expf(-v)), the accurate
-// expf and a rounded divide, as torch.sigmoid computes it on the card.
+// expf and a rounded divide, as torch.sigmoid computes it on the card. The
+// drop-connect is EfficientNet's at a train-mode project site with an
+// identity (flairtpu/models/efficientnet.py:202-211): each sample b's
+// BatchNorm output divided by keep, as flairtpu computes it, and multiplied
+// by its float32 keep mask (0 or 1), before the float32 identity is added;
+// a dropped sample's output is its identity, bit for bit. The division is a
+// multiply by inv_keep, keep's float32 reciprocal (ops/epilogue.py:
+// inverse_keep), as PyTorch divides a CUDA tensor by a scalar, so the
+// plain version has these bits. b = pixel / hw.
 //
 // Bound: bytes. Per element the pass does at most 7 float32 operations on 2
 // to 16 bytes of traffic, far below the card's operations-per-byte balance.
@@ -58,12 +67,16 @@ struct Args {
   float* out32;             // null: no float32 output
   long long n_pix;
   int channels;
+  const float* mask;        // kDrop: (n_pix / hw) keep masks
+  float inv_keep;           // kDrop: 1 / the keep probability, in float32
+  long long hw;             // kDrop: pixels a sample
 };
 
-template <int kRes, int kAct>
+template <int kRes, int kAct, bool kDrop = false>
 __device__ __forceinline__ float epilogue(float y, float s, float t, float r, float d, float sd,
-                                          float td) {
+                                          float td, float m = 1.f, float inv_keep = 1.f) {
   float v = __fadd_rn(__fmul_rn(y, s), t);
+  if constexpr (kDrop) v = __fmul_rn(__fmul_rn(v, inv_keep), m);
   if constexpr (kRes == kFloat || kRes == kHalf) v = __fadd_rn(v, r);
   if constexpr (kRes == kBranch) v = __fadd_rn(v, __fadd_rn(__fmul_rn(d, sd), td));
   if constexpr (kAct == kRelu) v = v < 0.f ? 0.f : v;  // NaN passes, as torch.relu
@@ -88,7 +101,7 @@ __device__ __forceinline__ uint32_t pack2(float a, float b) {
 
 // One group of 8 channels a step; `lanes` (the grid's threads rounded down
 // to a multiple of C / 8) is the step, so a thread's channel group is fixed.
-template <int kRes, int kAct, bool kF32>
+template <int kRes, int kAct, bool kF32, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     conv_epilogue_vec(const Args a, long long n_groups, int groups_per_pix, int lanes) {
   const int lane = blockIdx.x * kThreads + threadIdx.x;
@@ -131,8 +144,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 8; ++j) dv[j] = 0.f;
     }
+    float m = 1.f;
+    if constexpr (kDrop) m = __ldg(a.mask + g / (a.hw * groups_per_pix));
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = epilogue<kRes, kAct>(v[j], s[j], t[j], rv[j], dv[j], sd[j], td[j]);
+    for (int j = 0; j < 8; ++j)
+      v[j] = epilogue<kRes, kAct, kDrop>(v[j], s[j], t[j], rv[j], dv[j], sd[j], td[j], m,
+                                         a.inv_keep);
     out[g] = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]), pack2(v[6], v[7]));
     if constexpr (kF32) {
       out32[2 * g] = make_float4(v[0], v[1], v[2], v[3]);
@@ -142,7 +159,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Any C and alignment: one element a step.
-template <int kRes, int kAct, bool kF32>
+template <int kRes, int kAct, bool kF32, bool kDrop>
 __global__ void __launch_bounds__(kThreads) conv_epilogue_scalar(const Args a) {
   const long long n = a.n_pix * a.channels;
   const long long step = (long long)gridDim.x * kThreads;
@@ -156,8 +173,9 @@ __global__ void __launch_bounds__(kThreads) conv_epilogue_scalar(const Args a) {
       sd = a.scale_d[c];
       td = a.shift_d[c];
     }
-    const float v = epilogue<kRes, kAct>(__bfloat162float(a.y[e]), a.scale[c], a.shift[c], r, d,
-                                          sd, td);
+    const float m = kDrop ? a.mask[e / (a.hw * a.channels)] : 1.f;
+    const float v = epilogue<kRes, kAct, kDrop>(__bfloat162float(a.y[e]), a.scale[c], a.shift[c],
+                                                r, d, sd, td, m, a.inv_keep);
     a.out[e] = __float2bfloat16_rn(v);
     if constexpr (kF32) a.out32[e] = v;
   }
@@ -183,7 +201,7 @@ cudaError_t grid_size(Kernel kernel, long long work, int* grid) {
   return cudaSuccess;
 }
 
-template <int kRes, int kAct, bool kF32>
+template <int kRes, int kAct, bool kF32, bool kDrop = false>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   cudaError_t err;
   int grid = 0;
@@ -194,18 +212,19 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (vec) {
     const int groups_per_pix = a.channels / 8;
     const long long n_groups = a.n_pix * groups_per_pix;
-    if ((err = grid_size(conv_epilogue_vec<kRes, kAct, kF32>, n_groups, &grid)) != cudaSuccess)
+    if ((err = grid_size(conv_epilogue_vec<kRes, kAct, kF32, kDrop>, n_groups, &grid)) !=
+        cudaSuccess)
       return err;
     if ((long long)grid * kThreads < groups_per_pix)
       grid = (groups_per_pix + kThreads - 1) / kThreads;
     const int lanes = grid * kThreads / groups_per_pix * groups_per_pix;
-    conv_epilogue_vec<kRes, kAct, kF32><<<grid, kThreads, 0, stream>>>(a, n_groups,
-                                                                       groups_per_pix, lanes);
+    conv_epilogue_vec<kRes, kAct, kF32, kDrop><<<grid, kThreads, 0, stream>>>(
+        a, n_groups, groups_per_pix, lanes);
   } else {
-    if ((err = grid_size(conv_epilogue_scalar<kRes, kAct, kF32>, a.n_pix * a.channels,
+    if ((err = grid_size(conv_epilogue_scalar<kRes, kAct, kF32, kDrop>, a.n_pix * a.channels,
                          &grid)) != cudaSuccess)
       return err;
-    conv_epilogue_scalar<kRes, kAct, kF32><<<grid, kThreads, 0, stream>>>(a);
+    conv_epilogue_scalar<kRes, kAct, kF32, kDrop><<<grid, kThreads, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
@@ -228,14 +247,20 @@ cudaError_t dispatch(const Args& a, int act, cudaStream_t stream) {
 // residual ((n_pix, channels) float32, or bf16 where residual_bf16 is
 // nonzero) and branch ((n_pix, channels) bf16, with scale_d and shift_d) is
 // non-null. out: (n_pix, channels) bf16; out32:
-// (n_pix, channels) float32 or null. act: 0 none, 1 ReLU, 2 SiLU. Returns
+// (n_pix, channels) float32 or null. act: 0 none, 1 ReLU, 2 SiLU. mask:
+// null, or the drop-connect's (n_pix / hw) float32 keep masks with
+// inv_keep (keep's float32 reciprocal), taken only with a float32 residual
+// and no activation. Returns
 // cudaGetLastError() after the launch.
 extern "C" int conv_epilogue(const void* y, const void* scale, const void* shift,
                              const void* residual, const void* branch, const void* scale_d,
                              const void* shift_d, void* out, void* out32, long long n_pix,
-                             int channels, int act, int residual_bf16, void* stream) {
+                             int channels, int act, int residual_bf16, const void* mask,
+                             float inv_keep, long long hw, void* stream) {
   if (channels < 1 || n_pix < 0 || (residual && branch) || (branch && !(scale_d && shift_d)) ||
-      act < kIdentity || act > kSilu)
+      act < kIdentity || act > kSilu ||
+      (mask && (!residual || residual_bf16 || act != kIdentity || hw < 1 || n_pix % hw ||
+                !(inv_keep >= 1.f))))
     return (int)cudaErrorInvalidValue;
   if (n_pix == 0) return (int)cudaSuccess;
   const Args a{static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(scale),
@@ -244,8 +269,12 @@ extern "C" int conv_epilogue(const void* y, const void* scale, const void* shift
                residual_bf16 ? static_cast<const __nv_bfloat16*>(residual) : nullptr,
                static_cast<const __nv_bfloat16*>(branch), static_cast<const float*>(scale_d),
                static_cast<const float*>(shift_d), static_cast<__nv_bfloat16*>(out),
-               static_cast<float*>(out32), n_pix, channels};
+               static_cast<float*>(out32), n_pix, channels, static_cast<const float*>(mask),
+               inv_keep, hw};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mask)
+    return (int)(out32 ? launch<kFloat, kIdentity, true, true>(a, s)
+                       : launch<kFloat, kIdentity, false, true>(a, s));
   if (branch) return (int)dispatch<kBranch>(a, act, s);
   if (residual && residual_bf16) return (int)dispatch<kHalf>(a, act, s);
   if (residual) return (int)dispatch<kFloat>(a, act, s);

@@ -1,5 +1,5 @@
 // Squeeze-excite at an EfficientNet block's depthwise site, in two launches
-// around the gate's two small convs.
+// around the gate's two small convs, and in training the gate's gradient.
 //
 // Replaces what XLA fused on the TPU at flairtpu/models/efficientnet.py:
 // 191-201: the depthwise conv's BatchNorm and SiLU (:191), the squeeze-excite
@@ -10,6 +10,18 @@
 //
 //   squeeze: mean[b, c] = sum_p silu(y[b, p, c] * scale[c] + shift[c]) / HW
 //   excite:  out[b, p, c] = bf16(silu(y[b, p, c] * scale[c] + shift[c]) * gate[b, c])
+//   backward: dgate[b, c] = sum_p g[b, p, c] * silu(y[b, p, c] * scale[c] + shift[c])
+//
+// The backward replaces the excite's VJP that XLA fused into the train step
+// (flairtpu/models/efficientnet.py:193-199 under jax.value_and_grad): the
+// gradient of the gate, whose (B, C) float32 value the gate's small convs
+// take back to the squeeze (ops/bn_train.py:se_site_backward). It is the
+// squeeze with a second operand, g (the gradient of the excite's bf16
+// output), on the same plan, grid and ordered combine, with the accurate
+// sigmoid (silu_bn, the excite's arithmetic) and no division. Bound: bytes
+// (4 an element read; 2 SFU-free expf-and-divide sigmoids cost about 40
+// instructions an element, which at 4 bytes an element is about 2/3 of the
+// card's float32 rate per HBM byte: both are near their limits together).
 //
 // y, out: (B, HW, C) bfloat16, NHWC (an NCHW channels_last tensor), C a
 // multiple of 8, 16-byte aligned; scale, shift: C float32 (the inference
@@ -145,6 +157,7 @@ __device__ __forceinline__ uint32_t pack2(float a, float b) {
 
 struct SqueezeArgs {
   const uint4* y;
+  const uint4* g;           // the backward's gradient (kGrad)
   const float* scale;
   const float* shift;
   float* partial;           // (blocks + batch * tiles - 1, group_tile * 8)
@@ -171,8 +184,22 @@ __device__ __forceinline__ void squeeze8(const uint4 w, const float (&s)[8], con
   for (int j = 0; j < 8; ++j) acc[j] = silu_bn_fast(v[j], s[j], sh[j], acc[j], j < kNewtonRcp);
 }
 
+// acc[j] += g * silu of each of the 8 channels of w (the accurate sigmoid)
+__device__ __forceinline__ void grad8(const uint4 w, const uint4 gw, const float (&s)[8],
+                                      const float (&sh)[8], float (&acc)[8]) {
+  float v[8], gv[8];
+  unpack8(w, v);
+  unpack8(gw, gv);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = fmaf(gv[j], silu_bn(v[j], s[j], sh[j]), acc[j]);
+}
+
+// The squeeze (kGrad false: the mean of silu) and the backward (kGrad true:
+// the sum of g * silu, loads of two maps in flight, fewer pixels at once).
+template <bool kGrad>
 __global__ void __launch_bounds__(kThreads, kSqueezeMinBlocks)
     se_squeeze_kernel(const SqueezeArgs a) {
+  constexpr int kUnrollPix = kGrad ? kSqueezeUnroll / 2 : kSqueezeUnroll;
   __shared__ float sums[kThreads * 8];
   __shared__ bool last;
   const int t = threadIdx.x, gt = a.group_tile, rows = kThreads / gt, width = gt * 8;
@@ -199,15 +226,33 @@ __global__ void __launch_bounds__(kThreads, kSqueezeMinBlocks)
         sh[j] = __ldg(a.shift + c0 + j);
       }
       const long long step = (long long)rows * c8;
-      const uint4* y = a.y + (b * a.hw + p0) * c8 + c0 / 8;
-      for (; count >= kSqueezeUnroll; count -= kSqueezeUnroll, y += kSqueezeUnroll * step) {
-        uint4 w[kSqueezeUnroll];
+      const long long at = (b * a.hw + p0) * c8 + c0 / 8;
+      const uint4* y = a.y + at;
+      if constexpr (kGrad) {
+        const uint4* gp = a.g + at;
+        for (; count >= kUnrollPix;
+             count -= kUnrollPix, y += kUnrollPix * step, gp += kUnrollPix * step) {
+          uint4 w[kUnrollPix], gw[kUnrollPix];
 #pragma unroll
-        for (int k = 0; k < kSqueezeUnroll; ++k) w[k] = load_once(y + k * step);
+          for (int k = 0; k < kUnrollPix; ++k) {
+            w[k] = load_once(y + k * step);
+            gw[k] = load_once(gp + k * step);
+          }
 #pragma unroll
-        for (int k = 0; k < kSqueezeUnroll; ++k) squeeze8(w[k], s, sh, acc);
+          for (int k = 0; k < kUnrollPix; ++k) grad8(w[k], gw[k], s, sh, acc);
+        }
+        for (; count > 0; --count, y += step, gp += step)
+          grad8(load_once(y), load_once(gp), s, sh, acc);
+      } else {
+        for (; count >= kUnrollPix; count -= kUnrollPix, y += kUnrollPix * step) {
+          uint4 w[kUnrollPix];
+#pragma unroll
+          for (int k = 0; k < kUnrollPix; ++k) w[k] = load_once(y + k * step);
+#pragma unroll
+          for (int k = 0; k < kUnrollPix; ++k) squeeze8(w[k], s, sh, acc);
+        }
+        for (; count > 0; --count, y += step) squeeze8(load_once(y), s, sh, acc);
       }
-      for (; count > 0; --count, y += step) squeeze8(load_once(y), s, sh, acc);
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) sums[t * 8 + j] = acc[j];  // row r, column g * 8 + j
@@ -220,7 +265,7 @@ __global__ void __launch_bounds__(kThreads, kSqueezeMinBlocks)
       float total = 0.f;
       for (int rr = 0; rr < rows; ++rr) total = __fadd_rn(total, sums[rr * width + c]);
       if (n == 1)  // the block holds the whole column: the combine's 0 + total, at once
-        mean[c] = __fdiv_rn(total, (float)a.hw);
+        mean[c] = kGrad ? total : __fdiv_rn(total, (float)a.hw);
       else
         a.partial[(i + col) * width + c] = total;
     }
@@ -237,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, kSqueezeMinBlocks)
           float total = 0.f;
           for (long long k = first; k < first + n; ++k)
             total = __fadd_rn(total, __ldcg(a.partial + (k + col) * width + c));
-          mean[c] = __fdiv_rn(total, (float)a.hw);
+          mean[c] = kGrad ? total : __fdiv_rn(total, (float)a.hw);
         }
     }
     __syncthreads();  // the rows are read before the next column writes them
@@ -292,6 +337,29 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 }  // namespace
 
+namespace {
+
+template <bool kGrad>
+int squeeze_launch(const void* g, const void* y, const void* scale, const void* shift,
+                   void* partial, void* tickets, void* out, int batch, long long hw,
+                   int channels, int group_tile, int blocks, void* stream) {
+  if (batch < 1 || hw < 1 || channels < 8 || channels % 8 || group_tile < 1 ||
+      group_tile > kMaxGroupTile || (channels / 8) % group_tile || blocks < 1 ||
+      !aligned16(y) || (kGrad && !aligned16(g)))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = channels / 8 / group_tile;
+  const SqueezeArgs a{static_cast<const uint4*>(y), static_cast<const uint4*>(g),
+                      static_cast<const float*>(scale), static_cast<const float*>(shift),
+                      static_cast<float*>(partial), static_cast<unsigned int*>(tickets),
+                      static_cast<float*>(out), hw, (long long)batch * tiles * hw, channels,
+                      group_tile, tiles};
+  if (blocks > a.units) return (int)cudaErrorInvalidValue;
+  se_squeeze_kernel<kGrad><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // y: (batch, hw, channels) bf16; scale, shift: channels float32; partial:
 // (blocks + batch * tiles - 1) x group_tile * 8 float32 scratch; tickets:
 // batch x tiles uint32, zero (and left zero); mean: (batch, channels)
@@ -302,23 +370,31 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 extern "C" int se_squeeze(const void* y, const void* scale, const void* shift, void* partial,
                           void* tickets, void* mean, int batch, long long hw, int channels,
                           int group_tile, int blocks, void* stream) {
-  if (batch < 1 || hw < 1 || channels < 8 || channels % 8 || group_tile < 1 ||
-      group_tile > kMaxGroupTile || (channels / 8) % group_tile || blocks < 1 || !aligned16(y))
-    return (int)cudaErrorInvalidValue;
-  const int tiles = channels / 8 / group_tile;
-  const SqueezeArgs a{static_cast<const uint4*>(y), static_cast<const float*>(scale),
-                      static_cast<const float*>(shift), static_cast<float*>(partial),
-                      static_cast<unsigned int*>(tickets), static_cast<float*>(mean), hw,
-                      (long long)batch * tiles * hw, channels, group_tile, tiles};
-  if (blocks > a.units) return (int)cudaErrorInvalidValue;
-  se_squeeze_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  return squeeze_launch<false>(nullptr, y, scale, shift, partial, tickets, mean, batch, hw,
+                               channels, group_tile, blocks, stream);
 }
 
 // The squeeze kernel's blocks an SM holds at once, into *per_sm.
 extern "C" int se_squeeze_occupancy(int* per_sm) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, se_squeeze_kernel, kThreads,
-                                                           0);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, se_squeeze_kernel<false>,
+                                                           kThreads, 0);
+}
+
+// g: (batch, hw, channels) bf16, the gradient of the excite's output; the
+// other operands as se_squeeze's, dgate (batch, channels) float32 in place
+// of the mean (blocks from squeeze_plan at se_backward_occupancy). Returns
+// cudaGetLastError() after the launch.
+extern "C" int se_backward(const void* g, const void* y, const void* scale, const void* shift,
+                           void* partial, void* tickets, void* dgate, int batch, long long hw,
+                           int channels, int group_tile, int blocks, void* stream) {
+  return squeeze_launch<true>(g, y, scale, shift, partial, tickets, dgate, batch, hw, channels,
+                              group_tile, blocks, stream);
+}
+
+// The backward kernel's blocks an SM holds at once, into *per_sm.
+extern "C" int se_backward_occupancy(int* per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, se_squeeze_kernel<true>,
+                                                           kThreads, 0);
 }
 
 // y, out: (batch, hw, channels) bf16; scale, shift: channels float32; gate:

@@ -21,6 +21,18 @@ input), the 1x1 project and its BatchNorm, plus the identity (one
 float32 in ``flairtpu``, so a block's output is float32; the port passes
 the compute-dtype copy on and writes the float32 value only where the next
 block adds it as its identity, as ``models/resnet.py`` does.
+
+To train (``flairtpu/models/efficientnet.py:170-212, :234-262``), the
+forward takes ``ops/bn_train.py:TrainSites`` as its epilogue: the stem's
+and each expand's BatchNorm + SiLU are SiLU sites, the depthwise site
+(BatchNorm, SiLU and the squeeze-excite gate) is one ``SEGateSite``, and
+the project's BatchNorm, with the identity, a site whose blocks with
+``skip`` take efficientnet-pytorch's per-sample drop-connect at rate
+``0.2 j / n`` (block j, n the plan's block count, not the blocks built:
+PSPNet's depth-3 encoder builds 5 of b0's 16). Its keep masks come from
+the forward's ``dropout``: the trainer's ``torch.Generator`` (one (B,)
+draw a dropping block, in block order, on the batch's device), or a dict
+of (B,) masks by block index.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from flairtpu_torch.models.resnet import conv, scale_shift
+from flairtpu_torch.ops.bn_train import TrainSites
 from flairtpu_torch.ops.epilogue import conv_epilogue
 from flairtpu_torch.ops.se_gate import squeeze_excite
 
@@ -60,6 +73,7 @@ _BASE_STAGES = (
 
 BN_EPS = 1e-3       # efficientnet-pytorch batch_norm_epsilon
 BN_MOMENTUM = 0.01  # torch's convention (flax 0.99)
+DROP_CONNECT_RATE = 0.2  # efficientnet-pytorch's global default
 
 
 def round_filters(filters: int, width: float, divisor: int = 8) -> int:
@@ -158,6 +172,15 @@ def own_padding(pad: tuple) -> int:
     return pad[0] if pad[0] == pad[1] else 0
 
 
+def silu_site(epilogue, y: torch.Tensor, bn: nn.BatchNorm2d, keep_f32: bool = False):
+    """A BatchNorm + SiLU site (the stem, an expand): the inference
+    epilogue with ``bn``'s (scale, shift), or in training ``TrainSites``.
+    Returns (out, its float32 value if ``keep_f32``)."""
+    if isinstance(epilogue, TrainSites):
+        return epilogue.site(y, bn, act="silu", keep_f32=keep_f32)
+    return epilogue(y, *scale_shift(bn), relu=False, silu=True, keep_f32=keep_f32)
+
+
 def bn2d(ch: int) -> nn.BatchNorm2d:
     """EfficientNet's BatchNorm (eps 1e-3): parameters and running
     statistics under smp's key names; inference takes its (scale, shift)."""
@@ -188,22 +211,31 @@ class MBConvBlock(nn.Module):
         self._bn2 = bn2d(plan["cout"])
 
     def forward(self, x, x32=None, keep_f32=False, epilogue=conv_epilogue,
-                se_gate=squeeze_excite):
+                se_gate=squeeze_excite, drop=None):
         """x: the block's input (cast to the compute dtype by each conv);
-        x32: its float32 value, the identity of a block with ``skip``.
-        Returns (out in the compute dtype, its float32 value if
-        ``keep_f32``)."""
+        x32: its float32 value, the identity of a block with ``skip``;
+        ``drop`` (train only): ((B,) float32 keep mask, keep probability),
+        the drop-connect. Returns (out in the compute dtype, its float32
+        value if ``keep_f32``)."""
         dt = self.dtype
+        train = isinstance(epilogue, TrainSites)
         h = x
         if self.expand != 1:
-            h, _ = epilogue(conv(x, self._expand_conv, dt), *scale_shift(self._bn0),
-                            relu=False, silu=True)
+            h, _ = silu_site(epilogue, conv(x, self._expand_conv, dt), self._bn0)
         y = same_conv(h, self._depthwise_conv, self.pad, dt)
-        h = se_gate(y, *scale_shift(self._bn1), self._se_reduce, self._se_expand)
+        if train:
+            h = epilogue.se_site(y, self._bn1, self._se_reduce, self._se_expand)
+        else:
+            h = se_gate(y, *scale_shift(self._bn1), self._se_reduce, self._se_expand)
         if self.skip and x32 is None:
             raise ValueError("a block with an identity skip needs its input's float32 value")
-        return epilogue(conv(h, self._project_conv, dt), *scale_shift(self._bn2),
-                        residual=x32 if self.skip else None, relu=False, keep_f32=keep_f32)
+        y = conv(h, self._project_conv, dt)
+        residual = x32 if self.skip else None
+        if train:
+            return epilogue.site(y, self._bn2, residual=residual, act=None, keep_f32=keep_f32,
+                                 drop=drop)
+        return epilogue(y, *scale_shift(self._bn2), residual=residual, relu=False,
+                        keep_f32=keep_f32)
 
 
 class EfficientNetEncoder(nn.Module):
@@ -224,24 +256,43 @@ class EfficientNetEncoder(nn.Module):
                                     own_padding(self.stem_pad), bias=False)
         self._bn0 = bn2d(plan["stem_ch"])
         self.taps = frozenset(plan["stage_idxs"])
+        self.n_blocks = plan["n_blocks"]
         # smp runs stages [2..depth]: depth 3 stops at the stride-8 tap
         stop = sorted(self.taps)[depth - 2] if depth < 5 else plan["n_blocks"]
         self._blocks = nn.ModuleList(MBConvBlock(b, dtype) for b in plan["blocks"][:stop])
         self.out_channels = ((0,) + plan["out_channels"])[:depth + 1]
 
+    def drop_connect(self, j: int, batch: int, device: torch.device, dropout):
+        """Block j's drop-connect in training: ((B,) float32 keep mask, keep
+        probability), or None where it drops nothing (no identity, rate 0,
+        or no ``dropout``). ``dropout``: the generator (a draw on
+        ``device``), or a dict of masks by block index."""
+        rate = DROP_CONNECT_RATE * j / self.n_blocks
+        if dropout is None or rate == 0 or not self._blocks[j].skip:
+            return None
+        keep = 1.0 - rate
+        if isinstance(dropout, torch.Generator):
+            mask = torch.rand((batch,), generator=dropout, device=device) < keep
+        else:
+            mask = dropout[j]
+        return mask.to(device=device, dtype=torch.float32).contiguous(), keep
+
     def forward(self, x: torch.Tensor, epilogue=conv_epilogue,
-                se_gate=squeeze_excite) -> list[torch.Tensor]:
-        """The pyramid [x, f1..f_depth]; f1.. in the compute dtype."""
+                se_gate=squeeze_excite, dropout=None) -> list[torch.Tensor]:
+        """The pyramid [x, f1..f_depth]; f1.. in the compute dtype.
+        ``dropout`` (with ``TrainSites``): the drop-connect's masks
+        (:meth:`drop_connect`)."""
         blocks = list(self._blocks)
+        train = isinstance(epilogue, TrainSites)
         # float32 is written only where the next block adds it as its identity
         needs_f32 = [b.skip for b in blocks[1:]] + [False]
         feats = [x]
         y = same_conv(x, self._conv_stem, self.stem_pad, self.dtype)
-        x, x32 = epilogue(y, *scale_shift(self._bn0), relu=False, silu=True,
-                          keep_f32=blocks[0].skip)
+        x, x32 = silu_site(epilogue, y, self._bn0, keep_f32=blocks[0].skip)
         feats.append(x)
         for j, block in enumerate(blocks):
-            x, x32 = block(x, x32, needs_f32[j], epilogue, se_gate)
+            drop = self.drop_connect(j, x.shape[0], x.device, dropout) if train else None
+            x, x32 = block(x, x32, needs_f32[j], epilogue, se_gate, drop)
             if (j + 1) in self.taps and len(feats) < self.depth + 1:
                 feats.append(x)
         if len(feats) < self.depth + 1:

@@ -15,9 +15,10 @@ logits (B, h, w, K) float32. Inside, tensors are NCHW views of NHWC memory
 (``channels_last``).
 
 To train, the forward takes ``ops/bn_train.py:TrainSites`` as its epilogue
-and a ``dropout``: the trainer's ``torch.Generator``, from which the
-metadata MLP (``enc``) and then the decoder (:data:`DROPOUT_ARCHS`) draw
-their keep masks in that order, or the masks themselves, by module name
+and a ``dropout``: the trainer's ``torch.Generator``, from which an
+EfficientNet encoder's drop-connect (``drop_connect``), the metadata MLP
+(``enc``) and then the decoder (:data:`DROPOUT_ARCHS`) draw their keep
+masks in that order, or the masks themselves, by module name
 (:func:`dropout_part`). The training logits are the full (B, S, S, K)
 map: ``decode`` at no margin (the strided-head archs' align-corners
 upsample as ``flairtpu`` computes it, outside any kernel).
@@ -82,9 +83,10 @@ ARCHS = {
 
 
 def dropout_part(dropout, name: str):
-    """What module ``name`` (``enc``, the metadata MLP; ``decoder``) takes of
-    a forward's ``dropout``: None (eval), the generator itself, or the keep
-    masks of a dict of them by module name."""
+    """What module ``name`` (``drop_connect``, an EfficientNet encoder's:
+    a dict of (B,) masks by block index; ``enc``, the metadata MLP;
+    ``decoder``) takes of a forward's ``dropout``: None (eval), the
+    generator itself, or the keep masks of a dict of them by module name."""
     if dropout is None or isinstance(dropout, torch.Generator):
         return dropout
     return dropout[name]
@@ -159,7 +161,7 @@ class FlairSegmentationModel(nn.Module):
         eval)."""
         x = x.permute(0, 3, 1, 2)
         if isinstance(self.encoder, EfficientNetEncoder):
-            feats = self.encoder(x, epilogue, se_gate)
+            feats = self.encoder(x, epilogue, se_gate, dropout_part(dropout, "drop_connect"))
         else:
             feats = self.encoder(x, epilogue)
         if self.use_metadata:

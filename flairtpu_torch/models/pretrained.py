@@ -1,6 +1,7 @@
 """Pretrained-encoder initialization from bare classifier checkpoints
-(counterpart of ``flairtpu/models/pretrained.py``, for the resnet family the
-port builds).
+(counterpart of ``flairtpu/models/pretrained.py``, for the families the
+port builds: the resnets and resnexts, and efficientnet-b0..b7 from an
+efficientnet-pytorch classifier).
 
 The reference never trains encoders from scratch: ``smp.create_model``
 defaults ``encoder_weights="imagenet"`` (ref src/flair/model.py:35-41),
@@ -8,11 +9,14 @@ which loads an ImageNet classifier state dict into the encoder and adapts
 the first conv from 3 input channels to ``in_channels`` (smp
 ``encoders/_utils.py patch_first_conv``). With no download, the train
 config's ``init_encoder_weights: <path>.pth`` takes such a torchvision-keyed
-state dict, and the same pipeline runs: the classifier head (``fc.*``) and
-the BatchNorm counters go, the first 3-channel conv is adapted with smp's
-rule, the keys take the ``encoder.`` prefix, and the result must cover the
-model's encoder exactly (every key, every shape) before it is loaded. The
-decoder, the head and the metadata MLP keep their initial values.
+state dict, and the same pipeline runs: the classifier head (``fc.*``; an
+efficientnet's ``_fc``, ``_conv_head``, ``_bn1`` and the modules beside
+them, top-level keys only: a block's ``_bn1`` stays) and the BatchNorm
+counters go, the first 3-channel conv (the stem: ``conv1`` or
+``_conv_stem``) is adapted with smp's rule, the keys take the
+``encoder.`` prefix, and the result must cover the model's encoder
+exactly (every key, every shape) before it is loaded. The decoder, the
+head and the metadata MLP keep their initial values.
 """
 
 from __future__ import annotations
@@ -23,16 +27,20 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from flairtpu_torch.config import RESNET_ENCODERS, not_ported
+from flairtpu_torch.config import EFFICIENTNET_ENCODERS, RESNET_ENCODERS, not_ported
 from flairtpu_torch.models.convert import load_torch_state_dict
 
 # classifier-head key prefixes safe to drop for every supported family: no
 # encoder keeps top-level tensors under these names
 _COMMON_HEAD_PREFIXES = (
     "fc.", "classifier.", "last_linear.", "head.", "global_pool.", "logits.")
+# efficientnet-pytorch's head, after the blocks (smp's EfficientNetEncoder
+# keeps _conv_stem, _bn0 and _blocks; flairtpu/models/pretrained.py:47-48)
+_EN_HEAD_PREFIXES = (
+    "_fc.", "_conv_head.", "_bn1.", "_avg_pooling.", "_dropout.", "_swish.")
 
 # the families flairtpu converts (flairtpu/models/pretrained.py:55-63); the
-# port builds only the resnets
+# port builds the resnets (resnexts among them) and efficientnet-b0..b7
 _SUPPORTED_PREFIXES = (
     "resnet", "resnext", "senet154", "se_resnet", "se_resnext",
     "efficientnet", "timm-efficientnet", "timm-mobilenetv3",
@@ -79,7 +87,7 @@ def classifier_to_encoder_state_dict(
         sd: Mapping[str, np.ndarray], encoder_name: str,
         in_channels: int) -> dict[str, np.ndarray]:
     """Bare ImageNet classifier state dict -> smp-encoder-namespace dict."""
-    if encoder_name not in RESNET_ENCODERS:
+    if encoder_name not in RESNET_ENCODERS + EFFICIENTNET_ENCODERS:
         if encoder_name.startswith(_SUPPORTED_PREFIXES):
             raise not_ported(f"init_encoder_weights for encoder {encoder_name!r}",
                              "slice 6: other smp encoders")
@@ -87,8 +95,10 @@ def classifier_to_encoder_state_dict(
             f"init_encoder_weights: encoder family of {encoder_name!r} has "
             "no classifier-checkpoint converter (supported prefixes: "
             f"{', '.join(_SUPPORTED_PREFIXES)})")
+    drop = _COMMON_HEAD_PREFIXES + (_EN_HEAD_PREFIXES if encoder_name.startswith(
+        "efficientnet") else ())
     sd = {k: v for k, v in sd.items()
-          if not k.startswith(_COMMON_HEAD_PREFIXES) and not k.endswith("num_batches_tracked")}
+          if not k.startswith(drop) and not k.endswith("num_batches_tracked")}
     if not sd:
         raise ValueError("init_encoder_weights: state dict is empty after "
                          "dropping classifier-head keys")
@@ -96,12 +106,19 @@ def classifier_to_encoder_state_dict(
     return {"encoder." + k: v for k, v in sd.items()}
 
 
+def stem_in_channels(encoder: torch.nn.Module) -> int:
+    """The input channels of an encoder's stem conv (a resnet's ``conv1``,
+    an efficientnet's ``_conv_stem``)."""
+    stem = getattr(encoder, "_conv_stem", None) or encoder.conv1
+    return stem.in_channels
+
+
 def init_encoder_from_classifier(path: str | Path, model: torch.nn.Module) -> None:
     """Load a bare classifier ``.pth`` into ``model``'s encoder, in place.
     Raises, loading nothing, when the converted encoder does not cover the
     model's exactly (missing or unexpected keys, or any shape mismatch)."""
     enc = classifier_to_encoder_state_dict(load_torch_state_dict(path), model.encoder_name,
-                                           model.encoder.conv1.in_channels)
+                                           stem_in_channels(model.encoder))
     want = {f"encoder.{k}": v for k, v in model.encoder.state_dict().items()
             if not k.endswith("num_batches_tracked")}
     problems = [f"missing {k}" for k in sorted(want.keys() - enc.keys())]

@@ -108,7 +108,7 @@ def bn_site(epilogue, y: torch.Tensor, bn: nn.BatchNorm2d, residual=None, branch
     ``TrainSites`` gets the modules. Returns (out, its float32 value if
     ``keep_f32``)."""
     if isinstance(epilogue, TrainSites):
-        return epilogue.site(y, bn, residual=residual, branch=branch, relu=relu,
+        return epilogue.site(y, bn, residual=residual, branch=branch, act=relu,
                              keep_f32=keep_f32)
     if branch is not None:
         branch = (branch[0], *scale_shift(branch[1]))

@@ -23,10 +23,26 @@ the U-Net decoder, with its VJP; a site takes its module's eps and momentum
   per channel and writes dy, dgamma and dbeta, and the residual's gradient
   or the branch's dy, dgamma and dbeta.
 
+EfficientNet's train sites (``flairtpu/models/efficientnet.py:170-212,
+:234-262``) take the same two kernels with more operands: a SiLU site (the
+stem, each expand) recomputes the SiLU's input from the saved map and the
+forward's shift and multiplies the gradient by the SiLU's derivative; the
+depthwise site (:class:`SEGateSite`: BatchNorm, SiLU and the squeeze-excite
+gate as one node) sums its two gradients, the excite's multiply by the
+(B, C) gate and the squeeze's mean, into one per-(b, c) affine of the
+gradient before that derivative (the gate's own gradient comes from
+``ops/se_gate.py:se_backward``); the project site takes the drop-connect
+(``conv_epilogue``'s ``drop`` forward, the gradient times mask[b] / keep,
+the identity's gradient untouched). Above 2048 channels (b2-b7's expanded
+maps) the channels are cut into tiles that blocks take
+(:func:`channel_tiles`).
+
 :class:`BNTrainSite` is the ``autograd.Function`` over one site
-(:func:`site_forward` and :func:`site_backward` through the kernels), and
-:class:`TrainSites` the object a model's forward takes in place of its
-inference epilogue (``models/resnet.py:bn_site``).
+(:func:`site_forward` and :func:`site_backward` through the kernels),
+:class:`SEGateSite` the depthwise site's (:func:`se_site_forward` and
+:func:`se_site_backward`), and :class:`TrainSites` the object a model's
+forward takes in place of its inference epilogue
+(``models/resnet.py:bn_site``, ``models/efficientnet.py``).
 
 Each wrapper runs the plain PyTorch version for CPU tensors and launches the
 kernel for bfloat16 CUDA tensors; it has no fallback, and counts its
@@ -54,8 +70,9 @@ from typing import NamedTuple
 import torch
 
 from flairtpu_torch.ops import _build
-from flairtpu_torch.ops.epilogue import conv_epilogue, conv_epilogue_plain
+from flairtpu_torch.ops.epilogue import conv_epilogue, conv_epilogue_plain, inverse_keep
 from flairtpu_torch.ops.group_norm import GroupNormReLU
+from flairtpu_torch.ops.se_gate import gate_from, se_backward, se_excite, se_squeeze
 
 MOMENTUM = 0.9  # flax's, on the running average (torch's momentum 0.1)
 EPS = 1e-5
@@ -66,12 +83,15 @@ WARPS = THREADS // 32
 COMBINE_LOADS = 8  # partials a lane of the combine loads at once (kCombineLoads)
 COUNTERS = 2  # int32 ticket counters a call uses (kCounters)
 MIN_BLOCK_BYTES = 64 * 1024  # of the site's bf16 map, the least a block takes
+MIN_TILE_CHANNELS = 512  # a channel tile's least width, above 8 * THREADS channels
 STATS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
                                           ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p]
 BACKWARD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
                                               ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+    ctypes.c_longlong, ctypes.c_void_p]
 OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
 NARROW_FORWARD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                                     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
@@ -79,11 +99,18 @@ NARROW_BACKWARD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_
                                                     ctypes.c_void_p]
 
 # kernel launches on CUDA tensors since the last reset, one count per entry
-# point (the CPU path does not count)
+# point (the CPU path does not count), and of them by mode: over channel
+# tiles (above 2048 channels), the backward with the SiLU alone (the stem's
+# and expand sites') and with the gradient affine (the depthwise and
+# drop-connect sites')
 launches = 0  # statistics
 backward_launches = 0
 narrow_launches = 0  # the narrow entry points'
 narrow_backward_launches = 0
+wide_launches = 0
+wide_backward_launches = 0
+silu_backward_launches = 0
+affine_backward_launches = 0
 
 
 def _chw(v: torch.Tensor) -> torch.Tensor:
@@ -125,38 +152,59 @@ def bn_stats_apply_plain(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
 
 class Plan(NamedTuple):
     """One call's launch: ``grid`` blocks of THREADS threads, each walking
-    tiles of ``tile`` pixels; ``sums`` per-channel sums a block writes; the
-    last ``combiners`` blocks to arrive combine them; float32 ``partials``
-    and int32 ``counters`` of scratch."""
+    tiles of ``tile`` pixels of its channel tile (``channel_tiles`` of them,
+    block i taking tile i % channel_tiles); ``sums`` per-channel sums a
+    block writes; the last ``combiners`` blocks to arrive combine them;
+    float32 ``partials`` and int32 ``counters`` of scratch."""
     grid: int
     tile: int
     sums: int
     combiners: int
     partials: int
     counters: int
+    channel_tiles: int = 1
+
+
+def channel_tiles(channels: int) -> int:
+    """The channel tiles a block takes one of: 1 up to 8 x THREADS channels
+    (a pixel's C / 8 threads fit a block); above, the count of equal tiles of
+    whole 8-channel groups, each at most 8 x THREADS and at least
+    MIN_TILE_CHANNELS wide, that keeps the most of a block's threads busy
+    (rows x lanes of THREADS), the fewest of those."""
+    groups = channels // 8
+    if groups <= THREADS:
+        return 1
+    fits = [t for t in range(-(-groups // THREADS), groups + 1) if groups % t == 0]
+    wide = [t for t in fits if groups // t * 8 >= MIN_TILE_CHANNELS] or fits[:1]
+    return max(wide, key=lambda t: (THREADS // (groups // t) * (groups // t), -t))
 
 
 def launch_plan(m: int, channels: int, mode: str, co_resident: int,
                 branch: bool = False) -> Plan:
     """The grid and scratch of a ``mode`` call ("stats" or "backward", with
     or without a ``branch``) over ``m`` pixels of ``channels``: blocks of
-    THREADS threads, C / 8 to a pixel, walk tiles of rows x UNROLL[mode]
-    pixels; each block takes whole tiles of at least MIN_BLOCK_BYTES of the
-    bf16 map, and the grid holds at most ``co_resident`` blocks (the card's
-    SMs times the kernel's occupancy), so a site smaller than one block's
-    share takes one block. The backward's two launches share the grid."""
-    rows = THREADS // (channels // 8)
+    THREADS threads, W / 8 to a pixel (W the channel tile's width: C up to
+    2048), walk tiles of rows x UNROLL[mode] pixels; each block takes whole
+    tiles of at least MIN_BLOCK_BYTES of its channel tile's bf16 map, and
+    the grid holds at most ``co_resident`` blocks (the card's SMs times the
+    kernel's occupancy), so a site smaller than one block's share takes one
+    block a channel tile. The backward's two launches share the grid."""
+    ct = channel_tiles(channels)
+    width = channels // ct
+    rows = THREADS // (width // 8)
     tile = rows * UNROLL[mode]
-    min_tiles = -(-MIN_BLOCK_BYTES // (2 * tile * channels))
-    grid = max(1, min(co_resident, (m // tile) // min_tiles))
+    min_tiles = -(-MIN_BLOCK_BYTES // (2 * tile * width))
+    nb = max(1, min(co_resident // ct, (m // tile) // min_tiles))
     sums = 2 + (mode == "backward" and branch)
-    return Plan(grid, tile, sums, combiners(grid, channels), sums * channels * grid, COUNTERS)
+    return Plan(nb * ct, tile, sums, combiners(nb, channels), sums * channels * nb, COUNTERS,
+                ct)
 
 
 def combiners(grid: int, channels: int) -> int:
     """The last blocks of a call that combine its sums (csrc/bn_train.cu
-    combiners_for): a team of warps to a channel, each lane loading at most
-    COMBINE_LOADS of a sum's partials, one channel a team."""
+    combiners_for), ``grid`` the blocks of a channel tile: a team of warps
+    to a channel, each lane loading at most COMBINE_LOADS of a sum's
+    partials, one channel a team."""
     seg = 1
     while seg < WARPS and seg * 32 * COMBINE_LOADS < grid:
         seg *= 2
@@ -169,14 +217,16 @@ _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 def _co_resident(device: torch.device, mode: str, channels: int, branch: bool = False) -> int:
     """The blocks of ``mode``'s kernels that ``device`` holds at once: its
-    SMs times their occupancy at this channel count (queried once)."""
+    SMs times their occupancy at this channel count's tile width (queried
+    once)."""
     key = (device.index, mode, channels, branch)
     n = _CO_RESIDENT.get(key)
     if n is None:
         per_sm = ctypes.c_int(0)
         with torch.cuda.device(device):
             err = _build.entry("bn_train", OCCUPANCY_ARGTYPES, "bn_train_occupancy")(
-                int(mode != "stats"), channels, int(branch), ctypes.byref(per_sm))
+                int(mode != "stats"), channels // channel_tiles(channels), int(branch),
+                ctypes.byref(per_sm))
         _build.check(err, "bn_train occupancy")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         n = _CO_RESIDENT[key] = sms * max(1, per_sm.value)
@@ -215,9 +265,9 @@ def _on_card(x: torch.Tensor, what: str) -> bool:
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{what}: dtype {x.dtype} (the kernel takes bfloat16)")
     C = x.shape[1]
-    if not 1 <= C <= 8 * THREADS:
-        raise ValueError(f"{what}: {C} channels (the kernels take 1 to {8 * THREADS}; a "
-                         "multiple of 8, or the narrow entry points)")
+    if C < 1 or (C % 8 and C > 8 * THREADS):
+        raise ValueError(f"{what}: {C} channels (the kernels take a multiple of 8, or up to "
+                         f"{8 * THREADS} through the narrow entry points)")
     return True
 
 
@@ -226,7 +276,7 @@ def bn_stats(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              eps: float = EPS, momentum: float = MOMENTUM):
     """As :func:`bn_stats_plain`; x channels_last. CPU tensors: the plain
     version. bfloat16 CUDA tensors: the kernel, or an error."""
-    global launches
+    global launches, wide_launches
     if x.dim() != 4:
         raise ValueError(f"bn_stats: x must be (B, C, H, W), got {tuple(x.shape)}")
     if not _on_card(x, "bn_stats"):
@@ -251,9 +301,10 @@ def bn_stats(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), running_mean.data_ptr(),
         running_var.data_ptr(), partials.data_ptr(), partials.numel(), counters.data_ptr(),
         counters.numel(), plan.grid, mean.data_ptr(), invstd.data_ptr(), scale.data_ptr(),
-        shift.data_ptr(), m, C, eps, momentum, stream)
+        shift.data_ptr(), m, C, eps, momentum, plan.channel_tiles, stream)
     _build.check(err, "bn_stats")
     launches += 1
+    wide_launches += plan.channel_tiles > 1
     return mean, invstd, scale, shift
 
 
@@ -311,6 +362,23 @@ def _grad_in(g, g32, out, relu: bool) -> torch.Tensor:
     return gz * (out > 0) if relu else gz
 
 
+def _site_grad(gr, y, gamma, invstd, shift=None, gmul=None, gadd=None) -> torch.Tensor:
+    """The BatchNorm output's gradient from the site's ``gr``: times the
+    (B, C) ``gmul``, plus the (B, C) ``gadd``, then at a SiLU site (the
+    forward's ``shift`` given) times the SiLU's derivative at z = y scale +
+    shift, each step rounded on its own as the kernel rounds it."""
+    gz = gr
+    if gmul is not None:
+        gz = gz * gmul[:, :, None, None]
+    if gadd is not None:
+        gz = gz + gadd[:, :, None, None]
+    if shift is not None:
+        z = y.float() * _chw(gamma * invstd) + _chw(shift)
+        s = torch.sigmoid(z)
+        gz = gz * (s * (1 + z * (1 - s)))
+    return gz
+
+
 def _bn_input_grad(gz, x, mean, invstd, gamma):
     """(dx, dgamma, dbeta) of a train-mode BatchNorm for the output gradient
     gz; a narrow site's sums in double, as its kernel's (one channel's sum
@@ -326,29 +394,51 @@ def _bn_input_grad(gz, x, mean, invstd, gamma):
 
 
 def bn_backward_plain(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = True,
-                      residual: bool = False):
+                      residual: bool = False, shift=None, gmul=None, gadd=None):
     """The site's backward: g (y's dtype) and g32 (float32), either may be
     None, out the forward's output (y's dtype). ``branch`` = (d, mean_d,
-    invstd_d, gamma_d). Returns (dy, dgamma, dbeta, dres, (dd, dgamma_d,
-    dbeta_d) or None): dres (float32) where ``residual``."""
-    gz = _grad_in(g, g32, out, relu)
+    invstd_d, gamma_d). ``shift``: a SiLU site's forward shift; ``gmul``,
+    ``gadd``: the (B, C) float32 gradient affine (:func:`_site_grad`).
+    Returns (dy, dgamma, dbeta, dres, (dd, dgamma_d, dbeta_d) or None): dres
+    (float32, the gradient before the affine) where ``residual``."""
+    gr = _grad_in(g, g32, out, relu)
+    gz = _site_grad(gr, y, gamma, invstd, shift, gmul, gadd)
     dy, dgamma, dbeta = _bn_input_grad(gz, y, mean, invstd, gamma)
-    dres = gz.contiguous(memory_format=torch.channels_last) if residual else None
+    dres = gr.contiguous(memory_format=torch.channels_last) if residual else None
     db = None
     if branch is not None:
         db = _bn_input_grad(gz, *branch)
     return dy, dgamma, dbeta, dres, db
 
 
+def _check_affine(t, y, what: str) -> None:
+    B, C = y.shape[:2]
+    if (t.device != y.device or t.dtype != torch.float32 or tuple(t.shape) != (B, C)
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(f"bn_backward: {what} must be a contiguous ({B}, {C}) float32 tensor "
+                         f"on {y.device}, 16-byte aligned")
+
+
 def bn_backward(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = True,
-                residual: bool = False):
+                residual: bool = False, shift=None, gmul=None, gadd=None):
     """As :func:`bn_backward_plain`; every map channels_last. CPU tensors:
     the plain version. bfloat16 CUDA tensors: the kernel, or an error."""
-    global backward_launches, narrow_backward_launches
+    global backward_launches, narrow_backward_launches, wide_backward_launches
+    global silu_backward_launches, affine_backward_launches
     if not _on_card(y, "bn_backward"):
-        return bn_backward_plain(g, g32, out, y, mean, invstd, gamma, branch, relu, residual)
+        return bn_backward_plain(g, g32, out, y, mean, invstd, gamma, branch, relu, residual,
+                                 shift, gmul, gadd)
     if residual and branch is not None:
         raise ValueError("bn_backward: a residual or a branch, not both")
+    site = shift is not None or gmul is not None or gadd is not None
+    if site and (branch is not None or y.shape[1] % 8):
+        raise ValueError("bn_backward: the SiLU and the gradient affine take no branch, and a "
+                         "multiple of 8 channels")
+    if shift is not None:
+        _check_vector(shift, y.shape[1], y.device, "shift")
+    for name, t in (("gmul", gmul), ("gadd", gadd)):
+        if t is not None:
+            _check_affine(t, y, name)
     _check_map(y, y, torch.bfloat16, "y")
     if g is not None:
         _check_map(g, y, torch.bfloat16, "g")
@@ -396,9 +486,14 @@ def bn_backward(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = T
         ptr(g), ptr(g32), ptr(out) if relu else None, ptr(y), ptr(mean), ptr(invstd),
         ptr(gamma), ptr(d), ptr(mean_d), ptr(invstd_d), ptr(gamma_d), ptr(partials),
         partials.numel(), ptr(counters), counters.numel(), plan.grid, ptr(sums), ptr(dy),
-        ptr(dres), ptr(dd), m, C, stream)
+        ptr(dres), ptr(dd), m, C, plan.channel_tiles, ptr(shift), ptr(gmul), ptr(gadd),
+        y.shape[2] * y.shape[3], stream)
     _build.check(err, "bn_backward")
     backward_launches += 1
+    wide_backward_launches += plan.channel_tiles > 1
+    affine = gmul is not None or gadd is not None
+    affine_backward_launches += affine
+    silu_backward_launches += shift is not None and not affine
     dbeta, dgamma, dgamma_d = sums
     return dy, dgamma, dbeta, dres, (None if d is None else (dd, dgamma_d, dbeta))
 
@@ -407,17 +502,30 @@ def _channels_last(t):
     return None if t is None else t.contiguous(memory_format=torch.channels_last)
 
 
+# a site's activation: ReLU (True, as the sites of slices 1-5 pass it), the
+# SiLU, or none (False or None)
+ACTIVATIONS = {True: "relu", "relu": "relu", "silu": "silu", False: None, None: None}
+
+
 def site_forward(ctx, stats, epilogue, stats_apply, y, gamma, beta, rm, rv, residual, d, gamma_d,
-                 beta_d, rm_d, rv_d, relu, keep_f32, eps=EPS, momentum=MOMENTUM):
+                 beta_d, rm_d, rv_d, act, keep_f32, eps=EPS, momentum=MOMENTUM, mask=None,
+                 keep=1.0):
     """The forward of :class:`BNTrainSite` through ``stats`` and
     ``epilogue`` (:func:`bn_stats` and ``conv_epilogue``), or at a narrow
     site with no residual or branch ``stats_apply`` (:func:`bn_stats_apply`),
     or functions of their signatures, saving on ``ctx`` what
-    :func:`site_backward` needs. ``eps`` and the Flax ``momentum`` are the
-    site's BatchNorm's (and its branch's)."""
+    :func:`site_backward` needs. ``act`` one of :data:`ACTIVATIONS`; ``eps``
+    and the Flax ``momentum`` are the site's BatchNorm's (and its
+    branch's); ``mask`` (B,) float32 and ``keep``: the drop-connect before
+    the residual, (BN(y) / keep) mask[b] + residual."""
     ctx.set_materialize_grads(False)
-    branch = stats_d = None
+    act = ACTIVATIONS[act]
+    relu = act == "relu"
+    branch = stats_d = gmul = None
     if y.shape[1] % 8 and residual is None and d is None:
+        if act == "silu" or mask is not None:
+            raise ValueError("a narrow site (channels not a multiple of 8) takes a ReLU or no "
+                             "activation, and no drop-connect")
         mean, invstd, scale, shift, out, out32 = stats_apply(y, gamma, beta, rm, rv, relu,
                                                              keep_f32, eps, momentum)
     else:
@@ -425,13 +533,18 @@ def site_forward(ctx, stats, epilogue, stats_apply, y, gamma, beta, rm, rv, resi
         if d is not None:
             stats_d = stats(d, gamma_d, beta_d, rm_d, rv_d, eps, momentum)
             branch = (d, stats_d[2], stats_d[3])
+        kw = {"silu": True} if act == "silu" else {}
+        if mask is not None:
+            kw["drop"] = (mask, keep)
+            gmul = (mask * inverse_keep(keep))[:, None].expand(y.shape[:2]).contiguous()
         out, out32 = epilogue(y, scale, shift, residual=residual, branch=branch, relu=relu,
-                              keep_f32=keep_f32)
+                              keep_f32=keep_f32, **kw)
     ctx.relu = relu
     ctx.residual = residual is not None
     ctx.residual_dtype = None if residual is None else residual.dtype
     ctx.save_for_backward(y, out, mean, invstd, gamma, d,
-                          *(stats_d[:2] if d is not None else (None, None)), gamma_d)
+                          *(stats_d[:2] if d is not None else (None, None)), gamma_d,
+                          shift if act == "silu" else None, gmul)
     if not keep_f32:
         return out
     if out32 is out:  # float32 y: one tensor, handed on twice
@@ -442,25 +555,26 @@ def site_forward(ctx, stats, epilogue, stats_apply, y, gamma, beta, rm, rv, resi
 def site_backward(ctx, backward, g, g32):
     """The gradients of :func:`site_forward`'s tensor inputs through
     ``backward`` (:func:`bn_backward` or a function of its signature)."""
-    y, out, mean, invstd, gamma, d, mean_d, invstd_d, gamma_d = ctx.saved_tensors
+    y, out, mean, invstd, gamma, d, mean_d, invstd_d, gamma_d, shift, gmul = ctx.saved_tensors
     branch = None if d is None else (d, mean_d, invstd_d, gamma_d)
+    kw = {k: v for k, v in (("shift", shift), ("gmul", gmul)) if v is not None}
     dy, dgamma, dbeta, dres, db = backward(_channels_last(g), _channels_last(g32), out, y, mean,
-                                           invstd, gamma, branch, ctx.relu, ctx.residual)
+                                           invstd, gamma, branch, ctx.relu, ctx.residual, **kw)
     if dres is not None:
         dres = dres.to(ctx.residual_dtype)
     dd, dgamma_d, dbeta_d = db if db is not None else (None, None, None)
-    return (dy, dgamma, dbeta, None, None, dres, dd, dgamma_d, dbeta_d, None, None, None, None,
-            None, None)
+    return (dy, dgamma, dbeta, None, None, dres, dd, dgamma_d, dbeta_d) + (None,) * 8
 
 
 class BNTrainSite(torch.autograd.Function):
-    """One site: out = ReLU(BN(y) + residual) or ReLU(BN(y) + BN_d(d)),
-    with batch statistics; returns (out, out32) where ``keep_f32``, else out.
+    """One site: out = act(BN(y) + residual) or act(BN(y) + BN_d(d)), with
+    batch statistics, or (BN(y) / keep) mask[b] + residual with a
+    drop-connect; returns (out, out32) where ``keep_f32``, else out.
 
     apply(y, gamma, beta, running_mean, running_var, residual, d, gamma_d,
-    beta_d, running_mean_d, running_var_d, relu, keep_f32[, eps, momentum]):
-    ``momentum`` in Flax's sense (``ra = momentum ra + (1 - momentum)
-    stat``)."""
+    beta_d, running_mean_d, running_var_d, act, keep_f32[, eps, momentum[,
+    mask, keep]]): ``act`` one of :data:`ACTIVATIONS`, ``momentum`` in Flax's
+    sense (``ra = momentum ra + (1 - momentum) stat``)."""
 
     @staticmethod
     def forward(ctx, *args):
@@ -469,6 +583,63 @@ class BNTrainSite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, g32=None):
         return site_backward(ctx, bn_backward, g, g32)
+
+
+class SiteKernels:
+    """The kernels of :class:`SEGateSite` (a seam: a caller's object with
+    these functions runs the site through them)."""
+    stats = staticmethod(bn_stats)
+    squeeze = staticmethod(se_squeeze)
+    excite = staticmethod(se_excite)
+    squeeze_backward = staticmethod(se_backward)
+    backward = staticmethod(bn_backward)
+
+
+def se_site_forward(ctx, impl, y, gamma, beta, rm, rv, w_r, b_r, w_e, b_e, eps=EPS,
+                    momentum=MOMENTUM):
+    """The depthwise site's forward (``flairtpu/models/efficientnet.py:
+    190-201``) through ``impl`` (:class:`SiteKernels`): the batch
+    statistics of the depthwise output ``y``, the squeeze of silu(y scale +
+    shift), the gate's convs (``ops/se_gate.py:gate_from``) and the excite,
+    the project conv's input in y's dtype."""
+    mean, invstd, scale, shift = impl.stats(y, gamma, beta, rm, rv, eps, momentum)
+    sq = impl.squeeze(y, scale, shift)
+    gate = gate_from(sq, w_r, b_r, w_e, b_e, y.dtype)
+    ctx.save_for_backward(y, mean, invstd, gamma, scale, shift, sq, gate, w_r, b_r, w_e, b_e)
+    return impl.excite(y, scale, shift, gate)
+
+
+def se_site_backward(ctx, impl, g):
+    """The depthwise site's gradients: the gate's (B, C) gradient by the
+    squeeze backward, the small convs' VJP on a recomputed (B, C) graph,
+    then one BatchNorm backward whose gradient is g gate[b, c] +
+    dmean[b, c] / HW times the SiLU's derivative."""
+    y, mean, invstd, gamma, scale, shift, sq, gate, *w = ctx.saved_tensors
+    g = _channels_last(g)
+    dgate = impl.squeeze_backward(g, y, scale, shift)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (sq, *w)]
+        dsq, *dw = torch.autograd.grad(gate_from(*leaves, y.dtype), leaves, dgate)
+    gadd = (dsq.float() / (y.shape[2] * y.shape[3])).contiguous()
+    dy, dgamma, dbeta, _, _ = impl.backward(g, None, None, y, mean, invstd, gamma, None, False,
+                                            False, shift=shift, gmul=gate, gadd=gadd)
+    return (dy, dgamma, dbeta, None, None, *dw, None, None)
+
+
+class SEGateSite(torch.autograd.Function):
+    """The depthwise site as one node: silu(BN(y)) times its squeeze-excite
+    gate, with batch statistics.
+
+    apply(y, gamma, beta, running_mean, running_var, w_reduce, b_reduce,
+    w_expand, b_expand[, eps, momentum])."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        return se_site_forward(ctx, SiteKernels, *args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return se_site_backward(ctx, SiteKernels, g)
 
 
 def bn_constants(bn) -> tuple[float, float]:
@@ -482,19 +653,27 @@ def bn_constants(bn) -> tuple[float, float]:
 class TrainSites:
     """What a model's forward takes in place of its inference epilogue to
     train: each BatchNorm site through :class:`BNTrainSite`, with the
-    BatchNorm modules (their gamma, beta and running statistics), and each
-    GroupNorm site through ``GroupNormReLU``."""
+    BatchNorm modules (their gamma, beta and running statistics), each
+    GroupNorm site through ``GroupNormReLU``, and each EfficientNet
+    depthwise site through :class:`SEGateSite`."""
 
     def apply(self, *args):
         """One site's autograd Function applied to :class:`BNTrainSite`'s
         arguments."""
         return BNTrainSite.apply(*args)
 
-    def site(self, y, bn, residual=None, branch=None, relu: bool = True,
-             keep_f32: bool = False):
-        """``branch`` = (d, bn_d). Returns (out, out32 or None). The site
-        takes ``bn``'s eps and momentum (torch's ``momentum`` m is Flax's
-        1 - m)."""
+    def apply_se(self, *args):
+        """The depthwise site's autograd Function applied to
+        :class:`SEGateSite`'s arguments."""
+        return SEGateSite.apply(*args)
+
+    def site(self, y, bn, residual=None, branch=None, act="relu", keep_f32: bool = False,
+             drop=None):
+        """``branch`` = (d, bn_d); ``act`` one of :data:`ACTIVATIONS` (True:
+        ReLU); ``drop`` = ((B,) float32 keep mask, keep probability): the
+        drop-connect before the residual. Returns (out, out32 or None). The
+        site takes ``bn``'s eps and momentum (torch's ``momentum`` m is
+        Flax's 1 - m)."""
         d, bn_d = branch if branch is not None else (None, None)
         eps, momentum = bn_constants(bn)
         if bn_d is not None and bn_constants(bn_d) != (eps, momentum):
@@ -502,8 +681,18 @@ class TrainSites:
                              "momentum than the site's")
         res = self.apply(y, bn.weight, bn.bias, bn.running_mean, bn.running_var, residual, d,
                          *((bn_d.weight, bn_d.bias, bn_d.running_mean, bn_d.running_var)
-                           if bn_d is not None else (None,) * 4), relu, keep_f32, eps, momentum)
+                           if bn_d is not None else (None,) * 4), act, keep_f32, eps, momentum,
+                         *(drop if drop is not None else ()))
         return res if keep_f32 else (res, None)
+
+    def se_site(self, y, bn, reduce, expand):
+        """EfficientNet's depthwise site on the depthwise output ``y``:
+        ``bn`` in train mode, SiLU, and the squeeze-excite gate of the
+        biased 1x1 convs ``reduce`` and ``expand``; the project conv's
+        input in y's dtype."""
+        return self.apply_se(y, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                             reduce.weight, reduce.bias, expand.weight, expand.bias,
+                             *bn_constants(bn))
 
     def group_norm(self, y, gamma, beta, groups: int, eps: float, upsample: bool):
         """A GroupNorm + ReLU (+ 2x nearest) site in train mode (FPN's):

@@ -90,7 +90,7 @@ VARIANTS = {
     "backward_unroll4": ([("kBackUnroll = 2;", "kBackUnroll = 4;")], None),
     "min_block_32k": ([], 32 * 1024),
     "min_block_128k": ([], 128 * 1024),
-    "no_tile_loads": ([("    last = blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x : -1;",
+    "no_tile_loads": ([("    last = bi < tiles ? (tiles - 1 - bi) / nb : -1;",
                         "    last = -1;")], None),
     "no_combine": ([("  for (int c0 = rank * teams; c0 < channels; c0 += combiners * teams) {",
                      "  for (int c0 = rank * teams; c0 < 0; c0 += combiners * teams) {")], None),
@@ -135,12 +135,13 @@ def record_sites() -> list[dict]:
         def __init__(self):
             self.sites = []
 
-        def site(self, y, bn, residual=None, branch=None, relu=True, keep_f32=False):
+        def site(self, y, bn, residual=None, branch=None, act="relu", keep_f32=False,
+                 drop=None):
             self.sites.append(dict(shape=(BATCH, y.shape[1], y.shape[2] * SIZE // 64,
                                           y.shape[3] * SIZE // 64),
                                    residual=residual is not None, branch=branch is not None,
                                    keep_f32=keep_f32))
-            return super().site(y, bn, residual, branch, relu, keep_f32)
+            return super().site(y, bn, residual, branch, act, keep_f32, drop)
 
     rec = Recorder()
     with torch.no_grad():

@@ -14,6 +14,11 @@ scale 1, the folded bias as shift, and its identity in the compute dtype,
 as ``flairtpu``'s folded walk keeps no float32 copies. SiLU (``v *
 sigmoid(v)``) is EfficientNet's activation after the stem's and each
 expand conv's BatchNorm (``flairtpu/models/efficientnet.py:182, 244-245``).
+The ``drop`` operand is EfficientNet's drop-connect at a train-mode project
+site with an identity (``flairtpu/models/efficientnet.py:202-211``): each
+sample's BatchNorm output divided by the keep probability (a multiply by
+its float32 reciprocal, :func:`inverse_keep`, in both versions) and
+multiplied by its keep mask, before the identity is added.
 
 ``conv_epilogue`` runs the plain PyTorch version for a CPU tensor and
 launches the kernel for a bfloat16 CUDA tensor; it has no fallback.
@@ -23,35 +28,50 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from flairtpu_torch.ops import _build
 
 ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_int, ctypes.c_void_p]
+                                    ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
+                                    ctypes.c_longlong, ctypes.c_void_p]
 
 ACT_SILU = 2  # csrc/conv_epilogue.cu's activation codes: 0 none, 1 ReLU, 2 SiLU
 
 # kernel launches on CUDA tensors since the last reset (the CPU path does not
-# count); silu_launches: those of them with the SiLU
+# count); silu_launches: those of them with the SiLU, drop_launches: with
+# the drop-connect
 launches = 0
 silu_launches = 0
+drop_launches = 0
 
 
 def _chw(v: torch.Tensor) -> torch.Tensor:
     return v[:, None, None]
 
 
+def inverse_keep(keep: float) -> float:
+    """1 / ``keep`` rounded to float32 (and exact as a Python float): the
+    drop-connect's division, as PyTorch divides a CUDA tensor by a scalar
+    (a multiply by the float32 reciprocal)."""
+    return float(np.float32(1) / np.float32(keep))
+
+
 def conv_epilogue_plain(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                         residual: torch.Tensor | None = None, branch=None, relu: bool = True,
-                        keep_f32: bool = False, silu: bool = False):
+                        keep_f32: bool = False, silu: bool = False, drop=None):
     """y (B, C, H, W) in the compute dtype -> (out in y's dtype, float32 value
-    or None): ``y * scale + shift`` in float32, ``+ residual`` (float32 or
-    y's dtype) or
+    or None): ``y * scale + shift`` in float32, with ``drop`` = (mask, keep)
+    then ``* inverse_keep(keep) * mask[b]`` ((B,) float32 mask), ``+ residual`` (float32
+    or y's dtype) or
     ``+ d * scale_d + shift_d`` for ``branch = (d, scale_d, shift_d)``, ReLU
     (or with ``silu`` and ``relu`` False, ``v * sigmoid(v)``), cast. With a
     float32 ``y`` both outputs are one tensor."""
     v = y.float() * _chw(scale) + _chw(shift)
+    if drop is not None:
+        mask, keep = drop
+        v = v * inverse_keep(keep) * mask[:, None, None, None]
     if branch is not None:
         d, scale_d, shift_d = branch
         v = v + (d.float() * _chw(scale_d) + _chw(shift_d))
@@ -80,11 +100,11 @@ def _check_map(t: torch.Tensor, y: torch.Tensor, dtype: torch.dtype, what: str) 
 
 def conv_epilogue(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                   residual: torch.Tensor | None = None, branch=None, relu: bool = True,
-                  keep_f32: bool = False, silu: bool = False):
+                  keep_f32: bool = False, silu: bool = False, drop=None):
     """As :func:`conv_epilogue_plain`; every operand channels_last on one
     device. CPU tensors: the plain version. bfloat16 CUDA tensors: the
     kernel, or an error."""
-    global launches, silu_launches
+    global launches, silu_launches, drop_launches
     if y.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"conv_epilogue: unsupported device {y.device}")
     if y.dim() != 4 or not y.dtype.is_floating_point:
@@ -106,8 +126,19 @@ def conv_epilogue(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
         _check_map(d, y, y.dtype, "branch")
         _check_vector(scale_d, C, y.device, "branch scale")
         _check_vector(shift_d, C, y.device, "branch shift")
+    mask = keep = None
+    if drop is not None:
+        mask, keep = drop
+        if residual is None or residual.dtype != torch.float32 or relu or silu:
+            raise ValueError("conv_epilogue: the drop-connect takes a float32 residual and no "
+                             "activation")
+        if (mask.device != y.device or mask.dtype != torch.float32
+                or tuple(mask.shape) != (y.shape[0],) or not mask.is_contiguous()
+                or not 0 < keep <= 1):
+            raise ValueError(f"conv_epilogue: drop = ((B,) float32 mask on {y.device}, keep "
+                             f"in (0, 1]), got {tuple(mask.shape)} {mask.dtype}, {keep}")
     if y.device.type == "cpu":
-        return conv_epilogue_plain(y, scale, shift, residual, branch, relu, keep_f32, silu)
+        return conv_epilogue_plain(y, scale, shift, residual, branch, relu, keep_f32, silu, drop)
     if y.dtype != torch.bfloat16:
         raise TypeError(f"conv_epilogue: y dtype {y.dtype} (the kernel takes bfloat16)")
     out = torch.empty_like(y)
@@ -120,8 +151,11 @@ def conv_epilogue(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     err = _build.entry("conv_epilogue", ARGTYPES)(
         ptr(y), ptr(scale), ptr(shift), ptr(residual), ptr(d), ptr(scale_d), ptr(shift_d),
         ptr(out), ptr(out32), y.numel() // C, C, ACT_SILU if silu else int(relu),
-        int(residual is not None and residual.dtype != torch.float32), _build.stream_handle(y))
+        int(residual is not None and residual.dtype != torch.float32),
+        None if mask is None else mask.data_ptr(), 1.0 if keep is None else inverse_keep(keep),
+        y.shape[2] * y.shape[3], _build.stream_handle(y))
     _build.check(err, "conv_epilogue")
     launches += 1
     silu_launches += int(silu)
+    drop_launches += drop is not None
     return out, out32

@@ -11,9 +11,15 @@ SiLU in it), and the sigmoid in float32, as ``flairtpu`` computes them
 outside any fusion of the map. Neither kernel writes the float32 SiLU map:
 the excite recomputes it from the bf16 depthwise output.
 
-``se_squeeze`` and ``se_excite`` run the plain PyTorch version for a CPU
-tensor and launch the kernel for a bfloat16 CUDA tensor; they have no
-fallback. The squeeze's sigmoid runs on the special-function units, so its
+In training (``ops/bn_train.py:SEGateSite``) the gate's gradient is
+:func:`se_backward`: the squeeze with a second operand, the gradient g of
+the excite's output, summed against the SiLU value over each map
+(``flairtpu/models/efficientnet.py:193-199``'s VJP), on the squeeze's plan
+and with its ordered combine.
+
+``se_squeeze``, ``se_excite`` and ``se_backward`` run the plain PyTorch
+version for a CPU tensor and launch the kernel for a bfloat16 CUDA tensor;
+they have no fallback. The squeeze's sigmoid runs on the special-function units, so its
 mean is within a few float32 ulps of the plain version's terms, not bit for
 bit; the excite keeps the plain version's bits. The squeeze's grid is the
 card's co-resident blocks (:func:`squeeze_plan`), and its ticket counters
@@ -37,11 +43,13 @@ SQUEEZE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong, cty
                                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 EXCITE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_void_p]
+BACKWARD_ARGTYPES = [ctypes.c_void_p] + SQUEEZE_ARGTYPES
 OCCUPANCY_ARGTYPES = [ctypes.POINTER(ctypes.c_int)]
 
 # kernel launches on CUDA tensors since the last reset (the CPU path does not count)
 squeeze_launches = 0
 excite_launches = 0
+backward_launches = 0
 
 THREADS = 256        # csrc/se_gate.cu kThreads
 MAX_GROUP_TILE = 256  # csrc/se_gate.cu kMaxGroupTile
@@ -59,6 +67,13 @@ def silu_bn(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.
 def se_squeeze_plain(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     """(B, C) float32 mean over the map of :func:`silu_bn`."""
     return silu_bn(y, scale, shift).mean(dim=(2, 3))
+
+
+def se_backward_plain(g: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
+                      shift: torch.Tensor) -> torch.Tensor:
+    """The gate's (B, C) float32 gradient: the sum over the map of g (the
+    excite output's gradient, y's dtype) times :func:`silu_bn`."""
+    return (g.float() * silu_bn(y, scale, shift)).sum(dim=(2, 3))
 
 
 def se_excite_plain(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -103,23 +118,24 @@ def squeeze_plan(batch: int, hw: int, channels: int, co_resident: int) -> Squeez
     return SqueezePlan(gt, tiles, blocks, (blocks + batch * tiles - 1) * gt * 8)
 
 
-_CO_RESIDENT: dict[int, int] = {}
+_CO_RESIDENT: dict[tuple, int] = {}
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def co_resident(device: torch.device) -> int:
-    """The squeeze kernel's blocks ``device`` holds at once: its SMs times
-    the occupancy the CUDA runtime reports for the built kernel (queried
-    once a device)."""
-    n = _CO_RESIDENT.get(device.index)
+def co_resident(device: torch.device, kernel: str = "se_squeeze") -> int:
+    """The blocks of ``kernel`` (the squeeze, or ``se_backward``) that
+    ``device`` holds at once: its SMs times the occupancy the CUDA runtime
+    reports for the built kernel (queried once a device)."""
+    key = (device.index, kernel)
+    n = _CO_RESIDENT.get(key)
     if n is None:
         per_sm = ctypes.c_int(0)
         with torch.cuda.device(device):
-            err = _build.entry("se_gate", OCCUPANCY_ARGTYPES, "se_squeeze_occupancy")(
+            err = _build.entry("se_gate", OCCUPANCY_ARGTYPES, f"{kernel}_occupancy")(
                 ctypes.byref(per_sm))
-        _build.check(err, "se_squeeze occupancy")
+        _build.check(err, f"{kernel} occupancy")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        n = _CO_RESIDENT[device.index] = sms * max(1, per_sm.value)
+        n = _CO_RESIDENT[key] = sms * max(1, per_sm.value)
     return n
 
 
@@ -179,6 +195,35 @@ def se_squeeze(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> tor
     return mean
 
 
+def se_backward(g: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
+                shift: torch.Tensor) -> torch.Tensor:
+    """As :func:`se_backward_plain`; g like y, channels_last. CPU tensors:
+    the plain version. bfloat16 CUDA tensors: the kernel, or an error."""
+    global backward_launches
+    _check(y, scale, shift, "se_backward")
+    if (g.device != y.device or g.dtype != y.dtype or g.shape != y.shape
+            or not g.is_contiguous(memory_format=torch.channels_last)):
+        raise ValueError(f"se_backward: g must be a channels_last {y.dtype} tensor of shape "
+                         f"{tuple(y.shape)} on {y.device}")
+    if y.device.type == "cpu":
+        return se_backward_plain(g, y, scale, shift)
+    _check_kernel(y, "se_backward")
+    if g.data_ptr() % 16:
+        raise ValueError("se_backward: g must be 16-byte aligned")
+    B, C, H, W = y.shape
+    plan = squeeze_plan(B, H * W, C, co_resident(y.device, "se_backward"))
+    stream = _build.stream_handle(y)
+    partial = torch.empty(plan.partials, dtype=torch.float32, device=y.device)
+    tickets = _tickets(y.device, stream, B * plan.tiles)
+    dgate = torch.empty((B, C), dtype=torch.float32, device=y.device)
+    err = _build.entry("se_gate", BACKWARD_ARGTYPES, "se_backward")(
+        g.data_ptr(), y.data_ptr(), scale.data_ptr(), shift.data_ptr(), partial.data_ptr(),
+        tickets.data_ptr(), dgate.data_ptr(), B, H * W, C, plan.group_tile, plan.blocks, stream)
+    _build.check(err, "se_backward")
+    backward_launches += 1
+    return dgate
+
+
 def se_excite(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
               gate: torch.Tensor) -> torch.Tensor:
     """As :func:`se_excite_plain`. CPU tensors: the plain version. bfloat16
@@ -202,21 +247,28 @@ def se_excite(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     return out
 
 
-def _linear(x: torch.Tensor, m: nn.Conv2d) -> torch.Tensor:
-    """The biased 1x1 conv ``m`` on (B, C) ``x``, in x's dtype."""
-    w, b = m.weight, m.bias
+def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The biased 1x1 conv of weight ``w`` (O, I, 1, 1) and bias ``b`` on
+    (B, C) ``x``, in x's dtype."""
     w = (w if w.dtype == x.dtype else w.to(x.dtype)).reshape(w.shape[0], w.shape[1])
     return F.linear(x, w, b if b.dtype == x.dtype else b.to(x.dtype))
 
 
+def gate_from(mean: torch.Tensor, w_r: torch.Tensor, b_r: torch.Tensor, w_e: torch.Tensor,
+              b_e: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The (B, C) float32 gate from the squeeze's mean: the reduce conv
+    (``w_r``, ``b_r``), SiLU and the expand conv (``w_e``, ``b_e``) in
+    ``dtype``, then the sigmoid in float32 (``flairtpu/models/
+    efficientnet.py:194-199``)."""
+    g = _linear(mean.to(dtype), w_r, b_r)
+    g = _linear(g * torch.sigmoid(g), w_e, b_e)
+    return torch.sigmoid(g.float()).contiguous()
+
+
 def se_gate_vector(mean: torch.Tensor, reduce: nn.Conv2d, expand: nn.Conv2d,
                    dtype: torch.dtype) -> torch.Tensor:
-    """The (B, C) float32 gate from the squeeze's mean: ``reduce``, SiLU and
-    ``expand`` in ``dtype``, then the sigmoid in float32
-    (``flairtpu/models/efficientnet.py:194-199``)."""
-    g = _linear(mean.to(dtype), reduce)
-    g = _linear(g * torch.sigmoid(g), expand)
-    return torch.sigmoid(g.float()).contiguous()
+    """:func:`gate_from` with the modules ``reduce`` and ``expand``."""
+    return gate_from(mean, reduce.weight, reduce.bias, expand.weight, expand.bias, dtype)
 
 
 def squeeze_excite(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,

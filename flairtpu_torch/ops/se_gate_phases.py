@@ -137,7 +137,7 @@ def sources(baseline: Path | None) -> dict[str, str]:
 def squeeze_registers(log: str) -> str | None:
     """ptxas's spill and register lines for the squeeze kernel, from
     ``-v``'s log."""
-    m = re.search(r"se_squeeze_kernel.*\n(?:.*\n)*?\s*(\d+ bytes stack.*)\n.*?(Used \d+ "
+    m = re.search(r"se_squeeze_kernel(?!ILb1).*\n(?:.*\n)*?\s*(\d+ bytes stack.*)\n.*?(Used \d+ "
                   r"registers)", log)
     return f"{m.group(2)}; {m.group(1)}" if m else None
 

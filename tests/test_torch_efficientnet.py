@@ -412,9 +412,9 @@ def test_prepare_inference_casts_the_gate_biases():
 
 def test_refusals(tmp_path):
     """bn_fold and int8 raise flairtpu's ValueError (the detect engine asks
-    before it reads a calibration tile); flair with train raises
-    NotImplementedError when its config is read; predict validates; every
-    arch takes the encoder."""
+    before it reads a calibration tile); flair with train validates, and
+    with remat raises NotImplementedError when its config is read, as for
+    every family; predict validates; every arch takes the encoder."""
     model = FlairSegmentationModel("efficientnet-b0", 3, 5)
     with pytest.raises(ValueError, match="bn_fold: supports the ResNet"):
         fold_model(model)
@@ -425,15 +425,16 @@ def test_refusals(tmp_path):
     for arch in cfgmod.SMP_ARCHS:
         assert cfgmod.check_smp(f"efficientnet-b7_{arch}") == ("efficientnet-b7", arch)
 
-    def train_config(train: bool) -> dict:
+    def train_config(train: bool, **over) -> dict:
         return {"paths": {"out_folder": str(tmp_path)}, "tasks": {"train": train,
                                                                   "predict": True},
                 "model_framework": {"model_provider": "SegmentationModelsPytorch",
                                     "SegmentationModelsPytorch": {"encoder_decoder":
                                                                   "efficientnet-b4_unet"}},
                 "channels": [1, 2, 3, 4, 5], "classes": {1: [1, "a"], 2: [1, "b"]},
-                "accelerator": "cpu"}
+                "accelerator": "cpu", **over}
 
-    with pytest.raises(NotImplementedError, match="EfficientNet training"):
-        cfgmod.validate_train_config(train_config(True))
+    assert cfgmod.validate_train_config(train_config(True))["tasks"]["train"]
+    with pytest.raises(NotImplementedError, match="remat"):
+        cfgmod.validate_train_config(train_config(True, remat=True))
     assert cfgmod.validate_train_config(train_config(False))["tasks"]["predict"]

@@ -5987,7 +5987,8 @@ def time_train_kernels(cfg: dict, state: dict, batch: dict, masks: dict) -> dict
                      "bytes": sum(r["bytes"] for r in rows),
                      "library_ms": None if None in libs else sum(libs),
                      "max_abs_err": max(r["err"] for r in rows),
-                     "largest": max(rows, key=lambda r: r["bytes"])}
+                     "largest": max(rows, key=lambda r: r["bytes"]),
+                     "under_half": sum(r["bound_ms"] < 0.5 * r["ms"] for r in rows)}
         if name == "bn_train_wide":
             out[name]["modes"] = [
                 {"mode": m, "sites": len(rs), "ms": sum(r["ms"] for r in rs),
@@ -6233,6 +6234,11 @@ def run_effnet_train(tmp: Path, main: dict, card: str) -> dict:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e9:.3f} GB), worst error "
               f"{r['max_abs_err']:.2e}; largest site {big['shape']}: {big['ms']:.4f} ms, bound "
               f"{big['bound_ms']:.4f}", flush=True)
+    for kname in ("bn_backward_silu", "bn_backward_affine"):
+        r = kernels[kname]
+        print(f"    {kname}: {100 * r['bound_ms'] / r['ms']:.1f}% of its bound "
+              f"({r['bound_ms']:.4f} of {r['ms']:.4f} ms device), {r['under_half']} of "
+              f"{r['sites']} sites under half of theirs", flush=True)
     for kname, got in launches.items():
         if got:
             print(f"    launches {kname}: {got}")

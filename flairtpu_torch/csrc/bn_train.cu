@@ -44,8 +44,10 @@
 // threads `rows` = 256 / (C / 8) pixels. A block walks tiles of rows x U
 // pixels (contiguous in memory), tile b, b + grid, ... of the site, so the
 // card's read front moves through the site as one; the U loads of a tile
-// are issued before any is used (U = 4 in the statistics, 16 KB a tile; U =
-// 2 in the backward, whose pixel already takes 3-5 loads). Float32 partial
+// are issued before any is used (U = 4 in the statistics, 16 KB a tile; in
+// the backward U = 4 where a pixel loads only g and y, 32 bytes, and U = 2
+// where it also loads the ReLU's output, a branch or g32, 48-64 bytes: about
+// 128 bytes a thread in flight either way). Float32 partial
 // sums stay in registers; a block folds its rows (a warp shuffle tree where
 // a warp holds whole pixels, then its warps in shared memory, in a fixed
 // order) into one column of per-channel sums, written transposed so each
@@ -82,6 +84,21 @@
 // reduced once, in the same fixed order. At 2048 channels or fewer there is
 // one tile and nothing changes.
 //
+// The backward's modes are template instances (Kind: the ReLU sites, the
+// branch, and the lean ones that load no ReLU output and no branch: plain,
+// SiLU, affine, SiLU + affine, each with g32 or not), so the per-element
+// path tests none of their pointers. The ReLU instances keep their
+// arithmetic bit for bit; the lean ones fold the apply's constants and take
+// invstd once a sum. At a SiLU site the sigmoid runs on the special-function
+// units (ex2.approx, rcp.approx: about 10 instructions an element, the IEEE
+// expf and division about 30) from z with the forward's bits. The affine's
+// sample b = p / hw is a multiply-high by a constant that the host computes
+// (ops/bn_train.py:sample_divisor; the entry point checks it), and a thread
+// keeps its sample's gmul and gadd in registers, loading them with a tile's
+// loads where the tile starts another sample: no 64-bit division and no
+// dependent load a pixel. A lean site above L2 still reads g and y twice
+// from HBM, which caps it near (4 + 2) / (8 + 2) of its byte bound.
+//
 // The wrapper (ops/bn_train.py:launch_plan) sizes the grid by the work: at
 // least 64 KB of x (bf16) a block, at most the blocks the card holds at
 // once (132 SMs x the kernel's occupancy, bn_train_occupancy). At batch 16
@@ -90,7 +107,10 @@
 // blocks and as few partials. The sites whose backward inputs fit in L2
 // (layer3, layer4 and decoder block 0: 13-42 MB) can read them from HBM
 // about once; the others read them twice, which caps their backward at
-// about 8/14 of its byte bound.
+// about 8/14 of its byte bound. A lean backward takes at least 16 KB a
+// block (its small maps, 16² and 32² at b4's deep blocks, are bound by each
+// block's fixed work and the launches), and a one-tile grid above the SMs
+// a multiple of them, so no SM runs a block more than another.
 //
 // Narrow sites (bn_train_narrow_forward, bn_train_narrow_backward): a
 // channel count that is not a multiple of 8 (PAN's FPA pyramid, flairtpu/
@@ -112,12 +132,18 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStatsUnroll = 4;  // pixels a thread loads at once: statistics
-constexpr int kBackUnroll = 2;   // backward (reduce and apply)
+constexpr int kBackUnroll = 2;   // backward, where a pixel loads out, d or g32 too
+constexpr int kLeanUnroll = 4;   // backward, where it loads only g and y (32 bytes)
+constexpr int kLeanMinBlocks = 2;  // a lean backward's blocks an SM at least (registers capped)
+constexpr long long kMaxBackPixels = 1LL << 31;  // a backward's m: a pixel index fits 31 bits
+constexpr float kNegLog2e = -1.4426950408889634f;
 constexpr int kCombineLoads = 8; // loads a lane keeps in flight for each sum
 constexpr int kCounters = 2;     // int32: arrived, combined
 constexpr unsigned kFull = 0xffffffffu;
@@ -414,7 +440,42 @@ struct BackArgs {
   const float* shift;        // null: no SiLU; else the forward's shift (SiLU site)
   const float* gmul;         // (B, C) or null: the gradient affine's factor
   const float* gadd;         // (B, C) or null: its term
-  long long hw;              // pixels a sample (b = p / hw)
+  long long hw;              // pixels a sample
+  unsigned sample_magic;     // b = (p * sample_magic) >> sample_shift = p / hw
+  int sample_shift;
+};
+
+// The backward's instances, by what a site's pixel loads and computes: the
+// C entry point picks one from its pointers, bn_train_occupancy takes it as
+// `kind`. Lean instances load no ReLU output and no branch, and g32 or not
+// by the instance (kinds 6-9 are 2-5 with it); the ReLU instances test g32
+// at run time and take no register cap, so they keep their occupancy, grid
+// and bits.
+enum Kind : int {
+  kReluKind = 0,    // the ReLU: its output loaded (with a residual or not)
+  kBranchKind = 1,  // a second BatchNorm'd branch
+  kLeanKind = 2,    // no ReLU, no branch
+  kSiluKind = 3,    // the SiLU's derivative
+  kAffineKind = 4,  // the gradient affine
+  kSiluAffineKind = 5,
+  kLeanG32Kind = 6,
+  kSiluG32Kind = 7,
+  kAffineG32Kind = 8,
+  kSiluAffineG32Kind = 9,
+};
+constexpr int kKinds = 10;
+
+template <int K>
+struct Mode {
+  static constexpr bool g32 = K >= kLeanG32Kind;  // lean: float32 gradient loaded
+  static constexpr int base = g32 ? K - (kLeanG32Kind - kLeanKind) : K;
+  static constexpr bool branch = base == kBranchKind;
+  static constexpr bool lean = base >= kLeanKind;
+  static constexpr bool silu = base == kSiluKind || base == kSiluAffineKind;
+  static constexpr bool affine = base >= kAffineKind;
+  static constexpr int unroll = lean && !g32 ? kLeanUnroll : kBackUnroll;
+  static constexpr int min_blocks = lean ? kLeanMinBlocks : 1;
+  static constexpr int sums = branch ? 3 : 2;
 };
 
 // One pixel's raw operands: 8 channels of each map.
@@ -423,15 +484,15 @@ struct Pixel {
   float4 g32[2];
 };
 
-template <bool kBranch>
+template <class M>
 __device__ __forceinline__ void load_pixel(const BackArgs& a, long long off, bool in,
                                            Pixel& px) {
   const uint4 zero = make_uint4(0, 0, 0, 0);
   px.g = in && a.g ? load16(a.g, off) : zero;
-  px.out = in && a.out ? load16(a.out, off) : zero;
+  px.out = !M::lean && in && a.out ? load16(a.out, off) : zero;
   px.y = in ? load16(a.y, off) : zero;
-  if (kBranch) px.d = in ? load16(a.d, off) : zero;
-  if (in && a.g32) {
+  if (M::branch) px.d = in ? load16(a.d, off) : zero;
+  if (in && (M::lean ? M::g32 : a.g32 != nullptr)) {
     px.g32[0] = *reinterpret_cast<const float4*>(a.g32 + off);
     px.g32[1] = *reinterpret_cast<const float4*>(a.g32 + off + 4);
   } else {
@@ -439,7 +500,9 @@ __device__ __forceinline__ void load_pixel(const BackArgs& a, long long off, boo
   }
 }
 
-// gr of the pixel's 8 channels: (g + g32) masked by the ReLU
+// gr of the pixel's 8 channels: (g + g32) masked by the ReLU (a lean
+// pixel's g is zeros where the call has none: no add from 0)
+template <class M>
 __device__ __forceinline__ void masked_grad(const BackArgs& a, const Pixel& px, float (&gz)[8]) {
   float f[8];
   unpack8(px.g, f);
@@ -447,11 +510,15 @@ __device__ __forceinline__ void masked_grad(const BackArgs& a, const Pixel& px, 
                       px.g32[1].x, px.g32[1].y, px.g32[1].z, px.g32[1].w};
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
+    if (M::lean) {
+      gz[i] = M::g32 ? f[i] + h[i] : f[i];
+      continue;
+    }
     gz[i] = 0.f;
     if (a.g) gz[i] += f[i];
     if (a.g32) gz[i] += h[i];
   }
-  if (a.out) {
+  if (!M::lean && a.out) {
     unpack8(px.out, f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) gz[i] = f[i] > 0.f ? gz[i] : 0.f;
@@ -466,53 +533,102 @@ __device__ __forceinline__ void load8(const float* p, long long off, float (&f)[
   f[4] = v.x; f[5] = v.y; f[6] = v.z; f[7] = v.w;
 }
 
-// The SiLU's derivative at z = y * scale + shift, each step rounded on its
-// own as conv_epilogue's SiLU and the plain version compute them
-__device__ __forceinline__ float silu_grad(float y, float scale, float shift) {
-  const float z = __fadd_rn(__fmul_rn(y, scale), shift);
-  const float s = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-z)));
-  return __fmul_rn(s, __fadd_rn(1.f, __fmul_rn(z, __fsub_rn(1.f, s))));
+__device__ __forceinline__ float ex2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
 }
 
-// The SiLU site's per-channel constants: the forward's scale and shift
-struct SiluConsts {
-  float scale[8], shift[8];
-  __device__ void load(const float* gamma, const float* invstd, const float* shift_, int c0) {
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// The SiLU's derivative s (1 + z (1 - s)) at z = y * scale + shift, z
+// rounded as conv_epilogue's SiLU and the plain version compute it, the
+// sigmoid s on the special-function units: 2^(-z log2 e) (inf below z of
+// about -88, so s = 0), 1 + that, its reciprocal; 1 + z (1 - s) by one fma
+__device__ __forceinline__ float silu_grad(float y, float scale, float shift) {
+  const float z = __fadd_rn(__fmul_rn(y, scale), shift);
+  const float s = rcp_approx(__fadd_rn(1.f, ex2_approx(__fmul_rn(z, kNegLog2e))));
+  return __fmul_rn(s, fmaf(z, __fsub_rn(1.f, s), 1.f));
+}
+
+// 8 channels of a (C,) float32 vector
+__device__ __forceinline__ void vec8(const float* v, int c0, float (&f)[8]) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      scale[i] = __fmul_rn(gamma[c0 + i], invstd[c0 + i]);
-      shift[i] = shift_[c0 + i];
+  for (int i = 0; i < 8; ++i) f[i] = v[c0 + i];
+}
+
+// The forward's scale (gamma invstd, each rounded) of 8 channels
+__device__ __forceinline__ void scale8(const float* gamma, const float* invstd, int c0,
+                                       float (&f)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = __fmul_rn(gamma[c0 + i], invstd[c0 + i]);
+}
+
+// The gradient affine of a thread's 8 channels at its current sample b:
+// gmul's and gadd's (b, c) values (1 and 0 where the call has none), loaded
+// again only when a pixel's sample differs from the last one's.
+struct SampleAffine {
+  int b = -1;
+  float mul[8], add[8];
+  // p / hw by the host's multiply-high constant
+  __device__ __forceinline__ int sample(const BackArgs& a, long long p) const {
+    return (int)(((unsigned long long)(unsigned)p * a.sample_magic) >> a.sample_shift);
+  }
+  // At a tile's first pixel p0 (below m): its sample's values; whether the
+  // tile's last pixel p1 lies in that sample too (then no pixel checks)
+  __device__ __forceinline__ bool tile(const BackArgs& a, long long p0, long long p1, int c0) {
+    at(a, p0, c0);
+    return sample(a, p1) == b;
+  }
+  __device__ __forceinline__ void at(const BackArgs& a, long long p, int c0) {
+    const int s = sample(a, p);
+    if (s == b) return;
+    b = s;
+    const long long off = (long long)s * a.channels + c0;
+    if (a.gmul) {
+      load8(a.gmul, off, mul);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mul[i] = 1.f;
+    }
+    if (a.gadd) {
+      load8(a.gadd, off, add);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) add[i] = 0.f;
     }
   }
 };
 
-// gz from gr at pixel p, channels c0..c0 + 7: the affine, then the SiLU's
-// derivative (both where the call has them); 0 past the last pixel
-__device__ __forceinline__ void site_grad(const BackArgs& a, const SiluConsts& sc, const uint4 y,
-                                          long long p, int c0, const float (&gr)[8],
-                                          float (&gz)[8]) {
+// gz from gr at pixel p, channels c0..c0 + 7: the affine (gr * gmul + gadd
+// by one fma), then the SiLU's derivative, as the instance has them; 0 past
+// the last pixel
+template <class M>
+__device__ __forceinline__ void site_grad(const BackArgs& a, const float (&scale)[8],
+                                          const float (&shift)[8], SampleAffine& af, bool whole,
+                                          const uint4 y, long long p, int c0,
+                                          const float (&gr)[8], float (&gz)[8]) {
+  if (p >= a.m) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) gz[i] = p < a.m ? gr[i] : 0.f;
-  if (p >= a.m) return;
-  if (a.gmul || a.gadd) {
-    const long long off = (p / a.hw) * a.channels + c0;
-    float f[8];
-    if (a.gmul) {
-      load8(a.gmul, off, f);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) gz[i] = __fmul_rn(gz[i], f[i]);
-    }
-    if (a.gadd) {
-      load8(a.gadd, off, f);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) gz[i] = __fadd_rn(gz[i], f[i]);
-    }
+    for (int i = 0; i < 8; ++i) gz[i] = 0.f;
+    return;
   }
-  if (a.shift) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) gz[i] = gr[i];
+  if (M::affine) {
+    if (!whole) af.at(a, p, c0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) gz[i] = fmaf(gz[i], af.mul[i], af.add[i]);
+  }
+  if (M::silu) {
     float f[8];
     unpack8(y, f);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) gz[i] = __fmul_rn(gz[i], silu_grad(f[i], sc.scale[i], sc.shift[i]));
+    for (int i = 0; i < 8; ++i) gz[i] = __fmul_rn(gz[i], silu_grad(f[i], scale[i], shift[i]));
   }
 }
 
@@ -531,48 +647,68 @@ struct Consts {
 #pragma unroll
     for (int i = 0; i < 8; ++i) xh[i] = (xh[i] - mean[i]) * invstd[i];
   }
+  __device__ void centered(const uint4 w, float (&xc)[8]) const {
+    unpack8(w, xc);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) xc[i] = xc[i] - mean[i];
+  }
 };
 
-template <bool kBranch>
-__global__ void __launch_bounds__(kThreads) backward_reduce(BackArgs a) {
-  constexpr int kSums = kBranch ? 3 : 2;
+template <int K>
+__global__ void __launch_bounds__(kThreads, Mode<K>::min_blocks) backward_reduce(BackArgs a) {
+  using M = Mode<K>;
+  constexpr int kSums = M::sums;
   extern __shared__ float smem[];
   const Layout t(a.channels, a.tiles);
-  const Tiles<kBackUnroll> tiles(t, a.m);
+  const Tiles<M::unroll> tiles(t, a.m);
   const int c0 = t.c0;
   float acc[kSums][8] = {};
   if (t.active) {
     Consts cy, cd;
-    SiluConsts sc;
+    float scale[8], shift[8];
+    SampleAffine af;
     cy.load(a.mean, a.invstd, c0);
-    if (kBranch) cd.load(a.mean_d, a.invstd_d, c0);
-    if (a.shift) sc.load(a.gamma, a.invstd, a.shift, c0);
+    if (M::branch) cd.load(a.mean_d, a.invstd_d, c0);
+    if (M::silu) {
+      scale8(a.gamma, a.invstd, c0, scale);
+      vec8(a.shift, c0, shift);
+    }
     for (long long k = 0; k <= tiles.last; ++k) {
       const long long p0 = tiles.first(k, false) + t.row;
-      Pixel px[kBackUnroll];
+      Pixel px[M::unroll];
 #pragma unroll
-      for (int u = 0; u < kBackUnroll; ++u) {
+      for (int u = 0; u < M::unroll; ++u) {
         const long long p = p0 + (long long)u * t.rows;
-        load_pixel<kBranch>(a, p * a.channels + c0, p < a.m, px[u]);
+        load_pixel<M>(a, p * a.channels + c0, p < a.m, px[u]);
       }
+      // the tile's sample's gmul and gadd, in flight with its loads
+      const bool whole = M::affine && p0 < a.m &&
+                         af.tile(a, p0, p0 + (M::unroll - 1) * (long long)t.rows, c0);
 #pragma unroll
-      for (int u = 0; u < kBackUnroll; ++u) {
+      for (int u = 0; u < M::unroll; ++u) {
         float gr[8], gz[8], xh[8];
-        masked_grad(a, px[u], gr);
-        site_grad(a, sc, px[u].y, p0 + (long long)u * t.rows, c0, gr, gz);
-        cy.normalized(px[u].y, xh);
+        masked_grad<M>(a, px[u], gr);
+        site_grad<M>(a, scale, shift, af, whole, px[u].y, p0 + (long long)u * t.rows, c0, gr,
+                     gz);
+        if (M::lean)
+          cy.centered(px[u].y, xh);  // y - mean: the sum takes invstd once, below
+        else
+          cy.normalized(px[u].y, xh);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           acc[0][i] += gz[i];
           acc[1][i] += gz[i] * xh[i];
         }
-        if (kBranch) {
+        if (M::branch) {
           cd.normalized(px[u].d, xh);
 #pragma unroll
           for (int i = 0; i < 8; ++i) acc[kSums - 1][i] += gz[i] * xh[i];
         }
       }
     }
+    if (M::lean)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[1][i] *= cy.invstd[i];
   }
   block_sums<kSums>(t, acc, smem, a.partials, a.channels);
   const int rank = arrive(a.counters, a.combiners);
@@ -590,7 +726,7 @@ struct Apply {
   Consts c;
   float k[8], dbeta[8], dgamma[8];
   __device__ void load(const float* mean, const float* invstd, const float* gamma,
-                       const float* dbeta_, const float* dgamma_, int c0) {
+                       const float* dbeta_, const float* dgamma_, int c0, float) {
     c.load(mean, invstd, c0);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -608,41 +744,70 @@ struct Apply {
   }
 };
 
-template <bool kBranch>
-__global__ void __launch_bounds__(kThreads) backward_apply(BackArgs a) {
+// The same at the lean sites, its per-channel constants folded: k gz + ky y
+// + k0, ky = -k dgamma invstd / M, k0 = -k (dbeta - dgamma invstd mean) / M
+// (three operations an element for six, 24 registers for 40; k is Apply's)
+struct FoldedApply {
+  float k[8], ky[8], k0[8];
+  __device__ void load(const float* mean, const float* invstd, const float* gamma,
+                       const float* dbeta, const float* dgamma, int c0, float inv_m) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      k[i] = gamma[c0 + i] * invstd[c0 + i];
+      const float gi = dgamma[c0 + i] * invstd[c0 + i];
+      ky[i] = -k[i] * gi * inv_m;
+      k0[i] = -k[i] * (dbeta[c0 + i] - gi * mean[c0 + i]) * inv_m;
+    }
+  }
+  __device__ uint4 operator()(const uint4 w, const float (&gz)[8], float) const {
+    float y[8], o[8];
+    unpack8(w, y);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = fmaf(k[i], gz[i], fmaf(ky[i], y[i], k0[i]));
+    return pack8(o);
+  }
+};
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, Mode<K>::min_blocks) backward_apply(BackArgs a) {
+  using M = Mode<K>;
   const Layout t(a.channels, a.tiles);
   if (!t.active) return;
-  const Tiles<kBackUnroll> tiles(t, a.m);
+  const Tiles<M::unroll> tiles(t, a.m);
   const int c0 = t.c0;
   const int C = a.channels;
   const float inv_m = 1.f / (float)a.m;
-  Apply fy, fd;
-  SiluConsts sc;
-  fy.load(a.mean, a.invstd, a.gamma, a.sums, a.sums + C, c0);
-  if (kBranch) fd.load(a.mean_d, a.invstd_d, a.gamma_d, a.sums, a.sums + 2 * C, c0);
-  if (a.shift) sc.load(a.gamma, a.invstd, a.shift, c0);
+  std::conditional_t<M::lean, FoldedApply, Apply> fy;
+  Apply fd;
+  float shift[8];  // the SiLU's; its scale is fy.k (gamma invstd, the same bits)
+  SampleAffine af;
+  fy.load(a.mean, a.invstd, a.gamma, a.sums, a.sums + C, c0, inv_m);
+  if (M::branch) fd.load(a.mean_d, a.invstd_d, a.gamma_d, a.sums, a.sums + 2 * C, c0, inv_m);
+  if (M::silu) vec8(a.shift, c0, shift);
   for (long long k = 0; k <= tiles.last; ++k) {
     const long long p0 = tiles.first(k, true) + t.row;
-    Pixel px[kBackUnroll];
+    Pixel px[M::unroll];
 #pragma unroll
-    for (int u = 0; u < kBackUnroll; ++u) {
+    for (int u = 0; u < M::unroll; ++u) {
       const long long p = p0 + (long long)u * t.rows;
-      load_pixel<kBranch>(a, p * C + c0, p < a.m, px[u]);
+      load_pixel<M>(a, p * C + c0, p < a.m, px[u]);
     }
+    const bool whole = M::affine && p0 < a.m &&
+                       af.tile(a, p0, p0 + (M::unroll - 1) * (long long)t.rows, c0);
 #pragma unroll
-    for (int u = 0; u < kBackUnroll; ++u) {
+    for (int u = 0; u < M::unroll; ++u) {
       const long long p = p0 + (long long)u * t.rows;
       if (p >= a.m) continue;
       const long long off = p * C + c0;
       float gr[8], gz[8];
-      masked_grad(a, px[u], gr);
-      site_grad(a, sc, px[u].y, p, c0, gr, gz);
+      masked_grad<M>(a, px[u], gr);
+      site_grad<M>(a, fy.k, shift, af, whole, px[u].y, p, c0, gr, gz);
       *reinterpret_cast<uint4*>(a.dy + off) = fy(px[u].y, gz, inv_m);
       if (a.dres) {
         *reinterpret_cast<float4*>(a.dres + off) = make_float4(gr[0], gr[1], gr[2], gr[3]);
         *reinterpret_cast<float4*>(a.dres + off + 4) = make_float4(gr[4], gr[5], gr[6], gr[7]);
       }
-      if (kBranch) *reinterpret_cast<uint4*>(a.dd + off) = fd(px[u].d, gz, inv_m);
+      if (M::branch) *reinterpret_cast<uint4*>(a.dd + off) = fd(px[u].d, gz, inv_m);
     }
   }
 }
@@ -865,26 +1030,75 @@ int occupancy(const void* kernel, size_t smem, int* blocks_per_sm) {
                                                             smem);
 }
 
+// The lesser of an instance's two kernels' blocks an SM
+template <int K>
+int backward_occupancy(int width, int* blocks_per_sm) {
+  int reduce = 0, apply = 0;
+  int err = occupancy((const void*)backward_reduce<K>, smem_bytes(width, Mode<K>::sums), &reduce);
+  if (err) return err;
+  err = occupancy((const void*)backward_apply<K>, 0, &apply);
+  *blocks_per_sm = reduce < apply ? reduce : apply;
+  return err;
+}
+
+// The instance of a call's operands (Kind)
+int backward_kind(bool branch, bool relu, bool silu, bool affine, bool g32) {
+  if (branch) return kBranchKind;
+  if (relu) return kReluKind;
+  const int kind = silu && affine ? kSiluAffineKind
+                   : affine       ? kAffineKind
+                   : silu         ? kSiluKind
+                                  : kLeanKind;
+  return g32 ? kind + (kLeanG32Kind - kLeanKind) : kind;
+}
+
+int unroll_of(int kind) {
+  return kind >= kLeanKind && kind < kLeanG32Kind ? kLeanUnroll : kBackUnroll;
+}
+
+// b = p / hw for p < 2^31 as (p * magic) >> shift: shift = 31 + ceil(log2
+// hw), magic = ceil(2^shift / hw), which is below 2^32, and its error times
+// hw stays under 2^(shift - 31), so the quotient is exact for every 31-bit p
+bool sample_divisor_ok(long long hw, unsigned magic, int shift) {
+  if (hw < 1 || hw > kMaxBackPixels) return false;
+  int l = 0;
+  while ((1LL << l) < hw) ++l;
+  const unsigned long long want = ((1ULL << (31 + l)) + (unsigned long long)hw - 1) /
+                                  (unsigned long long)hw;
+  return shift == 31 + l && (unsigned long long)magic == want;
+}
+
+template <int K>
+int launch_backward(const BackArgs& a, int blocks, int width, cudaStream_t s) {
+  backward_reduce<K><<<blocks, kThreads, smem_bytes(width, Mode<K>::sums), s>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  backward_apply<K><<<blocks, kThreads, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Each Kind's occupancy and launch, by its index
+template <int... K>
+struct Instances {
+  static constexpr int (*occupancies[])(int, int*) = {backward_occupancy<K>...};
+  static constexpr int (*launches[])(const BackArgs&, int, int, cudaStream_t) = {
+      launch_backward<K>...};
+};
+using Backward = Instances<0, 1, 2, 3, 4, 5, 6, 7, 8, 9>;
+static_assert(sizeof(Backward::launches) / sizeof(Backward::launches[0]) == kKinds,
+              "an instance of every Kind");
+
 }  // namespace
 
-// The blocks of `mode` (0: statistics; 1: the backward, the lesser of its
-// two kernels') that one SM holds at once at this channel tile width, into
-// *blocks_per_sm. Returns a cudaError_t.
-extern "C" int bn_train_occupancy(int mode, int channels, int branch, int* blocks_per_sm) {
+// The blocks of `mode` (0: statistics; 1: the backward's instance `kind`,
+// a Kind, the lesser of its two kernels') that one SM holds at once at this
+// channel tile width, into *blocks_per_sm. Returns a cudaError_t.
+extern "C" int bn_train_occupancy(int mode, int channels, int kind, int* blocks_per_sm) {
   if (!layout_ok(channels) || !blocks_per_sm) return (int)cudaErrorInvalidValue;
   if (mode == 0)
     return occupancy((const void*)stats_kernel, smem_bytes(channels, 2), blocks_per_sm);
-  int reduce = 0, apply = 0;
-  const int sums = branch ? 3 : 2;
-  int err = branch ? occupancy((const void*)backward_reduce<true>, smem_bytes(channels, sums),
-                               &reduce)
-                   : occupancy((const void*)backward_reduce<false>,
-                               smem_bytes(channels, sums), &reduce);
-  if (err) return err;
-  err = branch ? occupancy((const void*)backward_apply<true>, 0, &apply)
-               : occupancy((const void*)backward_apply<false>, 0, &apply);
-  *blocks_per_sm = reduce < apply ? reduce : apply;
-  return err;
+  if (kind < 0 || kind >= kKinds) return (int)cudaErrorInvalidValue;
+  return Backward::occupancies[kind](channels, blocks_per_sm);
 }
 
 // x: (m, channels) bfloat16, 16-byte aligned, channels a multiple of 8 *
@@ -927,11 +1141,14 @@ extern "C" int bn_train_stats(const void* x, const void* gamma, const void* beta
 // channels) bf16 where d is given. shift: null, or the SiLU site's forward
 // shift (channels float32; the SiLU's derivative, scale = gamma * invstd);
 // gmul, gadd: null or (m / hw, channels) float32, 16-byte aligned, the
-// gradient affine, hw the pixels of a sample. Neither with a branch. Two
-// launches of `blocks` blocks (the reduce, then the apply; a multiple of
-// tiles, as bn_train_stats takes them), at most as many as the card holds
-// at once (its SMs x bn_train_occupancy at the tile width). Returns
-// cudaGetLastError() after them.
+// gradient affine, hw the pixels of a sample. Neither with a branch or a
+// ReLU. m below 2^31. unroll: the instance's pixels a thread loads at once
+// (kBackUnroll where out, d or g32 is given, else kLeanUnroll), as the wrapper's
+// plan sized the grid by; sample_magic, sample_shift: hw's divisor constant
+// (sample_divisor_ok). Two launches of `blocks` blocks (the reduce, then
+// the apply; a multiple of tiles, as bn_train_stats takes them), at most as
+// many as the card holds at once (its SMs x bn_train_occupancy of the
+// instance at the tile width). Returns cudaGetLastError() after them.
 extern "C" int bn_train_backward(const void* g, const void* g32, const void* out, const void* y,
                                  const void* mean, const void* invstd, const void* gamma,
                                  const void* d, const void* mean_d, const void* invstd_d,
@@ -939,10 +1156,15 @@ extern "C" int bn_train_backward(const void* g, const void* g32, const void* out
                                  void* counters, int n_counters, int blocks, void* sums,
                                  void* dy, void* dres, void* dd, long long m, int channels,
                                  int tiles, const void* shift, const void* gmul,
-                                 const void* gadd, long long hw, void* stream) {
+                                 const void* gadd, long long hw, int unroll,
+                                 unsigned sample_magic, int sample_shift, void* stream) {
   const int n_sums = d ? 3 : 2;
-  if (m < 1 || !tiles_ok(channels, tiles, blocks) || (d && !dd) || (d && dres) ||
-      (d && (shift || gmul || gadd)) || ((gmul || gadd) && (hw < 1 || m % hw)) ||
+  const bool affine = gmul || gadd;
+  const int kind = backward_kind(d, out, shift, affine, g32);
+  if (m < 1 || m >= kMaxBackPixels || !tiles_ok(channels, tiles, blocks) || (d && !dd) ||
+      (d && dres) || ((d || out) && (shift || affine)) ||
+      !sample_divisor_ok(hw, sample_magic, sample_shift) || (affine && m % hw) ||
+      unroll != unroll_of(kind) ||
       !scratch_ok(partial_floats, n_counters, blocks / tiles, n_sums, channels) ||
       !(aligned16(g) && aligned16(g32) && aligned16(out) && aligned16(y) && aligned16(d) &&
         aligned16(dy) && aligned16(dres) && aligned16(dd) && aligned16(gmul) &&
@@ -959,19 +1181,9 @@ extern "C" int bn_train_backward(const void* g, const void* g32, const void* out
              static_cast<__nv_bfloat16*>(dy), static_cast<float*>(dres),
              static_cast<__nv_bfloat16*>(dd), m, channels,
              combiners_for(blocks / tiles, channels), tiles, static_cast<const float*>(shift),
-             static_cast<const float*>(gmul), static_cast<const float*>(gadd), hw};
-  const size_t smem = smem_bytes(channels / tiles, n_sums);
-  if (d)
-    backward_reduce<true><<<blocks, kThreads, smem, s>>>(a);
-  else
-    backward_reduce<false><<<blocks, kThreads, smem, s>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (d)
-    backward_apply<true><<<blocks, kThreads, 0, s>>>(a);
-  else
-    backward_apply<false><<<blocks, kThreads, 0, s>>>(a);
-  return (int)cudaGetLastError();
+             static_cast<const float*>(gmul), static_cast<const float*>(gadd), hw, sample_magic,
+             sample_shift};
+  return Backward::launches[kind](a, blocks, channels / tiles, s);
 }
 
 // Narrow sites: x (m, channels) bfloat16, any channel count up to 2048 (the

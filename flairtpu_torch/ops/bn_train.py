@@ -35,7 +35,11 @@ gradient before that derivative (the gate's own gradient comes from
 (``conv_epilogue``'s ``drop`` forward, the gradient times mask[b] / keep,
 the identity's gradient untouched). Above 2048 channels (b2-b7's expanded
 maps) the channels are cut into tiles that blocks take
-(:func:`channel_tiles`).
+(:func:`channel_tiles`). The backward is one template instance a mode
+(:data:`KINDS`, :func:`backward_kind`): the ReLU and branch sites at U =
+2, the lean ones (no ReLU, no branch) with the SiLU's sigmoid on the
+special-function units, U = 4 where a pixel loads only g and y, and the
+sample index of the affine by the multiply-high of :func:`sample_divisor`.
 
 :class:`BNTrainSite` is the ``autograd.Function`` over one site
 (:func:`site_forward` and :func:`site_backward` through the kernels),
@@ -77,12 +81,20 @@ from flairtpu_torch.ops.se_gate import gate_from, se_backward, se_excite, se_squ
 MOMENTUM = 0.9  # flax's, on the running average (torch's momentum 0.1)
 EPS = 1e-5
 THREADS = 256
-# pixels a thread loads at once (csrc/bn_train.cu kStatsUnroll, kBackUnroll)
-UNROLL = {"stats": 4, "backward": 2}
+# pixels a thread loads at once (csrc/bn_train.cu kStatsUnroll; kBackUnroll
+# in a backward whose pixel also loads the ReLU's output, a branch or g32,
+# kLeanUnroll in one that loads only g and y)
+UNROLL = {"stats": 4, "backward": 2, "lean": 4}
+# the backward's template instances (csrc/bn_train.cu Kind): the lean ones
+# (no ReLU, no branch) with and without a float32 gradient
+KINDS = ("relu", "branch", "lean", "silu", "affine", "silu_affine", "lean_g32", "silu_g32",
+         "affine_g32", "silu_affine_g32")
+MAX_BACKWARD_PIXELS = 2 ** 31  # a backward's pixel index fits 31 bits (kMaxBackPixels)
 WARPS = THREADS // 32
 COMBINE_LOADS = 8  # partials a lane of the combine loads at once (kCombineLoads)
 COUNTERS = 2  # int32 ticket counters a call uses (kCounters)
 MIN_BLOCK_BYTES = 64 * 1024  # of the site's bf16 map, the least a block takes
+MIN_LEAN_BLOCK_BYTES = 16 * 1024  # the same in a lean backward (no ReLU, no branch)
 MIN_TILE_CHANNELS = 512  # a channel tile's least width, above 8 * THREADS channels
 STATS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
                                           ctypes.c_int] + [ctypes.c_void_p] * 4 + [
@@ -91,7 +103,7 @@ STATS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p, ct
 BACKWARD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
                                               ctypes.c_int] + [ctypes.c_void_p] * 4 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
-    ctypes.c_longlong, ctypes.c_void_p]
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
 OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
 NARROW_FORWARD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                                     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
@@ -152,10 +164,11 @@ def bn_stats_apply_plain(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
 
 class Plan(NamedTuple):
     """One call's launch: ``grid`` blocks of THREADS threads, each walking
-    tiles of ``tile`` pixels of its channel tile (``channel_tiles`` of them,
-    block i taking tile i % channel_tiles); ``sums`` per-channel sums a
-    block writes; the last ``combiners`` blocks to arrive combine them;
-    float32 ``partials`` and int32 ``counters`` of scratch."""
+    tiles of ``tile`` = rows x ``unroll`` pixels of its channel tile
+    (``channel_tiles`` of them, block i taking tile i % channel_tiles);
+    ``sums`` per-channel sums a block writes; the last ``combiners`` blocks
+    to arrive combine them; float32 ``partials`` and int32 ``counters`` of
+    scratch; a backward's sample index constant (:func:`sample_divisor`)."""
     grid: int
     tile: int
     sums: int
@@ -163,6 +176,9 @@ class Plan(NamedTuple):
     partials: int
     counters: int
     channel_tiles: int = 1
+    unroll: int = 0
+    sample_magic: int = 0
+    sample_shift: int = 0
 
 
 def channel_tiles(channels: int) -> int:
@@ -179,25 +195,65 @@ def channel_tiles(channels: int) -> int:
     return max(wide, key=lambda t: (THREADS // (groups // t) * (groups // t), -t))
 
 
+def sample_divisor(hw: int) -> tuple[int, int]:
+    """(magic, shift) with (p * magic) >> shift == p // hw for every pixel
+    p < 2^31: shift = 31 + ceil(log2 hw), magic = ceil(2^shift / hw), below
+    2^32 (csrc/bn_train.cu sample_divisor_ok checks it; the kernel's
+    multiply is 32 x 32 -> 64 bits)."""
+    if not 1 <= hw <= MAX_BACKWARD_PIXELS:
+        raise ValueError(f"bn_train: {hw} pixels a sample")
+    shift = 31 + (hw - 1).bit_length()
+    return -(-(1 << shift) // hw), shift
+
+
+def backward_kind(relu: bool, branch: bool, silu: bool, affine: bool, g32: bool = False) -> str:
+    """The backward's instance (:data:`KINDS`) of a call's operands (``g32``:
+    a float32 gradient; the ReLU and branch instances test for it at run
+    time)."""
+    if branch:
+        return "branch"
+    if relu:
+        return "relu"
+    kind = {(True, True): "silu_affine", (False, True): "affine", (True, False): "silu",
+            (False, False): "lean"}[silu, affine]
+    return kind + "_g32" if g32 else kind
+
+
 def launch_plan(m: int, channels: int, mode: str, co_resident: int,
-                branch: bool = False) -> Plan:
+                branch: bool = False, lean: bool = False, hw: int = 1,
+                g32: bool = False, sms: int = 0) -> Plan:
     """The grid and scratch of a ``mode`` call ("stats" or "backward", with
-    or without a ``branch``) over ``m`` pixels of ``channels``: blocks of
-    THREADS threads, W / 8 to a pixel (W the channel tile's width: C up to
-    2048), walk tiles of rows x UNROLL[mode] pixels; each block takes whole
-    tiles of at least MIN_BLOCK_BYTES of its channel tile's bf16 map, and
-    the grid holds at most ``co_resident`` blocks (the card's SMs times the
-    kernel's occupancy), so a site smaller than one block's share takes one
-    block a channel tile. The backward's two launches share the grid."""
+    or without a ``branch``; ``lean``: a backward with no ReLU and no
+    branch, ``g32``: with a float32 gradient) over ``m`` pixels of
+    ``channels`` (``hw`` of them a sample): blocks of THREADS threads, W / 8
+    to a pixel (W the channel tile's width: C up to 2048), walk tiles of
+    rows x U pixels (UNROLL: the statistics', the backward's, or the lean
+    backward's where a pixel loads only g and y); each block takes whole
+    tiles of at least MIN_BLOCK_BYTES (a lean backward's
+    MIN_LEAN_BLOCK_BYTES) of its channel tile's bf16 map, and the grid
+    holds at most ``co_resident`` blocks (the card's SMs times the kernel's
+    occupancy), so a site smaller than one block's share takes one block a
+    channel tile; a lean backward's grid over one channel tile that exceeds
+    the card's ``sms`` is a multiple of them (as many blocks on each SM).
+    The backward's two launches share the grid; it refuses
+    MAX_BACKWARD_PIXELS or more."""
+    backward = mode == "backward"
+    if backward and m >= MAX_BACKWARD_PIXELS:
+        raise ValueError(f"bn_backward: {m} pixels (the kernel takes fewer than 2^31)")
     ct = channel_tiles(channels)
     width = channels // ct
     rows = THREADS // (width // 8)
-    tile = rows * UNROLL[mode]
-    min_tiles = -(-MIN_BLOCK_BYTES // (2 * tile * width))
+    lean = backward and lean and not branch
+    unroll = UNROLL["lean" if lean and not g32 else mode]
+    tile = rows * unroll
+    min_tiles = -(-(MIN_LEAN_BLOCK_BYTES if lean else MIN_BLOCK_BYTES) // (2 * tile * width))
     nb = max(1, min(co_resident // ct, (m // tile) // min_tiles))
-    sums = 2 + (mode == "backward" and branch)
+    if lean and ct == 1 and sms and nb > sms:
+        nb -= nb % sms
+    sums = 2 + (backward and branch)
+    magic, shift = sample_divisor(hw) if backward else (0, 0)
     return Plan(nb * ct, tile, sums, combiners(nb, channels), sums * channels * nb, COUNTERS,
-                ct)
+                ct, unroll, magic, shift)
 
 
 def combiners(grid: int, channels: int) -> int:
@@ -212,24 +268,35 @@ def combiners(grid: int, channels: int) -> int:
 
 
 _CO_RESIDENT: dict[tuple, int] = {}
+_SMS: dict[int, int] = {}
 _COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _co_resident(device: torch.device, mode: str, channels: int, branch: bool = False) -> int:
+def _co_resident(device: torch.device, mode: str, channels: int, kind=0) -> int:
     """The blocks of ``mode``'s kernels that ``device`` holds at once: its
     SMs times their occupancy at this channel count's tile width (queried
-    once)."""
-    key = (device.index, mode, channels, branch)
+    once); a backward's ``kind`` is its instance (:data:`KINDS`, a name or
+    its index: 0 the ReLU sites', 1 the branch's)."""
+    kind = KINDS.index(kind) if isinstance(kind, str) else int(kind)
+    key = (device.index, mode, channels, kind)
     n = _CO_RESIDENT.get(key)
     if n is None:
         per_sm = ctypes.c_int(0)
         with torch.cuda.device(device):
             err = _build.entry("bn_train", OCCUPANCY_ARGTYPES, "bn_train_occupancy")(
-                int(mode != "stats"), channels // channel_tiles(channels), int(branch),
+                int(mode != "stats"), channels // channel_tiles(channels), kind,
                 ctypes.byref(per_sm))
         _build.check(err, "bn_train occupancy")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         n = _CO_RESIDENT[key] = sms * max(1, per_sm.value)
+    return n
+
+
+def _sms(device: torch.device) -> int:
+    """``device``'s SMs (queried once)."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
     return n
 
 
@@ -430,10 +497,10 @@ def bn_backward(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = T
                                  shift, gmul, gadd)
     if residual and branch is not None:
         raise ValueError("bn_backward: a residual or a branch, not both")
-    site = shift is not None or gmul is not None or gadd is not None
-    if site and (branch is not None or y.shape[1] % 8):
-        raise ValueError("bn_backward: the SiLU and the gradient affine take no branch, and a "
-                         "multiple of 8 channels")
+    affine = gmul is not None or gadd is not None
+    if (shift is not None or affine) and (branch is not None or relu or y.shape[1] % 8):
+        raise ValueError("bn_backward: the SiLU and the gradient affine take no branch, no "
+                         "ReLU, and a multiple of 8 channels")
     if shift is not None:
         _check_vector(shift, y.shape[1], y.device, "shift")
     for name, t in (("gmul", gmul), ("gadd", gadd)):
@@ -472,8 +539,9 @@ def bn_backward(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = T
         return dy, sums[1], sums[0], None, None
     dres = torch.empty_like(y, dtype=torch.float32) if residual else None
     branched = branch is not None
-    plan = launch_plan(m, C, "backward", _co_resident(y.device, "backward", C, branched),
-                       branched)
+    kind = backward_kind(relu, branched, shift is not None, affine, g32 is not None)
+    plan = launch_plan(m, C, "backward", _co_resident(y.device, "backward", C, kind), branched,
+                       not relu, y.shape[2] * y.shape[3], g32 is not None, _sms(y.device))
     stream = _build.stream_handle(y)
     partials = torch.empty(plan.partials, dtype=torch.float32, device=y.device)
     counters = _counters(y.device, stream)
@@ -487,11 +555,10 @@ def bn_backward(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = T
         ptr(gamma), ptr(d), ptr(mean_d), ptr(invstd_d), ptr(gamma_d), ptr(partials),
         partials.numel(), ptr(counters), counters.numel(), plan.grid, ptr(sums), ptr(dy),
         ptr(dres), ptr(dd), m, C, plan.channel_tiles, ptr(shift), ptr(gmul), ptr(gadd),
-        y.shape[2] * y.shape[3], stream)
+        y.shape[2] * y.shape[3], plan.unroll, plan.sample_magic, plan.sample_shift, stream)
     _build.check(err, "bn_backward")
     backward_launches += 1
     wide_backward_launches += plan.channel_tiles > 1
-    affine = gmul is not None or gadd is not None
     affine_backward_launches += affine
     silu_backward_launches += shift is not None and not affine
     dbeta, dgamma, dgamma_d = sums

@@ -1,8 +1,10 @@
 """bn_train's launch plan (``ops/bn_train.py:launch_plan``) at every
 BatchNorm site geometry of resnet34-unet, at the train batch (16 x 512²)
-and at the CPU tests' size (4 x 64²), what the wrappers tell the C entry
-points, and the phases tool's source variants. Pure Python: the kernels run only on a card, where ``chip_smoke.py``
-holds them against their plain versions.
+and at the CPU tests' size (4 x 64²), and at efficientnet-b4-unet's SiLU
+and affine sites (the lean backward's U); the sample index constant
+(``sample_divisor``); what the wrappers tell the C entry points; and the
+phases tool's source variants. Pure Python: the kernels run only on a card,
+where ``chip_smoke.py`` holds them against their plain versions.
 """
 
 import re
@@ -28,6 +30,24 @@ SITES = (
     (512, 16, 16, False, False, False), (512, 16, 16, False, True, True),
     (512, 16, 16, True, False, True), (512, 16, 16, True, False, False),
     (32, 256, 256, False, False, False), (16, 512, 512, False, False, False),
+)
+# (mode, C, H, W at a 512² input, keep_f32) of each distinct site of
+# efficientnet-b4-unet's train forward that takes the SiLU or the affine
+# (31 SiLU, 32 depthwise, 25 drop-connect sites)
+EFFNET_SITES = (
+    ("depthwise", 24, 256, 256, False), ("depthwise", 48, 256, 256, False),
+    ("depthwise", 144, 128, 128, False), ("depthwise", 192, 64, 64, False),
+    ("depthwise", 192, 128, 128, False), ("depthwise", 336, 32, 32, False),
+    ("depthwise", 336, 64, 64, False), ("depthwise", 672, 32, 32, False),
+    ("depthwise", 960, 16, 16, False), ("depthwise", 960, 32, 32, False),
+    ("depthwise", 1632, 16, 16, False), ("depthwise", 2688, 16, 16, False),
+    ("drop", 24, 256, 256, False), ("drop", 32, 128, 128, False), ("drop", 32, 128, 128, True),
+    ("drop", 56, 64, 64, False), ("drop", 56, 64, 64, True), ("drop", 112, 32, 32, False),
+    ("drop", 112, 32, 32, True), ("drop", 160, 32, 32, False), ("drop", 160, 32, 32, True),
+    ("drop", 272, 16, 16, False), ("drop", 272, 16, 16, True), ("drop", 448, 16, 16, False),
+    ("silu", 48, 256, 256, False), ("silu", 144, 256, 256, False),
+    ("silu", 192, 128, 128, False), ("silu", 336, 64, 64, False), ("silu", 672, 32, 32, False),
+    ("silu", 960, 32, 32, False), ("silu", 1632, 16, 16, False), ("silu", 2688, 16, 16, False),
 )
 SIZES = {"train": (16, 512), "cpu": (4, 64)}  # (batch, input side)
 # co-resident grids: 132 SMs x 1, 2, 4 and 8 blocks
@@ -69,6 +89,12 @@ def test_plan_constants_match_the_kernel_source():
     assert const("kThreads") == bt.THREADS
     assert const("kStatsUnroll") == bt.UNROLL["stats"]
     assert const("kBackUnroll") == bt.UNROLL["backward"]
+    assert const("kLeanUnroll") == bt.UNROLL["lean"]
+    assert re.search(r"kMaxBackPixels = 1LL << (\d+);", src).group(1) == "31"
+    assert bt.MAX_BACKWARD_PIXELS == 2 ** 31
+    kinds = re.findall(r"k(\w+)Kind = (\d+),", src)
+    assert [int(v) for _, v in kinds] == list(range(len(bt.KINDS)))
+    assert [re.sub(r"(?<=.)([A-Z])", r"_\1", k).lower() for k, _ in kinds] == list(bt.KINDS)
     assert const("kCombineLoads") == bt.COMBINE_LOADS
     assert const("kCounters") == bt.COUNTERS
 
@@ -131,6 +157,7 @@ def fake_card(monkeypatch):
 
     monkeypatch.setattr(bt, "_on_card", lambda x, what: True)
     monkeypatch.setattr(bt, "_co_resident", lambda device, mode, c, branch=False: 528)
+    monkeypatch.setattr(bt, "_sms", lambda device: 132)
     monkeypatch.setattr(bt, "_COUNTERS", {})
     monkeypatch.setattr(bt, "launches", 0)
     monkeypatch.setattr(bt, "backward_launches", 0)
@@ -180,3 +207,151 @@ def test_phases_variants_find_their_anchors(name):
     src = SOURCE.read_text()
     for old, _ in bn_train_phases.VARIANTS[name][0]:
         assert src.count(old) == 1, old
+
+
+def test_effnet_sites_are_b4_unets():
+    """EFFNET_SITES are the distinct SiLU and affine sites of the port's
+    efficientnet-b4-unet train forward, as ``bn_train_phases --effnet``
+    records them (at 64², a drop-connect mask at every block with an
+    identity, scaled to 512²): 31 SiLU, 32 depthwise, 25 drop-connect."""
+    sites = bn_train_phases.record_effnet_sites()
+    counts = {m: sum(s["mode"] == m for s in sites) for m in ("silu", "depthwise", "drop")}
+    assert counts == {"silu": 31, "depthwise": 32, "drop": 25} and len(sites) == 88
+    assert all(s["shape"][0] == bn_train_phases.BATCH and s["hw"] == s["shape"][2] * s["shape"][3]
+               for s in sites)
+    assert all(s["residual"] == (s["mode"] == "drop") for s in sites)
+    assert all((s["keep"] is not None) == (s["mode"] == "drop") for s in sites)
+    assert sorted({(s["mode"], *s["shape"][1:], s["keep_f32"]) for s in sites}) == \
+        sorted(EFFNET_SITES)
+
+
+# the sample boundaries and pixels the divisor is held at: b4's maps, odd
+# sides, and pixels up to a batch of 128 x 512²
+HW = (512 * 512, 256 * 256, 128 * 128, 64 * 64, 32 * 32, 16 * 16, 1, 3, 7, 1000, 65535)
+BATCH_128_PIXELS = 128 * 512 * 512
+
+
+@pytest.mark.parametrize("hw", HW)
+def test_sample_divisor_gives_the_floor_division(hw):
+    """(p * magic) >> shift == p // hw at every sample boundary (b hw - 1,
+    b hw, b hw + 1) up to batch 128 x 512² (a seeded 10^4 of them where
+    there are more), at 10^4 seeded pixels below 2^31 and at 2^31 - 1; the
+    constant fits 32 bits, the product 63."""
+    magic, shift = bt.sample_divisor(hw)
+    assert 0 < magic < 2 ** 32 and shift == 31 + (hw - 1).bit_length()
+    rng = np.random.default_rng(hw)
+    samples = BATCH_128_PIXELS // hw
+    b = (np.arange(1, samples + 1, dtype=np.uint64) if samples <= 10 ** 4
+         else rng.integers(1, samples + 1, 10 ** 4, dtype=np.uint64))
+    b = np.concatenate([b, np.array([1, samples], dtype=np.uint64)])
+    p = np.concatenate([b * hw - 1, b * hw, b * hw + 1,
+                        rng.integers(0, 2 ** 31, 10 ** 4, dtype=np.uint64),
+                        np.array([0, 2 ** 31 - 1], dtype=np.uint64)])
+    assert int(p.max()) * magic < 2 ** 63
+    got = (p * np.uint64(magic)) >> np.uint64(shift)
+    np.testing.assert_array_equal(got, p // np.uint64(hw))
+
+
+def test_backward_refuses_2_31_pixels():
+    """The backward's pixel index is 31 bits: the plan refuses 2^31 pixels
+    or more (the statistics take them), and a sample of 0 or more than
+    2^31 pixels."""
+    assert bt.launch_plan(2 ** 31 - 1, 64, "backward", 528).grid == 528
+    with pytest.raises(ValueError, match="2\\^31"):
+        bt.launch_plan(2 ** 31, 64, "backward", 528)
+    with pytest.raises(ValueError, match="2\\^31"):
+        bt.launch_plan(2 ** 31, 64, "backward", 528, lean=True, hw=2 ** 20)
+    assert bt.launch_plan(2 ** 31, 64, "stats", 528).grid == 528
+    for hw in (0, 2 ** 31 + 1):
+        with pytest.raises(ValueError):
+            bt.sample_divisor(hw)
+
+
+@pytest.mark.parametrize("site", EFFNET_SITES, ids=lambda s: "-".join(map(str, s)))
+def test_launch_plan_at_b4_sites(site):
+    """At b4's SiLU and affine sites (batch 16) the lean backward walks
+    tiles of rows x kLeanUnroll pixels where a pixel loads only g and y, and
+    of rows x kBackUnroll where it also loads g32 (the drop-connect sites
+    before an identity), each block at least MIN_LEAN_BLOCK_BYTES of its
+    channel tile's map, the grid of whole channel tiles within the
+    co-resident blocks, the sample constant of the site's H W; given the
+    card's SMs, a one-tile grid above them rounded down to a multiple of
+    them; a ReLU site of the same geometry keeps U = kBackUnroll,
+    MIN_BLOCK_BYTES and its grid."""
+    mode, c, h, w, keep_f32 = site
+    m, hw = 16 * h * w, h * w
+    ct = bt.channel_tiles(c)
+    rows = bt.THREADS // (c // ct // 8)
+    for co in CO_RESIDENT:
+        plan = bt.launch_plan(m, c, "backward", co, lean=True, hw=hw, g32=keep_f32)
+        u = bt.UNROLL["backward"] if keep_f32 else bt.UNROLL["lean"]
+        assert u == (2 if keep_f32 else 4) and plan.unroll == u and plan.tile == rows * u
+        assert (plan.sample_magic, plan.sample_shift) == bt.sample_divisor(hw)
+        assert plan.grid % ct == 0 and ct <= plan.grid <= max(co, ct)
+        assert plan.partials == 2 * c * (plan.grid // ct) and plan.channel_tiles == ct
+        nb = plan.grid // ct
+        least = bt.MIN_LEAN_BLOCK_BYTES
+        if nb > 1:
+            assert 2 * (c // ct) * (m // plan.tile // nb) * plan.tile >= least
+        if nb < co // ct:
+            assert 2 * (c // ct) * (m // plan.tile // (nb + 1)) * plan.tile < least
+        balanced = bt.launch_plan(m, c, "backward", co, lean=True, hw=hw, g32=keep_f32, sms=132)
+        if ct == 1 and plan.grid > 132:
+            assert balanced.grid == plan.grid - plan.grid % 132 and balanced.grid % 132 == 0
+        else:
+            assert balanced.grid == plan.grid
+        assert balanced.partials == 2 * c * (balanced.grid // ct)
+        assert balanced.combiners == bt.combiners(balanced.grid // ct, c)
+        relu = bt.launch_plan(m, c, "backward", co, hw=hw)
+        assert relu == bt.launch_plan(m, c, "backward", co, hw=hw, sms=132)
+        assert relu.unroll == bt.UNROLL["backward"] == 2 and relu.tile == rows * 2
+        nb = relu.grid // ct
+        if nb < co // ct:
+            assert 2 * (c // ct) * (m // relu.tile // (nb + 1)) * relu.tile < bt.MIN_BLOCK_BYTES
+        assert bt.launch_plan(m, c, "backward", co, branch=True, lean=True, hw=hw).unroll == 2
+
+
+@pytest.mark.parametrize("relu,branch,silu,affine,want", [
+    (True, False, False, False, "relu"), (False, True, False, False, "branch"),
+    (True, True, False, False, "branch"), (False, False, False, False, "lean"),
+    (False, False, True, False, "silu"), (False, False, False, True, "affine"),
+    (False, False, True, True, "silu_affine")])
+def test_backward_kind(relu, branch, silu, affine, want):
+    """The instance of a call's operands; the lean ones with g32 apart, the
+    ReLU and branch ones test for it at run time."""
+    assert bt.backward_kind(relu, branch, silu, affine) == want
+    assert bt.backward_kind(relu, branch, silu, affine, g32=True) == (
+        want if want in ("relu", "branch") else want + "_g32")
+    assert want in bt.KINDS and bt.KINDS.index(want) < 6
+
+
+@pytest.mark.parametrize("site", [s for s in EFFNET_SITES if s[3] == 64 or s[1] == 2688],
+                         ids=lambda s: "-".join(map(str, s)))
+def test_wrapper_tells_the_backward_its_instance(fake_card, site):
+    """A SiLU, depthwise or drop-connect call launches once with its plan:
+    the grid, U (4 with g and y alone, 2 with g32) and the sample constant
+    of the map's H W, after the hw; the card path refuses the SiLU or the
+    affine with a ReLU."""
+    mode, c, h, w, keep_f32 = site
+    shape = (2, c, h // 8, w // 8)
+    y = cl(shape, torch.bfloat16)
+    vec = [torch.ones(c) for _ in range(3)]
+    kw = {"shift": torch.zeros(c)} if mode != "drop" else {}
+    if mode != "silu":
+        kw["gmul"] = torch.ones(2, c)
+    if mode == "depthwise":
+        kw["gadd"] = torch.zeros(2, c)
+    bt.bn_backward(cl(shape, torch.bfloat16), cl(shape, torch.float32) if keep_f32 else None,
+                   None, y, *vec, relu=False, residual=mode == "drop", **kw)
+    (sym, b), = fake_card
+    m = y.numel() // c
+    plan = bt.launch_plan(m, c, "backward", 528, lean=True, hw=shape[2] * shape[3], g32=keep_f32,
+                          sms=132)
+    assert sym == "bn_train_backward" and bt.backward_launches == 1
+    assert (b[12], b[15], b[20], b[21]) == (plan.partials, plan.grid, m, c)
+    assert b[26:30] == (shape[2] * shape[3], 2 if keep_f32 else 4, plan.sample_magic,
+                        plan.sample_shift)
+    assert (b[23] is not None, b[24] is not None, b[25] is not None) == (
+        "shift" in kw, "gmul" in kw, "gadd" in kw)
+    with pytest.raises(ValueError, match="no ReLU"):
+        bt.bn_backward(cl(shape, torch.bfloat16), None, y, y, *vec, relu=True, **kw)

@@ -318,8 +318,29 @@ Phases (any failure exits non-zero):
    backward and gate gradient at every site above 2048 channels of
    WIDE_ENCODERS at batch 2; one efficientnet-b0-deeplabv3plus step held the
    same way, from random weights after EFFNET_WARM_STEPS train steps.
-9. the kernels line, the card line, the script's seconds, and last the JSON
-   result line.
+9. MobileNetV2, serving (random weights, 19 classes): the ReLU6 epilogue
+   (conv_epilogue with act "relu6") at every site of one mobilenet_v2-unet batch
+   of 128 tiles against its plain version bit for bit (every other
+   conv_epilogue site too), each timed beside its bound, plain version and
+   F.relu6; at C = 20 and on NaN, +-inf and exact 0 and 6;
+   mobilenet_v2-unet on the 4096² zone (argmax and class_prob) and
+   mobilenet_v2 under deeplabv3plus, deeplabv3 and pspnet on a 1024² zone
+   through detect_main, each against its all-plain run by phase 5's rule, with
+   launches and patches/s; flair predict and metrics of mobilenet_v2-unet
+   from a .msgpack.
+9b. MobileNetV2, training: flair of mobilenet_v2-unet at phase 4's values
+   (one epoch of 4 steps) from phase 9's .msgpack, its launches against
+   steps x sites (conv_epilogue's ReLU6 mode and bn_train's ReLU6 backward
+   counted apart), the artifacts, warm rates; one step by CUDA events and
+   the profiler's kernel groups; the ReLU6 backward at every site of one
+   step against its plain version (dy within BN_DY_TOL) and timed beside
+   its bound, plain version and native_batch_norm_backward; the ReLU6
+   backward at two of its site shapes on channels whose z is -1, 0, 3, 6,
+   7, 5.99 and NaN (gamma 0) or straddles 0 and 6, against its plain
+   version and against d(z) sum(g) (the 1/2 at both ties);
+   one step held site by site and free-running against the plain step.
+10. the kernels line, the card line, the script's seconds, and last the
+   JSON result line.
 
     python3 chip_smoke.py --profile  # also one batch per program by stage, the profiler
                                      # table, the same for one flair train step with
@@ -333,6 +354,9 @@ Phases (any failure exits non-zero):
     python3 chip_smoke.py --effnet-train
         # only phase 8b, on its own written set (phase 4's) and .msgpack
         # (phase 8's); one JSON line, no result line
+    python3 chip_smoke.py --mobilenet
+        # only phases 9 and 9b, on their own zone (the main one's), written
+        # set and .msgpack; one JSON line, no result line
 """
 
 from __future__ import annotations
@@ -366,6 +390,7 @@ from flairtpu_torch.io import TiffReader
 from flairtpu_torch.io.tiff import Affine, write_array
 from flairtpu_torch.models.deeplab import align_corners_weights
 from flairtpu_torch.models import efficientnet as en
+from flairtpu_torch.models import mobilenet as mn
 from flairtpu_torch.models.convert import load_weights, write_native
 from flairtpu_torch.models.factory import FlairSegmentationModel, create_model, init_weights
 from flairtpu_torch.models.resnet import stem_conv
@@ -1192,7 +1217,7 @@ def check_bn_narrow(gen) -> dict:
                                                                                        rvp)
             stat_err = max(stat_err, *(vec_err(fused[0][i], wantf[i]) for i in (0, 1, 2, 3, 6, 7)))
             # the output from the kernel's own scale and shift, by the plain epilogue
-            out_p = ep.conv_epilogue_plain(y, fused[0][2], fused[0][3], relu=relu,
+            out_p = ep.conv_epilogue_plain(y, fused[0][2], fused[0][3], act=relu,
                                            keep_f32=keep_f32)
             out_same &= torch.equal(fused[0][4], out_p[0]) and (
                 not keep_f32 or torch.equal(fused[0][5], out_p[1]))
@@ -1576,10 +1601,10 @@ class SiteRecorder:
     def __init__(self):
         self.sites: list[dict] = []
 
-    def __call__(self, y, scale, shift, residual=None, branch=None, relu=True,
+    def __call__(self, y, scale, shift, residual=None, branch=None, act="relu",
                  keep_f32=False):
         site = dict(y=y, scale=scale, shift=shift, residual=residual, branch=branch,
-                    relu=relu, keep_f32=keep_f32)
+                    act=act, keep_f32=keep_f32)
         self.sites.append(site)
         return ep.conv_epilogue(**site)
 
@@ -1597,7 +1622,7 @@ def epilogue_sites(model) -> int:
 def site_label(k: int, site: dict) -> str:
     kind = ("downsample branch" if site["branch"] is not None else
             "fp32 residual" if site["residual"] is not None else "no residual")
-    relu = "" if site["relu"] else ", no ReLU"
+    relu = "" if site["act"] else ", no ReLU"
     return (f"site {k} {tuple(site['y'].shape)} {kind}{relu}"
             f"{', fp32 out' if site['keep_f32'] else ''}")
 
@@ -1612,7 +1637,7 @@ def site_cost(site: dict) -> tuple[int, int]:
         ops, nbytes = ops + n, nbytes + 4 * n
     if site["branch"] is not None:
         ops, nbytes = ops + 3 * n, nbytes + 2 * n + 2 * 4 * c
-    if site["relu"]:
+    if site["act"]:
         ops += n
     if site["keep_f32"]:
         nbytes += 4 * n
@@ -1642,7 +1667,7 @@ def random_site(gen, shape: tuple, kind: str) -> dict:
     return dict(y=t(torch.bfloat16), scale=vec(0.5, 1.5), shift=vec(),
                 residual=t() if kind == "residual" else None,
                 branch=(t(torch.bfloat16), vec(0.5, 1.5), vec()) if kind == "branch" else None,
-                relu=True, keep_f32=False)
+                act="relu", keep_f32=False)
 
 
 def check_conv_epilogue(model, x: torch.Tensor, timed: bool = False) -> dict:
@@ -1658,7 +1683,7 @@ def check_conv_epilogue(model, x: torch.Tensor, timed: bool = False) -> dict:
                 for k, site in enumerate(rec.sites))
     largest = max(rec.sites, key=lambda site: site["y"].numel())
     worst = max(worst, compare_epilogue("ReLU off, " + site_label(0, largest),
-                                        dict(largest, relu=False)))
+                                        dict(largest, act=None)))
     gen = torch.Generator("cuda").manual_seed(SEED)
     for kind in ("none", "residual", "branch"):  # the one-element-a-thread kernel
         worst = max(worst, compare_epilogue(f"C = 20 (not a multiple of 8), {kind}",
@@ -2141,6 +2166,7 @@ def reset_launches() -> None:
     ep.silu_launches = sg.squeeze_launches = sg.excite_launches = 0
     bt.wide_launches = bt.wide_backward_launches = bt.silu_backward_launches = 0
     bt.affine_backward_launches = sg.backward_launches = ep.drop_launches = 0
+    ep.relu6_launches = bt.relu6_backward_launches = 0
     for counts in (st.launches, ts.launches):
         for name in counts:
             counts[name] = 0
@@ -2164,7 +2190,8 @@ def read_launches() -> dict:
             "bn_backward_wide": bt.wide_backward_launches,
             "bn_backward_silu": bt.silu_backward_launches,
             "bn_backward_affine": bt.affine_backward_launches, "se_backward": sg.backward_launches,
-            "conv_epilogue_drop": ep.drop_launches, **st.launches, **ts.launches}
+            "conv_epilogue_drop": ep.drop_launches, "conv_epilogue_relu6": ep.relu6_launches,
+            "bn_backward_relu6": bt.relu6_backward_launches, **st.launches, **ts.launches}
 
 
 def expected_launches(method: str, output_type: str, n_batches: int,
@@ -3418,7 +3445,8 @@ def train_site_counts(model) -> dict:
     its SiLU sites (the stem, each expand), squeeze-excite sites (each
     block's depthwise BatchNorm: no conv_epilogue in training, a squeeze,
     an excite and a gate backward), drop-connect sites (each block j > 0
-    with an identity) and the BatchNorms above 2048 channels (``wide``)."""
+    with an identity) and the BatchNorms above 2048 channels (``wide``). A
+    MobileNetV2's ReLU6 sites (:func:`relu6_sites`)."""
     n_bn = sum(isinstance(m, nn.BatchNorm2d) for m in model.modules())
     n_ds = sum(getattr(m, "downsample", None) is not None for m in model.encoder.modules())
     narrow = sum(isinstance(m, nn.BatchNorm2d) and m.num_features % 8 != 0
@@ -3429,7 +3457,7 @@ def train_site_counts(model) -> dict:
     return {"bn": n_bn, "sites": n_bn - n_ds, "tail_sites": arch_sites(model, tail),
             "narrow": narrow, "gn": sum(isinstance(m, nn.GroupNorm) for m in model.modules()),
             "tail": "strided_tail" if isinstance(tail, sp.StridedTail) else "fused_tail",
-            "silu": enc["silu"], "se": enc["se"], "drop": drop,
+            "silu": enc["silu"], "se": enc["se"], "drop": drop, "relu6": relu6_sites(model),
             "wide": sum(isinstance(m, nn.BatchNorm2d) and m.num_features > 8 * bt.THREADS
                         for m in model.modules())}
 
@@ -3535,12 +3563,14 @@ def flair_expected(counts: dict, steps: int, eval_batches: int, predict_batches:
     drop-connect sites the affine backward each step, its drop-connect
     sites conv_epilogue's drop mode each step (the generator's masks),
     its BatchNorms above 2048 channels the channel-tiled statistics and
-    backward each step. The metadata MLP and its fusion launch none of
-    these."""
+    backward each step. A MobileNetV2's ReLU6 sites launch conv_epilogue's
+    ReLU6 mode each forward and bn_train's ReLU6 backward each step. The
+    metadata MLP and its fusion launch none of these."""
     out = dict.fromkeys(read_launches(), 0)
     m = steps * micro
     narrow, gn = counts["narrow"], counts["gn"]
-    se, silu, drop, wide = (counts.get(k, 0) for k in ("se", "silu", "drop", "wide"))
+    se, silu, drop, wide, relu6 = (counts.get(k, 0)
+                                   for k in ("se", "silu", "drop", "wide", "relu6"))
     forwards = m + eval_batches + predict_batches
     out.update(augment_normalize=steps + eval_batches + predict_batches,
                weighted_ce=m + eval_batches, weighted_ce_backward=m,
@@ -3552,7 +3582,8 @@ def flair_expected(counts: dict, steps: int, eval_batches: int, predict_batches:
                conv_epilogue_silu=silu * forwards, se_squeeze=se * forwards,
                se_excite=se * forwards, se_backward=se * m, bn_backward_silu=silu * m,
                bn_backward_affine=(se + drop) * m, conv_epilogue_drop=drop * m,
-               bn_stats_wide=wide * m, bn_backward_wide=wide * m)
+               bn_stats_wide=wide * m, bn_backward_wide=wide * m,
+               conv_epilogue_relu6=relu6 * forwards, bn_backward_relu6=relu6 * m)
     out[counts["tail"]] = predict_batches
     return out
 
@@ -3611,7 +3642,7 @@ class StepChecker:
     def epilogue(self, y, scale, shift, **kw):
         got = ep.conv_epilogue(y, scale, shift, **kw)
         want = ep.conv_epilogue_plain(y, scale, shift, **kw)
-        if kw.get("silu"):  # the accurate expf on the card, torch.sigmoid plain
+        if kw.get("act") == "silu":  # the accurate expf on the card, torch.sigmoid plain
             self.note("epilogue_silu", bf16_ulps(got[0], want[0]), y.shape)
         else:
             self.note("epilogue", max(max_diff(a, b) for a, b in zip(got, want)), y.shape)
@@ -3626,7 +3657,7 @@ class StepChecker:
         self.note("stats", max(vec_err(a, b) for a, b in zip(got[:4] + (rm, rv),
                                                                  want[:4] + (rmp, rvp))), y.shape)
         # the output against the plain epilogue from the kernel's own scale and shift
-        out = ep.conv_epilogue_plain(y, got[2], got[3], relu=relu, keep_f32=keep_f32)
+        out = ep.conv_epilogue_plain(y, got[2], got[3], act=relu, keep_f32=keep_f32)
         self.note("epilogue", max(max_diff(a, b) for a, b in zip(got[4:], out)), y.shape)
         self.calls["stats_apply"] += 1
         return got
@@ -4947,6 +4978,16 @@ def bn_count(module: nn.Module) -> int:
     return sum(isinstance(m, nn.BatchNorm2d) for m in module.modules())
 
 
+def relu6_sites(model) -> int:
+    """A MobileNetV2 encoder's ReLU6 sites (the stem, each expand and
+    depthwise, features.18): its BatchNorms but each block's project; 0 for
+    another encoder."""
+    enc = getattr(model, "encoder", None)
+    if not isinstance(enc, mn.MobileNetV2Encoder):
+        return 0
+    return bn_count(enc) - sum(isinstance(m, mn.InvertedResidual) for m in enc.features)
+
+
 def encoder_sites(model) -> int:
     """conv_epilogue launches of the encoder a batch: every BatchNorm but the
     downsamples' (folded into their block's last site); the folded walk's
@@ -4991,6 +5032,7 @@ def arch_launches(model, tail, n_batches: int, method: str = "exact-clipping",
     if counts is not None:
         out.update(conv_epilogue_silu=counts["silu"] * n_batches,
                    se_squeeze=counts["se"] * n_batches, se_excite=counts["se"] * n_batches)
+    out["conv_epilogue_relu6"] = relu6_sites(model) * n_batches
     name = "strided_tail" if isinstance(tail, sp.StridedTail) else "fused_tail"
     if output_type == "class_prob":
         out[f"{name}_probs"] = n_batches
@@ -5470,7 +5512,7 @@ SQUEEZE_REL_TOL = 1e-5  # the squeeze's mean: max |kernel - plain| / max |plain|
 SE_EDGES = ((2, 48, 9, 7), (128, 3840, 16, 16))
 
 
-def effnet_config(cfg: dict, tmp: Path, encoder: str, arch: str, rng) -> dict:
+def encoder_config(cfg: dict, tmp: Path, encoder: str, arch: str, rng) -> dict:
     """The main configuration with a random ``encoder`` ``arch`` (19 classes)."""
     name = f"{encoder}_{arch}"
     weights = tmp / f"{name}_19cl.pth"
@@ -5525,10 +5567,10 @@ class EffnetChecker:
         if not ok:
             check(False, msg)
 
-    def __call__(self, y, scale, shift, residual=None, branch=None, relu=True, keep_f32=False,
-                 silu=False):
-        args = dict(y=y, scale=scale, shift=shift, residual=residual, branch=branch, relu=relu,
-                    keep_f32=True, silu=silu)
+    def __call__(self, y, scale, shift, residual=None, branch=None, act="relu", keep_f32=False):
+        args = dict(y=y, scale=scale, shift=shift, residual=residual, branch=branch, act=act,
+                    keep_f32=True)
+        silu = act == "silu"
         out, out32 = ep.conv_epilogue(**args)
         ref, ref32 = ep.conv_epilogue_plain(**args)
         label = f"{tuple(y.shape)}{' SiLU' if silu else ''}"
@@ -5547,10 +5589,9 @@ class EffnetChecker:
             nbytes = 2 * n + 2 * 4 * c + 2 * n
             self.rows["conv_epilogue_silu"].append(dict(
                 shape=tuple(y.shape), bytes=nbytes,
-                ms=cuda_ms(lambda: ep.conv_epilogue(y, scale, shift, relu=False, silu=True),
-                           5, 1),
-                plain_ms=cuda_ms(lambda: ep.conv_epilogue_plain(y, scale, shift, relu=False,
-                                                                silu=True), 2, 1),
+                ms=cuda_ms(lambda: ep.conv_epilogue(y, scale, shift, act="silu"), 5, 1),
+                plain_ms=cuda_ms(lambda: ep.conv_epilogue_plain(y, scale, shift, act="silu"),
+                                 2, 1),
                 library_ms=cuda_ms(lambda: F.silu(y), 5, 1),
                 **bound(6 * n, nbytes, PEAK_FP32_FLOPS)))
         return out, (out32 if keep_f32 else None)
@@ -5639,7 +5680,7 @@ def check_effnet_kernels(model, x: torch.Tensor) -> dict:
           f"within {SQUEEZE_REL_TOL} (worst {edge.worst['se_squeeze']:.2e}), the same bits "
           f"twice; the excite within one bf16 ulp ({edge.worst['se_excite']:.2f})")
     site = random_site(gen, (3, 20, 17, 19), "none")
-    edge(**dict(site, relu=False, silu=True))
+    edge(**dict(site, act="silu"))
     try:
         sg.se_squeeze(site["y"], site["scale"], site["shift"])
         refused = False
@@ -5706,32 +5747,29 @@ def depthwise_share(model, x: torch.Tensor) -> dict:
             "depthwise_sites": len(events), "pad_copy_ms": pad_ms, "pad_sites": len(pads)}
 
 
-def run_effnet_predict(main: dict, tmp: Path, rng) -> dict:
-    """flair predict and metrics of EFFNET-unet (19 classes) at phase 4's
-    values (batch 16) on phase 4's test split, from a .msgpack of random
-    weights (paths.ckpt_model_path): its launches (one predict batch: the
-    gather and tail kernels of a batch, every encoder and decoder site),
-    the PRED rasters and metrics.json, and the first batch's classes
-    against its all-plain run by the near-tie rule; patches/s."""
-    root = tmp / "flair_effnet"
+def run_encoder_predict(main: dict, tmp: Path, rng, encoder: str) -> dict:
+    """flair predict and metrics of ``encoder``-unet (19 classes) at phase
+    4's values (batch 16) on phase 4's test split, from a .msgpack of random
+    weights (paths.ckpt_model_path, ``tmp/flair_<encoder>/<encoder>_unet.msgpack``):
+    its launches (one predict batch: the augment and tail kernels of a
+    batch, every encoder and decoder site in its modes), the PRED rasters
+    and metrics.json, and the first batch's classes against its all-plain
+    run by the near-tie rule; patches/s."""
+    root = tmp / f"flair_{encoder}"
     root.mkdir(exist_ok=True)
-    model = FlairSegmentationModel(EFFNET, K, C)
-    ckpt = root / f"{EFFNET}_unet.msgpack"
+    model = FlairSegmentationModel(encoder, K, C)
+    ckpt = root / f"{encoder}_unet.msgpack"
     write_native(ckpt, random_weights(model, rng))
     cfg = copy.deepcopy(main["cfg"])
     cfg["paths"].update(out_folder=str(root), ckpt_model_path=str(ckpt))
     cfg["tasks"].update(train=False, predict=True, metrics=True)
-    cfg["model_framework"]["SegmentationModelsPytorch"]["encoder_decoder"] = f"{EFFNET}_unet"
+    cfg["model_framework"]["SegmentationModelsPytorch"]["encoder_decoder"] = f"{encoder}_unet"
     n_test = sum(n for split, n in FLAIR_SPLITS if split == "test")
     batches = -(-n_test // TRAIN_BATCH)
     result, launches, wall = counted_flair_main(cfg, root / "flair.yaml")
-    counts = effnet_counts(model)
-    want = dict.fromkeys(read_launches(), 0)
-    want.update(augment_normalize=batches, fused_tail=batches,
-                conv_epilogue=(counts["sites"] + bn_count(model.decoder) - 2) * batches,
-                conv_epilogue_silu=counts["silu"] * batches, se_squeeze=counts["se"] * batches,
-                se_excite=counts["se"] * batches)
-    label = f"flair predict {EFFNET}-unet (.msgpack)"
+    want = arch_launches(model, model.zone_tail(), batches)
+    want.update(gather_normalize=0, augment_normalize=batches)
+    label = f"flair predict {encoder}-unet (.msgpack)"
     check_launches(f"{label}, {batches} batch(es)", launches, want)
     out = Path(cfg["paths"]["out_folder"], cfg["paths"]["out_model_name"])
     name = cfg["paths"]["out_model_name"]
@@ -5777,7 +5815,7 @@ def run_effnet(cfg: dict, tmp: Path, main: dict, card: str) -> dict:
     EFFNET batch against their plain versions, timed; the depthwise convs'
     share of that batch; flair predict from a .msgpack."""
     rng = np.random.default_rng(SEED + 800)
-    bcfg = effnet_config(cfg, tmp, EFFNET, "unet", rng)
+    bcfg = encoder_config(cfg, tmp, EFFNET, "unet", rng)
     device = torch.device("cuda")
     model, _ = eng.prepare_model(bcfg, device)
     gen = torch.Generator("cuda").manual_seed(SEED + 80)
@@ -5793,9 +5831,9 @@ def run_effnet(cfg: dict, tmp: Path, main: dict, card: str) -> dict:
           flush=True)
     out["class_prob"] = run_arch_class_prob(bcfg, ZONE)
     for arch in EFFNET_ARCHS:
-        acfg = effnet_config(cfg, tmp, EFFNET_SMALL, arch, rng)
+        acfg = encoder_config(cfg, tmp, EFFNET_SMALL, arch, rng)
         out[f"{EFFNET_SMALL}_{arch}"] = run_arch(acfg, f"{EFFNET_SMALL}_{arch}", ZONE)
-    out["predict"] = run_effnet_predict(main, tmp, rng)
+    out["predict"] = run_encoder_predict(main, tmp, rng, EFFNET)
     for name, r in kernels.items():
         big = r["largest"]
         print(f"    {name}, {r['sites']} sites of one {EFFNET} batch: {r['ms']:.4f} ms (call "
@@ -5862,12 +5900,13 @@ class TrainKernelTimer:
     """A train step's sites through the kernels, each call of a new kernel
     mode (the channel-tiled statistics and backward above 2048 channels,
     the SiLU backward, the affine backward, the gate's gradient, the
-    drop-connect epilogue) also through its plain version on the same
-    operands, held to its limit, and both timed (device_ms; the plain by
-    events) beside the bound and the library call."""
+    drop-connect epilogue; MobileNetV2's ReLU6 backward) also through its
+    plain version on the same operands, held to its limit, and both timed
+    (device_ms; the plain by events) beside the bound and the library
+    call; ``names`` the modes of the model's step."""
 
-    def __init__(self):
-        self.rows = {name: [] for name in TRAIN_KERNELS}
+    def __init__(self, names=TRAIN_KERNELS):
+        self.rows = {name: [] for name in names}
 
     def add(self, name: str, err: float, fn, plain, library, ops: float, nbytes: float,
             **extra) -> None:
@@ -5912,7 +5951,8 @@ class TrainKernelTimer:
 
     def backward(self, *args, **kw):
         got = bt.bn_backward(*args, **kw)
-        g, g32, out, y, mean, invstd, gamma, branch, relu, residual = args
+        g, g32, out, y, mean, invstd, gamma, branch, act, residual = args
+        relu, relu6 = act == "relu", act == "relu6"
         wide = y.shape[1] > 8 * bt.THREADS
         affine = "gmul" in kw or "gadd" in kw
         if not (wide or affine or "shift" in kw):
@@ -5924,20 +5964,22 @@ class TrainKernelTimer:
         EffnetChecker.hold(
             dy_err <= BN_DY_TOL and vec <= BN_GRAD_TOL
             and (got[3] is None or torch.equal(got[3], want[3])),
-            f"bn_backward {'affine' if affine else 'SiLU'} {tuple(y.shape)}: dy within "
+            f"bn_backward {'affine' if affine else 'ReLU6' if relu6 else 'SiLU'} "
+            f"{tuple(y.shape)}: dy within "
             f"{dy_err:.1e}, dgamma and dbeta within {vec:.1e}"
             + (", the identity's gradient exact" if got[3] is not None else ""))
         n, bc = y.numel(), 2 * 4 * y.shape[0] * y.shape[1]
         nbytes = (2 * n * (g is not None) + 4 * n * (g32 is not None) + 2 * n
                   + 2 * n * relu + bc * affine + 2 * n + 4 * n * residual)
-        ops = 12 * n + 10 * n * ("shift" in kw) + 2 * n * affine
-        gz = bt._site_grad(bt._grad_in(g, g32, out, relu), y, gamma, invstd, kw.get("shift"),
-                           kw.get("gmul"), kw.get("gadd"))
+        ops = 12 * n + (4 if relu6 else 10) * n * ("shift" in kw) + 2 * n * affine
+        gz = bt._site_grad(bt._grad_in(g, g32, out, relu), y, gamma, invstd, act,
+                           kw.get("shift"), kw.get("gmul"), kw.get("gadd"))
         library = bn_library(gz, y, mean, invstd, gamma)
         del gz
         fn = lambda: bt.bn_backward(*args, **kw)  # noqa: E731
         plain = lambda: bt.bn_backward_plain(*args, **kw)  # noqa: E731
-        name = "bn_backward_affine" if affine else "bn_backward_silu"
+        name = ("bn_backward_affine" if affine else "bn_backward_relu6" if relu6
+                else "bn_backward_silu")
         self.add(name, err, fn, plain, library, ops, nbytes, shape=tuple(y.shape))
         if wide:
             self.rows["bn_train_wide"].append(dict(self.rows[name][-1], mode="backward"))
@@ -5963,11 +6005,12 @@ class TrainKernelTimer:
         return got
 
 
-def time_train_kernels(cfg: dict, state: dict, batch: dict, masks: dict) -> dict:
+def time_train_kernels(cfg: dict, state: dict, batch: dict, masks: dict | None,
+                       names=TRAIN_KERNELS) -> dict:
     """One train step of ``cfg``'s model from ``state`` through
-    TrainKernelTimer: each new kernel mode held and timed at every one of
-    its sites, summed by kernel."""
-    timer = TrainKernelTimer()
+    TrainKernelTimer: each kernel mode of ``names`` held and timed at every
+    one of its sites, summed by kernel."""
+    timer = TrainKernelTimer(names)
     tr = SegmentationTrainer(cfg)
     tr.load_state(state)
     tr.sites = SitesThrough(timer)
@@ -6023,7 +6066,7 @@ def check_wide_sites(gen) -> dict:
             gadd = torch.randn((B, C), device="cuda", generator=gen) * 1e-3
             for mode, kw in (("silu", {"shift": shift}),
                              ("affine", {"shift": shift, "gmul": gate, "gadd": gadd})):
-                args = (g, None, None, y, mean, invstd, vec[0], None, False, False)
+                args = (g, None, None, y, mean, invstd, vec[0], None, "silu", False)
                 a, b = bt.bn_backward(*args, **kw), bt.bn_backward_plain(*args, **kw)
                 errs[f"dy_{mode}"] = scaled_err(a[0], b[0])
                 errs[f"dgamma_dbeta_{mode}"] = max(vec_err(a[1], b[1]), vec_err(a[2], b[2]))
@@ -6040,30 +6083,34 @@ def check_wide_sites(gen) -> dict:
     return out
 
 
-def effnet_step_breakdown(cfg: dict, state: dict, batch: dict, masks: dict) -> dict:
+def step_breakdown(cfg: dict, state: dict, batch: dict, masks: dict | None,
+                   hook=(en, "same_conv")) -> dict:
     """One train step (the second of two) of ``cfg``'s model by CUDA
     events: the whole step, the forward, the depthwise convs' forward and
     backward (events around each forward, and recorded by autograd hooks
     when the conv's output gradient is ready and when its input gradient
-    is written), the host's time to issue the step, and the profiler's
-    device time by kernel group with the card's busy share."""
+    is written; ``hook`` the (module, name) of the function the encoder
+    calls each conv through, its first two arguments the input and the
+    conv), the host's time to issue the step, and the profiler's device
+    time by kernel group with the card's busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     tr = SegmentationTrainer(cfg)
     tr.load_state(state)
     ch = choices_all(TRAIN_BATCH)
     events = {"forward": [], "backward": []}
-    inner = en.same_conv
+    module, attr = hook
+    inner = getattr(module, attr)
 
     def event():
         return torch.cuda.Event(enable_timing=True)
 
-    def timed(h, m, pad, dtype):
+    def timed(h, m, *rest):
         if m.groups == 1 or not torch.is_grad_enabled():
-            return inner(h, m, pad, dtype)
+            return inner(h, m, *rest)
         a, b, c, d = event(), event(), event(), event()
         a.record()
-        y = inner(h, m, pad, dtype)
+        y = inner(h, m, *rest)
         b.record()
         y.register_hook(lambda g: c.record())
         h.register_hook(lambda g: d.record())
@@ -6077,7 +6124,7 @@ def effnet_step_breakdown(cfg: dict, state: dict, batch: dict, masks: dict) -> d
     x, tgt = tr.prepare(batch, True, ch)
     ms = {"forward": cuda_ms(lambda: tr.model(x, epilogue=tr.sites, dropout=masks), 3, 1)}
     del x, tgt
-    en.same_conv = timed
+    setattr(module, attr, timed)
     try:
         for _ in range(2):
             for v in events.values():
@@ -6092,7 +6139,7 @@ def effnet_step_breakdown(cfg: dict, state: dict, batch: dict, masks: dict) -> d
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        en.same_conv = inner
+        setattr(module, attr, inner)
     ms.update(step=start.elapsed_time(end), step_wall=wall * 1e3, host_issue=issued * 1e3,
               depthwise_forward=sum(a.elapsed_time(b) for a, b in events["forward"]),
               depthwise_backward=sum(a.elapsed_time(b) for a, b in events["backward"]),
@@ -6160,7 +6207,7 @@ def run_effnet_train(tmp: Path, main: dict, card: str) -> dict:
     root.mkdir(exist_ok=True)
     cfg = copy.deepcopy(main["cfg"])
     cfg["paths"].update(out_folder=str(root),
-                        ckpt_model_path=str(tmp / "flair_effnet" / f"{EFFNET}_unet.msgpack"))
+                        ckpt_model_path=str(tmp / f"flair_{EFFNET}" / f"{EFFNET}_unet.msgpack"))
     cfg["tasks"].update(train=True, predict=True, metrics=True)
     cfg["tasks"]["train_tasks"]["init_weights_only_from_ckpt"] = True
     cfg["model_framework"]["SegmentationModelsPytorch"]["encoder_decoder"] = f"{EFFNET}_unet"
@@ -6185,7 +6232,7 @@ def run_effnet_train(tmp: Path, main: dict, card: str) -> dict:
     warm_train, warm_predict = warm_rates(cfg, state, batch, root / "predict_warm")
     gen = torch.Generator("cuda").manual_seed(SEED + 81)
     masks = effnet_masks(model, gen)
-    breakdown = effnet_step_breakdown(cfg, state, batch, masks)
+    breakdown = step_breakdown(cfg, state, batch, masks)
     kernels = time_train_kernels(cfg, state, batch, masks)
     step = compare_train_step(cfg, state, batch, counts, [masks], drift=False,
                               reorders=STEP_REORDERS_DEFAULT, noise=True)
@@ -6250,6 +6297,345 @@ def run_effnet_train(tmp: Path, main: dict, card: str) -> dict:
             f"{name}_step": small, "seconds": time.perf_counter() - t0}
 
 
+# -- phase 9: MobileNetV2, serving ----------------------------------------------
+
+MOBILENET = "mobilenet_v2"
+# under it: output stride 16 and 8, and depth 3, on the ZONE_SMALL zone
+# (one batch each: phase 9 stays within about a minute with 9b)
+MOBILENET_ARCHS = ("deeplabv3plus", "deeplabv3", "pspnet")
+
+
+def bit_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| over the elements whose bits differ: 0.0 where
+    every element has the same bits (NaN too), inf where a NaN meets
+    another value."""
+    width = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    differ = a.view(width) != b.view(width)
+    if not bool(differ.any()):
+        return 0.0
+    return torch.nan_to_num((a.float() - b.float())[differ].abs(), nan=float("inf")).max().item()
+
+
+class Relu6Checker:
+    """An epilogue that launches the kernel on the main path's operands and
+    holds every call against its plain version on the same operands, bit
+    for bit (bf16 and float32 outputs; NaN bits too, by the raw bits),
+    keeping the ReLU6 calls' largest difference; with ``timed``, each ReLU6
+    site's kernel, plain version and library call (F.relu6 on its bf16 map:
+    no BatchNorm, not the same function) beside its bound, a site at a
+    time."""
+
+    def __init__(self, timed: bool = False):
+        self.timed = timed
+        self.rows: list[dict] = []
+        self.relu6_sites = self.other_sites = 0
+        self.err = 0.0  # the ReLU6 calls' largest |kernel - plain|, both outputs
+
+    def __call__(self, y, scale, shift, residual=None, branch=None, act="relu", keep_f32=False):
+        relu6 = act == "relu6"
+        args = dict(y=y, scale=scale, shift=shift, residual=residual, branch=branch, act=act,
+                    keep_f32=True)
+        out, out32 = ep.conv_epilogue(**args)
+        ref, ref32 = ep.conv_epilogue_plain(**args)
+        err = max(bit_diff(out, ref), bit_diff(out32, ref32))
+        EffnetChecker.hold(err == 0, f"conv_epilogue{' ReLU6' if relu6 else ''} "
+                           f"{tuple(y.shape)}: bf16 and fp32 outputs bit for bit ({err:.1e})")
+        if not relu6:
+            self.other_sites += 1
+            return out, (out32 if keep_f32 else None)
+        self.err = max(self.err, err)
+        self.relu6_sites += 1
+        if self.timed:
+            n, c = y.numel(), y.shape[1]
+            nbytes = 2 * n + 2 * 4 * c + 2 * n
+            self.rows.append(dict(
+                shape=tuple(y.shape), bytes=nbytes,
+                ms=cuda_ms(lambda: ep.conv_epilogue(y, scale, shift, act="relu6"), 5, 1),
+                plain_ms=cuda_ms(lambda: ep.conv_epilogue_plain(y, scale, shift, act="relu6"),
+                                 2, 1),
+                library_ms=cuda_ms(lambda: F.relu6(y), 5, 1),
+                **bound(4 * n, nbytes, PEAK_FP32_FLOPS)))
+        return out, (out32 if keep_f32 else None)
+
+    def summary(self) -> dict:
+        rows = self.rows
+        return {"sites": len(rows), "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                             else "operations"),
+                "bytes": sum(r["bytes"] for r in rows),
+                "library_ms": sum(r["library_ms"] for r in rows),
+                "largest": max(rows, key=lambda r: r["bytes"]), "max_abs_err": self.err}
+
+
+def relu6_edges(gen) -> Relu6Checker:
+    """The ReLU6 epilogue bit for bit against its plain version where the
+    plan leaves the main path: C = 20 (the one-element-a-thread kernel), and
+    a map whose values are NaN, +-inf, +-0 and, after the BatchNorm,
+    exactly 0 and 6 (scale 1, shift 0 or 6 at y = 0). Returns the checker
+    (the maps held, their largest difference)."""
+    chk = Relu6Checker()
+    site = random_site(gen, (3, 20, 17, 19), "none")
+    chk(site["y"], site["scale"], site["shift"], act="relu6")
+    y = (torch.randn((2, 16, 8, 8), generator=gen, device="cuda") * 8).to(torch.bfloat16)
+    flat = y.view(-1)
+    flat[:6] = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 6.0])
+    flat[6:64] = 0
+    shift = torch.zeros(16, device="cuda")
+    shift[::2] = 6.0
+    chk(y.contiguous(memory_format=torch.channels_last), torch.ones(16, device="cuda"), shift,
+        act="relu6")
+    check(chk.relu6_sites == 2, "conv_epilogue ReLU6 at C = 20 and at NaN, +-inf, +-0, z = 0 "
+          "and z = 6: bit for bit (NaN passes)")
+    return chk
+
+
+def check_mobilenet_kernels(model, x: torch.Tensor) -> dict:
+    """The ReLU6 epilogue at every site of one main-path batch of tiles
+    ``x`` through ``model`` bit for bit, each timed (every other
+    conv_epilogue site held bit for bit too); then relu6_edges."""
+    chk = Relu6Checker(timed=True)
+    model.tail_input(x, M, epilogue=chk)
+    want = relu6_sites(model)
+    others = encoder_sites(model) - want + bn_count(model.decoder) - 2
+    check(chk.relu6_sites == len(chk.rows) == want and chk.other_sites == others,
+          f"{MOBILENET}: {want} ReLU6 sites and {others} other conv_epilogue sites of one batch "
+          "bit for bit; every ReLU6 site timed")
+    out = chk.summary()
+    edges = relu6_edges(torch.Generator("cuda").manual_seed(SEED + 9))
+    out["edges"], out["max_abs_err"] = edges.relu6_sites, max(out["max_abs_err"], edges.err)
+    return out
+
+
+def run_mobilenet(cfg: dict, tmp: Path, main: dict, card: str) -> dict:
+    """Phase 9: MOBILENET-unet on the main zone (argmax and class_prob) and
+    MOBILENET under MOBILENET_ARCHS on a ZONE_SMALL zone, each through
+    detect_main against its all-plain run with its launches; the ReLU6 epilogue at every site of
+    one batch against its plain version, timed; flair predict from a
+    .msgpack."""
+    rng = np.random.default_rng(SEED + 900)
+    mcfg = encoder_config(cfg, tmp, MOBILENET, "unet", rng)
+    model, _ = eng.prepare_model(mcfg, torch.device("cuda"))
+    gen = torch.Generator("cuda").manual_seed(SEED + 90)
+    x = torch.rand((BATCH, S, S, C), generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        kernels = check_mobilenet_kernels(model, x)
+    del model, x
+    torch.cuda.empty_cache()
+    out = {"kernels": kernels, "main": run_arch(mcfg, f"{MOBILENET}_unet", ZONE)}
+    out["class_prob"] = run_arch_class_prob(mcfg, ZONE)
+    small = tmp / DPT / "Z_MOBILENET" / "zone.tif"
+    small.parent.mkdir(parents=True)
+    write_array(small, rng.integers(0, 256, (C, ZONE_SMALL, ZONE_SMALL), dtype=np.uint8),
+                transform=Affine.from_origin(700000.0, 6600000.0, 0.2, 0.2), crs=2154,
+                compress="deflate")
+    for arch in MOBILENET_ARCHS:
+        acfg = dict(encoder_config(cfg, tmp, MOBILENET, arch, rng), input_img_path=str(small))
+        out[arch] = run_arch(acfg, f"{MOBILENET}_{arch}", ZONE_SMALL)
+    out["predict"] = run_encoder_predict(main, tmp, rng, MOBILENET)
+    r, big = kernels, kernels["largest"]
+    print(f"    conv_epilogue_relu6, {r['sites']} sites of one {MOBILENET}-unet batch of {BATCH}: "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, F.relu6 {r['library_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e9:.2f} GB; "
+          f"{100 * r['bound_ms'] / r['ms']:.1f}% of it); largest site {big['shape']}: "
+          f"{big['ms']:.4f} ms, bound {big['bound_ms']:.4f} ms on {card}", flush=True)
+    return out
+
+
+# -- phase 9b: MobileNetV2, training --------------------------------------------
+
+# the ReLU6 backward's edge channels: gamma 0 puts z = beta at every pixel
+# (the forward's shift is beta there), with the derivative that JAX's VJP
+# of jnp.clip gives it: below 0, the tie at 0, inside, the tie at 6, above
+# 6, in [5.984375, 6) (bf16 rounds it to 6: a mask read from the saved
+# output would give the tie's or 0), NaN
+RELU6_EDGE_BETAS = ((-1.0, 0.0), (0.0, 0.5), (3.0, 1.0), (6.0, 0.5), (7.0, 0.0), (5.99, 1.0),
+                    (float("nan"), 0.0))
+# and channels whose z straddles a tie by about +-gamma: (gamma, beta)
+RELU6_EDGE_STRADDLES = ((1e-3, 0.0), (1e-3, 6.0))
+# two of mobilenet_v2-unet's ReLU6 site shapes at the train batch: a wide
+# map (block 3's expand and depthwise) and the deepest (features.18)
+RELU6_EDGE_SHAPES = ((TRAIN_BATCH, 144, 128, 128), (TRAIN_BATCH, 1280, 16, 16))
+# a gamma-0 channel's dbeta against d(beta) sum(g) (float64), and the
+# straddling channels' dbeta and dgamma against the plain version's: float32
+# sums of up to 262144 terms, of sum |g| (and of sum |g xh|)
+RELU6_EDGE_SUM_TOL = 1e-5
+
+
+def relu6_backward_edges(gen) -> dict:
+    """The ReLU6 backward against its plain version at RELU6_EDGE_SHAPES,
+    on channels that put z at its edges (RELU6_EDGE_BETAS, then
+    RELU6_EDGE_STRADDLES, then random channels: gamma in [0.5, 1.5), beta
+    in [-2, 8), so z crosses both ties), g = N(1, 1) so that every channel's
+    sums are large: dy within BN_DY_TOL of the largest (and of each
+    straddling channel's own largest), dgamma and dbeta within BN_STAT_TOL;
+    each gamma-0 channel's dbeta, kernel and plain, within RELU6_EDGE_SUM_TOL
+    of sum |g| of d(beta) sum(g) (the 1/2 at both ties, 1 at 5.99, 0 at
+    NaN), each straddling channel's dgamma and dbeta within it of the plain
+    version's. A kernel with the ReLU's derivative, or with a mask from the
+    bf16 output, fails. Returns the calls and the worst readings."""
+    worst = {"calls": 0, "dy": 0.0, "dgamma_dbeta": 0.0, "edge_dbeta": 0.0, "straddle": 0.0}
+    n_edge, n_straddle = len(RELU6_EDGE_BETAS), len(RELU6_EDGE_STRADDLES)
+    for shape in RELU6_EDGE_SHAPES:
+        C = shape[1]
+
+        def rand(mean=0.0):
+            return (torch.randn(shape, generator=gen, device="cuda") + mean).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+        y, g = rand(), rand(1.0)
+        gamma = torch.rand(C, generator=gen, device="cuda") + 0.5
+        beta = torch.rand(C, generator=gen, device="cuda") * 10 - 2
+        gamma[:n_edge] = 0.0
+        beta[:n_edge] = torch.tensor([b for b, _ in RELU6_EDGE_BETAS])
+        gamma[n_edge:n_edge + n_straddle] = torch.tensor([a for a, _ in RELU6_EDGE_STRADDLES])
+        beta[n_edge:n_edge + n_straddle] = torch.tensor([b for _, b in RELU6_EDGE_STRADDLES])
+        mean, invstd, _, shift = bt.bn_stats_plain(y, gamma, beta, torch.zeros_like(gamma),
+                                                   torch.ones_like(gamma))
+        args = (g, None, None, y, mean, invstd, gamma, None, "relu6", False)
+        got = bt.bn_backward(*args, shift=shift)
+        want = bt.bn_backward_plain(*args, shift=shift)
+        worst["calls"] += 1
+        torch.cuda.synchronize()
+        label = f"bn_backward ReLU6 edges {shape}"
+        dy = scaled_err(got[0], want[0])
+        grads = max(vec_err(got[1], want[1]), vec_err(got[2], want[2]))
+        gf = g.double()
+        g_sum, g_abs = gf.sum(dim=(0, 2, 3)), gf.abs().sum(dim=(0, 2, 3))
+        xh_abs = (gf * ((y.double() - mean.double()[:, None, None])
+                        * invstd.double()[:, None, None])).abs().sum(dim=(0, 2, 3))
+        d = torch.tensor([v for _, v in RELU6_EDGE_BETAS], device="cuda", dtype=torch.float64)
+        edge = max((((r[2][:n_edge].double() - d * g_sum[:n_edge]).abs() / g_abs[:n_edge])
+                    .max().item()) for r in (got, want))
+        cols = slice(n_edge, n_edge + n_straddle)
+        straddle = max(((got[2][cols] - want[2][cols]).double().abs() / g_abs[cols]).max().item(),
+                       ((got[1][cols] - want[1][cols]).double().abs() / xh_abs[cols]).max().item())
+        dy_cols = max(scaled_err(got[0][:, c], want[0][:, c]) for c in range(n_edge,
+                                                                            n_edge + n_straddle))
+        for key, v in (("dy", max(dy, dy_cols)), ("dgamma_dbeta", grads), ("edge_dbeta", edge),
+                       ("straddle", straddle)):
+            worst[key] = max(worst[key], v)
+        check(dy <= BN_DY_TOL and dy_cols <= BN_DY_TOL and grads <= BN_STAT_TOL
+              and edge <= RELU6_EDGE_SUM_TOL and straddle <= RELU6_EDGE_SUM_TOL,
+              f"{label}: dy within {dy:.1e} of the largest and {dy_cols:.1e} of each straddling "
+              f"channel's (<= {BN_DY_TOL:.1e}), dgamma and dbeta within {grads:.1e} (<= "
+              f"{BN_STAT_TOL}); at z = -1, 0, 3, 6, 7, 5.99, NaN dbeta = (0, 1/2, 1, 1/2, 0, 1, "
+              f"0) sum(g) within {edge:.1e} of sum |g|, the straddling channels' dgamma and dbeta "
+              f"within {straddle:.1e} of the plain version's (<= {RELU6_EDGE_SUM_TOL})")
+        del y, g, got, want
+    return worst
+
+def run_mobilenet_train(tmp: Path, main: dict, card: str) -> dict:
+    """Phase 9b: flair (train, predict, metrics) of MOBILENET-unet for one
+    epoch of 4 steps at phase 4's values from phase 9's .msgpack
+    (init_weights_only_from_ckpt), its launches against steps x sites (the
+    ReLU6 epilogue and backward counted apart); warm rates; one step by
+    stage (the depthwise convs, the host's issue time, the profiler's
+    kernel groups); the ReLU6 backward at every site of one step against
+    its plain version and timed beside its bound; one step held site by
+    site and free-running against the plain step."""
+    t0 = time.perf_counter()
+    root = tmp / "flair_mobilenet_train"
+    root.mkdir(exist_ok=True)
+    cfg = copy.deepcopy(main["cfg"])
+    cfg["paths"].update(out_folder=str(root), ckpt_model_path=str(
+        tmp / f"flair_{MOBILENET}" / f"{MOBILENET}_unet.msgpack"))
+    cfg["tasks"].update(train=True, predict=True, metrics=True)
+    cfg["tasks"]["train_tasks"]["init_weights_only_from_ckpt"] = True
+    cfg["model_framework"]["SegmentationModelsPytorch"]["encoder_decoder"] = f"{MOBILENET}_unet"
+    cfg["num_epochs"] = 1
+    counts = train_site_counts(FlairSegmentationModel(MOBILENET, K, C))
+    n_test = sum(n for split, n in FLAIR_SPLITS if split == "test")
+    torch.cuda.reset_peak_memory_stats()
+    result, launches, wall = counted_flair_main(cfg, root / "flair.yaml")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    label = f"flair {MOBILENET}-unet"
+    losses = check_flair_run(label, cfg, result, launches, counts, -(-n_test // TRAIN_BATCH))
+    check_flair_outputs(label, cfg, result, main["csvs"]["test"], n_test)
+    check(launches["bn_backward_relu6"] > 0 and counts["relu6"] == 35,
+          f"{label}: bn_backward_relu6 launched ({launches['bn_backward_relu6']}), 35 ReLU6 "
+          "sites a step")
+    epochs = result["train"]["epochs"]
+    train_ps = sum(e["train_patches"] for e in epochs) / sum(e["train_seconds"] for e in epochs)
+    pred = result["predict"]
+    state = ckpt_lib.CheckpointManager.restore(Path(result["train"]["best_path"]))
+    batch = first_batch(cfg)
+    warm_train, warm_predict = warm_rates(cfg, state, batch, root / "predict_warm")
+    breakdown = step_breakdown(cfg, state, batch, None, hook=(mn, "conv"))
+    kernels = time_train_kernels(cfg, state, batch, None, names=("bn_backward_relu6",))
+    kernels["bn_backward_relu6"]["edges"] = relu6_backward_edges(
+        torch.Generator("cuda").manual_seed(SEED + 91))
+    step = compare_train_step(cfg, state, batch, counts, None, drift=False,
+                              reorders=STEP_REORDERS_DEFAULT, noise=True)
+    del state, batch
+    torch.cuda.empty_cache()
+    bd, r = breakdown["ms"], kernels["bn_backward_relu6"]
+    e = r["edges"]
+    print(f"  {label}: train {train_ps:.2f} patches/s (1 epoch of 4 steps, with its warm-up), "
+          f"warm {warm_train:.2f} ({WARM_STEPS} steps on one batch); predict "
+          f"{pred['patches'] / pred['seconds']:.2f} patches/s (first call), warm "
+          f"{warm_predict:.2f}; peak {peak:.2f} GB; losses "
+          f"{', '.join(f'{a:.4f}/{b:.4f}' for a, b in losses)}; step loss {step['loss']:.5f} vs "
+          f"plain {step['plain_loss']:.5f} on {card}", flush=True)
+    print(f"    {label} step: {bd['step']:.2f} ms device-timed ({bd['step_wall']:.2f} ms wall, "
+          f"the host issued it in {bd['host_issue']:.2f} ms), forward {bd['forward']:.2f} ms; "
+          f"depthwise convs forward {bd['depthwise_forward']:.2f} ms, backward "
+          f"{bd['depthwise_backward']:.2f} ms; the profiled step's kernels "
+          f"{bd['profiled_busy']:.2f} ms (busy {100 * breakdown['busy_share']:.1f}% of "
+          f"{bd['profiled_wall']:.2f} ms): bn_train {bd['bn_train']:.2f}, conv_epilogue "
+          f"{bd['conv_epilogue']:.2f}, weighted_ce and augment {bd['weighted_ce_augment']:.2f}, "
+          f"other (cuDNN, PyTorch) {bd['other_kernels']:.2f}", flush=True)
+    print(f"    bn_backward_relu6, {r['sites']} sites of one {MOBILENET}-unet step: device "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, native_batch_norm_backward "
+          f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+          f"{r['bytes'] / 1e9:.3f} GB; {100 * r['bound_ms'] / r['ms']:.1f}% of it, "
+          f"{r['under_half']} sites under half of theirs), worst error {r['max_abs_err']:.2e}; "
+          f"edges ({e['calls']} calls at {', '.join(map(str, RELU6_EDGE_SHAPES))}): dy "
+          f"{e['dy']:.1e}, dgamma and dbeta {e['dgamma_dbeta']:.1e}, the ties' dbeta "
+          f"{e['edge_dbeta']:.1e}, the straddling channels' {e['straddle']:.1e}", flush=True)
+    return {"train_patches_per_sec": train_ps, "warm_train_patches_per_sec": warm_train,
+            "predict_patches_per_sec": pred["patches"] / pred["seconds"],
+            "warm_predict_patches_per_sec": warm_predict, "peak_gb": peak, "losses": losses,
+            "flair_main_wall_seconds": wall, "launches": launches, "breakdown": breakdown,
+            "kernels": kernels, "step": step, "seconds": time.perf_counter() - t0}
+
+
+def mobilenet_line(mobilenet: dict, mobilenet_train: dict) -> dict:
+    """Phases 9 and 9b's JSON (the profiler's table and each kernel's
+    largest site left out)."""
+    return {"mobilenet": {
+        **{k: {f: v for f, v in mobilenet[k].items() if f != "launches"}
+           for k in ("main", "class_prob", *MOBILENET_ARCHS, "predict")},
+        "kernels": {k: v for k, v in mobilenet["kernels"].items() if k != "largest"},
+        "launches": {k: mobilenet[k]["launches"] for k in ("main", "predict")}},
+        "mobilenet_train": {
+        **{k: v for k, v in mobilenet_train.items() if k not in ("launches", "kernels",
+                                                                  "breakdown")},
+        "breakdown": {k: v for k, v in mobilenet_train["breakdown"].items()
+                      if k != "kernel_table"},
+        "kernels": {k: {f: v for f, v in r.items() if f != "largest"}
+                    for k, r in mobilenet_train["kernels"].items()},
+        "launches": {k: v for k, v in mobilenet_train["launches"].items() if v}}}
+
+
+def run_mobilenet_phases(tmp: Path, main: dict, cfg: dict, card: str) -> tuple[dict, dict]:
+    """Phases 9 and 9b, each timed."""
+    print(f"[9] MobileNetV2: {MOBILENET}-unet on the main zone (argmax, class_prob), "
+          f"{MOBILENET} under {', '.join(MOBILENET_ARCHS)}, flair predict from a .msgpack; the "
+          "ReLU6 epilogue", flush=True)
+    t9 = time.perf_counter()
+    mobilenet = run_mobilenet(cfg, tmp, main, card)
+    print(f"    phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
+    print(f"[9b] MobileNetV2 training: flair {MOBILENET}-unet (one epoch of 4 steps, predict, "
+          "metrics) from phase 9's .msgpack; one step by stage and site by site; the ReLU6 "
+          "backward", flush=True)
+    t9 = time.perf_counter()
+    mobilenet_train = run_mobilenet_train(tmp, main, card)
+    print(f"    phase 9b: {time.perf_counter() - t9:.1f} s", flush=True)
+    return mobilenet, mobilenet_train
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6261,6 +6647,9 @@ def main() -> int:
     ap.add_argument("--effnet-train", action="store_true",
                     help="only phase 8b, on its own written set and .msgpack (phase 4's and "
                          "phase 8's), one JSON line")
+    ap.add_argument("--mobilenet", action="store_true",
+                    help="only phases 9 and 9b, on their own zone (the main one), written set "
+                         "(phase 4's) and .msgpack, one JSON line")
     ap.add_argument("--orders", type=int, default=10, help="the study's sample orders")
     ap.add_argument("--study-seed", type=int, default=SEED,
                     help="the numpy seed of the study's written set")
@@ -6292,8 +6681,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, torch_defaults():
             tmp = Path(tmp)
             csvs = write_flair_dataset(tmp / "flair", rng)
-            (tmp / "flair_effnet").mkdir()
-            write_native(tmp / "flair_effnet" / f"{EFFNET}_unet.msgpack",
+            (tmp / f"flair_{EFFNET}").mkdir()
+            write_native(tmp / f"flair_{EFFNET}" / f"{EFFNET}_unet.msgpack",
                          random_weights(FlairSegmentationModel(EFFNET, K, C),
                                         np.random.default_rng(SEED + 800)))
             out = run_effnet_train(tmp, {"cfg": flair_config(tmp / "flair", csvs),
@@ -6303,6 +6692,17 @@ def main() -> int:
             r.pop("largest")
         out.pop("launches")
         print(json.dumps({"effnet_train": out, "card": card,
+                          "seconds": time.perf_counter() - t_start}), flush=True)
+        return 0
+    if args.mobilenet:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, torch_defaults():
+            tmp = Path(tmp)
+            cfg = detect_config(tmp, *synth_inputs(tmp, ZONE, rng))
+            csvs = write_flair_dataset(tmp / "flair", rng)
+            out = run_mobilenet_phases(tmp, {"cfg": flair_config(tmp / "flair", csvs),
+                                             "csvs": csvs}, cfg, card)
+        print(out[1]["breakdown"].pop("kernel_table"))
+        print(json.dumps({**mobilenet_line(*out), "card": card,
                           "seconds": time.perf_counter() - t_start}), flush=True)
         return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -6581,6 +6981,7 @@ def main() -> int:
             t8 = time.perf_counter()
             effnet_train = run_effnet_train(tmp, flair, card)
             print(f"    phase 8b: {time.perf_counter() - t8:.1f} s", flush=True)
+            mobilenet, mobilenet_train = run_mobilenet_phases(tmp, flair, cfg, card)
         if args.profile:
             with torch.inference_mode():
                 prof = stage_breakdown(cfg, ZONE, rng, epi)
@@ -6894,6 +7295,33 @@ def main() -> int:
             "launches": tl[counter], "max_abs_err": r["max_abs_err"], **numbers(r),
             "ms_is": "device", "library_ms": r["library_ms"], "library": library,
             "sites": r["sites"], **({"modes": r["modes"]} if "modes" in r else {})})
+    # MobileNetV2's kernel modes: the ReLU6 epilogue at its 35 sites of one
+    # mobilenet_v2-unet batch of 128 (phase 9), launches on its main path
+    # (phase 9's other runs beside); the ReLU6 backward at its 35 sites of
+    # one train step at batch 16 (phase 9b), device time, launches on its
+    # flair run. library: F.relu6 on each site's bf16 map (no BatchNorm) and
+    # aten's native_batch_norm_backward on the pre-multiplied gradient
+    # (BatchNorm's VJP alone): neither is the same function
+    mk, mtk = mobilenet["kernels"], mobilenet_train["kernels"]["bn_backward_relu6"]
+    kernels += [
+        {"name": "conv_epilogue_relu6", "route": "cuda", "source": f"{src}/conv_epilogue.cu",
+         "replaces": "flairtpu/models/tv_encoders.py:111, :115, :143, :165 (XLA-fused "
+                     "BatchNorm and ReLU6 after the stem, expand, depthwise and features.18 "
+                     "convs)",
+         "launches": mobilenet["main"]["launches"]["conv_epilogue_relu6"],
+         "launches_mobilenet_other_runs": sum(
+             mobilenet[k]["launches"]["conv_epilogue_relu6"]
+             for k in ("class_prob", *MOBILENET_ARCHS, "predict")),
+         "max_abs_err": mk["max_abs_err"], **numbers(mk), "library_ms": mk["library_ms"],
+         "library": "F.relu6 on the bf16 map", "sites": mk["sites"], "edges": mk["edges"]},
+        {"name": "bn_backward_relu6", "route": "cuda", "source": f"{src}/bn_train.cu",
+         "replaces": "the VJP of flairtpu/models/tv_encoders.py:105-119, :141-166 (train-mode "
+                     "BatchNorm + ReLU6 at the stem, expand, depthwise and features.18 sites; "
+                     "XLA-fused)",
+         "launches": mobilenet_train["launches"]["bn_backward_relu6"],
+         "max_abs_err": mtk["max_abs_err"], **numbers(mtk), "ms_is": "device",
+         "library_ms": mtk["library_ms"], "library": "native_batch_norm_backward",
+         "sites": mtk["sites"], "edges": mtk["edges"]}]
     # each kernel's launches on phase 6's toy-zone run and phase 7's runs
     # (the resnext main path, bn_fold, int8 and flair)
     counters = {"fused_tail": "fused_tail", "gather_normalize": "gather_normalize",
@@ -6963,6 +7391,8 @@ def main() -> int:
         "breakdown": {k: v for k, v in bd.items() if k != "kernel_table"},
         "kernels": {k: {f: v for f, v in r.items() if f != "largest"} for k, r in tk.items()},
         "launches": {k: v for k, v in tl.items() if v}}, "card": card}))
+    print(mobilenet_train["breakdown"]["kernel_table"])
+    print(json.dumps({**mobilenet_line(mobilenet, mobilenet_train), "card": card}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -61,6 +61,13 @@ RESNET_ENCODERS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
 # registry.py:30); no arch refuses them (flairtpu/models/registry.py:78-82)
 EFFICIENTNET_ENCODERS = tuple(f"efficientnet-b{i}" for i in range(8))
 
+# torchvision's MobileNetV2 at width 1.0, smp's one entry (models/mobilenet.py;
+# flairtpu/models/registry.py:31); no arch refuses it either
+MOBILENET_ENCODERS = ("mobilenet_v2",)
+
+# every encoder the port builds
+PORTED_ENCODERS = RESNET_ENCODERS + EFFICIENTNET_ENCODERS + MOBILENET_ENCODERS
+
 _OUTPUT_TYPES = ("class_prob", "argmax")
 _STITCH_METHODS = ("exact-clipping", "average", "average_weights", "max")
 
@@ -77,8 +84,8 @@ SMP_ARCHS = ("unet", "unetplusplus", "manet", "linknet", "fpn", "pspnet", "deepl
 
 
 def check_smp(encoder_decoder: str) -> tuple[str, str]:
-    """Split ``<encoder>_<arch>``; the resnet, resnext and efficientnet
-    encoders under ``SMP_ARCHS`` are ported. An arch smp does not have
+    """Split ``<encoder>_<arch>``; the resnet, resnext, efficientnet and
+    mobilenet_v2 encoders under ``SMP_ARCHS`` are ported. An arch smp does not have
     raises as ``flairtpu/models/registry.py:98-100`` does, with the
     supported list."""
     if "_" not in encoder_decoder:
@@ -89,7 +96,7 @@ def check_smp(encoder_decoder: str) -> tuple[str, str]:
     if arch not in SMP_ARCHS:
         raise NotImplementedError(
             f"architecture {arch!r} not ported (supported: {', '.join(SMP_ARCHS)})")
-    if encoder not in RESNET_ENCODERS + EFFICIENTNET_ENCODERS:
+    if encoder not in PORTED_ENCODERS:
         raise not_ported(f"smp encoder {encoder!r}", "slice 6: other smp encoders")
     return encoder, arch
 

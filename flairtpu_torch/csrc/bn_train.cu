@@ -23,6 +23,8 @@
 //   ga = gr * gmul[b, c] + gadd[b, c]      (each optional; b the pixel's sample)
 //   gz = ga * s (1 + z (1 - s)),  z = y * scale + shift,  s = 1 / (1 + exp(-z))
 //                                          (SiLU sites; else gz = ga)
+//   gz = gr * r6(z),  r6 = 1 on (0, 6), 1/2 at z == 0 or z == 6, else 0
+//                                          (ReLU6 sites, MobileNetV2's)
 //   dbeta = sum(gz);  dgamma = sum(gz * xh)
 //   dy = gamma * invstd * (gz - (dbeta + xh * dgamma) / M)        (bf16)
 //   dres = gr (float32), or for a branch d the same dy formula with its own
@@ -33,6 +35,12 @@
 // depthwise site's two gradients summed before the SiLU (gmul the squeeze-
 // excite gate, gadd the squeeze's mean gradient over HW), and the project
 // site's drop-connect (gmul = mask[b] / keep): one backward, not two.
+// The ReLU6's mask cannot come from the saved bf16 output, as the ReLU's
+// does: bf16 rounds every float32 in [5.984375, 6) to 6.0, where the
+// gradient is 1. So it is read from z, recomputed as the SiLU's is. At the
+// ties z == 0 and z == 6 the derivative is 1/2, as JAX differentiates
+// jnp.clip (flairtpu/models/tv_encoders.py:103-104: clip is max then min,
+// and each splits a tie's gradient in two); NaN gives 0.
 //
 // Bound: bytes, both entry points. The statistics read x once (2 M C
 // bytes). The backward reads g, out, y (and g32, d) and writes dy (and dres
@@ -87,7 +95,8 @@
 // The backward's modes are template instances (Kind: the ReLU sites, the
 // branch, and the lean ones that load no ReLU output and no branch: plain,
 // SiLU, affine, SiLU + affine, each with g32 or not), so the per-element
-// path tests none of their pointers. The ReLU instances keep their
+// path tests none of their pointers (the ReLU6 instance, the eleventh, is
+// a lean one too: g and y a pixel). The ReLU instances keep their
 // arithmetic bit for bit; the lean ones fold the apply's constants and take
 // invstd once a sum. At a SiLU site the sigmoid runs on the special-function
 // units (ex2.approx, rcp.approx: about 10 instructions an element, the IEEE
@@ -437,7 +446,7 @@ struct BackArgs {
   __nv_bfloat16* dd;         // the branch's
   long long m;
   int channels, combiners, tiles;
-  const float* shift;        // null: no SiLU; else the forward's shift (SiLU site)
+  const float* shift;        // the forward's shift at a SiLU or ReLU6 site, else null
   const float* gmul;         // (B, C) or null: the gradient affine's factor
   const float* gadd;         // (B, C) or null: its term
   long long hw;              // pixels a sample
@@ -462,13 +471,20 @@ enum Kind : int {
   kSiluG32Kind = 7,
   kAffineG32Kind = 8,
   kSiluAffineG32Kind = 9,
+  kRelu6Kind = 10,  // lean: the ReLU6's derivative from z (no g32 twin: no site needs one)
 };
-constexpr int kKinds = 10;
+constexpr int kKinds = 11;
+
+// A site's activation as bn_train_backward takes it (conv_epilogue.cu's
+// Activation codes)
+enum Act : int { kActNone = 0, kActRelu = 1, kActSilu = 2, kActRelu6 = 3 };
 
 template <int K>
 struct Mode {
-  static constexpr bool g32 = K >= kLeanG32Kind;  // lean: float32 gradient loaded
-  static constexpr int base = g32 ? K - (kLeanG32Kind - kLeanKind) : K;
+  static constexpr bool relu6 = K == kRelu6Kind;
+  // lean: float32 gradient loaded
+  static constexpr bool g32 = K >= kLeanG32Kind && K <= kSiluAffineG32Kind;
+  static constexpr int base = relu6 ? kLeanKind : g32 ? K - (kLeanG32Kind - kLeanKind) : K;
   static constexpr bool branch = base == kBranchKind;
   static constexpr bool lean = base >= kLeanKind;
   static constexpr bool silu = base == kSiluKind || base == kSiluAffineKind;
@@ -555,6 +571,13 @@ __device__ __forceinline__ float silu_grad(float y, float scale, float shift) {
   return __fmul_rn(s, fmaf(z, __fsub_rn(1.f, s), 1.f));
 }
 
+// The ReLU6's derivative at z = y * scale + shift (the forward's bits): 1
+// inside (0, 6), 1/2 at either tie, 0 outside and at NaN
+__device__ __forceinline__ float relu6_grad(float y, float scale, float shift) {
+  const float z = __fadd_rn(__fmul_rn(y, scale), shift);
+  return z > 0.f && z < 6.f ? 1.f : (z == 0.f || z == 6.f ? 0.5f : 0.f);
+}
+
 // 8 channels of a (C,) float32 vector
 __device__ __forceinline__ void vec8(const float* v, int c0, float (&f)[8]) {
 #pragma unroll
@@ -605,8 +628,8 @@ struct SampleAffine {
 };
 
 // gz from gr at pixel p, channels c0..c0 + 7: the affine (gr * gmul + gadd
-// by one fma), then the SiLU's derivative, as the instance has them; 0 past
-// the last pixel
+// by one fma), then the SiLU's or the ReLU6's derivative, as the instance
+// has them; 0 past the last pixel
 template <class M>
 __device__ __forceinline__ void site_grad(const BackArgs& a, const float (&scale)[8],
                                           const float (&shift)[8], SampleAffine& af, bool whole,
@@ -629,6 +652,12 @@ __device__ __forceinline__ void site_grad(const BackArgs& a, const float (&scale
     unpack8(y, f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) gz[i] = __fmul_rn(gz[i], silu_grad(f[i], scale[i], shift[i]));
+  }
+  if (M::relu6) {
+    float f[8];
+    unpack8(y, f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) gz[i] = __fmul_rn(gz[i], relu6_grad(f[i], scale[i], shift[i]));
   }
 }
 
@@ -669,7 +698,7 @@ __global__ void __launch_bounds__(kThreads, Mode<K>::min_blocks) backward_reduce
     SampleAffine af;
     cy.load(a.mean, a.invstd, c0);
     if (M::branch) cd.load(a.mean_d, a.invstd_d, c0);
-    if (M::silu) {
+    if (M::silu || M::relu6) {
       scale8(a.gamma, a.invstd, c0, scale);
       vec8(a.shift, c0, shift);
     }
@@ -779,11 +808,11 @@ __global__ void __launch_bounds__(kThreads, Mode<K>::min_blocks) backward_apply(
   const float inv_m = 1.f / (float)a.m;
   std::conditional_t<M::lean, FoldedApply, Apply> fy;
   Apply fd;
-  float shift[8];  // the SiLU's; its scale is fy.k (gamma invstd, the same bits)
+  float shift[8];  // the SiLU's or ReLU6's; its scale is fy.k (gamma invstd, the same bits)
   SampleAffine af;
   fy.load(a.mean, a.invstd, a.gamma, a.sums, a.sums + C, c0, inv_m);
   if (M::branch) fd.load(a.mean_d, a.invstd_d, a.gamma_d, a.sums, a.sums + 2 * C, c0, inv_m);
-  if (M::silu) vec8(a.shift, c0, shift);
+  if (M::silu || M::relu6) vec8(a.shift, c0, shift);
   for (long long k = 0; k <= tiles.last; ++k) {
     const long long p0 = tiles.first(k, true) + t.row;
     Pixel px[M::unroll];
@@ -1041,10 +1070,12 @@ int backward_occupancy(int width, int* blocks_per_sm) {
   return err;
 }
 
-// The instance of a call's operands (Kind)
-int backward_kind(bool branch, bool relu, bool silu, bool affine, bool g32) {
+// The instance of a call's activation (Act) and operands (Kind)
+int backward_kind(bool branch, int act, bool affine, bool g32) {
   if (branch) return kBranchKind;
-  if (relu) return kReluKind;
+  if (act == kActRelu) return kReluKind;
+  if (act == kActRelu6) return kRelu6Kind;
+  const bool silu = act == kActSilu;
   const int kind = silu && affine ? kSiluAffineKind
                    : affine       ? kAffineKind
                    : silu         ? kSiluKind
@@ -1053,7 +1084,8 @@ int backward_kind(bool branch, bool relu, bool silu, bool affine, bool g32) {
 }
 
 int unroll_of(int kind) {
-  return kind >= kLeanKind && kind < kLeanG32Kind ? kLeanUnroll : kBackUnroll;
+  return (kind >= kLeanKind && kind < kLeanG32Kind) || kind == kRelu6Kind ? kLeanUnroll
+                                                                          : kBackUnroll;
 }
 
 // b = p / hw for p < 2^31 as (p * magic) >> shift: shift = 31 + ceil(log2
@@ -1084,7 +1116,7 @@ struct Instances {
   static constexpr int (*launches[])(const BackArgs&, int, int, cudaStream_t) = {
       launch_backward<K>...};
 };
-using Backward = Instances<0, 1, 2, 3, 4, 5, 6, 7, 8, 9>;
+using Backward = Instances<0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10>;
 static_assert(sizeof(Backward::launches) / sizeof(Backward::launches[0]) == kKinds,
               "an instance of every Kind");
 
@@ -1138,11 +1170,14 @@ extern "C" int bn_train_stats(const void* x, const void* gamma, const void* beta
 // counters: n_counters >= 2 int32, zero, and left zero; sums: 3 * channels
 // float32 outputs (dbeta, dgamma, dgamma_d; the branch's dbeta is dbeta);
 // dy: (m, channels) bf16; dres: (m, channels) float32 or null; dd: (m,
-// channels) bf16 where d is given. shift: null, or the SiLU site's forward
-// shift (channels float32; the SiLU's derivative, scale = gamma * invstd);
-// gmul, gadd: null or (m / hw, channels) float32, 16-byte aligned, the
-// gradient affine, hw the pixels of a sample. Neither with a branch or a
-// ReLU. m below 2^31. unroll: the instance's pixels a thread loads at once
+// channels) bf16 where d is given. act: the site's activation (Act): the
+// ReLU's with `out` given (and only then), the SiLU's or the ReLU6's with
+// `shift` given (and only then): the forward's shift (channels float32; the
+// derivative at z = y * scale + shift, scale = gamma * invstd), no branch,
+// and for the ReLU6 no affine and no g32. gmul, gadd: null or (m / hw,
+// channels) float32, 16-byte aligned, the gradient affine, hw the pixels of
+// a sample; neither with a branch or a ReLU. m below 2^31. unroll: the
+// instance's pixels a thread loads at once
 // (kBackUnroll where out, d or g32 is given, else kLeanUnroll), as the wrapper's
 // plan sized the grid by; sample_magic, sample_shift: hw's divisor constant
 // (sample_divisor_ok). Two launches of `blocks` blocks (the reduce, then
@@ -1157,10 +1192,15 @@ extern "C" int bn_train_backward(const void* g, const void* g32, const void* out
                                  void* dy, void* dres, void* dd, long long m, int channels,
                                  int tiles, const void* shift, const void* gmul,
                                  const void* gadd, long long hw, int unroll,
-                                 unsigned sample_magic, int sample_shift, void* stream) {
+                                 unsigned sample_magic, int sample_shift, int act,
+                                 void* stream) {
   const int n_sums = d ? 3 : 2;
   const bool affine = gmul || gadd;
-  const int kind = backward_kind(d, out, shift, affine, g32);
+  const bool z_act = act == kActSilu || act == kActRelu6;
+  if (act < kActNone || act > kActRelu6 || (act == kActRelu) != (out != nullptr) ||
+      z_act != (shift != nullptr) || (act == kActRelu6 && (affine || g32)))
+    return (int)cudaErrorInvalidValue;
+  const int kind = backward_kind(d, act, affine, g32);
   if (m < 1 || m >= kMaxBackPixels || !tiles_ok(channels, tiles, blocks) || (d && !dd) ||
       (d && dres) || ((d || out) && (shift || affine)) ||
       !sample_divisor_ok(hw, sample_magic, sample_shift) || (affine && m % hw) ||

@@ -1,5 +1,5 @@
-// Conv epilogue: inference BatchNorm + residual + ReLU or SiLU + casts in one
-// pass over a convolution's output.
+// Conv epilogue: inference BatchNorm + residual + ReLU, SiLU or ReLU6 + casts
+// in one pass over a convolution's output.
 //
 // Replaces what XLA fused into the output of each encoder and decoder conv
 // on the TPU: the BatchNorm, the residual add and the ReLU of
@@ -10,7 +10,7 @@
 //   v = y * scale + shift                      (y: the bf16 conv output)
 //   v = (v * inv_keep) * mask[b]               (optional: the drop-connect)
 //   v = v + r            or   v = v + (d * scale_d + shift_d)    (optional)
-//   v = max(v, 0)   or   v = v * (1 / (1 + exp(-v)))               (optional)
+//   v = max(v, 0)  or  v * (1 / (1 + exp(-v)))  or  clip(v, 0, 6)  (optional)
 //   out = bf16(v) (round to nearest even); out32 = v             (optional)
 //
 // y, d, out: (n_pix, C) bfloat16, NHWC (an NCHW channels_last tensor);
@@ -24,6 +24,10 @@
 // (EfficientNet's stem and expand sites, flairtpu/models/efficientnet.py:182,
 // :244-245) is v * sigmoid(v) with sigmoid = 1 / (1 + expf(-v)), the accurate
 // expf and a rounded divide, as torch.sigmoid computes it on the card. The
+// ReLU6 (MobileNetV2's stem, expand, depthwise and features.18 sites,
+// flairtpu/models/tv_encoders.py:111, 115, 143, 165: jnp.clip(v, 0, 6)) is
+// two compares that pass NaN, as jnp.clip and torch.clamp do (fminf and
+// fmaxf would drop it). The
 // drop-connect is EfficientNet's at a train-mode project site with an
 // identity (flairtpu/models/efficientnet.py:202-211): each sample b's
 // BatchNorm output divided by keep, as flairtpu computes it, and multiplied
@@ -52,7 +56,7 @@ namespace {
 
 constexpr int kThreads = 256;
 enum Residual { kNone = 0, kFloat = 1, kBranch = 2, kHalf = 3 };
-enum Activation { kIdentity = 0, kRelu = 1, kSilu = 2 };
+enum Activation { kIdentity = 0, kRelu = 1, kSilu = 2, kRelu6 = 3 };
 
 struct Args {
   const __nv_bfloat16* y;
@@ -81,6 +85,7 @@ __device__ __forceinline__ float epilogue(float y, float s, float t, float r, fl
   if constexpr (kRes == kBranch) v = __fadd_rn(v, __fadd_rn(__fmul_rn(d, sd), td));
   if constexpr (kAct == kRelu) v = v < 0.f ? 0.f : v;  // NaN passes, as torch.relu
   if constexpr (kAct == kSilu) v = __fmul_rn(v, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v))));
+  if constexpr (kAct == kRelu6) v = v < 0.f ? 0.f : (v > 6.f ? 6.f : v);  // NaN passes
   return v;
 }
 
@@ -238,6 +243,7 @@ template <int kRes>
 cudaError_t dispatch(const Args& a, int act, cudaStream_t stream) {
   if (act == kRelu) return dispatch_f32<kRes, kRelu>(a, stream);
   if (act == kSilu) return dispatch_f32<kRes, kSilu>(a, stream);
+  if (act == kRelu6) return dispatch_f32<kRes, kRelu6>(a, stream);
   return dispatch_f32<kRes, kIdentity>(a, stream);
 }
 
@@ -247,7 +253,7 @@ cudaError_t dispatch(const Args& a, int act, cudaStream_t stream) {
 // residual ((n_pix, channels) float32, or bf16 where residual_bf16 is
 // nonzero) and branch ((n_pix, channels) bf16, with scale_d and shift_d) is
 // non-null. out: (n_pix, channels) bf16; out32:
-// (n_pix, channels) float32 or null. act: 0 none, 1 ReLU, 2 SiLU. mask:
+// (n_pix, channels) float32 or null. act: 0 none, 1 ReLU, 2 SiLU, 3 ReLU6. mask:
 // null, or the drop-connect's (n_pix / hw) float32 keep masks with
 // inv_keep (keep's float32 reciprocal), taken only with a float32 residual
 // and no activation. Returns
@@ -258,7 +264,7 @@ extern "C" int conv_epilogue(const void* y, const void* scale, const void* shift
                              int channels, int act, int residual_bf16, const void* mask,
                              float inv_keep, long long hw, void* stream) {
   if (channels < 1 || n_pix < 0 || (residual && branch) || (branch && !(scale_d && shift_d)) ||
-      act < kIdentity || act > kSilu ||
+      act < kIdentity || act > kRelu6 ||
       (mask && (!residual || residual_bf16 || act != kIdentity || hw < 1 || n_pix % hw ||
                 !(inv_keep >= 1.f))))
     return (int)cudaErrorInvalidValue;

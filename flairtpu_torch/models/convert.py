@@ -1,6 +1,6 @@
 """Weight loading (counterpart of ``flairtpu/models/convert.py:25-37`` and of
-its ``torch_to_flax`` for the resnet, resnext and efficientnet encoders
-(``:53-64, 400-421``), the unet,
+its ``torch_to_flax`` for the resnet, resnext, efficientnet and mobilenet_v2
+encoders (``:53-69, 400-455``), the unet,
 unetplusplus, manet, deeplabv3plus, deeplabv3, fpn, pspnet, linknet and pan
 decoders (``:158-177, 655-845``) and the metadata-MLP keys, both ways).
 
@@ -78,6 +78,15 @@ _EN_MEMBER = {"expand_conv": "_expand_conv", "expand_bn": "_bn0", "dw_conv": "_d
               "dw_bn": "_bn1", "se_reduce": "_se_reduce", "se_expand": "_se_expand",
               "project_conv": "_project_conv", "project_bn": "_bn2"}
 _EN_BLOCK_RE = re.compile(r"^block(\d+)$")
+# MobileNetV2 (torchvision's encoder.features.{i}): flax's f0_conv / f0_bn
+# and f18_conv / f18_bn are features.{0,18}.{0,1}; an inverted residual
+# f{i}/<member> is features.{i}.conv.<index>, one index lower in
+# features.1, which has no expand (flairtpu/models/convert.py:420-455)
+_MN_ENDS_RE = re.compile(r"^f(0|18)_(conv|bn)$")
+_MN_BLOCK_RE = re.compile(r"^f(\d+)$")
+_MN_MEMBER = {"expand": "0.0", "expand_bn": "0.1", "dw": "1.0", "dw_bn": "1.1", "project": "2",
+              "project_bn": "3"}
+_MN_MEMBER_EXPANDLESS = {"dw": "0.0", "dw_bn": "0.1", "project": "1", "project_bn": "2"}
 # a U-Net block (blockN: blocks.N) or a UNet++ node (x_d_l: blocks.x_d_l);
 # MAnet's MFAB blocks keep the same conv1/bn1/conv2/bn2 names
 _DEC_BLOCK_RE = re.compile(r"^(?:block(\d+)|(x_\d+_\d+))$")
@@ -154,6 +163,13 @@ def _module_prefix(path: tuple[str, ...], arch: str = "unet") -> str:
         m = _EN_BLOCK_RE.match(rest[0])
         if m and len(rest) == 2 and rest[1] in _EN_MEMBER:
             return f"encoder._blocks.{m.group(1)}.{_EN_MEMBER[rest[1]]}"
+        m = _MN_ENDS_RE.match(rest[0])
+        if m and len(rest) == 1:
+            return f"encoder.features.{m.group(1)}.{int(m.group(2) == 'bn')}"
+        m = _MN_BLOCK_RE.match(rest[0])
+        members = _MN_MEMBER_EXPANDLESS if m and m.group(1) == "1" else _MN_MEMBER
+        if m and len(rest) == 2 and rest[1] in members:
+            return f"encoder.features.{m.group(1)}.conv.{members[rest[1]]}"
     if top == "decoder" and len(rest) == 2:
         m = _DEC_BLOCK_RE.match(rest[0])
         if m and rest[1] in _DEC_SUB:
@@ -177,10 +193,10 @@ def _leaves(tree: Mapping, prefix=()):
 
 def from_flax(params: Mapping, batch_stats: Mapping, arch: str = "unet",
               skip_unknown: bool = False) -> dict[str, torch.Tensor]:
-    """flairtpu variables (numpy leaves) of a resnet or efficientnet encoder
-    with ``arch``'s decoder, the metadata MLP's included, -> the port's
-    state_dict. A flax module with no smp key raises, or with
-    ``skip_unknown`` is left out."""
+    """flairtpu variables (numpy leaves) of a resnet, efficientnet or
+    mobilenet_v2 encoder with ``arch``'s decoder, the metadata MLP's
+    included, -> the port's state_dict. A flax module with no smp key
+    raises, or with ``skip_unknown`` is left out."""
     sd: dict[str, torch.Tensor] = {}
     for coll, tree in (("params", params), ("batch_stats", batch_stats)):
         for path, value in _leaves(tree):
@@ -226,6 +242,10 @@ _SMP_MLP_RE = re.compile(r"^enc\.enc_mlp\.(\d+)$")
 _EN_STEM_INV = {v: k for k, v in _EN_STEM.items()}
 _EN_MEMBER_INV = {v: k for k, v in _EN_MEMBER.items()}
 _SMP_EN_BLOCK_RE = re.compile(r"^_blocks\.(\d+)\.(_\w+)$")
+_SMP_MN_ENDS_RE = re.compile(r"^features\.(0|18)\.([01])$")
+_SMP_MN_BLOCK_RE = re.compile(r"^features\.(\d+)\.conv\.([\d.]+)$")
+_MN_MEMBER_INV = {v: k for k, v in _MN_MEMBER.items()}
+_MN_MEMBER_EXPANDLESS_INV = {v: k for k, v in _MN_MEMBER_EXPANDLESS.items()}
 
 
 def _flax_module(prefix: str, arch: str = "unet") -> tuple[str, ...]:
@@ -251,6 +271,13 @@ def _flax_module(prefix: str, arch: str = "unet") -> tuple[str, ...]:
         m = _SMP_EN_BLOCK_RE.match(rest)
         if m and m.group(2) in _EN_MEMBER_INV:
             return ("encoder", f"block{m.group(1)}", _EN_MEMBER_INV[m.group(2)])
+        m = _SMP_MN_ENDS_RE.match(rest)
+        if m:
+            return ("encoder", f"f{m.group(1)}_{('conv', 'bn')[int(m.group(2))]}")
+        m = _SMP_MN_BLOCK_RE.match(rest)
+        members = (_MN_MEMBER_EXPANDLESS_INV if m and m.group(1) == "1" else _MN_MEMBER_INV)
+        if m and m.group(2) in members:
+            return ("encoder", f"f{m.group(1)}", members[m.group(2)])
     if prefix == "segmentation_head.0":
         return ("segmentation_head", "conv")
     m = _SMP_MLP_RE.match(prefix)

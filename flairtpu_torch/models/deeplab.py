@@ -104,7 +104,7 @@ def bn_act(epilogue, y: torch.Tensor, bn: nn.BatchNorm2d, relu: bool = True,
     scale, shift = scale_shift(bn)
     if bias is not None:
         shift = shift + scale * bias.float()
-    out, out32 = epilogue(y, scale, shift, relu=relu, keep_f32=keep_f32)
+    out, out32 = epilogue(y, scale, shift, act=relu, keep_f32=keep_f32)
     return out32 if keep_f32 else out
 
 

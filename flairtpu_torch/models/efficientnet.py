@@ -178,7 +178,7 @@ def silu_site(epilogue, y: torch.Tensor, bn: nn.BatchNorm2d, keep_f32: bool = Fa
     Returns (out, its float32 value if ``keep_f32``)."""
     if isinstance(epilogue, TrainSites):
         return epilogue.site(y, bn, act="silu", keep_f32=keep_f32)
-    return epilogue(y, *scale_shift(bn), relu=False, silu=True, keep_f32=keep_f32)
+    return epilogue(y, *scale_shift(bn), act="silu", keep_f32=keep_f32)
 
 
 def bn2d(ch: int) -> nn.BatchNorm2d:
@@ -234,7 +234,7 @@ class MBConvBlock(nn.Module):
         if train:
             return epilogue.site(y, self._bn2, residual=residual, act=None, keep_f32=keep_f32,
                                  drop=drop)
-        return epilogue(y, *scale_shift(self._bn2), residual=residual, relu=False,
+        return epilogue(y, *scale_shift(self._bn2), residual=residual, act=None,
                         keep_f32=keep_f32)
 
 

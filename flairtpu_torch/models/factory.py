@@ -1,8 +1,9 @@
 """Model factory: config -> segmentation model
 (counterpart of ``flairtpu/models/factory.py:36-51, 168-235, 256-327``).
 
-The nine smp models over the resnet and resnext encoders and the
-efficientnet-b0..b7 encoders (``models/efficientnet.py``): the U-Net (slice
+The nine smp models over the resnet and resnext encoders, the
+efficientnet-b0..b7 encoders (``models/efficientnet.py``) and mobilenet_v2
+(``models/mobilenet.py``): the U-Net (slice
 1), the strided-head decoders of slice 5 (deeplabv3plus, deeplabv3, fpn,
 pspnet, pan), linknet, MAnet and UNet++, each with smp's module names so
 that their state dicts load as they are. The encoder follows its name, as
@@ -38,6 +39,7 @@ from flairtpu_torch.models.deeplab import DeepLabV3PlusDecoder
 from flairtpu_torch.models.efficientnet import EFFICIENTNET_SPECS, EfficientNetEncoder
 from flairtpu_torch.models.manet import MAnetDecoder
 from flairtpu_torch.models.metadata_mlp import MetadataMLP, fuse_metadata
+from flairtpu_torch.models.mobilenet import MobileNetV2Encoder
 from flairtpu_torch.models.pan import PANDecoder
 from flairtpu_torch.models.resnet import ResNetEncoder, prepare_inference
 from flairtpu_torch.models.smp_extra import (DeepLabV3Decoder, FPNDecoder, LinknetDecoder,
@@ -96,8 +98,8 @@ class FlairSegmentationModel(nn.Module):
     """smp ``create_model(arch, encoder_name, classes, in_channels)`` with
     smp's key names, ``arch`` one of :data:`ARCHS`; ``s2d_stem``: the
     resnet encoder's stem conv on the space-to-depth repack
-    (``models/resnet.py:stem_conv``), ignored by EfficientNet, as
-    ``flairtpu`` passes it to the resnet encoder only
+    (``models/resnet.py:stem_conv``), ignored by EfficientNet and
+    MobileNetV2, as ``flairtpu`` passes it to the resnet encoder only
     (``flairtpu/models/factory.py:166``)."""
 
     def __init__(self, encoder_name: str = "resnet34", classes: int = 13,
@@ -111,6 +113,8 @@ class FlairSegmentationModel(nn.Module):
         self.use_metadata = use_metadata
         if encoder_name in EFFICIENTNET_SPECS:
             self.encoder = EfficientNetEncoder(encoder_name, in_channels, dtype=dtype, **enc_kw)
+        elif encoder_name == "mobilenet_v2":
+            self.encoder = MobileNetV2Encoder(in_channels, dtype=dtype, **enc_kw)
         else:
             self.encoder = ResNetEncoder(encoder_name, in_channels, dtype=dtype,
                                          s2d_stem=s2d_stem, **enc_kw)

@@ -196,7 +196,7 @@ class FloatSites:
         branch = residual if isinstance(residual, tuple) else None
         residual = None if branch is not None else residual
         out, _ = self.epilogue(self._conv(name, x, stride, padding, dilation, groups), c["one"],
-                               c["b"], residual=residual, branch=branch, relu=relu)
+                               c["b"], residual=residual, branch=branch, act=relu)
         return out
 
     def downsample(self, name: str, x, stride: int) -> tuple:

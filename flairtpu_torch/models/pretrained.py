@@ -1,7 +1,7 @@
 """Pretrained-encoder initialization from bare classifier checkpoints
 (counterpart of ``flairtpu/models/pretrained.py``, for the families the
-port builds: the resnets and resnexts, and efficientnet-b0..b7 from an
-efficientnet-pytorch classifier).
+port builds: the resnets and resnexts, efficientnet-b0..b7 from an
+efficientnet-pytorch classifier, and mobilenet_v2 from torchvision's).
 
 The reference never trains encoders from scratch: ``smp.create_model``
 defaults ``encoder_weights="imagenet"`` (ref src/flair/model.py:35-41),
@@ -11,11 +11,12 @@ the first conv from 3 input channels to ``in_channels`` (smp
 config's ``init_encoder_weights: <path>.pth`` takes such a torchvision-keyed
 state dict, and the same pipeline runs: the classifier head (``fc.*``; an
 efficientnet's ``_fc``, ``_conv_head``, ``_bn1`` and the modules beside
-them, top-level keys only: a block's ``_bn1`` stays) and the BatchNorm
-counters go, the first 3-channel conv (the stem: ``conv1`` or
-``_conv_stem``) is adapted with smp's rule, the keys take the
-``encoder.`` prefix, and the result must cover the model's encoder
-exactly (every key, every shape) before it is loaded. The decoder, the
+them, top-level keys only: a block's ``_bn1`` stays; a MobileNetV2's
+``classifier.*``) and the BatchNorm counters go, the first 3-channel conv
+(the stem: ``conv1``, ``_conv_stem`` or ``features.0.0``) is adapted with
+smp's rule, the keys take the ``encoder.`` prefix, and the result must
+cover the model's encoder exactly (every key, every shape) before it is
+loaded. The decoder, the
 head and the metadata MLP keep their initial values.
 """
 
@@ -27,7 +28,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from flairtpu_torch.config import EFFICIENTNET_ENCODERS, RESNET_ENCODERS, not_ported
+from flairtpu_torch.config import PORTED_ENCODERS, not_ported
 from flairtpu_torch.models.convert import load_torch_state_dict
 
 # classifier-head key prefixes safe to drop for every supported family: no
@@ -40,7 +41,8 @@ _EN_HEAD_PREFIXES = (
     "_fc.", "_conv_head.", "_bn1.", "_avg_pooling.", "_dropout.", "_swish.")
 
 # the families flairtpu converts (flairtpu/models/pretrained.py:55-63); the
-# port builds the resnets (resnexts among them) and efficientnet-b0..b7
+# port builds the resnets (resnexts among them), efficientnet-b0..b7 and
+# mobilenet_v2
 _SUPPORTED_PREFIXES = (
     "resnet", "resnext", "senet154", "se_resnet", "se_resnext",
     "efficientnet", "timm-efficientnet", "timm-mobilenetv3",
@@ -87,7 +89,7 @@ def classifier_to_encoder_state_dict(
         sd: Mapping[str, np.ndarray], encoder_name: str,
         in_channels: int) -> dict[str, np.ndarray]:
     """Bare ImageNet classifier state dict -> smp-encoder-namespace dict."""
-    if encoder_name not in RESNET_ENCODERS + EFFICIENTNET_ENCODERS:
+    if encoder_name not in PORTED_ENCODERS:
         if encoder_name.startswith(_SUPPORTED_PREFIXES):
             raise not_ported(f"init_encoder_weights for encoder {encoder_name!r}",
                              "slice 6: other smp encoders")
@@ -108,7 +110,9 @@ def classifier_to_encoder_state_dict(
 
 def stem_in_channels(encoder: torch.nn.Module) -> int:
     """The input channels of an encoder's stem conv (a resnet's ``conv1``,
-    an efficientnet's ``_conv_stem``)."""
+    an efficientnet's ``_conv_stem``, a MobileNetV2's ``features.0.0``)."""
+    if hasattr(encoder, "features"):
+        return encoder.features[0][0].in_channels
     stem = getattr(encoder, "_conv_stem", None) or encoder.conv1
     return stem.in_channels
 

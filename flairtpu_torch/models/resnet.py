@@ -112,7 +112,7 @@ def bn_site(epilogue, y: torch.Tensor, bn: nn.BatchNorm2d, residual=None, branch
                              keep_f32=keep_f32)
     if branch is not None:
         branch = (branch[0], *scale_shift(branch[1]))
-    return epilogue(y, *scale_shift(bn), residual=residual, branch=branch, relu=relu,
+    return epilogue(y, *scale_shift(bn), residual=residual, branch=branch, act=relu,
                     keep_f32=keep_f32)
 
 

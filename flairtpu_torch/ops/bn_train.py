@@ -33,7 +33,13 @@ gate as one node) sums its two gradients, the excite's multiply by the
 gradient before that derivative (the gate's own gradient comes from
 ``ops/se_gate.py:se_backward``); the project site takes the drop-connect
 (``conv_epilogue``'s ``drop`` forward, the gradient times mask[b] / keep,
-the identity's gradient untouched). Above 2048 channels (b2-b7's expanded
+the identity's gradient untouched). MobileNetV2's ReLU6 sites
+(``flairtpu/models/tv_encoders.py:105-119, 141-166``: the stem, each expand,
+each depthwise and ``features.18``) take ``conv_epilogue``'s ReLU6 forward
+and a backward that, as at a SiLU site, recomputes z from the saved map
+and the forward's shift: the ReLU6's mask cannot come from the bf16 output
+(bf16 rounds [5.984375, 6) to 6), and its derivative is 1/2 at z = 0 and z
+= 6, as JAX's of ``jnp.clip``. Above 2048 channels (b2-b7's expanded
 maps) the channels are cut into tiles that blocks take
 (:func:`channel_tiles`). The backward is one template instance a mode
 (:data:`KINDS`, :func:`backward_kind`): the ReLU and branch sites at U =
@@ -74,7 +80,8 @@ from typing import NamedTuple
 import torch
 
 from flairtpu_torch.ops import _build
-from flairtpu_torch.ops.epilogue import conv_epilogue, conv_epilogue_plain, inverse_keep
+from flairtpu_torch.ops.epilogue import (ACT_CODES, ACTIVATIONS, activation, conv_epilogue,
+                                         conv_epilogue_plain, inverse_keep)
 from flairtpu_torch.ops.group_norm import GroupNormReLU
 from flairtpu_torch.ops.se_gate import gate_from, se_backward, se_excite, se_squeeze
 
@@ -86,9 +93,10 @@ THREADS = 256
 # kLeanUnroll in one that loads only g and y)
 UNROLL = {"stats": 4, "backward": 2, "lean": 4}
 # the backward's template instances (csrc/bn_train.cu Kind): the lean ones
-# (no ReLU, no branch) with and without a float32 gradient
+# (no ReLU, no branch) with and without a float32 gradient, then the ReLU6's
+# (lean, g and y a pixel)
 KINDS = ("relu", "branch", "lean", "silu", "affine", "silu_affine", "lean_g32", "silu_g32",
-         "affine_g32", "silu_affine_g32")
+         "affine_g32", "silu_affine_g32", "relu6")
 MAX_BACKWARD_PIXELS = 2 ** 31  # a backward's pixel index fits 31 bits (kMaxBackPixels)
 WARPS = THREADS // 32
 COMBINE_LOADS = 8  # partials a lane of the combine loads at once (kCombineLoads)
@@ -103,7 +111,7 @@ STATS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p, ct
 BACKWARD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
                                               ctypes.c_int] + [ctypes.c_void_p] * 4 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
 NARROW_FORWARD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                                     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
@@ -113,8 +121,8 @@ NARROW_BACKWARD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_
 # kernel launches on CUDA tensors since the last reset, one count per entry
 # point (the CPU path does not count), and of them by mode: over channel
 # tiles (above 2048 channels), the backward with the SiLU alone (the stem's
-# and expand sites') and with the gradient affine (the depthwise and
-# drop-connect sites')
+# and expand sites'), with the gradient affine (the depthwise and
+# drop-connect sites') and with the ReLU6 (MobileNetV2's)
 launches = 0  # statistics
 backward_launches = 0
 narrow_launches = 0  # the narrow entry points'
@@ -123,6 +131,7 @@ wide_launches = 0
 wide_backward_launches = 0
 silu_backward_launches = 0
 affine_backward_launches = 0
+relu6_backward_launches = 0
 
 
 def _chw(v: torch.Tensor) -> torch.Tensor:
@@ -159,7 +168,7 @@ def bn_stats_apply_plain(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     of :func:`bn_stats_plain` then ``conv_epilogue_plain``. Returns (mean,
     invstd, scale, shift, out, out32 or None)."""
     stats = bn_stats_plain(y, gamma, beta, running_mean, running_var, eps, momentum)
-    return (*stats, *conv_epilogue_plain(y, stats[2], stats[3], relu=relu, keep_f32=keep_f32))
+    return (*stats, *conv_epilogue_plain(y, stats[2], stats[3], act=relu, keep_f32=keep_f32))
 
 
 class Plan(NamedTuple):
@@ -206,16 +215,23 @@ def sample_divisor(hw: int) -> tuple[int, int]:
     return -(-(1 << shift) // hw), shift
 
 
-def backward_kind(relu: bool, branch: bool, silu: bool, affine: bool, g32: bool = False) -> str:
-    """The backward's instance (:data:`KINDS`) of a call's operands (``g32``:
-    a float32 gradient; the ReLU and branch instances test for it at run
-    time)."""
+def backward_kind(act, branch: bool, affine: bool, g32: bool = False) -> str:
+    """The backward's instance (:data:`KINDS`) of a call's activation
+    (:data:`ACTIVATIONS`) and operands (``g32``: a float32 gradient; the
+    ReLU and branch instances test for it at run time; the ReLU6's has no
+    g32 twin and no affine)."""
+    act = activation(act)
     if branch:
         return "branch"
-    if relu:
+    if act == "relu":
         return "relu"
+    if act == "relu6":
+        if affine or g32:
+            raise ValueError("bn_backward: the ReLU6 instance takes no gradient affine and no "
+                             "float32 gradient")
+        return "relu6"
     kind = {(True, True): "silu_affine", (False, True): "affine", (True, False): "silu",
-            (False, False): "lean"}[silu, affine]
+            (False, False): "lean"}[act == "silu", affine]
     return kind + "_g32" if g32 else kind
 
 
@@ -429,18 +445,31 @@ def _grad_in(g, g32, out, relu: bool) -> torch.Tensor:
     return gz * (out > 0) if relu else gz
 
 
-def _site_grad(gr, y, gamma, invstd, shift=None, gmul=None, gadd=None) -> torch.Tensor:
+def relu6_derivative(z: torch.Tensor) -> torch.Tensor:
+    """The ReLU6's derivative as JAX's VJP of ``jnp.clip(z, 0, 6)`` gives
+    it: 1 on (0, 6), 1/2 at z = 0 and at z = 6 (clip is a max then a min,
+    and each splits a tie's gradient), 0 elsewhere and at NaN. Not
+    ``F.hardtanh``'s autograd, which gives 0 at both ties."""
+    inside = (z > 0) & (z < 6)
+    tie = (z == 0) | (z == 6)
+    return torch.where(inside, 1.0, torch.where(tie, 0.5, 0.0))
+
+
+def _site_grad(gr, y, gamma, invstd, act=None, shift=None, gmul=None,
+               gadd=None) -> torch.Tensor:
     """The BatchNorm output's gradient from the site's ``gr``: times the
-    (B, C) ``gmul``, plus the (B, C) ``gadd``, then at a SiLU site (the
-    forward's ``shift`` given) times the SiLU's derivative at z = y scale +
-    shift, each step rounded on its own as the kernel rounds it."""
+    (B, C) ``gmul``, plus the (B, C) ``gadd``, then at a SiLU or ReLU6 site
+    (``act``) times its derivative at z = y scale + shift (the forward's
+    ``shift``), each step rounded on its own as the kernel rounds it."""
     gz = gr
     if gmul is not None:
         gz = gz * gmul[:, :, None, None]
     if gadd is not None:
         gz = gz + gadd[:, :, None, None]
-    if shift is not None:
+    if act in ("silu", "relu6"):
         z = y.float() * _chw(gamma * invstd) + _chw(shift)
+        if act == "relu6":
+            return gz * relu6_derivative(z)
         s = torch.sigmoid(z)
         gz = gz * (s * (1 + z * (1 - s)))
     return gz
@@ -460,16 +489,28 @@ def _bn_input_grad(gz, x, mean, invstd, gamma):
     return dx.to(x.dtype), dgamma, dbeta
 
 
-def bn_backward_plain(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = True,
+def _check_act(act, shift) -> str | None:
+    act = activation(act)
+    if (act in ("silu", "relu6")) != (shift is not None):
+        raise ValueError(f"bn_backward: a SiLU or ReLU6 site takes its forward's shift, no "
+                         f"other site one (act {act!r}, shift "
+                         f"{'given' if shift is not None else 'None'})")
+    return act
+
+
+def bn_backward_plain(g, g32, out, y, mean, invstd, gamma, branch=None, act="relu",
                       residual: bool = False, shift=None, gmul=None, gadd=None):
     """The site's backward: g (y's dtype) and g32 (float32), either may be
-    None, out the forward's output (y's dtype). ``branch`` = (d, mean_d,
-    invstd_d, gamma_d). ``shift``: a SiLU site's forward shift; ``gmul``,
-    ``gadd``: the (B, C) float32 gradient affine (:func:`_site_grad`).
+    None, out the forward's output (y's dtype; read for the ReLU's mask).
+    ``branch`` = (d, mean_d, invstd_d, gamma_d). ``act``: the site's
+    activation (:data:`ACTIVATIONS`); ``shift``: a SiLU or ReLU6 site's
+    forward shift (and no other's); ``gmul``, ``gadd``: the (B, C) float32
+    gradient affine (:func:`_site_grad`).
     Returns (dy, dgamma, dbeta, dres, (dd, dgamma_d, dbeta_d) or None): dres
     (float32, the gradient before the affine) where ``residual``."""
-    gr = _grad_in(g, g32, out, relu)
-    gz = _site_grad(gr, y, gamma, invstd, shift, gmul, gadd)
+    act = _check_act(act, shift)
+    gr = _grad_in(g, g32, out, act == "relu")
+    gz = _site_grad(gr, y, gamma, invstd, act, shift, gmul, gadd)
     dy, dgamma, dbeta = _bn_input_grad(gz, y, mean, invstd, gamma)
     dres = gr.contiguous(memory_format=torch.channels_last) if residual else None
     db = None
@@ -486,21 +527,23 @@ def _check_affine(t, y, what: str) -> None:
                          f"on {y.device}, 16-byte aligned")
 
 
-def bn_backward(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = True,
+def bn_backward(g, g32, out, y, mean, invstd, gamma, branch=None, act="relu",
                 residual: bool = False, shift=None, gmul=None, gadd=None):
     """As :func:`bn_backward_plain`; every map channels_last. CPU tensors:
     the plain version. bfloat16 CUDA tensors: the kernel, or an error."""
     global backward_launches, narrow_backward_launches, wide_backward_launches
-    global silu_backward_launches, affine_backward_launches
+    global silu_backward_launches, affine_backward_launches, relu6_backward_launches
+    act = _check_act(act, shift)
+    relu = act == "relu"
     if not _on_card(y, "bn_backward"):
-        return bn_backward_plain(g, g32, out, y, mean, invstd, gamma, branch, relu, residual,
+        return bn_backward_plain(g, g32, out, y, mean, invstd, gamma, branch, act, residual,
                                  shift, gmul, gadd)
     if residual and branch is not None:
         raise ValueError("bn_backward: a residual or a branch, not both")
     affine = gmul is not None or gadd is not None
     if (shift is not None or affine) and (branch is not None or relu or y.shape[1] % 8):
-        raise ValueError("bn_backward: the SiLU and the gradient affine take no branch, no "
-                         "ReLU, and a multiple of 8 channels")
+        raise ValueError("bn_backward: the SiLU, the ReLU6 and the gradient affine take no "
+                         "branch, no ReLU, and a multiple of 8 channels")
     if shift is not None:
         _check_vector(shift, y.shape[1], y.device, "shift")
     for name, t in (("gmul", gmul), ("gadd", gadd)):
@@ -539,7 +582,7 @@ def bn_backward(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = T
         return dy, sums[1], sums[0], None, None
     dres = torch.empty_like(y, dtype=torch.float32) if residual else None
     branched = branch is not None
-    kind = backward_kind(relu, branched, shift is not None, affine, g32 is not None)
+    kind = backward_kind(act, branched, affine, g32 is not None)
     plan = launch_plan(m, C, "backward", _co_resident(y.device, "backward", C, kind), branched,
                        not relu, y.shape[2] * y.shape[3], g32 is not None, _sms(y.device))
     stream = _build.stream_handle(y)
@@ -555,23 +598,20 @@ def bn_backward(g, g32, out, y, mean, invstd, gamma, branch=None, relu: bool = T
         ptr(gamma), ptr(d), ptr(mean_d), ptr(invstd_d), ptr(gamma_d), ptr(partials),
         partials.numel(), ptr(counters), counters.numel(), plan.grid, ptr(sums), ptr(dy),
         ptr(dres), ptr(dd), m, C, plan.channel_tiles, ptr(shift), ptr(gmul), ptr(gadd),
-        y.shape[2] * y.shape[3], plan.unroll, plan.sample_magic, plan.sample_shift, stream)
+        y.shape[2] * y.shape[3], plan.unroll, plan.sample_magic, plan.sample_shift,
+        ACT_CODES[act], stream)
     _build.check(err, "bn_backward")
     backward_launches += 1
     wide_backward_launches += plan.channel_tiles > 1
     affine_backward_launches += affine
-    silu_backward_launches += shift is not None and not affine
+    silu_backward_launches += act == "silu" and not affine
+    relu6_backward_launches += act == "relu6"
     dbeta, dgamma, dgamma_d = sums
     return dy, dgamma, dbeta, dres, (None if d is None else (dd, dgamma_d, dbeta))
 
 
 def _channels_last(t):
     return None if t is None else t.contiguous(memory_format=torch.channels_last)
-
-
-# a site's activation: ReLU (True, as the sites of slices 1-5 pass it), the
-# SiLU, or none (False or None)
-ACTIVATIONS = {True: "relu", "relu": "relu", "silu": "silu", False: None, None: None}
 
 
 def site_forward(ctx, stats, epilogue, stats_apply, y, gamma, beta, rm, rv, residual, d, gamma_d,
@@ -586,11 +626,11 @@ def site_forward(ctx, stats, epilogue, stats_apply, y, gamma, beta, rm, rv, resi
     branch's); ``mask`` (B,) float32 and ``keep``: the drop-connect before
     the residual, (BN(y) / keep) mask[b] + residual."""
     ctx.set_materialize_grads(False)
-    act = ACTIVATIONS[act]
+    act = activation(act)
     relu = act == "relu"
     branch = stats_d = gmul = None
     if y.shape[1] % 8 and residual is None and d is None:
-        if act == "silu" or mask is not None:
+        if act in ("silu", "relu6") or mask is not None:
             raise ValueError("a narrow site (channels not a multiple of 8) takes a ReLU or no "
                              "activation, and no drop-connect")
         mean, invstd, scale, shift, out, out32 = stats_apply(y, gamma, beta, rm, rv, relu,
@@ -600,18 +640,18 @@ def site_forward(ctx, stats, epilogue, stats_apply, y, gamma, beta, rm, rv, resi
         if d is not None:
             stats_d = stats(d, gamma_d, beta_d, rm_d, rv_d, eps, momentum)
             branch = (d, stats_d[2], stats_d[3])
-        kw = {"silu": True} if act == "silu" else {}
+        kw = {}
         if mask is not None:
             kw["drop"] = (mask, keep)
             gmul = (mask * inverse_keep(keep))[:, None].expand(y.shape[:2]).contiguous()
-        out, out32 = epilogue(y, scale, shift, residual=residual, branch=branch, relu=relu,
+        out, out32 = epilogue(y, scale, shift, residual=residual, branch=branch, act=act,
                               keep_f32=keep_f32, **kw)
-    ctx.relu = relu
+    ctx.act = act
     ctx.residual = residual is not None
     ctx.residual_dtype = None if residual is None else residual.dtype
     ctx.save_for_backward(y, out, mean, invstd, gamma, d,
                           *(stats_d[:2] if d is not None else (None, None)), gamma_d,
-                          shift if act == "silu" else None, gmul)
+                          shift if act in ("silu", "relu6") else None, gmul)
     if not keep_f32:
         return out
     if out32 is out:  # float32 y: one tensor, handed on twice
@@ -626,7 +666,7 @@ def site_backward(ctx, backward, g, g32):
     branch = None if d is None else (d, mean_d, invstd_d, gamma_d)
     kw = {k: v for k, v in (("shift", shift), ("gmul", gmul)) if v is not None}
     dy, dgamma, dbeta, dres, db = backward(_channels_last(g), _channels_last(g32), out, y, mean,
-                                           invstd, gamma, branch, ctx.relu, ctx.residual, **kw)
+                                           invstd, gamma, branch, ctx.act, ctx.residual, **kw)
     if dres is not None:
         dres = dres.to(ctx.residual_dtype)
     dd, dgamma_d, dbeta_d = db if db is not None else (None, None, None)
@@ -688,7 +728,7 @@ def se_site_backward(ctx, impl, g):
         leaves = [t.detach().requires_grad_(True) for t in (sq, *w)]
         dsq, *dw = torch.autograd.grad(gate_from(*leaves, y.dtype), leaves, dgate)
     gadd = (dsq.float() / (y.shape[2] * y.shape[3])).contiguous()
-    dy, dgamma, dbeta, _, _ = impl.backward(g, None, None, y, mean, invstd, gamma, None, False,
+    dy, dgamma, dbeta, _, _ = impl.backward(g, None, None, y, mean, invstd, gamma, None, "silu",
                                             False, shift=shift, gmul=gate, gadd=gadd)
     return (dy, dgamma, dbeta, None, None, *dw, None, None)
 

@@ -1,7 +1,7 @@
 """Where the time of the bn_train kernels goes, on the card.
 
-    python -m flairtpu_torch.ops.bn_train_phases [--effnet] [--baseline OLD_SOURCE]
-                                                 [--variants NAME,...]
+    python -m flairtpu_torch.ops.bn_train_phases [--effnet | --mobilenet]
+                                                 [--baseline OLD_CSRC] [--variants NAME,...]
 
 Default: times bn_stats and bn_backward at the 43 BatchNorm sites (46
 BatchNorms) of one train step of resnet34-unet at batch 16 and 512² (each
@@ -12,7 +12,12 @@ expand convs; 32 depthwise sites with the gate affine and the SiLU; 25
 project sites with the drop-connect's affine), summed by mode (``silu``,
 ``affine``), and holds one SiLU and one depthwise site, with operands scaled
 so that z spans about ±90, to the plain version (finite, dy within DY_TOL of
-the largest |dy|). Site by site, by device time: a sleep kernel longer than
+the largest |dy|). ``--mobilenet``: the same at mobilenet_v2-unet's 52
+encoder train sites (35 ReLU6 sites: the stem, each expand, each depthwise
+and ``features.18``; 17 project sites of the plain lean instance, 10 with
+their identity's gradient), summed by mode (``relu6``, ``lean``), each
+held to the plain version (dy within DY_TOL); no ``--baseline`` (the
+earlier source has no ReLU6). Site by site, by device time: a sleep kernel longer than
 the host's calls runs ahead of the start event, so the events bracket the
 card's work and not the host's dispatch. Builds variants of
 ``csrc/bn_train.cu`` and times them in turns (the variants, then the same
@@ -53,18 +58,23 @@ reversed):
 ``apply_forward``, ``one_combiner``, ``combiners_quarter`` and ``div64``
 must give ``full``'s bits (checked); the others sum in another order (or
 over another grid, as ``min_blocks_1`` where the occupancy moves) or
-compute otherwise. ``--baseline`` also times an earlier source with
-the C interface of ``a5736fb`` (``git show
-a5736fb:flairtpu_torch/csrc/bn_train.cu``: the backward's modes tested at
-run time, U = 2 everywhere, the accurate sigmoid, a 64-bit division a
-pixel) through that interface, and in the default mode checks that its
-outputs are ``full``'s bits. The profiler's kernel sums split ``full``'s
-(and the baseline's) backward into its two launches. Prints one JSON line:
+compute otherwise. ``--baseline OLD_CSRC`` takes a directory with the
+``bn_train.cu`` and ``conv_epilogue.cu`` of ``04b1aa3``, the tree before
+the ReLU6 (``git archive 04b1aa3 flairtpu_torch/csrc | tar -x -C DIR``,
+then ``DIR/flairtpu_torch/csrc``): its bn_train, through that C interface
+(the backward without ``act``) and today's plan, is timed beside the
+variants and must give ``full``'s bits at every site; its conv_epilogue
+must give today's bits at every conv_epilogue site of one inference batch
+of BATCH SIZE² tiles of resnet34-unet (``--effnet``: of EFFNET-unet), the
+ReLU, branch and residual sites (the SiLU and plain ones), both outputs.
+The profiler's kernel sums split ``full``'s (and the baseline's) backward
+into its two launches. Prints one JSON line:
 each variant's totals (device ms; by mode with ``--effnet``), ``full``'s
 and the baseline's call ms (events around the host's calls), the sites
 one by one (each variant's ms, ``full``'s grid, U, instance and bounds:
-bytes at 3.35 TB/s), ptxas's registers of each instance, and the card's
-name and power limit. Needs a CUDA card and nvcc.
+bytes at 3.35 TB/s), ptxas's registers of each instance, the conv_epilogue
+sites held against the baseline's, and the card's name and power limit.
+Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -82,22 +92,24 @@ from pathlib import Path
 
 import torch
 
-from flairtpu_torch.models.factory import FlairSegmentationModel
+from flairtpu_torch.models.factory import FlairSegmentationModel, init_weights
 from flairtpu_torch.ops import _build
 from flairtpu_torch.ops import bn_train as bt
+from flairtpu_torch.ops import epilogue as ep
 from flairtpu_torch.ops.epilogue import conv_epilogue
 
 BATCH, SIZE, CLASSES = 16, 512, 19
+MARGIN = 128  # the inference batch's tile margin (--baseline's conv_epilogue sites)
 EFFNET = "efficientnet-b4"
+MOBILENET = "mobilenet_v2"
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SLEEP_CYCLES_PER_S = 2e9  # at least the card's clock: a sleep lasts as long as asked
 DY_TOL = 2.0 ** -6  # of the largest |dy| (chip_smoke.py's BN_DY_TOL)
 Z_SPAN = 90.0  # the z of the scaled check's operands spans about ±Z_SPAN
 ENTRIES = {"bn_train_stats": bt.STATS_ARGTYPES, "bn_train_backward": bt.BACKWARD_ARGTYPES,
            "bn_train_occupancy": bt.OCCUPANCY_ARGTYPES}
-# a5736fb's C interface: the backward without (unroll, sample_magic,
-# sample_shift), the occupancy's third argument the branch flag
-OLD_BACKWARD_ARGTYPES = bt.BACKWARD_ARGTYPES[:-4] + bt.BACKWARD_ARGTYPES[-1:]
+# the baseline's C interface (04b1aa3's): the backward without act
+OLD_BACKWARD_ARGTYPES = bt.BACKWARD_ARGTYPES[:-2] + bt.BACKWARD_ARGTYPES[-1:]
 
 APPLY_WALK = ("    const long long p0 = tiles.first(k, true) + t.row;\n    Pixel px",
               "    const long long p0 = tiles.first(k, false) + t.row;\n    Pixel px")
@@ -166,11 +178,9 @@ RESNET_VARIANTS = ("full", "apply_forward", "stats_forward", "one_combiner", "co
 EFFNET_VARIANTS = ("full", "accurate_sigmoid", "div64", "backward_unroll2", "min_blocks_1",
                    "min_blocks_3", "copy_only", "stream_stores", "lean_block_64k",
                    "lean_grid_any")
+MOBILENET_VARIANTS = ("full", "backward_unroll2", "min_blocks_1", "min_blocks_3", "copy_only",
+                      "stream_stores", "lean_block_64k", "lean_grid_any")
 SAME_BITS = ("full", "apply_forward", "one_combiner", "combiners_quarter", "div64")
-# the baseline's plan: U = 2 and a least share of 64 KB at every site, its
-# own interface
-BASELINE_PLAN = {"UNROLL": {**bt.UNROLL, "lean": bt.UNROLL["backward"]},
-                 "MIN_LEAN_BLOCK_BYTES": bt.MIN_BLOCK_BYTES}
 
 
 def device_ms(fn, reps: int = 5) -> float:
@@ -277,6 +287,33 @@ def record_effnet_sites() -> list[dict]:
     return rec.sites
 
 
+def record_mobilenet_sites() -> list[dict]:
+    """Each encoder train site of MOBILENET-unet at BATCH x SIZE², in forward
+    order (recorded at 64² on the CPU and scaled): ``mode`` "relu6" (the
+    stem, each expand, each depthwise, features.18) or "lean" (each
+    project, with its identity where the block has one), ``hw`` the pixels
+    of a sample, ``keep_f32`` (a float32 gradient comes back)."""
+
+    class Recorder(bt.TrainSites):
+        def __init__(self):
+            self.sites = []
+
+        def site(self, y, bn, residual=None, branch=None, act="relu", keep_f32=False,
+                 drop=None):
+            if act == "relu6" or not act:
+                shape = _scaled(y)
+                self.sites.append(dict(mode=act or "lean", shape=shape, hw=shape[2] * shape[3],
+                                       residual=residual is not None, keep_f32=keep_f32,
+                                       keep=None))
+            return super().site(y, bn, residual, branch, act, keep_f32, drop)
+
+    rec = Recorder()
+    with torch.no_grad():
+        FlairSegmentationModel(MOBILENET, CLASSES, 5).encoder(torch.rand(1, 5, 64, 64),
+                                                              epilogue=rec)
+    return rec.sites
+
+
 def _rand(shape, gen, dtype=torch.bfloat16):
     return torch.randn(shape, device="cuda", generator=gen).to(dtype).contiguous(
         memory_format=torch.channels_last)
@@ -302,11 +339,12 @@ def operands(site: dict, gen) -> dict:
     mode = site.get("mode")
     if mode is None:
         d = _rand(site["shape"], gen) if site["branch"] else None
-        ops.update(d=d, out=torch.relu(_rand(site["shape"], gen)),
+        ops.update(d=d, out=torch.relu(_rand(site["shape"], gen)), act="relu",
                    vd=vecs(4) if d is not None else None, sd=vecs(2) if d is not None else None)
         return ops
-    ops.update(d=None, out=None, vd=None, sd=None)
-    if mode in ("silu", "depthwise"):
+    ops.update(d=None, out=None, vd=None, sd=None,
+               act={"silu": "silu", "depthwise": "silu", "relu6": "relu6"}.get(mode))
+    if ops["act"]:
         ops["kw"]["shift"] = torch.randn(C, device="cuda", generator=gen)
     if mode == "depthwise":
         ops["kw"]["gmul"] = torch.rand((B, C), device="cuda", generator=gen)
@@ -319,11 +357,11 @@ def operands(site: dict, gen) -> dict:
 
 def backward_args(ops: dict) -> tuple:
     """bn_backward's positional arguments of the operands (the ReLU at a
-    resnet site, none at an EfficientNet site)."""
+    resnet site; the SiLU, the ReLU6 or none at a lean one)."""
     v, d = ops["v"], ops["d"]
     branch = None if d is None else (d, *ops["sd"], ops["vd"][0])
-    return (ops["g"], ops["g32"], ops["out"], ops["y"], *ops["s"], v[0], branch,
-            ops["out"] is not None, ops["residual"] is not None)
+    return (ops["g"], ops["g32"], ops["out"], ops["y"], *ops["s"], v[0], branch, ops["act"],
+            ops["residual"] is not None)
 
 
 def calls(ops: dict) -> dict:
@@ -362,7 +400,7 @@ def site_bytes(site: dict) -> dict:
     B, C, H, W = site["shape"]
     n = B * C * H * W
     if site.get("mode") is not None:
-        affine = 2 * 4 * B * C * (site["mode"] != "silu")
+        affine = 2 * 4 * B * C * (site["mode"] in ("depthwise", "drop"))
         return {"backward": 6 * n + 4 * n * site["keep_f32"] + 4 * n * site["residual"]
                 + affine}
     n_bn = 1 + site["branch"]
@@ -413,6 +451,9 @@ def ptxas_registers(log: str) -> dict:
 
 
 def build_variants(out: Path, names: list[str], baseline: Path | None) -> dict:
+    """Each variant's library and registers, and with ``baseline`` (a
+    directory) its bn_train.cu as ``baseline`` and its conv_epilogue.cu as
+    ``epilogue_baseline``, all built at once."""
     base = (_build.CSRC / "bn_train.cu").read_text()
     jobs = {}
     for name in names:
@@ -423,7 +464,8 @@ def build_variants(out: Path, names: list[str], baseline: Path | None) -> dict:
             src = src.replace(old, new)
         jobs[name] = src
     if baseline is not None:
-        jobs["baseline"] = baseline.read_text()
+        jobs["baseline"] = (baseline / "bn_train.cu").read_text()
+        jobs["epilogue_baseline"] = (baseline / "conv_epilogue.cu").read_text()
 
     def one(item):
         name, src = item
@@ -440,26 +482,25 @@ def build_variants(out: Path, names: list[str], baseline: Path | None) -> dict:
         return dict(pool.map(one, jobs.items()))
 
 
-def _old_entries(lib: ctypes.CDLL) -> dict:
-    """a5736fb's entry points in the current interface: the backward drops
-    (unroll, sample_magic, sample_shift), the occupancy takes the branch
-    flag for the instance (kind 1 the branch)."""
-    back = _build.bind(lib, "bn_train_backward", OLD_BACKWARD_ARGTYPES)
-    occ = _build.bind(lib, "bn_train_occupancy", bt.OCCUPANCY_ARGTYPES)
-    return {"bn_train_stats": _build.bind(lib, "bn_train_stats", bt.STATS_ARGTYPES),
-            "bn_train_backward": lambda *a: back(*a[:-4], a[-1]),
-            "bn_train_occupancy": lambda mode, c, kind, out: occ(mode, c, int(kind == 1), out)}
+def bn_entries(lib: ctypes.CDLL, old: bool = False) -> dict:
+    """bn_train's entry points in ``lib``; ``old``: the baseline's, whose
+    backward takes no ``act`` (it reads the ReLU from ``out`` and the SiLU
+    from ``shift``, as today's instances 0-9 take them)."""
+    entries = {symbol: _build.bind(lib, symbol, argtypes) for symbol, argtypes in ENTRIES.items()
+               if not (old and symbol == "bn_train_backward")}
+    if old:
+        back = _build.bind(lib, "bn_train_backward", OLD_BACKWARD_ARGTYPES)
+        entries["bn_train_backward"] = lambda *a: back(*a[:-2], a[-1])
+    return entries
 
 
 @contextmanager
 def variant(lib: ctypes.CDLL, plan: dict, co_resident: dict, old: bool = False):
-    """bn_train's wrappers bound to ``lib`` (``old``: through a5736fb's
-    interface) and its occupancy cache, with the plan's ``plan`` overrides
-    (bn_train attributes) in force."""
+    """bn_train's wrappers bound to ``lib`` (``old``: the baseline's) and
+    its occupancy cache, with the plan's ``plan`` overrides (bn_train
+    attributes) in force."""
     saved = (dict(_build._ENTRIES), {k: getattr(bt, k) for k in plan}, bt._CO_RESIDENT)
-    entries = _old_entries(lib) if old else {
-        symbol: _build.bind(lib, symbol, argtypes) for symbol, argtypes in ENTRIES.items()}
-    _build._ENTRIES.update(entries)
+    _build._ENTRIES.update(bn_entries(lib, old))
     for k, v in plan.items():
         setattr(bt, k, v)
     bt._CO_RESIDENT = co_resident
@@ -474,11 +515,49 @@ def variant(lib: ctypes.CDLL, plan: dict, co_resident: dict, old: bool = False):
 
 
 def same_bits(a, b) -> bool:
-    a = a if isinstance(a, (tuple, list)) else (a,)
-    b = b if isinstance(b, (tuple, list)) else (b,)
-    return all((x is None and y is None) or (x is not None and y is not None and
-                                             (same_bits(x, y) if isinstance(x, (tuple, list))
-                                              else torch.equal(x, y))) for x, y in zip(a, b))
+    """Tensors (or nested tuples of them, None alike) with equal bits (NaN
+    too)."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    width = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(width), b.view(width))
+
+
+def epilogue_bits(lib: ctypes.CDLL, encoder: str) -> dict:
+    """Every conv_epilogue site of one inference batch of BATCH SIZE² tiles
+    of ``encoder``-unet (random weights) through today's kernel and
+    ``lib``'s (the same C interface) on the same operands: the sites held
+    and those whose outputs' bits differ."""
+    old = _build.bind(lib, "conv_epilogue", ep.ARGTYPES)
+    out = {"held": 0, "differ": []}
+
+    def both(y, scale, shift, **kw):
+        got = conv_epilogue(y, scale, shift, **kw)
+        saved = _build._ENTRIES.get("conv_epilogue")
+        _build._ENTRIES["conv_epilogue"] = old
+        try:
+            earlier = conv_epilogue(y, scale, shift, **kw)
+        finally:
+            _build._ENTRIES["conv_epilogue"] = saved
+        if same_bits(got, earlier):
+            out["held"] += 1
+        else:
+            out["differ"].append(f"{encoder} {tuple(y.shape)} {sorted(kw)}")
+        return got
+
+    model = FlairSegmentationModel(encoder, CLASSES, 5, dtype=torch.bfloat16)
+    init_weights(model, 0)
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    model.prepare_inference()
+    gen = torch.Generator("cuda").manual_seed(1)
+    x = torch.rand((BATCH, SIZE, SIZE, 5), generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        model.tail_input(x, MARGIN, epilogue=both)
+    del model, x
+    torch.cuda.empty_cache()
+    return out
 
 
 def plan_row(site: dict, ops: dict, modes) -> dict:
@@ -489,8 +568,8 @@ def plan_row(site: dict, ops: dict, modes) -> dict:
     if "stats" in modes:
         row["stats_grid"] = bt.launch_plan(m, C, "stats", bt._co_resident(dev, "stats", C)).grid
     args, kw = backward_args(ops), ops["kw"]
-    relu, branch = args[8], args[7] is not None
-    kind = bt.backward_kind(relu, branch, "shift" in kw, "gmul" in kw, args[1] is not None)
+    relu, branch = args[8] == "relu", args[7] is not None
+    kind = bt.backward_kind(args[8], branch, "gmul" in kw, args[1] is not None)
     plan = bt.launch_plan(m, C, "backward", bt._co_resident(dev, "backward", C, kind), branch,
                           not relu, site["shape"][2] * site["shape"][3], args[1] is not None,
                           bt._sms(dev))
@@ -522,25 +601,32 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--effnet", action="store_true",
                     help=f"{EFFNET}-unet's SiLU and affine sites, the backward alone")
-    ap.add_argument("--baseline", type=Path, help="an earlier bn_train.cu with a5736fb's C "
-                    "interface, timed beside the variants")
+    ap.add_argument("--mobilenet", action="store_true",
+                    help=f"{MOBILENET}-unet's ReLU6 and project sites, the backward alone")
+    ap.add_argument("--baseline", type=Path, help="a directory with 04b1aa3's bn_train.cu and "
+                    "conv_epilogue.cu, held bit for bit against today's")
     ap.add_argument("--variants", help="comma-separated variants (default: the mode's set)")
     args = ap.parse_args()
+    if args.mobilenet and (args.effnet or args.baseline):
+        raise SystemExit("bn_train_phases: --mobilenet takes no --effnet and no --baseline")
     if not torch.cuda.is_available():
         raise SystemExit("bn_train_phases: needs a CUDA card")
-    sites = record_effnet_sites() if args.effnet else record_sites()
+    lean = args.effnet or args.mobilenet  # the lean backward alone, held to the plain one
+    sites = (record_effnet_sites() if args.effnet else
+             record_mobilenet_sites() if args.mobilenet else record_sites())
     names = (args.variants.split(",") if args.variants
-             else list(EFFNET_VARIANTS if args.effnet else RESNET_VARIANTS))
+             else list(EFFNET_VARIANTS if args.effnet else
+                       MOBILENET_VARIANTS if args.mobilenet else RESNET_VARIANTS))
     if "full" not in names or any(n not in VARIANTS for n in names):
         raise SystemExit(f"bn_train_phases: variants must include full and be of {list(VARIANTS)}")
-    modes = ("backward",) if args.effnet else ("stats", "pair", "backward")
+    modes = ("backward",) if lean else ("stats", "pair", "backward")
     gen = torch.Generator("cuda").manual_seed(0)
     with tempfile.TemporaryDirectory(prefix="bn_train_phases_") as tmp:
         built = build_variants(Path(tmp), names, args.baseline)
+        epilogue_lib = built.pop("epilogue_baseline", (None,))[0]
         caches = {name: {} for name in built}
         names = names + (["baseline"] if args.baseline else [])
-        plans = {name: BASELINE_PLAN if name == "baseline" else VARIANTS[name][1]
-                 for name in names}
+        plans = {name: {} if name == "baseline" else VARIANTS[name][1] for name in names}
         order = names + names[::-1]
         groups = sorted({s.get("mode") or "resnet" for s in sites})
         totals = {name: {g: {m: 0.0 for m in modes} for g in groups} for name in names}
@@ -563,14 +649,13 @@ def main() -> None:
                                    else ((), fns["backward"]()))
                             if name == "full":
                                 want = got
-                                if args.effnet:
+                                if lean:
                                     plain = bt.bn_backward_plain(*backward_args(ops),
                                                                  **ops["kw"])
                                     row["dy_err"] = dy_err(got[1][0], plain[0])
                                     if row["dy_err"] > DY_TOL:
                                         differ.append(("plain", k))
-                            elif not (args.effnet and name == "baseline") and \
-                                    not same_bits(got, want):
+                            elif not same_bits(got, want):
                                 differ.append((name, k))
                         for m, fn in fns.items():
                             ms = device_ms(fn)
@@ -592,20 +677,26 @@ def main() -> None:
         launches = {name: split_launches(sites, gen, built[name][0], plans[name], caches[name],
                                          name == "baseline")
                     for name in ("full", "baseline") if name in built}
+        epilogue = None
+        if epilogue_lib is not None:
+            epilogue = epilogue_bits(epilogue_lib, EFFNET if args.effnet else "resnet34")
+            differ += [("epilogue_baseline", site) for site in epilogue["differ"]]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
     bounds = {g: {m: sum(r.get(f"{m}_bound_ms", 0.0) for r in by_site
                          if (r.get("mode") or "resnet") == g) for m in modes} for g in groups}
-    # the kernel table's rows: the SiLU sites, the affine ones (--effnet)
-    rows = {"silu": ("silu",), "affine": ("depthwise", "drop")}
+    # the kernel table's rows: the SiLU sites, the affine ones (--effnet);
+    # the ReLU6 sites, the plain lean ones (--mobilenet)
+    rows = ({"relu6": ("relu6",), "lean": ("lean",)} if args.mobilenet
+            else {"silu": ("silu",), "affine": ("depthwise", "drop")})
 
     def by_row(t: dict) -> dict:
-        if not args.effnet:
+        if not lean:
             return {m: sum(t[g][m] for g in t) for m in modes}
         return {row: sum(t[g]["backward"] for g in gs if g in t) for row, gs in rows.items()}
 
-    if args.effnet:
+    if lean:
         bounds.update({row: {"backward": sum(bounds[g]["backward"] for g in gs if g in bounds)}
                        for row, gs in rows.items()})
     print(json.dumps({"bn_train_phases_ms": {name: by_row(t) for name, t in totals.items()},
@@ -614,6 +705,7 @@ def main() -> None:
                       "sites": len(sites), "full_by_site": by_site,
                       "backward_launches_ms": launches, "z_checks": checks,
                       "registers": {name: regs for name, (_, regs) in built.items()},
+                      "epilogue_baseline_sites_held": epilogue and epilogue["held"],
                       "differ": differ, "card": card}))
     if differ or not all(c["held"] for c in checks):
         raise SystemExit(f"bn_train_phases: outputs that should agree differ: {differ}; "

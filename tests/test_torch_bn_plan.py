@@ -1,12 +1,15 @@
 """bn_train's launch plan (``ops/bn_train.py:launch_plan``) at every
 BatchNorm site geometry of resnet34-unet, at the train batch (16 x 512²)
-and at the CPU tests' size (4 x 64²), and at efficientnet-b4-unet's SiLU
-and affine sites (the lean backward's U); the sample index constant
+and at the CPU tests' size (4 x 64²), at efficientnet-b4-unet's SiLU
+and affine sites (the lean backward's U) and at mobilenet_v2-unet's ReLU6
+sites, the ten earlier instances' plans pinned; the sample index constant
 (``sample_divisor``); what the wrappers tell the C entry points; and the
 phases tool's source variants. Pure Python: the kernels run only on a card,
 where ``chip_smoke.py`` holds them against their plain versions.
 """
 
+import hashlib
+import json
 import re
 from pathlib import Path
 
@@ -16,6 +19,7 @@ import torch
 
 from flairtpu_torch.ops import bn_train as bt
 from flairtpu_torch.ops import bn_train_phases
+from flairtpu_torch.ops import epilogue as ep
 
 SOURCE = Path(bt.__file__).resolve().parent.parent / "csrc" / "bn_train.cu"
 # (C, H, W at a 512² input, residual, branch, keep_f32) of each distinct
@@ -49,6 +53,20 @@ EFFNET_SITES = (
     ("silu", 192, 128, 128, False), ("silu", 336, 64, 64, False), ("silu", 672, 32, 32, False),
     ("silu", 960, 32, 32, False), ("silu", 1632, 16, 16, False), ("silu", 2688, 16, 16, False),
 )
+# (C, H, W at a 512² input) of each distinct ReLU6 site of
+# mobilenet_v2-unet's train forward (35 sites: the stem, 16 expands, 17
+# depthwise, features.18)
+MOBILENET_RELU6_SITES = (
+    (32, 256, 256), (96, 128, 128), (96, 256, 256), (144, 64, 64), (144, 128, 128),
+    (192, 32, 32), (192, 64, 64), (384, 32, 32), (576, 16, 16), (576, 32, 32), (960, 16, 16),
+    (1280, 16, 16),
+)
+# the instances before the ReLU6's, in Kind order
+EARLIER_KINDS = ("relu", "branch", "lean", "silu", "affine", "silu_affine", "lean_g32", "silu_g32",
+                 "affine_g32", "silu_affine_g32")
+# sha256 of the plans of those instances at SITES and EFFNET_SITES
+# (:func:`earlier_plans_digest`), as the tree before the ReLU6 instance gave them
+EARLIER_PLANS_SHA256 = "3cc45128d51d99a0f3646208cce8779393155192d73ed03afd5b930542ef11ec"
 SIZES = {"train": (16, 512), "cpu": (4, 64)}  # (batch, input side)
 # co-resident grids: 132 SMs x 1, 2, 4 and 8 blocks
 CO_RESIDENT = (132, 264, 528, 1056)
@@ -95,8 +113,18 @@ def test_plan_constants_match_the_kernel_source():
     kinds = re.findall(r"k(\w+)Kind = (\d+),", src)
     assert [int(v) for _, v in kinds] == list(range(len(bt.KINDS)))
     assert [re.sub(r"(?<=.)([A-Z])", r"_\1", k).lower() for k, _ in kinds] == list(bt.KINDS)
+    assert bt.KINDS == EARLIER_KINDS + ("relu6",) and const("kKinds") == len(bt.KINDS)
+    assert "Instances<0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10>" in src
     assert const("kCombineLoads") == bt.COMBINE_LOADS
     assert const("kCounters") == bt.COUNTERS
+    # the activation codes: bn_train's Act, conv_epilogue's Activation, ACT_CODES
+    acts = {k.lower(): int(v) for k, v in re.findall(r"kAct(\w+) = (\d+)", src)}
+    epi = (SOURCE.parent / "conv_epilogue.cu").read_text()
+    codes = {k.lower(): int(v) for k, v in re.findall(
+        r"k(Identity|Relu|Silu|Relu6) = (\d+)", epi.split("enum Activation", 1)[1].split("};")[0])}
+    assert acts == {"none": 0, "relu": 1, "silu": 2, "relu6": 3}
+    assert codes == {"identity": 0, "relu": 1, "silu": 2, "relu6": 3}
+    assert ep.ACT_CODES == {None: 0, "relu": 1, "silu": 2, "relu6": 3}
 
 
 @pytest.mark.parametrize("size", SIZES)
@@ -317,10 +345,11 @@ def test_launch_plan_at_b4_sites(site):
     (False, False, True, False, "silu"), (False, False, False, True, "affine"),
     (False, False, True, True, "silu_affine")])
 def test_backward_kind(relu, branch, silu, affine, want):
-    """The instance of a call's operands; the lean ones with g32 apart, the
-    ReLU and branch ones test for it at run time."""
-    assert bt.backward_kind(relu, branch, silu, affine) == want
-    assert bt.backward_kind(relu, branch, silu, affine, g32=True) == (
+    """The instance of a call's activation and operands; the lean ones with
+    g32 apart, the ReLU and branch ones test for it at run time."""
+    act = "relu" if relu else "silu" if silu else None
+    assert bt.backward_kind(act, branch, affine) == want
+    assert bt.backward_kind(act, branch, affine, g32=True) == (
         want if want in ("relu", "branch") else want + "_g32")
     assert want in bt.KINDS and bt.KINDS.index(want) < 6
 
@@ -330,8 +359,9 @@ def test_backward_kind(relu, branch, silu, affine, want):
 def test_wrapper_tells_the_backward_its_instance(fake_card, site):
     """A SiLU, depthwise or drop-connect call launches once with its plan:
     the grid, U (4 with g and y alone, 2 with g32) and the sample constant
-    of the map's H W, after the hw; the card path refuses the SiLU or the
-    affine with a ReLU."""
+    of the map's H W, after the hw, then the activation's code; the card
+    path refuses the affine with a ReLU, and a ReLU given a shift (the
+    forward's shift is a SiLU's or a ReLU6's)."""
     mode, c, h, w, keep_f32 = site
     shape = (2, c, h // 8, w // 8)
     y = cl(shape, torch.bfloat16)
@@ -341,17 +371,121 @@ def test_wrapper_tells_the_backward_its_instance(fake_card, site):
         kw["gmul"] = torch.ones(2, c)
     if mode == "depthwise":
         kw["gadd"] = torch.zeros(2, c)
+    act = "silu" if "shift" in kw else None
     bt.bn_backward(cl(shape, torch.bfloat16), cl(shape, torch.float32) if keep_f32 else None,
-                   None, y, *vec, relu=False, residual=mode == "drop", **kw)
+                   None, y, *vec, act=act, residual=mode == "drop", **kw)
     (sym, b), = fake_card
     m = y.numel() // c
     plan = bt.launch_plan(m, c, "backward", 528, lean=True, hw=shape[2] * shape[3], g32=keep_f32,
                           sms=132)
     assert sym == "bn_train_backward" and bt.backward_launches == 1
     assert (b[12], b[15], b[20], b[21]) == (plan.partials, plan.grid, m, c)
-    assert b[26:30] == (shape[2] * shape[3], 2 if keep_f32 else 4, plan.sample_magic,
-                        plan.sample_shift)
+    assert b[26:31] == (shape[2] * shape[3], 2 if keep_f32 else 4, plan.sample_magic,
+                        plan.sample_shift, ep.ACT_CODES[act])
     assert (b[23] is not None, b[24] is not None, b[25] is not None) == (
         "shift" in kw, "gmul" in kw, "gadd" in kw)
-    with pytest.raises(ValueError, match="no ReLU"):
-        bt.bn_backward(cl(shape, torch.bfloat16), None, y, y, *vec, relu=True, **kw)
+    affine = {k: v for k, v in kw.items() if k != "shift"}
+    if affine:
+        with pytest.raises(ValueError, match="no ReLU"):
+            bt.bn_backward(cl(shape, torch.bfloat16), None, y, y, *vec, act="relu", **affine)
+    if "shift" in kw:
+        with pytest.raises(ValueError, match="shift"):
+            bt.bn_backward(cl(shape, torch.bfloat16), None, y, y, *vec, act="relu", **kw)
+
+
+def earlier_plans_digest() -> str:
+    """sha256 of the ten earlier instances' plans: every SITES site at both
+    SIZES (statistics and backward) and every EFFNET_SITES site (the lean
+    backward, the card's 132 SMs) at each CO_RESIDENT, then the instance of
+    every (relu, branch, silu, affine, g32) and the first ten KINDS."""
+    rows = []
+    for site in SITES:
+        for size in SIZES.values():
+            m, c = site_pixels(site, size)
+            for co in CO_RESIDENT:
+                rows.append(bt.launch_plan(m, c, "stats", co))
+                rows.append(bt.launch_plan(m, c, "backward", co, branch=site[4]))
+    for mode, c, h, w, keep_f32 in EFFNET_SITES:
+        for co in CO_RESIDENT:
+            rows.append(bt.launch_plan(16 * h * w, c, "backward", co, lean=True, hw=h * w,
+                                       g32=keep_f32, sms=132))
+    kinds = [bt.backward_kind("relu" if r else "silu" if s else None, b, a, g) for r in (0, 1)
+             for b in (0, 1) for s in (0, 1) for a in (0, 1) for g in (0, 1)]
+    blob = json.dumps([list(p) for p in rows] + [kinds, list(bt.KINDS[:10])])
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def test_earlier_instances_keep_their_plans():
+    """resnet34-unet's and efficientnet-b4-unet's sites take the plans and
+    instances they took before the ReLU6 instance was added."""
+    assert earlier_plans_digest() == EARLIER_PLANS_SHA256
+
+
+def test_mobilenet_sites_are_mnv2_unets():
+    """MOBILENET_RELU6_SITES are the distinct ReLU6 sites of the port's
+    mobilenet_v2-unet train forward, as ``bn_train_phases --mobilenet``
+    records them (at 64², scaled to 512²): 35 ReLU6 sites, and 17 project
+    sites of the plain lean instance, 10 with the identity's gradient; no
+    site is narrow or above 2048 channels."""
+    sites = bn_train_phases.record_mobilenet_sites()
+    assert len(sites) == 52 and sum(s["mode"] == "relu6" for s in sites) == 35
+    assert sum(s["mode"] == "lean" and s["residual"] for s in sites) == 10
+    assert not any(s["keep_f32"] or s["residual"] for s in sites if s["mode"] == "relu6")
+    assert all(s["shape"][1] % 8 == 0 and s["shape"][1] <= 8 * bt.THREADS for s in sites)
+    assert sorted({s["shape"][1:] for s in sites if s["mode"] == "relu6"}) == \
+        sorted(MOBILENET_RELU6_SITES)
+
+
+@pytest.mark.parametrize("site", MOBILENET_RELU6_SITES, ids=lambda s: "x".join(map(str, s)))
+def test_launch_plan_at_relu6_sites(site):
+    """At each ReLU6 site (batch 16) the instance is the lean one's plan: U
+    = kLeanUnroll (a pixel loads g and y), each block at least
+    MIN_LEAN_BLOCK_BYTES of the map, one channel tile, the sample constant
+    of the site's H W, a grid above the SMs a multiple of them."""
+    c, h, w = site
+    m, hw = 16 * h * w, h * w
+    assert bt.backward_kind("relu6", False, False) == "relu6"
+    rows = bt.THREADS // (c // 8)
+    for co in CO_RESIDENT:
+        plan = bt.launch_plan(m, c, "backward", co, lean=True, hw=hw, sms=132)
+        assert plan.channel_tiles == 1 and plan.unroll == bt.UNROLL["lean"] == 4
+        assert plan.tile == rows * 4 and (plan.sample_magic, plan.sample_shift) == \
+            bt.sample_divisor(hw)
+        assert 1 <= plan.grid <= co and (plan.grid <= 132 or plan.grid % 132 == 0)
+        if plan.grid > 1:
+            assert 2 * c * (m // plan.tile // plan.grid) * plan.tile >= bt.MIN_LEAN_BLOCK_BYTES
+        assert plan.partials == 2 * c * plan.grid
+
+
+def test_wrapper_tells_the_backward_the_relu6_instance(fake_card, monkeypatch):
+    """A ReLU6 call launches once with the lean plan, the forward's shift
+    and the ReLU6's code (3) after the sample constant; the occupancy is
+    asked of the ReLU6 instance; its launch counts as a ReLU6 backward."""
+    kinds = []
+    monkeypatch.setattr(bt, "_co_resident",
+                        lambda device, mode, c, kind=0: kinds.append(kind) or 528)
+    monkeypatch.setattr(bt, "relu6_backward_launches", 0)
+    shape = (2, 96, 16, 16)
+    y = cl(shape, torch.bfloat16)
+    vec = [torch.ones(96) for _ in range(3)]
+    bt.bn_backward(cl(shape, torch.bfloat16), None, None, y, *vec, act="relu6",
+                   shift=torch.zeros(96))
+    (sym, b), = fake_card
+    plan = bt.launch_plan(y.numel() // 96, 96, "backward", 528, lean=True, hw=256, sms=132)
+    assert sym == "bn_train_backward" and kinds == ["relu6"]
+    assert (b[15], b[23] is not None, b[24], b[25]) == (plan.grid, True, None, None)
+    assert b[26:31] == (256, 4, plan.sample_magic, plan.sample_shift, 3)
+    assert bt.relu6_backward_launches == 1 and bt.backward_launches == 1
+
+
+def test_phases_same_bits_is_raw_bits():
+    """``bn_train_phases.same_bits`` (the ``--baseline`` checks): tensors by
+    their raw bits (a NaN equals itself, -0 is not 0), dtype and shape
+    too; tuples element by element, None only against None."""
+    same = bn_train_phases.same_bits
+    a = torch.tensor([1.0, float("nan"), 0.0])
+    assert same(a, a.clone()) and same((a, None, (a,)), (a.clone(), None, (a.clone(),)))
+    assert same(a.to(torch.bfloat16), a.to(torch.bfloat16))
+    assert not same(a, torch.tensor([1.0, float("nan"), -0.0]))
+    assert not same(a, a.double()) and not same(a, a[:2])
+    assert not same((a, None), (a, a)) and not same((a,), (a, a))

@@ -208,7 +208,7 @@ def test_plain_versions_equal_flairtpu_expressions():
     want_gated = np.asarray(jnp.asarray(gate)[:, None, None, :] * silu)
     s, t = torch.from_numpy(scale), torch.from_numpy(shift)
     x = nchw(y).contiguous(memory_format=torch.channels_last)
-    out, out32 = conv_epilogue(x, s, t, relu=False, silu=True, keep_f32=True)
+    out, out32 = conv_epilogue(x, s, t, act="silu", keep_f32=True)
     np.testing.assert_allclose(out32.permute(0, 2, 3, 1).numpy(), np.asarray(silu),
                                rtol=PLAIN_TOL, atol=PLAIN_TOL)
     assert torch.equal(out, out32)
@@ -221,7 +221,7 @@ def test_plain_versions_equal_flairtpu_expressions():
 
 
 def test_silu_epilogue_keeps_relu_results():
-    """ReLU sites are unchanged; ReLU and SiLU together raise."""
+    """ReLU sites are unchanged; an activation that is neither raises."""
     y, scale, shift, _ = bn_site(np.random.default_rng(6), (1, 4, 4, 8))
     x = nchw(y).contiguous(memory_format=torch.channels_last)
     s, t = torch.from_numpy(scale), torch.from_numpy(shift)
@@ -229,7 +229,7 @@ def test_silu_epilogue_keeps_relu_results():
     assert torch.equal(conv_epilogue(x, s, t)[0], want)
     assert torch.equal(conv_epilogue_plain(x, s, t)[0], want)
     with pytest.raises(ValueError, match="ReLU or SiLU"):
-        conv_epilogue(x, s, t, silu=True)
+        conv_epilogue(x, s, t, act="relu+silu")
 
 
 def test_wrappers_take_cpu_or_raise():

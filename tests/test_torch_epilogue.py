@@ -94,7 +94,7 @@ def test_plain_is_the_unfused_ops_bit_for_bit(kind, relu):
     each rounded on its own), then the round-to-nearest-even bf16 cast."""
     y, r, d, p, pd = case(kind, seed=1)
     args = plain_args(y, r, d, p, pd, torch.bfloat16)
-    out, out32 = ep.conv_epilogue_plain(**args, relu=relu, keep_f32=True)
+    out, out32 = ep.conv_epilogue_plain(**args, act=relu, keep_f32=True)
 
     def affine(t: torch.Tensor, scale, shift) -> np.ndarray:
         v = t.float().permute(0, 2, 3, 1).numpy()
@@ -111,7 +111,7 @@ def test_plain_is_the_unfused_ops_bit_for_bit(kind, relu):
     assert out.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(out32, nchw(v))
     assert torch.equal(out, nchw(v).to(torch.bfloat16))
-    assert ep.conv_epilogue_plain(**args, relu=relu)[1] is None
+    assert ep.conv_epilogue_plain(**args, act=relu)[1] is None
 
 
 def test_wrapper_runs_plain_on_cpu_and_counts_nothing():
@@ -160,8 +160,9 @@ class Recorder:
     def __init__(self):
         self.calls = []
 
-    def __call__(self, y, scale, shift, residual=None, branch=None, relu=True,
+    def __call__(self, y, scale, shift, residual=None, branch=None, act="relu",
                  keep_f32=False):
+        relu = ep.activation(act) == "relu"
         kind = "branch" if branch is not None else "residual" if residual is not None else "none"
         self.calls.append((kind, keep_f32, relu))
         return ep.conv_epilogue(y, scale, shift, residual, branch, relu, keep_f32)

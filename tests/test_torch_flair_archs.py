@@ -225,7 +225,7 @@ def test_every_arch_validates_for_flair(arch):
 
 @pytest.mark.parametrize("mf,exc,match", [
     (smp("segformer"), NotImplementedError, "not ported \\(supported: unet"),
-    (smp("deeplabv3plus", "mobilenet_v2"), NotImplementedError, "slice 6"),
+    (smp("deeplabv3plus", "vgg16_bn"), NotImplementedError, "slice 6"),
     ({"model_provider": "HuggingFace"}, NotImplementedError, "slice 7"),
 ])
 def test_flair_refusals_still_raise(mf, exc, match):

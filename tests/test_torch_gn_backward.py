@@ -264,7 +264,7 @@ def test_fused_narrow_forward_plain_gives_stats_then_epilogue(dtype, relu, keep_
     rb = [t.clone() for t in ra]
     got = bt.bn_stats_apply(y, gamma, beta, *ra, relu, keep_f32)
     stats = bt.bn_stats_plain(y, gamma, beta, *rb)
-    want = (*stats, *conv_epilogue_plain(y, stats[2], stats[3], relu=relu, keep_f32=keep_f32))
+    want = (*stats, *conv_epilogue_plain(y, stats[2], stats[3], act=relu, keep_f32=keep_f32))
     for a, b in zip(got + tuple(ra), want + tuple(rb)):
         assert (a is None and b is None) or torch.equal(a, b)
     bt.launches = bt.narrow_launches = 0

@@ -146,7 +146,7 @@ def test_wrappers_raise_on_other_devices():
         "model_provider": "SegmentationModelsPytorch",
         "SegmentationModelsPytorch": {"encoder_decoder": "mit_b0_unet"}}}, "slice 6"),
     ({"model_framework": {"model_provider": "SegmentationModelsPytorch",
-                          "SegmentationModelsPytorch": {"encoder_decoder": "mobilenet_v2_manet"}}},
+                          "SegmentationModelsPytorch": {"encoder_decoder": "vgg16_bn_manet"}}},
      "slice 6"),
     ({"model_framework": {"model_provider": "SegmentationModelsPytorch",
                           "SegmentationModelsPytorch": {"encoder_decoder": "mobileone_s0_unet"}}},

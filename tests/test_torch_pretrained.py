@@ -148,7 +148,7 @@ def test_encoders_the_port_does_not_build():
     not_ported (slice 6); an unknown family raises as in flairtpu."""
     sd = {"conv1.weight": np.zeros((8, 3, 3, 3), np.float32)}
     with pytest.raises(NotImplementedError, match="slice 6"):
-        ppre.classifier_to_encoder_state_dict(sd, "mobilenet_v2", 5)
+        ppre.classifier_to_encoder_state_dict(sd, "vgg16_bn", 5)
     with pytest.raises(NotImplementedError, match="slice 6"):
         ppre.classifier_to_encoder_state_dict(sd, "se_resnext50_32x4d", 5)
     for pkg in (ppre, fpre):

@@ -197,7 +197,7 @@ def test_convert_weights_writes_flairtpus_bytes(tmp_path, arch):
 
 @pytest.mark.parametrize("keys,slice_name", [
     ({"segformer.encoder.patch_embeddings.0.proj.weight": (8, 3, 7, 7)}, "slice 7"),
-    ({"encoder.features.0.0.weight": (8, 3, 3, 3), "decoder.blocks.0.conv1.0.weight": (8, 8, 3, 3)},
+    ({"encoder.features.conv0.weight": (8, 3, 7, 7), "decoder.blocks.0.conv1.0.weight": (8, 8, 3, 3)},
      "slice 6")])
 def test_convert_weights_refuses_unported_families(tmp_path, keys, slice_name):
     src = tmp_path / "w.pth"

@@ -339,7 +339,25 @@ Phases (any failure exits non-zero):
    7, 5.99 and NaN (gamma 0) or straddles 0 and 6, against its plain
    version and against d(z) sum(g) (the 1/2 at both ties);
    one step held site by site and free-running against the plain step.
-10. the kernels line, the card line, the script's seconds, and last the
+10. MobileOne, serving (random weights, 19 classes, each block's BatchNorm
+   gammas scaled to keep its sum's scale: mobileone_weights): branch_sum
+   (csrc/branch_sum.cu) at every block of one mobileone_s4-unet and one
+   mobileone_s0-unet batch of 128 tiles, and the sum squeeze and ReLU
+   excite (csrc/se_gate.cu) at s4's 12 squeeze-excite blocks, each bit for
+   bit against its plain version (the squeeze's in the kernel's order, from
+   its plan; a second squeeze call the same bits) and timed beside its
+   bound and plain version (the squeeze beside torch.mean); branch_sum at
+   C = 20 (the one-element-a-thread kernel) for 1 to 5 branches, with and
+   without a skip, in its three modes, on NaN, +-inf and -0; one batch of
+   each split by CUDA events into the k x k, 1x1 and depthwise convs,
+   branch_sum, the squeeze-excite, the decoder and the tail;
+   mobileone_s4-unet on the 4096² zone (argmax and class_prob) and
+   mobileone_s0-unet (argmax), mobileone_s0 under deeplabv3plus and pspnet
+   and mobileone_s4 under deeplabv3 on a 1024² zone, through detect_main,
+   each against its all-plain run by phase 5's rule, with launches and
+   patches/s; flair predict and metrics of mobileone_s4-unet from a
+   .msgpack.
+11. the kernels line, the card line, the script's seconds, and last the
    JSON result line.
 
     python3 chip_smoke.py --profile  # also one batch per program by stage, the profiler
@@ -357,6 +375,9 @@ Phases (any failure exits non-zero):
     python3 chip_smoke.py --mobilenet
         # only phases 9 and 9b, on their own zone (the main one's), written
         # set and .msgpack; one JSON line, no result line
+    python3 chip_smoke.py --mobileone
+        # only phase 10, on its own zone (the main one's), written set and
+        # .msgpack; one JSON line, no result line
 """
 
 from __future__ import annotations
@@ -391,6 +412,7 @@ from flairtpu_torch.io.tiff import Affine, write_array
 from flairtpu_torch.models.deeplab import align_corners_weights
 from flairtpu_torch.models import efficientnet as en
 from flairtpu_torch.models import mobilenet as mn
+from flairtpu_torch.models import mobileone as mo
 from flairtpu_torch.models.convert import load_weights, write_native
 from flairtpu_torch.models.factory import FlairSegmentationModel, create_model, init_weights
 from flairtpu_torch.models.resnet import stem_conv
@@ -398,6 +420,7 @@ from flairtpu_torch.models.unet import plan_inner_crops
 from flairtpu_torch.predict.runner import predict
 from flairtpu_torch.ops import _build
 from flairtpu_torch.ops import augment as au
+from flairtpu_torch.ops import branch_sum as bs
 from flairtpu_torch.ops import bn_train as bt
 from flairtpu_torch.ops.bn_train_phases import device_ms
 # FPN's seven Conv3x3GNReLU sites at 512 tiles: (label, input side, upsample)
@@ -2081,6 +2104,23 @@ def random_weights(model: nn.Module, rng) -> dict:
     return sd
 
 
+def model_weights(model: nn.Module, rng) -> dict:
+    """random_weights, and for a MobileOne encoder each block's BatchNorm
+    gammas divided by the square root of its terms (its branches and
+    skip), so that a block's sum keeps the scale of its input as a trained
+    MobileOne's does. Without it every block multiplies the scale by its
+    terms and s0's deepest map reaches about 1e8, where the logits' bf16
+    rounding moves them by more than the near-tie rule's GAP_TOL."""
+    sd = random_weights(model, rng)
+    for name, block in model.named_modules():
+        if isinstance(block, mo.MobileOneBlock):
+            terms = len(block.branches()) + (block.rbr_skip is not None)
+            for key in sd:
+                if key.startswith(f"{name}.") and re.search(r"(\.bn|rbr_skip)\.weight$", key):
+                    sd[key] = sd[key] / terms ** 0.5
+    return sd
+
+
 def detect_config(tmp: Path, zone: Path, truth: Path, weights: Path) -> dict:
     return {
         "output_path": str(tmp / "out"), "output_name": "zone-ARGMAX",
@@ -2134,7 +2174,7 @@ class PlainRunner(DeviceZoneRunner):
                                       out_dtype=self.model.dtype, **self.norm)
         plain = dict(epilogue=ep.conv_epilogue_plain, group_norm=gnr.group_norm_relu_plain)
         if isinstance(self.model, FlairSegmentationModel):
-            plain.update(se_gate=sg.squeeze_excite_plain)
+            plain.update(se_gate=sg.squeeze_excite_plain, branch_sum=bs.block_epilogue_plain)
         if isinstance(self.model, pq.QuantizedZoneModel):
             plain.update(conv=ic.int8_conv_plain, quantize=qa.quantize_act_plain)
         return self.model.tail_input(x, margin, **plain)
@@ -2167,6 +2207,7 @@ def reset_launches() -> None:
     bt.wide_launches = bt.wide_backward_launches = bt.silu_backward_launches = 0
     bt.affine_backward_launches = sg.backward_launches = ep.drop_launches = 0
     ep.relu6_launches = bt.relu6_backward_launches = 0
+    bs.launches = sg.squeeze_sum_launches = sg.excite_relu_launches = 0
     for counts in (st.launches, ts.launches):
         for name in counts:
             counts[name] = 0
@@ -2191,7 +2232,9 @@ def read_launches() -> dict:
             "bn_backward_silu": bt.silu_backward_launches,
             "bn_backward_affine": bt.affine_backward_launches, "se_backward": sg.backward_launches,
             "conv_epilogue_drop": ep.drop_launches, "conv_epilogue_relu6": ep.relu6_launches,
-            "bn_backward_relu6": bt.relu6_backward_launches, **st.launches, **ts.launches}
+            "bn_backward_relu6": bt.relu6_backward_launches, "branch_sum": bs.launches,
+            "se_squeeze_sum": sg.squeeze_sum_launches, "se_excite_relu": sg.excite_relu_launches,
+            **st.launches, **ts.launches}
 
 
 def expected_launches(method: str, output_type: str, n_batches: int,
@@ -4978,6 +5021,17 @@ def bn_count(module: nn.Module) -> int:
     return sum(isinstance(m, nn.BatchNorm2d) for m in module.modules())
 
 
+def mobileone_counts(model) -> dict | None:
+    """A MobileOne encoder's launches a batch: branch_sum at each block, the
+    sum squeeze and the ReLU excite at each squeeze-excite block; None for
+    another encoder."""
+    enc = getattr(model, "encoder", None)
+    if not isinstance(enc, mo.MobileOneEncoder):
+        return None
+    blocks = enc.blocks()
+    return {"blocks": len(blocks), "se": sum(b.se is not None for b in blocks)}
+
+
 def relu6_sites(model) -> int:
     """A MobileNetV2 encoder's ReLU6 sites (the stem, each expand and
     depthwise, features.18): its BatchNorms but each block's project; 0 for
@@ -4992,10 +5046,13 @@ def encoder_sites(model) -> int:
     """conv_epilogue launches of the encoder a batch: every BatchNorm but the
     downsamples' (folded into their block's last site); the folded walk's
     too (one a conv but the downsamples); an EfficientNet's SiLU and
-    project sites (its depthwise BatchNorms are squeeze-excite sites)."""
+    project sites (its depthwise BatchNorms are squeeze-excite sites); none
+    of a MobileOne's (its blocks are branch_sum launches)."""
     counts = effnet_counts(model) if hasattr(model, "encoder") else None
     if counts is not None:
         return counts["sites"]
+    if mobileone_counts(model) is not None:
+        return 0
     return bn_count(model.encoder) - sum(getattr(m, "downsample", None) is not None
                                          for m in model.encoder.modules())
 
@@ -5033,6 +5090,10 @@ def arch_launches(model, tail, n_batches: int, method: str = "exact-clipping",
         out.update(conv_epilogue_silu=counts["silu"] * n_batches,
                    se_squeeze=counts["se"] * n_batches, se_excite=counts["se"] * n_batches)
     out["conv_epilogue_relu6"] = relu6_sites(model) * n_batches
+    counts = mobileone_counts(model)
+    if counts is not None:
+        out.update(branch_sum=counts["blocks"] * n_batches,
+                   se_squeeze_sum=counts["se"] * n_batches, se_excite_relu=counts["se"] * n_batches)
     name = "strided_tail" if isinstance(tail, sp.StridedTail) else "fused_tail"
     if output_type == "class_prob":
         out[f"{name}_probs"] = n_batches
@@ -5516,7 +5577,7 @@ def encoder_config(cfg: dict, tmp: Path, encoder: str, arch: str, rng) -> dict:
     """The main configuration with a random ``encoder`` ``arch`` (19 classes)."""
     name = f"{encoder}_{arch}"
     weights = tmp / f"{name}_19cl.pth"
-    torch.save(random_weights(FlairSegmentationModel(encoder, K, C, arch=arch), rng), weights)
+    torch.save(model_weights(FlairSegmentationModel(encoder, K, C, arch=arch), rng), weights)
     return dict(cfg, model_weights=str(weights), output_name=f"zone-{name}",
                 output_path=str(tmp / f"out_{name}"),
                 model_framework={"model_provider": "SegmentationModelsPytorch",
@@ -5759,7 +5820,7 @@ def run_encoder_predict(main: dict, tmp: Path, rng, encoder: str) -> dict:
     root.mkdir(exist_ok=True)
     model = FlairSegmentationModel(encoder, K, C)
     ckpt = root / f"{encoder}_unet.msgpack"
-    write_native(ckpt, random_weights(model, rng))
+    write_native(ckpt, model_weights(model, rng))
     cfg = copy.deepcopy(main["cfg"])
     cfg["paths"].update(out_folder=str(root), ckpt_model_path=str(ckpt))
     cfg["tasks"].update(train=False, predict=True, metrics=True)
@@ -5783,7 +5844,8 @@ def run_encoder_predict(main: dict, tmp: Path, rng, encoder: str) -> dict:
     with torch.inference_mode():
         x, _ = tr.prepare(batch)
         xin = tr.model.tail_input(x, 0, epilogue=ep.conv_epilogue_plain,
-                                  se_gate=sg.squeeze_excite_plain)
+                                  se_gate=sg.squeeze_excite_plain,
+                                  branch_sum=bs.block_epilogue_plain)
         tail = tr.model.zone_tail()
         g = tail.geometry(S, 0)
         cls_p, prob_p = tail.plain_versions()[0](xin, tail, g)
@@ -6636,6 +6698,301 @@ def run_mobilenet_phases(tmp: Path, main: dict, cfg: dict, card: str) -> tuple[d
     return mobilenet, mobilenet_train
 
 
+# -- phase 10: MobileOne, serving ----------------------------------------------
+
+MOBILEONE = "mobileone_s4"  # the widest variant (64 / 192 / 448 / 896 / 2048), SE on 12 blocks
+MOBILEONE_SMALL = "mobileone_s0"  # four branches a block
+# on the ZONE_SMALL zone: output stride 16 with four branches, output stride
+# 8 with squeeze-excite in the dilated stages, depth 3
+MOBILEONE_ARCHS = ((MOBILEONE_SMALL, "deeplabv3plus"), (MOBILEONE, "deeplabv3"),
+                   (MOBILEONE_SMALL, "pspnet"))
+MOBILEONE_KERNELS = ("branch_sum", "se_squeeze_sum", "se_excite_relu")
+# branch_sum off the main path: C = 20, not a multiple of 8 (the
+# one-element-a-thread kernel), with every branch count, skip and mode
+MOBILEONE_EDGE = (3, 20, 17, 19)
+
+
+class MobileOneChecker:
+    """A MobileOne block epilogue (``ops/branch_sum.py:block_epilogue``'s
+    arguments) that launches the kernels on the main path's operands and
+    holds each against its plain version on the same operands, bit for bit
+    (by the raw bits, NaN too): branch_sum in the block's mode, and at a
+    squeeze-excite block the sum squeeze (against its plain version in the
+    kernel's order, from its plan; a second call the same bits) and the ReLU
+    excite; with ``timed``, each kernel's, plain version's and (the
+    squeeze's) torch.mean's times beside its bound, a site at a time."""
+
+    def __init__(self, timed: bool = False):
+        self.timed = timed
+        self.rows = {name: [] for name in MOBILEONE_KERNELS}
+        self.err = dict.fromkeys(MOBILEONE_KERNELS, 0.0)
+        self.modes = collections.Counter()
+
+    def hold(self, name: str, label: str, got, want) -> None:
+        err = max(bit_diff(g, w) for g, w in zip(got, want) if g is not None)
+        EffnetChecker.hold(all((g is None) == (w is None) for g, w in zip(got, want)) and err == 0,
+                           f"{name} {label}: bit for bit with its plain version ({err:.1e})")
+        self.err[name] = max(self.err[name], err)
+
+    def __call__(self, ys, scale, shift, skip=None, se=None, keep_f32=False):
+        mode = "sum" if se is not None else ("relu_f32" if keep_f32 else "relu")
+        label = f"{tuple(ys[0].shape)} x{len(ys)}{' +skip' if skip is not None else ''} {mode}"
+        out = bs.branch_sum(ys, scale, shift, skip, mode)
+        self.hold("branch_sum", label, out, bs.branch_sum_plain(ys, scale, shift, skip, mode))
+        self.modes[mode] += 1
+        if self.timed:
+            n, c = ys[0].numel(), ys[0].shape[1]
+            terms = len(ys) + (skip is not None)
+            nbytes = (2 * n * len(ys) + 4 * n * (skip is not None) + 2 * 4 * terms * c
+                      + {"relu": 2, "relu_f32": 6, "sum": 4}[mode] * n)
+            self.rows["branch_sum"].append(dict(
+                shape=tuple(ys[0].shape), branches=len(ys), skip=skip is not None, mode=mode,
+                bytes=nbytes, ms=cuda_ms(lambda: bs.branch_sum(ys, scale, shift, skip, mode), 5, 1),
+                plain_ms=cuda_ms(lambda: bs.branch_sum_plain(ys, scale, shift, skip, mode), 2, 1),
+                library_ms=None, **bound((3 * terms + 1) * n, nbytes, PEAK_FP32_FLOPS)))
+        if se is None:
+            return out
+        v, dtype = out[1], ys[0].dtype
+        plan = sg.sum_plan(v)
+        mean = sg.se_squeeze_sum(v)
+        self.hold("se_squeeze_sum", f"{tuple(v.shape)} {plan}", (mean,),
+                  (sg.se_squeeze_sum_plain(v, plan),))
+        self.hold("se_squeeze_sum", f"{tuple(v.shape)}, a second call", (sg.se_squeeze_sum(v),),
+                  (mean,))
+        gate = sg.se_gate_vector(mean, *se, dtype, act="relu")
+        res = sg.se_excite_relu(v, gate, dtype, keep_f32)
+        self.hold("se_excite_relu", f"{tuple(v.shape)}", res,
+                  sg.se_excite_relu_plain(v, gate, dtype, keep_f32))
+        if self.timed:
+            n, bc = v.numel(), v.shape[0] * v.shape[1]
+            sq_bytes, ex_bytes = 4 * n + 4 * bc, 4 * n + 4 * bc + (6 if keep_f32 else 2) * n
+            self.rows["se_squeeze_sum"].append(dict(
+                shape=tuple(v.shape), bytes=sq_bytes, plan=plan._asdict(),
+                ms=device_ms(lambda: sg.se_squeeze_sum(v)),
+                call_ms=cuda_ms(lambda: sg.se_squeeze_sum(v), 5, 1),
+                plain_ms=cuda_ms(lambda: sg.se_squeeze_sum_plain(v, plan), 1, 0),
+                library_ms=device_ms(lambda: torch.mean(v, dim=(2, 3))),
+                **bound(n, sq_bytes, PEAK_FP32_FLOPS)))
+            self.rows["se_excite_relu"].append(dict(
+                shape=tuple(v.shape), bytes=ex_bytes, f32=keep_f32,
+                ms=cuda_ms(lambda: sg.se_excite_relu(v, gate, dtype, keep_f32), 5, 1),
+                plain_ms=cuda_ms(lambda: sg.se_excite_relu_plain(v, gate, dtype, keep_f32), 2, 1),
+                library_ms=None, **bound(2 * n, ex_bytes, PEAK_FP32_FLOPS)))
+        return res
+
+    def summary(self, name: str) -> dict:
+        rows = self.rows[name]
+        lib = [r["library_ms"] for r in rows]
+        return {"sites": len(rows), "ms": sum(r["ms"] for r in rows),
+                "call_ms": sum(r.get("call_ms", r["ms"]) for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                             else "operations"),
+                "bytes": sum(r["bytes"] for r in rows),
+                "library_ms": None if None in lib else sum(lib),
+                "largest": max(rows, key=lambda r: r["bytes"]),
+                "max_abs_err": self.err[name]}
+
+
+def mobileone_edges(gen) -> MobileOneChecker:
+    """branch_sum at MOBILEONE_EDGE for 1 to 5 branches, with and without a
+    skip, in each mode, on branches and a skip holding NaN, +-inf and -0,
+    against its plain version bit for bit; and the sum squeeze's refusal
+    of the 20-channel map."""
+    chk = MobileOneChecker()
+    c = MOBILEONE_EDGE[1]
+    for n in range(1, bs.MAX_BRANCHES + 1):
+        for skip in (False, True):
+            ys = [(torch.randn(MOBILEONE_EDGE, generator=gen, device="cuda") * 4).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last) for _ in range(n)]
+            ys[0][0, :4, 0, 0] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0])
+            x = None
+            if skip:
+                x = torch.randn(MOBILEONE_EDGE, generator=gen, device="cuda").contiguous(
+                    memory_format=torch.channels_last)
+                x[1, :3, 1, 1] = torch.tensor([float("nan"), -0.0, float("inf")])
+            terms = n + skip
+            scale = torch.rand((terms, c), generator=gen, device="cuda") + 0.5
+            shift = torch.randn((terms, c), generator=gen, device="cuda")
+            shift[:, 0] = -0.0
+            for mode in bs.MODES:
+                chk.hold("branch_sum", f"{MOBILEONE_EDGE} x{n} skip {skip} {mode}",
+                         bs.branch_sum(ys, scale, shift, x, mode),
+                         bs.branch_sum_plain(ys, scale, shift, x, mode))
+                chk.modes[mode] += 1
+    try:
+        sg.se_squeeze_sum(torch.zeros(MOBILEONE_EDGE, device="cuda").contiguous(
+            memory_format=torch.channels_last))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "se_squeeze_sum: C = 20 (not a multiple of 8) raises")
+    check(chk.modes.total() == 2 * bs.MAX_BRANCHES * len(bs.MODES),
+          f"branch_sum at {MOBILEONE_EDGE} (the one-element-a-thread kernel): 1 to "
+          f"{bs.MAX_BRANCHES} branches, with and without a skip, each mode, on NaN, +-inf and "
+          "-0, bit for bit")
+    return chk
+
+
+def check_mobileone_kernels(model, x: torch.Tensor) -> dict:
+    """branch_sum at every block of one main-path batch of tiles ``x``
+    through ``model``, and the sum squeeze and ReLU excite at every
+    squeeze-excite block, bit for bit, each site timed."""
+    chk = MobileOneChecker(timed=True)
+    model.tail_input(x, M, branch_sum=chk)
+    counts = mobileone_counts(model)
+    rows = chk.rows
+    check(len(rows["branch_sum"]) == counts["blocks"]
+          and len(rows["se_squeeze_sum"]) == len(rows["se_excite_relu"]) == counts["se"],
+          f"{model.encoder_name}: branch_sum at its {counts['blocks']} blocks "
+          f"({dict(chk.modes)}) and the sum squeeze and ReLU excite at its {counts['se']} "
+          "squeeze-excite blocks bit for bit with their plain versions; every site timed")
+    return {name: chk.summary(name) for name in MOBILEONE_KERNELS if rows[name]}
+
+
+def mobileone_breakdown(model, x: torch.Tensor) -> dict:
+    """One main-path batch of tiles ``x`` by CUDA events (the second of two
+    passes): the encoder, decoder and tail, and within the encoder each conv
+    by kind (the k x k and 1x1 dense convs, the depthwise k x k convs and
+    the depthwise 1x1 scale convs), branch_sum, and the squeeze-excite
+    (squeeze, gate convs and excite)."""
+    tail = model.zone_tail()
+    g = tail.geometry(S, M)
+    kern = tail.wrappers()[0]
+    planes = torch.zeros((2, ZONE, ZONE), dtype=torch.uint8, device=x.device)
+    win = torch.from_numpy(exact_windows(slice_grid(ZONE, ZONE, S, M).tiles[:BATCH], ZONE, ZONE,
+                                         S - 2 * M, BATCH)).to(x.device)
+    spans = collections.defaultdict(list)
+    inner = mo.conv
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def timed_conv(h, m, dtype):
+        kind = (("depthwise_kxk" if m.kernel_size[0] > 1 else "depthwise_1x1") if m.groups > 1
+                else ("dense_kxk" if m.kernel_size[0] > 1 else "dense_1x1"))
+        a = event()
+        y = inner(h, m, dtype)
+        spans[kind].append((a, event()))
+        return y
+
+    def timed_epilogue(ys, scale, shift, skip=None, se=None, keep_f32=False):
+        a = event()
+        if se is None:
+            out = bs.block_epilogue(ys, scale, shift, skip, None, keep_f32)
+            spans["branch_sum"].append((a, event()))
+            return out
+        v = bs.branch_sum(ys, scale, shift, skip, "sum")[1]
+        b = event()
+        spans["branch_sum"].append((a, b))
+        gate = sg.se_gate_vector(sg.se_squeeze_sum(v), *se, ys[0].dtype, act="relu")
+        out = sg.se_excite_relu(v, gate, ys[0].dtype, keep_f32)
+        spans["squeeze_excite"].append((b, event()))
+        return out
+
+    mo.conv = timed_conv
+    try:
+        for _ in range(2):  # the second pass is taken
+            spans.clear()
+            torch.cuda.synchronize()
+            e0 = event()
+            feats = model.features(x, branch_sum=timed_epilogue)
+            e1 = event()
+            xin = model.decode_tail(feats, M)
+            e2 = event()
+            kern(xin, tail, g, planes, win)
+            e3 = event()
+            torch.cuda.synchronize()
+    finally:
+        mo.conv = inner
+    out = {"batch_ms": e0.elapsed_time(e3), "encoder_ms": e0.elapsed_time(e1),
+           "decoder_ms": e1.elapsed_time(e2), "tail_ms": e2.elapsed_time(e3)}
+    for kind, pairs in sorted(spans.items()):
+        out[f"{kind}_ms"] = sum(a.elapsed_time(b) for a, b in pairs)
+        out[f"{kind}_sites"] = len(pairs)
+    return out
+
+
+def run_mobileone(cfg: dict, tmp: Path, main: dict, card: str) -> dict:
+    """Phase 10: the kernels at every site of one MOBILEONE-unet and one
+    MOBILEONE_SMALL-unet batch against their plain versions, timed, and the
+    batch by stage; both on the main zone (MOBILEONE also class_prob) and
+    MOBILEONE_ARCHS on a ZONE_SMALL zone, through detect_main against their
+    all-plain runs with their launches; flair predict of MOBILEONE-unet
+    from a .msgpack."""
+    rng = np.random.default_rng(SEED + 1000)
+    gen = torch.Generator("cuda").manual_seed(SEED + 100)
+    out = {"kernels": {}, "breakdown": {}}
+    for name in (MOBILEONE, MOBILEONE_SMALL):
+        mcfg = encoder_config(cfg, tmp, name, "unet", rng)
+        model, _ = eng.prepare_model(mcfg, torch.device("cuda"))
+        x = torch.rand((BATCH, S, S, C), generator=gen, device="cuda").to(torch.bfloat16)
+        with torch.inference_mode():
+            out["kernels"][name] = check_mobileone_kernels(model, x)
+            out["breakdown"][name] = mobileone_breakdown(model, x)
+        del model, x
+        torch.cuda.empty_cache()
+        out[f"{name}_unet"] = run_arch(mcfg, f"{name}_unet", ZONE)
+        if name == MOBILEONE:
+            out["class_prob"] = run_arch_class_prob(mcfg, ZONE)
+    edges = mobileone_edges(gen)
+    out["edges"] = {"branch_sum_cases": edges.modes.total(),
+                    "max_abs_err": edges.err["branch_sum"]}
+    small = tmp / DPT / "Z_MOBILEONE" / "zone.tif"
+    small.parent.mkdir(parents=True)
+    write_array(small, rng.integers(0, 256, (C, ZONE_SMALL, ZONE_SMALL), dtype=np.uint8),
+                transform=Affine.from_origin(700000.0, 6600000.0, 0.2, 0.2), crs=2154,
+                compress="deflate")
+    for name, arch in MOBILEONE_ARCHS:
+        acfg = dict(encoder_config(cfg, tmp, name, arch, rng), input_img_path=str(small))
+        out[f"{name}_{arch}"] = run_arch(acfg, f"{name}_{arch}", ZONE_SMALL)
+    out["predict"] = run_encoder_predict(main, tmp, rng, MOBILEONE)
+    for name, kernels in out["kernels"].items():
+        for kname, r in kernels.items():
+            big = r["largest"]
+            print(f"    {kname}, {r['sites']} sites of one {name}-unet batch of {BATCH}: "
+                  f"{r['ms']:.4f} ms (call {r['call_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+                  f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                  f"{r['bytes'] / 1e9:.2f} GB; {100 * r['bound_ms'] / r['ms']:.1f}% of it); "
+                  f"largest site {big['shape']}: {big['ms']:.4f} ms, bound "
+                  f"{big['bound_ms']:.4f} ms on {card}", flush=True)
+        bd = out["breakdown"][name]
+        print(f"    {name}-unet batch of {BATCH} by stage (ms): "
+              + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in bd.items() if k.endswith("_ms")),
+              flush=True)
+    for key in (f"{MOBILEONE}_unet", "class_prob", f"{MOBILEONE_SMALL}_unet"):
+        print(f"    {key}: {out[key]['patches_per_sec']:.2f} patches/s on {card}", flush=True)
+    return out
+
+
+def mobileone_line(mobileone: dict) -> dict:
+    """Phase 10's JSON (each kernel's largest site left out)."""
+    runs = (f"{MOBILEONE}_unet", "class_prob", f"{MOBILEONE_SMALL}_unet",
+            *(f"{n}_{a}" for n, a in MOBILEONE_ARCHS), "predict")
+    return {"mobileone": {
+        **{k: {f: v for f, v in mobileone[k].items() if f != "launches"} for k in runs},
+        "kernels": {name: {k: {f: v for f, v in r.items() if f != "largest"}
+                           for k, r in kernels.items()}
+                    for name, kernels in mobileone["kernels"].items()},
+        "breakdown": mobileone["breakdown"], "edges": mobileone["edges"],
+        "launches": {k: {n: v for n, v in mobileone[k]["launches"].items() if v}
+                     for k in (f"{MOBILEONE}_unet", "predict")}}}
+
+
+def run_mobileone_phase(tmp: Path, main: dict, cfg: dict, card: str) -> dict:
+    """Phase 10, timed."""
+    print(f"[10] MobileOne: {MOBILEONE}-unet (argmax, class_prob) and {MOBILEONE_SMALL}-unet on "
+          f"the main zone, {', '.join(f'{n}-{a}' for n, a in MOBILEONE_ARCHS)}, flair predict "
+          "from a .msgpack; branch_sum and the sum squeeze and ReLU excite", flush=True)
+    t10 = time.perf_counter()
+    out = run_mobileone(cfg, tmp, main, card)
+    print(f"    phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6650,6 +7007,9 @@ def main() -> int:
     ap.add_argument("--mobilenet", action="store_true",
                     help="only phases 9 and 9b, on their own zone (the main one), written set "
                          "(phase 4's) and .msgpack, one JSON line")
+    ap.add_argument("--mobileone", action="store_true",
+                    help="only phase 10, on its own zone (the main one), written set (phase "
+                         "4's) and .msgpack, one JSON line")
     ap.add_argument("--orders", type=int, default=10, help="the study's sample orders")
     ap.add_argument("--study-seed", type=int, default=SEED,
                     help="the numpy seed of the study's written set")
@@ -6703,6 +7063,16 @@ def main() -> int:
                                              "csvs": csvs}, cfg, card)
         print(out[1]["breakdown"].pop("kernel_table"))
         print(json.dumps({**mobilenet_line(*out), "card": card,
+                          "seconds": time.perf_counter() - t_start}), flush=True)
+        return 0
+    if args.mobileone:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, torch_defaults():
+            tmp = Path(tmp)
+            cfg = detect_config(tmp, *synth_inputs(tmp, ZONE, rng))
+            csvs = write_flair_dataset(tmp / "flair", rng)
+            out = run_mobileone_phase(tmp, {"cfg": flair_config(tmp / "flair", csvs),
+                                            "csvs": csvs}, cfg, card)
+        print(json.dumps({**mobileone_line(out), "card": card,
                           "seconds": time.perf_counter() - t_start}), flush=True)
         return 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -6982,6 +7352,7 @@ def main() -> int:
             effnet_train = run_effnet_train(tmp, flair, card)
             print(f"    phase 8b: {time.perf_counter() - t8:.1f} s", flush=True)
             mobilenet, mobilenet_train = run_mobilenet_phases(tmp, flair, cfg, card)
+            mobileone = run_mobileone_phase(tmp, flair, cfg, card)
         if args.profile:
             with torch.inference_mode():
                 prof = stage_breakdown(cfg, ZONE, rng, epi)
@@ -7322,6 +7693,37 @@ def main() -> int:
          "max_abs_err": mtk["max_abs_err"], **numbers(mtk), "ms_is": "device",
          "library_ms": mtk["library_ms"], "library": "native_batch_norm_backward",
          "sites": mtk["sites"], "edges": mtk["edges"]}]
+    # MobileOne's kernels (phase 10): their numbers at every site of one
+    # mobileone_s4-unet batch of 128 (s0-unet's beside them), launches on
+    # s4-unet's main path (phase 10's other runs beside). library: torch.mean
+    # of the float32 map for the squeeze (the same function); no single
+    # PyTorch call computes the branch sum or the ReLU excite
+    mok = mobileone["kernels"]
+    mo_runs = [f"{MOBILEONE}_unet", "class_prob", f"{MOBILEONE_SMALL}_unet",
+               *(f"{n}_{a}" for n, a in MOBILEONE_ARCHS), "predict"]
+    for name, source, replaces, library in (
+            ("branch_sum", "branch_sum.cu",
+             "flairtpu/models/mobileone.py:97-112 (a block's branch BatchNorms, their float32 "
+             "sum in order, the ReLU; XLA-fused)", None),
+            ("se_squeeze_sum", "se_gate.cu",
+             "flairtpu/models/mobileone.py:68 (MobileOneSE's float32 mean; XLA-fused)",
+             "torch.mean over the map"),
+            ("se_excite_relu", "se_gate.cu",
+             "flairtpu/models/mobileone.py:74, :112 (the gate's multiply and the block's ReLU; "
+             "XLA-fused)", None)):
+        r = mok[MOBILEONE][name]
+        small = mok[MOBILEONE_SMALL].get(name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}/{source}", "replaces": replaces,
+            "launches": mobileone[f"{MOBILEONE}_unet"]["launches"][name],
+            "launches_mobileone_other_runs": sum(mobileone[k]["launches"][name]
+                                                 for k in mo_runs[1:]),
+            "max_abs_err": max(r["max_abs_err"], small["max_abs_err"] if small else 0.0,
+                               mobileone["edges"]["max_abs_err"]),
+            **numbers(r), "call_ms": r["call_ms"], "library_ms": r["library_ms"],
+            "library": library, "sites": r["sites"], "encoder": MOBILEONE,
+            **({f"{MOBILEONE_SMALL}": {**numbers(small), "sites": small["sites"]}}
+               if small else {})})
     # each kernel's launches on phase 6's toy-zone run and phase 7's runs
     # (the resnext main path, bn_fold, int8 and flair)
     counters = {"fused_tail": "fused_tail", "gather_normalize": "gather_normalize",
@@ -7393,6 +7795,7 @@ def main() -> int:
         "launches": {k: v for k, v in tl.items() if v}}, "card": card}))
     print(mobilenet_train["breakdown"]["kernel_table"])
     print(json.dumps({**mobilenet_line(mobilenet, mobilenet_train), "card": card}))
+    print(json.dumps({**mobileone_line(mobileone), "card": card}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

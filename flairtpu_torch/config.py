@@ -65,8 +65,13 @@ EFFICIENTNET_ENCODERS = tuple(f"efficientnet-b{i}" for i in range(8))
 # flairtpu/models/registry.py:31); no arch refuses it either
 MOBILENET_ENCODERS = ("mobilenet_v2",)
 
+# Apple's MobileOne s0..s4 in smp's unfused training form (models/mobileone.py;
+# flairtpu/models/registry.py:32); no arch refuses them either
+MOBILEONE_ENCODERS = tuple(f"mobileone_s{i}" for i in range(5))
+
 # every encoder the port builds
-PORTED_ENCODERS = RESNET_ENCODERS + EFFICIENTNET_ENCODERS + MOBILENET_ENCODERS
+PORTED_ENCODERS = (RESNET_ENCODERS + EFFICIENTNET_ENCODERS + MOBILENET_ENCODERS
+                   + MOBILEONE_ENCODERS)
 
 _OUTPUT_TYPES = ("class_prob", "argmax")
 _STITCH_METHODS = ("exact-clipping", "average", "average_weights", "max")
@@ -84,10 +89,10 @@ SMP_ARCHS = ("unet", "unetplusplus", "manet", "linknet", "fpn", "pspnet", "deepl
 
 
 def check_smp(encoder_decoder: str) -> tuple[str, str]:
-    """Split ``<encoder>_<arch>``; the resnet, resnext, efficientnet and
-    mobilenet_v2 encoders under ``SMP_ARCHS`` are ported. An arch smp does not have
-    raises as ``flairtpu/models/registry.py:98-100`` does, with the
-    supported list."""
+    """Split ``<encoder>_<arch>``; the resnet, resnext, efficientnet,
+    mobilenet_v2 and mobileone encoders under ``SMP_ARCHS`` are ported. An
+    arch smp does not have raises as ``flairtpu/models/registry.py:98-100``
+    does, with the supported list."""
     if "_" not in encoder_decoder:
         raise ConfigError(
             f"encoder_decoder {encoder_decoder!r} is not of the form "
@@ -206,7 +211,7 @@ def validate_train_config(cfg: dict) -> dict:
     channels = _require(cfg, "channels")
     if not (isinstance(channels, list) and all(isinstance(c, int) for c in channels)):
         raise ConfigError("channels should be a list of 1-based integers.")
-    validate_model_framework(mf)
+    encoder, _ = validate_model_framework(mf)
 
     norm_type = cfg.get("norm_type", "scaling")
     if norm_type not in _NORM_TYPES:
@@ -294,6 +299,9 @@ def validate_train_config(cfg: dict) -> dict:
 
     paths.setdefault("out_folder", "")
     paths.setdefault("out_model_name", "flair-model")
+    if tasks["train"] and encoder in MOBILEONE_ENCODERS:
+        raise not_ported(f"training the {encoder!r} encoder (predict and metrics run)",
+                         "slice 6: MobileOne training")
     return cfg
 
 

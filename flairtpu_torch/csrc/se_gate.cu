@@ -75,6 +75,24 @@
 // flight, and its registers are capped so that an SM holds
 // kSqueezeMinBlocks blocks (4 was no faster, PERF.md).
 
+// MobileOne's squeeze-excite (flairtpu/models/mobileone.py:60-74, 110-112;
+// XLA-fused on the TPU) takes two more instances. Its SE reads the float32
+// branch sum v (csrc/branch_sum.cu's "sum" mode) before any activation:
+//
+//   squeeze (kSumMode): mean[b, c] = sum_p v[b, p, c] / HW
+//   excite (se_excite_relu): out[b, p, c] = relu(v[b, p, c] * gate[b, c])
+//
+// The sum squeeze runs on the squeeze's plan, grid and ordered combine,
+// with 8 float32 channels a thread (two 16-byte loads a pixel, kSumUnroll
+// pixels in flight) and each add rounded on its own, so its mean is a
+// fixed function of the plan: ops/se_gate.py:se_squeeze_sum_plain, given
+// the plan, adds in the same order and has its bits. The ReLU excite
+// multiplies once (__fmul_rn) and passes NaN, as torch.relu, into bf16 and,
+// where the next block adds it as its skip, float32 (`outputs`: bit 1 bf16,
+// bit 2 float32, csrc/branch_sum.cu's bits); the excite's walk and grid.
+// Both bound by bytes: 4 an element read by the squeeze; 4 read and 2 or 6
+// written by the excite.
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -95,6 +113,14 @@ constexpr int kNewtonRcp = 4;
 // capped to fit them
 constexpr int kSqueezeMinBlocks = 3;
 constexpr float kNegLog2e = -1.4426950408889634f;
+// the squeeze's instances: EfficientNet's mean of the SiLU, its gradient's
+// sum, MobileOne's mean of a float32 map
+enum SqueezeMode { kSiluMode = 0, kGradMode = 1, kSumMode = 2 };
+// float32 pixels the sum squeeze loads before it sums any of them (two
+// 16-byte loads each)
+constexpr int kSumUnroll = 2;
+// the ReLU excite's outputs: a bit each (csrc/branch_sum.cu's)
+enum ExciteOutputs { kOutBf16 = 1, kOutF32 = 2 };
 
 __device__ __forceinline__ float silu_bn(float y, float s, float t) {
   const float v = __fadd_rn(__fmul_rn(y, s), t);
@@ -156,7 +182,7 @@ __device__ __forceinline__ uint32_t pack2(float a, float b) {
 }
 
 struct SqueezeArgs {
-  const uint4* y;
+  const uint4* y;           // bf16 (kSiluMode, kGradMode), or float32 (kSumMode: two a group)
   const uint4* g;           // the backward's gradient (kGrad)
   const float* scale;
   const float* shift;
@@ -194,12 +220,22 @@ __device__ __forceinline__ void grad8(const uint4 w, const uint4 gw, const float
   for (int j = 0; j < 8; ++j) acc[j] = fmaf(gv[j], silu_bn(v[j], s[j], sh[j]), acc[j]);
 }
 
-// The squeeze (kGrad false: the mean of silu) and the backward (kGrad true:
-// the sum of g * silu, loads of two maps in flight, fewer pixels at once).
-template <bool kGrad>
+// acc[j] += each of 8 float32 channels, two 16-byte words (the sum squeeze)
+__device__ __forceinline__ void sum8(const uint4 w0, const uint4 w1, float (&acc)[8]) {
+  const uint32_t u[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = __fadd_rn(acc[j], __uint_as_float(u[j]));
+}
+
+// The squeeze (kSiluMode: the mean of silu), the backward (kGradMode: the
+// sum of g * silu, loads of two maps in flight, fewer pixels at once) and
+// MobileOne's squeeze (kSumMode: the mean of a float32 map).
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, kSqueezeMinBlocks)
     se_squeeze_kernel(const SqueezeArgs a) {
-  constexpr int kUnrollPix = kGrad ? kSqueezeUnroll / 2 : kSqueezeUnroll;
+  constexpr bool kGrad = kMode == kGradMode;
+  constexpr int kUnrollPix =
+      kMode == kSumMode ? kSumUnroll : (kGrad ? (kSqueezeUnroll + 1) / 2 : kSqueezeUnroll);
   __shared__ float sums[kThreads * 8];
   __shared__ bool last;
   const int t = threadIdx.x, gt = a.group_tile, rows = kThreads / gt, width = gt * 8;
@@ -217,7 +253,24 @@ __global__ void __launch_bounds__(kThreads, kSqueezeMinBlocks)
     const long long p0 = u - col * a.hw + r;
     int count = r < rows && p0 < col_end - col * a.hw
                     ? (int)((col_end - col * a.hw - p0 + rows - 1) / rows) : 0;
-    if (count > 0) {
+    if constexpr (kMode == kSumMode) {
+      if (count > 0) {
+        const int c0 = (tile * gt + g) * 8;
+        const long long step = 2LL * rows * c8;
+        const uint4* v = a.y + 2 * ((b * a.hw + p0) * c8 + c0 / 8);
+        for (; count >= kUnrollPix; count -= kUnrollPix, v += kUnrollPix * step) {
+          uint4 w[2 * kUnrollPix];
+#pragma unroll
+          for (int k = 0; k < kUnrollPix; ++k) {
+            w[2 * k] = load_once(v + k * step);
+            w[2 * k + 1] = load_once(v + k * step + 1);
+          }
+#pragma unroll
+          for (int k = 0; k < kUnrollPix; ++k) sum8(w[2 * k], w[2 * k + 1], acc);
+        }
+        for (; count > 0; --count, v += step) sum8(load_once(v), load_once(v + 1), acc);
+      }
+    } else if (count > 0) {
       const int c0 = (tile * gt + g) * 8;
       float s[8], sh[8];
 #pragma unroll
@@ -333,16 +386,95 @@ __global__ void __launch_bounds__(kThreads) se_excite_kernel(const ExciteArgs a)
   }
 }
 
+struct ExciteReluArgs {
+  const float4* v;     // (B, HW, C) float32
+  const float* gate;   // (B, C)
+  uint4* out;          // bf16
+  float4* out32;       // kOutF32
+  long long hw;
+  int channels;
+  int lanes;           // threads a b walks with: a multiple of C / 8
+};
+
+// MobileOne's excite: relu(v * gate) into bf16 and, with kOutF32, float32;
+// the walk of se_excite_kernel.
+template <int kOut>
+__global__ void __launch_bounds__(kThreads) se_excite_relu_kernel(const ExciteReluArgs a) {
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= a.lanes) return;
+  const int b = blockIdx.y, c8 = a.channels / 8;
+  const int c0 = (lane % c8) * 8;
+  float gate[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) gate[j] = __ldg(a.gate + (long long)b * a.channels + c0 + j);
+  const long long n = a.hw * c8, base = (long long)b * n;
+  for (long long e = lane; e < n; e += kUnroll * (long long)a.lanes) {
+    float4 w[2 * kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (e + u * (long long)a.lanes < n) {
+        w[2 * u] = __ldg(a.v + 2 * (base + e + u * (long long)a.lanes));
+        w[2 * u + 1] = __ldg(a.v + 2 * (base + e + u * (long long)a.lanes) + 1);
+      }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long at = e + u * (long long)a.lanes;
+      if (at >= n) break;
+      float v[8] = {w[2 * u].x, w[2 * u].y, w[2 * u].z, w[2 * u].w,
+                    w[2 * u + 1].x, w[2 * u + 1].y, w[2 * u + 1].z, w[2 * u + 1].w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        v[j] = __fmul_rn(v[j], gate[j]);
+        v[j] = v[j] < 0.f ? 0.f : v[j];  // NaN passes, as torch.relu
+      }
+      a.out[base + at] = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
+                                    pack2(v[6], v[7]));
+      if constexpr ((kOut & kOutF32) != 0) {
+        a.out32[2 * (base + at)] = make_float4(v[0], v[1], v[2], v[3]);
+        a.out32[2 * (base + at) + 1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+    }
+  }
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The excites' grid: as many blocks as fit on the card at once, shared
+// out over the batch, each b walked by a whole number of channel-group rows.
+template <typename Kernel>
+cudaError_t excite_grid(Kernel kernel, int batch, long long hw, int channels, long long* per_b,
+                        long long* lanes) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int c8 = channels / 8;
+  const long long n = hw * c8;
+  *per_b = ((long long)sms * per_sm + batch - 1) / batch;
+  const long long need = (n + kThreads - 1) / kThreads;
+  if (*per_b > need) *per_b = need;
+  *lanes = *per_b * kThreads / c8 * c8;
+  if (*lanes < c8) {
+    *lanes = c8;
+    *per_b = (c8 + kThreads - 1) / kThreads;
+  }
+  return cudaSuccess;
+}
 
 }  // namespace
 
 namespace {
 
-template <bool kGrad>
+template <int kMode>
 int squeeze_launch(const void* g, const void* y, const void* scale, const void* shift,
                    void* partial, void* tickets, void* out, int batch, long long hw,
                    int channels, int group_tile, int blocks, void* stream) {
+  constexpr bool kGrad = kMode == kGradMode;
   if (batch < 1 || hw < 1 || channels < 8 || channels % 8 || group_tile < 1 ||
       group_tile > kMaxGroupTile || (channels / 8) % group_tile || blocks < 1 ||
       !aligned16(y) || (kGrad && !aligned16(g)))
@@ -354,7 +486,7 @@ int squeeze_launch(const void* g, const void* y, const void* scale, const void* 
                       static_cast<float*>(out), hw, (long long)batch * tiles * hw, channels,
                       group_tile, tiles};
   if (blocks > a.units) return (int)cudaErrorInvalidValue;
-  se_squeeze_kernel<kGrad><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  se_squeeze_kernel<kMode><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -370,13 +502,14 @@ int squeeze_launch(const void* g, const void* y, const void* scale, const void* 
 extern "C" int se_squeeze(const void* y, const void* scale, const void* shift, void* partial,
                           void* tickets, void* mean, int batch, long long hw, int channels,
                           int group_tile, int blocks, void* stream) {
-  return squeeze_launch<false>(nullptr, y, scale, shift, partial, tickets, mean, batch, hw,
-                               channels, group_tile, blocks, stream);
+  return squeeze_launch<kSiluMode>(nullptr, y, scale, shift, partial, tickets, mean, batch, hw,
+                                   channels, group_tile, blocks, stream);
 }
 
 // The squeeze kernel's blocks an SM holds at once, into *per_sm.
 extern "C" int se_squeeze_occupancy(int* per_sm) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, se_squeeze_kernel<false>,
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm,
+                                                           se_squeeze_kernel<kSiluMode>,
                                                            kThreads, 0);
 }
 
@@ -387,13 +520,14 @@ extern "C" int se_squeeze_occupancy(int* per_sm) {
 extern "C" int se_backward(const void* g, const void* y, const void* scale, const void* shift,
                            void* partial, void* tickets, void* dgate, int batch, long long hw,
                            int channels, int group_tile, int blocks, void* stream) {
-  return squeeze_launch<true>(g, y, scale, shift, partial, tickets, dgate, batch, hw, channels,
-                              group_tile, blocks, stream);
+  return squeeze_launch<kGradMode>(g, y, scale, shift, partial, tickets, dgate, batch, hw,
+                                   channels, group_tile, blocks, stream);
 }
 
 // The backward kernel's blocks an SM holds at once, into *per_sm.
 extern "C" int se_backward_occupancy(int* per_sm) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, se_squeeze_kernel<true>,
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm,
+                                                           se_squeeze_kernel<kGradMode>,
                                                            kThreads, 0);
 }
 
@@ -403,32 +537,60 @@ extern "C" int se_excite(const void* y, const void* scale, const void* shift, co
                          void* out, int batch, long long hw, int channels, void* stream) {
   if (batch < 1 || hw < 1 || channels < 8 || channels % 8 || !aligned16(y) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, se_excite_kernel, kThreads,
-                                                           0)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  // as many blocks as fit on the card at once, shared out over the batch,
-  // each b walked by a whole number of channel-group rows
-  const int c8 = channels / 8;
-  const long long n = hw * c8;
-  long long per_b = ((long long)sms * per_sm + batch - 1) / batch;
-  const long long need = (n + kThreads - 1) / kThreads;
-  if (per_b > need) per_b = need;
-  long long lanes = per_b * kThreads / c8 * c8;
-  if (lanes < c8) {
-    lanes = c8;
-    per_b = (c8 + kThreads - 1) / kThreads;
-  }
+  long long per_b = 0, lanes = 0;
+  const cudaError_t err = excite_grid(se_excite_kernel, batch, hw, channels, &per_b, &lanes);
+  if (err != cudaSuccess) return (int)err;
   if (batch > 65535) return (int)cudaErrorInvalidValue;
   const ExciteArgs a{static_cast<const uint4*>(y), static_cast<const float*>(scale),
                      static_cast<const float*>(shift), static_cast<const float*>(gate),
                      static_cast<uint4*>(out), hw, channels, (int)lanes};
   se_excite_kernel<<<dim3((unsigned)per_b, batch), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// MobileOne's squeeze. v: (batch, hw, channels) float32, 16-byte aligned;
+// partial, tickets, mean and the plan as se_squeeze's (blocks from
+// squeeze_plan at se_squeeze_sum_occupancy). Returns cudaGetLastError()
+// after the launch.
+extern "C" int se_squeeze_sum(const void* v, void* partial, void* tickets, void* mean,
+                              int batch, long long hw, int channels, int group_tile, int blocks,
+                              void* stream) {
+  return squeeze_launch<kSumMode>(nullptr, v, nullptr, nullptr, partial, tickets, mean, batch,
+                                  hw, channels, group_tile, blocks, stream);
+}
+
+// The sum squeeze's blocks an SM holds at once, into *per_sm.
+extern "C" int se_squeeze_sum_occupancy(int* per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, se_squeeze_kernel<kSumMode>,
+                                                           kThreads, 0);
+}
+
+// MobileOne's excite. v: (batch, hw, channels) float32; gate: (batch,
+// channels) float32; out: (batch, hw, channels) bf16; out32: the same in
+// float32 where outputs has kOutF32 (bit 2), else null; outputs has
+// kOutBf16 (bit 1). Returns cudaGetLastError() after the launch.
+extern "C" int se_excite_relu(const void* v, const void* gate, void* out, void* out32, int batch,
+                              long long hw, int channels, int outputs, void* stream) {
+  const bool f32 = (outputs & kOutF32) != 0;
+  if (batch < 1 || batch > 65535 || hw < 1 || channels < 8 || channels % 8 ||
+      (outputs != kOutBf16 && outputs != (kOutBf16 | kOutF32)) || !aligned16(v) ||
+      !aligned16(out) || f32 != (out32 != nullptr) || (f32 && !aligned16(out32)))
+    return (int)cudaErrorInvalidValue;
+  long long per_b = 0, lanes = 0;
+  cudaError_t err = f32 ? excite_grid(se_excite_relu_kernel<kOutBf16 | kOutF32>, batch, hw,
+                                      channels, &per_b, &lanes)
+                        : excite_grid(se_excite_relu_kernel<kOutBf16>, batch, hw, channels,
+                                      &per_b, &lanes);
+  if (err != cudaSuccess) return (int)err;
+  const ExciteReluArgs a{static_cast<const float4*>(v), static_cast<const float*>(gate),
+                         static_cast<uint4*>(out), static_cast<float4*>(out32), hw, channels,
+                         (int)lanes};
+  const dim3 grid((unsigned)per_b, batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32)
+    se_excite_relu_kernel<kOutBf16 | kOutF32><<<grid, kThreads, 0, s>>>(a);
+  else
+    se_excite_relu_kernel<kOutBf16><<<grid, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """Weight loading (counterpart of ``flairtpu/models/convert.py:25-37`` and of
-its ``torch_to_flax`` for the resnet, resnext, efficientnet and mobilenet_v2
-encoders (``:53-69, 400-455``), the unet,
+its ``torch_to_flax`` for the resnet, resnext, efficientnet, mobilenet_v2
+and mobileone encoders (``:53-69, 109-112, 400-455, 527-545``), the unet,
 unetplusplus, manet, deeplabv3plus, deeplabv3, fpn, pspnet, linknet and pan
 decoders (``:158-177, 655-845``) and the metadata-MLP keys, both ways).
 
@@ -87,6 +87,12 @@ _MN_BLOCK_RE = re.compile(r"^f(\d+)$")
 _MN_MEMBER = {"expand": "0.0", "expand_bn": "0.1", "dw": "1.0", "dw_bn": "1.1", "project": "2",
               "project_bn": "3"}
 _MN_MEMBER_EXPANDLESS = {"dw": "0.0", "dw_bn": "0.1", "project": "1", "project_bn": "2"}
+# MobileOne (smp's encoder.stage0 and encoder.stage{n}.{i}): flax's stage0 /
+# stage{n}_{i}, whose members rbr_conv_{j}/{conv,bn}, rbr_scale/{conv,bn},
+# rbr_skip (a bare BatchNorm) and se/{reduce,expand} are smp's rbr_conv.{j}.*,
+# rbr_scale.*, rbr_skip and se.* (flairtpu/models/convert.py:109-112, 527-545)
+_MO_STAGE_RE = re.compile(r"^stage(\d)(?:_(\d+))?$")
+_MO_CONV_RE = re.compile(r"^rbr_conv_(\d+)$")
 # a U-Net block (blockN: blocks.N) or a UNet++ node (x_d_l: blocks.x_d_l);
 # MAnet's MFAB blocks keep the same conv1/bn1/conv2/bn2 names
 _DEC_BLOCK_RE = re.compile(r"^(?:block(\d+)|(x_\d+_\d+))$")
@@ -170,6 +176,11 @@ def _module_prefix(path: tuple[str, ...], arch: str = "unet") -> str:
         members = _MN_MEMBER_EXPANDLESS if m and m.group(1) == "1" else _MN_MEMBER
         if m and len(rest) == 2 and rest[1] in members:
             return f"encoder.features.{m.group(1)}.conv.{members[rest[1]]}"
+        member = _mobileone_member(rest[1:])
+        m = _MO_STAGE_RE.match(rest[0])
+        if m and member is not None:
+            block = "" if m.group(2) is None else f".{m.group(2)}"
+            return f"encoder.stage{m.group(1)}{block}.{member}"
     if top == "decoder" and len(rest) == 2:
         m = _DEC_BLOCK_RE.match(rest[0])
         if m and rest[1] in _DEC_SUB:
@@ -183,6 +194,22 @@ def _module_prefix(path: tuple[str, ...], arch: str = "unet") -> str:
     raise KeyError(f"no smp key for flax module {'/'.join(path)!r}")
 
 
+def _mobileone_member(rest: tuple[str, ...]) -> str | None:
+    """A MobileOne block's flax member path -> its smp suffix, or None."""
+    if rest == ("rbr_skip",):
+        return "rbr_skip"
+    if len(rest) != 2:
+        return None
+    m = _MO_CONV_RE.match(rest[0])
+    if m and rest[1] in ("conv", "bn"):
+        return f"rbr_conv.{m.group(1)}.{rest[1]}"
+    if rest[0] == "rbr_scale" and rest[1] in ("conv", "bn"):
+        return f"rbr_scale.{rest[1]}"
+    if rest[0] == "se" and rest[1] in ("reduce", "expand"):
+        return f"se.{rest[1]}"
+    return None
+
+
 def _leaves(tree: Mapping, prefix=()):
     for k, v in tree.items():
         if isinstance(v, Mapping):
@@ -193,8 +220,8 @@ def _leaves(tree: Mapping, prefix=()):
 
 def from_flax(params: Mapping, batch_stats: Mapping, arch: str = "unet",
               skip_unknown: bool = False) -> dict[str, torch.Tensor]:
-    """flairtpu variables (numpy leaves) of a resnet, efficientnet or
-    mobilenet_v2 encoder with ``arch``'s decoder, the metadata MLP's
+    """flairtpu variables (numpy leaves) of a resnet, efficientnet,
+    mobilenet_v2 or mobileone encoder with ``arch``'s decoder, the metadata MLP's
     included, -> the port's state_dict. A flax module with no smp key
     raises, or with ``skip_unknown`` is left out."""
     sd: dict[str, torch.Tensor] = {}
@@ -246,6 +273,8 @@ _SMP_MN_ENDS_RE = re.compile(r"^features\.(0|18)\.([01])$")
 _SMP_MN_BLOCK_RE = re.compile(r"^features\.(\d+)\.conv\.([\d.]+)$")
 _MN_MEMBER_INV = {v: k for k, v in _MN_MEMBER.items()}
 _MN_MEMBER_EXPANDLESS_INV = {v: k for k, v in _MN_MEMBER_EXPANDLESS.items()}
+_SMP_MO_RE = re.compile(r"^stage(\d)(?:\.(\d+))?\.(rbr_conv\.(\d+)\.(conv|bn)|rbr_scale\.(conv|bn)"
+                        r"|rbr_skip|se\.(reduce|expand))$")
 
 
 def _flax_module(prefix: str, arch: str = "unet") -> tuple[str, ...]:
@@ -278,6 +307,16 @@ def _flax_module(prefix: str, arch: str = "unet") -> tuple[str, ...]:
         members = (_MN_MEMBER_EXPANDLESS_INV if m and m.group(1) == "1" else _MN_MEMBER_INV)
         if m and m.group(2) in members:
             return ("encoder", f"f{m.group(1)}", members[m.group(2)])
+        m = _SMP_MO_RE.match(rest)
+        if m:
+            block = f"stage{m.group(1)}" + ("" if m.group(2) is None else f"_{m.group(2)}")
+            if m.group(4) is not None:
+                return ("encoder", block, f"rbr_conv_{m.group(4)}", m.group(5))
+            if m.group(6) is not None:
+                return ("encoder", block, "rbr_scale", m.group(6))
+            if m.group(7) is not None:
+                return ("encoder", block, "se", m.group(7))
+            return ("encoder", block, "rbr_skip")
     if prefix == "segmentation_head.0":
         return ("segmentation_head", "conv")
     m = _SMP_MLP_RE.match(prefix)

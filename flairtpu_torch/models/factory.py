@@ -2,8 +2,9 @@
 (counterpart of ``flairtpu/models/factory.py:36-51, 168-235, 256-327``).
 
 The nine smp models over the resnet and resnext encoders, the
-efficientnet-b0..b7 encoders (``models/efficientnet.py``) and mobilenet_v2
-(``models/mobilenet.py``): the U-Net (slice
+efficientnet-b0..b7 encoders (``models/efficientnet.py``), mobilenet_v2
+(``models/mobilenet.py``) and mobileone_s0..s4 (``models/mobileone.py``):
+the U-Net (slice
 1), the strided-head decoders of slice 5 (deeplabv3plus, deeplabv3, fpn,
 pspnet, pan), linknet, MAnet and UNet++, each with smp's module names so
 that their state dicts load as they are. The encoder follows its name, as
@@ -40,12 +41,15 @@ from flairtpu_torch.models.efficientnet import EFFICIENTNET_SPECS, EfficientNetE
 from flairtpu_torch.models.manet import MAnetDecoder
 from flairtpu_torch.models.metadata_mlp import MetadataMLP, fuse_metadata
 from flairtpu_torch.models.mobilenet import MobileNetV2Encoder
+from flairtpu_torch.models.mobileone import MOBILEONE_SPECS, MobileOneEncoder
 from flairtpu_torch.models.pan import PANDecoder
 from flairtpu_torch.models.resnet import ResNetEncoder, prepare_inference
 from flairtpu_torch.models.smp_extra import (DeepLabV3Decoder, FPNDecoder, LinknetDecoder,
                                              PSPDecoder)
 from flairtpu_torch.models.unet import SegmentationHead, UnetDecoder, UnetPlusPlusDecoder, \
     plan_inner_crops
+from flairtpu_torch.ops.bn_train import TrainSites
+from flairtpu_torch.ops.branch_sum import block_epilogue
 from flairtpu_torch.ops.epilogue import conv_epilogue
 from flairtpu_torch.ops.fused_tail import TailParams, tail_params
 from flairtpu_torch.ops.group_norm import group_norm_relu
@@ -98,8 +102,8 @@ class FlairSegmentationModel(nn.Module):
     """smp ``create_model(arch, encoder_name, classes, in_channels)`` with
     smp's key names, ``arch`` one of :data:`ARCHS`; ``s2d_stem``: the
     resnet encoder's stem conv on the space-to-depth repack
-    (``models/resnet.py:stem_conv``), ignored by EfficientNet and
-    MobileNetV2, as ``flairtpu`` passes it to the resnet encoder only
+    (``models/resnet.py:stem_conv``), ignored by EfficientNet, MobileNetV2
+    and MobileOne, as ``flairtpu`` passes it to the resnet encoder only
     (``flairtpu/models/factory.py:166``)."""
 
     def __init__(self, encoder_name: str = "resnet34", classes: int = 13,
@@ -115,6 +119,8 @@ class FlairSegmentationModel(nn.Module):
             self.encoder = EfficientNetEncoder(encoder_name, in_channels, dtype=dtype, **enc_kw)
         elif encoder_name == "mobilenet_v2":
             self.encoder = MobileNetV2Encoder(in_channels, dtype=dtype, **enc_kw)
+        elif encoder_name in MOBILEONE_SPECS:
+            self.encoder = MobileOneEncoder(encoder_name, in_channels, dtype=dtype, **enc_kw)
         else:
             self.encoder = ResNetEncoder(encoder_name, in_channels, dtype=dtype,
                                          s2d_stem=s2d_stem, **enc_kw)
@@ -145,27 +151,42 @@ class FlairSegmentationModel(nn.Module):
         """Conv weights in the compute dtype and each BatchNorm's (scale,
         shift), once, after the weights are loaded and moved (see
         ``models/resnet.py:prepare_inference``); the squeeze-excite convs'
-        biases in the compute dtype too, as their convs run in it."""
+        biases in the compute dtype too, as their convs run in it; a
+        MobileOne block's terms' (scale, shift) stacked for ``branch_sum``."""
         prepare_inference(self, self.dtype)
-        if isinstance(self.encoder, EfficientNetEncoder):
-            with torch.no_grad():
+        with torch.no_grad():
+            if isinstance(self.encoder, EfficientNetEncoder):
                 for block in self.encoder._blocks:
                     for m in (block._se_reduce, block._se_expand):
                         m.bias.data = m.bias.data.to(self.dtype)
+            if isinstance(self.encoder, MobileOneEncoder):
+                for block in self.encoder.blocks():
+                    block.sum_scale_shift = block.stack_scale_shift()
+                    if block.se is not None:
+                        for m in (block.se.reduce, block.se.expand):
+                            m.bias.data = m.bias.data.to(self.dtype)
 
     def features(self, x: torch.Tensor, epilogue=conv_epilogue, mtd: torch.Tensor | None = None,
-                 dropout=None, se_gate=squeeze_excite) -> list[torch.Tensor]:
+                 dropout=None, se_gate=squeeze_excite,
+                 branch_sum=block_epilogue) -> list[torch.Tensor]:
         """x (B, H, W, C) -> encoder features, NCHW views of NHWC memory.
         ``epilogue`` runs every conv epilogue of the model (the kernel
         wrapper, or a caller's plain version), ``se_gate`` EfficientNet's
         squeeze-excite sites (``ops/se_gate.py``: the kernels, or
-        ``squeeze_excite_plain``). A metadata model adds the MLP's
+        ``squeeze_excite_plain``), ``branch_sum`` MobileOne's blocks after
+        their convs (``ops/branch_sum.py``: ``block_epilogue``, or
+        ``block_epilogue_plain``). A metadata model adds the MLP's
         embedding of ``mtd`` (B, 45) to the deepest feature, its dropout
         ``dropout_part(dropout, "enc")`` (``MetadataMLP.forward``: None in
         eval)."""
         x = x.permute(0, 3, 1, 2)
         if isinstance(self.encoder, EfficientNetEncoder):
             feats = self.encoder(x, epilogue, se_gate, dropout_part(dropout, "drop_connect"))
+        elif isinstance(self.encoder, MobileOneEncoder):
+            if isinstance(epilogue, TrainSites):
+                raise not_ported(f"training the {self.encoder_name!r} encoder",
+                                 "slice 6: MobileOne training")
+            feats = self.encoder(x, branch_sum)
         else:
             feats = self.encoder(x, epilogue)
         if self.use_metadata:
@@ -176,12 +197,12 @@ class FlairSegmentationModel(nn.Module):
 
     def forward(self, x: torch.Tensor, inner_margin: int | None = None,
                 epilogue=conv_epilogue, mtd: torch.Tensor | None = None,
-                dropout=None, se_gate=squeeze_excite) -> torch.Tensor:
+                dropout=None, se_gate=squeeze_excite, branch_sum=block_epilogue) -> torch.Tensor:
         """x (B, H, W, C) -> float32 logits (B, H, W, K), or with
         ``inner_margin`` m the interior logits (B, H-2m, W-2m, K);
         ``dropout``: see :func:`dropout_part` (None in eval)."""
-        return self.decode(self.features(x, epilogue, mtd, dropout, se_gate), inner_margin,
-                           epilogue, dropout=dropout)
+        return self.decode(self.features(x, epilogue, mtd, dropout, se_gate, branch_sum),
+                           inner_margin, epilogue, dropout=dropout)
 
     def head_logits(self, feats: list[torch.Tensor], epilogue=conv_epilogue,
                     group_norm=group_norm_relu, dropout=None) -> torch.Tensor:
@@ -220,11 +241,12 @@ class FlairSegmentationModel(nn.Module):
 
     def tail_input(self, x: torch.Tensor, margin: int, epilogue=conv_epilogue,
                    mtd: torch.Tensor | None = None, group_norm=group_norm_relu,
-                   se_gate=squeeze_excite) -> torch.Tensor:
+                   se_gate=squeeze_excite, branch_sum=block_epilogue) -> torch.Tensor:
         """The input of the zone's tail kernel: the encoder, then
         :meth:`decode_tail`."""
-        return self.decode_tail(self.features(x, epilogue, mtd, se_gate=se_gate), margin,
-                                epilogue, group_norm)
+        return self.decode_tail(self.features(x, epilogue, mtd, se_gate=se_gate,
+                                              branch_sum=branch_sum), margin, epilogue,
+                                group_norm)
 
     def decode_tail(self, feats: list[torch.Tensor], margin: int, epilogue=conv_epilogue,
                     group_norm=group_norm_relu) -> torch.Tensor:

@@ -17,6 +17,18 @@ the excite's output, summed against the SiLU value over each map
 (``flairtpu/models/efficientnet.py:193-199``'s VJP), on the squeeze's plan
 and with its ordered combine.
 
+MobileOne's squeeze-excite (``flairtpu/models/mobileone.py:60-74,
+110-112``) takes two more kernels of the same source: :func:`se_squeeze_sum`,
+the float32 mean of the block's float32 branch sum (no BatchNorm, no
+activation), on the squeeze's plan and ordered combine, and
+:func:`se_excite_relu`, ``relu(v * gate)`` into the compute dtype and, where
+the next block adds it as its skip, float32. The gate between them is
+:func:`gate_from` with a ReLU between the two small convs. The sum squeeze
+adds every value on its own, so its mean is a fixed function of its plan:
+:func:`se_squeeze_sum_plain` given that plan adds in the same order and has
+its bits (without one, ``torch.mean``'s order); the ReLU excite keeps the
+plain version's bits.
+
 ``se_squeeze``, ``se_excite`` and ``se_backward`` run the plain PyTorch
 version for a CPU tensor and launch the kernel for a bfloat16 CUDA tensor;
 they have no fallback. The squeeze's sigmoid runs on the special-function units, so its
@@ -45,16 +57,28 @@ EXCITE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong, ctyp
                                            ctypes.c_void_p]
 BACKWARD_ARGTYPES = [ctypes.c_void_p] + SQUEEZE_ARGTYPES
 OCCUPANCY_ARGTYPES = [ctypes.POINTER(ctypes.c_int)]
+SUM_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+EXCITE_RELU_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                                ctypes.c_int, ctypes.c_void_p]
 
 # kernel launches on CUDA tensors since the last reset (the CPU path does not count)
 squeeze_launches = 0
 excite_launches = 0
 backward_launches = 0
+squeeze_sum_launches = 0
+excite_relu_launches = 0
 
 THREADS = 256        # csrc/se_gate.cu kThreads
 MAX_GROUP_TILE = 256  # csrc/se_gate.cu kMaxGroupTile
 MIN_PIXELS = 4        # pixels a thread sums at the least, where the map allows
 BUSY = 0.9            # the share of a block's threads a tile keeps busy, where it can
+# csrc/se_gate.cu's squeeze instances (SqueezeMode, in order), the sum
+# squeeze's float32 pixels in flight (kSumUnroll) and the ReLU excite's
+# output bits (ExciteOutputs)
+SQUEEZE_MODES = ("silu", "grad", "sum")
+SUM_UNROLL = 2
+EXCITE_OUTPUTS = {"bf16": 1, "f32": 2}
 
 
 def silu_bn(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -247,6 +271,139 @@ def se_excite(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     return out
 
 
+def _segments(batch: int, hw: int, plan: SqueezePlan) -> list[tuple[int, int, int]]:
+    """The (column, first pixel, end pixel) runs of the squeeze's blocks, in
+    block order: block i takes units [U i / G, U (i + 1) / G) of the batch
+    x tiles x HW units laid end to end (csrc/se_gate.cu)."""
+    units = batch * plan.tiles * hw
+    runs = []
+    for i in range(plan.blocks):
+        u, u1 = units * i // plan.blocks, units * (i + 1) // plan.blocks
+        while u < u1:
+            col = u // hw
+            end = min(u1, (col + 1) * hw)
+            runs.append((col, u - col * hw, end - col * hw))
+            u = end
+    return runs
+
+
+def se_squeeze_sum_plain(v: torch.Tensor, plan: SqueezePlan | None = None) -> torch.Tensor:
+    """(B, C) float32 mean over the map of the float32 ``v`` (B, C, H, W).
+    Without ``plan``: ``v.mean((2, 3))``. With the kernel's plan, in the
+    kernel's order, so with its bits: in each block's run of a column, the
+    thread of row r (of 256 / group_tile rows) adds pixels start + r, start
+    + r + rows, ... to 0 one at a time; the rows are added to 0 in order;
+    the column's runs in block order; the sum divided by HW."""
+    if plan is None:
+        return v.float().mean(dim=(2, 3))
+    B, C, H, W = v.shape
+    hw, width = H * W, plan.group_tile * 8
+    rows = THREADS // plan.group_tile
+    n = B * plan.tiles * hw
+    cols = v.permute(0, 2, 3, 1).reshape(B, hw, plan.tiles, width).transpose(1, 2)
+    flat = torch.cat([cols.reshape(n, width), cols.new_zeros((1, width))])  # row n: a 0 term
+    runs = torch.tensor(_segments(B, hw, plan), dtype=torch.long, device=v.device)
+    col, start, end = (runs[:, i, None, None] for i in range(3))
+    steps = int(-(-(runs[:, 2] - runs[:, 1]).max().item() // rows))
+    p = start + torch.arange(rows, device=v.device)[:, None] \
+        + rows * torch.arange(steps, device=v.device)
+    at = torch.where(p < end, col * hw + p, n)  # (runs, rows, steps)
+    acc = v.new_zeros((len(runs), rows, width), dtype=torch.float32)
+    for k in range(steps):  # a thread's pixels, one at a time
+        acc = acc + flat[at[:, :, k]]
+    total = acc.new_zeros((len(runs), width))
+    for r in range(rows):  # the block's rows, in order
+        total = total + acc[:, r]
+    total = torch.cat([total, total.new_zeros((1, width))])
+    # each column's runs in block order (the runs are listed so)
+    order = [[] for _ in range(B * plan.tiles)]
+    for j, c in enumerate(runs[:, 0].tolist()):
+        order[c].append(j)
+    depth = max(map(len, order))
+    pick = torch.tensor([o + [len(runs)] * (depth - len(o)) for o in order], device=v.device)
+    mean = total.new_zeros((B * plan.tiles, width))
+    for m in range(depth):
+        mean = mean + total[pick[:, m]]
+    # a tensor divisor: PyTorch divides a CUDA tensor by a Python scalar as
+    # a multiply by its reciprocal, the kernel by a rounded division
+    return (mean / torch.full_like(mean, float(hw))).reshape(B, C)
+
+
+def _check_sum_map(v: torch.Tensor, what: str) -> None:
+    if v.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{what}: unsupported device {v.device}")
+    if (v.dim() != 4 or v.dtype != torch.float32
+            or not v.is_contiguous(memory_format=torch.channels_last)):
+        raise ValueError(f"{what}: v must be a float32 channels_last (B, C, H, W) tensor, "
+                         f"got {v.dtype} {tuple(v.shape)}")
+    if v.device.type == "cuda" and (v.shape[1] % 8 or v.data_ptr() % 16):
+        raise ValueError(f"{what}: the kernel takes C a multiple of 8 and a 16-byte aligned "
+                         f"map (C = {v.shape[1]})")
+
+
+def sum_plan(v: torch.Tensor) -> SqueezePlan:
+    """The sum squeeze's plan for ``v`` on its card."""
+    B, C, H, W = v.shape
+    return squeeze_plan(B, H * W, C, co_resident(v.device, "se_squeeze_sum"))
+
+
+def se_squeeze_sum(v: torch.Tensor) -> torch.Tensor:
+    """As :func:`se_squeeze_sum_plain` (with the kernel's plan on the card).
+    CPU tensors: the plain version. float32 CUDA tensors: the kernel, or an
+    error."""
+    global squeeze_sum_launches
+    _check_sum_map(v, "se_squeeze_sum")
+    if v.device.type == "cpu":
+        return se_squeeze_sum_plain(v)
+    B, C, H, W = v.shape
+    plan = sum_plan(v)
+    stream = _build.stream_handle(v)
+    partial = torch.empty(plan.partials, dtype=torch.float32, device=v.device)
+    tickets = _tickets(v.device, stream, B * plan.tiles)
+    mean = torch.empty((B, C), dtype=torch.float32, device=v.device)
+    err = _build.entry("se_gate", SUM_ARGTYPES, "se_squeeze_sum")(
+        v.data_ptr(), partial.data_ptr(), tickets.data_ptr(), mean.data_ptr(), B, H * W, C,
+        plan.group_tile, plan.blocks, stream)
+    _build.check(err, "se_squeeze_sum")
+    squeeze_sum_launches += 1
+    return mean
+
+
+def se_excite_relu_plain(v: torch.Tensor, gate: torch.Tensor, dtype: torch.dtype,
+                         keep_f32: bool = False):
+    """``torch.relu(v * gate)`` in float32 on the float32 ``v`` (B, C, H, W)
+    and the (B, C) float32 gate: (out in ``dtype``, the float32 value if
+    ``keep_f32``)."""
+    out = torch.relu(v * gate[:, :, None, None])
+    return out.to(dtype), (out if keep_f32 else None)
+
+
+def se_excite_relu(v: torch.Tensor, gate: torch.Tensor, dtype: torch.dtype,
+                   keep_f32: bool = False):
+    """As :func:`se_excite_relu_plain`. CPU tensors: the plain version.
+    float32 CUDA maps into bfloat16: the kernel, or an error."""
+    global excite_relu_launches
+    _check_sum_map(v, "se_excite_relu")
+    B, C = v.shape[:2]
+    if (gate.device != v.device or gate.dtype != torch.float32 or gate.shape != (B, C)
+            or not gate.is_contiguous()):
+        raise ValueError(f"se_excite_relu: gate must be a contiguous ({B}, {C}) float32 tensor "
+                         f"on {v.device}")
+    if v.device.type == "cpu":
+        return se_excite_relu_plain(v, gate, dtype, keep_f32)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"se_excite_relu: out dtype {dtype} (the kernel writes bfloat16)")
+    out = torch.empty_like(v, dtype=dtype)
+    out32 = torch.empty_like(v) if keep_f32 else None
+    outputs = EXCITE_OUTPUTS["bf16"] | (EXCITE_OUTPUTS["f32"] if keep_f32 else 0)
+    err = _build.entry("se_gate", EXCITE_RELU_ARGTYPES, "se_excite_relu")(
+        v.data_ptr(), gate.data_ptr(), out.data_ptr(), None if out32 is None else out32.data_ptr(),
+        B, v.shape[2] * v.shape[3], C, outputs, _build.stream_handle(v))
+    _build.check(err, "se_excite_relu")
+    excite_relu_launches += 1
+    return out, out32
+
+
 def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The biased 1x1 conv of weight ``w`` (O, I, 1, 1) and bias ``b`` on
     (B, C) ``x``, in x's dtype."""
@@ -255,20 +412,23 @@ def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def gate_from(mean: torch.Tensor, w_r: torch.Tensor, b_r: torch.Tensor, w_e: torch.Tensor,
-              b_e: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+              b_e: torch.Tensor, dtype: torch.dtype, act: str = "silu") -> torch.Tensor:
     """The (B, C) float32 gate from the squeeze's mean: the reduce conv
-    (``w_r``, ``b_r``), SiLU and the expand conv (``w_e``, ``b_e``) in
-    ``dtype``, then the sigmoid in float32 (``flairtpu/models/
-    efficientnet.py:194-199``)."""
+    (``w_r``, ``b_r``), the activation ``act`` (EfficientNet's "silu",
+    ``flairtpu/models/efficientnet.py:194-199``, or MobileOne's "relu",
+    ``flairtpu/models/mobileone.py:68-74``) and the expand conv (``w_e``,
+    ``b_e``) in ``dtype``, then the sigmoid in float32."""
+    if act not in ("silu", "relu"):
+        raise ValueError(f"gate_from: act is 'silu' or 'relu', got {act!r}")
     g = _linear(mean.to(dtype), w_r, b_r)
-    g = _linear(g * torch.sigmoid(g), w_e, b_e)
+    g = _linear(g * torch.sigmoid(g) if act == "silu" else torch.relu(g), w_e, b_e)
     return torch.sigmoid(g.float()).contiguous()
 
 
 def se_gate_vector(mean: torch.Tensor, reduce: nn.Conv2d, expand: nn.Conv2d,
-                   dtype: torch.dtype) -> torch.Tensor:
+                   dtype: torch.dtype, act: str = "silu") -> torch.Tensor:
     """:func:`gate_from` with the modules ``reduce`` and ``expand``."""
-    return gate_from(mean, reduce.weight, reduce.bias, expand.weight, expand.bias, dtype)
+    return gate_from(mean, reduce.weight, reduce.bias, expand.weight, expand.bias, dtype, act)
 
 
 def squeeze_excite(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,

@@ -31,7 +31,10 @@ then the same reversed, at each site. The variants:
 - ``baseline``, with ``--baseline``: an earlier source through the same C
   interface, at the grid of the first squeeze design (two waves at an
   assumed 8 blocks an SM), e.g. ``git show
-  69ad6d3:flairtpu_torch/csrc/se_gate.cu``.
+  69ad6d3:flairtpu_torch/csrc/se_gate.cu``; a source that has its own
+  ``se_squeeze_occupancy`` (84e5880 or later) runs at the current plan
+  instead, and its squeeze, excite and (where it has one) ``se_backward``
+  are held bit for bit to the built ones at every site (``baseline_bits``).
 
 Every variant that computes the whole result is held to the plain version
 (within 1e-5 of the largest mean), ``full`` also to itself (two runs, the
@@ -135,10 +138,11 @@ def sources(baseline: Path | None) -> dict[str, str]:
 
 
 def squeeze_registers(log: str) -> str | None:
-    """ptxas's spill and register lines for the squeeze kernel, from
-    ``-v``'s log."""
-    m = re.search(r"se_squeeze_kernel(?!ILb1).*\n(?:.*\n)*?\s*(\d+ bytes stack.*)\n.*?(Used \d+ "
-                  r"registers)", log)
+    """ptxas's spill and register lines for the squeeze kernel (the SiLU
+    instance: not the backward's, ``ILb1`` / ``ILi1``, nor MobileOne's sum,
+    ``ILi2``), from ``-v``'s log."""
+    m = re.search(r"se_squeeze_kernel(?!ILb1|ILi[12]).*\n(?:.*\n)*?\s*(\d+ bytes stack.*)\n"
+                  r".*?(Used \d+ registers)", log)
     return f"{m.group(2)}; {m.group(1)}" if m else None
 
 
@@ -160,12 +164,35 @@ def build(tmp: Path, texts: dict[str, str]) -> tuple[dict, dict, dict]:
         regs[name] = squeeze_registers(log)
         lib = ctypes.CDLL(str(so))
         fns[name] = (_build.bind(lib, "se_squeeze", sg.SQUEEZE_ARGTYPES),
-                     _build.bind(lib, "se_excite", sg.EXCITE_ARGTYPES))
+                     _build.bind(lib, "se_excite", sg.EXCITE_ARGTYPES),
+                     _build.bind(lib, "se_backward", sg.BACKWARD_ARGTYPES)
+                     if hasattr(lib, "se_backward") else None)
         n = ctypes.c_int(0)
         _build.check(_build.bind(lib, "se_squeeze_occupancy", sg.OCCUPANCY_ARGTYPES)(
             ctypes.byref(n)), f"{name} occupancy")
         per_sm[name] = n.value
     return fns, regs, per_sm
+
+
+def held_to_baseline(fns, kind, y, scale, shift, second, extra, B, hw, C, stream):
+    """One call of a kernel for the bit comparison with ``--baseline``:
+    ``excite`` the baseline's excite with gate ``second`` (``extra`` its
+    output's like); ``backward`` / ``baseline_backward`` the built or the
+    baseline's ``se_backward`` with gradient ``second`` at plan ``extra``."""
+    if kind == "excite":
+        out = torch.empty_like(extra)
+        _build.check(fns["baseline"][1](y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                                        second.data_ptr(), out.data_ptr(), B, hw, C, stream),
+                     "baseline se_excite")
+        return out
+    fn = fns["full" if kind == "backward" else "baseline"][2]
+    partial = torch.empty(extra.partials, device="cuda")
+    tickets = torch.zeros(B * extra.tiles, dtype=torch.int32, device="cuda")
+    dgate = torch.empty((B, C), device="cuda")
+    _build.check(fn(second.data_ptr(), y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                    partial.data_ptr(), tickets.data_ptr(), dgate.data_ptr(), B, hw, C,
+                    extra.group_tile, extra.blocks, stream), kind)
+    return dgate
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -204,6 +231,10 @@ def main() -> None:
                           capture_output=True, text=True, check=True).stdout.strip()
     with tempfile.TemporaryDirectory(prefix="se_gate_phases_") as tmp:
         fns, regs, per_sm = build(Path(tmp), sources(args.baseline))
+        # a baseline with the current grid is held to the built kernels' bits
+        same_plan = args.baseline is not None and "se_squeeze_occupancy" in \
+            args.baseline.read_text()
+        bits = {"squeeze": True, "excite": True, "backward": True}
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         gen = torch.Generator("cuda").manual_seed(23)
         names = [*EDITS, *GRIDS, *(["baseline"] if "baseline" in fns else [])]
@@ -236,7 +267,9 @@ def main() -> None:
             launch = {}
             for name in names:
                 squeeze = fns["full" if name in GRIDS else name][0]
-                if name == "baseline":
+                if name == "baseline" and same_plan:
+                    gt, tiles, blocks, size = sg.squeeze_plan(B, hw, C, sms * per_sm["baseline"])
+                elif name == "baseline":
                     gt, tiles, blocks = baseline_plan(B, hw, C, sms)
                     size = B * blocks * C
                 else:
@@ -263,6 +296,9 @@ def main() -> None:
                         raise SystemExit(f"se_gate_phases: {name} at {shape}: squeeze {rel:.2e}")
                     if name == "full":
                         deterministic &= torch.equal(run(), got)
+                        full_mean = got
+                    if name == "baseline" and same_plan:
+                        bits["squeeze"] &= torch.equal(got, full_mean)
             excite = fns["full"][1]
 
             def run_excite():
@@ -273,6 +309,18 @@ def main() -> None:
             run_excite()
             if not torch.equal(out, sg.se_excite_plain(y, scale, shift, gate)):
                 raise SystemExit(f"se_gate_phases: se_excite at {shape} is not bit for bit")
+            if same_plan:
+                bits["excite"] &= torch.equal(
+                    held_to_baseline(fns, "excite", y, scale, shift, gate, out, B, hw, C, stream),
+                    out)
+                if fns["baseline"][2] is not None:
+                    g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                    g = g.contiguous(memory_format=torch.channels_last)
+                    plan = sg.squeeze_plan(B, hw, C, sms * per_sm["full"])
+                    dg = [held_to_baseline(fns, k, y, scale, shift, g, plan, B, hw, C, stream)
+                          for k in ("backward", "baseline_backward")]
+                    bits["backward"] &= torch.equal(*dg)
+                    del g
             for name in order:
                 t = device_ms(launch[name]) / 2
                 ms[name] += t
@@ -305,7 +353,8 @@ def main() -> None:
     print(json.dumps({"encoder": args.encoder, "batch": args.batch, "sites": len(shapes),
                       "largest_site": big, "squeeze": variants, "ms_by_side": by_side,
                       "full_deterministic":
-                      deterministic, "bound_ms": bound, "sfu_floor_ms": sfu_ms,
+                      deterministic, **({"baseline_bits": bits} if same_plan else {}),
+                      "bound_ms": bound, "sfu_floor_ms": sfu_ms,
                       "sm_clock_mhz": clock / 1e6, **extra, "card": card}))
 
 

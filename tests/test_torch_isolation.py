@@ -149,7 +149,7 @@ def test_wrappers_raise_on_other_devices():
                           "SegmentationModelsPytorch": {"encoder_decoder": "vgg16_bn_manet"}}},
      "slice 6"),
     ({"model_framework": {"model_provider": "SegmentationModelsPytorch",
-                          "SegmentationModelsPytorch": {"encoder_decoder": "mobileone_s0_unet"}}},
+                          "SegmentationModelsPytorch": {"encoder_decoder": "dpn68_unet"}}},
      "slice 6"),
     ({"model_framework": {"model_provider": "HuggingFace",
                           "HuggingFace": {"org_model": "nvidia/mit-b0"}}}, "slice 7"),
